@@ -1,0 +1,229 @@
+"""Core layers and ops of the port (counterpart of ``otpose_tpu/models/core.py``).
+
+Parameters live in small ``nn.Module``s named so that a model's
+``state_dict()`` keys equal the JAX package's flat param names (which are the
+reference torch names, e.g. ``"stage2.0.branches.0.1.conv1.weight"``).
+Tensors keep the torch layouts: conv2d weights OIHW, conv1d weights
+(O, I, K), channel-LayerNorm and drop-path params (1, C, 1).
+
+Feature maps run NCHW internally and token maps (B, C, T).  The compute
+dtype is the activation dtype: every op casts its weights to ``x.dtype``,
+matrix products accumulate in f32 and round to that dtype (the JAX package's
+``_preferred`` / ``_mxu_precision`` rule), and norm statistics stay f32.
+The modules implement the eval forward only; dropout and drop-path are the
+identity there.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-5
+LN_EPS = 1e-5
+
+
+# ---------------------------------------------------------------------------
+# functional ops
+# ---------------------------------------------------------------------------
+
+def conv2d(x, w, b=None, *, stride: int = 1, padding: int = 0,
+           dilation: int = 1) -> torch.Tensor:
+    """NCHW conv with an OIHW kernel in ``x.dtype``; the bias is added as a
+    separate op after the rounding, as in the JAX package."""
+    y = F.conv2d(x, w.to(x.dtype), None, stride=stride, padding=padding,
+                 dilation=dilation)
+    if b is not None:
+        y = y + b.to(y.dtype)[:, None, None]
+    return y
+
+
+def batch_norm_eval(x, weight, bias, running_mean, running_var,
+                    eps: float = BN_EPS) -> torch.Tensor:
+    """Eval BN on NCHW as a per-channel affine computed in f32 and applied
+    in the activation dtype (JAX ``core.batch_norm``, eval branch)."""
+    inv = torch.rsqrt(running_var.float() + eps)
+    scale = weight.float() * inv
+    shift = bias.float() - running_mean.float() * scale
+    return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+def layer_norm_ct(x, weight, bias, eps: float = LN_EPS) -> torch.Tensor:
+    """Channel LayerNorm over axis 1 of (B, C, T), biased variance, f32
+    statistics and affine, rounded once to ``x.dtype``."""
+    xf = x.float()
+    mu = xf.mean(dim=1, keepdim=True)
+    res = xf - mu
+    sigma = (res * res).mean(dim=1, keepdim=True)
+    out = res / torch.sqrt(sigma + eps)
+    w = weight.float().reshape(1, -1, 1)
+    b = bias.float().reshape(1, -1, 1)
+    return (out * w + b).to(x.dtype)
+
+
+def depthwise_conv1d_k3_ct(x, w, b=None, *, stride: int = 1) -> torch.Tensor:
+    """Depthwise conv1d, kernel 3, zero padding 1, on (B, C, T) with a
+    (C, 1, 3) kernel, as three shifted multiply-adds in ``x.dtype``."""
+    t = x.shape[-1]
+    xp = F.pad(x, (1, 1))
+    w = w.to(x.dtype)
+    w0, w1, w2 = w[:, 0, 0, None], w[:, 0, 1, None], w[:, 0, 2, None]
+    if stride == 1:
+        y = xp[..., 0:t] * w0 + xp[..., 1:t + 1] * w1 + xp[..., 2:t + 2] * w2
+    else:
+        to = (t + 2 - 3) // stride + 1
+        end = (to - 1) * stride + 1
+        y = (xp[..., 0:end:stride][..., :to] * w0
+             + xp[..., 1:end + 1:stride][..., :to] * w1
+             + xp[..., 2:end + 2:stride][..., :to] * w2)
+    if b is not None:
+        y = y + b.to(y.dtype)[:, None]
+    return y
+
+
+def max_pool1d_ct(x, kernel: int, stride: int, padding: int) -> torch.Tensor:
+    """MaxPool over T of (B, C, T) with -inf padding."""
+    return F.max_pool1d(x, kernel, stride, padding)
+
+
+def upsample_linear_1d_ct(x, out_t: int) -> torch.Tensor:
+    """Linear resampling of (B, C, T) to ``out_t`` (align_corners=False,
+    edges clamped).  Integer factors use the shift-and-blend form of the JAX
+    package so both round alike; other ratios gather."""
+    b, c, t = x.shape
+    if out_t == t:
+        return x
+    if out_t % t == 0:
+        f = out_t // t
+        left = torch.cat([x[..., :1], x[..., :-1]], dim=-1)
+        right = torch.cat([x[..., 1:], x[..., -1:]], dim=-1)
+        phases = []
+        for k in range(f):
+            frac = (2 * k + 1) / (2 * f) - 0.5
+            if frac < 0:
+                phases.append((-frac) * left + (1 + frac) * x)
+            elif frac == 0:
+                phases.append(x)
+            else:
+                phases.append((1 - frac) * x + frac * right)
+        return torch.stack(phases, dim=-1).reshape(b, c, t * f).to(x.dtype)
+    dst = torch.arange(out_t, dtype=torch.float32, device=x.device)
+    src = ((dst + 0.5) * (t / out_t) - 0.5).clamp(0.0, t - 1)
+    i0 = torch.floor(src).long()
+    i1 = torch.clamp(i0 + 1, max=t - 1)
+    w1 = (src - i0.float()).to(x.dtype)
+    return x[..., i0] * (1 - w1) + x[..., i1] * w1
+
+
+def dense_1x1_ct(x, w, b=None) -> torch.Tensor:
+    """1x1 conv1d on (B, C, T) with an (O, I, 1) kernel: a channel matmul in
+    ``x.dtype`` with f32 accumulation; the bias is added after rounding."""
+    y = torch.matmul(w[:, :, 0].to(x.dtype), x)
+    return y + b.to(y.dtype)[:, None] if b is not None else y
+
+
+def gelu(x) -> torch.Tensor:
+    """Exact (erf) GELU."""
+    return F.gelu(x)
+
+
+def relu(x) -> torch.Tensor:
+    return torch.relu(x)
+
+
+def upsample_nearest(x, factor: int) -> torch.Tensor:
+    """Nearest-neighbour spatial upsampling of NCHW by an integer factor."""
+    return x.repeat_interleave(factor, dim=2).repeat_interleave(factor, dim=3)
+
+
+# ---------------------------------------------------------------------------
+# parameter modules
+# ---------------------------------------------------------------------------
+
+class Conv2d(nn.Module):
+    """Weight (O, I, kh, kw) and optional bias (O,)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, *, bias: bool = False,
+                 stride: int = 1, padding: int = 0, dilation: int = 1):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cout, cin, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+
+    def forward(self, x):
+        return conv2d(x, self.weight, self.bias, stride=self.stride,
+                      padding=self.padding, dilation=self.dilation)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm2d params and running stats without ``num_batches_tracked``
+    (the JAX package keeps no such buffer)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+        self.register_buffer("running_mean", torch.zeros(ch))
+        self.register_buffer("running_var", torch.ones(ch))
+
+    def forward(self, x):
+        return batch_norm_eval(x, self.weight, self.bias, self.running_mean,
+                               self.running_var)
+
+
+class LayerNormCT(nn.Module):
+    """Channel LayerNorm of (B, C, T); params stored (1, C, 1)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(1, ch, 1))
+        self.bias = nn.Parameter(torch.zeros(1, ch, 1))
+
+    def forward(self, x):
+        return layer_norm_ct(x, self.weight, self.bias)
+
+
+class Conv1d(nn.Module):
+    """conv1d params: weight (O, I, K), optional bias (O,)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, *, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cout, cin, kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+
+class AffineScale(nn.Module):
+    """The reference AffineDropPath's per-channel scale, stored (1, C, 1)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.scale = nn.Parameter(1e-4 * torch.ones(1, ch, 1))
+
+    def forward(self, x):
+        return x * self.scale.to(x.dtype)
+
+
+def conv_bn(cin: int, cout: int, kernel: int, **kw) -> nn.ModuleDict:
+    """``{"0": conv, "1": bn}`` — the reference's Sequential(conv, BN)."""
+    return nn.ModuleDict({"0": Conv2d(cin, cout, kernel, **kw),
+                          "1": BatchNorm(cout)})
+
+
+# ---------------------------------------------------------------------------
+# initializers (the JAX package's distributions, drawn from a torch.Generator)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def normal_(t: torch.Tensor, gen: torch.Generator, std: float = 0.001):
+    t.copy_(torch.randn(t.shape, generator=gen) * std)
+
+
+@torch.no_grad()
+def kaiming_uniform_(t: torch.Tensor, gen: torch.Generator, a=math.sqrt(5)):
+    """torch's default conv init on an (O, I, K...) weight."""
+    fan_in = t[0].numel()
+    bound = math.sqrt(2.0 / (1 + a ** 2)) * math.sqrt(3.0 / fan_in)
+    t.copy_(torch.rand(t.shape, generator=gen) * (2 * bound) - bound)
