@@ -6,18 +6,36 @@
 Phases, each of which must pass or the script exits non-zero:
 
 1. checks for a CUDA device and prints its ``nvidia-smi`` name and power limit;
-2. builds the three kernels from ``otpose_tpu_torch/csrc`` with ``nvcc``;
-3. holds each kernel against its plain PyTorch version at the flagship
-   shapes, in f32 (TF32 off) and bf16, and times both with CUDA events;
+2. builds the five kernels from ``otpose_tpu_torch/csrc`` with ``nvcc``, in
+   parallel;
+3. holds each kernel against its plain PyTorch version at the shapes its
+   paths give it, in f32 (TF32 off) and bf16, and times both with CUDA
+   events: fused attention, fused MLP and the DCN at the flagship shapes at
+   B = 16 (eval) and B = 1 (inference); the fused-sampling DCN at the DCN's
+   shapes (and against the DCN's kernel: in f32 the same function, in bf16
+   it must share its plain version's rounding far more often than the
+   DCN's kernel does);
+   the token shift in its four modes at (16, 256) and at the attention's
+   halo size (16 * 136, 6912), where it must be exact;
 4. runs the flagship decoded eval (HRNet-W48, 384x288, B = 16) from
    ``build_model`` in bf16 with bf16 weights, then in f32, checks the output
    shapes and values and the kernel launch counts (12 / 16 / 1 per forward),
    and times the bf16 step in clips/s;
-5. runs the tiny config on the GPU and on the CPU (plain versions) with the
+5. runs the flagship flip-test decoded eval in bf16 (two forwards a step:
+   24 / 32 / 2 launches) and times it in clips/s;
+6. runs the single-clip inference API (``PoseEstimator.infer_images``, B = 1,
+   bf16) on five synthetic 720x1280 frames: a finite (17, 3) result and
+   12 / 16 / 1 launches per call; prints the median latency of 20 calls and
+   its preprocess / forward / decode split;
+7. runs the two experiment tools as functions: one round of
+   ``tools/exp_deform_fused`` (the shipped DCN against the fused one) and
+   ``tools/probe_shift`` (every token-shift mode OK);
+8. runs the tiny config on the GPU and on the CPU (plain versions) with the
    same weights and holds the decoded results against each other.
 
-It prints a ``kernels`` JSON line, the card line, and last
-``{"ok": true, "device": {...}}``.
+Each path (phases 4 to 7) is driven with every launch count set to 0 just
+before it and read just after.  It prints a ``kernels`` JSON line, the card
+line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -36,6 +54,9 @@ PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 BATCH = 16
+KERNEL_MODULES = ("fused_attn", "fused_mlp", "deform_conv", "deform_conv_fused", "token_shift")
+FORWARD_COUNTS = {"fused_attn": 12, "fused_mlp": 16, "deform_conv": 1,
+                  "deform_conv_fused": 0, "token_shift": 0}
 
 
 def fail(msg: str) -> None:
@@ -69,7 +90,7 @@ def nbytes(*tensors) -> int:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def attn_case(dtype, gen):
+def attn_case(dtype, gen, batch):
     """Flagship attention inputs.  In bf16 the q and k projection weights
     are drawn 4x and their biases 10x smaller, so that |S| stays near 10:
     the model rounds S to bf16 before the softmax (as the reference does),
@@ -81,7 +102,7 @@ def attn_case(dtype, gen):
     c, t = 136, 6912
     f = dict(device="cuda", dtype=torch.float32)
     r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, **f) * scale  # noqa: E731
-    args = [r(BATCH, c, t).to(dtype),
+    args = [r(batch, c, t).to(dtype),
             1 + r(1, c, 1, scale=0.1), r(1, c, 1, scale=0.1)]
     args += [r(c, 1, 3, scale=1 / math.sqrt(3)).to(dtype) for _ in range(3)]
     for _ in range(3):
@@ -94,26 +115,26 @@ def attn_case(dtype, gen):
     return args + proj + [2]
 
 
-def mlp_case(dtype, gen, t):
+def mlp_case(dtype, gen, t, batch):
     import torch
 
     c = 136
     f = dict(device="cuda", dtype=torch.float32)
     r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, **f) * scale  # noqa: E731
-    return [r(BATCH, c, t).to(dtype), 1 + r(1, c, 1, scale=0.1), r(1, c, 1, scale=0.1),
+    return [r(batch, c, t).to(dtype), 1 + r(1, c, 1, scale=0.1), r(1, c, 1, scale=0.1),
             r(4 * c, c, 1, scale=1 / math.sqrt(c)).to(dtype), r(4 * c, scale=0.1).to(dtype),
             r(c, 4 * c, 1, scale=1 / math.sqrt(4 * c)).to(dtype), r(c, scale=0.1).to(dtype)]
 
 
-def dcn_case(dtype, gen):
+def dcn_case(dtype, gen, batch):
     import torch
 
     c, h, w, dil = 17, 96, 72, (3, 6, 9, 12, 15)
     f = dict(device="cuda", dtype=torch.float32)
     r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, **f) * scale  # noqa: E731
-    x = r(BATCH, c, h, w).to(dtype)
-    offs = [r(BATCH, 18 * c, h, w, scale=2.0).to(dtype) for _ in dil]
-    masks = [r(BATCH, 9 * c, h, w).to(dtype) for _ in dil]
+    x = r(batch, c, h, w).to(dtype)
+    offs = [r(batch, 18 * c, h, w, scale=2.0).to(dtype) for _ in dil]
+    masks = [r(batch, 9 * c, h, w).to(dtype) for _ in dil]
     weights = r(len(dil), c, c, 3, 3, scale=1 / math.sqrt(9 * c)).to(dtype)
     biases = r(len(dil), c, scale=0.1)
     return [x, offs, masks, weights, biases, dil]
@@ -173,7 +194,7 @@ def attn_f64_errors(args, got, want):
 def check_kernels():
     import torch
 
-    from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
+    from otpose_tpu_torch.ops.cuda import deform_conv, deform_conv_fused, fused_attn, fused_mlp
 
     kernels = {
         "fused_attn": (fused_attn.fused_attn_ct, fused_attn.fused_attn_plain,
@@ -186,6 +207,10 @@ def check_kernels():
                         deform_conv.modulated_deform_conv_multi_plain,
                         "otpose_tpu_torch/csrc/deform_conv.cu",
                         "otpose_tpu/ops/deform_conv.py:276"),
+        "deform_conv_fused": (deform_conv_fused.deform_conv_fused,
+                              deform_conv_fused.deform_conv_fused_plain,
+                              "otpose_tpu_torch/csrc/deform_conv_fused.cu",
+                              "tools/exp_deform_pallas3.py:50"),
     }
     # tolerance on max|kernel - plain| as a share of max(1, max|plain|).
     # f32: the two differ by summation order, and the plain attention's
@@ -198,9 +223,12 @@ def check_kernels():
     rows = {}
     for name, (kern, plain, src, replaces) in kernels.items():
         for dtype in (torch.float32, torch.bfloat16):
-            cases = ([mlp_case(dtype, gen, t) for t in (6912, 3456, 1728)]
-                     if name == "fused_mlp" else
-                     [attn_case(dtype, gen) if name == "fused_attn" else dcn_case(dtype, gen)])
+            # the eval's batch first (the timed case), then the inference API's
+            cases = [case for batch in (BATCH, 1) for case in (
+                [mlp_case(dtype, gen, t, batch) for t in (6912, 3456, 1728)]
+                if name == "fused_mlp" else
+                [attn_case(dtype, gen, batch) if name == "fused_attn"
+                 else dcn_case(dtype, gen, batch)])]
             for i, args in enumerate(cases):
                 got = kern(*args)
                 want = plain(*args)
@@ -219,6 +247,27 @@ def check_kernels():
                         f"{k_err:.3e}, plain {p_err:.3e} (kernel tolerance 1e-04 x {scale:.3g})")
                     if not k_err <= 1e-4 * scale:
                         fail("fused_attn f32 disagrees with the f64 reference")
+                if name == "deform_conv_fused" and dtype == torch.float32:
+                    # in f32 the fused-sampling DCN computes the DCN's function
+                    shipped = deform_conv.modulated_deform_conv_multi(*args)
+                    d_err = (got - shipped).abs().max().item()
+                    log(f"check deform_conv_fused float32 against the deform_conv kernel: "
+                        f"{d_err:.3e} (tolerance 1e-03 x {scale:.3g})")
+                    if not d_err <= 1e-3 * scale:
+                        fail("deform_conv_fused f32 disagrees with the deform_conv kernel")
+                if name == "deform_conv_fused" and dtype == torch.bfloat16:
+                    # bf16 outputs a rounding apart differ by one ulp, inside
+                    # the tolerance above whatever the rounding points, so
+                    # count the outputs that differ: the kernel rounds where
+                    # its plain version does, the DCN's kernel does not
+                    shipped = deform_conv.modulated_deform_conv_multi(*args)
+                    own = (got != want).float().mean().item()
+                    other = (shipped != want).float().mean().item()
+                    log(f"check deform_conv_fused bfloat16 rounding: outputs that differ from "
+                        f"the plain version: kernel {own:.4%}, deform_conv kernel {other:.4%} "
+                        "(kernel must stay below a tenth of the other)")
+                    if not own < 0.1 * other:
+                        fail("deform_conv_fused bf16 does not round as its plain version does")
                 if i == 0:
                     ms = time_ms(lambda: kern(*args))
                     plain_ms = time_ms(lambda: plain(*args), iters=3)
@@ -237,22 +286,65 @@ def check_kernels():
     return rows
 
 
+def check_token_shift():
+    """Every mode of the token shift against its plain version, exactly,
+    at the probe's (16, 256) and at the attention's halo size, in bf16 and
+    f32; times at the halo size in bf16.  The JSON row times the ``rotate``
+    mode, the one that a single PyTorch call (``torch.roll``) computes; its
+    ``max_abs_err`` is the largest over every case."""
+    import torch
+
+    from otpose_tpu_torch.ops.cuda import token_shift
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    halo = (BATCH * 136, 6912)
+    modes_ms, err = {}, 0.0
+    for shape in ((16, 256), halo):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+            for mode in token_shift.MODES:
+                got = token_shift.token_shift(x, mode)
+                want = token_shift.token_shift_plain(x, mode)
+                torch.cuda.synchronize()
+                err = max(err, (got.float() - want.float()).abs().max().item())
+                if not torch.equal(got, want):
+                    fail(f"token_shift {mode} {dtype} {shape} differs from its plain version")
+                if shape == halo and dtype == torch.bfloat16:
+                    modes_ms[mode] = (time_ms(lambda: token_shift.token_shift(x, mode), 20),
+                                      time_ms(lambda: token_shift.token_shift_plain(x, mode), 20))
+            log(f"check token_shift {str(dtype)[6:]} x{shape}: all four modes exact")
+    x = torch.randn(*halo, generator=gen, device="cuda").to(torch.bfloat16)
+    roll_ms = time_ms(lambda: torch.roll(x, 1, 1), 20)
+    bound = 2 * nbytes(x) / PEAK_BYTES * 1e3
+    for mode, (ms, plain_ms) in modes_ms.items():
+        log(f"time token_shift {mode} bfloat16 x{halo}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({2 * nbytes(x) / 1e6:.1f} MB)"
+            + (f", torch.roll {roll_ms:.4f} ms" if mode == "rotate" else ""))
+    ms, plain_ms = modes_ms["rotate"]
+    return dict(name="token_shift", route="cuda", source="otpose_tpu_torch/csrc/token_shift.cu",
+                replaces="tools/probe_shift.py:25", launches=None, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=roll_ms,
+                mode="rotate", modes_ms={m: v[0] for m, v in modes_ms.items()})
+
+
 # ---------------------------------------------------------------------------
-# phases 4 and 5: the decoded eval
+# phases 4 to 8: the paths
 # ---------------------------------------------------------------------------
+
+def _kernel_modules():
+    import importlib
+
+    return {name: importlib.import_module(f"otpose_tpu_torch.ops.cuda.{name}")
+            for name in KERNEL_MODULES}
+
 
 def reset_counts():
-    from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
-
-    for mod in (fused_attn, fused_mlp, deform_conv):
+    for mod in _kernel_modules().values():
         mod.calls = mod.launches = 0
 
 
 def read_counts():
-    from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
-
-    return {"fused_attn": fused_attn.launches, "fused_mlp": fused_mlp.launches,
-            "deform_conv": deform_conv.launches}
+    return {name: mod.launches for name, mod in _kernel_modules().items()}
 
 
 def flagship_eval():
@@ -273,7 +365,7 @@ def flagship_eval():
     inputs = torch.randn(BATCH, h, w, 15, generator=gen, device="cuda")
     margin = torch.randint(0, 3, (BATCH, 4), generator=gen, device="cuda").float()
     j = spec.num_joints
-    want_counts = {"fused_attn": 12, "fused_mlp": 16, "deform_conv": 1}
+    want_counts = FORWARD_COUNTS
     results = {}
     f32_model = copy.deepcopy(model)
     prepare_eval_params(model, torch.bfloat16)
@@ -302,7 +394,114 @@ def flagship_eval():
             f"{BATCH / sec:.3f} clips/s")
         results[label] = dict(counts=counts, clips_per_s=BATCH / sec,
                               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    results["flip"] = flip_eval(model, inputs, margin, j)
+    results["model"] = (cfg, model)
     return results
+
+
+def flip_eval(model, inputs, margin, j):
+    """The flip-test decoded eval in bf16 on the bf16-weight flagship model:
+    two forwards a step, so twice the forward's launches."""
+    import torch
+
+    from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
+
+    step = make_decoded_eval_step(model, compute_dtype=torch.bfloat16, flip=True)
+    step(inputs, margin)
+    torch.cuda.synchronize()
+    reset_counts()
+    coords, maxvals, raw = step(inputs, margin)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: 2 * v for k, v in FORWARD_COUNTS.items()}
+    log(f"flagship flip bf16: launches {counts}")
+    if counts != want:
+        fail(f"flagship flip launches {counts}, expected {want}")
+    for name, t, shape in (("coords", coords, (BATCH, j, 2)), ("maxvals", maxvals, (BATCH, j, 1)),
+                           ("raw_coords", raw, (BATCH, j, 2))):
+        if tuple(t.shape) != shape or not torch.isfinite(t).all():
+            fail(f"flagship flip {name}: shape {tuple(t.shape)} or non-finite values")
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(inputs, margin)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / iters
+    log(f"flagship flip bf16: {sec * 1e3:.2f} ms per step of {BATCH} clips, "
+        f"{BATCH / sec:.3f} clips/s")
+    return dict(counts=counts, clips_per_s=BATCH / sec)
+
+
+def inference_api(cfg, model):
+    """``PoseEstimator.infer_images`` at B = 1 in bf16 on five synthetic
+    720x1280 uint8 frames: one call's launches, then the median latency of
+    20 calls and of 20 split ones (preprocess, forward, decode), each part
+    ending in a synchronise."""
+    import numpy as np
+    import torch
+
+    from otpose_tpu_torch.cli.inference import PoseEstimator
+    from otpose_tpu_torch.ops.heatmap import get_final_preds
+
+    est = PoseEstimator(cfg, model)
+    rng = np.random.RandomState(4)
+    frames = [rng.randint(0, 256, (720, 1280, 3), dtype=np.uint8) for _ in range(5)]
+    box, margin = [500, 120, 260, 420], (1, 1, 2, 2)
+    est.infer_images(frames, box, margin)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = est.infer_images(frames, box, margin)
+    counts = read_counts()
+    log(f"inference B=1 bf16: launches {counts} per call")
+    if counts != FORWARD_COUNTS:
+        fail(f"inference launches {counts}, expected {FORWARD_COUNTS}")
+    if out.shape != (17, 3) or not np.isfinite(out).all():
+        fail(f"inference result: shape {out.shape} or non-finite values")
+    total, split = [], []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        est.infer_images(frames, box, margin)
+        total.append(time.perf_counter() - t0)
+    for _ in range(20):
+        t0 = time.perf_counter()
+        x, center, scale = est.preprocess(frames, box)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        heat = est.forward(x, margin)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        get_final_preds(heat, center[None], scale[None])
+        split.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+    med = lambda v: float(np.median(v)) * 1e3  # noqa: E731
+    res = dict(counts=counts, latency_ms=med(total), preprocess_ms=med([s[0] for s in split]),
+               forward_ms=med([s[1] for s in split]), decode_ms=med([s[2] for s in split]))
+    log(f"inference latency B=1 ms: {res['latency_ms']:.3f} (median of 20 calls); split: "
+        f"preprocess {res['preprocess_ms']:.3f}, forward {res['forward_ms']:.3f}, "
+        f"decode {res['decode_ms']:.3f} ms")
+    return res
+
+
+def tools():
+    """The two experiment tools, called as functions, each its own path."""
+    import torch
+
+    from otpose_tpu_torch.tools import exp_deform_fused, probe_shift
+
+    reset_counts()
+    result = exp_deform_fused.run(batch=BATCH, dtype=torch.bfloat16, rounds=1, iters=5,
+                                  out=lambda s: log(f"exp_deform_fused: {s}"))
+    exp_counts = read_counts()
+    if not result["maxdiff"] <= 5e-2 * max(1.0, result["scale"]):
+        fail("exp_deform_fused: the two kernels disagree")
+    reset_counts()
+    ok = probe_shift.probe(out=lambda s: log(f"probe_shift: {s}"))
+    probe_counts = read_counts()
+    if not all(ok.values()):
+        fail(f"probe_shift: {ok}")
+    log(f"tools: launches exp_deform_fused {exp_counts}, probe_shift {probe_counts}")
+    if exp_counts["deform_conv_fused"] < 1 or probe_counts["token_shift"] != 4:
+        fail("the tools did not launch their kernels")
+    return {"exp_deform_fused": exp_counts, "probe_shift": probe_counts}
 
 
 def _scaled_weights_(model, seed: int):
@@ -341,7 +540,7 @@ def tiny_agreement():
         got = otpose_forward(gpu_model, x.cuda(), margin.cuda())
         torch.cuda.synchronize()
     counts = read_counts()
-    if counts != {"fused_attn": 4, "fused_mlp": 6, "deform_conv": 1}:
+    if counts != dict(FORWARD_COUNTS, fused_attn=4, fused_mlp=6):
         fail(f"tiny run launches {counts}")
     worst = 0.0
     for g, w in zip(got, want):
@@ -395,17 +594,28 @@ def main() -> None:
                 log(f"ptxas {name}: {line.strip()}")
 
     rows = check_kernels()
+    rows["token_shift"] = check_token_shift()
     flag = flagship_eval()
+    infer = inference_api(*flag["model"])
+    paths = {"decoded_eval": flag["bf16"]["counts"], "flip_eval": flag["flip"]["counts"],
+             "inference": infer["counts"], **tools()}
     tiny_agreement()
+    # each kernel's launches on its own path: the eval's for the model's
+    # kernels, the experiment tool's for the other two
+    own = {"deform_conv_fused": "exp_deform_fused", "token_shift": "probe_shift"}
     for name, row in rows.items():
-        row["launches"] = flag["bf16"]["counts"][name]
+        row["launches"] = paths[own.get(name, "decoded_eval")][name]
+        row["launches_by_path"] = {p: c[name] for p, c in paths.items()}
     log(f"flagship decoded eval bf16: {flag['bf16']['clips_per_s']:.3f} clips/s, "
-        f"f32: {flag['f32']['clips_per_s']:.3f} clips/s (B={BATCH}, {card})")
+        f"f32: {flag['f32']['clips_per_s']:.3f} clips/s, flip bf16: "
+        f"{flag['flip']['clips_per_s']:.3f} clips/s (B={BATCH}); inference latency B=1: "
+        f"{infer['latency_ms']:.3f} ms ({card})")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(f"nvidia-smi: {card}", flush=True)
+    # the script drives one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}), flush=True)
+                                             "count": 1}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -73,6 +73,24 @@ def modulated_deform_conv_multi_plain(x, offsets_list, masks_list, weights,
     return out.reshape(b, -1, h, w).to(x.dtype)
 
 
+def check_args(what: str, x, offsets_list, masks_list, weights, biases, dilations):
+    """Raise unless the arguments have the layouts above, all maps contiguous
+    and in x's dtype and device; returns (B, C, O, H, W, D)."""
+    b, c, h, w = x.shape
+    d = len(dilations)
+    o = weights.shape[1]
+    if tuple(weights.shape) != (d, o, c, 3, 3) or tuple(biases.shape) != (d, o):
+        raise ValueError(f"{what}: weights must be (D, O, C, 3, 3) and biases (D, O)")
+    if len(offsets_list) != d or len(masks_list) != d:
+        raise ValueError(f"{what}: one offset and mask map per dilation")
+    for t, ch in [(x, c)] + [(t, 18 * c) for t in offsets_list] + [(t, 9 * c) for t in masks_list]:
+        if (t.dtype != x.dtype or t.device != x.device or not t.is_contiguous()
+                or tuple(t.shape) != (b, ch, h, w)):
+            raise ValueError(f"{what}: inputs must be contiguous NCHW tensors of x's dtype "
+                             f"and device; got {tuple(t.shape)}")
+    return b, c, o, h, w, d
+
+
 def modulated_deform_conv_multi(x, offsets_list, masks_list, weights, biases,
                                 dilations) -> torch.Tensor:
     """x: (B, C, H, W) -> (B, O, H, W); see the module docstring."""
@@ -83,19 +101,8 @@ def modulated_deform_conv_multi(x, offsets_list, masks_list, weights, biases,
                                                  weights, biases, dilations)
     if x.device.type != "cuda":
         raise ValueError(f"modulated_deform_conv_multi: unsupported device {x.device}")
-    b, c, h, w = x.shape
-    d = len(dilations)
-    o = weights.shape[1]
-    if tuple(weights.shape) != (d, o, c, 3, 3) or tuple(biases.shape) != (d, o):
-        raise ValueError("modulated_deform_conv_multi: weights must be (D, O, C, 3, 3)"
-                         " and biases (D, O)")
-    if len(offsets_list) != d or len(masks_list) != d:
-        raise ValueError("modulated_deform_conv_multi: one offset and mask map per dilation")
-    for t, ch in [(x, c)] + [(t, 18 * c) for t in offsets_list] + [(t, 9 * c) for t in masks_list]:
-        if (t.dtype != x.dtype or t.device != x.device or not t.is_contiguous()
-                or tuple(t.shape) != (b, ch, h, w)):
-            raise ValueError("modulated_deform_conv_multi: inputs must be contiguous "
-                             f"NCHW tensors of x's dtype and device; got {tuple(t.shape)}")
+    b, c, o, h, w, d = check_args("modulated_deform_conv_multi", x, offsets_list, masks_list,
+                                  weights, biases, dilations)
     code = build.dtype_code(x.dtype)
     lib = build.load("deform_conv", _SIGNATURES)
     if d > lib.otp_deform_max_groups() or o > 32 or 4 * d * 9 * c * o > _SMEM_LIMIT:

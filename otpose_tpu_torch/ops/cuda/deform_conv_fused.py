@@ -1,0 +1,118 @@
+"""Fused-sampling multi-dilation DCN (counterpart of
+``tools/exp_deform_pallas3.py::make_pallas3``).
+
+The same function as ``deform_conv.modulated_deform_conv_multi`` (mean over
+D dilations of a 3x3 DCNv2, one channel per deformable group, raw masks),
+with the same arguments and NCHW layouts, computed with the rounding points
+of the TPU experiment: the separable tent weights of the y axis are rounded
+to the compute dtype while the x weights stay f32, each sample is rounded,
+multiplied by its mask in the compute dtype and rounded again, and the
+weight contraction is f32 with f32 weights.  In f32 it equals
+``modulated_deform_conv_multi``.
+
+On a CUDA tensor it launches ``csrc/deform_conv_fused.cu``; on a CPU tensor
+it runs ``deform_conv_fused_plain``, the same function in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from otpose_tpu_torch.ops.cuda import build
+from otpose_tpu_torch.ops.cuda.deform_conv import check_args
+
+# wrapper calls (either path) and kernel launches (CUDA path only)
+calls = 0
+launches = 0
+
+_SMEM_LIMIT = 232448   # bytes of shared memory one H100 block may use
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "otp_deform_fused": (_I, [_P, ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I),
+                              _P, _P, _P] + [_I] * 7 + [_P]),
+    "otp_deform_fused_max_groups": (_I, []),
+    "otp_deform_fused_max_outputs": (_I, []),
+    "otp_deform_fused_tile": (_I, []),
+}
+
+
+def _tent_sample(xf, sy, sx, h: int, w: int, rnd):
+    """make_pallas3's separable tent sample of xf (B, C, H*W) at f32
+    positions (B, C, P), at the two integer neighbours on each axis: the y
+    weights ``max(0, 1 - |sy - y|)`` rounded by ``rnd``, the x weights f32,
+    rows summed per column first; zero outside the image."""
+    y0, x0 = torch.floor(sy), torch.floor(sx)
+    cols = []
+    for xx in (x0, x0 + 1):
+        col = torch.zeros_like(sy)
+        for yy in (y0, y0 + 1):
+            wy = rnd(torch.clamp(1 - (sy - yy).abs(), min=0))
+            ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            idx = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).long()
+            v = torch.gather(xf, 2, idx)
+            col = col + torch.where(ok, v * wy, torch.zeros_like(v))
+        cols.append(col * torch.clamp(1 - (sx - xx).abs(), min=0))
+    return cols[0] + cols[1]
+
+
+def deform_conv_fused_plain(x, offsets_list, masks_list, weights, biases,
+                            dilations) -> torch.Tensor:
+    """The plain PyTorch version of the kernel (same arguments)."""
+    b, c, h, w = x.shape
+    p = h * w
+    cd = x.dtype
+
+    def rnd(t):
+        return t.to(cd).float()
+
+    xf = x.float().reshape(b, c, p)
+    py = torch.arange(h, device=x.device, dtype=torch.float32)[:, None].expand(h, w).reshape(p)
+    px = torch.arange(w, device=x.device, dtype=torch.float32)[None, :].expand(h, w).reshape(p)
+    acc = torch.zeros(b, weights.shape[1], p, device=x.device, dtype=torch.float32)
+    for off, msk, wd, dil in zip(offsets_list, masks_list, weights, dilations):
+        off = off.float().reshape(b, c, 9, 2, p)
+        msk = msk.float().reshape(b, c, 9, p)
+        wd = wd.float()
+        for k in range(9):
+            sy = (off[:, :, k, 0] + float((k // 3) * dil - dil)) + py
+            sx = (off[:, :, k, 1] + float((k % 3) * dil - dil)) + px
+            val = rnd(rnd(_tent_sample(xf, sy, sx, h, w, rnd)) * msk[:, :, k])
+            acc = acc + torch.einsum("oc,bcp->bop", wd[:, :, k // 3, k % 3], val)
+    out = acc / len(dilations) + biases.float().mean(0)[:, None]
+    return out.reshape(b, -1, h, w).to(cd)
+
+
+def deform_conv_fused(x, offsets_list, masks_list, weights, biases,
+                      dilations) -> torch.Tensor:
+    """x: (B, C, H, W) -> (B, O, H, W); the arguments of
+    ``deform_conv.modulated_deform_conv_multi``."""
+    global calls, launches
+    calls += 1
+    if x.device.type == "cpu":
+        return deform_conv_fused_plain(x, offsets_list, masks_list, weights, biases, dilations)
+    if x.device.type != "cuda":
+        raise ValueError(f"deform_conv_fused: unsupported device {x.device}")
+    b, c, o, h, w, d = check_args("deform_conv_fused", x, offsets_list, masks_list,
+                                  weights, biases, dilations)
+    code = build.dtype_code(x.dtype)
+    lib = build.load("deform_conv_fused", _SIGNATURES)
+    smem = 4 * 9 * c * (lib.otp_deform_fused_tile() + o)
+    if (d > lib.otp_deform_fused_max_groups() or o > lib.otp_deform_fused_max_outputs()
+            or smem > _SMEM_LIMIT):
+        raise ValueError(f"deform_conv_fused: D={d}, C={c}, O={o} is beyond the "
+                         "kernel's limits")
+    # (D, O, C, 3, 3) -> (D, C, 9, O): row i = c * 9 + k, as the mask channels
+    wk = weights.float().permute(0, 2, 3, 4, 1).contiguous()
+    bias_mean = biases.float().mean(0).contiguous()
+    out = torch.empty(b, o, h, w, device=x.device, dtype=x.dtype)
+    offs = (ctypes.c_void_p * d)(*[t.data_ptr() for t in offsets_list])
+    msks = (ctypes.c_void_p * d)(*[t.data_ptr() for t in masks_list])
+    dils = (ctypes.c_int * d)(*[int(v) for v in dilations])
+    err = lib.otp_deform_fused(
+        x.data_ptr(), offs, msks, dils, wk.data_ptr(), bias_mean.data_ptr(),
+        out.data_ptr(), b, c, o, h, w, d, code, build.stream_ptr(x.device))
+    build.check(lib, err, "deform_conv_fused")
+    launches += 1
+    return out

@@ -12,8 +12,22 @@ from __future__ import annotations
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from otpose_tpu.models import blocks
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a test module's torch ops on one thread, then restore the count.
+    The suite runs in several worker processes at once; with torch's
+    default of one thread per core in each, the gathers of the plain DCN
+    and warp run hundreds of times slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def numpy_weights(init_fn, *args, seed: int = 0):

@@ -13,7 +13,8 @@ import math
 import pytest
 import torch
 
-from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
+from otpose_tpu_torch.ops.cuda import (deform_conv, deform_conv_fused, fused_attn, fused_mlp,
+                                       token_shift)
 
 pytestmark = pytest.mark.cuda
 
@@ -98,6 +99,41 @@ def test_deform_conv_matches_plain(b, c, o, h, w, dilations, dtype):
     _close(got, deform_conv.modulated_deform_conv_multi_plain(*args), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,o,h,w,dilations", [
+    (2, 17, 17, 13, 11, (1,)),                         # 143 pixels: a ragged last tile
+    (1, 5, 3, 9, 7, (3, 6, 9, 12, 15, 18, 21, 24)),   # 8 dilations, few outputs
+    (1, 4, 32, 10, 12, (2, 5)),                        # the most outputs a thread holds
+])
+def test_deform_conv_fused_matches_plain(b, c, o, h, w, dilations, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device="cuda") * scale  # noqa: E731
+    x = r(b, c, h, w).to(dtype)
+    offs = [r(b, 18 * c, h, w, scale=3.0).to(dtype) for _ in dilations]
+    masks = [r(b, 9 * c, h, w).to(dtype) for _ in dilations]
+    weights = r(len(dilations), o, c, 3, 3, scale=1 / math.sqrt(9 * c))
+    biases = r(len(dilations), o)
+    args = (x, offs, masks, weights, biases, dilations)
+    launches = deform_conv_fused.launches
+    got = deform_conv_fused.deform_conv_fused(*args)
+    torch.cuda.synchronize()
+    assert deform_conv_fused.launches == launches + 1
+    _close(got, deform_conv_fused.deform_conv_fused_plain(*args), dtype)
+    if dtype == torch.float32:      # in f32 it is the shipped kernel's function
+        _close(got, deform_conv.modulated_deform_conv_multi(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1), (3, 1), (1, 7), (16, 256), (5, 1000)])
+def test_token_shift_equals_plain(shape, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    for mode in token_shift.MODES:
+        got = token_shift.token_shift(x, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, token_shift.token_shift_plain(x, mode)), mode
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     x = torch.randn(1, 200, 16, device="cuda")
     w = torch.randn(800, 200, 1, device="cuda")
@@ -112,3 +148,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         fused_attn.fused_attn_ct(args[0].transpose(1, 2).contiguous().transpose(1, 2),
                                  *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        token_shift.token_shift(torch.zeros(8, 4, device="cuda").t(), "right")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        token_shift.token_shift(torch.zeros(4, 8, device="cuda", dtype=torch.half), "right")
