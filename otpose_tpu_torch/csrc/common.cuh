@@ -42,6 +42,33 @@ template <typename T> __device__ __forceinline__ float rnd(float v) {
     }                                             \
   } while (0)
 
+// Phase clocks, read by `tools/kernel_phases.py`.  In a build with
+// -DOTP_PHASE_CLOCK, OTP_PHASE(k) adds to slot k the clock64() cycles that
+// thread 0 of the block spent since OTP_PHASE_START or its previous mark,
+// and otp_phase_cycles copies the slots out and zeroes them.  Otherwise the
+// marks are empty and the kernels are unchanged.
+#ifdef OTP_PHASE_CLOCK
+__device__ unsigned long long otp_phase_slots[16];
+#define OTP_PHASE_START long long otp_phase_t0 = clock64()
+#define OTP_PHASE(k)                                                                 \
+  do {                                                                               \
+    if (threadIdx.x == 0) {                                                          \
+      const long long otp_now = clock64();                                           \
+      atomicAdd(&otp_phase_slots[k], (unsigned long long)(otp_now - otp_phase_t0));  \
+      otp_phase_t0 = otp_now;                                                        \
+    }                                                                                \
+  } while (0)
+extern "C" int otp_phase_cycles(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, otp_phase_slots, sizeof(otp_phase_slots));
+  if (err != cudaSuccess) return (int)err;
+  static const unsigned long long zero[16] = {};
+  return (int)cudaMemcpyToSymbol(otp_phase_slots, zero, sizeof(zero));
+}
+#else
+#define OTP_PHASE_START
+#define OTP_PHASE(k)
+#endif
+
 extern "C" const char* otp_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

@@ -11,6 +11,9 @@ Eval dispatch follows the JAX ``fused_ok`` gate: with ``fused`` and C >= 32,
 a stride-1 block's attention front goes to ``ops.cuda.fused_attn`` and every
 block's ln2 + MLP + residual to ``ops.cuda.fused_mlp``.  The flow encoder
 (C = 17) and the strided branch attention take the plain PyTorch path.
+The two kernels' weights are packed once per block and compute dtype
+(``attn_pack`` / ``mlp_pack``) and cached on the block, keyed by each source
+parameter's storage and version, so a steady forward packs nothing.
 """
 
 from __future__ import annotations
@@ -21,8 +24,9 @@ from torch import nn
 
 from otpose_tpu_torch.models import core
 from otpose_tpu_torch.models.core import AffineScale, Conv1d, LayerNormCT
-from otpose_tpu_torch.ops.cuda.fused_attn import channel_attention_ct, fused_attn_ct
-from otpose_tpu_torch.ops.cuda.fused_mlp import fused_mlp_residual_ct
+from otpose_tpu_torch.ops.cuda.fused_attn import (channel_attention_ct, fused_attn_ct,
+                                                   pack_attn_weights)
+from otpose_tpu_torch.ops.cuda.fused_mlp import fused_mlp_residual_ct, pack_mlp_weights
 
 
 def get_sinusoid_encoding(n_position: int, d_hid: int) -> torch.Tensor:
@@ -97,30 +101,51 @@ def _affine(scale_mod, x):
     return x if scale_mod is None else scale_mod(x)
 
 
+def _cached_pack(block: TransformerBlock, slot: str, params, dtype, make):
+    """``make()``, cached on ``block`` under ``slot`` until one of ``params``
+    changes storage, version or dtype (an in-place update,
+    ``prepare_eval_params``, ``.to()``) or ``dtype`` changes."""
+    key = (dtype, params[0].device) + tuple((p.data_ptr(), p._version, p.dtype) for p in params)
+    hit = getattr(block, slot, None)
+    if hit is None or hit[0] != key:
+        hit = (key, make())
+        setattr(block, slot, hit)
+    return hit[1]
+
+
+def attn_pack(block: TransformerBlock, dtype):
+    """The fused-attention weights of ``block`` packed for ``dtype``."""
+    a = block.attn
+    params = (block.ln1.weight, block.ln1.bias,
+              a.query_conv.weight, a.key_conv.weight, a.value_conv.weight,
+              a.query_norm.weight, a.query_norm.bias, a.key_norm.weight, a.key_norm.bias,
+              a.value_norm.weight, a.value_norm.bias,
+              a.query.weight, a.query.bias, a.key.weight, a.key.bias,
+              a.value.weight, a.value.bias)
+    return _cached_pack(block, "_attn_pack", params, dtype,
+                        lambda: pack_attn_weights(*params, dtype))
+
+
+def mlp_pack(block: TransformerBlock, dtype):
+    """The fused-MLP weights of ``block`` packed for ``dtype``; the
+    per-channel drop-path scale commutes with the output matmul and is
+    folded into W2/b2 (drop-path itself is the identity at eval)."""
+    params = (block.ln2.weight, block.ln2.bias, block.mlp["0"].weight, block.mlp["0"].bias,
+              block.mlp["3"].weight, block.mlp["3"].bias)
+    scale = None if block.drop_path_mlp is None else block.drop_path_mlp.scale
+    return _cached_pack(block, "_mlp_pack", params + ((scale,) if scale is not None else ()),
+                        dtype, lambda: pack_mlp_weights(*params, dtype, scale=scale))
+
+
 def fused_attn_block_ct(block: TransformerBlock, x):
     """ln1 + q/k/v + channel attention of a stride-1 block through the
     fused-attention kernel; returns the pre-scramble ``att @ v``."""
-    a = block.attn
-    return fused_attn_ct(
-        x, block.ln1.weight, block.ln1.bias,
-        a.query_conv.weight, a.key_conv.weight, a.value_conv.weight,
-        a.query_norm.weight, a.query_norm.bias, a.key_norm.weight, a.key_norm.bias,
-        a.value_norm.weight, a.value_norm.bias,
-        a.query.weight, a.query.bias, a.key.weight, a.key.bias,
-        a.value.weight, a.value.bias, block.n_head)
+    return fused_attn_ct(x, packed=attn_pack(block, x.dtype), n_head=block.n_head)
 
 
 def fused_mlp_block_ct(block: TransformerBlock, x):
-    """ln2 + MLP + residual through the fused-MLP kernel; the per-channel
-    drop-path scale commutes with the output matmul and is folded into
-    W2/b2 (drop-path itself is the identity at eval)."""
-    w2, b2 = block.mlp["3"].weight, block.mlp["3"].bias
-    if block.drop_path_mlp is not None:
-        scale = block.drop_path_mlp.scale.reshape(-1)
-        w2 = w2 * scale[:, None, None]
-        b2 = b2 * scale
-    return fused_mlp_residual_ct(x, block.ln2.weight, block.ln2.bias,
-                                 block.mlp["0"].weight, block.mlp["0"].bias, w2, b2)
+    """ln2 + MLP + residual through the fused-MLP kernel."""
+    return fused_mlp_residual_ct(x, packed=mlp_pack(block, x.dtype))
 
 
 def transformer_block_ct(block: TransformerBlock, x, fused: bool = True):

@@ -6,7 +6,8 @@ into a shared library with a plain C interface, and loaded with ``ctypes``
 ``build/otpose_tpu_torch/`` at the repository root, named by a hash of their
 sources and flags, so an edited source is rebuilt.  ``build_all`` starts one
 ``nvcc`` per source at once.  Kernels are built only from the sources in
-``csrc/``.
+``csrc/``.  A build with extra preprocessor ``defines`` (the phase clocks of
+``tools/kernel_phases.py``) is a library of its own.
 """
 
 from __future__ import annotations
@@ -43,24 +44,28 @@ def nvcc_path() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines=()) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _target(name: str, defines=()) -> Path:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build_all(names=KERNELS) -> dict:
+def build_all(names=KERNELS, defines=()) -> dict:
     """Compile every missing library in parallel; returns {name: seconds}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
     for name in names:
-        out = _target(name)
+        out = _target(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -78,20 +83,23 @@ def build_all(names=KERNELS) -> dict:
     return seconds
 
 
-def load(name: str, signatures: dict) -> ctypes.CDLL:
+def load(name: str, signatures: dict, defines=()) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed, with
-    ``restype`` and ``argtypes`` set from ``{function: (restype, argtypes)}``."""
-    lib = _libs.get(name)
+    ``restype`` and ``argtypes`` set from ``{function: (restype, argtypes)}``.
+    The wrappers load the build without ``defines``, which ``_libs[name]``
+    holds."""
+    key = (name, *defines) if defines else name
+    lib = _libs.get(key)
     if lib is None:
-        path = _target(name)
+        path = _target(name, defines)
         if not path.exists():
-            build_all((name,))
+            build_all((name,), defines)
         lib = ctypes.CDLL(str(path))
         sigs = dict(signatures, otp_error_string=(ctypes.c_char_p, [ctypes.c_int]))
         for fn, (restype, argtypes) in sigs.items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
-        _libs[name] = lib
+        _libs[key] = lib
     return lib
 
 

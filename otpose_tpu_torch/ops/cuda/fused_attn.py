@@ -6,29 +6,40 @@ projections + the per-head channel attention, and returns the
 pre-scramble ``att @ v`` (B, C, T).  The reference's scramble, the output
 projection and the residual stay outside (``blocks.transformer_block_ct``).
 
-On a CUDA tensor it launches ``csrc/fused_attn.cu``; on a CPU tensor it runs
-``fused_attn_plain``, the same function in plain PyTorch.
+On a CUDA tensor it launches ``csrc/fused_attn.cu`` (bf16 on the tensor
+cores, f32 as FMA loops); on a CPU tensor it runs ``fused_attn_plain``, the
+same function in plain PyTorch.
+
+``pack_attn_weights`` puts the weights in the kernel's layout once
+(``models/blocks.py`` caches the result on each block); the wrapper takes
+either the raw weights, which it packs on every call, or such a pack.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
 from otpose_tpu_torch.models import core
 from otpose_tpu_torch.ops.cuda import build
 
-# wrapper calls (either path) and kernel launches (CUDA path only)
+# wrapper calls (either path), kernel launches (CUDA path only) and packs made
 calls = 0
 launches = 0
+packs = 0
+
+CHANNEL_ALIGN = 16    # C is zero-padded to the mma depth in the bf16 pack
 
 _SMEM_LIMIT = 232448   # bytes of shared memory one H100 block may use
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "otp_fused_attn": (_I, [_P] * 12 + [_I] * 4 + [ctypes.c_float, _I, _I, _P]),
-    "otp_fused_attn_smem": (ctypes.c_size_t, [_I, _I]),
+    "otp_fused_attn_f32": (_I, [_P] * 12 + [_I] * 4 + [ctypes.c_float, _I, _P]),
+    "otp_fused_attn_tc": (_I, [_P] * 12 + [_I] * 5 + [ctypes.c_float, _I, _P]),
+    "otp_fused_attn_smem": (ctypes.c_size_t, [_I, _I, _I]),
 }
 
 
@@ -60,19 +71,97 @@ def fused_attn_plain(x, ln1_w, ln1_b, dw_q, dw_k, dw_v, nq_w, nq_b, nk_w, nk_b,
     return channel_attention_ct(q, k, v, n_head)
 
 
-def fused_attn_ct(x, ln1_w, ln1_b, dw_q, dw_k, dw_v, nq_w, nq_b, nk_w, nk_b,
-                  nv_w, nv_b, wq, bq, wk, bk, wv, bv, n_head: int) -> torch.Tensor:
+@dataclass(frozen=True)
+class AttnPack:
+    """Weights in the kernel's layout for compute dtype ``dtype``: ``pw``
+    (3, Cp, Cp) bf16 zero-padded for bf16, (3, C, C) f32 for f32, and ``pb``
+    f32 (3, Cp) or (3, C), holding values of ``dtype``; ``dw`` (3, C, 3) f32
+    holding values of ``dtype``; the LayerNorm affines f32: ``ln1_w``/``ln1_b``
+    (C,), ``nw``/``nb`` (3, C).  Index 0, 1, 2 is q, k, v."""
+    dtype: torch.dtype
+    c: int
+    ln1_w: torch.Tensor
+    ln1_b: torch.Tensor
+    dw: torch.Tensor
+    nw: torch.Tensor
+    nb: torch.Tensor
+    pw: torch.Tensor
+    pb: torch.Tensor
+
+
+@torch.no_grad()
+def pack_attn_weights(ln1_w, ln1_b, dw_q, dw_k, dw_v, nq_w, nq_b, nk_w, nk_b, nv_w, nv_b,
+                      wq, bq, wk, bk, wv, bv, dtype, device=None) -> AttnPack:
+    """The weights of ``fused_attn_ct`` (same order) in the kernel's layout
+    for compute dtype ``dtype``."""
+    global packs
+    build.dtype_code(dtype)
+    c = wq.shape[0]
+    device = wq.device if device is None else device
+
+    def vec(a, n, what, rounded=False):
+        # rounded: a weight the model applies in the compute dtype
+        return build.f32_vector(a.to(dtype) if rounded else a, n, f"fused_attn {what}",
+                                device)
+
+    dw = torch.stack([vec(w, 3 * c, "depthwise weight", True) for w in (dw_q, dw_k, dw_v)])
+    nw = torch.stack([vec(w, c, "norm weight") for w in (nq_w, nk_w, nv_w)])
+    nb = torch.stack([vec(w, c, "norm bias") for w in (nq_b, nk_b, nv_b)])
+    pw = torch.stack([vec(w, c * c, "projection weight", True) for w in (wq, wk, wv)])
+    pb = torch.stack([vec(w, c, "projection bias", True) for w in (bq, bk, bv)])
+    pw = pw.reshape(3, c, c)
+    if dtype == torch.bfloat16:
+        cp = -(-c // CHANNEL_ALIGN) * CHANNEL_ALIGN
+        pwp = torch.zeros(3, cp, cp, device=device, dtype=dtype)
+        pbp = torch.zeros(3, cp, device=device)
+        pwp[:, :c, :c], pbp[:, :c] = pw, pb
+        pw, pb = pwp, pbp
+    packs += 1
+    return AttnPack(dtype, c, vec(ln1_w, c, "ln1.weight"), vec(ln1_b, c, "ln1.bias"),
+                    dw.reshape(3, c, 3), nw, nb, pw, pb)
+
+
+def _plain_from_pack(x, pk: AttnPack, n_head: int) -> torch.Tensor:
+    c = pk.c
+    q, k, v = ((pk.dw[p].reshape(c, 1, 3), pk.nw[p], pk.nb[p], pk.pw[p, :c, :c, None],
+                pk.pb[p, :c]) for p in range(3))
+    return fused_attn_plain(x, pk.ln1_w, pk.ln1_b, q[0], k[0], v[0], q[1], q[2], k[1], k[2],
+                            v[1], v[2], q[3], q[4], k[3], k[4], v[3], v[4], n_head)
+
+
+@functools.lru_cache(maxsize=None)
+def _scale(hs: int, dtype) -> float:
+    """1/sqrt(hs) rounded to the compute dtype, as the plain version has it."""
+    return float(torch.tensor(1.0 / math.sqrt(hs)).to(dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fused_attn_ct(x, ln1_w=None, ln1_b=None, dw_q=None, dw_k=None, dw_v=None, nq_w=None,
+                  nq_b=None, nk_w=None, nk_b=None, nv_w=None, nv_b=None, wq=None, bq=None,
+                  wk=None, bk=None, wv=None, bv=None, n_head: int | None = None, *,
+                  packed: AttnPack | None = None) -> torch.Tensor:
     """x: (B, C, T) -> pre-scramble attention output (B, C, T).
 
     ``dw_*`` are the (C, 1, 3) depthwise kernels, ``w*`` the (C, C, 1)
     projection kernels with (C,) biases ``b*``; the LayerNorm affines are
-    (1, C, 1) or (C,) and stay f32."""
+    (1, C, 1) or (C,) and stay f32.  Or, in place of the weights, ``packed``
+    from ``pack_attn_weights`` for ``x.dtype``."""
     global calls, launches
     calls += 1
+    raw = (ln1_w, ln1_b, dw_q, dw_k, dw_v, nq_w, nq_b, nk_w, nk_b, nv_w, nv_b,
+           wq, bq, wk, bk, wv, bv)
+    if n_head is None:
+        raise ValueError("fused_attn_ct: n_head is required")
+    if packed is not None and packed.dtype != x.dtype:
+        raise ValueError(f"fused_attn_ct: weights packed for {packed.dtype}, x is {x.dtype}")
     if x.device.type == "cpu":
-        return fused_attn_plain(x, ln1_w, ln1_b, dw_q, dw_k, dw_v, nq_w, nq_b,
-                                nk_w, nk_b, nv_w, nv_b, wq, bq, wk, bk, wv, bv,
-                                n_head)
+        if packed is not None:
+            return _plain_from_pack(x, packed, n_head)
+        return fused_attn_plain(x, *raw, n_head)
     if x.device.type != "cuda":
         raise ValueError(f"fused_attn_ct: unsupported device {x.device}")
     if x.dim() != 3 or not x.is_contiguous():
@@ -82,32 +171,36 @@ def fused_attn_ct(x, ln1_w, ln1_b, dw_q, dw_k, dw_v, nq_w, nq_b, nk_w, nk_b,
         raise ValueError(f"fused_attn_ct: C={c} not divisible by n_head={n_head}")
     code = build.dtype_code(x.dtype)
     lib = build.load("fused_attn", _SIGNATURES)
-    if lib.otp_fused_attn_smem(c, n_head) > _SMEM_LIMIT:
-        raise ValueError(f"fused_attn_ct: C={c}, n_head={n_head} needs more "
-                         "shared memory than one block has")
-    dt, dev = x.dtype, x.device
-
-    def vec(a, n, what, rounded=False):
-        # rounded: a weight the model applies in the compute dtype
-        return build.f32_vector(a.to(dt) if rounded else a, n, f"fused_attn_ct {what}", dev)
-
-    ln1w, ln1b = vec(ln1_w, c, "ln1.weight"), vec(ln1_b, c, "ln1.bias")
-    dw = torch.stack([vec(w, 3 * c, "depthwise weight", True) for w in (dw_q, dw_k, dw_v)])
-    nw = torch.stack([vec(w, c, "norm weight") for w in (nq_w, nk_w, nv_w)])
-    nb = torch.stack([vec(w, c, "norm bias") for w in (nq_b, nk_b, nv_b)])
-    pw = torch.stack([vec(w, c * c, "projection weight", True) for w in (wq, wk, wv)])
-    pb = torch.stack([vec(w, c, "projection bias", True) for w in (bq, bk, bv)])
+    if lib.otp_fused_attn_smem(c, n_head, code) > _SMEM_LIMIT:
+        raise ValueError(f"fused_attn_ct: C={c}, n_head={n_head} is not a shape the "
+                         f"{x.dtype} kernel takes (shared memory or C above 160)")
+    if packed is None:
+        packed = pack_attn_weights(*raw, x.dtype, device=x.device)
+    if packed.c != c or packed.pw.device != x.device:
+        raise ValueError(f"fused_attn_ct: weights packed for C={packed.c} on "
+                         f"{packed.pw.device}, x has C={c} on {x.device}")
+    pk, dev = packed, x.device
     hs = c // n_head
-    scale = float(torch.tensor(1.0 / math.sqrt(hs)).to(dt))
     v_scr = torch.empty_like(x)
     s_scr = torch.empty(bsz, c, hs, device=dev, dtype=torch.float32)
-    att_scr = torch.empty_like(s_scr)
     out = torch.empty_like(x)
-    nsplit = max(1, min((t + 31) // 32, 512 // bsz))   # about 512 blocks in flight
-    err = lib.otp_fused_attn(
-        *(a.data_ptr() for a in (x, ln1w, ln1b, dw, nw, nb, pw, pb, v_scr, s_scr,
-                                 att_scr, out)),
-        bsz, c, t, n_head, scale, nsplit, code, build.stream_ptr(dev))
+    chunks = -(-t // 32)
+    if code == 1:
+        att_scr = torch.empty(bsz, c, -(-hs // 16) * 16, device=dev, dtype=x.dtype)
+        # about one block a SM: each holds the projection weights for all its chunks
+        nsplit = max(1, min(chunks, _sm_count(dev.index or 0) // bsz))
+        ptrs = (x, pk.ln1_w, pk.ln1_b, pk.dw, pk.nw, pk.nb, pk.pw, pk.pb, v_scr, s_scr,
+                att_scr, out)
+        err = lib.otp_fused_attn_tc(*(a.data_ptr() for a in ptrs), bsz, c, pk.pw.shape[1], t,
+                                    n_head, _scale(hs, x.dtype), nsplit,
+                                    build.stream_ptr(dev))
+    else:
+        att_scr = torch.empty_like(s_scr)
+        nsplit = max(1, min(chunks, 512 // bsz))   # about 512 blocks in flight
+        ptrs = (x, pk.ln1_w, pk.ln1_b, pk.dw, pk.nw, pk.nb, pk.pw, pk.pb, v_scr, s_scr,
+                att_scr, out)
+        err = lib.otp_fused_attn_f32(*(a.data_ptr() for a in ptrs), bsz, c, t, n_head,
+                                     _scale(hs, x.dtype), nsplit, build.stream_ptr(dev))
     build.check(lib, err, "fused_attn_ct")
     launches += 1
     return out

@@ -22,8 +22,8 @@ import time
 import torch
 
 CATEGORIES = (
-    ("fused_attn", ("qkv_scores_kernel", "softmax_kernel", "att_v_kernel")),
-    ("fused_mlp", ("fused_mlp_kernel",)),
+    ("fused_attn", ("qkv_scores", "softmax_kernel", "att_v_")),   # f32 and bf16 (_tc) kernels
+    ("fused_mlp", ("fused_mlp_",)),
     ("deform_conv", ("deform_multi_kernel",)),
     ("convolution", ("conv", "cudnn", "implicit_gemm", "wgrad", "dgrad", "xmma_fprop",
                      "nchwToNhwc", "nhwcToNchw")),

@@ -66,17 +66,66 @@ def test_fused_attn_matches_plain(b, c, t, n_head, dtype):
     _close(got, fused_attn.fused_attn_plain(*args), dtype)
 
 
+def _mlp_args(b, c, t, dtype, gen):
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device="cuda") * scale  # noqa: E731
+    return [r(b, c, t).to(dtype), 1 + r(1, c, 1, scale=0.1), r(1, c, 1, scale=0.1),
+            r(4 * c, c, 1, scale=1 / math.sqrt(c)).to(dtype), r(4 * c, scale=0.1).to(dtype),
+            r(c, 4 * c, 1, scale=1 / math.sqrt(4 * c)).to(dtype), r(c, scale=0.1).to(dtype)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,c,t", [(2, 136, 100), (1, 32, 63), (2, 160, 130), (2, 40, 1)])
 def test_fused_mlp_matches_plain(b, c, t, dtype):
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device="cuda") * scale  # noqa: E731
-    args = [r(b, c, t).to(dtype), 1 + r(1, c, 1, scale=0.1), r(1, c, 1, scale=0.1),
-            r(4 * c, c, 1, scale=1 / math.sqrt(c)).to(dtype), r(4 * c, scale=0.1).to(dtype),
-            r(c, 4 * c, 1, scale=1 / math.sqrt(4 * c)).to(dtype), r(c, scale=0.1).to(dtype)]
+    args = _mlp_args(b, c, t, dtype, torch.Generator(device="cuda").manual_seed(1))
     got = fused_mlp.fused_mlp_residual_ct(*args)
     torch.cuda.synchronize()
     _close(got, fused_mlp.fused_mlp_plain(*args), dtype)
+
+
+# the bf16 tensor-core kernels: fused_mlp tiles 48 tokens a block; fused_attn
+# walks 32-token chunks and writes att @ v in 64-token tiles
+@pytest.mark.parametrize("b,t", [(2, 1), (2, 47), (2, 49), (3, 95), (1, 6912)])
+@pytest.mark.parametrize("c", [32, 40, 64, 136, 160])
+def test_fused_mlp_bf16_ragged(b, c, t):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    args = _mlp_args(b, c, t, torch.bfloat16, gen)
+    launches = fused_mlp.launches
+    got = fused_mlp.fused_mlp_residual_ct(*args)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == launches + 1
+    want = fused_mlp.fused_mlp_plain(*args)
+    _close(got, want, torch.bfloat16)
+    if got.numel() >= 10000:     # the rounding check of chip_smoke.py
+        assert (got != want).float().mean().item() <= 0.05
+
+
+@pytest.mark.parametrize("b,t", [(2, 1), (2, 31), (2, 33), (1, 63), (2, 65), (1, 6912)])
+@pytest.mark.parametrize("c,n_head", [(32, 1), (32, 2), (40, 4), (64, 4), (136, 1), (136, 2),
+                                      (160, 2), (160, 4)])
+def test_fused_attn_bf16_ragged(b, c, t, n_head):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    args = _attn_args(b, c, t, n_head, torch.bfloat16, gen)
+    got = fused_attn.fused_attn_ct(*args)
+    torch.cuda.synchronize()
+    _close(got, fused_attn.fused_attn_plain(*args), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_call_equals_raw_call(dtype):
+    """The weights packed once give the raw-weight call's result bit for bit
+    (attention at T <= 32: one chunk, so the score sum has one order)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    args = _mlp_args(2, 136, 100, dtype, gen)
+    pk = fused_mlp.pack_mlp_weights(*args[1:], dtype)
+    assert torch.equal(fused_mlp.fused_mlp_residual_ct(args[0], packed=pk),
+                       fused_mlp.fused_mlp_residual_ct(*args))
+    args = _attn_args(2, 136, 30, 2, dtype, gen)
+    pk = fused_attn.pack_attn_weights(*args[1:-1], dtype)
+    assert torch.equal(fused_attn.fused_attn_ct(args[0], packed=pk, n_head=2),
+                       fused_attn.fused_attn_ct(*args))
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    with pytest.raises(ValueError, match="packed for"):
+        fused_attn.fused_attn_ct(args[0].to(other), packed=pk, n_head=2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
