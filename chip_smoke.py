@@ -6,24 +6,29 @@
 Phases, each of which must pass or the script exits non-zero:
 
 1. checks for a CUDA device and prints its ``nvidia-smi`` name and power limit;
-2. builds the five kernels from ``otpose_tpu_torch/csrc`` with ``nvcc``, in
-   parallel;
-3. holds each kernel against its plain PyTorch version at the shapes its
-   paths give it, in f32 (TF32 off) and bf16, and times both with CUDA
-   events: fused attention, fused MLP and the DCN at the flagship shapes at
-   B = 16 (eval) and B = 1 (inference); the fused-sampling DCN at the DCN's
-   shapes (and against the DCN's kernel: in f32 the same function, in bf16
-   it must share its plain version's rounding far more often than the
-   DCN's kernel does);
-   the token shift in its four modes at (16, 256) and at the attention's
-   halo size (16 * 136, 6912), where it must be exact; in bf16 the fused MLP
-   and attention also print the share of outputs that differ from the plain
-   version (the MLP must stay at or below 5%), and are timed through weights
-   packed once, as the model calls them;
+2. builds the four kernel sources from ``otpose_tpu_torch/csrc`` with
+   ``nvcc``, in parallel;
+3. holds each of the five kernel rows against its plain PyTorch version at
+   the shapes its paths give it, in f32 (TF32 off) and bf16, and times both
+   with CUDA events: fused attention, fused MLP and the DCN at the flagship
+   shapes at B = 16 (eval) and B = 1 (inference); the fused-sampling DCN
+   (the DCN's kernel in its make_pallas3 rounding mode) at the same shapes,
+   and against the exact mode: in f32 the same function, in bf16 it must
+   share its plain version's rounding far more often than the exact mode
+   does; the token shift in its four modes at (16, 256) and at the
+   attention's halo size (16 * 136, 6912), where it must be exact; in bf16
+   the fused MLP, the attention and both DCN modes also print the share of
+   outputs that differ from their own plain version (the MLP and the exact
+   DCN must stay at or below 5%); the fused kernels and the DCN are timed
+   through weights packed once, as the model calls them; every row's ``ms``
+   is CUDA events around eager calls, and the DCN (at B = 16 and B = 1, both
+   modes, both dtypes) is also timed by replaying a CUDA graph of 20 calls
+   (``graph_ms``), the device's time without the wrapper's host work;
 4. runs the flagship decoded eval (HRNet-W48, 384x288, B = 16) from
    ``build_model`` in bf16 with bf16 weights, then in f32, checks the output
    shapes and values and the kernel launch counts (12 / 16 / 1 per forward),
-   that the counted step packs no weights (the blocks cache their packs),
+   that the counted step packs no weights (the blocks and the model cache
+   their packs, the DCN's included),
    and times the bf16 step in clips/s;
 5. runs the flagship flip-test decoded eval in bf16 (two forwards a step:
    24 / 32 / 2 launches) and times it in clips/s;
@@ -32,7 +37,7 @@ Phases, each of which must pass or the script exits non-zero:
    12 / 16 / 1 launches per call; prints the median latency of 20 calls and
    its preprocess / forward / decode split;
 7. runs the two experiment tools as functions: one round of
-   ``tools/exp_deform_fused`` (the shipped DCN against the fused one) and
+   ``tools/exp_deform_fused`` (the DCN kernel's two rounding modes) and
    ``tools/probe_shift`` (every token-shift mode OK);
 8. runs the tiny config on the GPU and on the CPU (plain versions) with the
    same weights and holds the decoded results against each other.
@@ -81,6 +86,25 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device ms of one ``fn()``: a CUDA graph of ``iters`` calls, replayed."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -195,19 +219,22 @@ def attn_f64_errors(args, got, want):
     return ((got.double() - ref).abs().max().item(), (want.double() - ref).abs().max().item())
 
 
-def packed_call(name, args):
-    """A call of fused_attn / fused_mlp on ``args`` through weights packed
-    once, as the model's blocks make it; the raw-weight call for the rest."""
-    from otpose_tpu_torch.ops.cuda import fused_attn, fused_mlp
+def packed_call(name, kern, args):
+    """A call of ``kern`` on ``args`` through weights packed once, as the
+    model makes them (the DCN's pack serves both of its modes)."""
+    from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
 
     x, dtype = args[0], args[0].dtype
+    if name in ("deform_conv", "deform_conv_fused"):
+        pk = deform_conv.pack_dcn_weights(args[3], args[4])
+        return lambda: kern(*args[:3], dilations=args[5], packed=pk)
     if name == "fused_mlp":
         pk = fused_mlp.pack_mlp_weights(*args[1:], dtype)
         return lambda: fused_mlp.fused_mlp_residual_ct(x, packed=pk)
     if name == "fused_attn":
         pk = fused_attn.pack_attn_weights(*args[1:-1], dtype)
         return lambda: fused_attn.fused_attn_ct(x, packed=pk, n_head=args[-1])
-    return None
+    return lambda: kern(*args)
 
 
 def check_kernels():
@@ -228,7 +255,7 @@ def check_kernels():
                         "otpose_tpu/ops/deform_conv.py:276"),
         "deform_conv_fused": (deform_conv_fused.deform_conv_fused,
                               deform_conv_fused.deform_conv_fused_plain,
-                              "otpose_tpu_torch/csrc/deform_conv_fused.cu",
+                              "otpose_tpu_torch/csrc/deform_conv.cu",
                               "tools/exp_deform_pallas3.py:50"),
     }
     # tolerance on max|kernel - plain| as a share of max(1, max|plain|).
@@ -239,7 +266,7 @@ def check_kernels():
     # boundary, the tolerance of the JAX package's bf16 kernel tests.
     tol = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, shares = {}, {}
+    rows, shares, dcn_ms, dcn_graph_ms = {}, {}, {}, {}
     for name, (kern, plain, src, replaces) in kernels.items():
         for dtype in (torch.float32, torch.bfloat16):
             # the eval's batch first (the timed case), then the inference API's
@@ -281,47 +308,76 @@ def check_kernels():
                     if name == "fused_mlp" and not share <= 0.05:
                         fail("fused_mlp bf16 does not round as its plain version does")
                 if name == "deform_conv_fused" and dtype == torch.float32:
-                    # in f32 the fused-sampling DCN computes the DCN's function
+                    # in f32 the two modes of the DCN kernel are one function
                     shipped = deform_conv.modulated_deform_conv_multi(*args)
                     d_err = (got - shipped).abs().max().item()
-                    log(f"check deform_conv_fused float32 against the deform_conv kernel: "
+                    log(f"check deform_conv_fused float32 against the exact mode: "
                         f"{d_err:.3e} (tolerance 1e-03 x {scale:.3g})")
                     if not d_err <= 1e-3 * scale:
-                        fail("deform_conv_fused f32 disagrees with the deform_conv kernel")
+                        fail("deform_conv_fused f32 disagrees with the exact mode")
+                if name == "deform_conv" and dtype == torch.bfloat16:
+                    # the exact mode rounds once, as its plain version does:
+                    # only summation-order flips may remain
+                    share = (got != want).float().mean().item()
+                    shares.setdefault(name, {})[f"{shape}"] = share
+                    log(f"check deform_conv bfloat16 rounding x{shape}: outputs "
+                        f"that differ from the plain version: {share:.4%} (limit 5%)")
+                    if not share <= 0.05:
+                        fail("deform_conv bf16 does not round as its plain version does")
                 if name == "deform_conv_fused" and dtype == torch.bfloat16:
                     # bf16 outputs a rounding apart differ by one ulp, inside
                     # the tolerance above whatever the rounding points, so
-                    # count the outputs that differ: the kernel rounds where
-                    # its plain version does, the DCN's kernel does not
+                    # count the outputs that differ: this mode rounds where
+                    # its plain version does, the exact mode does not
                     shipped = deform_conv.modulated_deform_conv_multi(*args)
                     own = (got != want).float().mean().item()
                     other = (shipped != want).float().mean().item()
-                    log(f"check deform_conv_fused bfloat16 rounding: outputs that differ from "
-                        f"the plain version: kernel {own:.4%}, deform_conv kernel {other:.4%} "
-                        "(kernel must stay below a tenth of the other)")
+                    shares.setdefault(name, {})[f"{shape}"] = own
+                    log(f"check deform_conv_fused bfloat16 rounding x{shape}: "
+                        f"outputs that differ from the plain version: kernel {own:.4%}, exact "
+                        f"mode {other:.4%} (kernel must stay below a tenth of the other)")
                     if not own < 0.1 * other:
                         fail("deform_conv_fused bf16 does not round as its plain version does")
-                if i == 0:
-                    call = packed_call(name, args) or (lambda: kern(*args))
-                    if name == "fused_mlp" and not torch.equal(call(), got):
-                        fail(f"fused_mlp {dtype}: the packed-weight call differs from the "
+                # time the eval's case, and the DCN's inference case too
+                dcn = name in ("deform_conv", "deform_conv_fused")
+                if i == 0 or (dcn and i == len(cases) - 1):
+                    call = packed_call(name, kern, args)
+                    if name in ("fused_mlp", "deform_conv") and not torch.equal(call(), got):
+                        fail(f"{name} {dtype}: the packed-weight call differs from the "
                              "raw-weight call")
                     ms = time_ms(call, iters=20)
+                    # the DCN by graph replay too: at B = 1 eager calls time
+                    # the wrapper's host work as well as the kernel
+                    gms = graph_ms(call) if dcn else None
                     plain_ms = time_ms(lambda: plain(*args), iters=3)
                     moved, ops, peak = work(name, args)
                     t_bytes, t_ops = moved / PEAK_BYTES * 1e3, ops / peak * 1e3
-                    log(f"time {name} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-                        f" bound {max(t_bytes, t_ops):.4f} ms ({moved / 1e6:.1f} MB,"
-                        f" {ops / 1e9:.2f} GFLOP)")
-                    if dtype == torch.bfloat16:
+                    bound = max(t_bytes, t_ops)
+                    log(f"time {name} {str(dtype)[6:]} B={shape[0]}: kernel {ms:.4f} ms"
+                        + (f" (graph replay {gms:.4f} ms)" if dcn else "")
+                        + f", plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({moved / 1e6:.1f} MB,"
+                        f" {ops / 1e9:.2f} GFLOP; {bound / ms:.1%} of it)")
+                    if dtype == torch.bfloat16 and i == 0:
                         rows[name] = dict(
                             name=name, route="cuda", source=src, replaces=replaces,
                             launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=max(t_bytes, t_ops),
-                            bound_by="bytes" if t_bytes >= t_ops else "operations",
+                            bound_ms=bound, bound_by="bytes" if t_bytes >= t_ops else "operations",
                             library_ms=None)
+                        if dcn:
+                            rows[name]["graph_ms"] = gms
+                    elif dtype == torch.bfloat16:
+                        rows[name].update(ms_b1=ms, plain_ms_b1=plain_ms, bound_ms_b1=bound)
+                        if dcn:
+                            rows[name]["graph_ms_b1"] = gms
+                    if dcn:
+                        case = f"{str(dtype)[6:]} B={shape[0]}"
+                        dcn_ms.setdefault(name, {})[case] = ms
+                        dcn_graph_ms.setdefault(name, {})[case] = gms
     for name, by_shape in shares.items():
         rows[name]["bf16_differ_share"] = by_shape
+    for name, by_case in dcn_ms.items():
+        rows[name]["ms_by_case"] = by_case
+        rows[name]["graph_ms_by_case"] = dcn_graph_ms[name]
     return rows
 
 
@@ -387,9 +443,9 @@ def read_counts():
 
 
 def read_packs():
-    """Weight packs made so far by the two kernels whose weights are packed."""
+    """Weight packs made so far by the kernels whose weights are packed."""
     mods = _kernel_modules()
-    return {name: mods[name].packs for name in ("fused_attn", "fused_mlp")}
+    return {name: mods[name].packs for name in ("fused_attn", "fused_mlp", "deform_conv")}
 
 
 def flagship_eval():
@@ -541,7 +597,7 @@ def tools():
                                   out=lambda s: log(f"exp_deform_fused: {s}"))
     exp_counts = read_counts()
     if not result["maxdiff"] <= 5e-2 * max(1.0, result["scale"]):
-        fail("exp_deform_fused: the two kernels disagree")
+        fail("exp_deform_fused: the DCN kernel's two modes disagree")
     reset_counts()
     ok = probe_shift.probe(out=lambda s: log(f"probe_shift: {s}"))
     probe_counts = read_counts()

@@ -101,15 +101,15 @@ def _affine(scale_mod, x):
     return x if scale_mod is None else scale_mod(x)
 
 
-def _cached_pack(block: TransformerBlock, slot: str, params, dtype, make):
-    """``make()``, cached on ``block`` under ``slot`` until one of ``params``
+def cached_pack(owner: nn.Module, slot: str, params, dtype, make):
+    """``make()``, cached on ``owner`` under ``slot`` until one of ``params``
     changes storage, version or dtype (an in-place update,
     ``prepare_eval_params``, ``.to()``) or ``dtype`` changes."""
     key = (dtype, params[0].device) + tuple((p.data_ptr(), p._version, p.dtype) for p in params)
-    hit = getattr(block, slot, None)
+    hit = getattr(owner, slot, None)
     if hit is None or hit[0] != key:
         hit = (key, make())
-        setattr(block, slot, hit)
+        setattr(owner, slot, hit)
     return hit[1]
 
 
@@ -122,8 +122,8 @@ def attn_pack(block: TransformerBlock, dtype):
               a.value_norm.weight, a.value_norm.bias,
               a.query.weight, a.query.bias, a.key.weight, a.key.bias,
               a.value.weight, a.value.bias)
-    return _cached_pack(block, "_attn_pack", params, dtype,
-                        lambda: pack_attn_weights(*params, dtype))
+    return cached_pack(block, "_attn_pack", params, dtype,
+                       lambda: pack_attn_weights(*params, dtype))
 
 
 def mlp_pack(block: TransformerBlock, dtype):
@@ -133,8 +133,8 @@ def mlp_pack(block: TransformerBlock, dtype):
     params = (block.ln2.weight, block.ln2.bias, block.mlp["0"].weight, block.mlp["0"].bias,
               block.mlp["3"].weight, block.mlp["3"].bias)
     scale = None if block.drop_path_mlp is None else block.drop_path_mlp.scale
-    return _cached_pack(block, "_mlp_pack", params + ((scale,) if scale is not None else ()),
-                        dtype, lambda: pack_mlp_weights(*params, dtype, scale=scale))
+    return cached_pack(block, "_mlp_pack", params + ((scale,) if scale is not None else ()),
+                       dtype, lambda: pack_mlp_weights(*params, dtype, scale=scale))
 
 
 def fused_attn_block_ct(block: TransformerBlock, x):

@@ -10,7 +10,7 @@ ref: model/OTPose.py:180-503.  Forward (ref: 307-394):
   5. two 8-feature 136-channel stacks -> temporal encoders -> final 1x1 convs
   6. def_fuse RSB on total_b; offset_mask_combine RSB on [branches, fused];
      per-dilation offset/mask convs + the multi-dilation modulated
-     deformable conv kernel
+     deformable conv kernel, its weights packed once (``dcn_pack``)
 
 Internally NCHW; the public layouts are the JAX package's: the clip is NHWC
 and the 7-tuple is NHWC.
@@ -25,12 +25,13 @@ import torch
 from torch import nn
 
 from otpose_tpu_torch.models import core
+from otpose_tpu_torch.models.blocks import cached_pack
 from otpose_tpu_torch.models.conv_transformer import ConvTransformer, ConvTransformerSpec
 from otpose_tpu_torch.models.core import Conv1d, Conv2d
 from otpose_tpu_torch.models.hrnet import HRNet, HRNetSpec
 from otpose_tpu_torch.models.jax_bridge import is_channel_param
 from otpose_tpu_torch.models.rsb import RSBChain
-from otpose_tpu_torch.ops.cuda.deform_conv import modulated_deform_conv_multi
+from otpose_tpu_torch.ops.cuda.deform_conv import modulated_deform_conv_multi, pack_dcn_weights
 
 
 def _check_aggregation(kind: str) -> str:
@@ -138,6 +139,28 @@ class OTPose(nn.Module):
         return otpose_forward(self, x, margin, compute_dtype=compute_dtype, fused=fused)
 
 
+def dcn_pack(model: OTPose):
+    """The refinement's DCN weights and biases packed for the kernel
+    (``pack_dcn_weights``), cached on ``model.modulated_deform_conv_list``
+    until a parameter changes storage, version, dtype or device."""
+    dcn = [m["deform_conv"] for m in model.modulated_deform_conv_list]
+    params = tuple(p for m in dcn for p in (m.weight, m.bias))
+    return cached_pack(model.modulated_deform_conv_list, "_dcn_pack", params, torch.float32,
+                       lambda: pack_dcn_weights(torch.stack([m.weight for m in dcn]),
+                                                torch.stack([m.bias for m in dcn])))
+
+
+def dcn_weights(model: OTPose):
+    """(weights, biases, packed) for the DCN wrapper: the cached pack, or,
+    where autograd would differentiate a DCN parameter, the raw stacked
+    weights and biases (a pack is made without grad; on the CPU the
+    wrapper's plain version differentiates the raw ones)."""
+    dcn = [m["deform_conv"] for m in model.modulated_deform_conv_list]
+    if torch.is_grad_enabled() and any(p.requires_grad for m in dcn for p in (m.weight, m.bias)):
+        return torch.stack([m.weight for m in dcn]), torch.stack([m.bias for m in dcn]), None
+    return None, None, dcn_pack(model)
+
+
 def _tokens_to_map(feats, h: int, w: int):
     """Stack encoder outputs [(B, C, T)] scale-major -> (B, n*C, H, W)."""
     b = feats[0].shape[0]
@@ -218,11 +241,9 @@ def otpose_forward(model: OTPose, x, margin, compute_dtype=torch.float32,
     trans = model.offset_mask_combine_conv(torch.cat([branches, def_heatmaps], dim=1))
     offsets = [m["0"](trans).contiguous() for m in model.offsets_list]
     masks = [m["0"](trans).contiguous() for m in model.masks_list]
-    dcn = [m["deform_conv"] for m in model.modulated_deform_conv_list]
-    output = modulated_deform_conv_multi(
-        def_heatmaps.contiguous(), offsets, masks,
-        torch.stack([m.weight for m in dcn]), torch.stack([m.bias for m in dcn]),
-        spec.dilations).float()
+    weights, biases, packed = dcn_weights(model)
+    output = modulated_deform_conv_multi(def_heatmaps.contiguous(), offsets, masks, weights,
+                                         biases, spec.dilations, packed=packed).float()
     nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
     return tuple(nhwc(t) for t in (output, rough, intersection, prev_b,
                                    context_encoding, squeezed, total_b))

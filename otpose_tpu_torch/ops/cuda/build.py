@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("fused_attn", "fused_mlp", "deform_conv", "deform_conv_fused", "token_shift")
+KERNELS = ("fused_attn", "fused_mlp", "deform_conv", "token_shift")
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "otpose_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -9,29 +9,82 @@ refinement, ref: model/OTPose.py:381-394).  Layouts are NCHW: offsets
 bilinear weights and sums are f32 whatever the input dtype; the result is
 rounded once to ``x.dtype``.
 
-On a CUDA tensor it launches ``csrc/deform_conv.cu``; on a CPU tensor it runs
-``modulated_deform_conv_multi_plain``, the same function in plain PyTorch.
+On a CUDA tensor it launches ``csrc/deform_conv.cu`` in its exact mode; on a
+CPU tensor it runs ``modulated_deform_conv_multi_plain``, the same function
+in plain PyTorch.  The same kernel, in its other mode, serves
+``deform_conv_fused.deform_conv_fused`` through ``launch``.
+
+``pack_dcn_weights`` puts the weights in the kernel's layout once
+(``models/otpose.py::dcn_pack`` caches the result on the model); the
+wrappers take either the raw weights, which they pack on every call, or
+such a pack.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from otpose_tpu_torch.ops.cuda import build
 
-# wrapper calls (either path) and kernel launches (CUDA path only)
+# wrapper calls (either path), kernel launches (CUDA path only) and packs made
 calls = 0
 launches = 0
+packs = 0
 
-_SMEM_LIMIT = 232448   # bytes of shared memory one H100 block may use
+EXACT, PALLAS3 = 0, 1          # the kernel's rounding modes
+OUTPUT_PADS = (8, 20, 32)      # O is zero-padded to the first of these that holds it
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "otp_deform_multi": (_I, [_P, ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I),
-                              _P, _P, _P] + [_I] * 7 + [_P]),
+    "otp_deform": (_I, [_P, ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I),
+                        _P, _P, _P, _P] + [_I] * 11 + [_P]),
     "otp_deform_max_groups": (_I, []),
+    "otp_deform_tile": (_I, [_I]),
 }
+
+
+@dataclass(frozen=True)
+class DcnPack:
+    """The DCN weights in the kernel's layout: ``w`` (D, C, 9, OP) f32 with
+    row c * 9 + k the weights of group c, tap k = 3 * ky + kx (the mask
+    channel order), zero past O; ``bias`` (OP,) f32, the mean over D of the
+    biases, zero past O."""
+    d: int
+    c: int
+    o: int
+    w: torch.Tensor
+    bias: torch.Tensor
+
+
+@torch.no_grad()
+def pack_dcn_weights(weights, biases, device=None) -> DcnPack:
+    """Weights (D, O, C, 3, 3) and biases (D, O) in the kernel's layout."""
+    global packs
+    d, o, c = weights.shape[:3]
+    if tuple(weights.shape) != (d, o, c, 3, 3) or tuple(biases.shape) != (d, o):
+        raise ValueError("deform conv: weights must be (D, O, C, 3, 3) and biases (D, O)")
+    if o > OUTPUT_PADS[-1]:
+        raise ValueError(f"deform conv: O={o} is above the kernel's {OUTPUT_PADS[-1]}")
+    op = next(p for p in OUTPUT_PADS if p >= o)
+    device = weights.device if device is None else device
+    w = torch.zeros(d, c, 9, op, device=device)
+    w[..., :o] = weights.to(device=device, dtype=torch.float32).permute(0, 2, 3, 4, 1).reshape(
+        d, c, 9, o)
+    bias = torch.zeros(op, device=device)
+    bias[:o] = biases.to(device=device, dtype=torch.float32).mean(0)
+    packs += 1
+    return DcnPack(d, c, o, w, bias)
+
+
+def unpack(pk: DcnPack):
+    """(weights (D, O, C, 3, 3), biases (1, O)) with the pack's values: the
+    plain versions' arguments (the mean over one row of biases is the row)."""
+    w = pk.w[..., :pk.o].reshape(pk.d, pk.c, 3, 3, pk.o).permute(0, 4, 1, 2, 3)
+    return w, pk.bias[None, :pk.o]
 
 
 def _bilinear(xf, sy, sx, h: int, w: int):
@@ -73,14 +126,20 @@ def modulated_deform_conv_multi_plain(x, offsets_list, masks_list, weights,
     return out.reshape(b, -1, h, w).to(x.dtype)
 
 
-def check_args(what: str, x, offsets_list, masks_list, weights, biases, dilations):
-    """Raise unless the arguments have the layouts above, all maps contiguous
-    and in x's dtype and device; returns (B, C, O, H, W, D)."""
+def plain_args(weights, biases, packed):
+    """The raw weights and biases a plain version takes: as given, or
+    unpacked from ``packed``."""
+    return (weights, biases) if packed is None else unpack(packed)
+
+
+def _check_maps(what: str, x, offsets_list, masks_list, pk: DcnPack, dilations):
+    """Raise unless the maps have the layouts above, all contiguous and in
+    x's dtype and device, and match the pack's D and C."""
     b, c, h, w = x.shape
     d = len(dilations)
-    o = weights.shape[1]
-    if tuple(weights.shape) != (d, o, c, 3, 3) or tuple(biases.shape) != (d, o):
-        raise ValueError(f"{what}: weights must be (D, O, C, 3, 3) and biases (D, O)")
+    if (pk.d, pk.c) != (d, c) or pk.w.device != x.device:
+        raise ValueError(f"{what}: weights packed for D={pk.d}, C={pk.c} on {pk.w.device}; "
+                         f"the call has D={d}, C={c} on {x.device}")
     if len(offsets_list) != d or len(masks_list) != d:
         raise ValueError(f"{what}: one offset and mask map per dilation")
     for t, ch in [(x, c)] + [(t, 18 * c) for t in offsets_list] + [(t, 9 * c) for t in masks_list]:
@@ -88,35 +147,72 @@ def check_args(what: str, x, offsets_list, masks_list, weights, biases, dilation
                 or tuple(t.shape) != (b, ch, h, w)):
             raise ValueError(f"{what}: inputs must be contiguous NCHW tensors of x's dtype "
                              f"and device; got {tuple(t.shape)}")
-    return b, c, o, h, w, d
 
 
-def modulated_deform_conv_multi(x, offsets_list, masks_list, weights, biases,
-                                dilations) -> torch.Tensor:
-    """x: (B, C, H, W) -> (B, O, H, W); see the module docstring."""
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def stage_split(b: int, tiles: int, sms: int, stages: int) -> int:
+    """Blocks over which each of the ``b * tiles`` (item, pixel tile) blocks'
+    ``stages`` (channel, dilation) stages are split: 1 when those blocks
+    give every SM one, else enough for two a SM (B = 1 at the flagship
+    shape on 132 SMs: 14 tiles, 19 blocks a tile), at most one a stage."""
+    return 1 if tiles * b >= sms else min(stages, -(-2 * sms // (tiles * b)))
+
+
+def launch(mode: int, what: str, x, offsets_list, masks_list, weights, biases, dilations,
+           packed: DcnPack | None) -> torch.Tensor:
+    """Run ``csrc/deform_conv.cu`` in ``mode`` (EXACT or PALLAS3) on CUDA
+    tensors; raises on what the kernel does not take.  When B x tiles leaves
+    SMs without a block (B = 1), the (channel, dilation) stages are split
+    (``stage_split``); the blocks write f32 partial sums, which a second
+    kernel adds in a fixed order."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    code = build.dtype_code(x.dtype)
+    if packed is None:
+        packed = pack_dcn_weights(weights, biases, device=x.device)
+    _check_maps(what, x, offsets_list, masks_list, packed, dilations)
+    lib = build.load("deform_conv", _SIGNATURES)
+    b, c, h, w = x.shape
+    d, o, op = packed.d, packed.o, packed.w.shape[-1]
+    if d > lib.otp_deform_max_groups():
+        raise ValueError(f"{what}: D={d} is above the kernel's {lib.otp_deform_max_groups()}")
+    tiles = -(-h * w // lib.otp_deform_tile(code))
+    sms = _sm_count(x.device.index if x.device.index is not None
+                    else torch.cuda.current_device())
+    split = stage_split(b, tiles, sms, c * d)
+    # 16-byte copies of the offset and mask rows and of the x plane's image
+    # rows need 16-byte aligned rows
+    maps = [x, *offsets_list, *masks_list]
+    wide = (w * x.element_size()) % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in maps)
+    out = torch.empty(b, o, h, w, device=x.device, dtype=x.dtype)
+    partial = (torch.empty(split, b, o, h * w, device=x.device, dtype=torch.float32)
+               if split > 1 else None)
+    offs = (ctypes.c_void_p * d)(*[t.data_ptr() for t in offsets_list])
+    msks = (ctypes.c_void_p * d)(*[t.data_ptr() for t in masks_list])
+    dils = (ctypes.c_int * d)(*[int(v) for v in dilations])
+    err = lib.otp_deform(
+        x.data_ptr(), offs, msks, dils, packed.w.data_ptr(), packed.bias.data_ptr(),
+        out.data_ptr(), None if partial is None else partial.data_ptr(),
+        b, c, o, op, h, w, d, split, mode, int(wide), code,
+        build.stream_ptr(x.device))
+    build.check(lib, err, what)
+    return out
+
+
+def modulated_deform_conv_multi(x, offsets_list, masks_list, weights=None, biases=None,
+                                dilations=(), *, packed: DcnPack | None = None) -> torch.Tensor:
+    """x: (B, C, H, W) -> (B, O, H, W); see the module docstring.  Or, in
+    place of ``weights`` and ``biases``, ``packed`` from ``pack_dcn_weights``."""
     global calls, launches
     calls += 1
     if x.device.type == "cpu":
         return modulated_deform_conv_multi_plain(x, offsets_list, masks_list,
-                                                 weights, biases, dilations)
-    if x.device.type != "cuda":
-        raise ValueError(f"modulated_deform_conv_multi: unsupported device {x.device}")
-    b, c, o, h, w, d = check_args("modulated_deform_conv_multi", x, offsets_list, masks_list,
-                                  weights, biases, dilations)
-    code = build.dtype_code(x.dtype)
-    lib = build.load("deform_conv", _SIGNATURES)
-    if d > lib.otp_deform_max_groups() or o > 32 or 4 * d * 9 * c * o > _SMEM_LIMIT:
-        raise ValueError(f"modulated_deform_conv_multi: D={d}, C={c}, O={o} is "
-                         "beyond the kernel's limits")
-    wk = weights.float().permute(0, 3, 4, 2, 1).contiguous()     # (D, 3, 3, C, O)
-    bias_mean = biases.float().mean(0).contiguous()
-    out = torch.empty(b, o, h, w, device=x.device, dtype=x.dtype)
-    offs = (ctypes.c_void_p * d)(*[t.data_ptr() for t in offsets_list])
-    msks = (ctypes.c_void_p * d)(*[t.data_ptr() for t in masks_list])
-    dils = (ctypes.c_int * d)(*[int(v) for v in dilations])
-    err = lib.otp_deform_multi(
-        x.data_ptr(), offs, msks, dils, wk.data_ptr(), bias_mean.data_ptr(),
-        out.data_ptr(), b, c, o, h, w, d, code, build.stream_ptr(x.device))
-    build.check(lib, err, "modulated_deform_conv_multi")
+                                                 *plain_args(weights, biases, packed), dilations)
+    out = launch(EXACT, "modulated_deform_conv_multi", x, offsets_list, masks_list, weights,
+                 biases, dilations, packed)
     launches += 1
     return out

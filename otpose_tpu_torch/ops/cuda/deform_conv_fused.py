@@ -10,32 +10,20 @@ multiplied by its mask in the compute dtype and rounded again, and the
 weight contraction is f32 with f32 weights.  In f32 it equals
 ``modulated_deform_conv_multi``.
 
-On a CUDA tensor it launches ``csrc/deform_conv_fused.cu``; on a CPU tensor
-it runs ``deform_conv_fused_plain``, the same function in plain PyTorch.
+On a CUDA tensor it launches ``csrc/deform_conv.cu``, the model's DCN kernel,
+in its make_pallas3 rounding mode; on a CPU tensor it runs
+``deform_conv_fused_plain``, the same function in plain PyTorch.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from otpose_tpu_torch.ops.cuda import build
-from otpose_tpu_torch.ops.cuda.deform_conv import check_args
+from otpose_tpu_torch.ops.cuda.deform_conv import PALLAS3, DcnPack, launch, plain_args
 
 # wrapper calls (either path) and kernel launches (CUDA path only)
 calls = 0
 launches = 0
-
-_SMEM_LIMIT = 232448   # bytes of shared memory one H100 block may use
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    "otp_deform_fused": (_I, [_P, ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I),
-                              _P, _P, _P] + [_I] * 7 + [_P]),
-    "otp_deform_fused_max_groups": (_I, []),
-    "otp_deform_fused_max_outputs": (_I, []),
-    "otp_deform_fused_tile": (_I, []),
-}
 
 
 def _tent_sample(xf, sy, sx, h: int, w: int, rnd):
@@ -84,35 +72,16 @@ def deform_conv_fused_plain(x, offsets_list, masks_list, weights, biases,
     return out.reshape(b, -1, h, w).to(cd)
 
 
-def deform_conv_fused(x, offsets_list, masks_list, weights, biases,
-                      dilations) -> torch.Tensor:
+def deform_conv_fused(x, offsets_list, masks_list, weights=None, biases=None, dilations=(), *,
+                      packed: DcnPack | None = None) -> torch.Tensor:
     """x: (B, C, H, W) -> (B, O, H, W); the arguments of
     ``deform_conv.modulated_deform_conv_multi``."""
     global calls, launches
     calls += 1
     if x.device.type == "cpu":
-        return deform_conv_fused_plain(x, offsets_list, masks_list, weights, biases, dilations)
-    if x.device.type != "cuda":
-        raise ValueError(f"deform_conv_fused: unsupported device {x.device}")
-    b, c, o, h, w, d = check_args("deform_conv_fused", x, offsets_list, masks_list,
-                                  weights, biases, dilations)
-    code = build.dtype_code(x.dtype)
-    lib = build.load("deform_conv_fused", _SIGNATURES)
-    smem = 4 * 9 * c * (lib.otp_deform_fused_tile() + o)
-    if (d > lib.otp_deform_fused_max_groups() or o > lib.otp_deform_fused_max_outputs()
-            or smem > _SMEM_LIMIT):
-        raise ValueError(f"deform_conv_fused: D={d}, C={c}, O={o} is beyond the "
-                         "kernel's limits")
-    # (D, O, C, 3, 3) -> (D, C, 9, O): row i = c * 9 + k, as the mask channels
-    wk = weights.float().permute(0, 2, 3, 4, 1).contiguous()
-    bias_mean = biases.float().mean(0).contiguous()
-    out = torch.empty(b, o, h, w, device=x.device, dtype=x.dtype)
-    offs = (ctypes.c_void_p * d)(*[t.data_ptr() for t in offsets_list])
-    msks = (ctypes.c_void_p * d)(*[t.data_ptr() for t in masks_list])
-    dils = (ctypes.c_int * d)(*[int(v) for v in dilations])
-    err = lib.otp_deform_fused(
-        x.data_ptr(), offs, msks, dils, wk.data_ptr(), bias_mean.data_ptr(),
-        out.data_ptr(), b, c, o, h, w, d, code, build.stream_ptr(x.device))
-    build.check(lib, err, "deform_conv_fused")
+        return deform_conv_fused_plain(x, offsets_list, masks_list,
+                                       *plain_args(weights, biases, packed), dilations)
+    out = launch(PALLAS3, "deform_conv_fused", x, offsets_list, masks_list, weights, biases,
+                 dilations, packed)
     launches += 1
     return out

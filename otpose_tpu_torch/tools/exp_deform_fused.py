@@ -1,13 +1,15 @@
-"""Shipped DCN kernel against the fused-sampling one, at the flagship shape.
+"""Shipped DCN against the fused-sampling one, at the flagship shape.
 
     python -m otpose_tpu_torch.tools.exp_deform_fused [--batch 16] [--iters 20]
     python -m otpose_tpu_torch.tools.exp_deform_fused --check --device cpu --batch 1
 
 The counterpart of ``tools/exp_deform_pallas3.py``.  On random inputs from a
 seed (B x 17 groups at 96x72, dilations 3, 6, 9, 12, 15) it runs
-``ops/cuda/deform_conv.py`` (the kernel the model ships) and
-``ops/cuda/deform_conv_fused.py`` (block-staged samples, then the weight
-contraction), prints their max difference against the output's scale and
+``ops/cuda/deform_conv.py`` (the model's DCN) and
+``ops/cuda/deform_conv_fused.py`` (make_pallas3's rounding points).  Both
+launch one kernel, ``csrc/deform_conv.cu``, in its two rounding modes, so the
+times compare the two sample functions on one pipeline.  It prints their max
+difference against the output's scale and
 then, for 4 rounds, ``round r: shipped ... ms  fused ... ms`` from CUDA
 events, in bf16.  ``--check`` compares only, in f32, and fails if the two
 differ by more than 5e-4 of the scale; with ``--device cpu`` it compares the

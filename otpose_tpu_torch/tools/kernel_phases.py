@@ -1,15 +1,18 @@
-"""Where the time of the two bf16 fused kernels goes, phase by phase.
+"""Where the time of the bf16 fused kernels and the DCN goes, phase by phase.
 
     python -m otpose_tpu_torch.tools.kernel_phases [--batch 16 1]
 
-Builds ``csrc/fused_attn.cu`` and ``csrc/fused_mlp.cu`` a second time with
-``-DOTP_PHASE_CLOCK`` (thread 0 of every block adds the ``clock64()`` cycles
-of each phase to a slot: ``csrc/common.cuh``), runs each at the flagship
-shapes (C = 136, two heads, T = 6912) on random bf16 inputs and prints each
-phase's share of the summed cycles, beside the kernel's time in the normal
-build (CUDA events, 20 launches).  The shares are of thread 0's time between
-barriers, so a phase includes its wait for the slowest warp.  Needs a CUDA
-device.
+Builds ``csrc/fused_attn.cu``, ``csrc/fused_mlp.cu`` and ``csrc/deform_conv.cu``
+a second time with ``-DOTP_PHASE_CLOCK`` (thread 0 of every block adds the
+``clock64()`` cycles of each phase to a slot: ``csrc/common.cuh``), runs each
+at the flagship shapes (C = 136, two heads, T = 6912; the DCN at 17 x 96 x 72
+with five dilations, in both rounding modes) on random bf16 inputs and prints
+each phase's share of the summed cycles, beside the kernel's time in the
+normal build (CUDA events, 20 launches).  The shares are of thread 0's time
+between barriers, so a phase includes its wait for the slowest warp; the
+DCN's sampling phase can end before its last loads return, so the
+contraction includes that wait, and its B = 1 reduction is a second kernel.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ ATTN_PHASES = ("chunk load", "ln1", "conv + LN (x3)", "projection (x3)",
                "epilogue + v store (x3)", "scores")
 MLP_PHASES = ("x load", "LN", "tile wait", "product 1", "GELU", "product 2",
               "epilogue + store")
+DCN_PHASES = ("stage wait", "sampling", "contraction", "B = 1 reduction")
 
 
 def _inputs(batch: int, gen):
@@ -82,13 +86,32 @@ def phases(name: str, module, call, names) -> dict:
             "shares": {n: slots[i] / total for i, n in enumerate(names)}}
 
 
+def dcn_calls(batch: int, gen) -> dict:
+    """{mode: call} of the DCN kernel in its two modes on random bf16 inputs
+    at the flagship shape (B x 17 x 96 x 72, offsets N(0, 4), five
+    dilations), weights packed."""
+    from otpose_tpu_torch.ops.cuda import deform_conv, deform_conv_fused
+
+    c, h, w, dil = 17, 96, 72, (3, 6, 9, 12, 15)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device="cuda") * scale  # noqa: E731
+    x = r(batch, c, h, w).to(torch.bfloat16)
+    offs = [r(batch, 18 * c, h, w, scale=2.0).to(torch.bfloat16) for _ in dil]
+    masks = [r(batch, 9 * c, h, w).to(torch.bfloat16) for _ in dil]
+    pk = deform_conv.pack_dcn_weights(r(len(dil), c, c, 3, 3, scale=1 / math.sqrt(9 * c)),
+                                      r(len(dil), c, scale=0.1))
+    return {"exact": lambda: deform_conv.modulated_deform_conv_multi(
+                x, offs, masks, dilations=dil, packed=pk),
+            "make_pallas3": lambda: deform_conv_fused.deform_conv_fused(
+                x, offs, masks, dilations=dil, packed=pk)}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[16, 1])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("kernel_phases: needs a CUDA device")
-    from otpose_tpu_torch.ops.cuda import fused_attn, fused_mlp
+    from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -107,6 +130,11 @@ def main(argv=None) -> None:
             res = phases(name, module, call, names)
             shares = ", ".join(f"{n} {s:.1%}" for n, s in res["shares"].items())
             print(f"{name} bf16 B={batch}: {res['ms']:.4f} ms; {shares} "
+                  f"({res['cycles']} cycles over all blocks)", flush=True)
+        for mode, call in dcn_calls(batch, gen).items():
+            res = phases("deform_conv", deform_conv, call, DCN_PHASES)
+            shares = ", ".join(f"{n} {s:.1%}" for n, s in res["shares"].items())
+            print(f"deform_conv {mode} bf16 B={batch}: {res['ms']:.4f} ms; {shares} "
                   f"({res['cycles']} cycles over all blocks)", flush=True)
 
 

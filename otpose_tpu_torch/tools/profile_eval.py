@@ -24,7 +24,7 @@ import torch
 CATEGORIES = (
     ("fused_attn", ("qkv_scores", "softmax_kernel", "att_v_")),   # f32 and bf16 (_tc) kernels
     ("fused_mlp", ("fused_mlp_",)),
-    ("deform_conv", ("deform_multi_kernel",)),
+    ("deform_conv", ("deform_staged_kernel", "deform_reduce_kernel")),
     ("convolution", ("conv", "cudnn", "implicit_gemm", "wgrad", "dgrad", "xmma_fprop",
                      "nchwToNhwc", "nhwcToNchw")),
     ("matmul", ("gemm", "cutlass", "cublas", "sm90_xmma", "splitKreduce")),

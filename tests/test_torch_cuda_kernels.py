@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small and ragged shapes the flagship path does not reach (tails of the T
-tiles, T shorter than a tile, other widths, head counts and dilation counts).
+tiles, T shorter than a tile, other widths, head counts and dilation counts;
+for the DCN both rounding modes of its one kernel, both copy paths, both
+gather paths, and the split-stage path of the flagship at B = 1).
 
 Needs a CUDA device and nvcc; skips elsewhere.  On a machine with the card
 (which need not have JAX), run without the repository's conftest:
@@ -13,8 +15,8 @@ import math
 import pytest
 import torch
 
-from otpose_tpu_torch.ops.cuda import (deform_conv, deform_conv_fused, fused_attn, fused_mlp,
-                                       token_shift)
+from otpose_tpu_torch.ops.cuda import (build, deform_conv, deform_conv_fused, fused_attn,
+                                       fused_mlp, token_shift)
 
 pytestmark = pytest.mark.cuda
 
@@ -128,48 +130,140 @@ def test_packed_call_equals_raw_call(dtype):
         fused_attn.fused_attn_ct(args[0].to(other), packed=pk, n_head=2)
 
 
+# the DCN kernel's two rounding modes, each with its wrapper and plain version
+DCN_MODES = {
+    "exact": (deform_conv, deform_conv.modulated_deform_conv_multi,
+              deform_conv.modulated_deform_conv_multi_plain),
+    "pallas3": (deform_conv_fused, deform_conv_fused.deform_conv_fused,
+                deform_conv_fused.deform_conv_fused_plain),
+}
+
+
+def _dcn_args(b, c, o, h, w, dilations, dtype, seed, off_scale=3.0, wdtype=None):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device="cuda") * scale  # noqa: E731
+    x = r(b, c, h, w).to(dtype)
+    offs = [r(b, 18 * c, h, w, scale=off_scale).to(dtype) for _ in dilations]
+    masks = [r(b, 9 * c, h, w).to(dtype) for _ in dilations]
+    weights = r(len(dilations), o, c, 3, 3, scale=1 / math.sqrt(9 * c)).to(wdtype or dtype)
+    return (x, offs, masks, weights, r(len(dilations), o), dilations)
+
+
+def _dcn_check(mode, args, dtype):
+    module, kern, plain = DCN_MODES[mode]
+    launches = module.launches
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert module.launches == launches + 1
+    _close(got, plain(*args), dtype)
+    return got
+
+
+@pytest.mark.parametrize("mode", list(DCN_MODES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,c,o,h,w,dilations", [
     (2, 17, 17, 13, 11, (1,)),
     (1, 5, 3, 9, 7, (3, 6, 9, 12, 15, 18, 21, 24)),   # 8 dilations, few outputs
     (1, 4, 20, 10, 12, (2, 5)),                        # more outputs than inputs
 ])
-def test_deform_conv_matches_plain(b, c, o, h, w, dilations, dtype):
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device="cuda") * scale  # noqa: E731
-    x = r(b, c, h, w).to(dtype)
-    offs = [r(b, 18 * c, h, w, scale=3.0).to(dtype) for _ in dilations]
-    masks = [r(b, 9 * c, h, w).to(dtype) for _ in dilations]
-    weights = r(len(dilations), o, c, 3, 3, scale=1 / math.sqrt(9 * c)).to(dtype)
-    biases = r(len(dilations), o)
-    args = (x, offs, masks, weights, biases, dilations)
-    got = deform_conv.modulated_deform_conv_multi(*args)
-    torch.cuda.synchronize()
-    _close(got, deform_conv.modulated_deform_conv_multi_plain(*args), dtype)
+def test_deform_conv_matches_plain(mode, b, c, o, h, w, dilations, dtype):
+    _dcn_check(mode, _dcn_args(b, c, o, h, w, dilations, dtype, seed=2), dtype)
 
 
+@pytest.mark.parametrize("mode", list(DCN_MODES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,c,o,h,w,dilations", [
     (2, 17, 17, 13, 11, (1,)),                         # 143 pixels: a ragged last tile
     (1, 5, 3, 9, 7, (3, 6, 9, 12, 15, 18, 21, 24)),   # 8 dilations, few outputs
     (1, 4, 32, 10, 12, (2, 5)),                        # the most outputs a thread holds
 ])
-def test_deform_conv_fused_matches_plain(b, c, o, h, w, dilations, dtype):
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device="cuda") * scale  # noqa: E731
-    x = r(b, c, h, w).to(dtype)
-    offs = [r(b, 18 * c, h, w, scale=3.0).to(dtype) for _ in dilations]
-    masks = [r(b, 9 * c, h, w).to(dtype) for _ in dilations]
-    weights = r(len(dilations), o, c, 3, 3, scale=1 / math.sqrt(9 * c))
-    biases = r(len(dilations), o)
-    args = (x, offs, masks, weights, biases, dilations)
-    launches = deform_conv_fused.launches
-    got = deform_conv_fused.deform_conv_fused(*args)
+def test_deform_conv_fused_matches_plain(mode, b, c, o, h, w, dilations, dtype):
+    args = _dcn_args(b, c, o, h, w, dilations, dtype, seed=3, wdtype=torch.float32)
+    got = _dcn_check(mode, args, dtype)
+    if dtype == torch.float32:      # in f32 the two modes are one function
+        other = "exact" if mode == "pallas3" else "pallas3"
+        _close(got, DCN_MODES[other][1](*args), dtype)
+
+
+@pytest.mark.parametrize("mode", list(DCN_MODES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,o,h,w,dilations", [
+    (2, 3, 5, 13, 11, (1, 2, 3)),       # P = 143, not a multiple of 8: element copies
+    (1, 6, 9, 9, 7, (2,)),               # P = 63 < one tile, D = 1
+    (2, 3, 1, 10, 20, (1, 2, 3)),        # O = 1; 16-byte copies in f32 only
+    (2, 3, 5, 11, 24, (1, 2)),           # 16-byte copies in both dtypes, P < one tile
+    (1, 2, 32, 8, 16, (1, 2, 3, 4, 5, 6, 7, 8)),   # O = 32, D = 8
+    (1, 2, 3, 128, 128, (1, 2)),         # f32 x planes too large: gathers through L1
+    (1, 2, 3, 208, 208, (1, 2)),         # bf16 x planes too large too: L1 in both dtypes
+    (1, 17, 17, 96, 72, (3, 6, 9, 12, 15)),        # the flagship at B = 1: split stages
+])
+def test_deform_conv_shapes(mode, b, c, o, h, w, dilations, dtype):
+    _dcn_check(mode, _dcn_args(b, c, o, h, w, dilations, dtype, seed=4), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deform_conv_flagship_b1_takes_the_split_path(dtype):
+    """The wrapper's split on this card, from the kernel's tile: at B = 1 the
+    flagship's tiles leave SMs idle, so its 85 stages split (19 blocks a
+    tile on 132 SMs); at B = 16 they do not.  test_deform_conv_shapes holds
+    the split result at B = 1 against the plain version."""
+    lib = build.load("deform_conv", deform_conv._SIGNATURES)
+    tiles = -(-96 * 72 // lib.otp_deform_tile(build.dtype_code(dtype)))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert deform_conv.stage_split(1, tiles, sms, 85) > 1
+    assert deform_conv.stage_split(16, tiles, sms, 85) == 1
+    if sms == 132:
+        assert deform_conv.stage_split(1, tiles, sms, 85) == 19
+
+
+@pytest.mark.parametrize("mode", list(DCN_MODES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deform_conv_samples_outside_the_image(mode, dtype):
+    """Offsets that put every sample outside the image: the output is the
+    bias mean, as in the plain version."""
+    args = _dcn_args(2, 4, 6, 12, 16, (1, 3), dtype, seed=5)
+    x, offs, masks, weights, biases, dil = args
+    offs = [torch.where(torch.rand(t.shape, device="cuda") < 0.5, -500.0, 500.0).to(dtype)
+            for t in offs]
+    args = (x, offs, masks, weights, biases, dil)
+    got = _dcn_check(mode, args, dtype)
+    assert torch.equal(got, DCN_MODES[mode][2](*args))
+    assert torch.equal(got, biases.float().mean(0)[None, :, None, None].expand_as(got).to(dtype))
+
+
+@pytest.mark.parametrize("b,c,o,h,w,dilations", [
+    (1, 17, 17, 96, 72, (3, 6, 9, 12, 15)), (2, 3, 5, 13, 11, (1, 2, 3))])
+def test_deform_conv_modes_agree_in_f32(b, c, o, h, w, dilations):
+    args = _dcn_args(b, c, o, h, w, dilations, torch.float32, seed=6)
+    exact = deform_conv.modulated_deform_conv_multi(*args)
+    fused = deform_conv_fused.deform_conv_fused(*args)
+    scale = max(1.0, exact.abs().max().item())
+    assert (exact - fused).abs().max().item() <= 1e-3 * scale
+
+
+def test_both_dcn_wrappers_load_one_library():
+    args = _dcn_args(1, 3, 4, 8, 8, (1, 2), torch.bfloat16, seed=7)
+    deform_conv.modulated_deform_conv_multi(*args)
+    deform_conv_fused.deform_conv_fused(*args)
     torch.cuda.synchronize()
-    assert deform_conv_fused.launches == launches + 1
-    _close(got, deform_conv_fused.deform_conv_fused_plain(*args), dtype)
-    if dtype == torch.float32:      # in f32 it is the shipped kernel's function
-        _close(got, deform_conv.modulated_deform_conv_multi(*args), dtype)
+    assert "deform_conv_fused" not in build.KERNELS
+    assert [k for k in build._libs if "deform" in str(k)] == ["deform_conv"]
+
+
+@pytest.mark.parametrize("mode", list(DCN_MODES))
+def test_dcn_wrappers_refuse_what_the_kernel_does_not_take(mode):
+    kern = DCN_MODES[mode][1]
+    args = _dcn_args(1, 2, 33, 8, 8, (1,), torch.float32, seed=8)
+    with pytest.raises(ValueError, match="O=33"):
+        kern(*args)
+    args = _dcn_args(1, 2, 4, 8, 8, tuple(range(1, 10)), torch.float32, seed=8)
+    with pytest.raises(ValueError, match="D=9"):
+        kern(*args)
+    x, offs, masks, weights, biases, dil = _dcn_args(1, 2, 4, 8, 8, (1,), torch.float32, seed=8)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kern(x.half(), [t.half() for t in offs], [t.half() for t in masks], weights, biases, dil)
+    with pytest.raises(ValueError, match="contiguous"):
+        kern(x, [offs[0].transpose(2, 3)], masks, weights, biases, dil)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

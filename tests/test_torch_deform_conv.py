@@ -77,3 +77,50 @@ def test_cpu_tensor_counts_a_call_but_no_launch():
     calls, launches = deform_conv.calls, deform_conv.launches
     deform_conv.modulated_deform_conv_multi(x, offs, masks, weights, biases, (1,))
     assert (deform_conv.calls, deform_conv.launches) == (calls + 1, launches)
+
+
+def test_plain_weight_gradients_match_jax():
+    """The plain version, which the model's DCN call runs on the CPU when
+    autograd needs the DCN parameters, differentiates as the JAX function
+    does: the gradients of a weighted sum of the output with respect to the
+    weights and biases."""
+    import jax
+
+    dilations = (1, 3)
+    args = _inputs(np.random.RandomState(2), 2, 3, 4, 7, 6, dilations, 2.0)
+    x, offs, masks, weights, biases = args
+    r = np.random.RandomState(3).randn(2, 4, 7, 6).astype(np.float32)
+
+    def loss(w, bias):
+        y = jax_dcn_multi(*(jnp.asarray(a.transpose(0, 2, 3, 1)) if isinstance(a, np.ndarray)
+                            else [jnp.asarray(t.transpose(0, 2, 3, 1)) for t in a]
+                            for a in (x, offs, masks)),
+                          w, bias, kernel=3, stride=1, padding_list=dilations,
+                          dilation_list=dilations, deformable_groups=3)
+        return (y * jnp.asarray(r.transpose(0, 2, 3, 1))).sum()
+
+    gw, gb = jax.grad(loss, argnums=(0, 1))(jnp.asarray(weights.transpose(0, 3, 4, 2, 1)),
+                                            jnp.asarray(biases))
+    tw = torch.from_numpy(weights).requires_grad_()
+    tb = torch.from_numpy(biases).requires_grad_()
+    got = deform_conv.modulated_deform_conv_multi(
+        torch.from_numpy(x), [torch.from_numpy(t) for t in offs],
+        [torch.from_numpy(t) for t in masks], tw, tb, dilations)
+    (got * torch.from_numpy(r)).sum().backward()
+    want_w = np.asarray(gw).transpose(0, 4, 3, 1, 2)
+    np.testing.assert_allclose(tw.grad.numpy(), want_w, rtol=1e-4,
+                               atol=1e-4 * np.abs(want_w).max())
+    np.testing.assert_allclose(tb.grad.numpy(), np.asarray(gb), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,tiles,sms,stages,split", [
+    (1, 14, 132, 85, 19),    # the flagship at B = 1 on 132 SMs: two blocks a SM
+    (16, 14, 132, 85, 1),    # the flagship at B = 16: 224 blocks already
+    (9, 14, 132, 85, 3),     # 126 blocks leave 6 SMs idle
+    (10, 14, 132, 85, 1),    # 140 blocks
+    (1, 1, 132, 6, 6),       # at most one block a stage
+])
+def test_stage_split(b, tiles, sms, stages, split):
+    """The wrapper splits the (channel, dilation) stages over blocks only
+    when the (item, tile) blocks leave SMs without one."""
+    assert deform_conv.stage_split(b, tiles, sms, stages) == split

@@ -1,11 +1,14 @@
-"""Weight packing for the fused kernels and the blocks' cache of packs.
+"""Weight packing for the fused kernels and the DCN, and the caches of packs.
 
 ``pack_mlp_weights`` / ``pack_attn_weights`` put a block's weights in the
 CUDA kernels' layout once (bf16, C zero-padded to a multiple of 16, biases
 rounded, the drop-path scale folded in); ``blocks.mlp_pack`` /
-``blocks.attn_pack`` cache the packs on the ``TransformerBlock``.  All of it
-is plain torch, so it runs here on the CPU, where the wrappers run their
-plain versions from a pack.
+``blocks.attn_pack`` cache the packs on the ``TransformerBlock``.
+``pack_dcn_weights`` puts the refinement's DCN weights in the DCN kernel's
+layout (f32 (D, C, 9, OP), the bias mean over D), which both of its rounding
+modes read; ``otpose.dcn_pack`` caches it on the model.  All of it is plain
+torch, so it runs here on the CPU, where the wrappers run their plain
+versions from a pack.
 """
 
 import math
@@ -14,9 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+from torch import nn
+
 from otpose_tpu_torch.models import blocks
-from otpose_tpu_torch.models.otpose import prepare_eval_params
-from otpose_tpu_torch.ops.cuda import fused_attn, fused_mlp
+from otpose_tpu_torch.models.otpose import (DeformConvParams, dcn_pack, dcn_weights,
+                                            prepare_eval_params)
+from otpose_tpu_torch.ops.cuda import deform_conv, deform_conv_fused, fused_attn, fused_mlp
 
 BF16 = torch.bfloat16
 
@@ -169,3 +175,112 @@ def test_flagship_block_fused_matches_plain(dtype, tol):
         want = blk(x, fused=False)
     assert torch.equal(got, again)
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=tol, atol=tol)
+
+
+DCN_WRAPPERS = {"exact": deform_conv.modulated_deform_conv_multi,
+                "pallas3": deform_conv_fused.deform_conv_fused}
+
+
+def _dcn_weights(d, o, c, seed):
+    rng = np.random.RandomState(seed)
+    w = torch.from_numpy((rng.randn(d, o, c, 3, 3) / math.sqrt(9 * c)).astype(np.float32))
+    return w, torch.from_numpy((0.1 * rng.randn(d, o)).astype(np.float32))
+
+
+@pytest.mark.parametrize("mode", ["exact", "pallas3"])
+@pytest.mark.parametrize("o,op", [(1, 8), (8, 8), (17, 20), (21, 32), (32, 32)])
+def test_dcn_pack_layout(mode, o, op):
+    """One layout for both rounding modes: (D, C, 9, OP) f32, row c * 9 + k
+    (the mask channel order), zero past O, and the bias mean over D; each
+    mode's wrapper on the CPU gives from the pack its raw-weight result."""
+    d, c, dil = 2, 3, (1, 2)
+    weights, biases = _dcn_weights(d, o, c, seed=o)
+    pk = deform_conv.pack_dcn_weights(weights, biases)
+    assert (pk.d, pk.c, pk.o) == (d, c, o)
+    assert pk.w.shape == (d, c, 9, op) and pk.w.dtype == torch.float32 and pk.w.is_contiguous()
+    assert pk.bias.shape == (op,) and pk.bias.dtype == torch.float32
+    for dd, oo, cc, ky, kx in ((0, 0, 0, 0, 0), (1, o - 1, c - 1, 2, 1), (1, o // 2, 1, 1, 2)):
+        assert pk.w[dd, cc, 3 * ky + kx, oo] == weights[dd, oo, cc, ky, kx]
+    assert torch.equal(pk.w[..., :o], weights.permute(0, 2, 3, 4, 1).reshape(d, c, 9, o))
+    assert torch.equal(pk.bias[:o], biases.mean(0))
+    assert not pk.w[..., o:].any() and not pk.bias[o:].any()
+    raw_w, raw_b = deform_conv.unpack(pk)
+    assert torch.equal(raw_w, weights) and torch.equal(raw_b.mean(0), biases.mean(0))
+
+    rng = np.random.RandomState(7)
+    t = lambda *s, scale=1.0: torch.from_numpy((scale * rng.randn(*s)).astype(np.float32))  # noqa: E731
+    x = t(1, c, 5, 6)
+    offs = [t(1, 18 * c, 5, 6, scale=2.0) for _ in dil]
+    masks = [t(1, 9 * c, 5, 6) for _ in dil]
+    wrapper = DCN_WRAPPERS[mode]
+    want = wrapper(x, offs, masks, weights, biases, dil)
+    assert torch.equal(wrapper(x, offs, masks, dilations=dil, packed=pk), want)
+
+
+def _refinement(d, c, seed):
+    """A stand-in for the model with its refinement's DCN parameters."""
+    holder = nn.Module()
+    holder.modulated_deform_conv_list = nn.ModuleList([
+        nn.ModuleDict({"deform_conv": DeformConvParams(c, c)}) for _ in range(d)])
+    weights, biases = _dcn_weights(d, c, c, seed)
+    with torch.no_grad():
+        for i, m in enumerate(holder.modulated_deform_conv_list):
+            m["deform_conv"].weight.copy_(weights[i])
+            m["deform_conv"].bias.copy_(biases[i])
+    return holder
+
+
+def test_dcn_cache_repacks_only_when_a_parameter_changes():
+    model = _refinement(3, 5, seed=8)
+    dcn = [m["deform_conv"] for m in model.modulated_deform_conv_list]
+    first = dcn_pack(model)
+    packs = deform_conv.packs
+    assert dcn_pack(model) is first and deform_conv.packs == packs   # a repeat packs nothing
+
+    with torch.no_grad():                                             # in-place update
+        dcn[1].weight.mul_(2)
+        dcn[2].bias.add_(1)
+    second = dcn_pack(model)
+    assert second is not first and deform_conv.packs == packs + 1
+    assert torch.equal(second.w[1, :, :, :5],
+                       dcn[1].weight.permute(1, 2, 3, 0).reshape(5, 9, 5))
+    assert torch.equal(second.bias[:5], torch.stack([m.bias for m in dcn]).mean(0))
+
+    prepare_eval_params(model, BF16)                                  # bf16 weights in place
+    assert dcn[0].weight.dtype == BF16
+    third = dcn_pack(model)
+    assert third is not second and dcn_pack(model) is third
+    assert third.w.dtype == torch.float32
+    assert torch.equal(third.w[0, :, :, :5],
+                       dcn[0].weight.float().permute(1, 2, 3, 0).reshape(5, 9, 5))
+
+    model.to(torch.float64)                                           # .to() re-packs too
+    fourth = dcn_pack(model)
+    assert fourth is not third and fourth.w.dtype == torch.float32
+
+
+def test_dcn_weights_follow_autograd():
+    """Where autograd would differentiate the DCN parameters the model's
+    call takes the raw weights, so every DCN weight and bias gets a gradient
+    (on the CPU, through the plain version); under no_grad, or with frozen
+    parameters, it takes the cached pack."""
+    d, c = 3, 4
+    model = _refinement(d, c, seed=9)
+    dcn = [m["deform_conv"] for m in model.modulated_deform_conv_list]
+    weights, biases, packed = dcn_weights(model)
+    assert packed is None and weights.requires_grad and biases.requires_grad
+    rng = np.random.RandomState(10)
+    t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))  # noqa: E731
+    dil = (1, 2, 3)
+    out = deform_conv.modulated_deform_conv_multi(
+        t(1, c, 5, 6), [t(1, 18 * c, 5, 6) for _ in dil], [t(1, 9 * c, 5, 6) for _ in dil],
+        weights, biases, dil, packed=packed)
+    (out * t(*out.shape)).sum().backward()
+    for m in dcn:
+        assert m.weight.grad is not None and m.weight.grad.abs().sum() > 0
+        assert m.bias.grad is not None and m.bias.grad.abs().sum() > 0
+
+    with torch.no_grad():
+        assert dcn_weights(model) == (None, None, dcn_pack(model))
+    model.requires_grad_(False)
+    assert dcn_weights(model) == (None, None, dcn_pack(model))
