@@ -15,8 +15,13 @@ Phases, each of which must pass or the script exits non-zero:
    (the DCN's kernel in its make_pallas3 rounding mode) at the same shapes,
    and against the exact mode: in f32 the same function, in bf16 it must
    share its plain version's rounding far more often than the exact mode
-   does; the token shift in its four modes at (16, 256) and at the
-   attention's halo size (16 * 136, 6912), where it must be exact; in bf16
+   does; the token shift in its four modes, f32 and bf16, at (16, 256), at
+   the attention's halo size (16 * 136, 6912) and at the shapes that stress
+   its vector path (L not a multiple of a 16-byte vector, L odd, L shorter
+   than a vector, R = 1, more rows than the grid, a view that starts off a
+   16-byte boundary), where it must be exact, then timed in every mode at
+   the halo size (eager and CUDA-graph replay, ``torch.roll`` beside
+   ``rotate``, achieved TB/s); in bf16
    the fused MLP, the attention and both DCN modes also print the share of
    outputs that differ from their own plain version (the MLP and the exact
    DCN must stay at or below 5%); the fused kernels and the DCN are timed
@@ -40,9 +45,20 @@ Phases, each of which must pass or the script exits non-zero:
    ``tools/exp_deform_fused`` (the DCN kernel's two rounding modes) and
    ``tools/probe_shift`` (every token-shift mode OK);
 8. runs the tiny config on the GPU and on the CPU (plain versions) with the
-   same weights and holds the decoded results against each other.
+   same weights and holds the decoded results against each other;
+9. runs the eval CLI (``cli/eval.py::Eval("validate", args).eval()``) at
+   flagship width and depth in bf16, B = 16, no flip, over a synthetic
+   PoseTrack-format tree of 64 boxes made from a seed in a temporary
+   directory (frames as uint8 arrays, cropped by the port's torch warp: the
+   card's machine has no cv2), from a checkpoint of random weights saved in
+   the reference's ``.pth`` layout: 12 / 16 / 1 launches a batch, one json
+   a video, an AP table of 8 entries that is not perfect, and a second run
+   (one loader thread instead of four) that agrees with the first; prints boxes/s of the whole loop, the share
+   of its wall time that the CUDA events around the steps span (the device
+   busy, or waiting for the host's next launch) and the host's time in each
+   step's launches.
 
-Each path (phases 4 to 7) is driven with every launch count set to 0 just
+Each path (phases 4 to 7 and 9) is driven with every launch count set to 0 just
 before it and read just after.  It prints a ``kernels`` JSON line, the card
 line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -75,39 +91,6 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, iters: int = 20) -> float:
-    """Device ms of one ``fn()``: a CUDA graph of ``iters`` calls, replayed."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def nbytes(*tensors) -> int:
@@ -241,6 +224,7 @@ def check_kernels():
     import torch
 
     from otpose_tpu_torch.ops.cuda import deform_conv, deform_conv_fused, fused_attn, fused_mlp
+    from otpose_tpu_torch.utils.timing import graph_ms, time_ms
 
     kernels = {
         "fused_attn": (fused_attn.fused_attn_ct, fused_attn.fused_attn_plain,
@@ -381,49 +365,63 @@ def check_kernels():
     return rows
 
 
+# token-shift shapes beyond the probe's (16, 256) and the halo size: L not a
+# multiple of a 16-byte vector, L odd, L shorter than one vector, R = 1, more
+# rows than the grid's 65535, a row of more than one chunk
+SHIFT_SHAPES = ((16, 256), (16, 250), (3, 6911), (5, 129), (1, 1), (1, 2), (2, 7), (1, 8),
+                (1, 6912), (70000, 24), (7, 4099))
+
+
 def check_token_shift():
-    """Every mode of the token shift against its plain version, exactly,
-    at the probe's (16, 256) and at the attention's halo size, in bf16 and
-    f32; times at the halo size in bf16.  The JSON row times the ``rotate``
-    mode, the one that a single PyTorch call (``torch.roll``) computes; its
-    ``max_abs_err`` is the largest over every case."""
+    """Every mode of the token shift against its plain version, exactly, in
+    bf16 and f32, at ``SHIFT_SHAPES``, at the attention's halo size and on
+    views that start 1 and 3 elements off a 16-byte boundary (the
+    element-wise kernel); then ``tools/probe_shift.py::time_modes`` at the
+    halo size in bf16.  The JSON row times the ``rotate`` mode, the one that
+    a single PyTorch call (``torch.roll``) computes; its ``max_abs_err`` is
+    the largest over every case."""
     import torch
 
     from otpose_tpu_torch.ops.cuda import token_shift
+    from otpose_tpu_torch.tools import probe_shift
 
     gen = torch.Generator(device="cuda").manual_seed(6)
-    halo = (BATCH * 136, 6912)
-    modes_ms, err = {}, 0.0
-    for shape in ((16, 256), halo):
+    halo = probe_shift.HALO
+    err, cases = 0.0, 0
+    for shape in SHIFT_SHAPES + (halo,):
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
-            for mode in token_shift.MODES:
-                got = token_shift.token_shift(x, mode)
-                want = token_shift.token_shift_plain(x, mode)
-                torch.cuda.synchronize()
-                err = max(err, (got.float() - want.float()).abs().max().item())
-                if not torch.equal(got, want):
-                    fail(f"token_shift {mode} {dtype} {shape} differs from its plain version")
-                if shape == halo and dtype == torch.bfloat16:
-                    modes_ms[mode] = (time_ms(lambda: token_shift.token_shift(x, mode), 20),
-                                      time_ms(lambda: token_shift.token_shift_plain(x, mode), 20))
-            log(f"check token_shift {str(dtype)[6:]} x{shape}: all four modes exact")
-    x = torch.randn(*halo, generator=gen, device="cuda").to(torch.bfloat16)
-    roll_ms = time_ms(lambda: torch.roll(x, 1, 1), 20)
-    bound = 2 * nbytes(x) / PEAK_BYTES * 1e3
-    for mode, (ms, plain_ms) in modes_ms.items():
-        log(f"time token_shift {mode} bfloat16 x{halo}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({2 * nbytes(x) / 1e6:.1f} MB)"
-            + (f", torch.roll {roll_ms:.4f} ms" if mode == "rotate" else ""))
-    ms, plain_ms = modes_ms["rotate"]
+            base = torch.randn(shape[0] * shape[1] + 8, generator=gen, device="cuda").to(dtype)
+            for offset in (0, 1, 3):
+                x = base[offset:offset + shape[0] * shape[1]].view(*shape)
+                for mode in token_shift.MODES:
+                    got = token_shift.token_shift(x, mode)
+                    want = token_shift.token_shift_plain(x, mode)
+                    torch.cuda.synchronize()
+                    err = max(err, (got.float() - want.float()).abs().max().item())
+                    cases += 1
+                    if not torch.equal(got, want):
+                        fail(f"token_shift {mode} {dtype} {shape} at offset {offset} differs "
+                             "from its plain version")
+    log(f"check token_shift: {cases} cases (4 modes x f32, bf16 x {len(SHIFT_SHAPES) + 1} "
+        "shapes x 3 offsets from a 16-byte boundary) exact")
+    res = probe_shift.time_modes(halo, torch.bfloat16)
+    probe_shift.report(res, out=log)
+    rot = res["rotate"]
+    for mode in token_shift.MODES:
+        if not res[mode]["graph_ms"] >= res[mode]["bound_ms"]:
+            fail(f"token_shift {mode}: {res[mode]['graph_ms']:.4f} ms is under its bound of "
+                 f"{res[mode]['bound_ms']:.4f} ms: the timing loop reads a warm cache")
     return dict(name="token_shift", route="cuda", source="otpose_tpu_torch/csrc/token_shift.cu",
-                replaces="tools/probe_shift.py:25", launches=None, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=roll_ms,
-                mode="rotate", modes_ms={m: v[0] for m, v in modes_ms.items()})
+                replaces="tools/probe_shift.py:25", launches=None, max_abs_err=err, ms=rot["ms"],
+                plain_ms=rot["plain_ms"], bound_ms=rot["bound_ms"], bound_by="bytes",
+                library_ms=res["roll"]["ms"], graph_ms=rot["graph_ms"],
+                library_graph_ms=res["roll"]["graph_ms"], mode="rotate",
+                modes={m: {k: res[m][k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms", "tbps")}
+                       for m in token_shift.MODES})
 
 
 # ---------------------------------------------------------------------------
-# phases 4 to 8: the paths
+# phases 4 to 9: the paths
 # ---------------------------------------------------------------------------
 
 def _kernel_modules():
@@ -666,6 +664,191 @@ def tiny_agreement():
         fail("tiny decoded coords differ between GPU and CPU")
 
 
+def _calibrate_refinement_(model, seed: int):
+    """Scale the offset and mask convs so that, on a random clip, the DCN's
+    offsets have a deviation of 2 pixels and its masks of 1: at the O(1)
+    weight scales of ``_scaled_weights_`` the refinement's features reach the
+    thousands, every sample would leave the image and the heatmaps would be
+    flat."""
+    import torch
+
+    seen = {}
+
+    def note(key):
+        def hook(_module, _inputs, out):      # returns None: the output stays
+            seen[key] = out.float().std().item()
+        return hook
+
+    hooks = [m["0"].register_forward_hook(note(key))
+             for key, m in (("offsets", model.offsets_list[0]), ("masks", model.masks_list[0]))]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w, h = model.spec.pe_w * 4, model.spec.pe_h * 4
+    with torch.no_grad():
+        model(torch.randn(2, h, w, 15, generator=gen, device="cuda"),
+              torch.ones(2, 4, device="cuda"))
+        for hook in hooks:
+            hook.remove()
+        for convs, key, target in ((model.offsets_list, "offsets", 2.0),
+                                   (model.masks_list, "masks", 1.0)):
+            for m in convs:
+                for p in m["0"].parameters():
+                    p.mul_(target / seen[key])
+    log(f"eval CLI weights: offsets' deviation {seen['offsets']:.3g} -> 2, masks' "
+        f"{seen['masks']:.3g} -> 1")
+
+
+def eval_cli(seed: int = 0):
+    """``Eval("validate", args).eval()`` on the card, twice, over a synthetic
+    tree of 64 boxes: index, window selection, metas, loader, pipelined
+    forward, device decode, back-projection, json writing and poseval AP are
+    the port's own code; only the frames come as arrays."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from otpose_tpu_torch.cli.eval import Eval
+    from otpose_tpu_torch.config import default_parse_args
+    from otpose_tpu_torch.data.synthetic import ArrayFramesDataset, make_synthetic_posetrack
+    from otpose_tpu_torch.models.factory import build_model
+    from otpose_tpu_torch.utils.testing import flagship_otpose_cfg
+
+    class TimedEval(Eval):
+        """Eval whose steps are bracketed by CUDA events and by the host's
+        clock (the time the host spends launching a step), and which notes
+        when its model was loaded (the loop starts there)."""
+
+        def _load(self, model_file):
+            model = super()._load(model_file)
+            torch.cuda.synchronize()
+            self.loaded_at = time.perf_counter()
+            return model
+
+        def make_step(self, model):
+            step, self.events, self.launch_s = super().make_step(model), [], []
+
+            def timed(inputs, margin):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                t0 = time.perf_counter()
+                start.record()
+                out = step(inputs, margin)
+                end.record()
+                self.launch_s.append(time.perf_counter() - t0)
+                self.events.append((start, end))
+                return out
+
+            return timed
+
+    root = tempfile.mkdtemp(prefix="otpose_eval_cli_")
+    try:
+        t0 = time.perf_counter()
+        json_dir, img_dir, annot_dir = make_synthetic_posetrack(
+            root, num_videos=4, frames_per_video=8, people_per_frame=2, img_w=640, img_h=480,
+            seed=seed)
+        cfg = flagship_otpose_cfg()
+        cfg.EXPERIMENT_NAME = "chip_smoke"
+        cfg.OUTPUT_DIR = os.path.join(root, "output")
+        cfg.DATASET.NAME = "PoseTrack"
+        cfg.DATASET.JSON_DIR, cfg.DATASET.IMG_DIR, cfg.DATASET.TEST_IMG_DIR = (
+            json_dir, img_dir, img_dir)
+        cfg.VAL.ANNOT_DIR = annot_dir
+        cfg.VAL.USE_GT_BBOX = True
+        cfg.VAL.BATCH_SIZE_PER_GPU = BATCH
+        cfg.VAL.FLIP_VAL = False
+        cfg.VAL.MODEL_FILE = os.path.join(root, "random_weights.pth")
+        cfg.WORKERS = 4
+        cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+        cfg.TPU.PARAM_DTYPE = "bfloat16"
+        cfg.TPU.DEVICE_PREPROCESS = "off"
+        yaml_path = os.path.join(root, "flagship.yaml")
+        with open(yaml_path, "w") as fh:
+            fh.write(cfg.dump())
+        _, model = build_model(cfg, seed=seed)
+        _scaled_weights_(model, seed)
+        _calibrate_refinement_(model, seed)
+        torch.save({"state_dict": model.state_dict()}, cfg.VAL.MODEL_FILE)
+        del model
+        log(f"eval CLI: tree of 32 frames of 480x640 and the checkpoint written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        runs = []
+        # the second run has one loader thread instead of four: the same
+        # boxes in the same order, and a reading of what the loader's threads
+        # cost the thread that launches the steps
+        for run, workers in enumerate((4, 1)):
+            ev = TimedEval("validate",
+                           default_parse_args(["--cfg", yaml_path, "--root_dir", root,
+                                               "WORKERS", str(workers)]),
+                           dataset_cls=ArrayFramesDataset)
+            kept = {}
+            inner = ev.dataset.evaluate
+
+            def spy(cfg_, preds, *args, inner=inner, kept=kept, **kwargs):
+                kept["preds"] = np.array(preds)
+                return inner(cfg_, preds, *args, **kwargs)
+
+            ev.dataset.evaluate = spy
+            boxes, batches = len(ev.dataset), len(ev.loader)
+            if boxes < 64 or ev.batch != BATCH or ev.device.type != "cuda":
+                fail(f"eval CLI: {boxes} boxes in batches of {ev.batch} on {ev.device}")
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            results = ev.eval()
+            torch.cuda.synchronize()
+            total, wall = time.perf_counter() - t0, time.perf_counter() - ev.loaded_at
+            counts = read_counts()
+            want = {k: v * batches for k, v in FORWARD_COUNTS.items()}
+            if counts != want:
+                fail(f"eval CLI launches {counts}, expected {want} over {batches} batches")
+            if len(results) != 1 or len(ev.events) != batches:
+                fail(f"eval CLI: {len(results)} results, {len(ev.events)} steps")
+            _, name_values, mean_ap = results[0]
+            table = np.asarray(list(name_values.values()), np.float64)
+            out_dir = os.path.join(ev.cfg.OUTPUT_DIR, "val_set_json_results")
+            files = sorted(os.listdir(out_dir))
+            for name in files:
+                with open(os.path.join(out_dir, name)) as fh:
+                    if len(json.load(fh)["annolist"]) != 8:
+                        fail(f"eval CLI: {name} does not hold 8 frames")
+            if len(files) != 4 or files != sorted(os.listdir(annot_dir)):
+                fail(f"eval CLI: json files {files}")
+            if table.shape != (8,) or np.isinf(table).any() or not np.isfinite(table).any():
+                fail(f"eval CLI: AP table {table}")
+            if not np.nanmin(table) < 99.0 or not np.isfinite(kept["preds"]).all():
+                fail(f"eval CLI: a perfect table from random weights, or non-finite "
+                     f"keypoints: {table}")
+            spans = [s.elapsed_time(e) * 1e-3 for s, e in ev.events]
+            span = sum(spans)
+            log(f"eval CLI run {run}, {workers} loader thread(s): {boxes} boxes; the loop "
+                f"(loader, {batches} steps, decode, "
+                f"json, poseval) took {wall:.3f} s, {boxes / wall:.3f} boxes/s ({total:.3f} s "
+                f"with the model's build and load); the steps' CUDA events span {span:.3f} s, "
+                f"{span / wall:.1%} of the loop's wall time ("
+                + ", ".join(f"{v:.3f}" for v in spans) + " s), and the host spent "
+                + ", ".join(f"{v:.3f}" for v in ev.launch_s) + f" s launching them; launches "
+                f"{counts}; AP " + " ".join(f"{k} {v:.4f}" for k, v in name_values.items()))
+            runs.append(dict(counts=counts, boxes_per_s=boxes / wall, step_span_share=span / wall,
+                             workers=workers,
+                             table=table, preds=kept["preds"], wall_s=wall, batches=batches))
+        # the fused attention sums its score tiles with f32 atomics, so two
+        # runs differ in the last bits and a near-tied argmax may move by a
+        # cell: the runs must agree on nearly every keypoint, and on the
+        # table up to what those few can move
+        same = (runs[0]["preds"][..., :2] == runs[1]["preds"][..., :2]).all(-1).mean()
+        diff = np.nanmax(np.abs(runs[0]["table"] - runs[1]["table"]))
+        log(f"eval CLI: second run on the same tree and checkpoint: {same:.2%} of keypoints "
+            "identical, "
+            f"AP table differs by at most {diff:.4f}")
+        if not (same >= 0.98 and diff <= 1.0 and
+                (np.isnan(runs[0]["table"]) == np.isnan(runs[1]["table"])).all()):
+            fail("eval CLI: two runs on the same seed disagree")
+        return runs
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -705,6 +888,9 @@ def main() -> None:
     paths = {"decoded_eval": flag["bf16"]["counts"], "flip_eval": flag["flip"]["counts"],
              "inference": infer["counts"], **tools()}
     tiny_agreement()
+    cli = eval_cli()
+    per_batch = {k: v // cli[0]["batches"] for k, v in cli[0]["counts"].items()}
+    paths["eval_cli_per_batch"] = per_batch
     # each kernel's launches on its own path: the eval's for the model's
     # kernels, the experiment tool's for the other two
     own = {"deform_conv_fused": "exp_deform_fused", "token_shift": "probe_shift"}
@@ -714,7 +900,10 @@ def main() -> None:
     log(f"flagship decoded eval bf16: {flag['bf16']['clips_per_s']:.3f} clips/s, "
         f"f32: {flag['f32']['clips_per_s']:.3f} clips/s, flip bf16: "
         f"{flag['flip']['clips_per_s']:.3f} clips/s (B={BATCH}); inference latency B=1: "
-        f"{infer['latency_ms']:.3f} ms ({card})")
+        f"{infer['latency_ms']:.3f} ms; eval CLI over a synthetic tree: "
+        + "; ".join(f"{r['boxes_per_s']:.3f} boxes/s with {r['workers']} loader thread(s), the "
+                    f"steps' events span {r['step_span_share']:.1%} of the loop's wall time"
+                    for r in cli) + f" ({card})")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(f"nvidia-smi: {card}", flush=True)
     # the script drives one card, whatever the machine holds

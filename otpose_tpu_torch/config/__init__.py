@@ -79,6 +79,8 @@ def default_parse_args(argv=None):
                         help="decrease target sigma at these epochs")
     parser.add_argument("--test", action="store_true", default=False)
     parser.add_argument("--root_dir", type=str, default="./")
+    parser.add_argument("--device", type=str, default=None,
+                        help="cuda (the default; raises without a GPU) or cpu")
     parser.add_argument("opts", help="modify config options from the command line",
                         default=None, nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)

@@ -1,5 +1,5 @@
-"""Eval step of the port (counterpart of ``otpose_tpu/engine/trainer.py``'s
-``make_decoded_eval_step``, single device)."""
+"""Eval steps of the port (counterpart of ``otpose_tpu/engine/trainer.py``'s
+``make_eval_step`` and ``make_decoded_eval_step``, single device)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,21 @@ from otpose_tpu_torch.engine.runner import make_flip_eval_step
 from otpose_tpu_torch.models.otpose import OTPose, otpose_forward
 from otpose_tpu_torch.ops.heatmap import get_max_preds_device, refine_coords_device
 from otpose_tpu_torch.utils.device import resolve_dtype
+
+
+def make_eval_step(model: OTPose, *, compute_dtype=torch.float32,
+                   fused: bool = True) -> Callable:
+    """Eval forward: ``step(inputs (B, H, W, 15), margin (B, 4))`` ->
+    (heatmaps (B, Hh, Hw, J), teacher (B, Hh, Hw, J)): the refined heatmaps
+    and the rough heatmaps of the current frame."""
+    dtype = resolve_dtype(compute_dtype)
+
+    @torch.inference_mode()
+    def step(inputs, margin):
+        out = otpose_forward(model, inputs, margin, compute_dtype=dtype, fused=fused)
+        return out[0], out[1][:inputs.shape[0]]
+
+    return step
 
 
 def make_decoded_eval_step(model: OTPose, *, compute_dtype=torch.float32,
@@ -25,8 +40,7 @@ def make_decoded_eval_step(model: OTPose, *, compute_dtype=torch.float32,
     if flip:
         forward = make_flip_eval_step(model, compute_dtype=dtype, fused=fused)
     else:
-        def forward(inputs, margin):
-            return otpose_forward(model, inputs, margin, compute_dtype=dtype, fused=fused)
+        forward = make_eval_step(model, compute_dtype=dtype, fused=fused)
 
     @torch.inference_mode()
     def step(inputs, margin):

@@ -7,6 +7,7 @@ The host-side matrix construction is the JAX package's numpy code, copied
 on the images' device, with the JAX version's arithmetic: f32 source
 coordinates from the f32 inverse matrices, four zero-masked corner gathers,
 and the fractional weights cast to the image dtype before the blend.
+``fliplr_joints`` is the train-time joint flip.
 """
 
 from __future__ import annotations
@@ -133,3 +134,17 @@ def warp_affine(images: torch.Tensor, inv_matrices, out_h: int, out_w: int) -> t
     top = gather(y0i, x0i) * (1 - wx) + gather(y0i, x0i + 1) * wx
     bot = gather(y0i + 1, x0i) * (1 - wx) + gather(y0i + 1, x0i + 1) * wx
     return top * (1 - wy) + bot * wy
+
+
+def fliplr_joints(joints: np.ndarray, joints_vis: np.ndarray, width: int,
+                  matched_parts) -> tuple[np.ndarray, np.ndarray]:
+    """Horizontal joint flip with left/right pair swap (ref: utils/transform.py:59-73)."""
+    joints = joints.copy()
+    joints_vis = joints_vis.copy()
+    joints[:, 0] = width - joints[:, 0] - 1
+    for pair in matched_parts:
+        joints[pair[0], :], joints[pair[1], :] = \
+            joints[pair[1], :].copy(), joints[pair[0], :].copy()
+        joints_vis[pair[0], :], joints_vis[pair[1], :] = \
+            joints_vis[pair[1], :].copy(), joints_vis[pair[0], :].copy()
+    return joints * joints_vis, joints_vis

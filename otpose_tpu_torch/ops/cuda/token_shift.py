@@ -8,7 +8,10 @@
 - ``rotate``: right rotation, column 0 takes column L - 1;
 - ``handoff``: column 0 takes column L - 1, zeros elsewhere.
 
-On a CUDA tensor it launches ``csrc/token_shift.cu``; on a CPU tensor it runs
+On a CUDA tensor it launches ``csrc/token_shift.cu`` (16-byte loads and
+stores with the one-element displacement made in registers; a contiguous
+view that does not start where its output does, relative to a 16-byte
+boundary, takes that source's element-wise kernel); on a CPU tensor it runs
 ``token_shift_plain``, the same function as slices and ``torch.cat``.  Both
 copy values exactly.
 """

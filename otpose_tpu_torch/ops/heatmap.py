@@ -1,9 +1,12 @@
-"""Keypoint decoding (counterpart of ``otpose_tpu/ops/heatmap.py``'s decode).
+"""Keypoint decoding and host target generation (counterpart of
+``otpose_tpu/ops/heatmap.py``).
 
 On the device: argmax and the quarter-pixel shift of the reference's
 ``get_final_preds`` (ref: utils/heatmap.py:108-171).  On the host, in
 numpy: the argmax of ``get_max_preds`` and the back-projection of
-``transform_preds`` / ``get_final_preds``.
+``transform_preds`` / ``get_final_preds``, and the gaussian targets of
+``generate_heatmaps`` (peak 1.0 at truncated-rounded grid coords, written
+inside the clipped 3-sigma window; ref: utils/heatmap.py:48-105).
 """
 
 from __future__ import annotations
@@ -89,3 +92,47 @@ def get_final_preds(batch_heatmaps, center: np.ndarray, scale: np.ndarray):
         preds[i] = transform_preds(coords[i], center[i], scale[i],
                                    [heatmap_width, heatmap_height])
     return preds, maxvals
+
+
+def _trunc_int(x: np.ndarray) -> np.ndarray:
+    """python int() semantics: truncation toward zero."""
+    return np.trunc(x).astype(np.int64)
+
+
+def generate_heatmaps(joints: np.ndarray, joints_vis: np.ndarray, sigma: float,
+                      image_size, heatmap_size, num_joints: int, **kwargs):
+    """Gaussian targets + per-joint weights (ref: utils/heatmap.py:48-105).
+
+    joints: (J, 3) in input-image coords; joints_vis: (J, 3) with vis in col 0.
+    image_size/heatmap_size: (w, h). Returns (target (J, Hh, Hw), weight (J, 1)).
+    """
+    image_size = np.asarray(image_size, dtype=np.float64)
+    heatmap_size = np.asarray(heatmap_size, dtype=np.float64)
+    hm_w, hm_h = int(heatmap_size[0]), int(heatmap_size[1])
+
+    target_weight = np.ones((num_joints, 1), dtype=np.float32)
+    target_weight[:, 0] = joints_vis[:, 0]
+
+    tmp_size = sigma * 3
+    feat_stride = image_size / heatmap_size
+    mu_x = _trunc_int(joints[:, 0] / feat_stride[0] + 0.5)  # (J,)
+    mu_y = _trunc_int(joints[:, 1] / feat_stride[1] + 0.5)
+    ul_x, ul_y = mu_x - int(tmp_size), mu_y - int(tmp_size)
+    br_x, br_y = mu_x + int(tmp_size) + 1, mu_y + int(tmp_size) + 1
+
+    oob = (ul_x >= hm_w) | (ul_y >= hm_h) | (br_x < 0) | (br_y < 0)
+    target_weight[oob, 0] = 0
+
+    xs = np.arange(hm_w, dtype=np.float32)[None, None, :]   # (1, 1, Hw)
+    ys = np.arange(hm_h, dtype=np.float32)[None, :, None]   # (1, Hh, 1)
+    dx = xs - mu_x[:, None, None].astype(np.float32)
+    dy = ys - mu_y[:, None, None].astype(np.float32)
+    g = np.exp(-(dx ** 2 + dy ** 2) / (2 * sigma ** 2))
+    # only the clipped window region is written; the tail outside stays 0
+    window = (np.abs(dx) <= tmp_size) & (np.abs(dy) <= tmp_size)
+    visible = (target_weight[:, 0] > 0.5)[:, None, None]
+    target = np.where(window & visible & ~oob[:, None, None], g, 0.0).astype(np.float32)
+
+    if kwargs.get("use_different_joints_weight"):
+        target_weight = np.multiply(target_weight, kwargs["joints_weight"])
+    return target, target_weight

@@ -24,6 +24,7 @@ import torch
 
 from otpose_tpu_torch.ops.cuda.deform_conv import modulated_deform_conv_multi
 from otpose_tpu_torch.ops.cuda.deform_conv_fused import deform_conv_fused
+from otpose_tpu_torch.utils.timing import time_ms
 from otpose_tpu_torch.utils.device import resolve_device, resolve_dtype
 
 H, W, G = 96, 72, 17
@@ -43,16 +44,6 @@ def make_inputs(batch: int, dtype, device):
     offs = [r(batch, 18 * G, H, W, scale=2.0).to(dtype) for _ in DILATIONS]
     masks = [r(batch, 9 * G, H, W).to(dtype) for _ in DILATIONS]
     return x, offs, masks, r(d, G, G, 3, 3, scale=0.1), r(d, G, scale=0.1), DILATIONS
-
-
-def _time_ms(fn, iters: int) -> float:
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def run(batch: int = 16, dtype=torch.bfloat16, device=None, rounds: int = 4,
@@ -78,9 +69,9 @@ def run(batch: int = 16, dtype=torch.bfloat16, device=None, rounds: int = 4,
     if dev.type != "cuda":
         raise RuntimeError("exp_deform_fused: timing needs a CUDA device")
     for fn in (shipped, fused):
-        _time_ms(fn, 3)
+        time_ms(fn, 3, warmup=0)
     for r in range(rounds):
-        m0, m1 = _time_ms(shipped, iters), _time_ms(fused, iters)
+        m0, m1 = time_ms(shipped, iters, warmup=0), time_ms(fused, iters, warmup=0)
         out(f"round {r}: shipped {m0:7.3f} ms   fused {m1:7.3f} ms")
         result["rounds"].append((m0, m1))
     return result

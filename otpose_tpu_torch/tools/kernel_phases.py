@@ -25,6 +25,8 @@ import sys
 
 import torch
 
+from otpose_tpu_torch.utils.timing import time_ms
+
 ATTN_PHASES = ("chunk load", "ln1", "conv + LN (x3)", "projection (x3)",
                "epilogue + v store (x3)", "scores")
 MLP_PHASES = ("x load", "LN", "tile wait", "product 1", "GELU", "product 2",
@@ -52,23 +54,12 @@ def _inputs(batch: int, gen):
     return attn, mlp
 
 
-def _time_ms(fn, iters: int = 20) -> float:
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def phases(name: str, module, call, names) -> dict:
     """{phase: share of cycles} of one launch of ``call`` through the
     phase-clock build of kernel ``name``, and the normal build's ms."""
     from otpose_tpu_torch.ops.cuda import build
 
-    ms = _time_ms(call)
+    ms = time_ms(call, iters=20, warmup=1)
     sigs = dict(module._SIGNATURES, otp_phase_cycles=(ctypes.c_int, [ctypes.c_void_p]))
     lib = build.load(name, sigs, defines=("OTP_PHASE_CLOCK",))
     normal = build._libs.get(name)

@@ -266,8 +266,15 @@ def test_dcn_wrappers_refuse_what_the_kernel_does_not_take(mode):
         kern(x, [offs[0].transpose(2, 3)], masks, weights, biases, dil)
 
 
+# L not a multiple of a 16-byte vector, L odd (the 16-byte boundary moves from
+# row to row), L shorter than one vector, R = 1, one chunk of a row and many,
+# more rows than the grid's 65535, and a row longer than 65535 vectors
+SHIFT_SHAPES = [(1, 1), (3, 1), (1, 2), (1, 7), (2, 7), (1, 8), (3, 9), (16, 250), (16, 256),
+                (3, 6911), (5, 1000), (5, 129), (7, 4099), (1, 6912), (70000, 24), (3, 600001)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 1), (3, 1), (1, 7), (16, 256), (5, 1000)])
+@pytest.mark.parametrize("shape", SHIFT_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_token_shift_equals_plain(shape, dtype):
     gen = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -275,6 +282,41 @@ def test_token_shift_equals_plain(shape, dtype):
         got = token_shift.token_shift(x, mode)
         torch.cuda.synchronize()
         assert torch.equal(got, token_shift.token_shift_plain(x, mode)), mode
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 3, 4, 8])
+def test_token_shift_on_a_view_that_starts_off_a_16_byte_boundary(offset, dtype):
+    """A contiguous view whose first element is not where its output's is,
+    relative to a 16-byte boundary, takes the element-wise kernel (an offset
+    of 16 bytes takes the vector kernel again)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for shape in ((5, 129), (16, 250), (2, 7), (64, 6912)):
+        base = torch.randn(shape[0] * shape[1] + 16, generator=gen, device="cuda").to(dtype)
+        x = base[offset:offset + shape[0] * shape[1]].view(*shape)
+        assert x.is_contiguous()
+        for mode in token_shift.MODES:
+            got = token_shift.token_shift(x, mode)
+            torch.cuda.synchronize()
+            assert torch.equal(got, token_shift.token_shift_plain(x, mode)), (shape, mode)
+
+
+def test_token_shift_under_a_cuda_graph_and_on_a_side_stream():
+    x = torch.randn(64, 6912, device="cuda").to(torch.bfloat16)
+    want = token_shift.token_shift_plain(x, "rotate")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = token_shift.token_shift(x, "rotate")
+    side.synchronize()
+    assert torch.equal(got, want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = token_shift.token_shift(x, "rotate")
+    x.copy_(torch.randn(64, 6912, device="cuda"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, token_shift.token_shift_plain(x, "rotate"))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

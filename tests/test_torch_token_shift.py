@@ -3,7 +3,8 @@
 Each mode's plain version (what ``ops/cuda/token_shift.py`` runs for a CPU
 tensor) against the matching kernel of ``tools/probe_shift.py``, run with
 ``pl.pallas_call(..., interpret=True)`` on the probe's own (16, 256) bf16
-input: exact, since both copy values.  The probe module runs its TPU
+input and on ragged ones (L not a multiple of a 16-byte vector, L odd, L
+shorter than a vector): exact, since both copy values.  The probe module runs its TPU
 probes when it is imported; on the CPU they fail and print, so it is
 imported with its output captured.  The CUDA kernel is held against the
 plain version on the card by chip_smoke.py and
@@ -70,13 +71,39 @@ def test_the_right_shift_probes_agree_with_each_other(probes):
         assert torch.equal(o, outs[0])
 
 
-@pytest.mark.parametrize("shape", [(5, 1), (1, 7), (1, 1), (3, 2)])
+@pytest.mark.parametrize("shape", [(5, 1), (1, 7), (1, 1), (3, 2), (1, 250), (3, 6911)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ragged_sizes_match_numpy(shape, dtype):
     x = torch.from_numpy(np.random.RandomState(1).randn(*shape).astype(np.float32)).to(dtype)
     for mode in token_shift.MODES:
         got = token_shift.token_shift(x, mode).float().numpy()
         np.testing.assert_array_equal(got, probe_shift.numpy_target(x.float().numpy(), mode))
+
+
+def _run_probe_on(mod, name, x):
+    """A probe kernel on another bf16 array: most read the module's shape
+    constants, so those are set for the call and put back."""
+    old = mod.x, mod.C, mod.L
+    mod.x, mod.C, mod.L = x, x.shape[0], x.shape[1]
+    try:
+        return _run_probe(mod, name)
+    finally:
+        mod.x, mod.C, mod.L = old
+
+
+# the shapes that stress the vectorised kernel's edges: L not a multiple of
+# 8, L odd, L shorter than one 16-byte vector (rows in pairs: the rotate
+# probe packs two bf16 rows into one of int32; R = 1 is held to numpy above)
+RAGGED = [(16, 250), (4, 691), (6, 129), (2, 2), (2, 7), (2, 1000)]
+
+
+@pytest.mark.parametrize("shape", RAGGED, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("name", sorted(PROBES))
+def test_plain_equals_the_probe_kernel_at_ragged_shapes(probes, name, shape):
+    x = jnp.asarray(np.random.RandomState(shape[1]).randn(*shape), jnp.bfloat16)
+    want = _run_probe_on(probes, name, x)
+    xt = torch.from_numpy(np.asarray(x).astype(np.float32)).to(torch.bfloat16)
+    assert torch.equal(token_shift.token_shift(xt, PROBES[name]), want)
 
 
 def test_wrapper_refuses_bad_modes_and_shapes():
