@@ -6,7 +6,7 @@
 Phases, each of which must pass or the script exits non-zero:
 
 1. checks for a CUDA device and prints its ``nvidia-smi`` name and power limit;
-2. builds the four kernel sources from ``otpose_tpu_torch/csrc`` with
+2. builds the five kernel sources from ``otpose_tpu_torch/csrc`` with
    ``nvcc``, in parallel;
 3. holds each of the five kernel rows against its plain PyTorch version at
    the shapes its paths give it, in f32 (TF32 off) and bf16, and times both
@@ -45,7 +45,8 @@ Phases, each of which must pass or the script exits non-zero:
    ``tools/exp_deform_fused`` (the DCN kernel's two rounding modes) and
    ``tools/probe_shift`` (every token-shift mode OK);
 8. runs the tiny config on the GPU and on the CPU (plain versions) with the
-   same weights and holds the decoded results against each other;
+   same weights (offset and mask convs calibrated, most DCN samples inside
+   the image) and holds the decoded results against each other;
 9. runs the eval CLI (``cli/eval.py::Eval("validate", args).eval()``) at
    flagship width and depth in bf16, B = 16, no flip, over a synthetic
    PoseTrack-format tree of 64 boxes made from a seed in a temporary
@@ -58,9 +59,34 @@ Phases, each of which must pass or the script exits non-zero:
    busy, or waiting for the host's next launch) and the host's time in each
    step's launches.
 
-Each path (phases 4 to 7 and 9) is driven with every launch count set to 0 just
-before it and read just after.  It prints a ``kernels`` JSON line, the card
-line, and last ``{"ok": true, "device": {...}}``.
+10. holds the DCN's backward kernel (``csrc/deform_conv_bwd.cu``) against
+    the plain version's autograd at the flagship shape (B = 8 in f32 and
+    bf16, B = 1 in bf16), at offsets calibrated so that most samples fall
+    inside the image: each of the five gradients' worst error over its peak
+    (f32 1e-4, bf16 5e-2), in bf16 the share of elements that differ,
+    whether two calls are bit-equal, the kernel's ms against the plain
+    backward's and the bound;
+11. checks that the fused attention, fused MLP and token shift raise on a
+    CUDA tensor that requires grad (they have no backward);
+12. runs the flagship train step (``configs/17/model_RSN.yaml`` at full
+    width and depth, reference init, synthetic batches with Gaussian targets
+    from ``ops/heatmap.py::generate_heatmaps``, some joints labelled and some
+    not): first one step each in bf16 and f32 from copies of the initial
+    model on one B = 2 batch (the two losses), then on one model and
+    optimizer bf16 at B = 8 (2 warm-up steps, 5 timed), f32 at B = 2 (3
+    steps) and bf16 at B = 16 with ``ACCUM_STEPS 2`` (1 step), each step's
+    six metrics finite, its ms (CUDA events), clips/s, peak memory and
+    launches (0 / 0 / 1 / 1 per micro-batch); then every trainable parameter
+    must hold a finite gradient and every BN running stat must have moved;
+13. runs one train step of the tiny config in f32 on the card and on the
+    CPU from the same weights (mask convs calibrated, offset convs zeroed,
+    dropout rates 0, SGD) and holds every gradient and every update against
+    each other (1e-3 of its peak, 2e-2 for HRNet's stem and layer1, plus
+    1e-6 of the largest, for gradients that are residues).
+
+Each path (phases 4 to 7, 9 and 12) is driven with every launch count set to 0
+just before it and read just after.  It prints a ``kernels`` JSON line, the
+card line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -80,8 +106,12 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 BATCH = 16
 KERNEL_MODULES = ("fused_attn", "fused_mlp", "deform_conv", "deform_conv_fused", "token_shift")
-FORWARD_COUNTS = {"fused_attn": 12, "fused_mlp": 16, "deform_conv": 1,
+FORWARD_COUNTS = {"fused_attn": 12, "fused_mlp": 16, "deform_conv": 1, "deform_conv_bwd": 0,
                   "deform_conv_fused": 0, "token_shift": 0}
+# a train step's launches for each micro-batch: the fused kernels are eval-only
+TRAIN_COUNTS = {"fused_attn": 0, "fused_mlp": 0, "deform_conv": 1, "deform_conv_bwd": 1,
+                "deform_conv_fused": 0, "token_shift": 0}
+DCN_DILATIONS = (3, 6, 9, 12, 15)
 
 
 def fail(msg: str) -> None:
@@ -432,12 +462,17 @@ def _kernel_modules():
 
 
 def reset_counts():
-    for mod in _kernel_modules().values():
+    mods = _kernel_modules()
+    for mod in mods.values():
         mod.calls = mod.launches = 0
+    mods["deform_conv"].bwd_launches = 0
 
 
 def read_counts():
-    return {name: mod.launches for name, mod in _kernel_modules().items()}
+    mods = _kernel_modules()
+    counts = {name: mod.launches for name, mod in mods.items()}
+    counts["deform_conv_bwd"] = mods["deform_conv"].bwd_launches
+    return counts
 
 
 def read_packs():
@@ -496,7 +531,14 @@ def flagship_eval():
         log(f"flagship {label}: {sec * 1e3:.2f} ms per step of {BATCH} clips, "
             f"{BATCH / sec:.3f} clips/s")
         results[label] = dict(counts=counts, clips_per_s=BATCH / sec,
-                              peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+                              peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                              coords=coords.float().cpu(), maxvals=maxvals.float().cpu())
+    # bf16 (bf16 weights) against f32 keypoints on the same clips: the
+    # reference init's heatmaps are nearly flat, so ties and near-ties move
+    same = (results["bf16"]["coords"] == results["f32"]["coords"]).all(-1).float().mean().item()
+    log(f"flagship bf16 against f32 decoded keypoints: {same:.2%} identical, maxvals differ by "
+        f"{(results['bf16']['maxvals'] - results['f32']['maxvals']).abs().max().item():.3e} at "
+        f"most (peak {results['f32']['maxvals'].abs().max().item():.3e})")
     results["flip"] = flip_eval(model, inputs, margin, j)
     results["model"] = (cfg, model)
     return results
@@ -631,9 +673,10 @@ def tiny_agreement():
     from otpose_tpu_torch.models.otpose import otpose_forward
     from otpose_tpu_torch.utils.testing import tiny_otpose_cfg
 
-    _, cpu_model = build_model(tiny_otpose_cfg(), seed=2, device="cpu")
-    _scaled_weights_(cpu_model, 2)
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    _, gpu_model = build_model(tiny_otpose_cfg(), seed=2)
+    _scaled_weights_(gpu_model, 2)
+    _calibrate_refinement_(gpu_model, 2)
+    cpu_model = copy.deepcopy(gpu_model).cpu()
     gen = torch.Generator().manual_seed(3)
     x = torch.randn(2, 64, 64, 15, generator=gen)
     margin = torch.tensor([[1.0, 1, 2, 2], [1, 0, 2, 0]])
@@ -664,37 +707,46 @@ def tiny_agreement():
         fail("tiny decoded coords differ between GPU and CPU")
 
 
-def _calibrate_refinement_(model, seed: int):
+def _calibrate_refinement_(model, seed: int) -> float:
     """Scale the offset and mask convs so that, on a random clip, the DCN's
     offsets have a deviation of 2 pixels and its masks of 1: at the O(1)
     weight scales of ``_scaled_weights_`` the refinement's features reach the
     thousands, every sample would leave the image and the heatmaps would be
-    flat."""
+    flat.  Returns the share of the DCN's samples inside the image after."""
     import torch
 
-    seen = {}
+    from otpose_tpu_torch.utils.testing import dcn_inside_share
 
-    def note(key):
-        def hook(_module, _inputs, out):      # returns None: the output stays
-            seen[key] = out.float().std().item()
-        return hook
-
-    hooks = [m["0"].register_forward_hook(note(key))
-             for key, m in (("offsets", model.offsets_list[0]), ("masks", model.masks_list[0]))]
+    seen = {"offsets": [], "masks": []}
+    hooks = [m["0"].register_forward_hook(
+        lambda _m, _i, out, key=key: seen[key].append(out.float()))  # the output stays
+        for key, convs in (("offsets", model.offsets_list), ("masks", model.masks_list))
+        for m in convs]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     w, h = model.spec.pe_w * 4, model.spec.pe_h * 4
+    x = torch.randn(2, h, w, 15, generator=gen, device="cuda")
     with torch.no_grad():
-        model(torch.randn(2, h, w, 15, generator=gen, device="cuda"),
-              torch.ones(2, 4, device="cuda"))
-        for hook in hooks:
-            hook.remove()
+        model(x, torch.ones(2, 4, device="cuda"))
+        std = {key: seen[key][0].std().item() for key in seen}
         for convs, key, target in ((model.offsets_list, "offsets", 2.0),
                                    (model.masks_list, "masks", 1.0)):
             for m in convs:
                 for p in m["0"].parameters():
-                    p.mul_(target / seen[key])
-    log(f"eval CLI weights: offsets' deviation {seen['offsets']:.3g} -> 2, masks' "
-        f"{seen['masks']:.3g} -> 1")
+                    p.mul_(target / std[key])
+        for v in seen.values():
+            v.clear()
+        model(x, torch.ones(2, 4, device="cuda"))
+    for hook in hooks:
+        hook.remove()
+    offs = seen["offsets"]
+    shape = (offs[0].shape[0], model.spec.num_joints) + tuple(offs[0].shape[2:])
+    inside = dcn_inside_share((torch.empty(shape, device=offs[0].device), offs, None, None, None,
+                               model.spec.dilations))
+    log(f"refinement calibrated: offsets' deviation {std['offsets']:.3g} -> 2, masks' "
+        f"{std['masks']:.3g} -> 1; {inside:.1%} of the DCN's samples inside the image")
+    if not inside > 0.5:
+        fail("the calibrated refinement samples mostly outside the image")
+    return inside
 
 
 def eval_cli(seed: int = 0):
@@ -849,6 +901,366 @@ def eval_cli(seed: int = 0):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 10 to 13: the DCN's backward kernel and the train step
+# ---------------------------------------------------------------------------
+
+def dcn_bwd_work(args, o):
+    """(bytes, operations) the DCN's backward needs: offsets, masks, x and g
+    read once; d offsets, d masks and d x written once (d W and d bias are
+    kilobytes); per sample G (2 O), the bilinear sample and its two
+    derivatives (~20), the three gradients and four d x corners (~12), and
+    m * s against g for d W (2 O)."""
+    x, offs, masks = args[:3]
+    b, c, h, w = x.shape
+    g_bytes = b * o * h * w * x.element_size()
+    moved = 2 * nbytes(*offs, *masks) + 2 * nbytes(x) + g_bytes
+    samples = len(offs) * 9 * c * b * h * w
+    return moved, samples * (4 * o + 32)
+
+
+def check_dcn_backward():
+    """The backward kernel against the plain version's autograd at the
+    flagship shape (B = 8 in f32 and bf16, B = 1 in bf16), at offsets
+    calibrated so that most samples fall inside the image: each gradient's
+    worst error over its peak, in bf16 the share of elements that differ,
+    the kernel's ms (CUDA events around the backward launch alone) against
+    the plain version's backward and the bound."""
+    import torch
+
+    from otpose_tpu_torch.ops.cuda import deform_conv
+    from otpose_tpu_torch.utils.testing import dcn_case, dcn_gradients, dcn_inside_share
+    from otpose_tpu_torch.utils.timing import time_ms
+
+    names = ("x", "offsets", "masks", "weights", "biases")
+    tol = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    row, worst = None, 0.0
+    for batch, dtype in ((8, torch.float32), (8, torch.bfloat16), (1, torch.bfloat16)):
+        args = dcn_case(batch, 17, 17, 96, 72, DCN_DILATIONS, dtype, gen)
+        inside = dcn_inside_share(args)
+        g = torch.randn(batch, 17, 96, 72, generator=gen, device="cuda").to(dtype)
+        got = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
+        want = dcn_gradients(deform_conv.modulated_deform_conv_multi_plain, args, g)
+        torch.cuda.synchronize()
+        d = len(DCN_DILATIONS)
+        groups = lambda gr: [gr[0], torch.cat([t.flatten() for t in gr[1:1 + d]]),  # noqa: E731
+                             torch.cat([t.flatten() for t in gr[1 + d:1 + 2 * d]]), gr[-2], gr[-1]]
+        parts = []
+        for name, gk, gp in zip(names, groups(got), groups(want)):
+            err = (gk.float() - gp.float()).abs().max().item()
+            peak = gp.float().abs().max().item()
+            rel = err / peak
+            worst = max(worst, err) if batch == 8 and dtype == torch.bfloat16 else worst
+            part = f"{name} {rel:.3e}"
+            if dtype == torch.bfloat16 and gk.dtype == torch.bfloat16:
+                part += f" (differ {(gk != gp).float().mean().item():.3%})"
+            parts.append(part)
+            if not (math.isfinite(err) and peak > 0 and rel <= tol[dtype]):
+                fail(f"deform_conv backward {dtype} B={batch}: d {name} err {err:.3e} over "
+                     f"peak {peak:.3e}")
+        log(f"check deform_conv_bwd {str(dtype)[6:]} B={batch}: {inside:.1%} of samples inside "
+            f"the image; worst error over peak: " + ", ".join(parts)
+            + f" (tolerance {tol[dtype]:.0e}) ok")
+        again = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
+        same = [torch.equal(a, b) for a, b in zip(groups(got), groups(again))]
+        log(f"deform_conv_bwd {str(dtype)[6:]} B={batch}: two calls bit-equal: "
+            + ", ".join(f"{n} {'yes' if ok else 'no'}" for n, ok in zip(names, same)))
+        x, offs, masks, weights, biases, dil = args
+        pk = deform_conv.pack_dcn_weights(weights, biases)
+        ms = time_ms(lambda: deform_conv.launch_backward(g, x, offs, masks, pk, dil), iters=10)
+        leaves = [t.detach().clone().requires_grad_() for t in (x, *offs, *masks, weights, biases)]
+        out = deform_conv.modulated_deform_conv_multi_plain(
+            leaves[0], leaves[1:1 + d], leaves[1 + d:1 + 2 * d], leaves[-2], leaves[-1], dil)
+        plain_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True),
+                           iters=2, warmup=1)
+        del out, leaves
+        moved, ops = dcn_bwd_work(args, 17)
+        t_bytes, t_ops = moved / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+        bound = max(t_bytes, t_ops)
+        log(f"time deform_conv_bwd {str(dtype)[6:]} B={batch}: kernel {ms:.4f} ms, plain backward "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({moved / 1e6:.1f} MB, {ops / 1e9:.2f} "
+            f"GFLOP; {bound / ms:.1%} of it)")
+        key = f"{str(dtype)[6:]} B={batch}"
+        if row is None:
+            row = dict(name="deform_conv_bwd", route="cuda",
+                       source="otpose_tpu_torch/csrc/deform_conv_bwd.cu",
+                       replaces="otpose_tpu/ops/deform_conv.py:276", launches=None,
+                       max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
+                       bound_by=None, library_ms=None, ms_by_case={}, plain_ms_by_case={},
+                       bound_ms_by_case={}, inside_share_by_case={}, bit_equal={})
+        row["ms_by_case"][key], row["plain_ms_by_case"][key] = ms, plain_ms
+        row["bound_ms_by_case"][key], row["inside_share_by_case"][key] = bound, inside
+        row["bit_equal"][key] = dict(zip(names, same))
+        if batch == 8 and dtype == torch.bfloat16:
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+    row["max_abs_err"] = worst
+    return row
+
+
+def synthetic_train_batch(cfg, batch: int, gen, labelled: float = 0.6):
+    """A train batch on the card: random frames and margins, Gaussian targets
+    from ``ops/heatmap.py::generate_heatmaps`` at random joints.  Joints
+    17 * labelled onwards are invisible in every clip (weight 0, no peak), so
+    the loss's batch-global test finds some joints labelled and some not."""
+    import numpy as np
+    import torch
+
+    from otpose_tpu_torch.ops.heatmap import generate_heatmaps
+
+    rng = np.random.RandomState(int(torch.randint(0, 2 ** 31, (1,), generator=gen,
+                                                  device=gen.device)))
+    w, h = cfg.MODEL.IMAGE_SIZE
+    j = cfg.MODEL.NUM_JOINTS
+    targets, weights = [], []
+    for _ in range(batch):
+        joints = np.zeros((j, 3))
+        joints[:, 0] = rng.uniform(8, w - 8, j)
+        joints[:, 1] = rng.uniform(8, h - 8, j)
+        vis = np.zeros((j, 3))
+        vis[:int(j * labelled), 0] = 1.0
+        t, tw = generate_heatmaps(joints, vis, cfg.MODEL.SIGMA, cfg.MODEL.IMAGE_SIZE,
+                                  cfg.MODEL.HEATMAP_SIZE, j)
+        targets.append(t.transpose(1, 2, 0))
+        weights.append(tw)
+    dev = dict(device="cuda")
+    return {"inputs": torch.randn(batch, h, w, 15, generator=gen, **dev),
+            "margin": torch.randint(0, 3, (batch, 4), generator=gen, **dev).float(),
+            "target": torch.from_numpy(np.stack(targets)).to(**dev),
+            "target_weight": torch.from_numpy(np.stack(weights)).to(**dev)}
+
+
+def _train_run(label, step, batch, steps, warmup, micro):
+    """``steps`` train steps after ``warmup`` ones, each timed by CUDA events,
+    with its metrics, launches and peak memory."""
+    import torch
+
+    want = {k: v * micro for k, v in TRAIN_COUNTS.items()}
+    for _ in range(warmup):
+        step(batch)
+    torch.cuda.synchronize()
+    times, counts, first = [], None, None
+    for i in range(steps):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        metrics = step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ms = start.elapsed_time(end)
+        times.append(ms)
+        vals = {k: v.item() for k, v in metrics.items()}
+        first = vals if first is None else first
+        b = batch["inputs"].shape[0]
+        log(f"train {label} step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in vals.items())
+            + f"; {ms:.2f} ms, {b / ms * 1e3:.3f} clips/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches {counts}")
+        if len(vals) != 6 or not all(math.isfinite(v) for v in vals.values()):
+            fail(f"train {label}: metrics {vals}")
+        if counts != want:
+            fail(f"train {label}: launches {counts} a step, expected {want}")
+    return dict(ms=times, clips_per_s=[batch["inputs"].shape[0] / t * 1e3 for t in times],
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, counts=counts,
+                first=first)
+
+
+def flagship_train(card: str):
+    """The flagship train step (``configs/17/model_RSN.yaml``, full width and
+    depth, reference init, synthetic batches) on one model and optimizer:
+    bf16 at B = 8 (2 warm-up steps, 5 timed), f32 at B = 2 (3 steps), one
+    step at B = 16 with ``TPU.ACCUM_STEPS 2``.  The LR comes from
+    ``make_schedule`` with 1 iteration an epoch: lr(t) = t * LR / 11 in the
+    warm-up, > 0 from the second update on.  Then every trainable parameter
+    must hold a finite gradient and every BN running stat must have moved.
+    Before that, one step each in bf16 and f32 from copies of the initial
+    model on one B = 2 batch and one dropout seed: the two first-step
+    losses."""
+    import torch
+
+    from otpose_tpu_torch.config import get_cfg
+    from otpose_tpu_torch.engine.optim import make_optimizer, make_schedule
+    from otpose_tpu_torch.engine.trainer import make_train_step
+    from otpose_tpu_torch.models.core import BatchNorm
+    from otpose_tpu_torch.models.factory import build_model
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, "configs/17/model_RSN.yaml"))
+    spec, model = build_model(cfg, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    b2 = synthetic_train_batch(cfg, cfg.TRAIN.BATCH_SIZE_PER_GPU, gen)
+    first = {}
+    for dtype in ("bfloat16", "float32"):
+        twin = copy.deepcopy(model)
+        step = make_train_step(twin, make_optimizer(twin, cfg, make_schedule(cfg, 1)),
+                               compute_dtype=dtype,
+                               generator=torch.Generator(device="cuda").manual_seed(5))
+        first[dtype] = step(b2)["final_loss"].item()
+        del twin, step
+    rel = abs(first["bfloat16"] - first["float32"]) / abs(first["float32"])
+    log(f"train first-step loss on one B=2 batch: bf16 {first['bfloat16']:.6g}, f32 "
+        f"{first['float32']:.6g} (relative difference {rel:.3e})")
+    if not rel <= 5e-2:
+        fail("train: the bf16 first-step loss is far from the f32 one")
+
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats = {n: b.detach().clone() for n, b in model.named_buffers() if "running" in n}
+    opt = make_optimizer(model, cfg, make_schedule(cfg, 1))
+    tgen = torch.Generator(device="cuda").manual_seed(7)
+    runs = {}
+    for label, dtype, batch, steps, warmup, accum in (
+            ("bf16 B=8", "bfloat16", 8, 5, 2, 1),
+            ("f32 B=2", "float32", cfg.TRAIN.BATCH_SIZE_PER_GPU, 3, 0, 1),
+            ("bf16 B=16 ACCUM_STEPS 2", "bfloat16", 16, 1, 0, 2)):
+        step = make_train_step(model, opt, compute_dtype=dtype, accum_steps=accum,
+                               generator=tgen)
+        runs[label] = _train_run(label, step, synthetic_train_batch(cfg, batch, gen), steps,
+                                 warmup, accum)
+        r = runs[label]
+        log(f"train {label}: median {sorted(r['ms'])[len(r['ms']) // 2]:.2f} ms a step, "
+            f"{max(r['clips_per_s']):.3f} clips/s at best, peak {r['peak_gib']:.2f} GiB ({card})")
+    bad = [n for n, p in model.named_parameters()
+           if p.requires_grad and (p.grad is None or not torch.isfinite(p.grad).all())]
+    if bad:
+        fail(f"train: {len(bad)} trainable parameters without a finite gradient, e.g. {bad[:3]}")
+    moved = sum(not torch.equal(p, before[n]) for n, p in model.named_parameters())
+    still = [n for n, b in model.named_buffers() if n in stats and torch.equal(b, stats[n])]
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    log(f"train: every one of {len(before)} parameters has a finite gradient; {moved} moved "
+        f"after {opt.count} updates; {len(stats) - len(still)} of {len(stats)} running stats "
+        f"({n_bn} BN layers) moved")
+    if still or moved < 0.9 * len(before):
+        fail(f"train: running stats {still[:3]} did not move, or only {moved} parameters did")
+    return runs
+
+
+def tiny_train_agreement():
+    """The tiny spec in f32 with weights of std 1/sqrt(fan_in), conditioned
+    for gradients (``utils/testing.py::condition_for_gradients_``: every BN
+    bias raised by 3, so no ReLU input sits within f32 rounding of the
+    kink, and HRNet's final conv rescaled so the losses stay O(1)), the
+    mask convs calibrated, the offset convs zeroed and the dropout rates at
+    0.  The gradients of one forward and backward on the card (the DCN's
+    forward and backward kernels) and on the CPU (plain versions), the
+    CPU's also in f64 as the witness; then one SGD step (no weight decay)
+    on each, whose update is the momentum buffer, the clipped gradient.
+    Each gradient, however small beside the largest, is held to 1e-3 of its
+    own peak three ways: card against CPU, card against f64, and the
+    card's update against the CPU's.  A tensor whose f32 gradient is itself
+    ill-conditioned on this input (the CPU's misses the f64 one by more than
+    1e-3 of the peak: a sum that cancels, such as an encoder's output bias
+    whose shift the next batch-statistics BN removes but for the image
+    border) passes if the card is no farther from f64 than twice the CPU;
+    at most 5% of the tensors may, and they are printed.  Gradients that
+    are zero in exact arithmetic (f64 peak under 1e-12 of the largest) are
+    f32 residue, held to 1e-6 of the largest.  Zero offsets put every
+    sample exactly on a pixel, so rounding moves none across the bilinear
+    derivative's jump at integer positions (``check_dcn_backward`` holds
+    the kernel at fractional positions)."""
+    import torch
+
+    from otpose_tpu_torch.engine.optim import make_optimizer, make_schedule
+    from otpose_tpu_torch.engine.trainer import make_train_step
+    from otpose_tpu_torch.models.blocks import set_drop_rates
+    from otpose_tpu_torch.models.factory import build_model
+    from otpose_tpu_torch.utils.testing import (condition_for_gradients_, loss_gradients,
+                                                tiny_otpose_cfg)
+
+    cfg = tiny_otpose_cfg()
+    cfg.TRAIN.OPTIMIZER, cfg.TRAIN.WARMUP, cfg.TRAIN.WD = "SGD", False, 0.0
+    _, gpu_model = build_model(cfg, seed=4)
+    _scaled_weights_(gpu_model, 4)
+    set_drop_rates(gpu_model)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    batch = synthetic_train_batch(cfg, 2, gen)
+    condition_for_gradients_(gpu_model, batch["inputs"], batch["margin"])
+    _calibrate_refinement_(gpu_model, 4)
+    with torch.no_grad():
+        for m in gpu_model.offsets_list:
+            m["0"].weight.zero_()
+    cpu_model = copy.deepcopy(gpu_model).cpu()
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    # the unclipped gradients, on copies of the models before the step
+    grads = {dev: {n: g.detach().cpu() for n, g in loss_gradients(m, b)[2].items()}
+             for dev, m, b in (("cuda", gpu_model, batch), ("cpu", cpu_model, cpu_batch))}
+    loss64, _, exact = loss_gradients(cpu_model, cpu_batch, torch.float64)
+    results = {}
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        opt = make_optimizer(model, cfg, make_schedule(cfg, 4))
+        step = make_train_step(model, opt)
+        reset_counts()
+        metrics = step(batch if dev == "cuda" else cpu_batch)
+        counts = read_counts()
+        state = opt.opt.state
+        results[dev] = dict(
+            counts=counts, loss=metrics["final_loss"].item(),
+            updates={n: state[p]["momentum_buffer"].cpu() for n, p in model.named_parameters()})
+    if results["cuda"]["counts"] != TRAIN_COUNTS:
+        fail(f"tiny train step launches {results['cuda']['counts']}")
+    top64 = max(g.abs().max().item() for g in exact.values())
+    top_u = max(u.abs().max().item() for u in results["cpu"]["updates"].values())
+    zeros, strict, exempt, bad, worst = [], 0, [], [], (0.0, "")
+    for n, w in exact.items():
+        card, cpu = grads["cuda"][n].double(), grads["cpu"][n].double()
+        u_card, u_cpu = results["cuda"]["updates"][n], results["cpu"]["updates"][n]
+        if w.abs().max().item() <= 1e-12 * top64:
+            zeros.append(n)
+            if not (card.abs().max().item() <= 1e-6 * top64
+                    and u_card.abs().max().item() <= 1e-6 * top_u):
+                bad.append((n, "zero in exact arithmetic"))
+            continue
+        peak = w.abs().max().item()
+        e_card = (card - w).abs().max().item() / peak
+        e_cpu = (cpu - w).abs().max().item() / peak
+        e_pair = (card - cpu).abs().max().item() / peak
+        e_upd = (u_card - u_cpu).abs().max().item() / u_cpu.abs().max().item()
+        err = max(e_card, e_pair, e_upd)
+        worst = max(worst, (err, n))
+        if err <= 1e-3:
+            strict += 1
+        elif e_card <= 2 * e_cpu:
+            exempt.append((n, e_card, e_cpu))
+        else:
+            bad.append((n, e_card, e_cpu, e_pair, e_upd))
+    live = len(exact) - len(zeros)
+    log("tiny train step f32 GPU (kernels) vs CPU (plain), CPU f64 the witness: loss "
+        f"{results['cuda']['loss']:.6g} / {results['cpu']['loss']:.6g} / {loss64:.6g}; "
+        f"{strict} of {live} gradients (and their updates) within 1e-3 of their peak on all "
+        f"three counts, worst {worst[0]:.3e} ({worst[1]}); {len(exempt)} where f32 itself "
+        "misses 1e-3 and the card is no farther from f64 than twice the CPU ("
+        + ", ".join(f"{n} {c:.2e} vs {p:.2e}" for n, c, p in exempt[:4]) + f"); {len(zeros)} "
+        f"zero in exact arithmetic; launches {results['cuda']['counts']}")
+    if bad or len(exempt) > 0.05 * live:
+        fail(f"tiny train step disagrees between the card and the CPU: {bad[:5]}, "
+             f"{len(exempt)} exempt")
+
+
+def check_grad_refusals():
+    """F1 on the card: the kernels without a backward raise on a CUDA tensor
+    that requires grad."""
+    import torch
+
+    from otpose_tpu_torch.ops.cuda import fused_attn, fused_mlp, token_shift
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    a = attn_case(torch.float32, gen, 1)
+    m = mlp_case(torch.float32, gen, 64, 1)
+    x = torch.randn(4, 64, device="cuda")
+    for name, fn, args in (("fused_attn_ct", fused_attn.fused_attn_ct, a),
+                           ("fused_mlp_residual_ct", fused_mlp.fused_mlp_residual_ct, m),
+                           ("token_shift", token_shift.token_shift, [x, "right"])):
+        try:
+            fn(args[0].clone().requires_grad_(), *args[1:])
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            fail(f"{name} ran on a CUDA tensor that requires grad")
+    log("F1: fused_attn_ct, fused_mlp_residual_ct and token_shift raise under grad on the card")
+
+
 def main() -> None:
     try:
         import torch
@@ -885,22 +1297,36 @@ def main() -> None:
     rows["token_shift"] = check_token_shift()
     flag = flagship_eval()
     infer = inference_api(*flag["model"])
+    eval_rates = {k: flag[k]["clips_per_s"] for k in ("bf16", "f32", "flip")}
+    latency = infer["latency_ms"]
     paths = {"decoded_eval": flag["bf16"]["counts"], "flip_eval": flag["flip"]["counts"],
              "inference": infer["counts"], **tools()}
     tiny_agreement()
     cli = eval_cli()
     per_batch = {k: v // cli[0]["batches"] for k, v in cli[0]["counts"].items()}
     paths["eval_cli_per_batch"] = per_batch
+    del flag, infer
+    torch.cuda.empty_cache()
+    rows["deform_conv_bwd"] = check_dcn_backward()
+    check_grad_refusals()
+    train = flagship_train(card)
+    paths["train_step_bf16_b8"] = train["bf16 B=8"]["counts"]
+    tiny_train_agreement()
     # each kernel's launches on its own path: the eval's for the model's
-    # kernels, the experiment tool's for the other two
-    own = {"deform_conv_fused": "exp_deform_fused", "token_shift": "probe_shift"}
+    # kernels, the experiment tool's for the other two, a train step's for
+    # the DCN's backward
+    own = {"deform_conv_fused": "exp_deform_fused", "token_shift": "probe_shift",
+           "deform_conv_bwd": "train_step_bf16_b8"}
     for name, row in rows.items():
         row["launches"] = paths[own.get(name, "decoded_eval")][name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items()}
-    log(f"flagship decoded eval bf16: {flag['bf16']['clips_per_s']:.3f} clips/s, "
-        f"f32: {flag['f32']['clips_per_s']:.3f} clips/s, flip bf16: "
-        f"{flag['flip']['clips_per_s']:.3f} clips/s (B={BATCH}); inference latency B=1: "
-        f"{infer['latency_ms']:.3f} ms; eval CLI over a synthetic tree: "
+    log(f"flagship decoded eval bf16: {eval_rates['bf16']:.3f} clips/s, "
+        f"f32: {eval_rates['f32']:.3f} clips/s, flip bf16: "
+        f"{eval_rates['flip']:.3f} clips/s (B={BATCH}); inference latency B=1: "
+        f"{latency:.3f} ms; train step: "
+        + "; ".join(f"{k} {sorted(r['ms'])[len(r['ms']) // 2]:.2f} ms, peak {r['peak_gib']:.2f} GiB"
+                    for k, r in train.items())
+        + "; eval CLI over a synthetic tree: "
         + "; ".join(f"{r['boxes_per_s']:.3f} boxes/s with {r['workers']} loader thread(s), the "
                     f"steps' events span {r['step_span_share']:.1%} of the loop's wall time"
                     for r in cli) + f" ({card})")

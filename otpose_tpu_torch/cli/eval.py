@@ -10,6 +10,13 @@ evaluation for each on one device: ``cuda`` unless ``--device cpu`` is given,
 and without a GPU the default raises.  The config keeps the JAX package's key
 names (``TPU.COMPUTE_DTYPE``, ``TPU.PARAM_DTYPE``, ``TPU.DEVICE_PREPROCESS``),
 so one yaml serves both packages.
+
+Only the host loader is ported.  The repository's yamls leave
+``TPU.DEVICE_PREPROCESS`` at ``auto``, which on a GPU resolves to device
+preprocessing and raises, so on the card pass ``TPU.DEVICE_PREPROCESS off``
+until device preprocessing is ported (ROADMAP Queue 1 item 6):
+
+    python -m otpose_tpu_torch.cli.eval --cfg <yaml> --val TPU.DEVICE_PREPROCESS off
 """
 
 from __future__ import annotations

@@ -66,12 +66,13 @@ def make_flip_eval_step(model: OTPose, *, compute_dtype=torch.float32,
     unflipped, their left/right joints swapped, and shifted right by one
     column with column 0 duplicated (the simple-baselines shift), then
     averaged with the direct pass.  The teacher is the direct pass's rough
-    heatmaps of the current frame."""
+    heatmaps of the current frame.  The step puts the model in eval mode."""
     dtype = resolve_dtype(compute_dtype)
     perm = flip_permutation(model.spec.num_joints)
 
     @torch.inference_mode()
     def step(inputs, margin):
+        model.eval()
         out = otpose_forward(model, inputs, margin, compute_dtype=dtype, fused=fused)
         out_f = otpose_forward(model, torch.flip(inputs, dims=[2]), margin,
                                compute_dtype=dtype, fused=fused)

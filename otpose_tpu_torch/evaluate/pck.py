@@ -4,15 +4,16 @@ ref: utils/evaluate.py:352-415.  Decodes argmax keypoints from predicted and
 GT heatmaps, normalizes distances by (h, w)/10 and reports the fraction of
 joints within 0.5 normalized units, ignoring joints whose GT peak sits at
 coordinates <= 1 (invisible).  Vectorized numpy (the reference loops).
-The port's copy of the numpy half of ``otpose_tpu/evaluate/pck.py``; the
-on-device meter comes with the train step.
+The port's copy of ``otpose_tpu/evaluate/pck.py``: the numpy meter and
+``accuracy_device``, the train step's on-device meter.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from otpose_tpu_torch.ops.heatmap import get_max_preds
+from otpose_tpu_torch.ops.heatmap import get_max_preds, get_max_preds_device
 
 
 def calc_dists(preds: np.ndarray, target: np.ndarray, normalize: np.ndarray) -> np.ndarray:
@@ -55,3 +56,26 @@ def accuracy(output: np.ndarray, target: np.ndarray, hm_type: str = "gaussian",
     if cnt != 0:
         acc[0] = avg_acc
     return acc, avg_acc, cnt, pred
+
+
+def accuracy_device(pred_hm: torch.Tensor, target_hm: torch.Tensor, thr: float = 0.5):
+    """PCK on the device, with ``accuracy``'s semantics: per-joint fraction
+    of visible joints within ``thr``, averaged over the joints that have a
+    visible instance.  NHWC heatmaps in; returns (avg_acc, cnt) as 0-d
+    tensors."""
+    pred = pred_hm.permute(0, 3, 1, 2)
+    gt = target_hm.permute(0, 3, 1, 2)
+    h, w = pred.shape[2], pred.shape[3]
+    p, _ = get_max_preds_device(pred)     # (B, J, 2)
+    g, _ = get_max_preds_device(gt)
+    visible = (g[..., 0] > 1) & (g[..., 1] > 1)                  # (B, J)
+    norm = torch.tensor([h / 10.0, w / 10.0], device=p.device)
+    d = torch.linalg.norm((p - g) / norm, dim=-1)                 # (B, J)
+    hit = (d < thr) & visible
+    n_vis = visible.sum(dim=0)                                   # (J,)
+    acc_j = hit.sum(dim=0) / n_vis.clamp(min=1)
+    has_vis = n_vis > 0
+    cnt = has_vis.sum()
+    avg = torch.where(cnt > 0, (acc_j * has_vis).sum() / cnt.clamp(min=1),
+                      torch.zeros((), device=p.device))
+    return avg, cnt

@@ -7,10 +7,17 @@ transpose (ref: model/blocks.py:427-429), so attention runs over each head's
 reshape (ref: blocks.py:447) interleaves (T, hs) on the way back to
 (B, C, T).  Trained checkpoints depend on both quirks, so they stay.
 
-Eval dispatch follows the JAX ``fused_ok`` gate: with ``fused`` and C >= 32,
-a stride-1 block's attention front goes to ``ops.cuda.fused_attn`` and every
-block's ln2 + MLP + residual to ``ops.cuda.fused_mlp``.  The flow encoder
-(C = 17) and the strided branch attention take the plain PyTorch path.
+Eval dispatch follows the JAX ``fused_ok`` gate: with ``fused``, in eval
+mode and C >= 32, a stride-1 block's attention front goes to
+``ops.cuda.fused_attn`` and every block's ln2 + MLP + residual to
+``ops.cuda.fused_mlp``.  The flow encoder (C = 17), the strided branch
+attention and every block in train mode take the plain PyTorch path (the
+kernels have no backward, as in JAX).  Train mode adds the JAX dropout
+sites: ``attn_pdrop`` on the attention weights, ``proj_pdrop`` after the
+projection, the GELU and ``mlp.3``, and ``path_pdrop`` through the
+drop-path scales.  The rates live on the block apart from the presence of
+the ``drop_path_*`` scales, so ``set_drop_rates`` can zero them and keep the
+parameter set.
 The two kernels' weights are packed once per block and compute dtype
 (``attn_pack`` / ``mlp_pack``) and cached on the block, keyed by each source
 parameter's storage and version, so a steady forward packs nothing.
@@ -64,9 +71,10 @@ class TransformerBlock(nn.Module):
     indices 0 and 3."""
 
     def __init__(self, c: int, n_head: int, ds_stride: int = 1,
-                 path_pdrop: float = 0.0):
+                 path_pdrop: float = 0.0, attn_pdrop: float = 0.0, proj_pdrop: float = 0.0):
         super().__init__()
         self.n_head, self.ds_stride = n_head, ds_stride
+        self.attn_pdrop, self.proj_pdrop, self.path_pdrop = attn_pdrop, proj_pdrop, path_pdrop
         self.ln1 = LayerNormCT(c)
         self.ln2 = LayerNormCT(c)
         self.attn = MaskedMHCA(c)
@@ -78,15 +86,26 @@ class TransformerBlock(nn.Module):
         return transformer_block_ct(self, x, fused=fused)
 
 
-def masked_mhca_ct(attn: MaskedMHCA, x, n_head: int, stride: int = 1):
-    """Plain MaskedMHCA on normed (B, C, T) -> (B, C, T/stride)."""
+def set_drop_rates(model: nn.Module, *, attn: float = 0.0, proj: float = 0.0,
+                   path: float = 0.0) -> nn.Module:
+    """Set the dropout rates of every block of ``model`` (the drop-path
+    scales stay)."""
+    for m in model.modules():
+        if isinstance(m, TransformerBlock):
+            m.attn_pdrop, m.proj_pdrop, m.path_pdrop = attn, proj, path
+    return model
+
+
+def masked_mhca_ct(attn: MaskedMHCA, x, n_head: int, stride: int = 1, attn_drop=None):
+    """Plain MaskedMHCA on normed (B, C, T) -> (B, C, T/stride), before the
+    projection's dropout; ``attn_drop`` is applied to the attention weights."""
     q, k, v = (core.dense_1x1_ct(core.layer_norm_ct(
         core.depthwise_conv1d_k3_ct(x, conv.weight, stride=stride),
         norm.weight, norm.bias), lin.weight, lin.bias)
         for conv, norm, lin in ((attn.query_conv, attn.query_norm, attn.query),
                                 (attn.key_conv, attn.key_norm, attn.key),
                                 (attn.value_conv, attn.value_norm, attn.value)))
-    return _mhca_tail_ct(attn, channel_attention_ct(q, k, v, n_head), n_head)
+    return _mhca_tail_ct(attn, channel_attention_ct(q, k, v, n_head, drop=attn_drop), n_head)
 
 
 def _mhca_tail_ct(attn: MaskedMHCA, pre, n_head: int):
@@ -97,8 +116,12 @@ def _mhca_tail_ct(attn: MaskedMHCA, pre, n_head: int):
     return core.dense_1x1_ct(out, attn.proj.weight, attn.proj.bias)
 
 
-def _affine(scale_mod, x):
-    return x if scale_mod is None else scale_mod(x)
+def _affine_drop_path(block: TransformerBlock, scale_mod, x):
+    """JAX ``affine_drop_path_ct``: the scale, then drop-path, where the
+    block has the scale."""
+    if scale_mod is None:
+        return x
+    return core.drop_path(scale_mod(x), block.path_pdrop, block.training)
 
 
 def cached_pack(owner: nn.Module, slot: str, params, dtype, make):
@@ -149,18 +172,20 @@ def fused_mlp_block_ct(block: TransformerBlock, x):
 
 
 def transformer_block_ct(block: TransformerBlock, x, fused: bool = True):
-    """(B, C, T) -> (B, C, T/ds_stride), eval mode."""
-    n_head, ds = block.n_head, block.ds_stride
-    fused_ok = fused and x.shape[1] >= 32
+    """(B, C, T) -> (B, C, T/ds_stride), in the block's mode."""
+    n_head, ds, train = block.n_head, block.ds_stride, block.training
+    drop = lambda t: core.dropout(t, block.proj_pdrop, train)  # noqa: E731
+    fused_ok = fused and not train and x.shape[1] >= 32
     if fused_ok and ds == 1:
         out = _mhca_tail_ct(block.attn, fused_attn_block_ct(block, x), n_head)
     else:
-        out = masked_mhca_ct(block.attn, block.ln1(x), n_head, stride=ds)
+        out = masked_mhca_ct(block.attn, block.ln1(x), n_head, stride=ds,
+                             attn_drop=lambda t: core.dropout(t, block.attn_pdrop, train))
     skip = core.max_pool1d_ct(x, ds + 1, ds, (ds + 1) // 2) if ds > 1 else x
-    out = skip + _affine(block.drop_path_attn, out)
+    out = skip + _affine_drop_path(block, block.drop_path_attn, drop(out))
     if fused_ok:
         return fused_mlp_block_ct(block, out)
     h = block.ln2(out)
-    h = core.gelu(core.dense_1x1_ct(h, block.mlp["0"].weight, block.mlp["0"].bias))
-    h = core.dense_1x1_ct(h, block.mlp["3"].weight, block.mlp["3"].bias)
-    return out + _affine(block.drop_path_mlp, h)
+    h = drop(core.gelu(core.dense_1x1_ct(h, block.mlp["0"].weight, block.mlp["0"].bias)))
+    h = drop(core.dense_1x1_ct(h, block.mlp["3"].weight, block.mlp["3"].bias))
+    return out + _affine_drop_path(block, block.drop_path_mlp, h)

@@ -55,11 +55,13 @@ class ConvTransformer(nn.Module):
             self.register_buffer("pos_embd", pe)
         else:
             self.pos_embd = None
+        rates = dict(path_pdrop=spec.path_pdrop, attn_pdrop=spec.attn_pdrop,
+                     proj_pdrop=spec.proj_pdrop)
         self.stem = nn.ModuleList([
-            TransformerBlock(spec.n_embd, spec.n_head, 1, spec.path_pdrop)
+            TransformerBlock(spec.n_embd, spec.n_head, 1, **rates)
             for _ in range(spec.arch[1])])
         self.branch = nn.ModuleList([
-            TransformerBlock(spec.n_embd, spec.n_head, spec.scale_factor, spec.path_pdrop)
+            TransformerBlock(spec.n_embd, spec.n_head, spec.scale_factor, **rates)
             for _ in range(spec.arch[2])])
 
     def forward(self, x, upsample: bool = True, fused: bool = True) -> List:

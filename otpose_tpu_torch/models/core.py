@@ -10,12 +10,20 @@ Feature maps run NCHW internally and token maps (B, C, T).  The compute
 dtype is the activation dtype: every op casts its weights to ``x.dtype``,
 matrix products accumulate in f32 and round to that dtype (the JAX package's
 ``_preferred`` / ``_mxu_precision`` rule), and norm statistics stay f32.
-The modules implement the eval forward only; dropout and drop-path are the
-identity there.
+
+Train mode follows ``nn.Module.train()``: ``BatchNorm`` normalises with
+batch statistics and records the running-stat update, which
+``commit_bn_stats`` writes once per micro-batch (the JAX ``finalize_state``),
+so a forward recomputed under ``torch.utils.checkpoint`` does not update the
+stats twice; ``frozen`` runs a submodule on its running statistics with no
+update and no graph (JAX ``Ctx.frozen`` plus ``stop_gradient``).  ``dropout``
+and ``drop_path`` are the identity in eval and draw from the generator that
+``use_generator`` installs (torch's default generator when there is none).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -23,7 +31,11 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1   # torch semantics: running = (1 - m) * running + m * batch
 LN_EPS = 1e-5
+
+# the generator that dropout and drop-path draw from (``use_generator``)
+_generator: torch.Generator | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -49,6 +61,27 @@ def batch_norm_eval(x, weight, bias, running_mean, running_var,
     scale = weight.float() * inv
     shift = bias.float() - running_mean.float() * scale
     return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+def batch_norm_train(x, weight, bias, running_mean, running_var,
+                     momentum: float = BN_MOMENTUM, eps: float = BN_EPS):
+    """Train BN on NCHW (JAX ``core.batch_norm``, train branch): batch
+    statistics in f32 even for bf16 activations, ``var = E[x^2] - E[x]^2``
+    (biased) to normalise, the unbiased ``var * n / (n - 1)`` for the running
+    variance.  Returns (y in x's dtype, new running mean, new running var)."""
+    xf = x.float()
+    n = x.numel() // x.shape[1]
+    mean = xf.mean(dim=(0, 2, 3))
+    mean_sq = (xf * xf).mean(dim=(0, 2, 3))
+    var = mean_sq - mean * mean
+    with torch.no_grad():
+        unbiased = var * (n / max(n - 1, 1))
+        new_mean = (1 - momentum) * running_mean + momentum * mean
+        new_var = (1 - momentum) * running_var + momentum * unbiased
+    inv = torch.rsqrt(var + eps)
+    c = (slice(None), None, None)
+    y = (xf - mean[c]) * (inv * weight.float())[c] + bias.float()[c]
+    return y.to(x.dtype), new_mean, new_var
 
 
 def layer_norm_ct(x, weight, bias, eps: float = LN_EPS) -> torch.Tensor:
@@ -125,6 +158,40 @@ def dense_1x1_ct(x, w, b=None) -> torch.Tensor:
     return y + b.to(y.dtype)[:, None] if b is not None else y
 
 
+@contextlib.contextmanager
+def use_generator(gen: torch.Generator | None):
+    """Dropout and drop-path inside the block draw from ``gen``."""
+    global _generator
+    prev, _generator = _generator, gen
+    try:
+        yield
+    finally:
+        _generator = prev
+
+
+def _uniform(shape, like) -> torch.Tensor:
+    return torch.rand(shape, generator=_generator, device=like.device)
+
+
+def dropout(x, rate: float, training: bool) -> torch.Tensor:
+    """Elementwise dropout with ``x / keep`` on the kept elements (JAX
+    ``Ctx.dropout``); the identity in eval or at rate 0."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    return torch.where(_uniform(x.shape, x) < keep, x / keep, 0.0).to(x.dtype)
+
+
+def drop_path(x, rate: float, training: bool) -> torch.Tensor:
+    """Per-sample stochastic depth, scaled by ``1 / keep`` (JAX
+    ``Ctx.drop_path``); the identity in eval or at rate 0."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.floor(keep + _uniform((x.shape[0],) + (1,) * (x.dim() - 1), x))
+    return x / keep * mask.to(x.dtype)
+
+
 def gelu(x) -> torch.Tensor:
     """Exact (erf) GELU."""
     return F.gelu(x)
@@ -160,7 +227,8 @@ class Conv2d(nn.Module):
 
 class BatchNorm(nn.Module):
     """BatchNorm2d params and running stats without ``num_batches_tracked``
-    (the JAX package keeps no such buffer)."""
+    (the JAX package keeps no such buffer).  In train mode a forward keeps
+    its running-stat update in ``pending`` until ``commit_bn_stats``."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -168,10 +236,45 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
+        self.pending = None
 
     def forward(self, x):
-        return batch_norm_eval(x, self.weight, self.bias, self.running_mean,
-                               self.running_var)
+        if not self.training:
+            return batch_norm_eval(x, self.weight, self.bias, self.running_mean,
+                                   self.running_var)
+        y, mean, var = batch_norm_train(x, self.weight, self.bias, self.running_mean,
+                                        self.running_var)
+        self.pending = (mean, var)
+        return y
+
+
+@torch.no_grad()
+def commit_bn_stats(model: nn.Module) -> int:
+    """Write every pending train-mode BN update of ``model`` to its running
+    stats; returns how many were written."""
+    n = 0
+    for m in model.modules():
+        if isinstance(m, BatchNorm) and m.pending is not None:
+            m.running_mean.copy_(m.pending[0])
+            m.running_var.copy_(m.pending[1])
+            m.pending = None
+            n += 1
+    return n
+
+
+@contextlib.contextmanager
+def frozen(module: nn.Module):
+    """Run ``module`` as a frozen submodule: eval mode (BN on running stats,
+    no update, no dropout) and no autograd graph, so its output is detached
+    and none of its parameters gets a gradient; its mode is restored after."""
+    was = [(m, m.training) for m in module.modules()]
+    module.eval()
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        for m, training in was:
+            m.training = training
 
 
 class LayerNormCT(nn.Module):

@@ -1,4 +1,4 @@
-"""JAX ``(params, state)`` -> the port's ``state_dict``.
+"""JAX ``(params, state)`` -> the port's ``state_dict``, and back.
 
 The inverse of the JAX package's ``models/torch2jax.py::convert_state_dict``:
 
@@ -10,7 +10,9 @@ The inverse of the JAX package's ``models/torch2jax.py::convert_state_dict``:
 - BN running stats taken from ``state``
 
 Arrays arrive as numpy (the port never imports JAX); ``load_jax_weights``
-loads them with ``strict=True``.
+loads them with ``strict=True``.  ``to_jax`` is the inverse, for holding a
+trained port model (params, BN running stats, or gradients by name) against
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -64,3 +66,29 @@ def load_jax_weights(model: torch.nn.Module, params: Mapping, state: Mapping):
     """Load JAX weights into ``model`` (strict: every key on both sides)."""
     model.load_state_dict(from_jax(params, state), strict=True)
     return model
+
+
+def jax_layout(name: str, t: torch.Tensor) -> np.ndarray:
+    """One port tensor named ``name`` (a parameter, a buffer or a parameter's
+    gradient) as the JAX package stores it: an f32 numpy copy (f64 stays
+    f64), which a later in-place update of ``t`` leaves as it is."""
+    t = t.detach()
+    arr = (t if t.dtype == torch.float64 else t.float()).cpu().numpy().copy()
+    if name.endswith("rel_pe"):
+        return arr
+    if name.endswith("pos_embd"):
+        return np.transpose(arr, (0, 2, 1))
+    if arr.ndim == 4:
+        return np.transpose(arr, (2, 3, 1, 0))          # OIHW -> HWIO
+    if arr.ndim == 3 and is_channel_param(name):
+        return arr.reshape(-1)
+    if arr.ndim == 3:
+        return np.transpose(arr, (2, 1, 0))             # (O, I, K) -> (K, I, O)
+    return arr
+
+
+def to_jax(model: torch.nn.Module):
+    """The port model as JAX ``(params, state)`` numpy dicts."""
+    params = {n: jax_layout(n, p) for n, p in model.named_parameters()}
+    state = {n: jax_layout(n, b) for n, b in model.named_buffers()}
+    return params, state

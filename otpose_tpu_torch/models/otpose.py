@@ -10,7 +10,13 @@ ref: model/OTPose.py:180-503.  Forward (ref: 307-394):
   5. two 8-feature 136-channel stacks -> temporal encoders -> final 1x1 convs
   6. def_fuse RSB on total_b; offset_mask_combine RSB on [branches, fused];
      per-dilation offset/mask convs + the multi-dilation modulated
-     deformable conv kernel, its weights packed once (``dcn_pack``)
+     deformable conv kernel, its weights packed once (``dcn_pack``); under
+     autograd the raw weights go to the wrapper, whose autograd Function
+     runs the backward kernel on the card
+
+Train mode is the model's ``train()``; with ``freeze_hrnet`` HRNet runs as a
+frozen submodule (``core.frozen``: running statistics, no update, its output
+detached), as the JAX package's ``Ctx.frozen`` and ``stop_gradient`` do.
 
 Internally NCHW; the public layouts are the JAX package's: the clip is NHWC
 and the 7-tuple is NHWC.
@@ -153,8 +159,8 @@ def dcn_pack(model: OTPose):
 def dcn_weights(model: OTPose):
     """(weights, biases, packed) for the DCN wrapper: the cached pack, or,
     where autograd would differentiate a DCN parameter, the raw stacked
-    weights and biases (a pack is made without grad; on the CPU the
-    wrapper's plain version differentiates the raw ones)."""
+    weights and biases, whose gradients the wrapper returns (the backward
+    kernel on the card, the plain version's autograd on the CPU)."""
     dcn = [m["deform_conv"] for m in model.modulated_deform_conv_list]
     if torch.is_grad_enabled() and any(p.requires_grad for m in dcn for p in (m.weight, m.bias)):
         return torch.stack([m.weight for m in dcn]), torch.stack([m.bias for m in dcn]), None
@@ -195,7 +201,11 @@ def otpose_forward(model: OTPose, x, margin, compute_dtype=torch.float32,
     j = spec.num_joints
     frames = torch.cat(torch.split(x.permute(0, 3, 1, 2), 3, dim=1), dim=0)
     frames = frames.to(compute_dtype).contiguous()
-    rough = model.rough_pose_estimation_net(frames)            # (5B, J, h, w)
+    if spec.freeze_hrnet:
+        with core.frozen(model.rough_pose_estimation_net):
+            rough = model.rough_pose_estimation_net(frames)    # (5B, J, h, w)
+    else:
+        rough = model.rough_pose_estimation_net(frames)
     h, w = rough.shape[2:]
     cur, prev, nxt, pprev, nnext = torch.split(rough, b, dim=0)
 

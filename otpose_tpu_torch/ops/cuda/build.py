@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("fused_attn", "fused_mlp", "deform_conv", "token_shift")
+KERNELS = ("fused_attn", "fused_mlp", "deform_conv", "deform_conv_bwd", "token_shift")
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "otpose_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -116,6 +116,17 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.otp_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would need a gradient through a kernel that has
+    no backward: grad mode is on and one of ``tensors`` (other arguments
+    are ignored) requires grad."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward; call it under "
+                           "torch.no_grad() or on tensors that do not require grad (the "
+                           "model takes the plain path in train mode)")
 
 
 def stream_ptr(device) -> int:

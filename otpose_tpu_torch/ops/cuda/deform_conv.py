@@ -12,7 +12,10 @@ rounded once to ``x.dtype``.
 On a CUDA tensor it launches ``csrc/deform_conv.cu`` in its exact mode; on a
 CPU tensor it runs ``modulated_deform_conv_multi_plain``, the same function
 in plain PyTorch.  The same kernel, in its other mode, serves
-``deform_conv_fused.deform_conv_fused`` through ``launch``.
+``deform_conv_fused.deform_conv_fused`` through ``launch``.  A CUDA call
+goes through ``DeformConvFn``, whose backward launches
+``csrc/deform_conv_bwd.cu`` (every gradient: x, offsets, masks, weights,
+biases); on the CPU the plain version's autograd is the plain backward.
 
 ``pack_dcn_weights`` puts the weights in the kernel's layout once
 (``models/otpose.py::dcn_pack`` caches the result on the model); the
@@ -30,9 +33,11 @@ import torch
 
 from otpose_tpu_torch.ops.cuda import build
 
-# wrapper calls (either path), kernel launches (CUDA path only) and packs made
+# wrapper calls (either path), kernel launches (CUDA path only; the forward's
+# and the backward's) and packs made
 calls = 0
 launches = 0
+bwd_launches = 0
 packs = 0
 
 EXACT, PALLAS3 = 0, 1          # the kernel's rounding modes
@@ -44,6 +49,11 @@ _SIGNATURES = {
                         _P, _P, _P, _P] + [_I] * 11 + [_P]),
     "otp_deform_max_groups": (_I, []),
     "otp_deform_tile": (_I, [_I]),
+}
+_BWD_SIGNATURES = {
+    "otp_deform_bwd": (_I, [_P, ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I)]
+                       + [_P] * 8 + [_I] * 8 + [_P]),
+    "otp_deform_bwd_tile": (_I, []),
 }
 
 
@@ -203,16 +213,84 @@ def launch(mode: int, what: str, x, offsets_list, masks_list, weights, biases, d
     return out
 
 
+def launch_backward(g, x, offsets_list, masks_list, packed: DcnPack, dilations):
+    """Run ``csrc/deform_conv_bwd.cu`` on CUDA tensors: the gradients of the
+    exact mode's output with respect to x, each offset and mask map, the
+    weights (D, O, C, 3, 3) and the biases (D, O), from the output's
+    gradient ``g`` (B, O, H, W).  d x, d W and d bias are computed in f32;
+    d x is returned in x's dtype, d W and d bias in f32."""
+    global bwd_launches
+    what = "modulated_deform_conv_multi backward"
+    code = build.dtype_code(x.dtype)
+    _check_maps(what, x, offsets_list, masks_list, packed, dilations)
+    b, c, h, w = x.shape
+    d, o, op = packed.d, packed.o, packed.w.shape[-1]
+    g = g.to(x.dtype).contiguous()
+    if tuple(g.shape) != (b, o, h, w):
+        raise ValueError(f"{what}: the output's gradient has shape {tuple(g.shape)}")
+    lib = build.load("deform_conv_bwd", _BWD_SIGNATURES)
+    tiles = -(-h * w // lib.otp_deform_bwd_tile())
+    dev = x.device
+    d_off = torch.empty(d, b, 18 * c, h, w, device=dev, dtype=x.dtype)
+    d_mask = torch.empty(d, b, 9 * c, h, w, device=dev, dtype=x.dtype)
+    dx = torch.zeros(b, c, h, w, device=dev, dtype=torch.float32)
+    partial = torch.empty(b * tiles, c, d * 9 + 1, o, device=dev, dtype=torch.float32)
+    dw = torch.empty(d, o, c, 3, 3, device=dev, dtype=torch.float32)
+    dbias = torch.empty(d, o, device=dev, dtype=torch.float32)
+    offs = (ctypes.c_void_p * d)(*[t.data_ptr() for t in offsets_list])
+    msks = (ctypes.c_void_p * d)(*[t.data_ptr() for t in masks_list])
+    dils = (ctypes.c_int * d)(*[int(v) for v in dilations])
+    err = lib.otp_deform_bwd(x.data_ptr(), offs, msks, dils, packed.w.data_ptr(), g.data_ptr(),
+                             d_off.data_ptr(), d_mask.data_ptr(), dx.data_ptr(),
+                             partial.data_ptr(), dw.data_ptr(), dbias.data_ptr(),
+                             b, c, o, op, h, w, d, code, build.stream_ptr(dev))
+    build.check(lib, err, what)
+    bwd_launches += 1
+    return dx.to(x.dtype), list(d_off.unbind(0)), list(d_mask.unbind(0)), dw, dbias
+
+
+class DeformConvFn(torch.autograd.Function):
+    """The exact-mode kernel with its backward kernel.  Arguments: x, the
+    raw weights and biases (or None, with ``packed``), the pack (or None:
+    the raw weights are packed once a call, without grad), the dilations,
+    then the D offset maps and the D mask maps."""
+
+    @staticmethod
+    def forward(ctx, x, weights, biases, packed, dilations, *maps):
+        global launches
+        d = len(dilations)
+        offsets_list, masks_list = list(maps[:d]), list(maps[d:])
+        if packed is None:
+            packed = pack_dcn_weights(weights, biases, device=x.device)
+        out = launch(EXACT, "modulated_deform_conv_multi", x, offsets_list, masks_list, None,
+                     None, dilations, packed)
+        launches += 1
+        ctx.save_for_backward(x, *maps)
+        ctx.packed, ctx.dilations = packed, dilations
+        ctx.wdtype = None if weights is None else (weights.dtype, biases.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *maps = ctx.saved_tensors
+        d = len(ctx.dilations)
+        dx, d_off, d_mask, dw, dbias = launch_backward(g, x, maps[:d], maps[d:], ctx.packed,
+                                                       ctx.dilations)
+        if ctx.wdtype is None:
+            dw = dbias = None
+        else:
+            dw, dbias = dw.to(ctx.wdtype[0]), dbias.to(ctx.wdtype[1])
+        return (dx, dw, dbias, None, None, *d_off, *d_mask)
+
+
 def modulated_deform_conv_multi(x, offsets_list, masks_list, weights=None, biases=None,
                                 dilations=(), *, packed: DcnPack | None = None) -> torch.Tensor:
     """x: (B, C, H, W) -> (B, O, H, W); see the module docstring.  Or, in
     place of ``weights`` and ``biases``, ``packed`` from ``pack_dcn_weights``."""
-    global calls, launches
+    global calls
     calls += 1
     if x.device.type == "cpu":
         return modulated_deform_conv_multi_plain(x, offsets_list, masks_list,
                                                  *plain_args(weights, biases, packed), dilations)
-    out = launch(EXACT, "modulated_deform_conv_multi", x, offsets_list, masks_list, weights,
-                 biases, dilations, packed)
-    launches += 1
-    return out
+    return DeformConvFn.apply(x, weights, biases, packed, tuple(dilations), *offsets_list,
+                              *masks_list)

@@ -43,11 +43,12 @@ _SIGNATURES = {
 }
 
 
-def channel_attention_ct(q, k, v, n_head: int) -> torch.Tensor:
+def channel_attention_ct(q, k, v, n_head: int, drop=None) -> torch.Tensor:
     """Per-head attention over the channel axis of projected (B, C, T)
     q/k/v (the MaskedMHCA quirk), returned as the contiguous (B, C, T) view
     of (B, nh, hs, T), before the scramble.  Scores are summed over T and
-    rounded to the compute dtype, then softmaxed in f32."""
+    rounded to the compute dtype, then softmaxed in f32; ``drop`` (train
+    mode's attention dropout) is applied to the rounded weights."""
     b, c, t = q.shape
     hs = c // n_head
     scale = q.new_tensor(1.0 / math.sqrt(hs))     # rounded like the activations
@@ -56,6 +57,8 @@ def channel_attention_ct(q, k, v, n_head: int) -> torch.Tensor:
     vh = v.reshape(b, n_head, hs, t)
     att = torch.matmul(qh * scale, kh.transpose(-1, -2)).float()
     att = torch.softmax(att, dim=-1).to(q.dtype)
+    if drop is not None:
+        att = drop(att)
     return torch.matmul(att, vh).reshape(b, c, t)
 
 
@@ -164,6 +167,8 @@ def fused_attn_ct(x, ln1_w=None, ln1_b=None, dw_q=None, dw_k=None, dw_v=None, nq
         return fused_attn_plain(x, *raw, n_head)
     if x.device.type != "cuda":
         raise ValueError(f"fused_attn_ct: unsupported device {x.device}")
+    build.refuse_grad("fused_attn_ct", x, *raw,
+                      *(vars(packed).values() if packed is not None else ()))
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("fused_attn_ct: x must be a contiguous (B, C, T) tensor")
     bsz, c, t = x.shape

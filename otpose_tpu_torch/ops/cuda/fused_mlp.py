@@ -124,6 +124,8 @@ def fused_mlp_residual_ct(x, ln_w=None, ln_b=None, w1=None, b1=None, w2=None, b2
         return fused_mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_residual_ct: unsupported device {x.device}")
+    build.refuse_grad("fused_mlp_residual_ct", x, ln_w, ln_b, w1, b1, w2, b2,
+                      *(vars(packed).values() if packed is not None else ()))
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("fused_mlp_residual_ct: x must be a contiguous (B, C, T) tensor")
     bsz, c, t = x.shape

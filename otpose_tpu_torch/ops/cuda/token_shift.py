@@ -62,6 +62,7 @@ def token_shift(x: torch.Tensor, mode: str) -> torch.Tensor:
         return token_shift_plain(x, mode)
     if x.device.type != "cuda":
         raise ValueError(f"token_shift: unsupported device {x.device}")
+    build.refuse_grad("token_shift", x)
     if not x.is_contiguous():
         raise ValueError("token_shift: x must be contiguous")
     build.dtype_code(x.dtype)             # raises unless float32 or bfloat16

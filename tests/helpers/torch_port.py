@@ -58,3 +58,42 @@ def numpy_weights(init_fn, *args, seed: int = 0):
             arr = blocks.get_sinusoid_encoding(shape[1], shape[2]) / np.sqrt(shape[2])
         state[name] = np.asarray(arr, np.float32)
     return params, state
+
+
+def calibrate_refinement(params, state, x, margin, cfg=None):
+    """Scale, in place, the offset and mask convs of the numpy OTPose
+    ``params`` (the tiny config unless ``cfg``) so that on the clip ``x``
+    (B, H, W, 15) with ``margin`` the DCN's offsets have a deviation of 2
+    pixels and its masks of 1.  At the O(1) weight scales of
+    ``numpy_weights`` the refinement's features reach the thousands, every
+    sample leaves the image and the refined heatmap is the bias.  Returns
+    the share of the DCN's samples inside the image after the scaling."""
+    from otpose_tpu_torch.models.factory import build_model
+    from otpose_tpu_torch.models.jax_bridge import load_jax_weights
+    from otpose_tpu_torch.utils.testing import dcn_inside_share, tiny_otpose_cfg
+
+    spec, model = build_model(cfg if cfg is not None else tiny_otpose_cfg(), device="cpu")
+    seen = {"offsets": [], "masks": []}
+    for key, convs in (("offsets", model.offsets_list), ("masks", model.masks_list)):
+        for m in convs:
+            m["0"].register_forward_hook(lambda _m, _i, out, key=key: seen[key].append(out))
+
+    def run():
+        for v in seen.values():
+            v.clear()
+        load_jax_weights(model, params, state)
+        with torch.no_grad():
+            model(torch.from_numpy(np.asarray(x, np.float32)),
+                  torch.from_numpy(np.asarray(margin, np.float32)))
+
+    run()
+    for key, target in (("offsets", 2.0), ("masks", 1.0)):
+        scale = target / float(seen[key][0].std())
+        for name in params:
+            if name.startswith(f"{key}_list."):
+                params[name] = (params[name] * scale).astype(np.float32)
+    run()
+    x0 = seen["offsets"][0]
+    shape = (x0.shape[0], spec.num_joints) + tuple(x0.shape[2:])
+    return dcn_inside_share((torch.empty(shape), seen["offsets"], None, None, None,
+                             spec.dilations))

@@ -133,7 +133,7 @@ def test_hrnet_forward_matches_jax(stage2_block):
     jcfg.MODEL.EXTRA.STAGE2.BLOCK = cfg.MODEL.EXTRA.STAGE2.BLOCK = stage2_block
     jspec = jhrnet.HRNetSpec.from_cfg(jcfg)
     params, state = numpy_weights(jhrnet.init_hrnet, jspec)
-    model = hrnet.HRNet(hrnet.HRNetSpec.from_cfg(cfg))
+    model = hrnet.HRNet(hrnet.HRNetSpec.from_cfg(cfg)).eval()
     load_jax_weights(model, params, state)
     x = np.random.RandomState(7).randn(2, 64, 64, 3).astype(np.float32)
     want = jax.jit(lambda p, s, x: jhrnet.hrnet_forward(Ctx(p, s), x, jspec))(params, state, x)
@@ -154,7 +154,7 @@ def _block_init(key, c, path_pdrop):
 
 
 def _port_block(params, c, n_head, ds, path_pdrop):
-    blk = blocks.TransformerBlock(c, n_head, ds, path_pdrop)
+    blk = blocks.TransformerBlock(c, n_head, ds, path_pdrop).eval()
     blk.load_state_dict(from_jax({k[4:]: v for k, v in params.items()}, {}), strict=True)
     return blk
 
@@ -183,7 +183,7 @@ def test_conv_transformer_forward_matches_jax(max_len, upsample):
               arch=(0, 2, 1), path_pdrop=0.1)
     jspec, spec = jct.ConvTransformerSpec(**kw), ConvTransformerSpec(**kw)
     params, state = numpy_weights(jct.init_conv_transformer, jspec)
-    model = ConvTransformer(spec)
+    model = ConvTransformer(spec).eval()
     load_jax_weights(model, params, state)
     x = np.random.RandomState(9).randn(2, 8, 12, 32).astype(np.float32)
     want = jct.conv_transformer_forward(Ctx(params, state, train=False, fused=False),

@@ -2,7 +2,9 @@
 at small and ragged shapes the flagship path does not reach (tails of the T
 tiles, T shorter than a tile, other widths, head counts and dilation counts;
 for the DCN both rounding modes of its one kernel, both copy paths, both
-gather paths, and the split-stage path of the flagship at B = 1).
+gather paths, and the split-stage path of the flagship at B = 1; the DCN's
+backward kernel against the plain version's autograd; the kernels without a
+backward refusing grad).
 
 Needs a CUDA device and nvcc; skips elsewhere.  On a machine with the card
 (which need not have JAX), run without the repository's conftest:
@@ -17,6 +19,7 @@ import torch
 
 from otpose_tpu_torch.ops.cuda import (build, deform_conv, deform_conv_fused, fused_attn,
                                        fused_mlp, token_shift)
+from otpose_tpu_torch.utils.testing import dcn_case, dcn_gradients, dcn_inside_share
 
 pytestmark = pytest.mark.cuda
 
@@ -247,7 +250,8 @@ def test_both_dcn_wrappers_load_one_library():
     deform_conv_fused.deform_conv_fused(*args)
     torch.cuda.synchronize()
     assert "deform_conv_fused" not in build.KERNELS
-    assert [k for k in build._libs if "deform" in str(k)] == ["deform_conv"]
+    assert [k for k in build._libs if "deform" in str(k) and k != "deform_conv_bwd"] == [
+        "deform_conv"]
 
 
 @pytest.mark.parametrize("mode", list(DCN_MODES))
@@ -264,6 +268,105 @@ def test_dcn_wrappers_refuse_what_the_kernel_does_not_take(mode):
         kern(x.half(), [t.half() for t in offs], [t.half() for t in masks], weights, biases, dil)
     with pytest.raises(ValueError, match="contiguous"):
         kern(x, [offs[0].transpose(2, 3)], masks, weights, biases, dil)
+
+
+GRAD_NAMES = ("x", "offsets", "masks", "weights", "biases")
+
+
+def _grad_groups(grads, d):
+    return [grads[0], torch.cat([g.flatten() for g in grads[1:1 + d]]),
+            torch.cat([g.flatten() for g in grads[1 + d:1 + 2 * d]]), grads[-2], grads[-1]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,o,h,w,dilations", [
+    (1, 17, 17, 13, 11, (3, 6, 9, 12, 15)),   # B = 1, D = 5; rows of 11: not 16-byte aligned
+    (3, 5, 4, 9, 7, (2,)),                      # B = 3, D = 1, O = 4, odd H and W
+    (3, 17, 4, 31, 29, (1, 3, 5, 7, 9)),        # a ragged last tile
+    (1, 4, 17, 96, 72, (3, 6)),                 # flagship rows
+    (2, 3, 32, 8, 8, tuple(range(1, 9))),       # O = 32, D = 8
+])
+def test_deform_conv_backward_matches_plain_autograd(b, c, o, h, w, dilations, dtype):
+    """The backward kernel against the plain version's autograd: each of the
+    five gradients to 1e-4 (f32) or 5e-2 (bf16) of its peak, at offsets
+    calibrated so that samples land near their taps (on the small images
+    with dilations up to 15, a third of them inside; most at the flagship's
+    96 x 72)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    args = dcn_case(b, c, o, h, w, dilations, dtype, gen)
+    assert dcn_inside_share(args) > 0.25
+    g = torch.randn(b, o, h, w, generator=gen, device="cuda").to(dtype)
+    launches = deform_conv.bwd_launches
+    got = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
+    want = dcn_gradients(deform_conv.modulated_deform_conv_multi_plain, args, g)
+    torch.cuda.synchronize()
+    assert deform_conv.bwd_launches == launches + 1
+    d = len(dilations)
+    for name, gk, gp in zip(GRAD_NAMES, _grad_groups(got, d), _grad_groups(want, d)):
+        assert gk.dtype == gp.dtype and gk.shape == gp.shape, name
+        err = (gk.float() - gp.float()).abs().max().item()
+        peak = gp.float().abs().max().item()
+        assert peak > 0 and err <= TOL[dtype] * peak, (name, err, peak)
+
+
+def test_deform_conv_backward_weights_are_deterministic():
+    """d W, d bias, d offset and d mask are the same bits from call to call
+    (one writer, or sums in a fixed order); d x sums by atomics."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    args = dcn_case(2, 17, 17, 96, 72, (3, 6, 9, 12, 15), torch.bfloat16, gen)
+    g = torch.randn(2, 17, 96, 72, generator=gen, device="cuda").to(torch.bfloat16)
+    first = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
+    second = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
+    for a, b in zip(first[1:], second[1:]):
+        assert torch.equal(a, b)
+
+
+def test_deform_conv_under_grad_with_a_pack_returns_no_weight_gradient():
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x, offs, masks, weights, biases, dil = dcn_case(1, 3, 4, 9, 7, (1, 2), torch.float32, gen)
+    pk = deform_conv.pack_dcn_weights(weights, biases)
+    x.requires_grad_()
+    out = deform_conv.modulated_deform_conv_multi(x, offs, masks, dilations=dil, packed=pk)
+    out.sum().backward()
+    xp = x.detach().clone().requires_grad_()
+    deform_conv.modulated_deform_conv_multi_plain(xp, offs, masks, weights, biases,
+                                                  dil).sum().backward()
+    _close(x.grad, xp.grad, torch.float32)
+
+
+def test_kernels_without_backward_refuse_grad():
+    """F1: on a CUDA tensor under grad the fused attention, fused MLP and
+    token shift raise (they have no backward); under no_grad they run."""
+    gen = torch.Generator(device="cuda")
+    args = _attn_args(1, 32, 40, 2, torch.float32, gen)
+    margs = _mlp_args(1, 32, 40, torch.float32, gen)
+    shift = torch.randn(4, 64, device="cuda")
+    for fn, x, rest in ((fused_attn.fused_attn_ct, args[0], args[1:]),
+                        (fused_mlp.fused_mlp_residual_ct, margs[0], margs[1:]),
+                        (token_shift.token_shift, shift, ["right"])):
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(x.clone().requires_grad_(), *rest)
+        with torch.no_grad():
+            fn(x.clone().requires_grad_(), *rest)
+    weight = margs[3].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_mlp.fused_mlp_residual_ct(margs[0], *margs[1:3], weight, *margs[4:])
+
+
+def test_train_mode_block_takes_the_plain_path():
+    """The block gate has JAX's ``not train`` term: a train-mode block on
+    the card launches neither fused kernel, and its gradients reach every
+    parameter."""
+    from otpose_tpu_torch.models import blocks
+
+    blk = blocks.TransformerBlock(136, 2, 1, path_pdrop=0.1, proj_pdrop=0.1).cuda().train()
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.normal_(0, 0.1)
+    launches = (fused_attn.launches, fused_mlp.launches)
+    blk(torch.randn(2, 136, 96, device="cuda")).sum().backward()
+    assert (fused_attn.launches, fused_mlp.launches) == launches
+    assert all(p.grad is not None and p.grad.abs().sum() > 0 for p in blk.parameters())
 
 
 # L not a multiple of a 16-byte vector, L odd (the 16-byte boundary moves from

@@ -124,3 +124,49 @@ def test_stage_split(b, tiles, sms, stages, split):
     """The wrapper splits the (channel, dilation) stages over blocks only
     when the (item, tile) blocks leave SMs without one."""
     assert deform_conv.stage_split(b, tiles, sms, stages) == split
+
+
+@pytest.mark.parametrize("b,c,o,h,w,dilations", [
+    (2, 3, 4, 9, 8, (1, 2)),
+    (1, 17, 17, 12, 10, (1, 2, 3)),     # OTPose's channel count
+])
+def test_plain_gradients_match_jax(b, c, o, h, w, dilations):
+    """All five gradients of the plain version (x, offsets, masks, weights,
+    biases) against ``jax.grad`` of the JAX function, to 1e-4 of each
+    gradient's peak, at calibrated offsets: most samples inside the image
+    and every fractional part in [0.05, 0.95], where the tent function's
+    derivative equals the bilinear corners'."""
+    import jax
+
+    from otpose_tpu_torch.utils.testing import dcn_case, dcn_gradients, dcn_inside_share
+
+    args = dcn_case(b, c, o, h, w, dilations, torch.float32, torch.Generator().manual_seed(5),
+                    device="cpu", reach=2)
+    x, offs, masks, weights, biases, _ = args
+    assert dcn_inside_share(args) >= 0.5
+    frac = torch.cat([t.flatten() for t in offs]).frac().abs()
+    assert 0.05 <= float(frac.min()) and float(frac.max()) <= 0.95
+    g = np.random.RandomState(6).randn(b, o, h, w).astype(np.float32)
+    got = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, torch.from_numpy(g))
+
+    nhwc = lambda a: jnp.asarray(a.numpy().transpose(0, 2, 3, 1))  # noqa: E731
+
+    def loss(xj, oj, mj, wj, bj):
+        y = jax_dcn_multi(xj, oj, mj, wj, bj, kernel=3, stride=1, padding_list=dilations,
+                          dilation_list=dilations, deformable_groups=c)
+        return (y * jnp.asarray(g.transpose(0, 2, 3, 1))).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+        nhwc(x), [nhwc(t) for t in offs], [nhwc(t) for t in masks],
+        jnp.asarray(weights.numpy().transpose(0, 3, 4, 2, 1)), jnp.asarray(biases.numpy()))
+    nchw = lambda a: np.asarray(a).transpose(0, 3, 1, 2)  # noqa: E731
+    d = len(dilations)
+    pairs = [("x", got[0], nchw(want[0])),
+             ("offsets", torch.stack(got[1:1 + d]), np.stack([nchw(a) for a in want[1]])),
+             ("masks", torch.stack(got[1 + d:1 + 2 * d]), np.stack([nchw(a) for a in want[2]])),
+             ("weights", got[-2], np.asarray(want[3]).transpose(0, 4, 3, 1, 2)),
+             ("biases", got[-1], np.asarray(want[4]))]
+    for name, gp, gj in pairs:
+        peak = np.abs(gj).max()
+        assert peak > 0, name
+        np.testing.assert_allclose(gp.numpy(), gj, rtol=0, atol=1e-4 * peak, err_msg=name)

@@ -1,8 +1,8 @@
 """The port's flip-test eval vs the JAX package on ``tiny_otpose_cfg``.
 
 The weights of tests/test_torch_otpose.py (JAX init's keys and shapes with
-numpy values, carried across by ``jax_bridge``), in f32; JAX runs
-``fused=False``.
+numpy values, the refinement calibrated by ``calibrate_refinement``, carried
+across by ``jax_bridge``), in f32; JAX runs ``fused=False``.
 
 - ``make_flip_eval_step``'s averaged heatmaps and teacher agree to 1e-3 of
   their peaks;
@@ -29,7 +29,8 @@ from otpose_tpu_torch.models.jax_bridge import load_jax_weights
 from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
 from otpose_tpu_torch.utils.testing import tiny_otpose_cfg
 
-from tests.helpers.torch_port import numpy_weights, one_torch_thread  # noqa: F401  (fixture)
+from tests.helpers.torch_port import (calibrate_refinement, numpy_weights,  # noqa: F401
+                                      one_torch_thread)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -43,13 +44,16 @@ def case():
     rng = np.random.RandomState(0)
     x = rng.randn(2, 64, 64, 15).astype(np.float32)
     margin = np.array([[1, 1, 2, 2], [1, 0, 2, 0]], np.float32)
-    batch = {"inputs": jnp.asarray(x), "margin": jnp.asarray(margin)}
+    inside = calibrate_refinement(params, state, x, margin)
+    load_jax_weights(model, params, state)
+    batch = {"inputs": jnp.asarray(x), "margin": jnp.asarray(margin), "inside": inside}
     return jspec, params, state, model, x, margin, batch
 
 
 @pytest.fixture(scope="module")
 def flip_heat(case):
     jspec, params, state, model, x, margin, batch = case
+    batch = {k: batch[k] for k in ("inputs", "margin")}
     want = [np.asarray(a) for a in jax_flip_step(jspec, fused=False)(params, state, batch)]
     got = [a.numpy() for a in make_flip_eval_step(model)(torch.from_numpy(x),
                                                           torch.from_numpy(margin))]
@@ -63,7 +67,8 @@ def test_flip_permutation_swaps_each_pair_once():
 
 
 @pytest.mark.parametrize("which", ["heatmaps", "teacher"])
-def test_flip_eval_step_matches_jax(flip_heat, which):
+def test_flip_eval_step_matches_jax(case, flip_heat, which):
+    assert case[-1]["inside"] > 0.5
     want, got = flip_heat
     i = ("heatmaps", "teacher").index(which)
     assert got[i].shape == want[i].shape == (2, 16, 16, 17)
@@ -87,6 +92,8 @@ def test_flip_shift_duplicates_column_zero(case, flip_heat):
 
 def test_decoded_flip_step_matches_jax(case, flip_heat):
     jspec, params, state, model, x, margin, batch = case
+    assert batch["inside"] > 0.5
+    batch = {k: batch[k] for k in ("inputs", "margin")}
     want = [np.asarray(a) for a in jax_decoded_step(jspec, flip=True, fused=False)(
         params, state, batch)]
     got = [a.numpy() for a in make_decoded_eval_step(model, flip=True)(

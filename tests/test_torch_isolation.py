@@ -55,7 +55,8 @@ def test_every_port_module_imports_without_cv2():
         "import otpose_tpu_torch.cli.inference, otpose_tpu_torch.tools.probe_shift\n"
         "want = ['cli.eval', 'data.coco_json', 'data.loader', 'data.pipeline', 'data.posetrack',\n"
         "        'data.synthetic',\n"
-        "        'engine.base', 'engine.checkpoints', 'engine.runner', 'engine.trainer',\n"
+        "        'engine.base', 'engine.checkpoints', 'engine.optim', 'engine.runner',\n"
+        "        'engine.trainer', 'models.losses',\n"
         "        'evaluate.converters', 'evaluate.keypoints', 'evaluate.pck', 'evaluate.poseval',\n"
         "        'evaluate.tracking', 'utils.table', 'utils.testing', 'utils.timing']\n"
         "missing = [w for w in want if 'otpose_tpu_torch.' + w not in names]\n"

@@ -46,7 +46,7 @@ def _randomize_(module, seed):
 
 
 def _block(c, n_head, seed=0):
-    return _randomize_(blocks.TransformerBlock(c, n_head, 1, path_pdrop=0.1), seed)
+    return _randomize_(blocks.TransformerBlock(c, n_head, 1, path_pdrop=0.1), seed).eval()
 
 
 def _mlp_raw(blk):

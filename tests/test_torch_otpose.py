@@ -1,7 +1,9 @@
 """The PyTorch port's slice vs the JAX package on ``tiny_otpose_cfg``.
 
 One model: JAX init's keys and shapes with numpy values
-(tests/helpers/torch_port.py), carried to the port by ``jax_bridge``.  The
+(tests/helpers/torch_port.py), the offset and mask convs scaled so that most
+of the DCN's samples fall inside the image (``calibrate_refinement``),
+carried to the port by ``jax_bridge``.  The
 tiny temporal encoders have C = 136, so they take the kernel dispatch (the
 plain versions, on the CPU); JAX runs ``fused=False``.  All in f32.
 
@@ -32,7 +34,7 @@ from otpose_tpu_torch.models.otpose import prepare_eval_params
 from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
 from otpose_tpu_torch.utils.testing import tiny_otpose_cfg
 
-from tests.helpers.torch_port import numpy_weights
+from tests.helpers.torch_port import calibrate_refinement, numpy_weights
 
 
 @pytest.fixture(scope="module")
@@ -44,11 +46,13 @@ def case():
     rng = np.random.RandomState(0)
     x = rng.randn(2, 64, 64, 15).astype(np.float32)
     margin = np.array([[1, 1, 2, 2], [1, 0, 2, 0]], np.float32)
-    return jspec, params, state, model, x, margin
+    inside = calibrate_refinement(params, state, x, margin)
+    load_jax_weights(model, params, state)
+    return jspec, params, state, model, x, margin, inside
 
 
 def test_bridge_round_trip_is_exact(case):
-    _, params, state, model, _, _ = case
+    _, params, state, model, _, _, _ = case
     p2, s2 = convert_state_dict({k: v.numpy() for k, v in model.state_dict().items()})
     assert p2.keys() == params.keys() and s2.keys() == state.keys()
     for k in params:
@@ -58,7 +62,8 @@ def test_bridge_round_trip_is_exact(case):
 
 
 def test_seven_outputs_match_jax(case):
-    jspec, params, state, model, x, margin = case
+    jspec, params, state, model, x, margin, inside = case
+    assert inside > 0.5
     want = jax.jit(lambda p, s, x, m: jax_forward(Ctx(p, s, train=False, fused=False),
                                                   x, m, jspec))(params, state, x, margin)
     with torch.no_grad():
@@ -72,7 +77,8 @@ def test_seven_outputs_match_jax(case):
 
 
 def test_decoded_eval_step_matches_jax(case):
-    jspec, params, state, model, x, margin = case
+    jspec, params, state, model, x, margin, inside = case
+    assert inside > 0.5
     want = jax_decoded_step(jspec, fused=False)(
         params, state, {"inputs": jnp.asarray(x), "margin": jnp.asarray(margin)})
     coords, maxvals, raw = (np.asarray(a) for a in want)
@@ -90,7 +96,7 @@ def test_decoded_eval_step_matches_jax(case):
 
 
 def test_launch_counters_follow_the_dispatch(case):
-    _, _, _, model, x, margin = case
+    _, _, _, model, x, margin, _ = case
     for mod in (fused_attn, fused_mlp, deform_conv):
         mod.calls = mod.launches = 0
     with torch.no_grad():
