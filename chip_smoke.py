@@ -52,19 +52,25 @@ Phases, each of which must pass or the script exits non-zero:
    PoseTrack-format tree of 64 boxes made from a seed in a temporary
    directory (frames as uint8 arrays, cropped by the port's torch warp: the
    card's machine has no cv2), from a checkpoint of random weights saved in
-   the reference's ``.pth`` layout: 12 / 16 / 1 launches a batch, one json
-   a video, an AP table of 8 entries that is not perfect, and a second run
-   (one loader thread instead of four) that agrees with the first; prints boxes/s of the whole loop, the share
-   of its wall time that the CUDA events around the steps span (the device
-   busy, or waiting for the host's next launch) and the host's time in each
-   step's launches.
+   the reference's ``.pth`` layout, five times: an untimed first run with
+   ``TPU.DEVICE_PREPROCESS full`` (the device warp; the process's first
+   steps), then with the key left at the config's ``auto`` (the device
+   loader in its crops mode), with ``off`` (the host loader) on four and on
+   one loader thread, and with ``full`` again.  Each run: 12 / 16 / 1 launches a batch, one
+   json a video, an AP table of 8 entries that is not perfect; the device
+   loader's first batch equals the host loader's on the card, the auto
+   run's AP table equals the off run's to 1e-9, the one-thread run agrees
+   with the four-thread one, and the full run's AP is printed beside them.
+   Prints boxes/s of each whole loop, the share of its wall time that the
+   CUDA events around the steps span (the device busy, or waiting for the
+   host's next launch) and the host's time in each step's launches.
 
 10. holds the DCN's backward kernel (``csrc/deform_conv_bwd.cu``) against
     the plain version's autograd at the flagship shape (B = 8 in f32 and
     bf16, B = 1 in bf16), at offsets calibrated so that most samples fall
     inside the image: each of the five gradients' worst error over its peak
-    (f32 1e-4, bf16 5e-2), in bf16 the share of elements that differ,
-    whether two calls are bit-equal, the kernel's ms against the plain
+    (f32 1e-4, bf16 5e-2), in bf16 the share of elements that differ, two
+    calls bit-equal in every gradient, the kernel's ms against the plain
     backward's and the bound;
 11. checks that the fused attention, fused MLP and token shift raise on a
     CUDA tensor that requires grad (they have no backward);
@@ -749,11 +755,22 @@ def _calibrate_refinement_(model, seed: int) -> float:
     return inside
 
 
+def _first_batch(loader):
+    it = iter(loader)
+    try:
+        return next(it)[0]
+    finally:
+        it.close()
+
+
 def eval_cli(seed: int = 0):
-    """``Eval("validate", args).eval()`` on the card, twice, over a synthetic
-    tree of 64 boxes: index, window selection, metas, loader, pipelined
-    forward, device decode, back-projection, json writing and poseval AP are
-    the port's own code; only the frames come as arrays."""
+    """``Eval("validate", args).eval()`` on the card over a synthetic tree of
+    64 boxes: index, window selection, metas, loader, pipelined forward,
+    device decode, back-projection, json writing and poseval AP are the
+    port's own code; only the frames come as arrays.  Runs: the yaml's
+    ``TPU.DEVICE_PREPROCESS`` left at ``auto`` (the device loader, crops),
+    ``off`` (the host loader) with four and with one loader thread, and
+    ``full`` (the device warp)."""
     import shutil
     import tempfile
 
@@ -762,6 +779,8 @@ def eval_cli(seed: int = 0):
 
     from otpose_tpu_torch.cli.eval import Eval
     from otpose_tpu_torch.config import default_parse_args
+    from otpose_tpu_torch.data.device_loader import DeviceLoader
+    from otpose_tpu_torch.data.loader import Loader
     from otpose_tpu_torch.data.synthetic import ArrayFramesDataset, make_synthetic_posetrack
     from otpose_tpu_torch.models.factory import build_model
     from otpose_tpu_torch.utils.testing import flagship_otpose_cfg
@@ -812,7 +831,9 @@ def eval_cli(seed: int = 0):
         cfg.WORKERS = 4
         cfg.TPU.COMPUTE_DTYPE = "bfloat16"
         cfg.TPU.PARAM_DTYPE = "bfloat16"
-        cfg.TPU.DEVICE_PREPROCESS = "off"
+        if cfg.TPU.DEVICE_PREPROCESS != "auto":
+            fail(f"eval CLI: the flagship config sets TPU.DEVICE_PREPROCESS "
+                 f"{cfg.TPU.DEVICE_PREPROCESS!r}, not the repository's auto")
         yaml_path = os.path.join(root, "flagship.yaml")
         with open(yaml_path, "w") as fh:
             fh.write(cfg.dump())
@@ -824,15 +845,46 @@ def eval_cli(seed: int = 0):
         log(f"eval CLI: tree of 32 frames of 480x640 and the checkpoint written in "
             f"{time.perf_counter() - t0:.1f} s")
 
+        # quoted: on a command line a bare off is YAML's false, not the mode
+        OFF = "'off'"
+
+        def make(opts):
+            return TimedEval("validate",
+                             default_parse_args(["--cfg", yaml_path, "--root_dir", root, *opts]),
+                             dataset_cls=ArrayFramesDataset)
+
+        # the device loader's first batch against the host loader's: the same
+        # host warp, so the same pixels; the targets drawn on the card
+        dev_b = _first_batch(make([]).loader)
+        host_b = _first_batch(make(["TPU.DEVICE_PREPROCESS", OFF]).loader)
+        for k in ("inputs", "target", "target_weight", "margin"):
+            want = torch.from_numpy(np.asarray(host_b[k])).to("cuda")
+            got = dev_b[k]
+            err = (got.float() - want.float()).abs().max().item()
+            if got.device.type != "cuda" or got.shape != want.shape or not err <= (
+                    0.0 if k in ("inputs", "margin") else 1e-6):
+                fail(f"eval CLI: the device loader's {k} is {tuple(got.shape)} on {got.device}, "
+                     f"{err:.3e} from the host loader's")
+        log("eval CLI: the device loader's first batch equals the host loader's on the card "
+            "(inputs and margins bit-equal, targets and weights to 1e-6)")
+
         runs = []
-        # the second run has one loader thread instead of four: the same
-        # boxes in the same order, and a reading of what the loader's threads
-        # cost the thread that launches the steps
-        for run, workers in enumerate((4, 1)):
-            ev = TimedEval("validate",
-                           default_parse_args(["--cfg", yaml_path, "--root_dir", root,
-                                               "WORKERS", str(workers)]),
-                           dataset_cls=ArrayFramesDataset)
+        # a first run takes the process's first steps (cuDNN's choices, the
+        # weight packs, the allocator's growth): full, the device warp, once
+        # untimed; then auto (the device loader, crops) and off (the host
+        # loader) on four loader threads, off on one thread (what the
+        # loader's threads cost the thread that launches the steps), full
+        for label, opts, workers, kind in (
+                ("full", ["TPU.DEVICE_PREPROCESS", "full"], 4, "full"),
+                ("auto", [], 4, "crops"), ("off", ["TPU.DEVICE_PREPROCESS", OFF], 4, "off"),
+                ("off", ["TPU.DEVICE_PREPROCESS", OFF], 1, "off"),
+                ("full", ["TPU.DEVICE_PREPROCESS", "full"], 4, "full")):
+            ev = make([*opts, "WORKERS", str(workers)])
+            loader_kind = (ev.loader.mode if isinstance(ev.loader, DeviceLoader)
+                           else "off" if type(ev.loader) is Loader else "?")
+            if loader_kind != kind:
+                fail(f"eval CLI under {label}: loader {type(ev.loader).__name__} "
+                     f"({loader_kind}), expected {kind}")
             kept = {}
             inner = ev.dataset.evaluate
 
@@ -873,8 +925,8 @@ def eval_cli(seed: int = 0):
                      f"keypoints: {table}")
             spans = [s.elapsed_time(e) * 1e-3 for s, e in ev.events]
             span = sum(spans)
-            log(f"eval CLI run {run}, {workers} loader thread(s): {boxes} boxes; the loop "
-                f"(loader, {batches} steps, decode, "
+            log(f"eval CLI TPU.DEVICE_PREPROCESS {label} ({kind}), {workers} loader thread(s): "
+                f"{boxes} boxes; the loop (loader, {batches} steps, decode, "
                 f"json, poseval) took {wall:.3f} s, {boxes / wall:.3f} boxes/s ({total:.3f} s "
                 f"with the model's build and load); the steps' CUDA events span {span:.3f} s, "
                 f"{span / wall:.1%} of the loop's wall time ("
@@ -882,20 +934,35 @@ def eval_cli(seed: int = 0):
                 + ", ".join(f"{v:.3f}" for v in ev.launch_s) + f" s launching them; launches "
                 f"{counts}; AP " + " ".join(f"{k} {v:.4f}" for k, v in name_values.items()))
             runs.append(dict(counts=counts, boxes_per_s=boxes / wall, step_span_share=span / wall,
-                             workers=workers,
+                             workers=workers, preprocess=label, loader=kind,
                              table=table, preds=kept["preds"], wall_s=wall, batches=batches))
+        runs = runs[1:]   # the warm-up run's readings are not kept
+        auto, off4, off1, full = runs
+
+        def agreement(a, b):
+            same = (a["preds"][..., :2] == b["preds"][..., :2]).all(-1).mean()
+            diff = np.nanmax(np.abs(a["table"] - b["table"]))
+            nan_same = (np.isnan(a["table"]) == np.isnan(b["table"])).all()
+            return same, diff, nan_same
+
+        same, diff, nan_same = agreement(auto, off4)
+        log(f"eval CLI: auto (device loader) against off (host loader): {same:.2%} of keypoints "
+            f"identical, AP tables differ by at most {diff:.3e} (limit 1e-9)")
+        if not (diff <= 1e-9 and nan_same):
+            fail("eval CLI: the device loader's AP table differs from the host loader's")
         # the fused attention sums its score tiles with f32 atomics, so two
         # runs differ in the last bits and a near-tied argmax may move by a
         # cell: the runs must agree on nearly every keypoint, and on the
         # table up to what those few can move
-        same = (runs[0]["preds"][..., :2] == runs[1]["preds"][..., :2]).all(-1).mean()
-        diff = np.nanmax(np.abs(runs[0]["table"] - runs[1]["table"]))
-        log(f"eval CLI: second run on the same tree and checkpoint: {same:.2%} of keypoints "
-            "identical, "
-            f"AP table differs by at most {diff:.4f}")
-        if not (same >= 0.98 and diff <= 1.0 and
-                (np.isnan(runs[0]["table"]) == np.isnan(runs[1]["table"])).all()):
+        same, diff, nan_same = agreement(off4, off1)
+        log(f"eval CLI: off with one loader thread against four: {same:.2%} of keypoints "
+            f"identical, AP table differs by at most {diff:.4f}")
+        if not (same >= 0.98 and diff <= 1.0 and nan_same):
             fail("eval CLI: two runs on the same seed disagree")
+        same, diff, _ = agreement(full, off4)
+        log(f"eval CLI: full (the device warp) against off: {same:.2%} of keypoints identical, "
+            f"AP tables differ by at most {diff:.4f} (no limit: float warp against the uint8 "
+            f"crops); full AP " + " ".join(f"{v:.4f}" for v in full["table"]))
         return runs
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -966,6 +1033,8 @@ def check_dcn_backward():
         same = [torch.equal(a, b) for a, b in zip(groups(got), groups(again))]
         log(f"deform_conv_bwd {str(dtype)[6:]} B={batch}: two calls bit-equal: "
             + ", ".join(f"{n} {'yes' if ok else 'no'}" for n, ok in zip(names, same)))
+        if not all(same):   # d x is an exact fixed-point sum, the rest fixed-order sums
+            fail(f"deform_conv backward {dtype} B={batch}: two calls differ")
         x, offs, masks, weights, biases, dil = args
         pk = deform_conv.pack_dcn_weights(weights, biases)
         ms = time_ms(lambda: deform_conv.launch_backward(g, x, offs, masks, pk, dil), iters=10)
@@ -1327,7 +1396,8 @@ def main() -> None:
         + "; ".join(f"{k} {sorted(r['ms'])[len(r['ms']) // 2]:.2f} ms, peak {r['peak_gib']:.2f} GiB"
                     for k, r in train.items())
         + "; eval CLI over a synthetic tree: "
-        + "; ".join(f"{r['boxes_per_s']:.3f} boxes/s with {r['workers']} loader thread(s), the "
+        + "; ".join(f"{r['preprocess']} ({r['loader']}) {r['boxes_per_s']:.3f} boxes/s with "
+                    f"{r['workers']} loader thread(s), the "
                     f"steps' events span {r['step_span_share']:.1%} of the loop's wall time"
                     for r in cli) + f" ({card})")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

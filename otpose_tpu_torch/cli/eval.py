@@ -11,12 +11,9 @@ and without a GPU the default raises.  The config keeps the JAX package's key
 names (``TPU.COMPUTE_DTYPE``, ``TPU.PARAM_DTYPE``, ``TPU.DEVICE_PREPROCESS``),
 so one yaml serves both packages.
 
-Only the host loader is ported.  The repository's yamls leave
-``TPU.DEVICE_PREPROCESS`` at ``auto``, which on a GPU resolves to device
-preprocessing and raises, so on the card pass ``TPU.DEVICE_PREPROCESS off``
-until device preprocessing is ported (ROADMAP Queue 1 item 6):
-
-    python -m otpose_tpu_torch.cli.eval --cfg <yaml> --val TPU.DEVICE_PREPROCESS off
+``TPU.DEVICE_PREPROCESS`` picks the loader as in the JAX package: ``auto``
+(the repository's yamls) takes the device loader in its ``crops`` mode on a
+GPU and the host loader on the CPU; ``crops``, ``full`` and ``off`` choose.
 """
 
 from __future__ import annotations

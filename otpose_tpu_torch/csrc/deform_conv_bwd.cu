@@ -26,32 +26,150 @@
 // once and their gradients written once: 27 values a (dilation, channel,
 // pixel) each way, 2 x 254 MB in bf16 at the flagship shape (B = 8,
 // C = O = 17, 96x72, five dilations), 0.152 ms at 3.35 TB/s; x, g and d x add
-// 1%.  The arithmetic (O FMAs for G and ~40 more a sample) is 0.03 ms at the
-// f32 rate.
+// 1%.  Instruction issue is close behind: the compiled pixel loop is ~290
+// instructions a sample (42 of them the FMAs of G and d W), 0.42 ms for the
+// 42 M samples at four a clock on 132 SMs; it runs at about half that rate,
+// held by latency (PERF.md).
 //
-// Design (a first, simple kernel; no TMA, wgmma or pipeline):
-// - One thread a pixel; a block owns 256 pixels of one (item, channel) and
-//   loops over the D*9 (dilation, tap) stages.  Reads of offsets and masks
-//   and writes of their gradients are coalesced along the pixels.
-// - g's O rows of the tile and the channel's (D, 9, OP) weights sit in
-//   shared memory; G is O FMAs from there.
-// - d offset and d mask have one writer each.  d x goes to an f32 buffer by
-//   atomicAdd (its sums' order, and so its last bits, may vary from run to
-//   run).  x's corners are read through L1.
-// - d W: each thread keeps m * s of its pixel for every stage in shared
-//   memory; after the loop the block contracts them with g's tile (a fixed
-//   order over its 256 pixels) into one partial row a block, and a second
-//   kernel adds the blocks' rows in a fixed order, so d W and d bias are
-//   the same bits from run to run.
+// Design (the forward's structure, csrc/deform_conv.cu):
+// - Work is a list of stages: (item b, channel c, dilation d, a tile of TS
+//   pixels), in that order.  The grid is one wave of blocks (SMs x resident
+//   blocks); block z takes the contiguous range [z N / G, (z + 1) N / G) of
+//   the N stages, so every block has the same work at any B (B = 1 fills the
+//   card too).  A (b, c) plane whose stages fall to several blocks is a
+//   segment of each.
+// - Warps by tap (two warps a tap, 18 a block): the warps of tap k read
+//   the stage's offset rows 2k, 2k + 1 and mask row k and own
+//   d W[d, :, c, k], whose O running sums stay in their registers until d
+//   changes (a butterfly reduce over the warp, then one writer a row in
+//   shared memory, the two warps' rows added in order).  G is O FMAs on g
+//   against W's row for (d, c, k), read through L1.
+// - A ring of two shared-memory stages, filled by 16-byte `cp.async` while
+//   the previous stage is computed: the 27 offset and mask rows of the tile
+//   and g's tile, transposed by a first kernel to (pixel, OPG) so a pixel's
+//   g is three (bf16) or five (f32) 16-byte loads.  Rows of x that are not a
+//   multiple of 16 bytes take element copies (template `Wide` = false).
+// - x's (b, c) plane is staged in shared memory with a one-pixel zero
+//   border, so a sample's four corners are four shared loads with no bounds
+//   checks.
+// - d x is summed exactly, in 64-bit fixed point, in a shared plane of two
+//   32-bit words a pixel: each corner's f32 contribution c is scaled by 2^F
+//   and rounded to an integer v, and two native integer atomics add v's low
+//   word (returning the old one, whence the carry) and its high word plus
+//   the carry.  Shared f32 atomics compile to a compare-and-swap loop, which
+//   measured 0.44 ms of 1.06 at bf16 B = 8 against 0.04 ms for native
+//   integer ones (PERF.md).  F comes from a bound on every
+//   contribution, |c| <= max|g| * max_{d,c,k} sum_o |W| / D * max|m|
+//   (the first two from the first kernel, max|m| from a pass over the masks,
+//   ~0.03 ms), and on the count of samples of a plane (2^lbits), so no
+//   sum can leave 64 bits and the resolution is 2^(lbits - 62) of the bound
+//   (2^-43 at the flagship shape).  Integer sums do not depend on their order: the segment's plane
+//   is written once as a partial f32 plane and the partials are added in a
+//   fixed order, so d x is the same bits from call to call.  A non-finite
+//   contribution marks its plane, whose d x is then NaN.  Planes too large
+//   for shared memory (template `XS` = false) gather x through L1 and add
+//   the integers to a 64-bit plane in device memory.
+// - d offset and d mask have one writer each.  Partial planes and partial
+//   d W rows are summed in a fixed order by reduction kernels, and d bias
+//   from the first kernel's per-tile sums: every gradient is the same bits
+//   from call to call.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
+using otp_mma::cp_async16;
+using otp_mma::cp_async_commit;
+using otp_mma::cp_async_wait;
+using otp_mma::smem_u32;
+
 constexpr int kMaxD = 8;
 constexpr int kMaxO = 32;
-constexpr int kThreads = 256;          // pixels a block
-constexpr int kGld = kThreads + 1;     // g rows padded against bank conflicts
+constexpr int kTaps = 9;
+constexpr int kRows = 27;                // 18 offset + 9 mask rows of one stage
+constexpr int kStages = 2;
+constexpr int kPrepThreads = 256;
 constexpr int kReduceThreads = 256;
+constexpr int kSmemLimit = 227 * 1024;   // shared memory one block may use
+constexpr int kStats = 3;                // scratch words: max|g|, max sum|W|, max|m|
+
+// Pixels a stage, resident blocks an SM (the register cap) and warps a tap,
+// by dtype.  One block of 18 warps an SM: the cap is 96 registers a thread
+// for two blocks of 288 threads or one of 576, and one block can give the
+// SM's whole shared memory to stages of 512 (bf16) or 256 (f32) pixels, so
+// a barrier comes every 8 samples a thread, not every 4 (PERF.md:
+// 0.90 against 1.10 ms at bf16 B = 8).  At 96x72 a bf16 block holds
+// 2 x 52 KB of ring, a 17.2 KB x plane, a 55.3 KB d x plane and 7.2 KB of
+// d W rows, an f32 block 2 x 48 KB, 31.4 KB, 55.3 KB and 7.2 KB.
+template <typename T> struct Cfg;
+template <> struct Cfg<__nv_bfloat16> { static constexpr int tile = 512, blocks = 1, wpt = 2; };
+template <> struct Cfg<float> { static constexpr int tile = 256, blocks = 1, wpt = 2; };
+
+// threads a block: wpt warps a tap
+template <typename T>
+__host__ __device__ constexpr int threads() {
+  return 32 * kTaps * Cfg<T>::wpt;
+}
+
+// g's row in the transposed layout: OP values padded to 16 bytes
+template <typename T, int OP>
+__host__ __device__ constexpr int gld() {
+  constexpr int E = 16 / (int)sizeof(T);
+  return (OP + E - 1) / E * E;
+}
+
+template <typename T, int OP>
+__host__ __device__ constexpr int stage_bytes() {
+  return (kRows + gld<T, OP>()) * Cfg<T>::tile * (int)sizeof(T);
+}
+
+// x's plane in shared memory, as in the forward: H + 2 rows of `ld`
+// elements, pixel (y, x) at (y + 1) * ld + kLead + x, a one-pixel border of
+// zeros, rows that start on 16 bytes
+template <typename T>
+struct Plane {
+  static constexpr int kLead = 16 / (int)sizeof(T);
+  __host__ __device__ static int ld(int W) { return (kLead + W + 1 + kLead - 1) / kLead * kLead; }
+  __host__ __device__ static int elems(int H, int W) { return (H + 2) * ld(W); }
+};
+
+// F of d x's fixed point, from the scratch words (max|g|, max over
+// (d, c, k) of sum_o |W|, max|m|; non-negative floats as bits) and lbits >=
+// log2 of the samples of a plane: every |c| 2^F < 2^(62 - lbits), so
+// sum|v| < 2^62 however the samples fall.  0 where the bound is 0 or not
+// finite (a non-finite contribution marks its plane anyway).
+__device__ __forceinline__ int fixed_shift(const unsigned* stats, int D, int lbits) {
+  const double cmax = (double)__uint_as_float(stats[0]) * __uint_as_float(stats[1]) / D *
+                      __uint_as_float(stats[2]);
+  if (!(cmax > 0.0) || !isfinite(cmax)) return 0;
+  int e;
+  frexp(cmax, &e);   // cmax < 2^e
+  return 62 - lbits - e;
+}
+
+// A stage's (plane q = b C + c, dilation d, tile u), stepped in that order
+struct Stage {
+  int q, d, u;
+  __device__ void next(int D, int tiles) {
+    if (++u == tiles) {
+      u = 0;
+      if (++d == D) d = 0, ++q;
+    }
+  }
+};
+
+__host__ __device__ inline int align16(int bytes) { return (bytes + 15) / 16 * 16; }
+
+// The blocks whose stage ranges hold plane q's first and last stages, for
+// n stages a plane, N in all and G blocks (block z starts at z N / G)
+__host__ __device__ inline long long seg_first(long long q, long long n, long long N,
+                                               long long G) {
+  return ((q * n + 1) * G + N - 1) / N - 1;
+}
+__host__ __device__ inline long long seg_last(long long q, long long n, long long N,
+                                              long long G) {
+  return ((q + 1) * n * G + N - 1) / N - 1;
+}
 
 struct BwdArgs {
   const void* x;                // (B, C, H, W)
@@ -59,33 +177,58 @@ struct BwdArgs {
   const void* masks[kMaxD];     // (B, 9 C, H, W) each
   int dils[kMaxD];
   const float* w;               // (D, C, 9, OP) f32, zero past O
-  const void* g;                // (B, O, H, W)
+  const void* gt;               // (B, Pp, OPG) g transposed, zero past P and O
   void* d_off;                  // (D, B, 18 C, H, W)
   void* d_mask;                 // (D, B, 9 C, H, W)
-  float* dx;                    // (B, C, H, W) f32, zeroed by the caller
-  float* partial;               // (B * tiles, C, D * 9 + 1, O) f32
-  int B, C, O, OP, H, W, D, tiles;
+  float* pdx;                   // XS: (B C J, H W) partial planes
+  long long* pdx64;             // not XS: (B C, H W) fixed-point planes, zeroed
+  float* pw;                    // (B C J, D * 9 * OP) partial d W rows
+  unsigned* stats;              // kStats words (fixed_shift), then B C plane flags
+  int B, C, O, H, W, D, tiles, Pp, J, lbits;
+  long long N;                  // stages: B C D tiles
 };
 
-__host__ __device__ inline int smem_floats(int O, int OP, int D) {
-  return O * kGld + D * 9 * OP + D * 9 * kThreads;
+// 16 bytes of T as floats
+template <typename T> __device__ __forceinline__ void unpack16(const uint4& u, float* f);
+template <> __device__ __forceinline__ void unpack16<float>(const uint4& u, float* f) {
+  f[0] = __uint_as_float(u.x), f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z), f[3] = __uint_as_float(u.w);
+}
+template <> __device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& u, float* f) {
+  const uint32_t v[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(v[i] << 16);
+    f[2 * i + 1] = __uint_as_float(v[i] & 0xffff0000u);
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// 16-byte cp.async that copies `bytes` (0 or 16) and zero-fills the rest
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(bytes));
+}
+
+template <typename T, bool Wide, int NQ, bool XS>
+__global__ void __launch_bounds__(threads<T>(), NQ <= 5 ? Cfg<T>::blocks : 1)
 dcn_bwd_kernel(const __grid_constant__ BwdArgs a) {
-  extern __shared__ __align__(16) float sm[];
+  constexpr int TS = Cfg<T>::tile, OP = 4 * NQ, OPG = gld<T, OP>(), S = kStages;
+  constexpr int NT = threads<T>(), WPT = Cfg<T>::wpt;
+  constexpr int SB = stage_bytes<T, OP>();
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ const T* offs[kMaxD];
   __shared__ const T* masks[kMaxD];
   __shared__ int dils[kMaxD];
-  const int H = a.H, W = a.W, P = H * W, C = a.C, O = a.O, OP = a.OP, D = a.D, B = a.B;
-  const int tile = blockIdx.x, c = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
-  const int p = tile * kThreads + t;
-  const bool in = p < P;
-  float* gs = sm;                       // [O][kGld]
-  float* ws = gs + O * kGld;            // [D * 9][OP]
-  float* ms = ws + D * 9 * OP;          // [D * 9][kThreads]
-  if (t == 0) {
+  const int H = a.H, W = a.W, P = H * W, C = a.C, D = a.D, O = a.O, tiles = a.tiles;
+  const long long n = (long long)D * tiles, G = gridDim.x, z = blockIdx.x;
+  const int ld = Plane<T>::ld(W);
+  T* xs = reinterpret_cast<T*>(smem + S * SB);
+  // d x's plane: the low words, then the high words, of P pixels
+  unsigned* dlo = reinterpret_cast<unsigned*>(smem + S * SB +
+                                              align16(Plane<T>::elems(H, W) * (int)sizeof(T)));
+  int* dhi = reinterpret_cast<int*>(dlo + P);
+  float* dws = XS ? reinterpret_cast<float*>(dhi + P) : reinterpret_cast<float*>(smem + S * SB);
+  if (threadIdx.x == 0) {
 #pragma unroll
     for (int d = 0; d < kMaxD; ++d) {
       offs[d] = static_cast<const T*>(a.offs[d]);
@@ -93,156 +236,560 @@ dcn_bwd_kernel(const __grid_constant__ BwdArgs a) {
       dils[d] = a.dils[d];
     }
   }
-  const T* gb = static_cast<const T*>(a.g) + (size_t)b * O * P;
-  for (int o = 0; o < O; ++o) gs[o * kGld + t] = in ? to_f<T>(gb[(size_t)o * P + p]) : 0.f;
-  for (int e = t; e < D * 9 * OP; e += kThreads) {
-    const int d = e / (9 * OP), r = e - d * 9 * OP;
-    ws[e] = a.w[((size_t)d * C + c) * 9 * OP + r];
+  if constexpr (XS) {   // x's border and d x; the copies fill x's interior
+    uint4* zx = reinterpret_cast<uint4*>(xs);
+    for (int e = threadIdx.x; e < Plane<T>::elems(H, W) * (int)sizeof(T) / 16; e += NT)
+      zx[e] = make_uint4(0, 0, 0, 0);
+    for (int e = threadIdx.x; e < 2 * P; e += NT) dlo[e] = 0u;
   }
+  for (int e = threadIdx.x; e < WPT * D * kTaps * OP; e += NT) dws[e] = 0.f;
   __syncthreads();
 
-  const float py = in ? (float)(p / W) : 0.f, px = in ? (float)(p % W) : 0.f;
-  const float Hf = (float)H, Wf = (float)W, inv_d = 1.f / (float)D;
-  const size_t bc = (size_t)b * C + c;
-  const T* xc = static_cast<const T*>(a.x) + bc * P;
-  float* dxc = a.dx + bc * P;
-  for (int d = 0; d < D; ++d) {
-    const int dil = dils[d];
-    const T* ob = offs[d] + bc * 18 * P + p;
-    const T* mb = masks[d] + bc * 9 * P + p;
-    T* dob = static_cast<T*>(a.d_off) + ((size_t)d * B * C + bc) * 18 * P + p;
-    T* dmb = static_cast<T*>(a.d_mask) + ((size_t)d * B * C + bc) * 9 * P + p;
-    for (int k = 0; k < 9; ++k) {
-      const float* wk = ws + (d * 9 + k) * OP;
-      float G = 0.f;
-      for (int o = 0; o < O; ++o) G = fmaf(wk[o], gs[o * kGld + t], G);
-      G *= inv_d;
-      float oy = 0.f, ox = 0.f, m = 0.f;
-      if (in) {
-        oy = to_f<T>(ob[(size_t)(2 * k) * P]);
-        ox = to_f<T>(ob[(size_t)(2 * k + 1) * P]);
-        m = to_f<T>(mb[(size_t)k * P]);
+  const long long s0 = z * a.N / G;
+  const int nst = (int)((z + 1) * a.N / G - s0);
+  Stage cur;   // the block's first stage
+  cur.q = (int)(s0 / n);
+  cur.d = (int)(s0 - cur.q * n) / tiles;
+  cur.u = (int)(s0 - cur.q * n) - cur.d * tiles;
+  // x's plane of q into the shared plane
+  auto load_plane = [&](int q) {
+    const T* src = static_cast<const T*>(a.x) + (size_t)q * P;
+    T* dst = xs + ld + Plane<T>::kLead;   // pixel (0, 0)
+    if constexpr (Wide) {
+      constexpr int E = 16 / (int)sizeof(T);
+      const int cpw = W / E;   // chunks an image row
+      for (int e = threadIdx.x; e < H * cpw; e += NT) {
+        const int y = e / cpw, c16 = e - y * cpw;
+        cp_async16(dst + y * ld + c16 * E, src + y * W + c16 * E);
       }
-      // the forward's position: (pixel + tap) + offset
-      const float sy = __fadd_rn(__fadd_rn(py, (float)((k / 3 - 1) * dil)), oy);
-      const float sx = __fadd_rn(__fadd_rn(px, (float)((k % 3 - 1) * dil)), ox);
-      float s = 0.f, dsy = 0.f, dsx = 0.f;
-      if (in && sy > -1.f && sy < Hf && sx > -1.f && sx < Wf) {
-        const int y0 = __float2int_rd(sy), x0 = __float2int_rd(sx);
-        const float ly = __fsub_rn(sy, (float)y0), lx = __fsub_rn(sx, (float)x0);
-        const float hy = __fsub_rn(1.f, ly), hx = __fsub_rn(1.f, lx);
-        const bool ky0 = y0 >= 0, ky1 = y0 + 1 < H, kx0 = x0 >= 0, kx1 = x0 + 1 < W;
-        const int i00 = y0 * W + x0;
-        const float v00 = ky0 && kx0 ? to_f<T>(xc[i00]) : 0.f;
-        const float v01 = ky0 && kx1 ? to_f<T>(xc[i00 + 1]) : 0.f;
-        const float v10 = ky1 && kx0 ? to_f<T>(xc[i00 + W]) : 0.f;
-        const float v11 = ky1 && kx1 ? to_f<T>(xc[i00 + W + 1]) : 0.f;
-        s = __fmul_rn(__fmul_rn(hy, hx), v00);
-        s = __fadd_rn(s, __fmul_rn(__fmul_rn(hy, lx), v01));
-        s = __fadd_rn(s, __fmul_rn(__fmul_rn(ly, hx), v10));
-        s = __fadd_rn(s, __fmul_rn(__fmul_rn(ly, lx), v11));
-        dsy = hx * (v10 - v00) + lx * (v11 - v01);
-        dsx = hy * (v01 - v00) + ly * (v11 - v10);
-        const float gm = G * m;
-        if (ky0 && kx0) atomicAdd(dxc + i00, gm * hy * hx);
-        if (ky0 && kx1) atomicAdd(dxc + i00 + 1, gm * hy * lx);
-        if (ky1 && kx0) atomicAdd(dxc + i00 + W, gm * ly * hx);
-        if (ky1 && kx1) atomicAdd(dxc + i00 + W + 1, gm * ly * lx);
-      } else {
-        m = 0.f;
-      }
-      if (in) {
-        dmb[(size_t)k * P] = from_f<T>(G * s);
-        dob[(size_t)(2 * k) * P] = from_f<T>(G * m * dsy);
-        dob[(size_t)(2 * k + 1) * P] = from_f<T>(G * m * dsx);
-      }
-      ms[(d * 9 + k) * kThreads + t] = m * s;
-    }
-  }
-  __syncthreads();
-
-  // the block's row of d W sums (stage, o) and of d bias sums (o), each
-  // over the tile's pixels in order
-  const int R = D * 9 + 1;
-  float* row = a.partial + (((size_t)b * a.tiles + tile) * C + c) * R * O;
-  for (int e = t; e < R * O; e += kThreads) {
-    const int r = e / O, o = e - r * O;
-    const float* gr = gs + o * kGld;
-    float acc = 0.f;
-    if (r < D * 9) {
-      const float* mr = ms + r * kThreads;
-      for (int q = 0; q < kThreads; ++q) acc = fmaf(mr[q], gr[q], acc);
     } else {
-      for (int q = 0; q < kThreads; ++q) acc += gr[q];
+      for (int e = threadIdx.x; e < P; e += NT) dst[e / W * ld + e % W] = src[e];
     }
-    row[e] = acc;
+  };
+  // stage st into ring slot `slot`: the 27 rows of its tile and g's tile
+  auto load = [&](const Stage& st, int slot) {
+    const int q = st.q, d = st.d, p0 = st.u * TS;
+    T* dst = reinterpret_cast<T*>(smem + slot * SB);
+    const T* src_off = offs[d] + (size_t)q * 18 * P + p0;
+    const T* src_msk = masks[d] + (size_t)q * 9 * P + p0;
+    if constexpr (Wide) {
+      constexpr int E = 16 / (int)sizeof(T), CPR = TS / E;   // elements a chunk, chunks a row
+      for (int e = threadIdx.x; e < kRows * CPR; e += NT) {
+        const int r = e / CPR, c16 = e - r * CPR;
+        const T* src = (r < 18 ? src_off + (size_t)r * P : src_msk + (size_t)(r - 18) * P) +
+                       c16 * E;
+        const bool in = p0 + c16 * E < P;
+        cp_async16_zfill(dst + r * TS + c16 * E, in ? src : src_off, in ? 16 : 0);
+      }
+    } else {
+      for (int e = threadIdx.x; e < kRows * TS; e += NT) {
+        const int r = e / TS, c1 = e - r * TS;
+        const T* src = r < 18 ? src_off + (size_t)r * P : src_msk + (size_t)(r - 18) * P;
+        dst[e] = p0 + c1 < P ? src[c1] : from_f<T>(0.f);
+      }
+    }
+    const T* gsrc = static_cast<const T*>(a.gt) + ((size_t)(q / C) * a.Pp + p0) * OPG;
+    T* gdst = dst + kRows * TS;
+    for (int e = threadIdx.x; e < TS * OPG * (int)sizeof(T) / 16; e += NT)
+      cp_async16(gdst + e * (16 / (int)sizeof(T)), gsrc + e * (16 / (int)sizeof(T)));
+  };
+
+  // warp w: tap w % 9, the (w / 9)-th of the tap's WPT warps
+  const int k = (threadIdx.x >> 5) % kTaps, h = (threadIdx.x >> 5) / kTaps, lane = threadIdx.x & 31;
+  float acc[OP];
+#pragma unroll
+  for (int o = 0; o < OP; ++o) acc[o] = 0.f;
+  int acc_d = -1;
+  // the warp's running d W sums into row (acc_d, k) of the shared rows
+  auto flush_acc = [&]() {
+#pragma unroll
+    for (int o = 0; o < OP; ++o) {
+      float v = acc[o];
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+      if (lane == 0 && acc_d >= 0 && o < O) dws[((h * D + acc_d) * kTaps + k) * OP + o] += v;
+      acc[o] = 0.f;
+    }
+  };
+  // c 2^F = (c s1) s2, both factors powers of two that a float holds
+  const int F = fixed_shift(a.stats, D, a.lbits);
+  const float s1 = exp2f((float)(F / 2)), s2 = exp2f((float)(F - F / 2));
+  const double unscale = exp2(-(double)F);
+  // plane q's segment of this block: its partial d x plane and d W rows
+  // out, the shared ones zeroed (after a barrier)
+  auto write_segment = [&](int q) {
+    const long long row = (long long)q * a.J + (z - seg_first(q, n, a.N, G));
+    if constexpr (XS) {
+      float* dst = a.pdx + row * P;
+      for (int e = threadIdx.x; e < P; e += NT) {
+        const long long v = (long long)(((unsigned long long)(unsigned)dhi[e] << 32) | dlo[e]);
+        dst[e] = (float)((double)v * unscale);
+        dlo[e] = 0u;
+        dhi[e] = 0;
+      }
+    }
+    float* wdst = a.pw + row * (D * kTaps * OP);
+    for (int e = threadIdx.x; e < D * kTaps * OP; e += NT) {
+      float sum = 0.f;
+      for (int j = 0; j < WPT; ++j) {   // the tap's warps in order
+        sum += dws[j * D * kTaps * OP + e];
+        dws[j * D * kTaps * OP + e] = 0.f;
+      }
+      wdst[e] = sum;
+    }
+  };
+
+  int q_cur = cur.q;
+  if constexpr (XS) load_plane(q_cur);
+  Stage ahead = cur;   // the next stage to load
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < nst) load(ahead, i);
+    ahead.next(D, tiles);
+    cp_async_commit();
+  }
+  const float Hf = (float)H, Wf = (float)W, inv_d = 1.f / (float)D, inv_w = 1.f / (float)W;
+  OTP_PHASE_START;
+  for (int i = 0; i < nst; ++i) {
+    cp_async_wait<S - 2>();    // stage i has landed (this thread's copies)
+    __syncthreads();           // everyone's copies, and stage i - 1 is consumed
+    if (i > 0) cur.next(D, tiles);
+    const int q = cur.q, d = cur.d, u = cur.u;
+    if (q != q_cur) {          // a new plane: the last one's segment out, its x in
+      flush_acc();
+      acc_d = -1;
+      __syncthreads();
+      write_segment(q_cur);
+      q_cur = q;
+      if constexpr (XS) {
+        load_plane(q);
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+    }
+    if (i + S - 1 < nst) load(ahead, (i + S - 1) % S);
+    ahead.next(D, tiles);
+    cp_async_commit();
+    if (d != acc_d) {
+      flush_acc();
+      acc_d = d;
+    }
+    OTP_PHASE(0);
+
+    const int b = q / C, c = q - b * C, dil = dils[d], p0 = u * TS;
+    const T* so = reinterpret_cast<const T*>(smem + (i % S) * SB);
+    const T* gtile = so + kRows * TS;
+    // W's row for (d, c, k), read through L1 for each sample (a broadcast):
+    // held in registers it cost more in spills than it saved (PERF.md)
+    const float4* wk = reinterpret_cast<const float4*>(a.w + (((size_t)d * C + c) * kTaps + k) * OP);
+    const float ty = (float)((k / 3 - 1) * dil), tx = (float)((k % 3 - 1) * dil);
+    T* dob = static_cast<T*>(a.d_off) + (((size_t)d * a.B + b) * 18 * C + 18 * c + 2 * k) * P;
+    T* dmb = static_cast<T*>(a.d_mask) + (((size_t)d * a.B + b) * 9 * C + 9 * c + k) * P;
+    const T* img = XS ? xs + ld + Plane<T>::kLead : static_cast<const T*>(a.x) + (size_t)q * P;
+    long long* dimg = a.pdx64 + (size_t)q * P;   // not XS
+    bool bad = false;                             // a non-finite contribution
+#pragma unroll 1
+    for (int jj = h * 32 + lane; jj < TS; jj += 32 * WPT) {
+      const int p = p0 + jj;
+      if (p >= P) break;
+      const float oy = to_f<T>(so[(2 * k) * TS + jj]);
+      const float ox = to_f<T>(so[(2 * k + 1) * TS + jj]);
+      float m = to_f<T>(so[(18 + k) * TS + jj]);
+      const int py = __float2int_rd(((float)p + 0.5f) * inv_w), px = p - py * W;
+      // the forward's position: (pixel + tap) + offset
+      float sy = __fadd_rn(__fadd_rn((float)py, ty), oy);
+      float sx = __fadd_rn(__fadd_rn((float)px, tx), ox);
+      const bool valid = sy > -1.f && sy < Hf && sx > -1.f && sx < Wf;   // false for NaN
+      if (!valid) sy = sx = m = 0.f;
+      const int y0 = __float2int_rd(sy), x0 = __float2int_rd(sx);
+      float v00, v01, v10, v11;
+      if constexpr (XS) {
+        const T* c0 = img + y0 * ld + x0;
+        v00 = to_f<T>(c0[0]);
+        v01 = to_f<T>(c0[1]);
+        v10 = to_f<T>(c0[ld]);
+        v11 = to_f<T>(c0[ld + 1]);
+      } else {
+        const bool ky0 = y0 >= 0, ky1 = y0 + 1 < H, kx0 = x0 >= 0, kx1 = x0 + 1 < W;
+        const T* r0 = img + max(y0, 0) * W;
+        const T* r1 = img + min(y0 + 1, H - 1) * W;
+        const int c0 = max(x0, 0), c1 = min(x0 + 1, W - 1);
+        v00 = ky0 && kx0 ? to_f<T>(__ldg(r0 + c0)) : 0.f;
+        v01 = ky0 && kx1 ? to_f<T>(__ldg(r0 + c1)) : 0.f;
+        v10 = ky1 && kx0 ? to_f<T>(__ldg(r1 + c0)) : 0.f;
+        v11 = ky1 && kx1 ? to_f<T>(__ldg(r1 + c1)) : 0.f;
+      }
+      const float ly = __fsub_rn(sy, (float)y0), lx = __fsub_rn(sx, (float)x0);
+      const float hy = __fsub_rn(1.f, ly), hx = __fsub_rn(1.f, lx);
+      float s = __fmul_rn(__fmul_rn(hy, hx), v00);
+      s = __fadd_rn(s, __fmul_rn(__fmul_rn(hy, lx), v01));
+      s = __fadd_rn(s, __fmul_rn(__fmul_rn(ly, hx), v10));
+      s = __fadd_rn(s, __fmul_rn(__fmul_rn(ly, lx), v11));
+      float dsy = hx * (v10 - v00) + lx * (v11 - v01);
+      float dsx = hy * (v01 - v00) + ly * (v11 - v10);
+      if (!valid) s = dsy = dsx = 0.f;
+      OTP_PHASE(1);
+      // g after the sampling, so that its registers are not held across it
+      float gv[OPG];
+      {
+        const uint4* gp = reinterpret_cast<const uint4*>(gtile + jj * OPG);
+#pragma unroll
+        for (int j = 0; j < OPG * (int)sizeof(T) / 16; ++j)
+          unpack16<T>(gp[j], gv + j * (16 / (int)sizeof(T)));
+      }
+      float G = 0.f;
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const float4 w4 = __ldg(wk + j);
+        G = fmaf(w4.x, gv[4 * j], G);
+        G = fmaf(w4.y, gv[4 * j + 1], G);
+        G = fmaf(w4.z, gv[4 * j + 2], G);
+        G = fmaf(w4.w, gv[4 * j + 3], G);
+      }
+      G *= inv_d;
+      OTP_PHASE(2);
+      const float gm = G * m;
+      if (valid) {
+        bad |= !isfinite(gm);
+        const bool ky0 = y0 >= 0, ky1 = y0 + 1 < H, kx0 = x0 >= 0, kx1 = x0 + 1 < W;
+        const int e0 = y0 * W + x0;
+        // the corners' contributions in fixed point; a corner outside the
+        // image adds nothing
+        auto add = [&](bool in, int e, float cv) {
+          if (!in) return;
+          const long long v = __float2ll_rn(cv * s1 * s2);
+          if constexpr (XS) {
+            const unsigned lo = (unsigned)v, old = atomicAdd(dlo + e, lo);
+            atomicAdd(dhi + e, (int)(v >> 32) + (int)(old + lo < old));
+          } else {
+            atomicAdd(reinterpret_cast<unsigned long long*>(dimg + e), (unsigned long long)v);
+          }
+        };
+        add(ky0 && kx0, e0, gm * hy * hx);
+        add(ky0 && kx1, e0 + 1, gm * hy * lx);
+        add(ky1 && kx0, e0 + W, gm * ly * hx);
+        add(ky1 && kx1, e0 + W + 1, gm * ly * lx);
+      }
+      OTP_PHASE(3);
+      dmb[p] = from_f<T>(G * s);
+      dob[p] = from_f<T>(G * m * dsy);
+      dob[(size_t)P + p] = from_f<T>(G * m * dsx);
+      const float ms = m * s;
+#pragma unroll
+      for (int o = 0; o < OP; ++o) acc[o] = fmaf(gv[o], ms, acc[o]);
+      OTP_PHASE(4);
+    }
+    if (bad) atomicOr(a.stats + kStats + q, 1u);
+  }
+  flush_acc();
+  __syncthreads();
+  write_segment(q_cur);
+  OTP_PHASE(5);
+}
+
+// The largest of a block's non-negative values (as bits) into *word.
+__device__ __forceinline__ void block_max_into(float v, unsigned* word) {
+  __shared__ float part[32];
+  for (int m = 16; m > 0; m >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, m));
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) v = fmaxf(v, part[w]);
+    atomicMax(word, __float_as_uint(v));
   }
 }
 
-// d W (D, O, C, 3, 3) and d bias (D, O), f32: the blocks' rows added in a
-// fixed order, over D
-__global__ void __launch_bounds__(kReduceThreads)
-dcn_bwd_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dw,
-                      float* __restrict__ dbias, int n, int C, int O, int D) {
-  const int R = D * 9 + 1;
-  const int i = blockIdx.x * kReduceThreads + threadIdx.x;
-  const int nw = D * O * C * 9;
-  if (i >= nw + O) return;
-  int c = 0, r, o;
-  if (i < nw) {   // i = ((d * O + o) * C + c) * 9 + k
-    const int k = i % 9, dc = i / 9;
-    c = dc % C;
-    const int dO = dc / C;
-    o = dO % O;
-    r = (dO / O) * 9 + k;
-  } else {
-    o = i - nw;
-    r = D * 9;
+// g (B, O, P) -> gt (B, Pp, OPG), zero past P and O; each tile's sums of g
+// over its pixels, bpart (B * nb, O), in a fixed order; max|g| into
+// stats[0] and, in block (0, 0), the largest sum_o |W| of a (d, c, k) row
+// of the pack (D * C * 9 rows of OP) into stats[1]
+template <typename T, int OPG>
+__global__ void __launch_bounds__(kPrepThreads)
+dcn_bwd_prep_kernel(const T* __restrict__ g, T* __restrict__ gt, float* __restrict__ bpart,
+                    const float* __restrict__ w, unsigned* stats, int O, int P, int Pp,
+                    int wrows, int OP) {
+  __shared__ float gs[kMaxO][kPrepThreads + 1];
+  const int b = blockIdx.y, t = threadIdx.x, p = blockIdx.x * kPrepThreads + t;
+  const T* gb = g + (size_t)b * O * P;
+  alignas(16) T vals[OPG];
+  float gmax = 0.f;
+#pragma unroll
+  for (int o = 0; o < OPG; ++o) {
+    const float v = o < O && p < P ? to_f<T>(gb[(size_t)o * P + p]) : 0.f;
+    if (o < O) gs[o][t] = v;
+    vals[o] = from_f<T>(v);
+    gmax = fmaxf(gmax, fabsf(v)) + 0.f * v;   // + 0 * v: a NaN g makes the bound NaN
   }
+  if (p < Pp) {
+    uint4* dst = reinterpret_cast<uint4*>(gt + ((size_t)b * Pp + p) * OPG);
+    const uint4* src = reinterpret_cast<const uint4*>(vals);
+#pragma unroll
+    for (int j = 0; j < OPG * (int)sizeof(T) / 16; ++j) dst[j] = src[j];
+  }
+  __syncthreads();
+  const int warp = t >> 5, lane = t & 31;
+  for (int o = warp; o < O; o += kPrepThreads / 32) {
+    float s = 0.f;
+    for (int i = 0; i < kPrepThreads / 32; ++i) s += gs[o][lane + 32 * i];
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+    if (lane == 0) bpart[((size_t)b * gridDim.x + blockIdx.x) * O + o] = s;
+  }
+  block_max_into(gmax, stats);
+  if (blockIdx.x == 0 && blockIdx.y == 0) {
+    float wmax = 0.f;
+    for (int r = t; r < wrows; r += kPrepThreads) {
+      float sum = 0.f;
+      for (int o = 0; o < OP; ++o) sum += fabsf(w[(size_t)r * OP + o]);
+      wmax = fmaxf(wmax, sum) + 0.f * sum;
+    }
+    __syncthreads();
+    block_max_into(wmax, stats + 1);
+  }
+}
+
+struct MaskPtrs {
+  const void* m[kMaxD];
+};
+
+// max|m| over the D mask maps (n values each) into stats[2]
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads)
+dcn_bwd_mmax_kernel(const __grid_constant__ MaskPtrs mp, long long n, unsigned* stats) {
+  const T* m = static_cast<const T*>(mp.m[blockIdx.y]);
+  float v = 0.f;
+  for (long long i = (long long)blockIdx.x * kReduceThreads + threadIdx.x; i < n;
+       i += (long long)gridDim.x * kReduceThreads) {
+    const float x = to_f<T>(m[i]);
+    v = fmaxf(v, fabsf(x)) + 0.f * x;
+  }
+  block_max_into(v, stats + 2);
+}
+
+// d x (B, C, H, W) in T: the segments' partial planes added in block
+// order, or (not XS) the fixed-point plane scaled back; NaN for a marked
+// plane
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads)
+dcn_bwd_dx_kernel(const float* __restrict__ pdx, const long long* __restrict__ pdx64,
+                  const unsigned* __restrict__ stats, T* __restrict__ dx, long long total,
+                  int P, int J, long long n, long long N, long long G, int xs, int D,
+                  int lbits) {
+  OTP_PHASE_START;
+  const long long i = (long long)blockIdx.x * kReduceThreads + threadIdx.x;
+  if (i < total) {
+    const long long q = i / P, p = i - q * P;
+    float s;
+    if (stats[kStats + q]) {
+      s = __int_as_float(0x7fffffff);
+    } else if (xs) {
+      const int cnt = (int)(seg_last(q, n, N, G) - seg_first(q, n, N, G) + 1);
+      s = 0.f;
+      for (int j = 0; j < cnt; ++j) s += pdx[(q * J + j) * P + p];
+    } else {
+      s = (float)((double)pdx64[i] * exp2(-(double)fixed_shift(stats, D, lbits)));
+    }
+    dx[i] = from_f<T>(s);
+  }
+  OTP_PHASE(6);
+}
+
+// d W (D, O, C, 3, 3) and d bias (D, O), f32: the segments' rows and the
+// tiles' g sums added in a fixed order, over D
+__global__ void __launch_bounds__(kReduceThreads)
+dcn_bwd_w_kernel(const float* __restrict__ pw, const float* __restrict__ bpart,
+                 float* __restrict__ dw, float* __restrict__ dbias, int B, int C, int O, int OP,
+                 int D, int J, long long n, long long N, long long G, int nbias) {
+  const int i = blockIdx.x * kReduceThreads + threadIdx.x;
+  const int nw = D * O * C * kTaps;
+  if (i >= nw + O) return;
   float s = 0.f;
-  for (int j = 0; j < n; ++j) s += partial[(((size_t)j * C + c) * R + r) * O + o];
-  s /= (float)D;
-  if (i < nw) {
-    dw[i] = s;
+  if (i < nw) {   // i = ((d * O + o) * C + c) * 9 + k
+    const int k = i % kTaps, dc = i / kTaps, c = dc % C, dO = dc / C, o = dO % O, d = dO / O;
+    const int e = (d * kTaps + k) * OP + o, rw = D * kTaps * OP;
+    for (int b = 0; b < B; ++b) {
+      const long long q = (long long)b * C + c;
+      const int cnt = (int)(seg_last(q, n, N, G) - seg_first(q, n, N, G) + 1);
+      for (int j = 0; j < cnt; ++j) s += pw[(q * J + j) * rw + e];
+    }
+    dw[i] = s / (float)D;
   } else {
+    const int o = i - nw;
+    for (int r = 0; r < nbias; ++r) s += bpart[(size_t)r * O + o];
+    s /= (float)D;
     for (int d = 0; d < D; ++d) dbias[d * O + o] = s;
   }
 }
 
+// Where the scratch buffer's pieces lie, and the grid
+struct Plan {
+  int G, J, xs, tiles, Pp, nb, smem, lbits;
+  long long N;
+  size_t gt, bpart, pw, pdx, stats, bytes;
+};
+
+// f(kernel) on the main kernel's instantiation for (wide, OP, xs)
+template <typename T, bool Wide, bool XS, typename F>
+cudaError_t with_op(int OP, F f) {
+  switch (OP) {
+    case 8: return f(dcn_bwd_kernel<T, Wide, 2, XS>, 8);
+    case 20: return f(dcn_bwd_kernel<T, Wide, 5, XS>, 20);
+    case 32: return f(dcn_bwd_kernel<T, Wide, 8, XS>, 32);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, typename F>
+cudaError_t with_kernel(bool wide, bool xs, int OP, F f) {
+  if (wide) return xs ? with_op<T, true, true>(OP, f) : with_op<T, true, false>(OP, f);
+  return xs ? with_op<T, false, true>(OP, f) : with_op<T, false, false>(OP, f);
+}
+
 template <typename T>
-cudaError_t launch(const BwdArgs& a, float* dw, float* dbias, cudaStream_t st) {
-  const int smem = smem_floats(a.O, a.OP, a.D) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(dcn_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int opg_of(int OP) {
+  return OP == 8 ? gld<T, 8>() : OP == 20 ? gld<T, 20>() : gld<T, 32>();
+}
+
+template <typename T>
+cudaError_t make_plan(int B, int C, int O, int OP, int H, int W, int D, bool wide, Plan& pl) {
+  constexpr int TS = Cfg<T>::tile;
+  const int P = H * W;
+  auto smem_of = [&](bool xs) {
+    const int stage = (kRows + opg_of<T>(OP)) * TS * (int)sizeof(T);
+    return kStages * stage +
+           (xs ? align16(Plane<T>::elems(H, W) * (int)sizeof(T)) + 2 * P * 4 : 0) +
+           Cfg<T>::wpt * D * kTaps * OP * 4;
+  };
+  pl.xs = smem_of(true) <= kSmemLimit;
+  pl.smem = smem_of(pl.xs);
+  if (pl.smem > kSmemLimit) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  dcn_bwd_kernel<T><<<dim3(a.tiles, a.C, a.B), kThreads, smem, st>>>(a);
+  err = with_kernel<T>(wide, pl.xs, OP, [&](auto kern, int) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         pl.smem);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, threads<T>(), pl.smem);
+  });
+  if (err != cudaSuccess) return err;
+  if (occ < 1) return cudaErrorInvalidConfiguration;
+  pl.tiles = (P + TS - 1) / TS;
+  pl.Pp = pl.tiles * TS;
+  pl.nb = (pl.Pp + kPrepThreads - 1) / kPrepThreads;
+  const long long n = (long long)D * pl.tiles;
+  pl.N = (long long)B * C * n;
+  pl.G = (int)(pl.N < (long long)sms * occ ? pl.N : (long long)sms * occ);
+  pl.lbits = 0;
+  while ((1LL << pl.lbits) < (long long)kTaps * D * P) ++pl.lbits;
+  pl.J = 1;
+  for (long long q = 0; q < (long long)B * C; ++q) {
+    const long long cnt = seg_last(q, n, pl.N, pl.G) - seg_first(q, n, pl.N, pl.G) + 1;
+    if (cnt > pl.J) pl.J = (int)cnt;
+  }
+  auto piece = [](size_t& at, size_t bytes) {
+    const size_t here = at;
+    at += (bytes + 255) / 256 * 256;
+    return here;
+  };
+  size_t at = 0;
+  pl.gt = piece(at, (size_t)B * pl.Pp * opg_of<T>(OP) * sizeof(T));
+  pl.bpart = piece(at, (size_t)B * pl.nb * O * 4);
+  pl.pw = piece(at, (size_t)B * C * pl.J * D * kTaps * OP * 4);
+  pl.pdx = piece(at, (size_t)B * C * P * (pl.xs ? pl.J * 4 : 8));
+  pl.stats = piece(at, (size_t)(kStats + B * C) * 4);
+  pl.bytes = at;
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch(BwdArgs& a, const Plan& pl, bool wide, int OP, void* scratch, const void* g,
+                   void* dx, float* dw, float* dbias, cudaStream_t st) {
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  a.gt = base + pl.gt;
+  a.pw = reinterpret_cast<float*>(base + pl.pw);
+  a.pdx = reinterpret_cast<float*>(base + pl.pdx);
+  a.pdx64 = reinterpret_cast<long long*>(base + pl.pdx);
+  a.stats = reinterpret_cast<unsigned*>(base + pl.stats);
+  float* bpart = reinterpret_cast<float*>(base + pl.bpart);
+  a.tiles = pl.tiles, a.Pp = pl.Pp, a.J = pl.J, a.N = pl.N, a.lbits = pl.lbits;
+  const int P = a.H * a.W;
+  cudaError_t err = cudaMemsetAsync(a.stats, 0, (size_t)(kStats + a.B * a.C) * 4, st);
+  if (err == cudaSuccess && !pl.xs) err = cudaMemsetAsync(a.pdx64, 0, (size_t)a.B * a.C * P * 8, st);
+  if (err != cudaSuccess) return err;
+  const dim3 pgrid(pl.nb, a.B);
+  const int wrows = a.D * a.C * kTaps;
+  switch (OP) {
+    case 8: dcn_bwd_prep_kernel<T, gld<T, 8>()><<<pgrid, kPrepThreads, 0, st>>>(
+                static_cast<const T*>(g), (T*)a.gt, bpart, a.w, a.stats, a.O, P, pl.Pp, wrows,
+                OP); break;
+    case 20: dcn_bwd_prep_kernel<T, gld<T, 20>()><<<pgrid, kPrepThreads, 0, st>>>(
+                static_cast<const T*>(g), (T*)a.gt, bpart, a.w, a.stats, a.O, P, pl.Pp, wrows,
+                OP); break;
+    default: dcn_bwd_prep_kernel<T, gld<T, 32>()><<<pgrid, kPrepThreads, 0, st>>>(
+                static_cast<const T*>(g), (T*)a.gt, bpart, a.w, a.stats, a.O, P, pl.Pp, wrows,
+                OP); break;
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int outs = a.D * a.O * a.C * 9 + a.O;
-  dcn_bwd_reduce_kernel<<<(outs + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, st>>>(
-      a.partial, dw, dbias, a.B * a.tiles, a.C, a.O, a.D);
+  MaskPtrs mp{};
+  for (int d = 0; d < a.D; ++d) mp.m[d] = a.masks[d];
+  const long long nm = (long long)a.B * 9 * a.C * P;
+  const long long mblocks = (nm + kReduceThreads * 8 - 1) / (kReduceThreads * 8);
+  dcn_bwd_mmax_kernel<T><<<dim3((unsigned)(mblocks < 1024 ? mblocks : 1024), a.D),
+                           kReduceThreads, 0, st>>>(mp, nm, a.stats);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = with_kernel<T>(wide, pl.xs, OP, [&](auto kern, int) {
+    kern<<<pl.G, threads<T>(), pl.smem, st>>>(a);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return err;
+  const long long n = (long long)a.D * pl.tiles, total = (long long)a.B * a.C * P;
+  dcn_bwd_dx_kernel<T><<<(unsigned)((total + kReduceThreads - 1) / kReduceThreads),
+                         kReduceThreads, 0, st>>>(a.pdx, a.pdx64, a.stats, static_cast<T*>(dx),
+                                                  total, P, pl.J, n, pl.N, pl.G, pl.xs, a.D,
+                                                  pl.lbits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int outs = a.D * a.O * a.C * kTaps + a.O;
+  dcn_bwd_w_kernel<<<(outs + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, st>>>(
+      a.pw, bpart, dw, dbias, a.B, a.C, a.O, OP, a.D, pl.J, n, pl.N, pl.G, a.B * pl.nb);
   return cudaGetLastError();
+}
+
+bool bad_shape(int B, int C, int O, int OP, int H, int W, int D) {
+  return D < 1 || D > kMaxD || B < 1 || C < 1 || H < 1 || W < 1 || O < 1 || O > OP ||
+         (OP != 8 && OP != 20 && OP != 32) || B > 65535;
 }
 
 }  // namespace
 
-extern "C" int otp_deform_bwd_tile() { return kThreads; }
+// Bytes of scratch that otp_deform_bwd needs for these shapes, or -1 for
+// shapes it does not take (and -2 - the CUDA error where one occurred).
+extern "C" long long otp_deform_bwd_scratch(int B, int C, int O, int OP, int H, int W, int D,
+                                            int wide, int dtype) {
+  if (bad_shape(B, C, O, OP, H, W, D)) return -1;
+  Plan pl{};
+  cudaError_t err = cudaErrorInvalidValue;
+  OTP_DISPATCH(dtype, { err = make_plan<T>(B, C, O, OP, H, W, D, wide != 0, pl); });
+  return err == cudaSuccess ? (long long)pl.bytes : -2 - (long long)err;
+}
 
 // x: (B, C, H, W); offs[d]: (B, 18 C, H, W); masks[d]: (B, 9 C, H, W); g:
-// (B, O, H, W), all in the compute dtype and contiguous; w: (D, C, 9, OP) f32
-// (the forward's pack).  Writes d_off (D, B, 18 C, H, W) and d_mask
-// (D, B, 9 C, H, W) in the compute dtype, adds into dx (B, C, H, W) f32
-// (zeroed by the caller), and writes dw (D, O, C, 3, 3) and dbias (D, O)
-// f32, with partial: (B * tiles, C, D * 9 + 1, O) f32 scratch, tiles =
-// ceil(H * W / otp_deform_bwd_tile()).
+// (B, O, H, W), all in the compute dtype and contiguous (`wide`: 16-byte
+// aligned, W a multiple of 16 bytes); w: (D, C, 9, OP) f32 (the forward's
+// pack).  Writes d_off (D, B, 18 C, H, W), d_mask (D, B, 9 C, H, W) and dx
+// (B, C, H, W) in the compute dtype, dw (D, O, C, 3, 3) and dbias (D, O) in
+// f32; scratch: otp_deform_bwd_scratch(...) bytes, 256-byte aligned.
 extern "C" int otp_deform_bwd(const void* x, const void* const* offs, const void* const* masks,
                               const int* dils, const void* w, const void* g, void* d_off,
-                              void* d_mask, void* dx, void* partial, void* dw, void* dbias,
-                              int B, int C, int O, int OP, int H, int W, int D, int dtype,
-                              void* stream) {
-  if (D < 1 || D > kMaxD || B < 1 || C < 1 || H < 1 || W < 1 || O < 1 || O > OP ||
-      OP > kMaxO || B > 65535 || C > 65535)
-    return (int)cudaErrorInvalidValue;
+                              void* d_mask, void* dx, void* scratch, void* dw, void* dbias,
+                              int B, int C, int O, int OP, int H, int W, int D, int wide,
+                              int dtype, void* stream) {
+  if (bad_shape(B, C, O, OP, H, W, D)) return (int)cudaErrorInvalidValue;
   BwdArgs a{};
   a.x = x;
   for (int d = 0; d < D; ++d) {
@@ -251,14 +798,15 @@ extern "C" int otp_deform_bwd(const void* x, const void* const* offs, const void
     a.dils[d] = dils[d];
   }
   a.w = (const float*)w;
-  a.g = g;
   a.d_off = d_off;
   a.d_mask = d_mask;
-  a.dx = (float*)dx;
-  a.partial = (float*)partial;
-  a.B = B, a.C = C, a.O = O, a.OP = OP, a.H = H, a.W = W, a.D = D;
-  a.tiles = (H * W + kThreads - 1) / kThreads;
+  a.B = B, a.C = C, a.O = O, a.H = H, a.W = W, a.D = D;
   cudaStream_t st = (cudaStream_t)stream;
-  OTP_DISPATCH(dtype, { return (int)launch<T>(a, (float*)dw, (float*)dbias, st); });
+  OTP_DISPATCH(dtype, {
+    Plan pl{};
+    cudaError_t err = make_plan<T>(B, C, O, OP, H, W, D, wide != 0, pl);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch<T>(a, pl, wide != 0, OP, scratch, g, dx, (float*)dw, (float*)dbias, st);
+  });
   return (int)cudaErrorInvalidValue;
 }

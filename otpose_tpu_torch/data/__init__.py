@@ -1,9 +1,10 @@
 """Data pipeline package.
 
-``make_loader`` builds the host-path ``Loader`` (the reference's per-box CPU
-pipeline, ref: PoseTrackDataset.py:388-425).  The JAX package's
-device-preprocessing loader is not ported yet (ROADMAP Queue 1 item 6), so a
-``cfg.TPU.DEVICE_PREPROCESS`` that resolves to one of its modes raises.
+``make_loader`` is the entry point: it builds the device-preprocessing
+``DeviceLoader`` (the host reads frames, the run's device does the warp,
+normalisation and targets) or the host-path ``Loader`` (the reference's
+per-box CPU pipeline, ref: PoseTrackDataset.py:388-425) from
+``cfg.TPU.DEVICE_PREPROCESS``, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -28,17 +29,19 @@ def resolve_device_preprocess(cfg, device) -> str:
 
 def make_loader(cfg, dataset, batch_size: int, *, shuffle: bool,
                 drop_last: bool = False, seed: int | None = None, device="cuda"):
-    """Build the configured loader for a run on ``device``.  Only the host
-    path exists: the device-preprocessing modes raise instead of quietly
-    taking it."""
+    """Build the configured loader for a run on ``device``: the
+    ``DeviceLoader`` in mode "crops" or "full" (its batches are tensors on
+    ``device``), the host ``Loader`` for "off"."""
     from otpose_tpu_torch.data.loader import Loader
 
-    mode = resolve_device_preprocess(cfg, device)
-    if mode != "off":
-        raise NotImplementedError(
-            f"TPU.DEVICE_PREPROCESS={cfg.TPU.DEVICE_PREPROCESS!r} resolves to {mode!r} on "
-            f"{device}: device preprocessing is not ported yet (ROADMAP Queue 1 item 6); "
-            "set TPU.DEVICE_PREPROCESS off for the host path")
-    return Loader(dataset, batch_size, shuffle=shuffle, num_workers=cfg.WORKERS,
+    kwargs = dict(shuffle=shuffle, num_workers=cfg.WORKERS,
                   seed=cfg.SEED if seed is None else seed, drop_last=drop_last,
                   prefetch=cfg.TPU.PREFETCH_DEPTH)
+    mode = resolve_device_preprocess(cfg, device)
+    if mode != "off":
+        from otpose_tpu_torch.data.device_loader import DeviceLoader
+
+        return DeviceLoader(dataset, batch_size, mode=mode,
+                            max_frame_hw=tuple(cfg.TPU.MAX_FRAME_HW),
+                            device_prefetch=cfg.TPU.PREFETCH_DEPTH, device=device, **kwargs)
+    return Loader(dataset, batch_size, **kwargs)

@@ -6,8 +6,9 @@ samples with a 5-frame temporal window (current, prev, next, pprev, nnext).
 The port's copy of ``otpose_tpu/data/posetrack.py``'s host path: the host
 indexes records, picks the temporal window, reads the five frames, draws the
 augmentation parameters, warps, normalises and generates the gaussian
-targets.  Device preprocessing and the C++ batch kernels of the JAX package
-are not ported yet.  cv2 is needed only where a frame file is decoded,
+targets (``data/device_loader.py`` reads and warps through the same hooks
+and leaves the rest to the device; the C++ batch kernels of the JAX package
+are not ported).  cv2 is needed only where a frame file is decoded,
 warped or blurred: ``read_frame``, ``warp_frame`` and the train-time blur
 import it when called, and a subclass may override ``frame_exists``,
 ``read_frame`` and ``warp_frame`` to supply frames without it

@@ -97,14 +97,23 @@ def _pipelined_forward(loader, run_fn, fetch_fn, device):
 
     ``run_fn(inputs, margin)`` launches the device step on tensors on
     ``device``; ``fetch_fn(outs)`` brings its results to the host, which
-    waits for them.  For a CUDA device the host batch is staged in pinned
-    memory and copied without blocking."""
-    cuda = torch.device(device).type == "cuda"
+    waits for them.  A batch of the device loader is already on ``device``
+    and is taken as it is; a host batch is staged in pinned memory and
+    copied without blocking for a CUDA device."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
     pending = None
     for batch, metas in loader:
         fwd = []
         for k in ("inputs", "margin"):
-            t = torch.from_numpy(np.ascontiguousarray(batch[k]))
+            v = batch[k]
+            if isinstance(v, torch.Tensor):
+                if v.device.type != device.type:
+                    raise ValueError(f"eval: the loader's {k} is on {v.device}, the run on "
+                                     f"{device}")
+                fwd.append(v)
+                continue
+            t = torch.from_numpy(np.ascontiguousarray(v))
             fwd.append(t.pin_memory().to(device, non_blocking=True) if cuda else t)
         outs = run_fn(*fwd)
         if pending is not None:
@@ -116,8 +125,9 @@ def _pipelined_forward(loader, run_fn, fetch_fn, device):
         yield fetch_fn(p_outs), p_batch, p_metas
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    return t.float().cpu().numpy()
+def _to_host(t) -> np.ndarray:
+    """A tensor on any device, or a host array, as a numpy array."""
+    return t.float().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
 def _box_rows(all_boxes, idx, metas):
@@ -164,7 +174,7 @@ def evaluate_epoch(eval_fn, loader, dataset, cfg, output_dir: str, *,
     for it, (preds_np, batch, metas) in enumerate(pipeline):
         # PCK meter on NCHW layout
         heat = preds_np.transpose(0, 3, 1, 2)
-        _, avg_acc, cnt, _ = accuracy(heat, np.asarray(batch["target"]).transpose(0, 3, 1, 2))
+        _, avg_acc, cnt, _ = accuracy(heat, _to_host(batch["target"]).transpose(0, 3, 1, 2))
         acc_meter.update(avg_acc, cnt)
         batch_time.update(time.time() - end)
         end = time.time()
@@ -221,7 +231,7 @@ def evaluate_epoch_decoded(decoded_fn, loader, dataset, cfg, output_dir: str, *,
     for it, ((coords, maxvals, raw_coords), batch, metas) in enumerate(pipeline):
         # PCK meter: device pred argmax vs host target argmax
         # (ref: utils/evaluate.py:384-415)
-        gt_coords, _ = get_max_preds(np.asarray(batch["target"]).transpose(0, 3, 1, 2))
+        gt_coords, _ = get_max_preds(_to_host(batch["target"]).transpose(0, 3, 1, 2))
         norm = np.ones((coords.shape[0], 2)) * np.array([hm_h, hm_w]) / 10
         dists = calc_dists(raw_coords, gt_coords, norm)
         accs = [dist_acc(dists[i]) for i in range(num_joints)]

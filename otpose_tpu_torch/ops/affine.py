@@ -136,6 +136,44 @@ def warp_affine(images: torch.Tensor, inv_matrices, out_h: int, out_w: int) -> t
     return top * (1 - wy) + bot * wy
 
 
+def warp_affine_separable(images: torch.Tensor, inv_matrices: torch.Tensor,
+                          out_h: int, out_w: int) -> torch.Tensor:
+    """Axis-aligned (no rotation or shear) bilinear warp as two batched
+    products, ``out = Ty @ img @ Tx^T`` with tent weights
+    ``T[i, s] = relu(1 - |coord_i - s|)``: cv2.warpAffine (INTER_LINEAR,
+    BORDER_CONSTANT 0) including the border blend (counterpart of
+    ``otpose_tpu/ops/affine.py::warp_affine_separable``, which the JAX
+    package computes with two einsums outside any Pallas kernel).
+
+    images: (B, H, W, C) float tensor; inv_matrices: (B, 2, 3) diagonal
+    dst->src maps (``inv[:, 0, 1] == inv[:, 1, 0] == 0``: every eval crop and
+    every un-rotated train sample).  Returns (B, out_h, out_w, C) in the
+    images' dtype.  The products accumulate in f32; on a GPU they must not
+    run in TF32 (the JAX path asks for full f32 precision), so a call on a
+    CUDA tensor raises while ``torch.backends.cuda.matmul.allow_tf32`` is on
+    (off is PyTorch's default, and nothing in the port turns it on)."""
+    if images.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("warp_affine_separable: TF32 matmuls are on "
+                           "(torch.backends.cuda.matmul.allow_tf32); the warp needs full f32")
+    b, in_h, in_w, c = images.shape
+    dev = images.device
+    # the source coordinates a * i + t rounded once to f32, as the JAX
+    # package's jit computes them (one fused multiply-add): a product of two
+    # f32 values is exact in f64
+    m = inv_matrices.to(device=dev, dtype=torch.float32).double()
+    ys = torch.arange(out_h, dtype=torch.float64, device=dev)
+    xs = torch.arange(out_w, dtype=torch.float64, device=dev)
+    src_y = (m[:, 1, 1, None] * ys[None] + m[:, 1, 2, None]).float()     # (B, out_h)
+    src_x = (m[:, 0, 0, None] * xs[None] + m[:, 0, 2, None]).float()     # (B, out_w)
+    iota_h = torch.arange(in_h, dtype=torch.float32, device=dev)
+    iota_w = torch.arange(in_w, dtype=torch.float32, device=dev)
+    ty = torch.clamp(1.0 - torch.abs(src_y[:, :, None] - iota_h), min=0.0)  # (B, oh, H)
+    tx = torch.clamp(1.0 - torch.abs(src_x[:, :, None] - iota_w), min=0.0)  # (B, ow, W)
+    tmp = torch.einsum("boh,bhwc->bowc", ty, images.float())
+    out = torch.einsum("bpw,bowc->bopc", tx, tmp)
+    return out.to(images.dtype)
+
+
 def fliplr_joints(joints: np.ndarray, joints_vis: np.ndarray, width: int,
                   matched_parts) -> tuple[np.ndarray, np.ndarray]:
     """Horizontal joint flip with left/right pair swap (ref: utils/transform.py:59-73)."""

@@ -52,8 +52,8 @@ _SIGNATURES = {
 }
 _BWD_SIGNATURES = {
     "otp_deform_bwd": (_I, [_P, ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I)]
-                       + [_P] * 8 + [_I] * 8 + [_P]),
-    "otp_deform_bwd_tile": (_I, []),
+                       + [_P] * 8 + [_I] * 9 + [_P]),
+    "otp_deform_bwd_scratch": (ctypes.c_longlong, [_I] * 9),
 }
 
 
@@ -194,10 +194,7 @@ def launch(mode: int, what: str, x, offsets_list, masks_list, weights, biases, d
     sms = _sm_count(x.device.index if x.device.index is not None
                     else torch.cuda.current_device())
     split = stage_split(b, tiles, sms, c * d)
-    # 16-byte copies of the offset and mask rows and of the x plane's image
-    # rows need 16-byte aligned rows
-    maps = [x, *offsets_list, *masks_list]
-    wide = (w * x.element_size()) % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in maps)
+    wide = _wide(x, [x, *offsets_list, *masks_list])
     out = torch.empty(b, o, h, w, device=x.device, dtype=x.dtype)
     partial = (torch.empty(split, b, o, h * w, device=x.device, dtype=torch.float32)
                if split > 1 else None)
@@ -211,6 +208,13 @@ def launch(mode: int, what: str, x, offsets_list, masks_list, weights, biases, d
         build.stream_ptr(x.device))
     build.check(lib, err, what)
     return out
+
+
+def _wide(x, maps) -> bool:
+    """Whether 16-byte copies of the offset and mask rows and of the x plane's
+    image rows are possible: rows a multiple of 16 bytes, 16-byte aligned."""
+    return ((x.shape[-1] * x.element_size()) % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in maps))
 
 
 def launch_backward(g, x, offsets_list, masks_list, packed: DcnPack, dilations):
@@ -229,12 +233,16 @@ def launch_backward(g, x, offsets_list, masks_list, packed: DcnPack, dilations):
     if tuple(g.shape) != (b, o, h, w):
         raise ValueError(f"{what}: the output's gradient has shape {tuple(g.shape)}")
     lib = build.load("deform_conv_bwd", _BWD_SIGNATURES)
-    tiles = -(-h * w // lib.otp_deform_bwd_tile())
+    wide = _wide(x, [x, *offsets_list, *masks_list])
+    nbytes = lib.otp_deform_bwd_scratch(b, c, o, op, h, w, d, int(wide), code)
+    if nbytes < 0:
+        raise ValueError(f"{what}: the kernel does not take B={b}, C={c}, O={o}, {h}x{w}, "
+                         f"D={d} (scratch query {nbytes})")
     dev = x.device
     d_off = torch.empty(d, b, 18 * c, h, w, device=dev, dtype=x.dtype)
     d_mask = torch.empty(d, b, 9 * c, h, w, device=dev, dtype=x.dtype)
-    dx = torch.zeros(b, c, h, w, device=dev, dtype=torch.float32)
-    partial = torch.empty(b * tiles, c, d * 9 + 1, o, device=dev, dtype=torch.float32)
+    dx = torch.empty(b, c, h, w, device=dev, dtype=x.dtype)
+    scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8)
     dw = torch.empty(d, o, c, 3, 3, device=dev, dtype=torch.float32)
     dbias = torch.empty(d, o, device=dev, dtype=torch.float32)
     offs = (ctypes.c_void_p * d)(*[t.data_ptr() for t in offsets_list])
@@ -242,11 +250,11 @@ def launch_backward(g, x, offsets_list, masks_list, packed: DcnPack, dilations):
     dils = (ctypes.c_int * d)(*[int(v) for v in dilations])
     err = lib.otp_deform_bwd(x.data_ptr(), offs, msks, dils, packed.w.data_ptr(), g.data_ptr(),
                              d_off.data_ptr(), d_mask.data_ptr(), dx.data_ptr(),
-                             partial.data_ptr(), dw.data_ptr(), dbias.data_ptr(),
-                             b, c, o, op, h, w, d, code, build.stream_ptr(dev))
+                             scratch.data_ptr(), dw.data_ptr(), dbias.data_ptr(),
+                             b, c, o, op, h, w, d, int(wide), code, build.stream_ptr(dev))
     build.check(lib, err, what)
     bwd_launches += 1
-    return dx.to(x.dtype), list(d_off.unbind(0)), list(d_mask.unbind(0)), dw, dbias
+    return dx, list(d_off.unbind(0)), list(d_mask.unbind(0)), dw, dbias
 
 
 class DeformConvFn(torch.autograd.Function):

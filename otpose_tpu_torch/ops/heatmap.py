@@ -2,7 +2,8 @@
 ``otpose_tpu/ops/heatmap.py``).
 
 On the device: argmax and the quarter-pixel shift of the reference's
-``get_final_preds`` (ref: utils/heatmap.py:108-171).  On the host, in
+``get_final_preds`` (ref: utils/heatmap.py:108-171), and the batched
+gaussian targets of the device preprocessing.  On the host, in
 numpy: the argmax of ``get_max_preds`` and the back-projection of
 ``transform_preds`` / ``get_final_preds``, and the gaussian targets of
 ``generate_heatmaps`` (peak 1.0 at truncated-rounded grid coords, written
@@ -48,6 +49,39 @@ def refine_coords_device(batch_heatmaps: torch.Tensor):
     inner = (px > 1) & (px < w - 1) & (py > 1) & (py < h - 1)
     shift = torch.stack([torch.sign(dx), torch.sign(dy)], dim=-1) * 0.25
     return coords + shift * inner[..., None].to(coords.dtype), maxvals
+
+
+def generate_heatmaps_device(joints: torch.Tensor, joints_vis: torch.Tensor, sigma,
+                             feat_stride: torch.Tensor, hm_w: int, hm_h: int,
+                             num_joints: int):
+    """Batched gaussian targets on the joints' device (counterpart of
+    ``otpose_tpu/ops/heatmap.py::generate_heatmaps_device``; the semantics of
+    ``generate_heatmaps``: truncation rounding, the 3-sigma window, peak 1.0,
+    weight 0 out of bounds).
+
+    joints: (B, J, 2) f32; joints_vis: (B, J); sigma: a scalar; feat_stride:
+    (2,) f32.  Returns target (B, J, Hh, Hw) and weight (B, J, 1), f32."""
+    dev = joints.device
+    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=dev)
+    feat_stride = torch.as_tensor(feat_stride, dtype=torch.float32, device=dev)
+    tmp_size = sigma * 3.0
+    mu = torch.trunc(joints.float() / feat_stride[None, None, :] + 0.5)   # (B, J, 2)
+    mu_x, mu_y = mu[..., 0], mu[..., 1]
+    itmp = torch.trunc(tmp_size)
+    ul_x, ul_y = mu_x - itmp, mu_y - itmp
+    br_x, br_y = mu_x + itmp + 1, mu_y + itmp + 1
+    oob = (ul_x >= hm_w) | (ul_y >= hm_h) | (br_x < 0) | (br_y < 0)
+    weight = torch.where(oob, torch.zeros((), device=dev), joints_vis.float())   # (B, J)
+
+    xs = torch.arange(hm_w, dtype=torch.float32, device=dev)[None, None, None, :]
+    ys = torch.arange(hm_h, dtype=torch.float32, device=dev)[None, None, :, None]
+    dx = xs - mu_x[..., None, None]
+    dy = ys - mu_y[..., None, None]
+    g = torch.exp(-(dx ** 2 + dy ** 2) / (2 * sigma ** 2))
+    window = (torch.abs(dx) <= tmp_size) & (torch.abs(dy) <= tmp_size)
+    visible = (weight > 0.5)[..., None, None]
+    target = torch.where(window & visible, g, torch.zeros((), device=dev))
+    return target, weight[..., None]
 
 
 def get_max_preds(batch_heatmaps: np.ndarray):

@@ -1,17 +1,21 @@
 """Where the time of the bf16 fused kernels and the DCN goes, phase by phase.
 
-    python -m otpose_tpu_torch.tools.kernel_phases [--batch 16 1]
+    python -m otpose_tpu_torch.tools.kernel_phases [--batch 16 1] [--bwd-batch 8 1]
 
-Builds ``csrc/fused_attn.cu``, ``csrc/fused_mlp.cu`` and ``csrc/deform_conv.cu``
-a second time with ``-DOTP_PHASE_CLOCK`` (thread 0 of every block adds the
-``clock64()`` cycles of each phase to a slot: ``csrc/common.cuh``), runs each
-at the flagship shapes (C = 136, two heads, T = 6912; the DCN at 17 x 96 x 72
-with five dilations, in both rounding modes) on random bf16 inputs and prints
-each phase's share of the summed cycles, beside the kernel's time in the
-normal build (CUDA events, 20 launches).  The shares are of thread 0's time
-between barriers, so a phase includes its wait for the slowest warp; the
-DCN's sampling phase can end before its last loads return, so the
-contraction includes that wait, and its B = 1 reduction is a second kernel.
+Builds ``csrc/fused_attn.cu``, ``csrc/fused_mlp.cu``, ``csrc/deform_conv.cu``
+and ``csrc/deform_conv_bwd.cu`` a second time with ``-DOTP_PHASE_CLOCK``
+(thread 0 of every block adds the ``clock64()`` cycles of each phase to a
+slot: ``csrc/common.cuh``), runs each at the flagship shapes (C = 136, two
+heads, T = 6912; the DCN at 17 x 96 x 72 with five dilations, in both
+rounding modes; its backward at ``--bwd-batch``, bf16 and f32) on random
+inputs and prints each phase's share of the summed cycles, beside the
+kernel's time in the normal build (CUDA events, 20 launches).  The shares
+are of thread 0's time between marks, so a phase includes its wait for the
+slowest warp; the DCN's sampling phase can end before its last loads return,
+so the contraction includes that wait, and its B = 1 reduction is a second
+kernel.  The backward's marks sit inside its pixel loop (thread 0 is the
+first lane of the warp of tap 0): they order the loop's instructions, so its
+shares are of a build that runs a little slower than the normal one.
 Needs a CUDA device.
 """
 
@@ -32,6 +36,8 @@ ATTN_PHASES = ("chunk load", "ln1", "conv + LN (x3)", "projection (x3)",
 MLP_PHASES = ("x load", "LN", "tile wait", "product 1", "GELU", "product 2",
               "epilogue + store")
 DCN_PHASES = ("stage wait", "sampling", "contraction", "B = 1 reduction")
+DCN_BWD_PHASES = ("stage wait and plane changes", "sampling", "G", "d x atomics",
+                  "stores and d W", "last segment out", "d x reduction")
 
 
 def _inputs(batch: int, gen):
@@ -54,13 +60,14 @@ def _inputs(batch: int, gen):
     return attn, mlp
 
 
-def phases(name: str, module, call, names) -> dict:
+def phases(name: str, signatures: dict, call, names) -> dict:
     """{phase: share of cycles} of one launch of ``call`` through the
-    phase-clock build of kernel ``name``, and the normal build's ms."""
+    phase-clock build of kernel ``name`` (C functions ``signatures``), and
+    the normal build's ms."""
     from otpose_tpu_torch.ops.cuda import build
 
     ms = time_ms(call, iters=20, warmup=1)
-    sigs = dict(module._SIGNATURES, otp_phase_cycles=(ctypes.c_int, [ctypes.c_void_p]))
+    sigs = dict(signatures, otp_phase_cycles=(ctypes.c_int, [ctypes.c_void_p]))
     lib = build.load(name, sigs, defines=("OTP_PHASE_CLOCK",))
     normal = build._libs.get(name)
     build._libs[name] = lib
@@ -96,9 +103,23 @@ def dcn_calls(batch: int, gen) -> dict:
                 x, offs, masks, dilations=dil, packed=pk)}
 
 
+def dcn_bwd_call(batch: int, dtype, gen):
+    """A call of the DCN's backward kernel at the flagship shape (offsets from
+    ``utils/testing.py::dcn_case``, most samples inside the image)."""
+    from otpose_tpu_torch.ops.cuda import deform_conv
+    from otpose_tpu_torch.utils.testing import dcn_case
+
+    x, offs, masks, weights, biases, dil = dcn_case(batch, 17, 17, 96, 72, (3, 6, 9, 12, 15),
+                                                    dtype, gen)
+    g = torch.randn(batch, 17, 96, 72, generator=gen, device="cuda").to(dtype)
+    pk = deform_conv.pack_dcn_weights(weights, biases)
+    return lambda: deform_conv.launch_backward(g, x, offs, masks, pk, dil)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, nargs="+", default=[16, 1])
+    ap.add_argument("--batch", type=int, nargs="*", default=[16, 1])
+    ap.add_argument("--bwd-batch", type=int, nargs="*", default=[8, 1])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("kernel_phases: needs a CUDA device")
@@ -112,20 +133,27 @@ def main(argv=None) -> None:
         attn, mlp = _inputs(batch, gen)
         apk = fused_attn.pack_attn_weights(*attn[1:], torch.bfloat16)
         mpk = fused_mlp.pack_mlp_weights(*mlp[1:], torch.bfloat16)
-        for name, module, call, names in (
-                ("fused_attn", fused_attn,
+        for name, sigs, call, names in (
+                ("fused_attn", fused_attn._SIGNATURES,
                  lambda: fused_attn.fused_attn_ct(attn[0], packed=apk, n_head=2),
                  ATTN_PHASES),
-                ("fused_mlp", fused_mlp,
+                ("fused_mlp", fused_mlp._SIGNATURES,
                  lambda: fused_mlp.fused_mlp_residual_ct(mlp[0], packed=mpk), MLP_PHASES)):
-            res = phases(name, module, call, names)
+            res = phases(name, sigs, call, names)
             shares = ", ".join(f"{n} {s:.1%}" for n, s in res["shares"].items())
             print(f"{name} bf16 B={batch}: {res['ms']:.4f} ms; {shares} "
                   f"({res['cycles']} cycles over all blocks)", flush=True)
         for mode, call in dcn_calls(batch, gen).items():
-            res = phases("deform_conv", deform_conv, call, DCN_PHASES)
+            res = phases("deform_conv", deform_conv._SIGNATURES, call, DCN_PHASES)
             shares = ", ".join(f"{n} {s:.1%}" for n, s in res["shares"].items())
             print(f"deform_conv {mode} bf16 B={batch}: {res['ms']:.4f} ms; {shares} "
+                  f"({res['cycles']} cycles over all blocks)", flush=True)
+    for batch in args.bwd_batch:
+        for dtype in (torch.bfloat16, torch.float32):
+            res = phases("deform_conv_bwd", deform_conv._BWD_SIGNATURES,
+                         dcn_bwd_call(batch, dtype, gen), DCN_BWD_PHASES)
+            shares = ", ".join(f"{n} {s:.1%}" for n, s in res["shares"].items())
+            print(f"deform_conv_bwd {str(dtype)[6:]} B={batch}: {res['ms']:.4f} ms; {shares} "
                   f"({res['cycles']} cycles over all blocks)", flush=True)
 
 

@@ -3,7 +3,11 @@ at small and ragged shapes the flagship path does not reach (tails of the T
 tiles, T shorter than a tile, other widths, head counts and dilation counts;
 for the DCN both rounding modes of its one kernel, both copy paths, both
 gather paths, and the split-stage path of the flagship at B = 1; the DCN's
-backward kernel against the plain version's autograd; the kernels without a
+backward kernel against the plain version's autograd at ragged shapes (H W
+not a multiple of its tile, rows of x not a multiple of 16 bytes, O other
+than 17, B = 1 and 3, planes too large for shared memory, every sample
+outside the image), bit-equal from call to call in every gradient, and
+marking the planes that a non-finite gradient reaches; the kernels without a
 backward refusing grad).
 
 Needs a CUDA device and nvcc; skips elsewhere.  On a machine with the card
@@ -285,6 +289,11 @@ def _grad_groups(grads, d):
     (3, 17, 4, 31, 29, (1, 3, 5, 7, 9)),        # a ragged last tile
     (1, 4, 17, 96, 72, (3, 6)),                 # flagship rows
     (2, 3, 32, 8, 8, tuple(range(1, 9))),       # O = 32, D = 8
+    (1, 17, 17, 96, 72, (3, 6, 9, 12, 15)),     # the flagship at B = 1: many blocks a plane
+    (3, 17, 17, 96, 72, (3, 6, 9, 12, 15)),     # B = 3: planes cut between blocks
+    (2, 6, 9, 40, 24, (2, 4)),                  # H W = 960, not a multiple of the tile; O = 9
+    (2, 6, 17, 37, 53, (1, 5, 9)),              # ragged tile and rows of 53: element copies
+    (1, 2, 5, 208, 208, (1, 2)),                # planes too large for shared memory
 ])
 def test_deform_conv_backward_matches_plain_autograd(b, c, o, h, w, dilations, dtype):
     """The backward kernel against the plain version's autograd: each of the
@@ -309,16 +318,50 @@ def test_deform_conv_backward_matches_plain_autograd(b, c, o, h, w, dilations, d
         assert peak > 0 and err <= TOL[dtype] * peak, (name, err, peak)
 
 
-def test_deform_conv_backward_weights_are_deterministic():
-    """d W, d bias, d offset and d mask are the same bits from call to call
-    (one writer, or sums in a fixed order); d x sums by atomics."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deform_conv_backward_samples_outside_the_image(dtype):
+    """Every sample far outside the image: d x, d offsets, d masks and d W are
+    zero, d bias is g's sum over D, as the plain version's autograd has it."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x, offs, masks, weights, biases, dil = dcn_case(3, 5, 17, 33, 40, (3, 6), dtype, gen)
+    offs = [(t.float() + 500.0).to(dtype) for t in offs]
+    args = (x, offs, masks, weights, biases, dil)
+    g = torch.randn(3, 17, 33, 40, generator=gen, device="cuda").to(dtype)
+    got = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
+    want = dcn_gradients(deform_conv.modulated_deform_conv_multi_plain, args, g)
+    for name, gk, gp in zip(GRAD_NAMES[:4], _grad_groups(got, 2)[:4], _grad_groups(want, 2)[:4]):
+        assert not gk.any() and not gp.any(), name
+    _close(got[-1], want[-1], torch.float32)
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 96, 72), (1, 208, 208)])
+def test_deform_conv_backward_weights_are_deterministic(b, h, w):
+    """Every gradient is the same bits from call to call: d offset and d mask
+    have one writer, d W and d bias are sums in a fixed order, and d x is an
+    exact fixed-point sum (in shared memory, or in device memory for planes
+    too large for it)."""
     gen = torch.Generator(device="cuda").manual_seed(12)
-    args = dcn_case(2, 17, 17, 96, 72, (3, 6, 9, 12, 15), torch.bfloat16, gen)
-    g = torch.randn(2, 17, 96, 72, generator=gen, device="cuda").to(torch.bfloat16)
+    args = dcn_case(b, 17, 17, h, w, (3, 6, 9, 12, 15), torch.bfloat16, gen)
+    g = torch.randn(b, 17, h, w, generator=gen, device="cuda").to(torch.bfloat16)
     first = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
     second = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
-    for a, b in zip(first[1:], second[1:]):
+    for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def test_deform_conv_backward_marks_planes_that_a_non_finite_gradient_reaches():
+    """A NaN in the output's gradient of item 0 makes that item's d x NaN in
+    the planes it reaches; item 1's gradients stay as the plain version's."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    args = dcn_case(2, 5, 17, 24, 32, (1, 2), torch.float32, gen)
+    g = torch.randn(2, 17, 24, 32, generator=gen, device="cuda")
+    g[0, 3, 10, 12] = float("nan")
+    got = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
+    want = dcn_gradients(deform_conv.modulated_deform_conv_multi_plain, args, g)
+    assert torch.isnan(got[0][0]).any() and torch.isnan(want[0][0]).any()
+    _close(got[0][1], want[0][1], torch.float32)
+    for gk, gp in zip(got[1:3], want[1:3]):
+        _close(gk[1], gp[1], torch.float32)
 
 
 def test_deform_conv_under_grad_with_a_pack_returns_no_weight_gradient():

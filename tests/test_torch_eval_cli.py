@@ -12,7 +12,9 @@ json writing, poseval AP.
   perfect, with and without the flip test;
 - the same set of per-video json files;
 - back-projected keypoints within 1e-3 pixels wherever the heatmap's top-two
-  gap exceeds 1e-3 (a near-tie may decode to another cell in either package).
+  gap exceeds 1e-3 (a near-tie may decode to another cell in either package);
+- the port's CLI under ``TPU.DEVICE_PREPROCESS crops`` (its device loader)
+  gives the same table as its host path and the JAX CLI, to 1e-9.
 
 The JAX package's loader crops through its C++ library when that is built,
 whose float bilinear warp differs from cv2's by up to one uint8 step; the
@@ -34,6 +36,7 @@ from otpose_tpu.models.otpose import _init_otpose_impl
 from otpose_tpu.utils.testing import tiny_otpose_cfg as jax_tiny_cfg
 from otpose_tpu_torch.cli.eval import Eval
 from otpose_tpu_torch.config import default_parse_args
+from otpose_tpu_torch.data.device_loader import DeviceLoader
 from otpose_tpu_torch.engine.runner import (AverageMeter, _pipelined_forward, evaluate_epoch,
                                             make_flip_eval_step)
 from otpose_tpu_torch.engine.trainer import make_eval_step
@@ -176,6 +179,32 @@ def test_heatmap_path_gives_the_decoded_path_s_table(both, workspace):
     assert mean_ap == pytest.approx(got[1], abs=1e-6)
 
 
+def test_device_preprocessing_gives_the_host_path_s_table(both, workspace):
+    """The port's CLI under ``TPU.DEVICE_PREPROCESS crops`` (its device
+    loader, on the CPU): the same AP table as its host path and as the JAX
+    CLI, and the heatmap loop over the device loader's batches too."""
+    want, got, ev = both
+    root = workspace[0]
+    tag = "flip" if ev.flip else "noflip"
+    yaml = _fill(tiny_otpose_cfg(image_size=64, heatmap_size=16, width0=8), root,
+                 *workspace[1], workspace[2], f"torch_crops_{tag}", ev.flip)
+    dev = Eval("validate", default_parse_args(["--cfg", yaml, "--root_dir", str(root),
+                                                "TPU.DEVICE_PREPROCESS", "crops"]),
+               device="cpu")
+    assert isinstance(dev.loader, DeviceLoader) and dev.loader.mode == "crops"
+    crops = _run(dev)
+    for other in (got, want):
+        np.testing.assert_allclose(crops[0], other[0], rtol=0, atol=1e-9, equal_nan=True)
+        assert crops[1] == pytest.approx(other[1], abs=1e-9)
+    assert crops[3] == got[3]
+    model = workspace[3]
+    step = make_flip_eval_step(model) if ev.flip else make_eval_step(model)
+    name_values, _ = evaluate_epoch(step, dev.loader, dev.dataset, dev.cfg,
+                                    str(root / f"heatmap_crops_{tag}"), device="cpu")
+    table = np.asarray([name_values[k] for k in AP_KEYS], np.float64)
+    np.testing.assert_allclose(table, got[0], rtol=0, atol=1e-6, equal_nan=True)
+
+
 def test_pipelined_forward_keeps_one_batch_in_flight():
     """Batch i + 1 is launched before batch i is fetched, every batch comes
     out once and in order, and the last one is flushed."""
@@ -211,12 +240,10 @@ def test_cli_refuses_what_is_not_ported(workspace):
         ["--cfg", yaml, "--root_dir", str(root), *opts])
     with pytest.raises(NotImplementedError, match="item 10"):
         Eval("validate", args("DEBUG.VIS_SKELETON", "True"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Eval("validate", args("TPU.DEVICE_PREPROCESS", "crops"), device="cpu")
+    # device preprocessing is ported: auto takes the device loader on a GPU
+    from otpose_tpu_torch.data import make_loader
+    cfg.TPU.DEVICE_PREPROCESS = "auto"
+    assert isinstance(make_loader(cfg, [], 1, shuffle=False, device="cuda"), DeviceLoader)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Eval("validate", args())
-        with pytest.raises(NotImplementedError, match="item 6"):   # auto on a GPU: crops
-            from otpose_tpu_torch.data import make_loader
-            cfg.TPU.DEVICE_PREPROCESS = "auto"
-            make_loader(cfg, None, 1, shuffle=False, device="cuda")

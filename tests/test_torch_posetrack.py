@@ -15,6 +15,7 @@ import os.path as osp
 
 import numpy as np
 import pytest
+import torch
 
 from otpose_tpu.data.loader import Loader as JaxLoader
 from otpose_tpu.data.posetrack import PoseTrackDataset as JaxDataset
@@ -23,6 +24,7 @@ from otpose_tpu.ops import bbox as jax_bbox
 from otpose_tpu.ops import heatmap as jax_heatmap
 from otpose_tpu.utils.testing import tiny_otpose_cfg as jax_tiny_cfg
 from otpose_tpu_torch.data import make_loader
+from otpose_tpu_torch.data.device_loader import DeviceLoader
 from otpose_tpu_torch.data.loader import Loader
 from otpose_tpu_torch.data.posetrack import PoseTrackDataset
 from otpose_tpu_torch.data.synthetic import ArrayFramesDataset, make_synthetic_posetrack
@@ -194,10 +196,14 @@ def test_make_loader_takes_the_host_path_only(tree):
     assert isinstance(loader, Loader) and loader.num_workers == cfg.WORKERS
     cfg.TPU.DEVICE_PREPROCESS = "auto"
     assert isinstance(make_loader(cfg, got_ds, 4, shuffle=False, device="cpu"), Loader)
-    for mode, device in (("auto", "cuda"), ("crops", "cpu"), ("full", "cpu"), ("on", "cuda")):
+    # the device-preprocessing modes take the device loader (ported), on
+    # the device of the run
+    for mode, device, kind in (("auto", "cuda", "crops"), ("crops", "cpu", "crops"),
+                               ("full", "cpu", "full"), ("on", "cuda", "crops")):
         cfg.TPU.DEVICE_PREPROCESS = mode
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            make_loader(cfg, got_ds, 4, shuffle=False, device=device)
+        loader = make_loader(cfg, got_ds, 4, shuffle=False, device=device)
+        assert isinstance(loader, DeviceLoader) and loader.mode == kind
+        assert loader.device == torch.device(device) and loader.num_workers == cfg.WORKERS
     cfg.TPU.DEVICE_PREPROCESS = "sometimes"
     with pytest.raises(ValueError, match="DEVICE_PREPROCESS"):
         make_loader(cfg, got_ds, 4, shuffle=False, device="cpu")
