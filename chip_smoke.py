@@ -88,10 +88,36 @@ Phases, each of which must pass or the script exits non-zero:
     CPU from the same weights (mask convs calibrated, offset convs zeroed,
     dropout rates 0, SGD) and holds every gradient and every update against
     each other (1e-3 of its peak, 2e-2 for HRNet's stem and layer1, plus
-    1e-6 of the largest, for gradients that are residues).
+    1e-6 of the largest, for gradients that are residues);
+14. runs the train CLI (``cli/train.py::Train(args).train()``) at flagship
+    width and depth from ``configs/17/model_RSN.yaml`` as it is (bf16,
+    ``TRAIN.BATCH_SIZE_PER_GPU`` 2, ``TPU.DEVICE_PREPROCESS auto``: the device
+    loader in crops mode) over a synthetic tree of 32 train and 32 val boxes
+    (frames as arrays through ``ArrayFramesDataset``), ``MODEL.PRETRAINED`` a
+    reference-layout ``.pth`` of random reference-init weights, two epochs with
+    ``--sigma_schedule 1``, cuDNN deterministic: every step's six metrics
+    finite, 0 / 0 / 1 / 1 launches a step and 12 / 16 / 1 a validation batch,
+    one weight pack a block a validation, every parameter tensor of the
+    ``.pth`` loaded, epoch 1's targets drawn at sigma - 1, ``epoch_0_state``,
+    ``epoch_1_state`` and one ``best_mAP_*_state``, the eval CLI on the best
+    checkpoint giving that validation's AP table to 1e-9 and its keypoints
+    (the reference init's heatmaps are nearly flat and its AP may be 0: at
+    least 98% of the coordinates identical, the max values to 1e-3 of their
+    peak, and not all alike); prints clips/s of
+    the train loops and the share of their wall time the steps' CUDA events
+    span, validation boxes/s, whether the asynchronous epoch saves were
+    still being written when validation ended, a checkpoint's save times
+    (synchronous and asynchronous: until the call returns and until
+    committed) and peak memory; then, in a fresh folder, a run that sends
+    itself SIGTERM after five steps (``epoch_0_state`` at iteration 5) and a
+    new ``Train`` that resumes it (its resume time printed), whose weights,
+    BN statistics, optimizer moments and count and TensorBoard steps must
+    equal the uninterrupted run's bit for bit (or, should some op be left
+    non-deterministic, be no farther from them than a second uninterrupted
+    run is: both printed); the phase's seconds and the script's total.
 
-Each path (phases 4 to 7, 9 and 12) is driven with every launch count set to 0
-just before it and read just after.  It prints a ``kernels`` JSON line, the
+Each path (phases 4 to 7, 9, 12 and 14) is driven with every launch count set
+to 0 just before it and read just after.  It prints a ``kernels`` JSON line, the
 card line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -1330,7 +1356,408 @@ def check_grad_refusals():
     log("F1: fused_attn_ct, fused_mlp_residual_ct and token_shift raise under grad on the card")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the train CLI
+# ---------------------------------------------------------------------------
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _host_state(trainer):
+    """The numbers a resumed run must reproduce, on the host: the model's
+    ``state_dict`` (weights and BN statistics), the optimizer's state by
+    parameter and its update count."""
+    import torch
+
+    sd = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+    opt = trainer.optimizer.opt
+    moments = [{k: v.detach().cpu().clone() if torch.is_tensor(v) else v
+                for k, v in opt.state[p].items()} for p in trainer.optimizer.params]
+    return sd, moments, trainer.optimizer.count
+
+
+def _state_diff(a, b):
+    """(bit-equal, worst max|diff| / peak over the tensors, its name)."""
+    import torch
+
+    (sd_a, mom_a, n_a), (sd_b, mom_b, n_b) = a, b
+    pairs = [(k, v, sd_b[k]) for k, v in sd_a.items()]
+    pairs += [(f"optimizer[{i}].{k}", v, mb[k]) for i, (ma, mb) in enumerate(zip(mom_a, mom_b))
+              for k, v in ma.items()]
+    equal, worst = n_a == n_b and len(mom_a) == len(mom_b), (0.0, "")
+    for name, x, y in pairs:
+        if torch.equal(x, y):
+            continue
+        equal = False
+        peak = max(x.abs().max().item(), 1e-30)
+        worst = max(worst, ((x.float() - y.float()).abs().max().item() / peak, name))
+    return equal, worst[0], worst[1]
+
+
+def train_cli(card: str):
+    """Phase 14: ``cli/train.py::Train`` at flagship width and depth
+    (``configs/17/model_RSN.yaml`` as it is: bf16, ``BATCH_SIZE_PER_GPU`` 2,
+    ``DEVICE_PREPROCESS auto``, so the device loader in crops mode) over a
+    synthetic PoseTrack tree of 32 train and 32 val boxes read through
+    ``ArrayFramesDataset``, from a reference-layout ``.pth`` of random
+    reference-init weights as ``MODEL.PRETRAINED``, ``TRAIN.END_EPOCH 2``,
+    ``--sigma_schedule 1``; cuDNN deterministic.  Then the eval CLI on the
+    best checkpoint, the save timings, and a run in a fresh folder that
+    sends itself SIGTERM after five steps and a new ``Train`` that resumes
+    it, held to the uninterrupted run bit for bit."""
+    import shutil
+    import signal
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from otpose_tpu_torch.cli import train as train_mod
+    from otpose_tpu_torch.cli.eval import Eval
+    from otpose_tpu_torch.cli.train import Train
+    from otpose_tpu_torch.config import default_parse_args, get_cfg
+    from otpose_tpu_torch.data.device_loader import DeviceLoader
+    from otpose_tpu_torch.data.synthetic import ArrayFramesDataset, make_synthetic_posetrack
+    from otpose_tpu_torch.engine import checkpoints as ckpt
+    from otpose_tpu_torch.models.factory import build_model
+    from otpose_tpu_torch.ops.heatmap import generate_heatmaps
+
+    class KeptPreds(ArrayFramesDataset):
+        """``ArrayFramesDataset`` that keeps the keypoints of every
+        evaluation, in order."""
+
+        kept = []
+
+        def evaluate(self, cfg_, preds, *a, **k):
+            KeptPreds.kept.append(np.array(preds))
+            return super().evaluate(cfg_, preds, *a, **k)
+
+    class TimedTrain(Train):
+        """Train whose steps are bracketed by CUDA events and launch counts
+        (their six metrics and their targets' mass a labelled joint kept
+        on the card until the run ends), whose validation batches are
+        counted and whose validations are timed, with the weight packs they
+        make and whether an asynchronous save was still being written when
+        they ended; it sends itself SIGTERM after ``stop_after`` steps."""
+
+        def __init__(self, args, stop_after=None):
+            super().__init__(args, dataset_cls=KeptPreds)
+            self.steps, self.val_batches, self.validations = [], [], []
+            step, evaluate = self.step_fn, self.eval_fn
+
+            def timed_step(batch):
+                before = read_counts()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                metrics = step(batch)
+                end.record()
+                # read after the run: a boolean index here would wait for the card
+                self.steps.append(dict(events=(start, end), counts=_delta(before, read_counts()),
+                                       metrics=torch.stack(list(metrics.values())),
+                                       names=list(metrics), sigma=self.train_dataset.sigma,
+                                       mass=batch["target"].sum((1, 2)),
+                                       labelled=batch["target_weight"][..., 0] > 0))
+                if len(self.steps) == stop_after:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return metrics
+
+            def counted_eval(inputs, margin):
+                before = read_counts()
+                out = evaluate(inputs, margin)
+                self.val_batches.append(_delta(before, read_counts()))
+                return out
+
+            self.step_fn, self.eval_fn = timed_step, counted_eval
+
+        def _validate(self, tb_steps):
+            torch.cuda.synchronize()
+            packs, t0 = read_packs(), time.perf_counter()
+            mean_ap = super()._validate(tb_steps)
+            torch.cuda.synchronize()
+            thread = ckpt._WRITER._thread
+            self.validations.append(dict(
+                seconds=time.perf_counter() - t0, packs=_delta(packs, read_packs()),
+                boxes=len(self._val_dataset),
+                save_pending=thread is not None and thread.is_alive()))
+            return mean_ap
+
+    phase_t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="otpose_train_cli_")
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        json_dir, img_dir, annot_dir = make_synthetic_posetrack(
+            root, num_videos=2, frames_per_video=8, people_per_frame=2, img_w=640, img_h=480,
+            seed=3)
+        cfg = get_cfg()
+        cfg.merge_from_file(os.path.join(ROOT, "configs/17/model_RSN.yaml"))
+        if (cfg.TRAIN.BATCH_SIZE_PER_GPU, cfg.TPU.COMPUTE_DTYPE, cfg.TPU.DEVICE_PREPROCESS) != (
+                2, "bfloat16", "auto"):
+            fail("train CLI: configs/17/model_RSN.yaml no longer sets batch 2, bf16 and auto")
+        cfg.OUTPUT_DIR = os.path.join(root, "output")
+        cfg.DATASET.NAME = "PoseTrack"
+        cfg.DATASET.JSON_DIR, cfg.DATASET.IMG_DIR, cfg.DATASET.TEST_IMG_DIR = (
+            json_dir, img_dir, img_dir)
+        cfg.VAL.ANNOT_DIR = annot_dir
+        cfg.VAL.USE_GT_BBOX = True
+        cfg.TRAIN.END_EPOCH = 2
+        cfg.MODEL.PRETRAINED = os.path.join(root, "pretrained.pth")
+        yaml_path = os.path.join(root, "model_RSN.yaml")
+        with open(yaml_path, "w") as fh:
+            fh.write(cfg.dump())
+        _, model = build_model(cfg, seed=1)
+        n_params = sum(1 for _ in model.parameters())
+        torch.save({"state_dict": model.state_dict()}, cfg.MODEL.PRETRAINED)
+        del model
+
+        def args(name, *opts):
+            return default_parse_args(["--sigma_schedule", "1", "--cfg", yaml_path, "--root_dir",
+                                       root, "EXPERIMENT_NAME", name, *opts])
+
+        validations, epochs, saves, resumes = [], [], [], []
+        KeptPreds.kept.clear()
+
+        def spy_eval(inner):
+            def run(*a, **k):
+                out = inner(*a, **k)
+                validations.append(out)
+                return out
+            return run
+
+        def timed_epoch(inner):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner(*a, **k)
+                torch.cuda.synchronize()
+                epochs.append(time.perf_counter() - t0)
+                return out
+            return run
+
+        def timed_save(inner):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                out = inner(*a, **k)
+                saves.append((k.get("async_save", False), (time.perf_counter() - t0) * 1e3))
+                return out
+            return run
+
+        def timed_resume(inner):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner(*a, **k)
+                torch.cuda.synchronize()
+                resumes.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+
+        patch = mock.patch.object
+        with patch(train_mod, "evaluate_epoch_decoded",
+                   spy_eval(train_mod.evaluate_epoch_decoded)), \
+                patch(train_mod, "train_epoch", timed_epoch(train_mod.train_epoch)), \
+                patch(ckpt, "save_checkpoint", timed_save(ckpt.save_checkpoint)), \
+                patch(ckpt, "resume", timed_resume(ckpt.resume)):
+            # -------------------------------------------- the uninterrupted run
+            t0 = time.perf_counter()
+            tr = TimedTrain(args("whole"))
+            build_s = time.perf_counter() - t0
+            if not (isinstance(tr.loader, DeviceLoader) and tr.loader.mode == "crops"
+                    and tr.device.type == "cuda" and tr.batch_size == 2):
+                fail(f"train CLI: loader {type(tr.loader).__name__}, device {tr.device}, "
+                     f"batch {tr.batch_size}")
+            if tr.pretrained_loaded != n_params:
+                fail(f"train CLI: {tr.pretrained_loaded} of {n_params} pretrained tensors loaded")
+            iters = len(tr.loader)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            tr.train()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counts = read_counts()
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            steps, val_batches = tr.steps, tr.val_batches
+            want = {k: TRAIN_COUNTS[k] * len(steps) + FORWARD_COUNTS[k] * len(val_batches)
+                    for k in counts}
+            if len(steps) != 2 * iters or len(tr.validations) != 2 or counts != want:
+                fail(f"train CLI: {len(steps)} steps, {len(tr.validations)} validations, "
+                     f"launches {counts}, expected {want}")
+            bad = [i for i, s in enumerate(steps) if s["counts"] != TRAIN_COUNTS]
+            bad_val = [c for c in val_batches if c != FORWARD_COUNTS]
+            if bad or bad_val:
+                fail(f"train CLI: launches a step {steps[bad[0]]['counts'] if bad else ''} or a "
+                     f"validation batch {bad_val[:1]}, expected {TRAIN_COUNTS} and "
+                     f"{FORWARD_COUNTS}")
+            metrics = torch.stack([s["metrics"] for s in steps]).cpu()
+            if metrics.shape[1] != 6 or not torch.isfinite(metrics).all():
+                fail(f"train CLI: step metrics {steps[0]['names']} not all finite: {metrics}")
+            pack_want = {k: FORWARD_COUNTS[k] for k in ("fused_attn", "fused_mlp", "deform_conv")}
+            if any(v["packs"] != pack_want for v in tr.validations):
+                fail(f"train CLI: weight packs a validation {[v['packs'] for v in tr.validations]}"
+                     f", expected one a block {pack_want}")
+
+            # targets: epoch 1 drawn at sigma - 1 (the mass of a whole
+            # Gaussian, the median over a step's labelled joints)
+            hm_w, hm_h = cfg.MODEL.HEATMAP_SIZE
+            full = {}
+            for sigma in (cfg.MODEL.SIGMA, cfg.MODEL.SIGMA - 1):
+                joint = np.asarray([[cfg.MODEL.IMAGE_SIZE[0] / 2, cfg.MODEL.IMAGE_SIZE[1] / 2, 0]])
+                t, _ = generate_heatmaps(joint, np.ones((1, 3)), sigma, cfg.MODEL.IMAGE_SIZE,
+                                         cfg.MODEL.HEATMAP_SIZE, 1)
+                full[sigma] = float(t.sum())
+            ratios = []
+            for i, s in enumerate(steps):
+                want_sigma = cfg.MODEL.SIGMA - (i >= iters)
+                ratio = s["mass"][s["labelled"]].median().item() / full[want_sigma]
+                ratios.append(ratio)
+                if s["sigma"] != want_sigma or abs(ratio - 1) > 0.05:
+                    fail(f"train CLI step {i}: the dataset's sigma {s['sigma']}, the targets' "
+                         f"mass {ratio:.4f} of a sigma-{want_sigma} Gaussian's")
+            log(f"train CLI: targets at sigma {cfg.MODEL.SIGMA} in epoch 0 and "
+                f"{cfg.MODEL.SIGMA - 1} in epoch 1: a labelled joint's median mass "
+                f"{min(ratios):.4f}-{max(ratios):.4f} of the whole Gaussian's "
+                f"({full[cfg.MODEL.SIGMA]:.2f}, {full[cfg.MODEL.SIGMA - 1]:.2f})")
+
+            files = sorted(os.listdir(tr.checkpoints_save_folder))
+            bests = [f for f in files if f.startswith("best_mAP_")]
+            if len(bests) != 1 or files[1:] != ["epoch_0_state", "epoch_1_state"]:
+                fail(f"train CLI: checkpoints {files}")
+            spans = [s["events"][0].elapsed_time(s["events"][1]) * 1e-3 for s in steps]
+            loop_s = sum(epochs)
+            clips = len(steps) * tr.batch_size
+            boxes = sum(v["boxes"] for v in tr.validations)
+            val_s = sum(v["seconds"] for v in tr.validations)
+            names = steps[0]["names"]
+            log(f"train CLI (configs/17/model_RSN.yaml, {cfg.TPU.COMPUTE_DTYPE}, "
+                f"B={tr.batch_size}, the device loader, {tr.loader.mode}): built and the "
+                f"pretrained .pth loaded ({tr.pretrained_loaded} of {n_params} parameter "
+                f"tensors) in {build_s:.3f} s; {len(steps)} steps in 2 epochs, the train loops "
+                f"{loop_s:.3f} s, {clips / loop_s:.4f} clips/s, the steps' CUDA events span "
+                f"{sum(spans):.3f} s, {sum(spans) / loop_s:.1%} of the loops' wall time (median "
+                f"step {sorted(spans)[len(spans) // 2] * 1e3:.2f} ms); "
+                f"validation {boxes} boxes in {val_s:.3f} s, {boxes / val_s:.4f} boxes/s "
+                f"(" + ", ".join(f"{v['seconds']:.3f} s" for v in tr.validations) + "); the "
+                f"epoch saves returned in " + ", ".join(f"{ms:.1f} ms" for _, ms in saves)
+                + f" (async), still being written when validation ended: "
+                + ", ".join(str(v["save_pending"]) for v in tr.validations) + f"; the whole "
+                f"run {run_s:.3f} s; peak memory {peak_gib:.2f} GiB; launches a step "
+                f"{steps[0]['counts']}, a validation batch {val_batches[0]}; packs a validation "
+                f"{tr.validations[0]['packs']}; first step "
+                + ", ".join(f"{k} {v:.6g}" for k, v in zip(names, metrics[0].tolist()))
+                + "; last step "
+                + ", ".join(f"{k} {v:.6g}" for k, v in zip(names, metrics[-1].tolist()))
+                + f" ({card})")
+
+            # ------------------------------------ the eval CLI on the best
+            best = os.path.join(tr.checkpoints_save_folder, bests[0])
+            best_ap = ckpt._parse_best(bests[0])
+            found = [nv for nv, ap in validations if ap == best_ap]
+            ev = Eval("validate", args("whole", "VAL.MODEL_FILE", best), dataset_cls=KeptPreds)
+            (_, name_values, mean_ap), = ev.eval()
+            got = np.asarray(list(name_values.values()), np.float64)
+            want_table = np.asarray(list(found[0].values()), np.float64) if found else None
+            diff = np.nanmax(np.abs(got - want_table)) if found else float("nan")
+            log(f"train CLI: the eval CLI on {bests[0]}: AP "
+                + " ".join(f"{k} {v:.4f}" for k, v in name_values.items())
+                + f"; the validation's table differs by at most {diff:.3e} (limit 1e-9)")
+            if not (found and diff <= 1e-9
+                    and (np.isnan(got) == np.isnan(want_table)).all() and mean_ap == best_ap):
+                fail("train CLI: the eval CLI on the best checkpoint does not reproduce its "
+                     "validation's AP table")
+            # the fused attention adds its score tiles with f32 atomics, so a
+            # near-tied argmax may move by a cell between two runs
+            best_i = next(i for i, (_, ap) in enumerate(validations) if ap == best_ap)
+            mine, theirs = KeptPreds.kept[-1], KeptPreds.kept[best_i]
+            same = (mine[..., :2] == theirs[..., :2]).all(-1).mean()
+            peak = np.abs(theirs[..., 2]).max()
+            maxval_err = np.abs(mine[..., 2] - theirs[..., 2]).max() / peak
+            log(f"train CLI: the eval CLI's keypoints against that validation's: {same:.2%} of "
+                f"coordinates identical, max values to {maxval_err:.3e} of their peak "
+                f"({peak:.4g}), {len(np.unique(theirs[..., 2]))} distinct max values")
+            if not (same >= 0.98 and maxval_err <= 1e-3 and len(np.unique(theirs[..., 2])) > 1):
+                fail("train CLI: the eval CLI on the best checkpoint does not reproduce its "
+                     "validation's keypoints")
+            del ev
+
+            # ------------------------------------------------ save timings
+            folder = os.path.join(root, "save_timing")
+            timing = []
+            for async_save in (False, True, False, True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path = ckpt.save_checkpoint(folder, 0, tr.train_state,
+                                            tensorboard_global_steps=1, async_save=async_save)
+                back = (time.perf_counter() - t0) * 1e3
+                ckpt.wait_for_saves()
+                timing.append((async_save, back, (time.perf_counter() - t0) * 1e3))
+            size_mb = os.path.getsize(os.path.join(path, ckpt.STATE_FILE)) / 2 ** 20
+            log("train CLI: an epoch checkpoint of " + f"{size_mb:.1f} MiB: "
+                + "; ".join(f"{'async' if a else 'sync'} returned in {b:.1f} ms, committed in "
+                            f"{c:.1f} ms" for a, b, c in timing))
+            whole = _host_state(tr)
+            whole_meta = ckpt.restore_checkpoint(
+                os.path.join(tr.checkpoints_save_folder, "epoch_1_state"))["meta"]
+            del tr
+            torch.cuda.empty_cache()
+
+            # ------------------------------------------ preempt and resume
+            resumes.clear()
+            pre = TimedTrain(args("preempted"), stop_after=5)
+            pre.train()
+            pre_files = sorted(os.listdir(pre.checkpoints_save_folder))
+            meta = ckpt.restore_checkpoint(
+                os.path.join(pre.checkpoints_save_folder, "epoch_0_state"))["meta"]
+            if len(pre.steps) != 5 or pre_files != ["epoch_0_state"] or meta != {
+                    "begin_epoch": 0, "tensorboard_global_steps": 5, "iteration": 5}:
+                fail(f"train CLI preempted: {len(pre.steps)} steps, {pre_files}, meta {meta}")
+            del pre
+            torch.cuda.empty_cache()
+            res = TimedTrain(args("preempted"))
+            res.train()
+            res_meta = ckpt.restore_checkpoint(
+                os.path.join(res.checkpoints_save_folder, "epoch_1_state"))["meta"]
+            resumed = _host_state(res)
+            if len(res.steps) != 2 * iters - 5 or res_meta != whole_meta:
+                fail(f"train CLI resumed: {len(res.steps)} steps, meta {res_meta} against "
+                     f"{whole_meta}")
+            del res
+            torch.cuda.empty_cache()
+            equal, worst, where = _state_diff(whole, resumed)
+            log(f"train CLI: SIGTERM after 5 steps checkpointed epoch 0 at iteration 5; resumed "
+                f"in {resumes[-1]:.1f} ms (the state read and loaded), the run went on for "
+                f"{2 * iters - 5} steps; its weights, BN statistics, optimizer moments and "
+                f"count ({resumed[2]}) and TensorBoard steps "
+                f"({res_meta['tensorboard_global_steps']}) against the uninterrupted run's: "
+                + ("bit-equal" if equal else f"max |diff| / peak {worst:.3e} ({where})"))
+            if not equal:
+                # the rule for an op left non-deterministic: no farther than
+                # two uninterrupted runs are from each other
+                torch.cuda.empty_cache()
+                again = TimedTrain(args("whole_again"))
+                again.train()
+                twin = _host_state(again)
+                del again
+                equal2, worst2, where2 = _state_diff(whole, twin)
+                log(f"train CLI: two uninterrupted runs: "
+                    + ("bit-equal" if equal2 else f"max |diff| / peak {worst2:.3e} ({where2})"))
+                if not worst <= worst2:
+                    fail("train CLI: the resumed run is farther from the uninterrupted one "
+                         "than two uninterrupted runs are from each other")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"train CLI phase: {time.perf_counter() - phase_t0:.1f} s")
+    return dict(step=steps[0]["counts"], val_batch=val_batches[0], clips_per_s=clips / loop_s,
+                span_share=sum(spans) / loop_s, val_boxes_per_s=boxes / val_s,
+                save_ms=timing, resume_ms=resumes[-1], peak_gib=peak_gib, bit_equal=equal)
+
+
 def main() -> None:
+    start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1381,6 +1808,10 @@ def main() -> None:
     train = flagship_train(card)
     paths["train_step_bf16_b8"] = train["bf16 B=8"]["counts"]
     tiny_train_agreement()
+    torch.cuda.empty_cache()
+    cli_train = train_cli(card)
+    paths["train_cli_step"] = cli_train["step"]
+    paths["train_cli_val_batch"] = cli_train["val_batch"]
     # each kernel's launches on its own path: the eval's for the model's
     # kernels, the experiment tool's for the other two, a train step's for
     # the DCN's backward
@@ -1399,7 +1830,16 @@ def main() -> None:
         + "; ".join(f"{r['preprocess']} ({r['loader']}) {r['boxes_per_s']:.3f} boxes/s with "
                     f"{r['workers']} loader thread(s), the "
                     f"steps' events span {r['step_span_share']:.1%} of the loop's wall time"
-                    for r in cli) + f" ({card})")
+                    for r in cli)
+        + f"; train CLI: {cli_train['clips_per_s']:.4f} clips/s, the steps' events span "
+        f"{cli_train['span_share']:.1%} of its loops, validation "
+        f"{cli_train['val_boxes_per_s']:.4f} boxes/s, a checkpoint "
+        + ", ".join(f"{'async' if a else 'sync'} {b:.1f} / {c:.1f} ms"
+                    for a, b, c in cli_train["save_ms"])
+        + f" (returned / committed), resume {cli_train['resume_ms']:.1f} ms, peak "
+        f"{cli_train['peak_gib']:.2f} GiB, the resumed run "
+        + ("bit-equal" if cli_train["bit_equal"] else "within two runs' spread")
+        + f"; the script {time.perf_counter() - start:.1f} s ({card})")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(f"nvidia-smi: {card}", flush=True)
     # the script drives one card, whatever the machine holds

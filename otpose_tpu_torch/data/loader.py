@@ -6,8 +6,9 @@ saturate host IO while the device computes; batches are staged ``prefetch``
 deep.  Deterministic per-epoch shuffling and per-sample RNG streams replicate
 ``worker_init_reset_seed`` determinism (ref: thirdparty/utils/data_utils.py:14-21).
 The port's copy of ``otpose_tpu/data/loader.py``, single process, without
-the C++ batch kernels and without the mid-epoch restart (that comes with the
-training harness).
+the C++ batch kernels (ROADMAP Queue 1 item 6) and without the multi-process
+row blocks (item 7).  ``set_start_iteration`` restarts a pass mid-epoch for
+an iteration-exact resume.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ class Loader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.epoch = 0
+        self._start_iteration = 0
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -43,6 +45,13 @@ class Loader:
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
+
+    def set_start_iteration(self, k: int):
+        """Skip the first ``k`` batches of the next pass only (an
+        iteration-exact resume).  Exact because the epoch's shuffle and each
+        sample's augmentation draw are keyed by (seed, epoch, index), not by
+        how many samples came before: a skipped batch consumes nothing."""
+        self._start_iteration = int(k)
 
     def _index_batches(self):
         n = len(self.dataset)
@@ -54,7 +63,8 @@ class Loader:
                    for i in range(0, n, self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
-        return batches
+        start, self._start_iteration = self._start_iteration, 0
+        return batches[start:]
 
     def __iter__(self) -> Iterator:
         batches = self._index_batches()

@@ -102,5 +102,7 @@ class ArrayFramesDataset(PoseTrackDataset):
         return np.load(self._array_path(path))
 
     def warp_frame(self, im: np.ndarray, trans: np.ndarray, w: int, h: int) -> np.ndarray:
-        crop = warp_affine(torch.from_numpy(im).float()[None], invert_affine(trans)[None], h, w)
+        # a train sample's flip hands over a view with a negative stride
+        crop = warp_affine(torch.from_numpy(np.ascontiguousarray(im)).float()[None],
+                           invert_affine(trans)[None], h, w)
         return crop[0].round().clamp(0, 255).to(torch.uint8).numpy()

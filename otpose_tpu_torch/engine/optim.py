@@ -138,6 +138,15 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
 
+    def state_dict(self) -> dict:
+        """The torch optimizer's state (moments or momentum buffers, by
+        parameter index) and the update count, which sets the next lr."""
+        return {"opt": self.opt.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.opt.load_state_dict(state["opt"])
+        self.count = int(state["count"])
+
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         """One update; returns the global norm of the unclipped gradients."""

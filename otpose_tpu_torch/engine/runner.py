@@ -1,7 +1,9 @@
-"""Evaluation engine loops (counterpart of ``otpose_tpu/engine/runner.py``'s
-eval side, single device).
+"""Training and evaluation engine loops (counterpart of
+``otpose_tpu/engine/runner.py``, single device).
 
-ref: script/Common.py:296-453.  The forward and the decode run on the
+ref: script/Common.py:79-453.  ``train_epoch`` runs one epoch of train
+steps, each on the model's device with its dropout generator re-seeded from
+(seed, epoch, step).  In evaluation the forward and the decode run on the
 model's device; the host feeds batches, keeps the PCK meter, back-projects
 17 points a box and runs the poseval stage.  ``make_flip_eval_step`` is the
 flip-test averaging behind ``VAL.FLIP_VAL`` / ``TEST.FLIP_TEST``.  The
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import logging
 import time
+from collections import defaultdict
 from typing import Callable, Dict
 
 import numpy as np
@@ -24,9 +27,11 @@ from otpose_tpu_torch.models.otpose import OTPose, otpose_forward
 from otpose_tpu_torch.ops.affine import apply_affine_to_points, get_affine_transform
 from otpose_tpu_torch.ops.heatmap import get_final_preds, get_max_preds
 from otpose_tpu_torch.utils.device import resolve_device, resolve_dtype
+from otpose_tpu_torch.utils.profiling import maybe_trace
 from otpose_tpu_torch.utils.table import pipe_table
 
 logger = logging.getLogger(__name__)
+TRAIN_KEYS = ("inputs", "margin", "target", "target_weight")
 
 
 class AverageMeter:
@@ -90,32 +95,109 @@ def refuse_vis(cfg) -> None:
             "yet (ROADMAP Queue 1 item 10)")
 
 
+def _batch_on(batch, keys, device: torch.device) -> list:
+    """The tensors ``batch[k]`` for ``keys`` on ``device``.  A batch of the
+    device loader is already there and is taken as it is; a host batch is
+    staged in pinned memory and copied without blocking for a CUDA device."""
+    out = []
+    for k in keys:
+        v = batch[k]
+        if isinstance(v, torch.Tensor):
+            if v.device.type != device.type:
+                raise ValueError(f"the loader's {k} is on {v.device}, the run on {device}")
+            out.append(v)
+            continue
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out.append(t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t)
+    return out
+
+
+def step_seed(seed: int, epoch: int, global_steps: int) -> int:
+    """The seed of a train step's dropout generator: a hash of (seed, epoch,
+    global step), as the JAX package keys a step's dropout by
+    ``fold_in(fold_in(PRNGKey(seed), epoch), global_steps)``.  A step's
+    draws then depend on its indices only, so a resumed run draws what the
+    uninterrupted run drew (the bits differ from JAX's)."""
+    return int(np.random.SeedSequence([seed, epoch, global_steps]).generate_state(1, np.uint64)[0])
+
+
+def train_epoch(step_fn, state, loader, epoch: int, cfg, *, seed: int,
+                generator: torch.Generator, tb_writer=None, global_steps: int = 0,
+                start_iteration: int = 0, should_stop=None) -> tuple:
+    """One training epoch (ref: script/Common.py:79-294).  Returns (state,
+    global_steps, completed_iterations).
+
+    ``step_fn`` is a ``make_train_step`` step of ``state.model`` made with
+    ``generator``, which is re-seeded before each step from ``step_seed(seed,
+    epoch, global_steps)``.  ``start_iteration`` resumes mid-epoch: the
+    loader skips the first k batches, and ``global_steps`` must already count
+    them.  ``should_stop`` (``PreemptionGuard.check``) is asked after each
+    step; when it says so the epoch returns early and
+    ``completed_iterations`` says what to checkpoint.  Metrics come to the
+    host only every ``PRINT_FREQ`` iterations and on the last one (a fetch
+    waits for the device), for the log line and the TensorBoard scalars;
+    steps [10, 15) are traced into ``TPU.PROFILE_DIR`` when it is set."""
+    if cfg.DEBUG.VIS_TENSORBOARD and tb_writer is not None:
+        raise NotImplementedError(
+            "DEBUG.VIS_TENSORBOARD: the TensorBoard image grids are not ported yet (ROADMAP "
+            "Queue 1 item 10)")
+    device = next(state.model.parameters()).device
+    batch_time = AverageMeter()
+    data_time = AverageMeter()
+    acc_meter = AverageMeter()
+    losses = defaultdict(AverageMeter)
+
+    end = time.time()
+    max_iter = len(loader)
+    completed = start_iteration
+    if start_iteration:
+        loader.set_start_iteration(start_iteration)
+    for it, (batch, _metas) in enumerate(loader, start=start_iteration):
+        data_time.update(time.time() - end)
+        batch = dict(zip(TRAIN_KEYS, _batch_on(batch, TRAIN_KEYS, device)))
+        generator.manual_seed(step_seed(seed, epoch, global_steps))
+        with maybe_trace(cfg.TPU.PROFILE_DIR, step=global_steps):
+            metrics = step_fn(batch)
+        batch_time.update(time.time() - end)
+        end = time.time()
+        global_steps += 1
+        completed = it + 1
+
+        if it % cfg.PRINT_FREQ == 0 or it >= max_iter - 1:
+            host_metrics = {k: float(v) for k, v in metrics.items()}
+            for k, v in host_metrics.items():
+                losses[k].update(v)
+            if tb_writer is not None:
+                for k, v in host_metrics.items():
+                    tb_writer.add_scalar(f"train/{k}", v, global_steps)
+            acc_meter.update(host_metrics.get("pck_acc", 0.0))
+            bsz = batch["inputs"].shape[0]
+            loss_meter = losses["final_loss"]
+            # the averages are over the fetched iterations (ref: Common.py:212-218)
+            logger.info(
+                "Epoch: [%03d][%05d/%05d]\tTime %.3fs (%.3fs)\t"
+                "Speed %.1f samples/s\tData %.3fs\tLoss %.5f (%.5f)\tAcc %.3f",
+                epoch, it, max_iter, batch_time.val, batch_time.avg,
+                bsz / max(batch_time.val, 1e-9), data_time.val,
+                loss_meter.val, loss_meter.avg, acc_meter.avg)
+        if should_stop is not None and should_stop():
+            logger.info("train_epoch: stop requested at epoch %d iteration %d", epoch, completed)
+            break
+    return state, global_steps, completed
+
+
 def _pipelined_forward(loader, run_fn, fetch_fn, device):
     """One-deep pipeline over an eval loader: enqueue batch i + 1's forward
     before fetching batch i's results, so the device computes while the host
     decodes and accumulates.
 
     ``run_fn(inputs, margin)`` launches the device step on tensors on
-    ``device``; ``fetch_fn(outs)`` brings its results to the host, which
-    waits for them.  A batch of the device loader is already on ``device``
-    and is taken as it is; a host batch is staged in pinned memory and
-    copied without blocking for a CUDA device."""
+    ``device`` (``_batch_on``); ``fetch_fn(outs)`` brings its results to the
+    host, which waits for them."""
     device = torch.device(device)
-    cuda = device.type == "cuda"
     pending = None
     for batch, metas in loader:
-        fwd = []
-        for k in ("inputs", "margin"):
-            v = batch[k]
-            if isinstance(v, torch.Tensor):
-                if v.device.type != device.type:
-                    raise ValueError(f"eval: the loader's {k} is on {v.device}, the run on "
-                                     f"{device}")
-                fwd.append(v)
-                continue
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            fwd.append(t.pin_memory().to(device, non_blocking=True) if cuda else t)
-        outs = run_fn(*fwd)
+        outs = run_fn(*_batch_on(batch, ("inputs", "margin"), device))
         if pending is not None:
             p_outs, p_batch, p_metas = pending
             yield fetch_fn(p_outs), p_batch, p_metas

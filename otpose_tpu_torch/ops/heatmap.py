@@ -7,7 +7,8 @@ gaussian targets of the device preprocessing.  On the host, in
 numpy: the argmax of ``get_max_preds`` and the back-projection of
 ``transform_preds`` / ``get_final_preds``, and the gaussian targets of
 ``generate_heatmaps`` (peak 1.0 at truncated-rounded grid coords, written
-inside the clipped 3-sigma window; ref: utils/heatmap.py:48-105).
+inside the clipped 3-sigma window; ref: utils/heatmap.py:48-105), and the
+training's sigma annealing ``adjust_sigma``.
 """
 
 from __future__ import annotations
@@ -170,3 +171,12 @@ def generate_heatmaps(joints: np.ndarray, joints_vis: np.ndarray, sigma: float,
     if kwargs.get("use_different_joints_weight"):
         target_weight = np.multiply(target_weight, kwargs["joints_weight"])
     return target, target_weight
+
+
+def adjust_sigma(epoch: int, sigma: float, schedule) -> float:
+    """Sigma annealing (ref: utils/heatmap.py:181-187): one less for each
+    epoch of ``schedule`` that ``epoch`` has reached, never below 1."""
+    for step in schedule:
+        if epoch >= step:
+            sigma -= 1
+    return max(sigma, 1)

@@ -41,8 +41,9 @@ def test_every_port_module_imports_without_cv2():
     """cv2 is imported only where an image file is read, warped or blurred
     (the path-reading ``PoseEstimator.__call__``; ``PoseTrackDataset``'s
     ``read_frame``, ``warp_frame`` and train-time blur), and tabulate nowhere:
-    the card's machine is promised neither.  The eval engine's modules are
-    named so that a rename cannot drop them from the walk unnoticed."""
+    the card's machine is promised neither.  The eval and training engines'
+    modules are named so that a rename cannot drop them from the walk
+    unnoticed."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['cv2'] = None\n"          # any import of cv2 raises ImportError
@@ -53,12 +54,13 @@ def test_every_port_module_imports_without_cv2():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import otpose_tpu_torch.cli.inference, otpose_tpu_torch.tools.probe_shift\n"
-        "want = ['cli.eval', 'data.coco_json', 'data.loader', 'data.pipeline', 'data.posetrack',\n"
-        "        'data.synthetic',\n"
-        "        'engine.base', 'engine.checkpoints', 'engine.optim', 'engine.runner',\n"
-        "        'engine.trainer', 'models.losses',\n"
+        "want = ['cli.eval', 'cli.train', 'data.coco_json', 'data.loader', 'data.pipeline',\n"
+        "        'data.posetrack', 'data.synthetic',\n"
+        "        'engine.base', 'engine.checkpoints', 'engine.optim', 'engine.preempt',\n"
+        "        'engine.runner', 'engine.trainer', 'models.losses',\n"
         "        'evaluate.converters', 'evaluate.keypoints', 'evaluate.pck', 'evaluate.poseval',\n"
-        "        'evaluate.tracking', 'utils.table', 'utils.testing', 'utils.timing']\n"
+        "        'evaluate.tracking', 'utils.profiling', 'utils.table', 'utils.testing',\n"
+        "        'utils.timing']\n"
         "missing = [w for w in want if 'otpose_tpu_torch.' + w not in names]\n"
         "assert not missing, missing\n"
         "bad = sorted(n for n in sys.modules\n"
