@@ -25,7 +25,9 @@ Phases, each of which must pass or the script exits non-zero:
    the fused MLP, the attention and both DCN modes also print the share of
    outputs that differ from their own plain version (the MLP and the exact
    DCN must stay at or below 5%); the fused kernels and the DCN are timed
-   through weights packed once, as the model calls them; every row's ``ms``
+   through weights packed once, as the model calls them, and the packed
+   call must give the raw-weight call's bits (every kernel sums in a fixed
+   order); every row's ``ms``
    is CUDA events around eager calls, and the DCN (at B = 16 and B = 1, both
    modes, both dtypes) is also timed by replaying a CUDA graph of 20 calls
    (``graph_ms``), the device's time without the wrapper's host work;
@@ -114,10 +116,26 @@ Phases, each of which must pass or the script exits non-zero:
     BN statistics, optimizer moments and count and TensorBoard steps must
     equal the uninterrupted run's bit for bit (or, should some op be left
     non-deterministic, be no farther from them than a second uninterrupted
-    run is: both printed); the phase's seconds and the script's total.
+    run is: both printed); the phase's seconds and the script's total;
+15. exports and serves (``cli/export.py``, ``engine/export.py``,
+    ``tools/serve.py``): ``python -m otpose_tpu_torch.cli.export`` on
+    ``configs/17/model_RSN.yaml`` (bf16 compute, ``TPU.PARAM_DTYPE bfloat16``)
+    from a reference-layout ``.pth`` of random reference-init weights, a
+    baked artifact at B = 16 and an external-weights one at B = 1, the two
+    at once, beside a tiny artifact traced on the card and loaded on the CPU
+    (``move_to_device_pass``; 1e-3 of the peak against the card's answers);
+    each flagship artifact loaded in a fresh process (``chip_smoke.py
+    --serve-worker``), which must import no model code, and held against the
+    live ``make_decoded_eval_step`` on the same clips, bit for bit; the served call
+    12 / 16 / 1 launches and no weight pack; its clips/s beside the live
+    step's in this call; then the serve tool's ``main`` on a local port
+    answering 1, 5 and 16 clips (each row equal to the artifact's answer)
+    and rejecting 17, its latency over HTTP at 1 and 16 clips; export
+    seconds, artifact bytes and load seconds printed.
 
-Each path (phases 4 to 7, 9, 12 and 14) is driven with every launch count set
-to 0 just before it and read just after.  It prints a ``kernels`` JSON line, the
+Each path (phases 4 to 7, 9, 12, 14 and 15) is driven with every launch count
+set to 0 just before it and read just after (phase 15's in the process that
+serves).  It prints a ``kernels`` JSON line, the
 card line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -388,7 +406,9 @@ def check_kernels():
                 dcn = name in ("deform_conv", "deform_conv_fused")
                 if i == 0 or (dcn and i == len(cases) - 1):
                     call = packed_call(name, kern, args)
-                    if name in ("fused_mlp", "deform_conv") and not torch.equal(call(), got):
+                    # every kernel sums in a fixed order: a call gives the same
+                    # bits each time, the raw-weight call the packed call's
+                    if name != "deform_conv_fused" and not torch.equal(call(), got):
                         fail(f"{name} {dtype}: the packed-weight call differs from the "
                              "raw-weight call")
                     ms = time_ms(call, iters=20)
@@ -1756,6 +1776,343 @@ def train_cli(card: str):
                 save_ms=timing, resume_ms=resumes[-1], peak_gib=peak_gib, bit_equal=equal)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: export and serving
+# ---------------------------------------------------------------------------
+
+def _backend_flags(torch) -> None:
+    """The numerics every process of this script runs with: no TF32, and
+    plain bf16 products accumulated in f32 throughout, as the kernels do."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def serve_worker(artifact: str, clips: str, out: str) -> None:
+    """A fresh process (``chip_smoke.py --serve-worker``): load ``artifact``
+    on the card with ``load_exported``, which must import no model code; one
+    counted call on ``clips``; then clips/s over 5 calls.  Writes the
+    outputs and the readings to ``out`` (``.npz`` and ``.json``)."""
+    import numpy as np
+    import torch
+
+    _backend_flags(torch)
+    t0 = time.perf_counter()
+    from otpose_tpu_torch.engine.export import load_exported
+
+    model = load_exported(artifact)
+    load_s = time.perf_counter() - t0
+    models = sorted(n for n in sys.modules if n.startswith("otpose_tpu_torch.models"))
+    with np.load(clips) as z:
+        inputs = torch.from_numpy(z["inputs"]).cuda()
+        margin = torch.from_numpy(z["margin"]).cuda()
+    model(inputs, margin)                     # warm-up: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    reset_counts()
+    packs = read_packs()
+    outs = model(inputs, margin)
+    torch.cuda.synchronize()
+    counts, packed = read_counts(), _delta(packs, read_packs())
+    iters = 5
+    t1 = time.perf_counter()
+    for _ in range(iters):
+        model(inputs, margin)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t1) / iters
+    np.savez(out + ".npz", *[o.float().cpu().numpy() for o in outs])
+    with open(out + ".json", "w") as fh:
+        json.dump(dict(load_s=load_s, counts=counts, packs=packed, models=models,
+                       clips_per_s=inputs.shape[0] / sec, ms=sec * 1e3, meta=model.meta), fh)
+
+
+def _run_worker(artifact: str, clips: str, out: str, timeout: int = 600) -> dict:
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--serve-worker",
+                           artifact, clips, out], cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"serve worker on {artifact}: rc {proc.returncode}\n{proc.stderr[-4000:]}")
+    with open(out + ".json") as fh:
+        res = json.load(fh)
+    import numpy as np
+
+    with np.load(out + ".npz") as z:
+        res["outs"] = [z[f"arr_{i}"] for i in range(len(z.files))]
+    return res
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _check_bit_equal(label: str, got, live) -> None:
+    """Served outputs against the live step's on the same clips: every
+    kernel and cuDNN sum in a fixed order, so they must be the same bits."""
+    import numpy as np
+
+    if not all(np.array_equal(g, w) for g, w in zip(got, live)):
+        gap = max(float(np.abs(g - w).max()) for g, w in zip(got, live))
+        same = float((got[0] == live[0]).all(-1).mean())
+        fail(f"served {label}: differs from the live step by up to {gap:.3e}, coords "
+             f"identical on {same:.2%} of the joints")
+    log(f"served {label}: coords, maxvals and raw_coords bit-equal to the live step")
+
+
+def _http(url: str, body: bytes | None = None, timeout: int = 300):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST" if body is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _npz_bytes(inputs, margin) -> bytes:
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.savez(buf, inputs=inputs, margin=margin)
+    return buf.getvalue()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _serve_requests(artifact: str, clips, margin, want) -> dict:
+    """``otpose_tpu_torch/tools/serve.py::main`` on a local port: requests of
+    1, 5 and 16 clips (each row equal to the fresh process's answer on the
+    same clips) and one of 17, which it must reject; the latency of 1 and 16
+    clips over HTTP, median of 5 requests each."""
+    import select
+
+    import numpy as np
+
+    port = _free_port()
+    t0 = time.perf_counter()
+    # the tool's main, in a process with this script's numerics flags, so
+    # that its answers can be held bit-equal to the fresh process's
+    launcher = ("import sys, torch\n"
+                "from chip_smoke import _backend_flags\n"
+                "_backend_flags(torch)\n"
+                "from otpose_tpu_torch.tools.serve import main\n"
+                "main(sys.argv[1:])\n")
+    proc = subprocess.Popen([sys.executable, "-c", launcher, "--artifact", artifact, "--port",
+                             str(port)], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.perf_counter() + 600
+        line = ""
+        while "serving" not in line:
+            if proc.poll() is not None:
+                fail(f"serve tool exited with {proc.returncode}: {proc.stderr.read()[-4000:]}")
+            if time.perf_counter() > deadline:
+                fail("serve tool did not start listening within 600 s")
+            ready, _, _ = select.select([proc.stdout], [], [], 5)
+            if ready:
+                line = proc.stdout.readline()
+        ready_s = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{port}"
+        status, meta = _http(url + "/health")
+        if status != 200 or meta.get("batch_size") != BATCH:
+            fail(f"serve /health: {status} {meta}")
+        names = ("coords", "maxvals", "raw_coords")
+        latency = {}
+        for n in (1, 5, 16):
+            body = _npz_bytes(clips[:n], margin[:n])
+            times = []
+            for _ in range(5 if n in (1, 16) else 1):
+                t1 = time.perf_counter()
+                status, reply = _http(url + "/predict", body)
+                times.append((time.perf_counter() - t1) * 1e3)
+                if status != 200:
+                    fail(f"serve: a request of {n} clips answered {status}: {reply}")
+            for name, w in zip(names, want):
+                if not np.array_equal(np.asarray(reply[name], np.float32), w[:n]):
+                    fail(f"serve: {name} of a request of {n} clips differs from the artifact's "
+                         "answer on the same clips")
+            latency[n] = sorted(times)[len(times) // 2]
+        over = np.concatenate([clips, clips[:1]])
+        status, reply = _http(url + "/predict", _npz_bytes(over, np.concatenate([margin,
+                                                                               margin[:1]])))
+        if status != 400 or "exported batch" not in reply.get("error", ""):
+            fail(f"serve: a request of 17 clips answered {status}: {reply}")
+        log(f"serve tool: listening {ready_s:.1f} s after its start (load and one warm-up "
+            f"call); requests of 1, 5 and 16 clips answered, each row equal to the artifact's "
+            f"own answer; 17 clips rejected with 400 ({reply['error']}); latency over HTTP "
+            f"{latency[1]:.2f} ms at 1 clip, {latency[16]:.2f} ms at 16 (median of 5)")
+        return dict(ready_s=ready_s, latency_ms=latency)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def _tiny_export_on_cpu() -> None:
+    """A tiny artifact (heatmaps and teacher, f32) traced on the card and
+    loaded on the CPU, held against the card's answers (1e-3 of the peak, as
+    phase 8), and the card's load bit-equal to the live step."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from otpose_tpu_torch.engine.export import export_eval, load_exported, save_exported
+    from otpose_tpu_torch.engine.trainer import make_eval_step
+    from otpose_tpu_torch.models.factory import build_model
+    from otpose_tpu_torch.utils.testing import tiny_otpose_cfg
+
+    spec, model = build_model(tiny_otpose_cfg(), seed=2)
+    _scaled_weights_(model, 2)
+    _calibrate_refinement_(model, 2)
+    root = tempfile.mkdtemp(prefix="otpose_tiny_export_")
+    try:
+        out = save_exported(root, export_eval(model, batch_size=2, decoded=False), spec,
+                            batch_size=2, compute_dtype=torch.float32, flip=False,
+                            decoded=False)
+        gen = torch.Generator().manual_seed(4)
+        x = torch.randn(2, 64, 64, 15, generator=gen)
+        margin = torch.tensor([[1.0, 1, 2, 2], [1, 0, 2, 0]])
+        on_card = load_exported(out)(x, margin)
+        live = make_eval_step(model)(x.cuda(), margin.cuda())
+        if not all(torch.equal(a, b) for a, b in zip(on_card, live)):
+            fail("tiny artifact on the card differs from the live step")
+        t0 = time.perf_counter()
+        on_cpu = load_exported(out, device="cpu")
+        load_s = time.perf_counter() - t0
+        got = on_cpu(x, margin)
+        worst = max((g - w.cpu()).abs().max().item() / max(1.0, w.abs().max().item())
+                    for g, w in zip(got, on_card))
+        log(f"tiny artifact traced on the card, loaded on the CPU in {load_s:.1f} s "
+            f"(move_to_device_pass): worst error against the card's answers {worst:.3e} of "
+            f"the peak; the card's load bit-equal to the live step")
+        if not (got[0].device.type == "cpu" and worst <= 1e-3):
+            fail("the tiny artifact on the CPU disagrees with the card's answers")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def serving(card: str) -> dict:
+    """Phase 15: ``python -m otpose_tpu_torch.cli.export`` on
+    ``configs/17/model_RSN.yaml`` (bf16 compute, ``TPU.PARAM_DTYPE
+    bfloat16``) from a reference-layout ``.pth`` of random reference-init
+    weights: a baked artifact at B = 16 and an external-weights one at
+    B = 1, the two exports run at once.  Each artifact is loaded in a fresh
+    process and held against the live ``make_decoded_eval_step`` on the same
+    clips; the B = 16 one must launch 12 / 16 / 1 kernels and make no pack a
+    call, and its clips/s is read beside the live step's.  Then the serve
+    tool over the B = 16 artifact, and a tiny artifact traced on the card
+    and loaded on the CPU."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from otpose_tpu_torch.config import get_cfg
+    from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
+    from otpose_tpu_torch.models.factory import build_model
+    from otpose_tpu_torch.models.otpose import prepare_eval_params
+
+    phase_t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="otpose_export_")
+    try:
+        cfg = get_cfg()
+        cfg.merge_from_file(os.path.join(ROOT, "configs/17/model_RSN.yaml"))
+        if cfg.TPU.COMPUTE_DTYPE != "bfloat16" or cfg.VAL.FLIP_VAL:
+            fail("export: configs/17/model_RSN.yaml no longer sets bf16 without the flip")
+        cfg.OUTPUT_DIR = os.path.join(root, "output")
+        cfg.VAL.MODEL_FILE = os.path.join(root, "random_weights.pth")
+        yaml_path = os.path.join(root, "model_RSN.yaml")
+        with open(yaml_path, "w") as fh:
+            fh.write(cfg.dump())
+        _, model = build_model(cfg, seed=5)
+        torch.save({"state_dict": model.state_dict()}, cfg.VAL.MODEL_FILE)
+        arts = {16: os.path.join(root, "artifact_b16"), 1: os.path.join(root, "artifact_b1")}
+        procs = {b: subprocess.Popen(
+            [sys.executable, "-m", "otpose_tpu_torch.cli.export", "--cfg", yaml_path,
+             "--root_dir", root, "--batch", str(b), "--out", arts[b], "--weights",
+             "baked" if b == BATCH else "external", "TPU.PARAM_DTYPE", "bfloat16"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for b in arts}
+        t0 = time.perf_counter()
+        _tiny_export_on_cpu()
+        export_s = {}
+        for b, proc in procs.items():
+            log_text, _ = proc.communicate(timeout=900)
+            export_s[b] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"export CLI at batch {b}: rc {proc.returncode}\n{log_text[-4000:]}")
+        sizes = {b: _dir_bytes(a) for b, a in arts.items()}
+        log(f"export CLI (the two at once, beside the tiny export): batch 16 baked done "
+            f"{export_s[16]:.1f} s, {sizes[16]} bytes; batch 1 external done {export_s[1]:.1f} s, "
+            f"{sizes[1]} bytes ({os.path.getsize(os.path.join(arts[1], 'otpose_eval.pt2'))} "
+            f"in the program)")
+
+        prepare_eval_params(model, torch.bfloat16)
+        step = make_decoded_eval_step(model, compute_dtype=torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        w, h = cfg.MODEL.IMAGE_SIZE
+        inputs = torch.randn(BATCH, h, w, 15, generator=gen, device="cuda")
+        margin = torch.randint(0, 3, (BATCH, 4), generator=gen, device="cuda").float()
+        clips = os.path.join(root, "clips.npz")
+        np.savez(clips, inputs=inputs.cpu().numpy(), margin=margin.cpu().numpy())
+        clips1 = os.path.join(root, "clips1.npz")
+        np.savez(clips1, inputs=inputs[:1].cpu().numpy(), margin=margin[:1].cpu().numpy())
+
+        served = _run_worker(arts[16], clips, os.path.join(root, "served16"))
+        live = [t.float().cpu().numpy() for t in step(inputs, margin)]
+        iters = 5
+        step(inputs, margin)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(iters):
+            step(inputs, margin)
+        torch.cuda.synchronize()
+        live_rate = BATCH * iters / (time.perf_counter() - t1)
+        log(f"served B=16 (fresh process): loaded in {served['load_s']:.1f} s, launches "
+            f"{served['counts']}, weight packs in the call {served['packs']}, model modules "
+            f"imported {served['models']}; {served['clips_per_s']:.3f} clips/s "
+            f"({served['ms']:.2f} ms a call) against the live step's {live_rate:.3f} clips/s "
+            f"in this call ({card})")
+        if served["counts"] != FORWARD_COUNTS:
+            fail(f"served artifact launches {served['counts']}, expected {FORWARD_COUNTS}")
+        if any(served["packs"].values()) or served["models"]:
+            fail("the served call packed weights or the loader imported model code")
+        if served["meta"]["fused"] is not True or served["meta"]["weights"] != "baked":
+            fail(f"served manifest {served['meta']}")
+        _check_bit_equal("B=16 baked", served["outs"], live)
+
+        serve = _serve_requests(arts[16], inputs.cpu().numpy(), margin.cpu().numpy(),
+                                served["outs"])
+        served1 = _run_worker(arts[1], clips1, os.path.join(root, "served1"))
+        live1 = [t.float().cpu().numpy() for t in step(inputs[:1], margin[:1])]
+        log(f"served B=1 external (fresh process): loaded in {served1['load_s']:.1f} s, "
+            f"launches {served1['counts']}, packs {served1['packs']}, "
+            f"{served1['ms']:.2f} ms a call")
+        if served1["counts"] != FORWARD_COUNTS or any(served1["packs"].values()):
+            fail(f"served B=1 launches {served1['counts']}, packs {served1['packs']}")
+        _check_bit_equal("B=1 external", served1["outs"], live1)
+        log(f"export and serving phase: {time.perf_counter() - phase_t0:.1f} s")
+        return dict(counts=served["counts"], counts_b1=served1["counts"],
+                    clips_per_s=served["clips_per_s"], live_clips_per_s=live_rate,
+                    export_s=export_s, bytes=sizes, load_s=(served["load_s"], served1["load_s"]),
+                    **serve)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     start = time.perf_counter()
     try:
@@ -1775,10 +2132,7 @@ def main() -> None:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    # plain bf16 products accumulate in f32 throughout, as the kernels do
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    _backend_flags(torch)
 
     t0 = time.perf_counter()
     secs = build.build_all()
@@ -1812,6 +2166,10 @@ def main() -> None:
     cli_train = train_cli(card)
     paths["train_cli_step"] = cli_train["step"]
     paths["train_cli_val_batch"] = cli_train["val_batch"]
+    torch.cuda.empty_cache()
+    serve = serving(card)
+    paths["served_artifact"] = serve["counts"]
+    paths["served_artifact_b1"] = serve["counts_b1"]
     # each kernel's launches on its own path: the eval's for the model's
     # kernels, the experiment tool's for the other two, a train step's for
     # the DCN's backward
@@ -1839,6 +2197,10 @@ def main() -> None:
         + f" (returned / committed), resume {cli_train['resume_ms']:.1f} ms, peak "
         f"{cli_train['peak_gib']:.2f} GiB, the resumed run "
         + ("bit-equal" if cli_train["bit_equal"] else "within two runs' spread")
+        + f"; served artifact (B={BATCH}, bf16, fresh process) {serve['clips_per_s']:.3f} "
+        f"clips/s against the live step's {serve['live_clips_per_s']:.3f} in the same call, "
+        f"HTTP latency {serve['latency_ms'][1]:.2f} ms at 1 clip and "
+        f"{serve['latency_ms'][16]:.2f} ms at {BATCH}"
         + f"; the script {time.perf_counter() - start:.1f} s ({card})")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(f"nvidia-smi: {card}", flush=True)
@@ -1850,4 +2212,8 @@ def main() -> None:
 
 if __name__ == "__main__":
     os.chdir(ROOT)
-    main()
+    if sys.argv[1:2] == ["--serve-worker"]:
+        sys.path.insert(0, ROOT)
+        serve_worker(*sys.argv[2:5])
+    else:
+        main()

@@ -25,8 +25,10 @@
 //      of T), runs the depthwise convs with the model's three-step rounding
 //      and their LayerNorms, builds q, k, v, writes v to a bf16 scratch in
 //      device memory and adds the chunk's same-head scores to a per-block
-//      sum.  At the end each block adds its sum to the f32 S with atomics,
-//      so the order of that sum varies from run to run.
+//      sum.  At the end each block stores its sum as its split's partial of
+//      S, and a reduction kernel adds the partials in split order (a fixed
+//      order, so a call gives the same bits every time; f32 atomics into one
+//      S, the first design, summed in the order the blocks finished).
 //   2. softmax: one thread per row of S.
 //   3. att_v: block (T tile, b) reads v back and writes att @ v.
 //
@@ -81,8 +83,10 @@ constexpr int kTT = 32;       // tokens per chunk in qkv_scores (one per lane)
 constexpr int kThreads = 256;
 constexpr int kTV = 128;      // tokens per block in att_v
 
+// Two blocks an SM, the most its shared memory holds at C = 136 (110 KB a
+// block): without that hint ptxas aimed at more blocks and spilled.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 qkv_scores_kernel(const T* __restrict__ x, const float* __restrict__ ln1w,
                   const float* __restrict__ ln1b, const float* __restrict__ dw,
                   const float* __restrict__ nw, const float* __restrict__ nb,
@@ -200,8 +204,18 @@ qkv_scores_kernel(const T* __restrict__ x, const float* __restrict__ ln1w,
     }
   }
   __syncthreads();
-  float* sb = s_out + (size_t)b * C * hs;
-  for (int e = tid; e < C * hs; e += kThreads) atomicAdd(sb + e, s_sh[e]);
+  float* sb = s_out + ((size_t)blockIdx.x * gridDim.y + b) * C * hs;
+  for (int e = tid; e < C * hs; e += kThreads) sb[e] = s_sh[e];
+}
+
+// S (the first n floats of s) = the nsplit partials of n floats each, added
+// in split order
+__global__ void qkv_scores_reduce_kernel(float* __restrict__ s, long long n, int nsplit) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float acc = s[e];
+  for (int p = 1; p < nsplit; ++p) acc += s[p * n + e];
+  s[e] = acc;
 }
 
 template <typename T>
@@ -562,7 +576,7 @@ qkv_scores_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ ln1w,
     OTP_PHASE(5);
   }
 
-  float* sb = s_out + (size_t)b * C * hs;
+  float* sb = s_out + ((size_t)blockIdx.x * gridDim.y + b) * C * hs;
 #pragma unroll
   for (int s = 0; s < SMAX; ++s) {
     const int tile = warp + kWarps1 * s;
@@ -572,7 +586,7 @@ qkv_scores_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ ln1w,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = mt * 16 + g + (e >> 1) * 8, j = nt * 8 + 2 * qd + (e & 1);
-        if (i < hs && j < hs) atomicAdd(sb + (size_t)(h * hs + i) * hs + j, sacc[s][e]);
+        if (i < hs && j < hs) sb[(size_t)(h * hs + i) * hs + j] = sacc[s][e];
       }
     }
   }
@@ -671,6 +685,11 @@ size_t tc_att_v_smem(int C, int kp) {
                          (size_t)C * kLDV);
 }
 
+void reduce_scores(float* s, long long n, int nsplit, cudaStream_t st) {
+  if (nsplit > 1)
+    qkv_scores_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(s, n, nsplit);
+}
+
 }  // namespace
 
 // Dynamic shared memory the largest of the kernels of `dtype` needs (0 =
@@ -687,7 +706,8 @@ extern "C" size_t otp_fused_attn_smem(int C, int n_head, int dtype) {
 }
 
 // f32.  x, v_scr, out: (B, C, T).  ln1w/ln1b: (C,).  dw: (3, C, 3), nw/nb:
-// (3, C), pw: (3, C_out, C_in), pb: (3, C).  s_scr, att_scr: (B, C, hs).
+// (3, C), pw: (3, C_out, C_in), pb: (3, C).  s_scr: (nsplit, B, C, hs);
+// att_scr: (B, C, hs).
 extern "C" int otp_fused_attn_f32(const void* x, const void* ln1w, const void* ln1b,
                                   const void* dw, const void* nw, const void* nb,
                                   const void* pw, const void* pb, void* v_scr, void* s_scr,
@@ -696,8 +716,6 @@ extern "C" int otp_fused_attn_f32(const void* x, const void* ln1w, const void* l
   using T = float;
   cudaStream_t st = (cudaStream_t)stream;
   const int hs = C / n_head;
-  cudaError_t err = cudaMemsetAsync(s_scr, 0, sizeof(float) * (size_t)B * C * hs, st);
-  if (err != cudaSuccess) return (int)err;
   const size_t smem_a = smem_scores(C, hs), smem_c = smem_att_v(C, hs);
   cudaFuncSetAttribute(qkv_scores_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem_a);
@@ -708,6 +726,7 @@ extern "C" int otp_fused_attn_f32(const void* x, const void* ln1w, const void* l
       (const float*)nb, (const float*)pw, (const float*)pb, (T*)v_scr, (float*)s_scr, C, Tn,
       hs, nsplit, scale);
   const int rows = B * C;
+  reduce_scores((float*)s_scr, (long long)rows * hs, nsplit, st);
   softmax_kernel<T><<<(rows + 127) / 128, 128, 0, st>>>((const float*)s_scr, (float*)att_scr,
                                                         rows, hs);
   att_v_kernel<T><<<dim3((Tn + kTV - 1) / kTV, B), kThreads, smem_c, st>>>(
@@ -717,8 +736,8 @@ extern "C" int otp_fused_attn_f32(const void* x, const void* ln1w, const void* l
 
 // bf16.  x, v_scr, out: (B, C, T) bf16.  ln1w/ln1b: (C,) f32.  dw: (3, C, 3),
 // nw/nb: (3, C), f32.  pw: (3, Cp, Cp) bf16 and pb: (3, Cp) f32, zero-padded
-// (`pack_attn_weights`).  s_scr: (B, C, hs) f32; att_scr: (B, C, kp) bf16
-// with kp = hs rounded up to 16.
+// (`pack_attn_weights`).  s_scr: (nsplit, B, C, hs) f32; att_scr: (B, C, kp)
+// bf16 with kp = hs rounded up to 16.
 extern "C" int otp_fused_attn_tc(const void* x, const void* ln1w, const void* ln1b,
                                  const void* dw, const void* nw, const void* nb,
                                  const void* pw, const void* pb, void* v_scr, void* s_scr,
@@ -730,8 +749,6 @@ extern "C" int otp_fused_attn_tc(const void* x, const void* ln1w, const void* ln
   const int hs = C / n_head, kp = round16(hs);
   const int ntiles = n_head * ((hs + 15) / 16) * ((hs + 7) / 8);
   const int per_warp = (ntiles + kWarps1 - 1) / kWarps1;
-  cudaError_t err = cudaMemsetAsync(s_scr, 0, sizeof(float) * (size_t)B * C * hs, st);
-  if (err != cudaSuccess) return (int)err;
   const size_t smem_a = tc_scores_smem(C, Cp), smem_c = tc_att_v_smem(C, kp);
   const dim3 grid_a(nsplit, B);
 #define OTP_SCORES(S)                                                                     \
@@ -749,6 +766,7 @@ extern "C" int otp_fused_attn_tc(const void* x, const void* ln1w, const void* ln
   else return (int)cudaErrorInvalidValue;
 #undef OTP_SCORES
   const int rows = B * C;
+  reduce_scores((float*)s_scr, (long long)rows * hs, nsplit, st);
   attn_softmax_kernel<<<(rows + 127) / 128, 128, 0, st>>>((const float*)s_scr, (bf16*)att_scr,
                                                           rows, hs, kp);
   cudaFuncSetAttribute(att_v_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -20,10 +20,14 @@ the ``drop_path_*`` scales, so ``set_drop_rates`` can zero them and keep the
 parameter set.
 The two kernels' weights are packed once per block and compute dtype
 (``attn_pack`` / ``mlp_pack``) and cached on the block, keyed by each source
-parameter's storage and version, so a steady forward packs nothing.
+parameter's storage and version, so a steady forward packs nothing.  For
+export, ``pin_packs`` turns each cached pack into buffers of its owner, which
+a tracer sees as the program's state: an exported call makes no pack.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -124,16 +128,64 @@ def _affine_drop_path(block: TransformerBlock, scale_mod, x):
     return core.drop_path(scale_mod(x), block.path_pdrop, block.training)
 
 
+# the attributes under which modules cache their packs (``cached_pack``'s
+# slots): the blocks' two and the refinement's DCN pack
+PACK_SLOTS = ("_attn_pack", "_mlp_pack", "_dcn_pack")
+
+
+@dataclasses.dataclass(frozen=True)
+class PinnedPack:
+    """A pack fixed by ``pin_packs``: its tensors are the owner's buffers
+    ``<slot>_<field>``, its other fields are kept here."""
+    kind: type
+    slot: str
+    scalars: dict
+    tensors: tuple
+
+    def pack(self, owner: nn.Module):
+        return self.kind(**self.scalars,
+                         **{f: getattr(owner, f"{self.slot}_{f}") for f in self.tensors})
+
+
 def cached_pack(owner: nn.Module, slot: str, params, dtype, make):
     """``make()``, cached on ``owner`` under ``slot`` until one of ``params``
     changes storage, version or dtype (an in-place update,
-    ``prepare_eval_params``, ``.to()``) or ``dtype`` changes."""
-    key = (dtype, params[0].device) + tuple((p.data_ptr(), p._version, p.dtype) for p in params)
+    ``prepare_eval_params``, ``.to()``) or ``dtype`` changes.  A pinned pack
+    is returned as it is."""
     hit = getattr(owner, slot, None)
+    if isinstance(hit, PinnedPack):
+        return hit.pack(owner)
+    key = (dtype, params[0].device) + tuple((p.data_ptr(), p._version, p.dtype) for p in params)
     if hit is None or hit[0] != key:
         hit = (key, make())
         setattr(owner, slot, hit)
     return hit[1]
+
+
+@torch.no_grad()
+def pin_packs(model: nn.Module, run) -> int:
+    """Drop every pack cached on ``model``'s modules, call ``run()`` (a
+    forward, which packs what its path needs), and pin each pack it made:
+    its tensors become buffers of the owner and ``cached_pack`` returns
+    them from then on, whatever the parameters do.  For an exported
+    program, whose state they join.  Returns the number of packs pinned."""
+    for owner in model.modules():
+        for slot in PACK_SLOTS:
+            owner.__dict__.pop(slot, None)
+    run()
+    n = 0
+    for owner in model.modules():
+        for slot in PACK_SLOTS:
+            hit = owner.__dict__.get(slot)
+            if hit is None:
+                continue
+            fields = {f.name: getattr(hit[1], f.name) for f in dataclasses.fields(hit[1])}
+            tensors = tuple(k for k, v in fields.items() if isinstance(v, torch.Tensor))
+            for k in tensors:      # a copy made outside inference mode
+                owner.register_buffer(f"{slot}_{k}", fields.pop(k).clone())
+            setattr(owner, slot, PinnedPack(type(hit[1]), slot, fields, tensors))
+            n += 1
+    return n
 
 
 def attn_pack(block: TransformerBlock, dtype):

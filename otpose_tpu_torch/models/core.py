@@ -30,9 +30,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from otpose_tpu_torch.ops.ct import (LN_EPS, dense_1x1_ct, depthwise_conv1d_k3_ct,  # noqa: F401
+                                     gelu, layer_norm_ct)
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1   # torch semantics: running = (1 - m) * running + m * batch
-LN_EPS = 1e-5
 
 # the generator that dropout and drop-path draw from (``use_generator``)
 _generator: torch.Generator | None = None
@@ -84,39 +86,6 @@ def batch_norm_train(x, weight, bias, running_mean, running_var,
     return y.to(x.dtype), new_mean, new_var
 
 
-def layer_norm_ct(x, weight, bias, eps: float = LN_EPS) -> torch.Tensor:
-    """Channel LayerNorm over axis 1 of (B, C, T), biased variance, f32
-    statistics and affine, rounded once to ``x.dtype``."""
-    xf = x.float()
-    mu = xf.mean(dim=1, keepdim=True)
-    res = xf - mu
-    sigma = (res * res).mean(dim=1, keepdim=True)
-    out = res / torch.sqrt(sigma + eps)
-    w = weight.float().reshape(1, -1, 1)
-    b = bias.float().reshape(1, -1, 1)
-    return (out * w + b).to(x.dtype)
-
-
-def depthwise_conv1d_k3_ct(x, w, b=None, *, stride: int = 1) -> torch.Tensor:
-    """Depthwise conv1d, kernel 3, zero padding 1, on (B, C, T) with a
-    (C, 1, 3) kernel, as three shifted multiply-adds in ``x.dtype``."""
-    t = x.shape[-1]
-    xp = F.pad(x, (1, 1))
-    w = w.to(x.dtype)
-    w0, w1, w2 = w[:, 0, 0, None], w[:, 0, 1, None], w[:, 0, 2, None]
-    if stride == 1:
-        y = xp[..., 0:t] * w0 + xp[..., 1:t + 1] * w1 + xp[..., 2:t + 2] * w2
-    else:
-        to = (t + 2 - 3) // stride + 1
-        end = (to - 1) * stride + 1
-        y = (xp[..., 0:end:stride][..., :to] * w0
-             + xp[..., 1:end + 1:stride][..., :to] * w1
-             + xp[..., 2:end + 2:stride][..., :to] * w2)
-    if b is not None:
-        y = y + b.to(y.dtype)[:, None]
-    return y
-
-
 def max_pool1d_ct(x, kernel: int, stride: int, padding: int) -> torch.Tensor:
     """MaxPool over T of (B, C, T) with -inf padding."""
     return F.max_pool1d(x, kernel, stride, padding)
@@ -151,13 +120,6 @@ def upsample_linear_1d_ct(x, out_t: int) -> torch.Tensor:
     return x[..., i0] * (1 - w1) + x[..., i1] * w1
 
 
-def dense_1x1_ct(x, w, b=None) -> torch.Tensor:
-    """1x1 conv1d on (B, C, T) with an (O, I, 1) kernel: a channel matmul in
-    ``x.dtype`` with f32 accumulation; the bias is added after rounding."""
-    y = torch.matmul(w[:, :, 0].to(x.dtype), x)
-    return y + b.to(y.dtype)[:, None] if b is not None else y
-
-
 @contextlib.contextmanager
 def use_generator(gen: torch.Generator | None):
     """Dropout and drop-path inside the block draw from ``gen``."""
@@ -190,11 +152,6 @@ def drop_path(x, rate: float, training: bool) -> torch.Tensor:
     keep = 1.0 - rate
     mask = torch.floor(keep + _uniform((x.shape[0],) + (1,) * (x.dim() - 1), x))
     return x / keep * mask.to(x.dtype)
-
-
-def gelu(x) -> torch.Tensor:
-    """Exact (erf) GELU."""
-    return F.gelu(x)
 
 
 def relu(x) -> torch.Tensor:

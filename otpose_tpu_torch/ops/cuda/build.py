@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, and loaded with ``ctypes``
-(no PyTorch headers, so a build takes seconds).  Libraries go to
-``build/otpose_tpu_torch/`` at the repository root, named by a hash of their
-sources and flags, so an edited source is rebuilt.  ``build_all`` starts one
+(no PyTorch headers, so a build takes seconds).  Each wrapper registers
+its kernel as a ``torch.library`` custom op (``otpose::<name>``) whose CPU
+implementation is the plain version and whose CUDA implementation makes the
+``ctypes`` call, so ``torch.export`` sees each kernel as one opaque op.
+Libraries go to ``build/otpose_tpu_torch/`` at the repository root, named by
+a hash of their sources and flags, so an edited source is rebuilt.  ``build_all`` starts one
 ``nvcc`` per source at once.  Kernels are built only from the sources in
 ``csrc/``.  A build with extra preprocessor ``defines`` (the phase clocks of
 ``tools/kernel_phases.py``) is a library of its own.
@@ -119,14 +122,23 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def refuse_grad(what: str, *tensors) -> None:
-    """Raise where autograd would need a gradient through a kernel that has
-    no backward: grad mode is on and one of ``tensors`` (other arguments
-    are ignored) requires grad."""
-    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
-                                       for t in tensors):
+    """Raise where autograd would need a gradient through a CUDA kernel that
+    has no backward: grad mode is on and one of ``tensors`` (other
+    arguments are ignored) lies on the card and requires grad.  (On the CPU
+    the op runs its plain version, and a backward through it raises where
+    it is reached: the op registers no autograd.)"""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.is_cuda
+                                       and t.requires_grad for t in tensors):
         raise RuntimeError(f"{what}: the CUDA kernel has no backward; call it under "
                            "torch.no_grad() or on tensors that do not require grad (the "
                            "model takes the plain path in train mode)")
+
+
+def check_device(what: str, x) -> None:
+    """Raise unless ``x`` lies on the CPU (the plain version) or the card
+    (the kernel)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
 
 
 def stream_ptr(device) -> int:

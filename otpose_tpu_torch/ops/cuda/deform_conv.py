@@ -9,13 +9,16 @@ refinement, ref: model/OTPose.py:381-394).  Layouts are NCHW: offsets
 bilinear weights and sums are f32 whatever the input dtype; the result is
 rounded once to ``x.dtype``.
 
-On a CUDA tensor it launches ``csrc/deform_conv.cu`` in its exact mode; on a
-CPU tensor it runs ``modulated_deform_conv_multi_plain``, the same function
-in plain PyTorch.  The same kernel, in its other mode, serves
-``deform_conv_fused.deform_conv_fused`` through ``launch``.  A CUDA call
-goes through ``DeformConvFn``, whose backward launches
-``csrc/deform_conv_bwd.cu`` (every gradient: x, offsets, masks, weights,
-biases); on the CPU the plain version's autograd is the plain backward.
+The wrapper calls the registered op ``otpose::deform_conv``: on a CUDA
+tensor it launches ``csrc/deform_conv.cu`` in its exact mode, on a CPU
+tensor it runs ``modulated_deform_conv_multi_plain``, the same function in
+plain PyTorch.  The same kernel, in its other mode, serves
+``deform_conv_fused.deform_conv_fused`` through ``launch``.  The op's
+registered autograd calls ``otpose::deform_conv_bwd``, which on a CUDA
+tensor launches ``csrc/deform_conv_bwd.cu`` (every gradient: x, offsets,
+masks, weights, biases) and on a CPU tensor runs the plain version's
+autograd.  The launch counts are kept inside the ops' CUDA implementations,
+so an exported program that calls an op counts each launch.
 
 ``pack_dcn_weights`` puts the weights in the kernel's layout once
 (``models/otpose.py::dcn_pack`` caches the result on the model); the
@@ -25,6 +28,7 @@ such a pack.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -33,8 +37,8 @@ import torch
 
 from otpose_tpu_torch.ops.cuda import build
 
-# wrapper calls (either path), kernel launches (CUDA path only; the forward's
-# and the backward's) and packs made
+# op calls (either device), kernel launches (CUDA only; the forward's and the
+# backward's) and packs made
 calls = 0
 launches = 0
 bwd_launches = 0
@@ -136,12 +140,6 @@ def modulated_deform_conv_multi_plain(x, offsets_list, masks_list, weights,
     return out.reshape(b, -1, h, w).to(x.dtype)
 
 
-def plain_args(weights, biases, packed):
-    """The raw weights and biases a plain version takes: as given, or
-    unpacked from ``packed``."""
-    return (weights, biases) if packed is None else unpack(packed)
-
-
 def _check_maps(what: str, x, offsets_list, masks_list, pk: DcnPack, dilations):
     """Raise unless the maps have the layouts above, all contiguous and in
     x's dtype and device, and match the pack's D and C."""
@@ -179,8 +177,6 @@ def launch(mode: int, what: str, x, offsets_list, masks_list, weights, biases, d
     SMs without a block (B = 1), the (channel, dilation) stages are split
     (``stage_split``); the blocks write f32 partial sums, which a second
     kernel adds in a fixed order."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {x.device}")
     code = build.dtype_code(x.dtype)
     if packed is None:
         packed = pack_dcn_weights(weights, biases, device=x.device)
@@ -219,11 +215,11 @@ def _wide(x, maps) -> bool:
 
 def launch_backward(g, x, offsets_list, masks_list, packed: DcnPack, dilations):
     """Run ``csrc/deform_conv_bwd.cu`` on CUDA tensors: the gradients of the
-    exact mode's output with respect to x, each offset and mask map, the
-    weights (D, O, C, 3, 3) and the biases (D, O), from the output's
+    exact mode's output with respect to x, the offset maps, the mask maps,
+    the weights (D, O, C, 3, 3) and the biases (D, O), from the output's
     gradient ``g`` (B, O, H, W).  d x, d W and d bias are computed in f32;
-    d x is returned in x's dtype, d W and d bias in f32."""
-    global bwd_launches
+    d x is returned in x's dtype, the D offset and mask gradients stacked as
+    (D, B, 18C, H, W) and (D, B, 9C, H, W), d W and d bias in f32."""
     what = "modulated_deform_conv_multi backward"
     code = build.dtype_code(x.dtype)
     _check_maps(what, x, offsets_list, masks_list, packed, dilations)
@@ -253,52 +249,144 @@ def launch_backward(g, x, offsets_list, masks_list, packed: DcnPack, dilations):
                              scratch.data_ptr(), dw.data_ptr(), dbias.data_ptr(),
                              b, c, o, op, h, w, d, int(wide), code, build.stream_ptr(dev))
     build.check(lib, err, what)
+    return dx, d_off, d_mask, dw, dbias
+
+
+# ---------------------------------------------------------------------------
+# the registered ops: ``otpose::deform_conv`` (with its autograd) and
+# ``otpose::deform_conv_bwd``.  Each takes the pack as its tensors
+# (``pack_w``, ``pack_bias``) and O; the forward also takes the raw weights
+# and biases, or None, which are the tensors its gradient is for.
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _autograd_inside_op():
+    """Record autograd graphs inside an op's implementation, which the
+    dispatcher runs below autograd (the autograd keys excluded)."""
+    key = torch._C.DispatchKey.AutogradFunctionality
+    was = torch._C._dispatch_tls_is_dispatch_key_excluded(key)
+    torch._C._dispatch_tls_set_dispatch_key_excluded(key, False)
+    try:
+        with torch.enable_grad():
+            yield
+    finally:
+        torch._C._dispatch_tls_set_dispatch_key_excluded(key, was)
+
+
+def pack_of(pack_w, pack_bias, o: int) -> DcnPack:
+    """The ``DcnPack`` whose tensors an op was given."""
+    d, c = pack_w.shape[:2]
+    return DcnPack(d, c, o, pack_w, pack_bias)
+
+
+@torch.library.custom_op("otpose::deform_conv", mutates_args=(), device_types="cpu")
+def deform_conv_op(x: torch.Tensor, offsets: list[torch.Tensor], masks: list[torch.Tensor],
+                   pack_w: torch.Tensor, pack_bias: torch.Tensor, weights: torch.Tensor | None,
+                   biases: torch.Tensor | None, dilations: list[int], o: int) -> torch.Tensor:
+    """CPU: the plain version, from the raw weights where they are given."""
+    global calls
+    calls += 1
+    if weights is None:
+        weights, biases = unpack(pack_of(pack_w, pack_bias, o))
+    return modulated_deform_conv_multi_plain(x, offsets, masks, weights, biases, dilations)
+
+
+@deform_conv_op.register_kernel("cuda")
+def _deform_conv_cuda(x, offsets, masks, pack_w, pack_bias, weights, biases, dilations, o):
+    global calls, launches
+    calls += 1
+    out = launch(EXACT, "modulated_deform_conv_multi", x, offsets, masks, None, None, dilations,
+                 pack_of(pack_w, pack_bias, o))
+    launches += 1
+    return out
+
+
+@deform_conv_op.register_fake
+def _deform_conv_fake(x, offsets, masks, pack_w, pack_bias, weights, biases, dilations, o):
+    return x.new_empty(x.shape[0], o, x.shape[2], x.shape[3])
+
+
+@torch.library.custom_op("otpose::deform_conv_bwd", mutates_args=(), device_types="cpu")
+def deform_conv_bwd_op(g: torch.Tensor, x: torch.Tensor, offsets: list[torch.Tensor],
+                       masks: list[torch.Tensor], pack_w: torch.Tensor, pack_bias: torch.Tensor,
+                       weights: torch.Tensor | None, biases: torch.Tensor | None,
+                       dilations: list[int], o: int
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """The gradients of ``otpose::deform_conv`` from its output's gradient
+    ``g``: d x, the offset and mask gradients stacked over D, d weights
+    (D, O, C, 3, 3) and d biases (D, O), in the raw weights' dtypes where
+    they are given, else f32 (zeros: the op was given no weights to
+    differentiate).  CPU: the plain version's autograd."""
+    d, c = len(dilations), x.shape[1]
+    raw = weights is not None
+    if not raw:
+        weights, biases = unpack(pack_of(pack_w, pack_bias, o))
+    leaves = [t.detach().requires_grad_() for t in (x, *offsets, *masks)]
+    if raw:
+        weights, biases = (t.detach().requires_grad_() for t in (weights, biases))
+        leaves += [weights, biases]
+    with _autograd_inside_op():
+        out = modulated_deform_conv_multi_plain(leaves[0], leaves[1:1 + d],
+                                                leaves[1 + d:1 + 2 * d], weights, biases,
+                                                dilations)
+        grads = torch.autograd.grad(out, leaves, g)
+    dw, dbias = (grads[-2], grads[-1]) if raw else (x.new_zeros(d, o, c, 3, 3, dtype=torch.float32),
+                                                     x.new_zeros(d, o, dtype=torch.float32))
+    return (grads[0], torch.stack(grads[1:1 + d]), torch.stack(grads[1 + d:1 + 2 * d]), dw,
+            dbias)
+
+
+@deform_conv_bwd_op.register_kernel("cuda")
+def _deform_conv_bwd_cuda(g, x, offsets, masks, pack_w, pack_bias, weights, biases, dilations, o):
+    global bwd_launches
+    dx, d_off, d_mask, dw, dbias = launch_backward(g, x, offsets, masks,
+                                                   pack_of(pack_w, pack_bias, o), dilations)
     bwd_launches += 1
-    return dx, list(d_off.unbind(0)), list(d_mask.unbind(0)), dw, dbias
+    if weights is not None:
+        dw, dbias = dw.to(weights.dtype), dbias.to(biases.dtype)
+    return dx, d_off, d_mask, dw, dbias
 
 
-class DeformConvFn(torch.autograd.Function):
-    """The exact-mode kernel with its backward kernel.  Arguments: x, the
-    raw weights and biases (or None, with ``packed``), the pack (or None:
-    the raw weights are packed once a call, without grad), the dilations,
-    then the D offset maps and the D mask maps."""
+@deform_conv_bwd_op.register_fake
+def _deform_conv_bwd_fake(g, x, offsets, masks, pack_w, pack_bias, weights, biases, dilations, o):
+    d, (b, c, h, w) = len(dilations), x.shape
+    wdt = torch.float32 if weights is None else weights.dtype
+    bdt = torch.float32 if biases is None else biases.dtype
+    return (torch.empty_like(x), offsets[0].new_empty(d, b, 18 * c, h, w),
+            masks[0].new_empty(d, b, 9 * c, h, w), x.new_empty(d, o, c, 3, 3, dtype=wdt),
+            x.new_empty(d, o, dtype=bdt))
 
-    @staticmethod
-    def forward(ctx, x, weights, biases, packed, dilations, *maps):
-        global launches
-        d = len(dilations)
-        offsets_list, masks_list = list(maps[:d]), list(maps[d:])
-        if packed is None:
-            packed = pack_dcn_weights(weights, biases, device=x.device)
-        out = launch(EXACT, "modulated_deform_conv_multi", x, offsets_list, masks_list, None,
-                     None, dilations, packed)
-        launches += 1
-        ctx.save_for_backward(x, *maps)
-        ctx.packed, ctx.dilations = packed, dilations
-        ctx.wdtype = None if weights is None else (weights.dtype, biases.dtype)
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        x, *maps = ctx.saved_tensors
-        d = len(ctx.dilations)
-        dx, d_off, d_mask, dw, dbias = launch_backward(g, x, maps[:d], maps[d:], ctx.packed,
-                                                       ctx.dilations)
-        if ctx.wdtype is None:
-            dw = dbias = None
-        else:
-            dw, dbias = dw.to(ctx.wdtype[0]), dbias.to(ctx.wdtype[1])
-        return (dx, dw, dbias, None, None, *d_off, *d_mask)
+def _setup_context(ctx, inputs, output):
+    x, offsets, masks, pack_w, pack_bias, weights, biases, dilations, o = inputs
+    ctx.save_for_backward(x, *offsets, *masks, pack_w, pack_bias, weights, biases)
+    ctx.dilations, ctx.o = dilations, o
+
+
+def _backward(ctx, g):
+    x, *rest = ctx.saved_tensors
+    d = len(ctx.dilations)
+    offsets, masks = rest[:d], rest[d:2 * d]
+    pack_w, pack_bias, weights, biases = rest[2 * d:]
+    dx, d_off, d_mask, dw, dbias = deform_conv_bwd_op(g, x, offsets, masks, pack_w, pack_bias,
+                                                      weights, biases, ctx.dilations, ctx.o)
+    if weights is None:
+        dw = dbias = None
+    return dx, list(d_off.unbind(0)), list(d_mask.unbind(0)), None, None, dw, dbias, None, None
+
+
+deform_conv_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def modulated_deform_conv_multi(x, offsets_list, masks_list, weights=None, biases=None,
                                 dilations=(), *, packed: DcnPack | None = None) -> torch.Tensor:
     """x: (B, C, H, W) -> (B, O, H, W); see the module docstring.  Or, in
-    place of ``weights`` and ``biases``, ``packed`` from ``pack_dcn_weights``."""
-    global calls
-    calls += 1
-    if x.device.type == "cpu":
-        return modulated_deform_conv_multi_plain(x, offsets_list, masks_list,
-                                                 *plain_args(weights, biases, packed), dilations)
-    return DeformConvFn.apply(x, weights, biases, packed, tuple(dilations), *offsets_list,
-                              *masks_list)
+    place of ``weights`` and ``biases``, ``packed`` from ``pack_dcn_weights``.
+    Raw weights are packed once a call, without grad; their gradients come
+    from ``otpose::deform_conv_bwd``."""
+    build.check_device("modulated_deform_conv_multi", x)
+    if packed is None:
+        packed = pack_dcn_weights(weights, biases, device=x.device)
+    return deform_conv_op(x, list(offsets_list), list(masks_list), packed.w, packed.bias,
+                          weights, biases, [int(v) for v in dilations], packed.o)

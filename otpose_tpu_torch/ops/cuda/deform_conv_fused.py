@@ -10,18 +10,22 @@ multiplied by its mask in the compute dtype and rounded again, and the
 weight contraction is f32 with f32 weights.  In f32 it equals
 ``modulated_deform_conv_multi``.
 
-On a CUDA tensor it launches ``csrc/deform_conv.cu``, the model's DCN kernel,
-in its make_pallas3 rounding mode; on a CPU tensor it runs
-``deform_conv_fused_plain``, the same function in plain PyTorch.
+The wrapper calls the registered op ``otpose::deform_conv_fused``: on a
+CUDA tensor it launches ``csrc/deform_conv.cu``, the model's DCN kernel, in
+its make_pallas3 rounding mode; on a CPU tensor it runs
+``deform_conv_fused_plain``, the same function in plain PyTorch, from the
+pack's weights.  It has no backward.
 """
 
 from __future__ import annotations
 
 import torch
 
-from otpose_tpu_torch.ops.cuda.deform_conv import PALLAS3, DcnPack, launch, plain_args
+from otpose_tpu_torch.ops.cuda import build
+from otpose_tpu_torch.ops.cuda.deform_conv import (PALLAS3, DcnPack, launch, pack_dcn_weights,
+                                                   pack_of, unpack)
 
-# wrapper calls (either path) and kernel launches (CUDA path only)
+# op calls (either device) and kernel launches (CUDA only)
 calls = 0
 launches = 0
 
@@ -72,16 +76,39 @@ def deform_conv_fused_plain(x, offsets_list, masks_list, weights, biases,
     return out.reshape(b, -1, h, w).to(cd)
 
 
+@torch.library.custom_op("otpose::deform_conv_fused", mutates_args=(), device_types="cpu")
+def deform_conv_fused_op(x: torch.Tensor, offsets: list[torch.Tensor],
+                         masks: list[torch.Tensor], pack_w: torch.Tensor,
+                         pack_bias: torch.Tensor, dilations: list[int], o: int) -> torch.Tensor:
+    """CPU: the plain version from the pack (``pack_w``, ``pack_bias`` and O
+    of a ``DcnPack``)."""
+    global calls
+    calls += 1
+    return deform_conv_fused_plain(x, offsets, masks, *unpack(pack_of(pack_w, pack_bias, o)),
+                                   dilations)
+
+
+@deform_conv_fused_op.register_kernel("cuda")
+def _deform_conv_fused_cuda(x, offsets, masks, pack_w, pack_bias, dilations, o):
+    global calls, launches
+    calls += 1
+    out = launch(PALLAS3, "deform_conv_fused", x, offsets, masks, None, None, dilations,
+                 pack_of(pack_w, pack_bias, o))
+    launches += 1
+    return out
+
+
+@deform_conv_fused_op.register_fake
+def _deform_conv_fused_fake(x, offsets, masks, pack_w, pack_bias, dilations, o):
+    return x.new_empty(x.shape[0], o, x.shape[2], x.shape[3])
+
+
 def deform_conv_fused(x, offsets_list, masks_list, weights=None, biases=None, dilations=(), *,
                       packed: DcnPack | None = None) -> torch.Tensor:
     """x: (B, C, H, W) -> (B, O, H, W); the arguments of
     ``deform_conv.modulated_deform_conv_multi``."""
-    global calls, launches
-    calls += 1
-    if x.device.type == "cpu":
-        return deform_conv_fused_plain(x, offsets_list, masks_list,
-                                       *plain_args(weights, biases, packed), dilations)
-    out = launch(PALLAS3, "deform_conv_fused", x, offsets_list, masks_list, weights, biases,
-                 dilations, packed)
-    launches += 1
-    return out
+    build.check_device("deform_conv_fused", x)
+    if packed is None:
+        packed = pack_dcn_weights(weights, biases, device=x.device)
+    return deform_conv_fused_op(x, list(offsets_list), list(masks_list), packed.w, packed.bias,
+                                [int(v) for v in dilations], packed.o)

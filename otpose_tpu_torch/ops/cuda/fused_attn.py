@@ -6,9 +6,11 @@ projections + the per-head channel attention, and returns the
 pre-scramble ``att @ v`` (B, C, T).  The reference's scramble, the output
 projection and the residual stay outside (``blocks.transformer_block_ct``).
 
-On a CUDA tensor it launches ``csrc/fused_attn.cu`` (bf16 on the tensor
-cores, f32 as FMA loops); on a CPU tensor it runs ``fused_attn_plain``, the
-same function in plain PyTorch.
+The wrapper calls the registered op ``otpose::fused_attn``: on a CUDA
+tensor it launches ``csrc/fused_attn.cu`` (bf16 on the tensor cores, f32 as
+FMA loops), on a CPU tensor it runs ``fused_attn_plain``, the same function
+in plain PyTorch, from the pack.  It has no backward: on a CUDA tensor under
+grad the wrapper raises.
 
 ``pack_attn_weights`` puts the weights in the kernel's layout once
 (``models/blocks.py`` caches the result on each block); the wrapper takes
@@ -24,10 +26,10 @@ from dataclasses import dataclass
 
 import torch
 
-from otpose_tpu_torch.models import core
+from otpose_tpu_torch.ops import ct
 from otpose_tpu_torch.ops.cuda import build
 
-# wrapper calls (either path), kernel launches (CUDA path only) and packs made
+# op calls (either device), kernel launches (CUDA only) and packs made
 calls = 0
 launches = 0
 packs = 0
@@ -65,9 +67,9 @@ def channel_attention_ct(q, k, v, n_head: int, drop=None) -> torch.Tensor:
 def fused_attn_plain(x, ln1_w, ln1_b, dw_q, dw_k, dw_v, nq_w, nq_b, nk_w, nk_b,
                      nv_w, nv_b, wq, bq, wk, bk, wv, bv, n_head: int) -> torch.Tensor:
     """The plain PyTorch version of the kernel (same arguments)."""
-    normed = core.layer_norm_ct(x, ln1_w, ln1_b)
-    q, k, v = (core.dense_1x1_ct(
-        core.layer_norm_ct(core.depthwise_conv1d_k3_ct(normed, dw), nw, nb), w, b)
+    normed = ct.layer_norm_ct(x, ln1_w, ln1_b)
+    q, k, v = (ct.dense_1x1_ct(
+        ct.layer_norm_ct(ct.depthwise_conv1d_k3_ct(normed, dw), nw, nb), w, b)
         for dw, nw, nb, w, b in ((dw_q, nq_w, nq_b, wq, bq),
                                  (dw_k, nk_w, nk_b, wk, bk),
                                  (dw_v, nv_w, nv_b, wv, bv)))
@@ -124,14 +126,6 @@ def pack_attn_weights(ln1_w, ln1_b, dw_q, dw_k, dw_v, nq_w, nq_b, nk_w, nk_b, nv
                     dw.reshape(3, c, 3), nw, nb, pw, pb)
 
 
-def _plain_from_pack(x, pk: AttnPack, n_head: int) -> torch.Tensor:
-    c = pk.c
-    q, k, v = ((pk.dw[p].reshape(c, 1, 3), pk.nw[p], pk.nb[p], pk.pw[p, :c, :c, None],
-                pk.pb[p, :c]) for p in range(3))
-    return fused_attn_plain(x, pk.ln1_w, pk.ln1_b, q[0], k[0], v[0], q[1], q[2], k[1], k[2],
-                            v[1], v[2], q[3], q[4], k[3], k[4], v[3], v[4], n_head)
-
-
 @functools.lru_cache(maxsize=None)
 def _scale(hs: int, dtype) -> float:
     """1/sqrt(hs) rounded to the compute dtype, as the plain version has it."""
@@ -141,6 +135,69 @@ def _scale(hs: int, dtype) -> float:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@torch.library.custom_op("otpose::fused_attn", mutates_args=(), device_types="cpu")
+def fused_attn_op(x: torch.Tensor, ln1_w: torch.Tensor, ln1_b: torch.Tensor, dw: torch.Tensor,
+                  nw: torch.Tensor, nb: torch.Tensor, pw: torch.Tensor, pb: torch.Tensor,
+                  n_head: int) -> torch.Tensor:
+    """The tensors of an ``AttnPack``.  CPU: the plain version."""
+    global calls
+    calls += 1
+    c = ln1_w.numel()
+    q, k, v = ((dw[p].reshape(c, 1, 3), nw[p], nb[p], pw[p, :c, :c, None], pb[p, :c])
+               for p in range(3))
+    return fused_attn_plain(x, ln1_w, ln1_b, q[0], k[0], v[0], q[1], q[2], k[1], k[2],
+                            v[1], v[2], q[3], q[4], k[3], k[4], v[3], v[4], n_head)
+
+
+@fused_attn_op.register_kernel("cuda")
+def _fused_attn_cuda(x, ln1_w, ln1_b, dw, nw, nb, pw, pb, n_head):
+    global calls, launches
+    calls += 1
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError("fused_attn_ct: x must be a contiguous (B, C, T) tensor")
+    bsz, c, t = x.shape
+    if c % n_head:
+        raise ValueError(f"fused_attn_ct: C={c} not divisible by n_head={n_head}")
+    code = build.dtype_code(x.dtype)
+    lib = build.load("fused_attn", _SIGNATURES)
+    if lib.otp_fused_attn_smem(c, n_head, code) > _SMEM_LIMIT:
+        raise ValueError(f"fused_attn_ct: C={c}, n_head={n_head} is not a shape the "
+                         f"{x.dtype} kernel takes (shared memory or C above 160)")
+    if ln1_w.numel() != c or pw.device != x.device:
+        raise ValueError(f"fused_attn_ct: weights packed for C={ln1_w.numel()} on "
+                         f"{pw.device}, x has C={c} on {x.device}")
+    dev = x.device
+    hs = c // n_head
+    chunks = -(-t // 32)
+    if code == 1:
+        # about one block a SM: each holds the projection weights for all its chunks
+        nsplit = max(1, min(chunks, _sm_count(dev.index or 0) // bsz))
+        att_scr = torch.empty(bsz, c, -(-hs // 16) * 16, device=dev, dtype=x.dtype)
+    else:
+        nsplit = max(1, min(chunks, 512 // bsz))   # about 512 blocks in flight
+        att_scr = torch.empty(bsz, c, hs, device=dev, dtype=torch.float32)
+    v_scr = torch.empty_like(x)
+    # each split's partial score sums, added in split order by the kernel
+    s_scr = torch.empty(nsplit, bsz, c, hs, device=dev, dtype=torch.float32)
+    out = torch.empty_like(x)
+    ptrs = [a.data_ptr() for a in (x, ln1_w, ln1_b, dw, nw, nb, pw, pb, v_scr, s_scr, att_scr,
+                                   out)]
+    if code == 1:
+        err = lib.otp_fused_attn_tc(*ptrs, bsz, c, pw.shape[1], t, n_head, _scale(hs, x.dtype),
+                                    nsplit, build.stream_ptr(dev))
+    else:
+        err = lib.otp_fused_attn_f32(*ptrs, bsz, c, t, n_head, _scale(hs, x.dtype), nsplit,
+                                     build.stream_ptr(dev))
+    build.check(lib, err, "fused_attn_ct")
+    launches += 1
+    return out
+
+
+@fused_attn_op.register_fake
+def _fused_attn_fake(x, ln1_w, ln1_b, dw, nw, nb, pw, pb, n_head):
+    return torch.empty_like(x)
 
 
 def fused_attn_ct(x, ln1_w=None, ln1_b=None, dw_q=None, dw_k=None, dw_v=None, nq_w=None,
@@ -153,59 +210,16 @@ def fused_attn_ct(x, ln1_w=None, ln1_b=None, dw_q=None, dw_k=None, dw_v=None, nq
     projection kernels with (C,) biases ``b*``; the LayerNorm affines are
     (1, C, 1) or (C,) and stay f32.  Or, in place of the weights, ``packed``
     from ``pack_attn_weights`` for ``x.dtype``."""
-    global calls, launches
-    calls += 1
     raw = (ln1_w, ln1_b, dw_q, dw_k, dw_v, nq_w, nq_b, nk_w, nk_b, nv_w, nv_b,
            wq, bq, wk, bk, wv, bv)
     if n_head is None:
         raise ValueError("fused_attn_ct: n_head is required")
     if packed is not None and packed.dtype != x.dtype:
         raise ValueError(f"fused_attn_ct: weights packed for {packed.dtype}, x is {x.dtype}")
-    if x.device.type == "cpu":
-        if packed is not None:
-            return _plain_from_pack(x, packed, n_head)
-        return fused_attn_plain(x, *raw, n_head)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_attn_ct: unsupported device {x.device}")
+    build.check_device("fused_attn_ct", x)
     build.refuse_grad("fused_attn_ct", x, *raw,
                       *(vars(packed).values() if packed is not None else ()))
-    if x.dim() != 3 or not x.is_contiguous():
-        raise ValueError("fused_attn_ct: x must be a contiguous (B, C, T) tensor")
-    bsz, c, t = x.shape
-    if c % n_head:
-        raise ValueError(f"fused_attn_ct: C={c} not divisible by n_head={n_head}")
-    code = build.dtype_code(x.dtype)
-    lib = build.load("fused_attn", _SIGNATURES)
-    if lib.otp_fused_attn_smem(c, n_head, code) > _SMEM_LIMIT:
-        raise ValueError(f"fused_attn_ct: C={c}, n_head={n_head} is not a shape the "
-                         f"{x.dtype} kernel takes (shared memory or C above 160)")
     if packed is None:
         packed = pack_attn_weights(*raw, x.dtype, device=x.device)
-    if packed.c != c or packed.pw.device != x.device:
-        raise ValueError(f"fused_attn_ct: weights packed for C={packed.c} on "
-                         f"{packed.pw.device}, x has C={c} on {x.device}")
-    pk, dev = packed, x.device
-    hs = c // n_head
-    v_scr = torch.empty_like(x)
-    s_scr = torch.empty(bsz, c, hs, device=dev, dtype=torch.float32)
-    out = torch.empty_like(x)
-    chunks = -(-t // 32)
-    if code == 1:
-        att_scr = torch.empty(bsz, c, -(-hs // 16) * 16, device=dev, dtype=x.dtype)
-        # about one block a SM: each holds the projection weights for all its chunks
-        nsplit = max(1, min(chunks, _sm_count(dev.index or 0) // bsz))
-        ptrs = (x, pk.ln1_w, pk.ln1_b, pk.dw, pk.nw, pk.nb, pk.pw, pk.pb, v_scr, s_scr,
-                att_scr, out)
-        err = lib.otp_fused_attn_tc(*(a.data_ptr() for a in ptrs), bsz, c, pk.pw.shape[1], t,
-                                    n_head, _scale(hs, x.dtype), nsplit,
-                                    build.stream_ptr(dev))
-    else:
-        att_scr = torch.empty_like(s_scr)
-        nsplit = max(1, min(chunks, 512 // bsz))   # about 512 blocks in flight
-        ptrs = (x, pk.ln1_w, pk.ln1_b, pk.dw, pk.nw, pk.nb, pk.pw, pk.pb, v_scr, s_scr,
-                att_scr, out)
-        err = lib.otp_fused_attn_f32(*(a.data_ptr() for a in ptrs), bsz, c, t, n_head,
-                                     _scale(hs, x.dtype), nsplit, build.stream_ptr(dev))
-    build.check(lib, err, "fused_attn_ct")
-    launches += 1
-    return out
+    pk = packed
+    return fused_attn_op(x, pk.ln1_w, pk.ln1_b, pk.dw, pk.nw, pk.nb, pk.pw, pk.pb, n_head)

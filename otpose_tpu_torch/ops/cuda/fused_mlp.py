@@ -2,9 +2,11 @@
 
 ``fused_mlp_residual_ct`` computes ``x + W2 @ gelu(W1 @ LN_C(x) + b1) + b2``
 on (B, C, T), the ln2 + mlp + residual tail of an eval transformer block.
-On a CUDA tensor it launches ``csrc/fused_mlp.cu`` (bf16 on the tensor
-cores, f32 as FMA loops); on a CPU tensor it runs ``fused_mlp_plain``, the
-same function in plain PyTorch.
+The wrapper calls the registered op ``otpose::fused_mlp``: on a CUDA tensor
+it launches ``csrc/fused_mlp.cu`` (bf16 on the tensor cores, f32 as FMA
+loops), on a CPU tensor it runs ``fused_mlp_plain``, the same function in
+plain PyTorch, from the pack.  It has no backward: on a CUDA tensor under
+grad the wrapper raises.
 
 ``pack_mlp_weights`` puts the weights in the kernel's layout once
 (``models/blocks.py`` caches the result on each block); the wrapper takes
@@ -18,10 +20,10 @@ from dataclasses import dataclass
 
 import torch
 
-from otpose_tpu_torch.models import core
+from otpose_tpu_torch.ops import ct
 from otpose_tpu_torch.ops.cuda import build
 
-# wrapper calls (either path), kernel launches (CUDA path only) and packs made
+# op calls (either device), kernel launches (CUDA only) and packs made
 calls = 0
 launches = 0
 packs = 0
@@ -96,15 +98,51 @@ def pack_mlp_weights(ln_w, ln_b, w1, b1, w2, b2, dtype, scale=None, device=None)
 
 def fused_mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2) -> torch.Tensor:
     """The plain PyTorch version of the kernel (same arguments)."""
-    h = core.layer_norm_ct(x, ln_w, ln_b)
-    h = core.gelu(core.dense_1x1_ct(h, w1, b1))
-    return x + core.dense_1x1_ct(h, w2, b2)
+    h = ct.layer_norm_ct(x, ln_w, ln_b)
+    h = ct.gelu(ct.dense_1x1_ct(h, w1, b1))
+    return x + ct.dense_1x1_ct(h, w2, b2)
 
 
-def _plain_from_pack(x, pk: MlpPack) -> torch.Tensor:
-    c, hid = pk.c, pk.hid
-    return fused_mlp_plain(x, pk.ln_w, pk.ln_b, pk.w1[:hid, :c, None], pk.b1[:hid],
-                           pk.w2[:c, :hid, None], pk.b2[:c])
+@torch.library.custom_op("otpose::fused_mlp", mutates_args=(), device_types="cpu")
+def fused_mlp_op(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
+                 b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, hid: int) -> torch.Tensor:
+    """The tensors of an ``MlpPack`` and its H.  CPU: the plain version."""
+    global calls
+    calls += 1
+    c = ln_w.numel()
+    return fused_mlp_plain(x, ln_w, ln_b, w1[:hid, :c, None], b1[:hid], w2[:c, :hid, None],
+                           b2[:c])
+
+
+@fused_mlp_op.register_kernel("cuda")
+def _fused_mlp_cuda(x, ln_w, ln_b, w1, b1, w2, b2, hid):
+    global calls, launches
+    calls += 1
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError("fused_mlp_residual_ct: x must be a contiguous (B, C, T) tensor")
+    bsz, c, t = x.shape
+    if c > MAX_CHANNELS:
+        raise ValueError(f"fused_mlp_residual_ct: C={c} is above the kernel's {MAX_CHANNELS}")
+    code = build.dtype_code(x.dtype)
+    if ln_w.numel() != c or w1.device != x.device:
+        raise ValueError(f"fused_mlp_residual_ct: weights packed for C={ln_w.numel()} on "
+                         f"{w1.device}, x has C={c} on {x.device}")
+    out = torch.empty_like(x)
+    ptrs = (a.data_ptr() for a in (x, out, ln_w, ln_b, w1, b1, w2, b2))
+    lib = build.load("fused_mlp", _SIGNATURES)
+    if code == 1:
+        err = lib.otp_fused_mlp_tc(*ptrs, bsz, c, w2.shape[0], w1.shape[0], t,
+                                   build.stream_ptr(x.device))
+    else:
+        err = lib.otp_fused_mlp_f32(*ptrs, bsz, c, hid, t, build.stream_ptr(x.device))
+    build.check(lib, err, "fused_mlp_residual_ct")
+    launches += 1
+    return out
+
+
+@fused_mlp_op.register_fake
+def _fused_mlp_fake(x, ln_w, ln_b, w1, b1, w2, b2, hid):
+    return torch.empty_like(x)
 
 
 def fused_mlp_residual_ct(x, ln_w=None, ln_b=None, w1=None, b1=None, w2=None, b2=None, *,
@@ -113,39 +151,13 @@ def fused_mlp_residual_ct(x, ln_w=None, ln_b=None, w1=None, b1=None, w2=None, b2
     kernels with biases (4C,) and (C,); ``ln_w``/``ln_b`` the f32 LN affine,
     (1, C, 1) or (C,).  Or, in place of the weights, ``packed`` from
     ``pack_mlp_weights`` for ``x.dtype``."""
-    global calls, launches
-    calls += 1
     if packed is not None and packed.dtype != x.dtype:
         raise ValueError(f"fused_mlp_residual_ct: weights packed for {packed.dtype}, "
                          f"x is {x.dtype}")
-    if x.device.type == "cpu":
-        if packed is not None:
-            return _plain_from_pack(x, packed)
-        return fused_mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp_residual_ct: unsupported device {x.device}")
+    build.check_device("fused_mlp_residual_ct", x)
     build.refuse_grad("fused_mlp_residual_ct", x, ln_w, ln_b, w1, b1, w2, b2,
                       *(vars(packed).values() if packed is not None else ()))
-    if x.dim() != 3 or not x.is_contiguous():
-        raise ValueError("fused_mlp_residual_ct: x must be a contiguous (B, C, T) tensor")
-    bsz, c, t = x.shape
-    if c > MAX_CHANNELS:
-        raise ValueError(f"fused_mlp_residual_ct: C={c} is above the kernel's {MAX_CHANNELS}")
-    code = build.dtype_code(x.dtype)
     if packed is None:
         packed = pack_mlp_weights(ln_w, ln_b, w1, b1, w2, b2, x.dtype, device=x.device)
-    if packed.c != c or packed.w1.device != x.device:
-        raise ValueError(f"fused_mlp_residual_ct: weights packed for C={packed.c} on "
-                         f"{packed.w1.device}, x has C={c} on {x.device}")
     pk = packed
-    out = torch.empty_like(x)
-    ptrs = (a.data_ptr() for a in (x, out, pk.ln_w, pk.ln_b, pk.w1, pk.b1, pk.w2, pk.b2))
-    lib = build.load("fused_mlp", _SIGNATURES)
-    if code == 1:
-        err = lib.otp_fused_mlp_tc(*ptrs, bsz, c, pk.w2.shape[0], pk.w1.shape[0], t,
-                                   build.stream_ptr(x.device))
-    else:
-        err = lib.otp_fused_mlp_f32(*ptrs, bsz, c, pk.hid, t, build.stream_ptr(x.device))
-    build.check(lib, err, "fused_mlp_residual_ct")
-    launches += 1
-    return out
+    return fused_mlp_op(x, pk.ln_w, pk.ln_b, pk.w1, pk.b1, pk.w2, pk.b2, pk.hid)

@@ -75,6 +75,17 @@ def test_fused_attn_matches_plain(b, c, t, n_head, dtype):
     _close(got, fused_attn.fused_attn_plain(*args), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t", [(1, 6912), (3, 1000)])
+def test_fused_attn_gives_the_same_bits_every_call(b, t, dtype):
+    """The blocks' partial score sums are added in split order, not by
+    atomics: two calls are bit-equal (B = 1 splits T over the most blocks)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    args = _attn_args(b, 136, t, 2, dtype, gen)
+    first = fused_attn.fused_attn_ct(*args)
+    assert all(torch.equal(fused_attn.fused_attn_ct(*args), first) for _ in range(3))
+
+
 def _mlp_args(b, c, t, dtype, gen):
     r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device="cuda") * scale  # noqa: E731
     return [r(b, c, t).to(dtype), 1 + r(1, c, 1, scale=0.1), r(1, c, 1, scale=0.1),
@@ -483,3 +494,58 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         token_shift.token_shift(torch.zeros(8, 4, device="cuda").t(), "right")
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         token_shift.token_shift(torch.zeros(4, 8, device="cuda", dtype=torch.half), "right")
+
+
+def test_registered_ops_pass_opcheck_on_the_card():
+    """Each ``otpose::`` op on CUDA tensors: schema and aliasing, the fake
+    implementation against the kernel, the DCN's autograd (the backward
+    kernel) and an AOT trace with dynamic shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for dtype in (torch.float32, torch.bfloat16):
+        a = _attn_args(2, 48, 100, 2, dtype, gen)
+        pk = fused_attn.pack_attn_weights(*a[1:-1], dtype)
+        torch.library.opcheck(fused_attn.fused_attn_op, (a[0], pk.ln1_w, pk.ln1_b, pk.dw, pk.nw,
+                                                         pk.nb, pk.pw, pk.pb, 2))
+        m = _mlp_args(2, 48, 100, dtype, gen)
+        pm = fused_mlp.pack_mlp_weights(*m[1:], dtype)
+        torch.library.opcheck(fused_mlp.fused_mlp_op, (m[0], pm.ln_w, pm.ln_b, pm.w1, pm.b1,
+                                                       pm.w2, pm.b2, pm.hid))
+        torch.library.opcheck(token_shift.token_shift_op,
+                              (torch.randn(5, 129, device="cuda").to(dtype), "rotate"))
+        x, offs, masks, weights, biases, dil = dcn_case(2, 17, 17, 24, 20, (3, 6), dtype, gen)
+        pd = deform_conv.pack_dcn_weights(weights, biases)
+        torch.library.opcheck(deform_conv_fused.deform_conv_fused_op,
+                              (x, offs, masks, pd.w, pd.bias, list(dil), pd.o))
+        leaves = [t.clone().requires_grad_() for t in (x, *offs, *masks)]
+        d = len(dil)
+        torch.library.opcheck(deform_conv.deform_conv_op,
+                              (leaves[0], leaves[1:1 + d], leaves[1 + d:], pd.w, pd.bias,
+                               weights.clone().requires_grad_(),
+                               biases.clone().requires_grad_(), list(dil), pd.o))
+
+
+def test_exported_program_on_the_card_equals_the_live_step(tmp_path):
+    """The tiny decoded eval step traced on the card: loaded back it calls
+    the kernels (4 / 6 / 1 launches) and equals the live step bit for bit;
+    loaded on the CPU it runs the plain versions."""
+    from otpose_tpu_torch.engine.export import export_eval, load_exported, save_exported
+    from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
+    from otpose_tpu_torch.models.factory import build_model
+    from otpose_tpu_torch.utils.testing import tiny_otpose_cfg
+
+    spec, model = build_model(tiny_otpose_cfg(image_size=32, heatmap_size=8))
+    out = save_exported(str(tmp_path / "art"), export_eval(model, batch_size=2), spec,
+                        batch_size=2, compute_dtype=torch.float32, flip=False, decoded=True)
+    loaded = load_exported(out)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randn(2, 32, 32, 15, generator=gen, device="cuda")
+    margin = torch.ones(2, 4, device="cuda")
+    launches = (fused_attn.launches, fused_mlp.launches, deform_conv.launches)
+    got = loaded(x, margin)
+    torch.cuda.synchronize()
+    assert (fused_attn.launches - launches[0], fused_mlp.launches - launches[1],
+            deform_conv.launches - launches[2]) == (4, 6, 1)
+    want = make_decoded_eval_step(model)(x, margin)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    on_cpu = load_exported(out, device="cpu")(x.cpu(), margin.cpu())
+    assert all(t.device.type == "cpu" and t.shape == w.shape for t, w in zip(on_cpu, want))

@@ -54,10 +54,11 @@ def test_every_port_module_imports_without_cv2():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import otpose_tpu_torch.cli.inference, otpose_tpu_torch.tools.probe_shift\n"
-        "want = ['cli.eval', 'cli.train', 'data.coco_json', 'data.loader', 'data.pipeline',\n"
-        "        'data.posetrack', 'data.synthetic',\n"
-        "        'engine.base', 'engine.checkpoints', 'engine.optim', 'engine.preempt',\n"
-        "        'engine.runner', 'engine.trainer', 'models.losses',\n"
+        "want = ['cli.eval', 'cli.export', 'cli.train', 'data.coco_json', 'data.loader',\n"
+        "        'data.pipeline', 'data.posetrack', 'data.synthetic',\n"
+        "        'engine.base', 'engine.checkpoints', 'engine.export', 'engine.optim',\n"
+        "        'engine.preempt', 'engine.runner', 'engine.trainer', 'models.losses',\n"
+        "        'ops.ct', 'ops.cuda.registry', 'tools.serve',\n"
         "        'evaluate.converters', 'evaluate.keypoints', 'evaluate.pck', 'evaluate.poseval',\n"
         "        'evaluate.tracking', 'utils.profiling', 'utils.table', 'utils.testing',\n"
         "        'utils.timing']\n"
@@ -69,6 +70,37 @@ def test_every_port_module_imports_without_cv2():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_serving_imports_no_model_code():
+    """The loader of exported programs and the serve tool import torch, the
+    op-registering modules and no model code (nor JAX)."""
+    code = (
+        "import sys\n"
+        "import otpose_tpu_torch.engine.export, otpose_tpu_torch.tools.serve\n"
+        "import torch\n"
+        "assert hasattr(torch.ops.otpose, 'fused_attn')\n"
+        "bad = sorted(n for n in sys.modules if n.startswith('otpose_tpu_torch.models')\n"
+        "             or n.split('.')[0] in ('jax', 'jaxlib', 'otpose_tpu'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_export_cli_defaults_to_cuda_and_raises_without_a_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    from otpose_tpu_torch.cli.export import Export
+    from otpose_tpu_torch.config import default_parse_args
+
+    cfg = tiny_otpose_cfg()
+    cfg.OUTPUT_DIR = str(tmp_path / "output")
+    (tmp_path / "cfg.yaml").write_text(cfg.dump())
+    args = default_parse_args(["--cfg", str(tmp_path / "cfg.yaml"), "--root_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Export(args)
+    assert not (tmp_path / "output").exists()     # refused before any folder is made
 
 
 def test_eval_cli_defaults_to_cuda_and_raises_without_a_gpu(tmp_path):
