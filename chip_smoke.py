@@ -131,11 +131,41 @@ Phases, each of which must pass or the script exits non-zero:
     step's in this call; then the serve tool's ``main`` on a local port
     answering 1, 5 and 16 clips (each row equal to the artifact's answer)
     and rejecting 17, its latency over HTTP at 1 and 16 clips; export
-    seconds, artifact bytes and load seconds printed.
+    seconds, artifact bytes and load seconds printed;
+16. runs the port's data parallelism (``parallel/``): (1) in this process,
+    a one-rank NCCL group on a free port, the flagship f32 train step at
+    B = 2 for two steps (cuDNN deterministic, dropout 0) bit-equal in its
+    losses, weights and BN statistics to the same steps without a group,
+    with the device collectives a micro-batch (one all-reduce a BN layer
+    each way, the loss's two labelled tests, the PCK meter, the gradients,
+    the metrics) and ms a step with and without the group; (2) two ranks
+    sharing the card (``chip_smoke.py --dist-worker`` processes, a ``gloo``
+    device group, as NCCL refuses two ranks on one GPU), f32 at a global
+    B = 2 against (1)'s run without a group (SGD and the refinement
+    calibrated, as phase 13 holds gradients: the metrics to 2e-4 relative,
+    each tensor's update after each step to 1e-3 of its peak plus 1e-6 of
+    the largest; a single-process run on the rows swapped shows the f32
+    spread) and bf16 at a global B = 8 from the reference init (finite,
+    0 / 0 / 1 / 1 launches a rank a micro-batch), the ranks bit-equal to each
+    other; ms a step and peak memory a rank, which are no scaling number;
+    (3) in the same processes the decoded eval sharded over the two ranks
+    (``make_eval_shard_fn`` and ``fetch``) in bf16 and f32 on a batch of 16
+    (8 a rank) and of 5 (whole on each rank) against the single-process
+    step on the same clips: at least 98% of coordinates identical, max
+    values to 1e-3 of their peak, 12 / 16 / 1 launches a rank a batch;
+    (4) the train CLI with two ranks on ``configs/17/model_RSN.yaml`` as it
+    is (bf16, 2 a rank, the device loader) over a synthetic tree of 16 + 16
+    boxes, one epoch with validation: rank 0 alone writes ``epoch_0_state``
+    and one ``best_mAP_*_state``, the ranks' weights bit-equal, rank 0's AP
+    table equal to a single-process eval CLI's on the best checkpoint to
+    1e-9 and its keypoints held to that CLI's by phase 14's gate; a run
+    whose rank 1 alone gets SIGTERM after 2 steps stops both ranks there,
+    and its two-rank resume ends bit-equal to the uninterrupted run; the
+    phase's seconds.
 
-Each path (phases 4 to 7, 9, 12, 14 and 15) is driven with every launch count
-set to 0 just before it and read just after (phase 15's in the process that
-serves).  It prints a ``kernels`` JSON line, the
+Each path (phases 4 to 7, 9, 12, 14, 15 and 16) is driven with every launch
+count set to 0 just before it and read just after (phase 15's in the process
+that serves, phase 16's in each rank).  It prints a ``kernels`` JSON line, the
 card line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -2113,6 +2143,636 @@ def serving(card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: data parallel on the card
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_TIMEOUT = 600
+
+
+def _flagship_cfg():
+    from otpose_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, "configs/17/model_RSN.yaml"))
+    return cfg
+
+
+def _train_model(cfg, state=None):
+    """The flagship model from seed 0 with its dropout rates at 0, or with
+    the weights and buffers of ``state``."""
+    from otpose_tpu_torch.models.blocks import set_drop_rates
+    from otpose_tpu_torch.models.factory import build_model
+
+    model = set_drop_rates(build_model(cfg, seed=0)[1])
+    if state is not None:
+        model.load_state_dict(state)
+    return model
+
+
+def _sgd(cfg):
+    """``cfg`` with SGD at a constant LR and no weight decay: the f32
+    comparisons of phase 16 hold each update to the gradients it is made
+    of (AdamW's first step is about lr * sign(g), which turns rounding in a
+    gradient that is zero but for rounding into a full step)."""
+    cfg = cfg.clone()
+    cfg.TRAIN.OPTIMIZER, cfg.TRAIN.WD, cfg.TRAIN.WARMUP = "SGD", 0.0, False
+    return cfg
+
+
+def _eval_model(cfg, dtype: str):
+    """The flagship model from seed 0 as the eval CLI prepares it: bf16
+    weights for a bf16 step."""
+    import torch
+
+    from otpose_tpu_torch.models.factory import build_model
+    from otpose_tpu_torch.models.otpose import prepare_eval_params
+
+    return prepare_eval_params(build_model(cfg, seed=0)[1],
+                               torch.bfloat16 if dtype == "bfloat16" else None)
+
+
+def _host_sd(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def _digest(model) -> str:
+    """A hash of every bit of ``model``'s weights and buffers."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_steps(model, cfg, dtype: str, batch, steps: int = 2, states=None):
+    """``steps`` train steps of ``model`` on ``batch`` (this rank's rows) with
+    a new optimizer, each timed by CUDA events after a barrier: the metrics,
+    ms, launches, device-group collectives and peak memory of each, and the
+    optimizer; ``states``, a list, gets the host state after each step."""
+    import torch
+
+    from otpose_tpu_torch.engine.optim import make_optimizer, make_schedule
+    from otpose_tpu_torch.engine.trainer import make_train_step
+    from otpose_tpu_torch.parallel import distributed
+
+    opt = make_optimizer(model, cfg, make_schedule(cfg, 1))
+    step = make_train_step(model, opt, compute_dtype=dtype,
+                           generator=torch.Generator(device="cuda").manual_seed(5))
+    out = []
+    for _ in range(steps):
+        distributed.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        before = distributed.COUNTS["device"]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        metrics = step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        out.append(dict(metrics={k: v.item() for k, v in metrics.items()},
+                        ms=start.elapsed_time(end), counts=read_counts(),
+                        collectives=distributed.COUNTS["device"] - before,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+        if states is not None:
+            states.append(_host_sd(model))
+    return out, opt
+
+
+def _ms(steps) -> str:
+    return " / ".join(f"{s['ms']:.2f}" for s in steps)
+
+
+def _dist_start(task: str, spec: dict, tag: str):
+    """``DP_WORLD`` ranks of ``chip_smoke.py --dist-worker task`` on a free
+    port, sharing the card, with ``spec`` written beside their outputs."""
+    path = spec["out"].replace("%d", f"{tag}_spec") + ".json"
+    with open(path, "w") as fh:
+        json.dump(spec, fh)
+    port = _free_port()
+    base = dict(os.environ, OTPOSE_COORDINATOR=f"127.0.0.1:{port}",
+                OTPOSE_NUM_PROCESSES=str(DP_WORLD))
+    return [subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                              "--dist-worker", task, path], cwd=ROOT,
+                             env=dict(base, OTPOSE_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True) for r in range(DP_WORLD)]
+
+
+def _dist_wait(procs, spec: dict, what: str) -> list:
+    """Each rank's exit within ``DP_TIMEOUT`` seconds and its results; any
+    failure kills every rank and fails the run."""
+    logs, deadline = [], time.monotonic() + DP_TIMEOUT
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        fail(f"data parallel {what}: a rank did not finish within {DP_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"data parallel {what}: rank {r} exited with {p.returncode}\n{out[-4000:]}")
+    results = []
+    for r in range(DP_WORLD):
+        with open(spec["out"] % r) as fh:
+            results.append(json.load(fh))
+    return results
+
+
+def dist_worker(task: str, spec_path: str) -> None:
+    """A rank of phase 16 (``chip_smoke.py --dist-worker TASK SPEC``, with
+    ``OTPOSE_COORDINATOR`` / ``OTPOSE_NUM_PROCESSES`` / ``OTPOSE_PROCESS_ID``
+    set): ``steps`` (the train steps and the sharded decoded eval) or
+    ``cli`` (the train CLI).  Writes its results to ``spec["out"] % rank``."""
+    import torch
+
+    from otpose_tpu_torch.parallel import distributed
+
+    _backend_flags(torch)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    try:
+        out = {"steps": _worker_steps, "cli": _worker_cli}[task](spec)
+    finally:
+        distributed.shutdown()
+    with open(spec["out"] % out["rank"], "w") as fh:
+        json.dump(out, fh)
+
+
+def _worker_steps(spec: dict) -> dict:
+    """The two-rank train steps (f32 at a global B = 2, bf16 at B = 8) and
+    the sharded decoded eval (bf16 and f32, B = 16 and B = 5)."""
+    import numpy as np
+    import torch
+
+    from otpose_tpu_torch.engine.runner import _pipelined_forward, _to_host
+    from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
+    from otpose_tpu_torch.parallel import distributed
+    from otpose_tpu_torch.parallel.mesh import make_eval_shard_fn, make_mesh, replicate
+
+    cfg = _flagship_cfg()
+    rank, world = distributed.maybe_initialize(cfg)
+    out = dict(rank=rank, world=world, transport=distributed.device_transport())
+    batches = torch.load(spec["batches"], weights_only=True)
+    for dtype in ("float32", "bfloat16"):
+        # f32: the parent's calibrated model (``_dp_one_rank``); bf16: the
+        # reference init, as the yaml trains it
+        state = torch.load(spec["model"], weights_only=True) if dtype == "float32" else None
+        model = replicate(_train_model(cfg, state))
+        full = batches[dtype]
+        rows = distributed.local_rows(len(full["inputs"]))
+        batch = {k: v[rows].cuda() for k, v in full.items()}
+        states = [] if dtype == "float32" and rank == 0 else None
+        steps, _ = _dp_steps(model, _sgd(cfg) if dtype == "float32" else cfg, dtype, batch,
+                             states=states)
+        out[dtype] = dict(steps=steps, rows=rows.tolist(), digest=_digest(model))
+        if states:
+            torch.save(states, spec["state"])
+        del model, states
+        torch.cuda.empty_cache()
+
+    clips = torch.load(spec["clips"], weights_only=True)
+    shard_fn = make_eval_shard_fn(make_mesh(cfg))
+    for dtype in ("bfloat16", "float32"):
+        step = make_decoded_eval_step(_eval_model(cfg, dtype), compute_dtype=dtype)
+        step(clips["inputs"][:1].cuda(), clips["margin"][:1].cuda())     # the packs
+        counts = []
+
+        def counted(inputs, margin, step=step, counts=counts):
+            torch.cuda.synchronize()
+            reset_counts()
+            outs = step(inputs, margin)
+            torch.cuda.synchronize()
+            counts.append(read_counts())
+            return outs
+
+        loader = [({"inputs": clips["inputs"][:n].cuda(), "margin": clips["margin"][:n].cuda()},
+                   None) for n in (BATCH, 5)]
+        outs = [o for o, _, _ in _pipelined_forward(
+            loader, counted, lambda o: tuple(_to_host(t) for t in o), "cuda", shard_fn)]
+        out[f"eval_{dtype}"] = dict(counts=counts)
+        if rank == 0:
+            np.savez(spec["eval"] % dtype, *[a for o in outs for a in o])
+    return out
+
+
+def _worker_cli(spec: dict) -> dict:
+    """``cli/train.py::Train(...).train()`` over the synthetic tree, rank
+    ``spec["sigterm_rank"]`` sending itself SIGTERM after
+    ``spec["sigterm_after"]`` steps: steps, launches, checkpoint writes,
+    the validation's table (rank 0's keypoints to ``spec["preds"]``) and a
+    digest of the final state."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from otpose_tpu_torch.cli import train as train_mod
+    from otpose_tpu_torch.cli.train import Train
+    from otpose_tpu_torch.config import default_parse_args
+    from otpose_tpu_torch.data.synthetic import ArrayFramesDataset
+    from otpose_tpu_torch.engine import checkpoints as ckpt
+    from otpose_tpu_torch.parallel import distributed
+
+    writes, validations, kept = [], [], []
+    commit, evaluate = ckpt._commit, train_mod.evaluate_epoch_decoded
+
+    class KeptPreds(ArrayFramesDataset):
+        """Keeps the keypoints that rank 0 scores."""
+
+        def evaluate(self, cfg_, preds, *a, **k):
+            kept.append(np.array(preds))
+            return super().evaluate(cfg_, preds, *a, **k)
+
+    def counted_commit(path, payload):
+        writes.append(os.path.basename(path))
+        commit(path, payload)
+
+    def kept_eval(*a, **k):
+        result = evaluate(*a, **k)
+        validations.append(result)
+        return result
+
+    ckpt._commit, train_mod.evaluate_epoch_decoded = counted_commit, kept_eval
+    args = default_parse_args(["--cfg", spec["cfg"], "--root_dir", spec["root"],
+                               "EXPERIMENT_NAME", spec["name"]])
+    tr = Train(args, dataset_cls=KeptPreds)
+    rank = distributed.process_info()[0]
+    steps, val_batches = [], []
+    step, evaluate_fn = tr.step_fn, tr.eval_fn
+
+    def counted_step(batch):
+        before = read_counts()
+        metrics = step(batch)
+        steps.append(dict(loss=metrics["final_loss"].item(), counts=_delta(before, read_counts())))
+        if rank == spec.get("sigterm_rank") and len(steps) == spec["sigterm_after"]:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return metrics
+
+    def counted_eval(inputs, margin):
+        before = read_counts()
+        outs = evaluate_fn(inputs, margin)
+        val_batches.append(_delta(before, read_counts()))
+        return outs
+
+    tr.step_fn, tr.eval_fn = counted_step, counted_eval
+    t0 = time.perf_counter()
+    tr.train()
+    torch.cuda.synchronize()
+    if kept:
+        np.save(spec["preds"], kept[-1])
+    return dict(rank=rank, transport=distributed.device_transport(), steps=steps,
+                val_batches=val_batches, writes=writes, seconds=time.perf_counter() - t0,
+                files=sorted(os.listdir(tr.checkpoints_save_folder)),
+                folder=tr.checkpoints_save_folder, batch_size=tr.batch_size,
+                loader=f"{type(tr.loader).__name__} {getattr(tr.loader, 'mode', '')}",
+                validations=[[nv, ap] for nv, ap in validations], digest=_digest(tr.model),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _dp_one_rank(cfg, batch2, card: str) -> dict:
+    """Item 1: the f32 train step at B = 2 for two steps (SGD, ``_sgd``)
+    from the same model without a group and in a one-rank NCCL group made
+    in this process: bit-equal losses, weights and BN statistics.  The
+    model's refinement is calibrated (``_calibrate_refinement_``): at the
+    reference init its offsets are a tiny fraction of a pixel, every sample
+    sits on a pixel and the bilinear derivative's jump there makes the
+    offset convs' gradients, and the gradient norm, differ by 2e-4 between
+    two f32 runs.
+    A third run without a group on the two rows swapped shows the f32
+    spread."""
+    import torch
+
+    from otpose_tpu_torch.models.core import BatchNorm
+    from otpose_tpu_torch.parallel import distributed
+
+    model = _train_model(cfg)
+    _calibrate_refinement_(model, 16)
+    initial = _host_sd(model)
+    runs = {}
+    for label in ("swapped", "plain", "grouped"):
+        if label == "grouped":
+            env = {"OTPOSE_COORDINATOR": f"127.0.0.1:{_free_port()}",
+                   "OTPOSE_NUM_PROCESSES": "1", "OTPOSE_PROCESS_ID": "0"}
+            distributed.maybe_initialize(env=env, device="cuda")
+        order = [1, 0] if label == "swapped" else [0, 1]
+        twin = copy.deepcopy(model)
+        states = []
+        steps, _ = _dp_steps(twin, _sgd(cfg), "float32", {k: v[order] for k, v in batch2.items()},
+                             states=states)
+        runs[label] = dict(steps=steps, states=states, transport=distributed.device_transport())
+        del twin
+        torch.cuda.empty_cache()
+        if label == "grouped":
+            # one collective alone: the host's time to issue it and the card's
+            t = torch.zeros(2, 256, device="cuda")
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(200):
+                distributed.all_reduce_(t)
+            end.record()
+            host_us = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            runs[label]["one_us"] = (host_us, start.elapsed_time(end) / 200 * 1e3)
+    distributed.shutdown()
+    plain, grouped = runs["plain"], runs["grouped"]
+    equal = ([s["metrics"] for s in plain["steps"]] == [s["metrics"] for s in grouped["steps"]]
+             and all(torch.equal(v, grouped["states"][-1][k])
+                     for k, v in plain["states"][-1].items()))
+    per_micro = grouped["steps"][0]["collectives"]
+    # a BN layer's statistics forward and backward, the two losses' labelled
+    # tests, the PCK meter, the gradients, the metrics
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    want = 2 * n_bn + 5
+    log(f"data parallel, one rank in a {grouped['transport'][0]} group "
+        f"({grouped['transport'][1]}), f32 B=2, two steps, cuDNN deterministic, dropout 0: "
+        f"losses, weights and BN statistics "
+        + ("bit-equal to the same steps without a group" if equal else "DIFFER from the steps "
+           "without a group")
+        + f"; {per_micro} device collectives a micro-batch (2 x {n_bn} BN layers + 5 expected; "
+        f"{plain['steps'][0]['collectives']} without a group); ms a step "
+        f"{_ms(grouped['steps'])} with the group, {_ms(plain['steps'])} without; one "
+        f"all-reduce of (2, 256) f32 alone {grouped['one_us'][0]:.1f} µs of host and "
+        f"{grouped['one_us'][1]:.1f} µs of the card's "
+        f"span ({card})")
+    if grouped["transport"][0] != "nccl" or not equal or per_micro != want:
+        fail("data parallel: the one-rank NCCL run is not the single-process run")
+    return dict(initial=initial, plain=plain, grouped=grouped, swapped=runs["swapped"])
+
+
+def data_parallel(card: str) -> dict:
+    """Phase 16: the port's data parallelism on the card.  Item 1 (one rank,
+    NCCL, in this process), then two ranks sharing the card (``gloo`` device
+    group) as ``--dist-worker`` processes: the train steps and the sharded
+    decoded eval against this process's single-process runs, then the train
+    CLI (uninterrupted, and preempted by a SIGTERM to rank 1 alone, at once;
+    then the resume), checked against a single-process eval CLI."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
+
+    phase_t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="otpose_dp_")
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        cfg = _flagship_cfg()
+        gen = torch.Generator(device="cuda").manual_seed(41)
+        batches = {"float32": synthetic_train_batch(cfg, cfg.TRAIN.BATCH_SIZE_PER_GPU, gen),
+                   "bfloat16": synthetic_train_batch(cfg, 8, gen)}
+        one = _dp_one_rank(cfg, batches["float32"], card)
+        torch.save({d: {k: v.cpu() for k, v in b.items()} for d, b in batches.items()},
+                   os.path.join(root, "batches.pt"))
+        torch.save(one["initial"], os.path.join(root, "model.pt"))
+        w, h = cfg.MODEL.IMAGE_SIZE
+        clips = {"inputs": torch.randn(BATCH, h, w, 15, generator=gen, device="cuda"),
+                 "margin": torch.randint(0, 3, (BATCH, 4), generator=gen,
+                                         device="cuda").float()}
+        torch.save({k: v.cpu() for k, v in clips.items()}, os.path.join(root, "clips.pt"))
+        refs = {}
+        for dtype in ("bfloat16", "float32"):
+            step = make_decoded_eval_step(_eval_model(cfg, dtype), compute_dtype=dtype)
+            refs[dtype] = [[_to_numpy(o) for o in step(clips["inputs"][:n], clips["margin"][:n])]
+                           for n in (BATCH, 5)]
+            del step
+        torch.cuda.empty_cache()
+
+        # ---------------------------- two ranks: train steps, sharded eval
+        spec = {k: os.path.join(root, v) for k, v in (
+            ("batches", "batches.pt"), ("model", "model.pt"), ("clips", "clips.pt"),
+            ("state", "rank0.pt"), ("eval", "eval_%s.npz"), ("out", "steps_%d.json"))}
+        t0 = time.perf_counter()
+        ranks = _dist_wait(_dist_start("steps", spec, "steps"), spec, "steps")
+        steps_s = time.perf_counter() - t0
+        _dp_train_checks(cfg, one, ranks, torch.load(spec["state"], weights_only=True), card)
+        _dp_eval_checks(ranks, refs, spec, card)
+
+        # ------------------------------------------- two ranks: the CLI
+        cli = _dp_cli(cfg, root, card)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"data parallel phase: {time.perf_counter() - phase_t0:.1f} s (the steps' and eval "
+        f"workers {steps_s:.1f} s)")
+    return dict(train=ranks[0]["bfloat16"]["steps"][0]["counts"],
+                eval=ranks[0]["eval_bfloat16"]["counts"][0], cli=cli)
+
+
+def _to_numpy(t):
+    return t.float().cpu().numpy()
+
+
+def _dp_train_checks(cfg, one, ranks, rank0, card: str) -> None:
+    """Item 2: the two ranks against the single-process f32 run and each
+    other; the bf16 steps finite, bit-equal across the ranks, with 0 / 0 /
+    1 / 1 launches a micro-batch."""
+    import torch
+
+    r0, r1 = ranks
+    if [r["transport"][0] for r in ranks] != ["gloo"] * DP_WORLD:
+        fail(f"data parallel: two ranks on one card took {r0['transport']}")
+    plain, swapped = one["plain"], one["swapped"]
+    worst_ms = [max((abs(a["metrics"][k] / b["metrics"][k] - 1), k) for k in b["metrics"]
+                    if b["metrics"][k]) for a, b in zip(r0["float32"]["steps"], plain["steps"])]
+    worst_m = max(m for m, _ in worst_ms)
+    spread = [max(abs(a["metrics"][k] / b["metrics"][k] - 1) for k in b["metrics"]
+                  if b["metrics"][k]) for a, b in zip(swapped["steps"], plain["steps"])]
+    initial = one["initial"]
+    # each tensor's update after each step against the single-process run's:
+    # 1e-3 of its peak plus 1e-6 of the largest update's (phase 13's rule, for
+    # gradients that are residues, as a conv bias's before train BN is)
+    worst = []
+    for got, want in zip(rank0, plain["states"]):
+        refs = {k: want[k] - initial[k] for k, v in got.items() if v.is_floating_point()}
+        top = max(r.abs().max().item() for r in refs.values())
+        ratios = sorted((((got[k] - initial[k] - ref).abs().max().item()
+                          / (1e-3 * ref.abs().max().item() + 1e-6 * top)), k)
+                        for k, ref in refs.items() if ref.abs().max() > 0)
+        worst.append(ratios[::-1][:5])
+    log(f"data parallel, two ranks sharing the card ({r0['transport'][0]}: "
+        f"{r0['transport'][1]}), f32 SGD, global B=2 (1 a rank), two steps: metrics against the "
+        f"single-process steps to {' / '.join(f'{m:.3e} ({k})' for m, k in worst_ms)} relative "
+        f"in the two steps (limit 2e-4; the single-process run on the rows swapped: "
+        f"{' / '.join(f'{m:.3e}' for m in spread)}); each tensor's update (weights and "
+        f"running stats) against its limit (1e-3 of its peak plus 1e-6 of the largest), the "
+        f"five worst after step 1: "
+        + ", ".join(f"{k} {r:.3g}" for r, k in worst[0]) + "; after step 2: "
+        + ", ".join(f"{k} {r:.3g}" for r, k in worst[1]) + "; the ranks' weights and BN "
+        f"statistics " + ("bit-equal" if r0["float32"]["digest"] == r1["float32"]["digest"]
+                          else "DIFFER"))
+    if not (worst_m <= 2e-4 and all(w[0][0] <= 1 for w in worst)
+            and r0["float32"]["digest"] == r1["float32"]["digest"]):
+        fail("data parallel: the two-rank f32 steps are not the single-process steps")
+    bf = [r["bfloat16"]["steps"] for r in ranks]
+    finite = all(math.isfinite(v) for s in bf for st in s for v in st["metrics"].values())
+    counts_ok = all(st["counts"] == TRAIN_COUNTS for s in bf for st in s)
+    log(f"data parallel, two ranks sharing the card, bf16, global B=8 (4 a rank), two steps: "
+        f"metrics {bf[0][-1]['metrics']}; the ranks "
+        + ("bit-equal" if r0["bfloat16"]["digest"] == r1["bfloat16"]["digest"] else "DIFFER")
+        + f"; launches a rank a micro-batch {bf[0][0]['counts']}; "
+        f"{bf[0][0]['collectives']} device collectives a micro-batch; ms a step "
+        + "; ".join(f"rank {r}: f32 {_ms(ranks[r]['float32']['steps'])}, bf16 {_ms(bf[r])}"
+                    for r in range(DP_WORLD))
+        + "; peak memory "
+        + ", ".join(f"rank {r} {max(s['peak_gib'] for s in bf[r]):.2f} GiB"
+                    for r in range(DP_WORLD))
+        + f". Two processes share one card here, so these times are no scaling number ({card})")
+    if not (finite and counts_ok and r0["bfloat16"]["digest"] == r1["bfloat16"]["digest"]):
+        fail("data parallel: the two-rank bf16 steps")
+
+
+def _dp_eval_checks(ranks, refs, spec, card: str) -> None:
+    """Item 3: the sharded decoded eval against the single-process step on
+    the same clips, phase 14's gate, 12 / 16 / 1 launches a rank a batch."""
+    import numpy as np
+
+    for dtype in ("bfloat16", "float32"):
+        with np.load(spec["eval"] % dtype) as z:
+            got = [z[f"arr_{i}"] for i in range(len(z.files))]
+        for i, n in enumerate((BATCH, 5)):
+            coords, maxvals = got[3 * i], got[3 * i + 1]
+            want_c, want_m = refs[dtype][i][0], refs[dtype][i][1]
+            same = (coords == want_c).all(-1).mean()
+            peak = np.abs(want_m).max()
+            err = np.abs(maxvals - want_m).max() / peak
+            counts = [r[f"eval_{dtype}"]["counts"][i] for r in ranks]
+            how = (f"split, {n // DP_WORLD} a rank" if n % DP_WORLD == 0
+                   else "whole on every rank")
+            log(f"data parallel, sharded decoded eval {dtype}, a batch of {n} ({how}): "
+                f"{same:.2%} of coordinates identical to the single-process step, max values to "
+                f"{err:.3e} of their peak; launches a rank {counts} ({card})")
+            if coords.shape != want_c.shape or not (same >= 0.98 and err <= 1e-3) or any(
+                    c != FORWARD_COUNTS for c in counts):
+                fail(f"data parallel: the sharded decoded eval ({dtype}, B={n})")
+
+
+def _dp_cli(cfg, root, card: str) -> dict:
+    """Item 4: the train CLI with two ranks over a synthetic tree of 16 + 16
+    boxes, the yaml as it is (bf16, 2 a rank, the device loader), one
+    epoch with validation; a run whose rank 1 alone gets SIGTERM after 2
+    steps, then its two-rank resume."""
+    import numpy as np
+
+    from otpose_tpu_torch.cli.eval import Eval
+    from otpose_tpu_torch.config import default_parse_args
+    from otpose_tpu_torch.data.synthetic import ArrayFramesDataset, make_synthetic_posetrack
+
+    json_dir, img_dir, annot_dir = make_synthetic_posetrack(
+        root, num_videos=2, frames_per_video=4, people_per_frame=2, img_w=640, img_h=480,
+        seed=7)
+    cfg.OUTPUT_DIR = os.path.join(root, "output")
+    cfg.DATASET.NAME = "PoseTrack"
+    cfg.DATASET.JSON_DIR, cfg.DATASET.IMG_DIR, cfg.DATASET.TEST_IMG_DIR = (
+        json_dir, img_dir, img_dir)
+    cfg.VAL.ANNOT_DIR = annot_dir
+    cfg.VAL.USE_GT_BBOX = True
+    cfg.TRAIN.END_EPOCH = 1
+    yaml_path = os.path.join(root, "model_RSN.yaml")
+    with open(yaml_path, "w") as fh:
+        fh.write(cfg.dump())
+
+    def spec(name, tag, **kw):
+        return dict(cfg=yaml_path, root=root, name=name, preds=os.path.join(root, f"{tag}.npy"),
+                    out=os.path.join(root, f"cli_{tag}_%d.json"), **kw)
+
+    whole_spec = spec("whole", "whole")
+    pre_spec = spec("preempted", "preempted", sigterm_rank=1, sigterm_after=2)
+    t0 = time.perf_counter()
+    started = [_dist_start("cli", whole_spec, "whole"), _dist_start("cli", pre_spec, "pre")]
+    whole = _dist_wait(started[0], whole_spec, "train CLI")
+    pre = _dist_wait(started[1], pre_spec, "train CLI, preempted")
+    first_s = time.perf_counter() - t0
+    res_spec = spec("preempted", "resumed")
+    t0 = time.perf_counter()
+    res = _dist_wait(_dist_start("cli", res_spec, "res"), res_spec, "train CLI, resumed")
+    res_s = time.perf_counter() - t0
+
+    w0, w1 = whole
+    bests = [f for f in w0["files"] if f.startswith("best_mAP_")]
+    ok_files = len(bests) == 1 and sorted(w0["files"]) == sorted(["epoch_0_state"] + bests)
+    steps_ok = all(s["counts"] == TRAIN_COUNTS for r in whole for s in r["steps"])
+    val_ok = all(c == FORWARD_COUNTS for r in whole for c in r["val_batches"])
+    log(f"data parallel, the train CLI with two ranks sharing the card (configs/17/"
+        f"model_RSN.yaml, {cfg.TPU.COMPUTE_DTYPE}, {cfg.TRAIN.BATCH_SIZE_PER_GPU} a rank, global "
+        f"{w0['batch_size']}, {w0['loader']}, {w0['transport'][0]}): {len(w0['steps'])} steps "
+        f"and a validation in {w0['seconds']:.1f} s on rank 0; checkpoints {w0['files']}; "
+        f"writes rank 0 {w0['writes']}, rank 1 {w1['writes']}; the ranks' final weights "
+        + ("bit-equal" if w0["digest"] == w1["digest"] else "DIFFER")
+        + f"; launches a step {w0['steps'][0]['counts']}, a validation batch a rank "
+        f"{w0['val_batches'][0]}; peak memory {w0['peak_gib']:.2f} / {w1['peak_gib']:.2f} GiB "
+        f"({card})")
+    if not (ok_files and w0["writes"] == ["epoch_0_state"] + bests and w1["writes"] == []
+            and w0["digest"] == w1["digest"] and steps_ok and val_ok
+            and len(w0["steps"]) == len(w1["steps"]) == 4):
+        fail("data parallel: the two-rank train CLI")
+
+    # the single-process eval CLI on the best checkpoint: rank 0's table and,
+    # as the reference init's AP is 0, its keypoints (phase 14's gate)
+    class KeptPreds(ArrayFramesDataset):
+        kept = []
+
+        def evaluate(self, cfg_, preds, *a, **k):
+            KeptPreds.kept.append(np.array(preds))
+            return super().evaluate(cfg_, preds, *a, **k)
+
+    table, ap = w0["validations"][-1]
+    best = os.path.join(w0["folder"], bests[0])
+    ev = Eval("validate", default_parse_args(["--cfg", yaml_path, "--root_dir", root,
+                                               "EXPERIMENT_NAME", "whole",
+                                               "VAL.MODEL_FILE", best]),
+              dataset_cls=KeptPreds)
+    (_, name_values, mean_ap), = ev.eval()
+    del ev
+    mine, theirs = KeptPreds.kept[-1], np.load(whole_spec["preds"])
+    same = (mine[..., :2] == theirs[..., :2]).all(-1).mean()
+    peak = np.abs(theirs[..., 2]).max()
+    maxval_err = np.abs(mine[..., 2] - theirs[..., 2]).max() / peak
+    got = np.asarray(list(name_values.values()), np.float64)
+    want = np.asarray(list(table.values()), np.float64)
+    diff = float(np.nanmax(np.abs(got - want))) if np.isfinite(want).any() else 0.0
+    log(f"data parallel: the single-process eval CLI on {bests[0]}: AP "
+        + " ".join(f"{k} {v:.4f}" for k, v in name_values.items())
+        + f"; rank 0's validation table differs by at most {diff:.3e} (limit 1e-9); its "
+        f"keypoints against rank 0's: {same:.2%} of coordinates identical, max values to "
+        f"{maxval_err:.3e} of their peak ({peak:.4g}), {len(np.unique(theirs[..., 2]))} distinct "
+        f"max values")
+    if not (list(name_values) == list(table) and diff <= 1e-9
+            and (np.isnan(got) == np.isnan(want)).all() and mean_ap == ap
+            and same >= 0.98 and maxval_err <= 1e-3 and len(np.unique(theirs[..., 2])) > 1):
+        fail("data parallel: the eval CLI does not reproduce rank 0's validation")
+
+    p0, p1 = pre
+    r0, r1 = res
+    log(f"data parallel: SIGTERM to rank 1 alone after 2 steps: rank 0 ran "
+        f"{len(p0['steps'])} steps, rank 1 {len(p1['steps'])}, checkpoints {p0['files']} (both "
+        f"runs at once {first_s:.1f} s); the two-rank resume ran {len(r0['steps'])} steps in "
+        f"{res_s:.1f} s and ends "
+        + ("bit-equal" if r0["digest"] == w0["digest"] == r1["digest"] else "DIFFERENT")
+        + " to the uninterrupted run on both ranks")
+    if not (len(p0["steps"]) == len(p1["steps"]) == 2 and p0["files"] == ["epoch_0_state"]
+            and p1["writes"] == [] and len(r0["steps"]) == len(r1["steps"]) == 2
+            and r0["digest"] == w0["digest"] and r1["digest"] == w1["digest"]
+            and [s["loss"] for s in p0["steps"] + r0["steps"]]
+            == [s["loss"] for s in w0["steps"]]):
+        fail("data parallel: the preempted and resumed two-rank runs")
+    return dict(step=w0["steps"][0]["counts"], val_batch=w0["val_batches"][0])
+
+
 def main() -> None:
     start = time.perf_counter()
     try:
@@ -2170,6 +2830,10 @@ def main() -> None:
     serve = serving(card)
     paths["served_artifact"] = serve["counts"]
     paths["served_artifact_b1"] = serve["counts_b1"]
+    torch.cuda.empty_cache()
+    dp = data_parallel(card)
+    paths["dp_train_step_rank"] = dp["train"]
+    paths["sharded_eval_batch_rank"] = dp["eval"]
     # each kernel's launches on its own path: the eval's for the model's
     # kernels, the experiment tool's for the other two, a train step's for
     # the DCN's backward
@@ -2201,6 +2865,8 @@ def main() -> None:
         f"clips/s against the live step's {serve['live_clips_per_s']:.3f} in the same call, "
         f"HTTP latency {serve['latency_ms'][1]:.2f} ms at 1 clip and "
         f"{serve['latency_ms'][16]:.2f} ms at {BATCH}"
+        + f"; data parallel (phase 16): launches a rank a train micro-batch {dp['train']}, a "
+        f"sharded eval batch {dp['eval']}, a two-rank train-CLI step {dp['cli']['step']}"
         + f"; the script {time.perf_counter() - start:.1f} s ({card})")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(f"nvidia-smi: {card}", flush=True)
@@ -2215,5 +2881,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--serve-worker"]:
         sys.path.insert(0, ROOT)
         serve_worker(*sys.argv[2:5])
+    elif sys.argv[1:2] == ["--dist-worker"]:
+        sys.path.insert(0, ROOT)
+        dist_worker(*sys.argv[2:4])
     else:
         main()

@@ -3,6 +3,7 @@
 ref: eval.py:19-121.
 
     python -m otpose_tpu_torch.cli.eval --cfg <yaml> [--val|--test] [--device cpu]
+    torchrun --nproc_per_node N -m otpose_tpu_torch.cli.eval --cfg <yaml> ...
 
 builds the val/test dataset, resolves the checkpoint list (explicit
 MODEL_FILE, a specific checkpoint id, or latest), and runs the poseval
@@ -14,6 +15,11 @@ so one yaml serves both packages.
 ``TPU.DEVICE_PREPROCESS`` picks the loader as in the JAX package: ``auto``
 (the repository's yamls) takes the device loader in its ``crops`` mode on a
 GPU and the host loader on the CPU; ``crops``, ``full`` and ``off`` choose.
+
+Under a multi-process launch (``parallel/distributed.py``) the batch is
+``BATCH_SIZE_PER_GPU`` times the number of ranks, every rank loads it whole
+and runs its row block (a batch that does not divide runs whole on every
+rank), and rank 0 scores the gathered keypoints.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from otpose_tpu_torch.engine.runner import refuse_vis, evaluate_epoch_decoded
 from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
 from otpose_tpu_torch.models.factory import build_model
 from otpose_tpu_torch.models.otpose import prepare_eval_params
+from otpose_tpu_torch.parallel import distributed
+from otpose_tpu_torch.parallel.mesh import make_eval_shard_fn, make_mesh
 from otpose_tpu_torch.utils.device import resolve_device, resolve_dtype
 
 logger = logging.getLogger(__name__)
@@ -53,9 +61,11 @@ class Eval(RunBase):
         cfg = self.cfg
         # the heatmap path that the drawing flags select needs the drawing helpers
         refuse_vis(cfg)
+        world = distributed.maybe_initialize(cfg, device=self.device)[1]
+        self.shard_fn = make_eval_shard_fn(make_mesh(cfg))
         self.dataset = dataset_cls(cfg, phase)
         sub = cfg.VAL if phase == "validate" else cfg.TEST
-        self.batch = sub.BATCH_SIZE_PER_GPU
+        self.batch = sub.BATCH_SIZE_PER_GPU * world
         self.loader = make_loader(cfg, self.dataset, self.batch, shuffle=False,
                                   device=self.device)
         self.model_file = sub.MODEL_FILE
@@ -97,7 +107,8 @@ class Eval(RunBase):
             model = self._load(model_file)
             name_values, mean_ap = evaluate_epoch_decoded(
                 self.make_step(model), self.loader, self.dataset, self.cfg,
-                self.cfg.OUTPUT_DIR, phase=self.phase, device=self.device)
+                self.cfg.OUTPUT_DIR, phase=self.phase, device=self.device,
+                shard_fn=self.shard_fn)
             results.append((model_file, name_values, mean_ap))
         return results
 
@@ -132,7 +143,10 @@ class Eval(RunBase):
 def main(argv=None):
     args = default_parse_args(argv)
     phase = "test" if getattr(args, "test", False) else "validate"
-    Eval(phase, args).eval()
+    try:
+        Eval(phase, args).eval()
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -13,7 +13,9 @@ compute and weight dtypes, ``VAL.FLIP_VAL`` (``TEST.FLIP_TEST`` with
 ``--device cpu`` is given; either device can load it
 (``engine/export.py::load_exported``).  Serving then needs torch and the
 op-registering module only: ``load_exported(DIR)(inputs, margin)``, or
-``python -m otpose_tpu_torch.tools.serve --artifact DIR``.
+``python -m otpose_tpu_torch.tools.serve --artifact DIR``.  Under a
+multi-process launch (``parallel/distributed.py``) rank 0 alone exports and
+writes; the others wait for it.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from otpose_tpu_torch.engine import checkpoints as ckpt
 from otpose_tpu_torch.engine.base import RunBase
 from otpose_tpu_torch.engine.export import export_eval, save_exported
 from otpose_tpu_torch.models.factory import build_model
+from otpose_tpu_torch.parallel import distributed
 from otpose_tpu_torch.utils.device import resolve_device, resolve_dtype
 
 logger = logging.getLogger(__name__)
@@ -39,6 +42,7 @@ class Export(RunBase):
         self.device = resolve_device(device if device is not None
                                      else getattr(args, "device", None))
         super().__init__("export", args=args)
+        distributed.maybe_initialize(self.cfg, device=self.device)
         test = getattr(args, "test", False)
         sub = self.cfg.TEST if test else self.cfg.VAL
         self.model_file = sub.MODEL_FILE
@@ -60,6 +64,13 @@ class Export(RunBase):
                weights: str = "baked") -> str:
         if weights not in ("baked", "external"):
             raise ValueError(f"--weights must be baked/external, got {weights!r}")
+        out = out_dir or osp.join(self.cfg.OUTPUT_DIR, "export")
+        if distributed.is_primary():
+            self._export(batch_size, out, weights)
+        distributed.barrier()
+        return out
+
+    def _export(self, batch_size: int, out: str, weights: str) -> None:
         model_file = self.model_path()
         logger.info("=> exporting %s (batch %d)", model_file, batch_size)
         spec, model = build_model(self.cfg, seed=0, device="cpu")
@@ -76,12 +87,10 @@ class Export(RunBase):
                                flip=bool(self.flip), decoded=True,
                                bf16_params=self.cfg.TPU.PARAM_DTYPE == "bfloat16",
                                bake_weights=weights == "baked", device=self.device)
-        out = out_dir or osp.join(self.cfg.OUTPUT_DIR, "export")
         save_exported(out, exported, spec, batch_size=batch_size, compute_dtype=compute_dtype,
                       flip=bool(self.flip), decoded=True)
         logger.info("=> wrote the serving artifact to %s (%s weights, traced on %s)", out,
                     weights, self.device)
-        return out
 
 
 def main(argv=None) -> str:
@@ -95,7 +104,10 @@ def main(argv=None) -> str:
                             "an otpose_weights.npz sidecar")
     ns, rest = extra.parse_known_args(argv)
     args = default_parse_args(rest)
-    return Export(args).export(ns.batch, ns.out, weights=ns.weights)
+    try:
+        return Export(args).export(ns.batch, ns.out, weights=ns.weights)
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
-"""Training entry point (counterpart of ``otpose_tpu/cli/train.py``, one
-device).
+"""Training entry point (counterpart of ``otpose_tpu/cli/train.py``).
 
 ref: train.py:20-124.
 
     python -m otpose_tpu_torch.cli.train --cfg <yaml> [--device cpu]
         [--sigma_schedule E ...] [opts...]
+    torchrun --nproc_per_node N -m otpose_tpu_torch.cli.train --cfg <yaml> ...
 
 builds the train dataset and loader, the model (the reference init, then the
 pretrained HRNet of ``MODEL.PRETRAINED``), the optimizer and the train step;
@@ -17,6 +17,15 @@ iteration boundary with a checkpoint of that exact iteration; the next run
 resumes there (``engine/preempt.py``).  It runs on ``cuda`` unless
 ``--device cpu`` is given; without a GPU the default raises.  The yamls'
 ``TPU.DEVICE_PREPROCESS auto`` takes the device loader on a GPU.
+
+Under a multi-process launch (``torchrun``, or the JAX package's
+``OTPOSE_COORDINATOR`` / ``OTPOSE_NUM_PROCESSES`` / ``OTPOSE_PROCESS_ID``;
+``parallel/distributed.py``) each rank runs on its own card, the global
+batch is ``TRAIN.BATCH_SIZE_PER_GPU`` times the number of ranks, each rank
+loads its rows of it, the step averages the gradients across the ranks, and
+validation splits each batch over the ranks.  Rank 0 alone writes
+checkpoints and TensorBoard; a SIGTERM to any rank stops every rank at the
+same iteration.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ from otpose_tpu_torch.engine.trainer import (init_train_state, make_decoded_eval
                                              make_train_step)
 from otpose_tpu_torch.models.factory import build_model
 from otpose_tpu_torch.ops.heatmap import adjust_sigma
+from otpose_tpu_torch.parallel import distributed
+from otpose_tpu_torch.parallel.mesh import make_eval_shard_fn, make_mesh, replicate
 from otpose_tpu_torch.utils.device import resolve_device, resolve_dtype
 
 logger = logging.getLogger(__name__)
@@ -52,7 +63,7 @@ class Train(RunBase):
     The step takes ``TPU.COMPUTE_DTYPE``, ``LOSS.TOPK``,
     ``LOSS.USE_TARGET_WEIGHT``, ``TPU.REMAT`` and ``TPU.ACCUM_STEPS``;
     ``TPU.DONATE_STATE`` has no meaning here (PyTorch updates the weights
-    in place), nor have the mesh keys (one device)."""
+    in place); the mesh keys allow one ``data`` axis over every rank."""
 
     def __init__(self, args=None, device=None, dataset_cls=PoseTrackDataset):
         args = args if args is not None else default_parse_args()
@@ -62,16 +73,20 @@ class Train(RunBase):
         super().__init__("train", args=args)
         cfg = self.cfg
         refuse_vis(cfg)
+        self.world = distributed.maybe_initialize(cfg, device=self.device)[1]
+        self.mesh = make_mesh(cfg)
         self.dataset_cls = dataset_cls
         self.seed = cfg.SEED
         self.train_dataset = dataset_cls(cfg, "train")
-        self.batch_size = cfg.TRAIN.BATCH_SIZE_PER_GPU
+        # the global batch; each rank loads its rows of it
+        self.batch_size = cfg.TRAIN.BATCH_SIZE_PER_GPU * self.world
         self.loader = make_loader(cfg, self.train_dataset, self.batch_size,
                                   shuffle=cfg.TRAIN.SHUFFLE, drop_last=True, seed=self.seed,
-                                  device=self.device)
+                                  device=self.device, process_shard=True)
 
         _, self.model = build_model(cfg, seed=self.seed, device=self.device)
         self.pretrained_loaded = self._load_pretrained(self.model)
+        replicate(self.model)
 
         schedule = make_schedule(cfg, max(1, len(self.loader)))
         self.optimizer = make_optimizer(self.model, cfg, schedule)
@@ -88,12 +103,13 @@ class Train(RunBase):
         self.eval_fn = make_decoded_eval_step(self.model, compute_dtype=self.compute_dtype)
 
         self.tb_writer = None
-        try:
-            from tensorboardX import SummaryWriter
-        except ImportError:
-            logger.warning("tensorboardX unavailable; skipping TensorBoard logging")
-        else:
-            self.tb_writer = SummaryWriter(self.tb_save_folder)
+        if distributed.is_primary():
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                logger.warning("tensorboardX unavailable; skipping TensorBoard logging")
+            else:
+                self.tb_writer = SummaryWriter(self.tb_save_folder)
 
     def _load_pretrained(self, model) -> int:
         """The pretrained COCO HRNet's partial load (ref:
@@ -168,7 +184,8 @@ class Train(RunBase):
                 # asynchronous: the serialisation overlaps the validation below
                 ckpt.save_checkpoint(self.checkpoints_save_folder, epoch, self.train_state,
                                      tensorboard_global_steps=tb_steps,
-                                     async_save=bool(cfg.TPU.ASYNC_CHECKPOINT))
+                                     async_save=bool(cfg.TPU.ASYNC_CHECKPOINT)
+                                     and self.world == 1)
             mean_ap = self._validate(tb_steps)
             if mean_ap is not None and mean_ap > best_map:
                 best_map = mean_ap
@@ -191,20 +208,23 @@ class Train(RunBase):
                                "validation", e)
                 self._val_dataset = None
             self._val_loader = None if self._val_dataset is None else make_loader(
-                cfg, self._val_dataset, cfg.VAL.BATCH_SIZE_PER_GPU, shuffle=False,
+                cfg, self._val_dataset, cfg.VAL.BATCH_SIZE_PER_GPU * self.world, shuffle=False,
                 device=self.device)
         if self._val_dataset is None:
             return None
         _, mean_ap = evaluate_epoch_decoded(
             self.eval_fn, self._val_loader, self._val_dataset, cfg, cfg.OUTPUT_DIR,
             phase="validate", device=self.device, tb_writer=self.tb_writer,
-            global_steps=tb_steps)
+            global_steps=tb_steps, shard_fn=make_eval_shard_fn(self.mesh))
         return mean_ap
 
 
 def main(argv=None):
     args = default_parse_args(argv)
-    Train(args).train()
+    try:
+        Train(args).train()
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -28,15 +28,29 @@ def resolve_device_preprocess(cfg, device) -> str:
 
 
 def make_loader(cfg, dataset, batch_size: int, *, shuffle: bool,
-                drop_last: bool = False, seed: int | None = None, device="cuda"):
+                drop_last: bool = False, seed: int | None = None, device="cuda",
+                process_shard: bool = False):
     """Build the configured loader for a run on ``device``: the
     ``DeviceLoader`` in mode "crops" or "full" (its batches are tensors on
-    ``device``), the host ``Loader`` for "off"."""
+    ``device``), the host ``Loader`` for "off".
+
+    ``process_shard=True`` (multi-process training): ``batch_size`` is the
+    global batch and this rank loads only its rows of each batch
+    (``parallel/distributed.py::local_rows`` with ``TPU.ACCUM_STEPS``).
+    Eval loaders keep full batches on every rank (the eval shard function
+    splits them), so the host's bookkeeping sees every row."""
     from otpose_tpu_torch.data.loader import Loader
 
     kwargs = dict(shuffle=shuffle, num_workers=cfg.WORKERS,
                   seed=cfg.SEED if seed is None else seed, drop_last=drop_last,
                   prefetch=cfg.TPU.PREFETCH_DEPTH)
+    if process_shard:
+        from otpose_tpu_torch.parallel.distributed import process_info
+
+        rank, world = process_info()
+        if world > 1:
+            kwargs.update(process_index=rank, process_count=world,
+                          accum_steps=cfg.TPU.ACCUM_STEPS)
     mode = resolve_device_preprocess(cfg, device)
     if mode != "off":
         from otpose_tpu_torch.data.device_loader import DeviceLoader

@@ -52,9 +52,12 @@ class DeviceLoader(Loader):
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  num_workers: int = 4, seed: int = 8888, drop_last: bool = False,
                  prefetch: int = 2, max_frame_hw: Tuple[int, int] = (1088, 1920),
-                 mode: str = "crops", device_prefetch: int = 2, device="cuda"):
+                 mode: str = "crops", device_prefetch: int = 2, device="cuda",
+                 process_index: int = 0, process_count: int = 1, accum_steps: int = 1):
         super().__init__(dataset, batch_size, shuffle=shuffle, num_workers=num_workers,
-                         seed=seed, drop_last=drop_last, prefetch=prefetch)
+                         seed=seed, drop_last=drop_last, prefetch=prefetch,
+                         process_index=process_index, process_count=process_count,
+                         accum_steps=accum_steps)
         self.max_h, self.max_w = max_frame_hw
         if mode not in ("crops", "full"):
             raise ValueError(f"DeviceLoader mode must be crops/full, got {mode!r}")

@@ -5,10 +5,16 @@ with a thread-pool pipeline: cv2 jpeg decode releases the GIL, so threads
 saturate host IO while the device computes; batches are staged ``prefetch``
 deep.  Deterministic per-epoch shuffling and per-sample RNG streams replicate
 ``worker_init_reset_seed`` determinism (ref: thirdparty/utils/data_utils.py:14-21).
-The port's copy of ``otpose_tpu/data/loader.py``, single process, without
-the C++ batch kernels (ROADMAP Queue 1 item 6) and without the multi-process
-row blocks (item 7).  ``set_start_iteration`` restarts a pass mid-epoch for
-an iteration-exact resume.
+The port's copy of ``otpose_tpu/data/loader.py``, without the C++ batch
+kernels (ROADMAP Queue 1 item 6).  ``set_start_iteration`` restarts a pass
+mid-epoch for an iteration-exact resume.
+
+Multi-process training (``process_count > 1``): ``batch_size`` is the
+global batch; every rank draws the same shuffled index batches (same seed
+and epoch) and loads only its rows, ``parallel/distributed.py::local_rows``
+(with ``accum_steps`` micro-batches, its share of each global micro-batch).
+A sample's augmentation is keyed by its index, so it is the same whichever
+rank loads it.
 """
 
 from __future__ import annotations
@@ -21,12 +27,14 @@ from typing import Iterator
 import numpy as np
 
 from otpose_tpu_torch.data.pipeline import collate_host_samples
+from otpose_tpu_torch.parallel.distributed import local_rows
 
 
 class Loader:
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  num_workers: int = 4, seed: int = 8888, drop_last: bool = False,
-                 prefetch: int = 2):
+                 prefetch: int = 2, process_index: int = 0, process_count: int = 1,
+                 accum_steps: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -36,6 +44,13 @@ class Loader:
         self.prefetch = prefetch
         self.epoch = 0
         self._start_iteration = 0
+        self.process_index, self.process_count = process_index, process_count
+        self._rows = None
+        if process_count > 1:
+            if not drop_last:
+                raise ValueError("multi-process loading needs drop_last=True (every rank "
+                                 "takes its share of full batches)")
+            self._rows = local_rows(batch_size, accum_steps, process_index, process_count)
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -63,6 +78,8 @@ class Loader:
                    for i in range(0, n, self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        if self._rows is not None:
+            batches = [b[self._rows] for b in batches]
         start, self._start_iteration = self._start_iteration, 0
         return batches[start:]
 

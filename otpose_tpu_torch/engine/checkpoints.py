@@ -23,6 +23,12 @@ save copies every tensor to the host before it returns and serialises in a
 background thread; each save first waits for the one before it, and
 ``wait_for_saves`` waits for the last.
 
+Under a multi-process launch (``parallel/distributed.py``) rank 0 alone
+writes and removes, and every rank waits at a barrier until it is done, so
+the folder (on a filesystem the ranks share) is complete when any rank goes
+on; asynchronous saves are for a single process.  Every rank resumes from
+the same directory.
+
 A reference ``.pth`` / ``.pth.tar`` is read natively with ``torch.load``: the
 port's modules carry the reference's ``state_dict`` names and its tensor
 layouts (conv kernels OIHW, conv1d (O, I, K), channel-LayerNorm and drop-path
@@ -48,6 +54,8 @@ import threading
 from typing import Dict, Optional
 
 import torch
+
+from otpose_tpu_torch.parallel.distributed import barrier, is_primary, process_info
 
 logger = logging.getLogger(__name__)
 
@@ -282,9 +290,16 @@ def save_checkpoint(folder: str, epoch: int, train_state, *,
     the tensors are on the host and serialises in the background (the train
     CLI overlaps it with validation); call ``wait_for_saves`` before reading
     the directory or exiting.  Returns the directory's path."""
+    path = osp.abspath(osp.join(folder, f"epoch_{epoch}_state"))
+    if process_info()[1] > 1:
+        if async_save:
+            raise ValueError("asynchronous checkpoint saves are for a single process: the "
+                             "other ranks go on once rank 0 has written")
+        if not is_primary():
+            barrier()
+            return path
     _WRITER.wait()
     os.makedirs(folder, exist_ok=True)
-    path = osp.abspath(osp.join(folder, f"epoch_{epoch}_state"))
     payload = {
         "state_dict": _to_host(train_state.model.state_dict()),
         "optimizer": _to_host(train_state.optimizer.state_dict()),
@@ -293,6 +308,7 @@ def save_checkpoint(folder: str, epoch: int, train_state, *,
                  "iteration": int(iteration)},
     }
     _WRITER.write(path, payload, async_save)
+    barrier()
     return path
 
 
@@ -301,9 +317,19 @@ def save_best_checkpoint(folder: str, train_state, mAP: float) -> Optional[str]:
     model/checkpoints.py:47-74).  Returns None, and writes nothing, when a
     prior best is not lower; otherwise writes the new best and then removes
     every prior one (all lower).  A non-finite mAP raises: its directory
-    would never be compared again."""
+    would never be compared again.  Under a multi-process launch rank 0
+    decides and writes; the other ranks wait for it and return None."""
     if not math.isfinite(mAP):
         raise ValueError(f"best checkpoint for a non-finite mAP {mAP}")
+    if not is_primary():
+        barrier()
+        return None
+    path = _save_best(folder, train_state, mAP)
+    barrier()
+    return path
+
+
+def _save_best(folder: str, train_state, mAP: float) -> Optional[str]:
     _WRITER.wait()
     os.makedirs(folder, exist_ok=True)
     priors = [(v, name) for name in os.listdir(folder)

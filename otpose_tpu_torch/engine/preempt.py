@@ -1,5 +1,5 @@
 """Graceful preemption for training (counterpart of
-``otpose_tpu/engine/preempt.py``, single process).
+``otpose_tpu/engine/preempt.py``).
 
 A preempted machine gets SIGTERM and a short grace window.  The guard turns
 the first SIGTERM into a request flag; the train loop stops at the next
@@ -9,9 +9,10 @@ run resumes at that batch.  The resumed run equals the uninterrupted one bit
 for bit, because every random stream is keyed by indices, not by how far a
 sequence has run: the epoch's shuffle by (seed, epoch), each sample's
 augmentation by (seed, epoch, index), each step's dropout by (seed, epoch,
-step) (``engine/runner.py::step_seed``).  The multi-process guard, which
-agrees on a common stop iteration across processes, comes with multi-GPU
-(ROADMAP Queue 1 item 7).
+step) (``engine/runner.py::step_seed``).  Under a multi-process launch
+the SIGTERM may reach one rank only, and a rank that stopped alone would
+leave the others waiting in a collective: ``ClusterPreemptionGuard`` makes
+every rank stop at the same iteration.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from __future__ import annotations
 import logging
 import signal
 from typing import Iterable
+
+from otpose_tpu_torch.parallel.distributed import process_info, reached_preemption_sync_point
 
 logger = logging.getLogger(__name__)
 
@@ -72,10 +75,44 @@ class PreemptionGuard:
         return self.requested
 
 
+class ClusterPreemptionGuard(PreemptionGuard):
+    """The multi-process guard: each rank's signal handler sets its own
+    ``signalled`` flag; ``check`` (once an iteration, on every rank) takes
+    the MAX of the flags across the ranks
+    (``distributed.reached_preemption_sync_point``), so ``requested``
+    becomes True on every rank at the same iteration.  The check's id
+    counts from ``start_step``, the same on every rank (the resumed
+    TensorBoard step)."""
+
+    def __init__(self, start_step: int = 0, signals: Iterable[int] = (signal.SIGTERM,)):
+        super().__init__(signals)
+        self._next_step = int(start_step)
+        self.signalled = False
+
+    def _handle(self, signum, frame):
+        if self.signalled:
+            prev = self._prev.get(signum, signal.SIG_DFL)
+            signal.signal(signum, prev)
+            logger.warning("second signal %d: restoring the previous handling", signum)
+            signal.raise_signal(signum)
+            return
+        self.signalled = True
+        logger.warning("signal %d received: every rank will checkpoint at the next iteration "
+                       "boundary and exit", signum)
+
+    def check(self) -> bool:
+        if not self.requested:
+            step, self._next_step = self._next_step, self._next_step + 1
+            if reached_preemption_sync_point(step, self.signalled):
+                self.requested = True
+                logger.warning("preemption: every rank stops at check %d", step)
+        return self.requested
+
+
 def make_preemption_guard(start_step: int = 0) -> PreemptionGuard:
-    """The installed single-process guard.  ``start_step`` (the resumed
-    TensorBoard step) is the multi-process guard's common counter base in
-    the JAX package; one process has nothing to agree on, so it is unused
-    until multi-GPU comes (ROADMAP Queue 1 item 7)."""
-    del start_step
+    """The installed guard for the launch: ``ClusterPreemptionGuard``
+    counting from ``start_step`` (the resumed TensorBoard step) across
+    several ranks, the single-process ``PreemptionGuard`` otherwise."""
+    if process_info()[1] > 1:
+        return ClusterPreemptionGuard(start_step).install()
     return PreemptionGuard().install()

@@ -1,14 +1,18 @@
 """Training and evaluation engine loops (counterpart of
-``otpose_tpu/engine/runner.py``, single device).
+``otpose_tpu/engine/runner.py``).
 
 ref: script/Common.py:79-453.  ``train_epoch`` runs one epoch of train
 steps, each on the model's device with its dropout generator re-seeded from
-(seed, epoch, step).  In evaluation the forward and the decode run on the
-model's device; the host feeds batches, keeps the PCK meter, back-projects
-17 points a box and runs the poseval stage.  ``make_flip_eval_step`` is the
-flip-test averaging behind ``VAL.FLIP_VAL`` / ``TEST.FLIP_TEST``.  The
-``DEBUG.VIS_*`` drawing helpers are not ported yet (ROADMAP Queue 1 item
-10): with such a flag set the loops raise.
+(seed, epoch, step) and, under a multi-process launch, the rank.  In
+evaluation the forward and the decode run on the model's device; the host
+feeds batches, keeps the PCK meter, back-projects 17 points a box and runs
+the poseval stage.  Under a launch (``parallel/distributed.py``) every rank
+holds the full eval batch, runs its row block (``parallel/mesh.py::
+make_eval_shard_fn``) and gathers every rank's outputs; rank 0 alone runs
+poseval and its mean AP reaches the others by ``broadcast_scalar``.
+``make_flip_eval_step`` is the flip-test averaging behind ``VAL.FLIP_VAL`` /
+``TEST.FLIP_TEST``.  The ``DEBUG.VIS_*`` drawing helpers are not ported yet
+(ROADMAP Queue 1 item 10): with such a flag set the loops raise.
 """
 
 from __future__ import annotations
@@ -26,6 +30,9 @@ from otpose_tpu_torch.evaluate.pck import accuracy, calc_dists, dist_acc
 from otpose_tpu_torch.models.otpose import OTPose, otpose_forward
 from otpose_tpu_torch.ops.affine import apply_affine_to_points, get_affine_transform
 from otpose_tpu_torch.ops.heatmap import get_final_preds, get_max_preds
+from otpose_tpu_torch.parallel.distributed import (broadcast_scalar, fetch, is_primary,
+                                                   process_info)
+from otpose_tpu_torch.parallel.mesh import place
 from otpose_tpu_torch.utils.device import resolve_device, resolve_dtype
 from otpose_tpu_torch.utils.profiling import maybe_trace
 from otpose_tpu_torch.utils.table import pipe_table
@@ -99,26 +106,20 @@ def _batch_on(batch, keys, device: torch.device) -> list:
     """The tensors ``batch[k]`` for ``keys`` on ``device``.  A batch of the
     device loader is already there and is taken as it is; a host batch is
     staged in pinned memory and copied without blocking for a CUDA device."""
-    out = []
-    for k in keys:
-        v = batch[k]
-        if isinstance(v, torch.Tensor):
-            if v.device.type != device.type:
-                raise ValueError(f"the loader's {k} is on {v.device}, the run on {device}")
-            out.append(v)
-            continue
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        out.append(t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t)
-    return out
+    return [place(batch[k], device) for k in keys]
 
 
-def step_seed(seed: int, epoch: int, global_steps: int) -> int:
+def step_seed(seed: int, epoch: int, global_steps: int, rank: int = 0) -> int:
     """The seed of a train step's dropout generator: a hash of (seed, epoch,
     global step), as the JAX package keys a step's dropout by
     ``fold_in(fold_in(PRNGKey(seed), epoch), global_steps)``.  A step's
     draws then depend on its indices only, so a resumed run draws what the
-    uninterrupted run drew (the bits differ from JAX's)."""
-    return int(np.random.SeedSequence([seed, epoch, global_steps]).generate_state(1, np.uint64)[0])
+    uninterrupted run drew (the bits differ from JAX's).  A rank above 0 of
+    a multi-process launch hashes its rank in too, so the ranks draw
+    independent masks for their different rows; rank 0's seed is the
+    single-process one."""
+    entropy = [seed, epoch, global_steps] + ([rank] if rank else [])
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0])
 
 
 def train_epoch(step_fn, state, loader, epoch: int, cfg, *, seed: int,
@@ -150,12 +151,13 @@ def train_epoch(step_fn, state, loader, epoch: int, cfg, *, seed: int,
     end = time.time()
     max_iter = len(loader)
     completed = start_iteration
+    rank = process_info()[0]
     if start_iteration:
         loader.set_start_iteration(start_iteration)
     for it, (batch, _metas) in enumerate(loader, start=start_iteration):
         data_time.update(time.time() - end)
         batch = dict(zip(TRAIN_KEYS, _batch_on(batch, TRAIN_KEYS, device)))
-        generator.manual_seed(step_seed(seed, epoch, global_steps))
+        generator.manual_seed(step_seed(seed, epoch, global_steps, rank))
         with maybe_trace(cfg.TPU.PROFILE_DIR, step=global_steps):
             metrics = step_fn(batch)
         batch_time.update(time.time() - end)
@@ -186,25 +188,38 @@ def train_epoch(step_fn, state, loader, epoch: int, cfg, *, seed: int,
     return state, global_steps, completed
 
 
-def _pipelined_forward(loader, run_fn, fetch_fn, device):
+def _pipelined_forward(loader, run_fn, fetch_fn, device, shard_fn=None):
     """One-deep pipeline over an eval loader: enqueue batch i + 1's forward
     before fetching batch i's results, so the device computes while the host
     decodes and accumulates.
 
     ``run_fn(inputs, margin)`` launches the device step on tensors on
     ``device`` (``_batch_on``); ``fetch_fn(outs)`` brings its results to the
-    host, which waits for them."""
+    host, which waits for them.  With a ``shard_fn``
+    (``parallel/mesh.py::make_eval_shard_fn``) the step runs on the rows it
+    gives, and the outputs of a split batch come back from every rank
+    (``distributed.fetch``)."""
     device = torch.device(device)
     pending = None
     for batch, metas in loader:
-        outs = run_fn(*_batch_on(batch, ("inputs", "margin"), device))
+        if shard_fn is None:
+            (inputs, margin), gather = _batch_on(batch, ("inputs", "margin"), device), False
+        else:
+            rows, gather = shard_fn({k: batch[k] for k in ("inputs", "margin")}, device)
+            inputs, margin = rows["inputs"], rows["margin"]
+        outs = run_fn(inputs, margin)
         if pending is not None:
-            p_outs, p_batch, p_metas = pending
-            yield fetch_fn(p_outs), p_batch, p_metas
-        pending = (outs, batch, metas)
+            yield _fetched(fetch_fn, *pending)
+        pending = (outs, gather, batch, metas)
     if pending is not None:
-        p_outs, p_batch, p_metas = pending
-        yield fetch_fn(p_outs), p_batch, p_metas
+        yield _fetched(fetch_fn, *pending)
+
+
+def _fetched(fetch_fn, outs, gather, batch, metas):
+    """``fetch_fn`` of the outputs, every rank's rows first where ``gather``."""
+    if gather:
+        outs = tuple(fetch(o) for o in outs) if isinstance(outs, tuple) else fetch(outs)
+    return fetch_fn(outs), batch, metas
 
 
 def _to_host(t) -> np.ndarray:
@@ -227,9 +242,14 @@ def _box_rows(all_boxes, idx, metas):
 
 def _finish(dataset, cfg, all_preds, all_boxes, filenames_map, output_dir, phase,
             tb_writer, global_steps):
-    name_values, mean_ap = dataset.evaluate(cfg, all_preds, output_dir, all_boxes,
-                                            filenames_map)
-    _print_name_value(name_values, cfg.MODEL.NAME)
+    """Rank 0 writes the poseval files and scores them; every rank returns
+    its mean AP (the others an empty table)."""
+    name_values, mean_ap = {}, None
+    if is_primary():
+        name_values, mean_ap = dataset.evaluate(cfg, all_preds, output_dir, all_boxes,
+                                                filenames_map)
+        _print_name_value(name_values, cfg.MODEL.NAME)
+    mean_ap = broadcast_scalar(mean_ap)
     if tb_writer is not None:
         tb_writer.add_scalar(f"{phase}/mAP", mean_ap, global_steps)
     return name_values, mean_ap
@@ -237,11 +257,13 @@ def _finish(dataset, cfg, all_preds, all_boxes, filenames_map, output_dir, phase
 
 def evaluate_epoch(eval_fn, loader, dataset, cfg, output_dir: str, *,
                    phase: str = "validate", device=None, tb_writer=None,
-                   global_steps: int = 0):
+                   global_steps: int = 0, shard_fn=None):
     """Full evaluation pass with the decode on the host (ref:
     script/Common.py:296-453): ``eval_fn`` is a ``make_eval_step`` or
-    ``make_flip_eval_step`` step of a model on ``device``.  Returns
-    (name_values, mean_ap)."""
+    ``make_flip_eval_step`` step of a model on ``device``; ``shard_fn``
+    places each batch over the ranks (see ``_pipelined_forward``).
+    Returns (name_values, mean_ap); under a launch rank 0's table, the
+    other ranks' empty, the mean AP on every rank."""
     refuse_vis(cfg)
     device = resolve_device(device)
     batch_time = AverageMeter()
@@ -252,7 +274,8 @@ def evaluate_epoch(eval_fn, loader, dataset, cfg, output_dir: str, *,
     idx = 0
     end = time.time()
 
-    pipeline = _pipelined_forward(loader, lambda x, m: eval_fn(x, m)[0], _to_host, device)
+    pipeline = _pipelined_forward(loader, lambda x, m: eval_fn(x, m)[0], _to_host, device,
+                                  shard_fn)
     for it, (preds_np, batch, metas) in enumerate(pipeline):
         # PCK meter on NCHW layout
         heat = preds_np.transpose(0, 3, 1, 2)
@@ -289,13 +312,13 @@ def _print_name_value(name_value, full_arch_name):
 
 def evaluate_epoch_decoded(decoded_fn, loader, dataset, cfg, output_dir: str, *,
                            phase: str = "validate", device=None, tb_writer=None,
-                           global_steps: int = 0):
+                           global_steps: int = 0, shard_fn=None):
     """Evaluation with the decode on the device: fetches 17 coords per box
     instead of full heatmaps (the reference decodes heatmaps on the host per
     box, ref: script/Common.py:419-432).  ``decoded_fn`` is a
     ``make_decoded_eval_step`` step of a model on ``device``.  Functionally
     equivalent to ``evaluate_epoch`` (same PCK meter semantics, same poseval
-    output)."""
+    output, the same ``shard_fn`` and return values)."""
     refuse_vis(cfg)
     device = resolve_device(device)
     batch_time = AverageMeter()
@@ -309,7 +332,8 @@ def evaluate_epoch_decoded(decoded_fn, loader, dataset, cfg, output_dir: str, *,
     end = time.time()
 
     pipeline = _pipelined_forward(loader, decoded_fn,
-                                  lambda outs: tuple(_to_host(o) for o in outs), device)
+                                  lambda outs: tuple(_to_host(o) for o in outs), device,
+                                  shard_fn)
     for it, ((coords, maxvals, raw_coords), batch, metas) in enumerate(pipeline):
         # PCK meter: device pred argmax vs host target argmax
         # (ref: utils/evaluate.py:384-415)

@@ -1,5 +1,6 @@
 """Train and eval steps of the port (counterpart of
-``otpose_tpu/engine/trainer.py``, single device).
+``otpose_tpu/engine/trainer.py``): one device, or one a rank under a
+multi-process launch.
 
 The train step (ref: script/Common.py:79-294) is the JAX ``make_train_step``
 in PyTorch idiom: the model in ``train()`` mode, f32 master weights and
@@ -26,6 +27,7 @@ from otpose_tpu_torch.models import core
 from otpose_tpu_torch.models.losses import st_ohkw_mse_loss
 from otpose_tpu_torch.models.otpose import OTPose, otpose_forward
 from otpose_tpu_torch.ops.heatmap import get_max_preds_device, refine_coords_device
+from otpose_tpu_torch.parallel import distributed
 from otpose_tpu_torch.utils.device import resolve_dtype
 
 METRICS = ("final_loss", "ohkm_loss_s", "mse_loss_s", "occ_final_loss", "pck_acc")
@@ -88,7 +90,15 @@ def make_train_step(model: OTPose, optimizer: Optimizer, *, compute_dtype=torch.
     the optimizer updates once.  ``remat`` (``TPU.REMAT``) recomputes each
     micro-batch's forward in its backward (``torch.utils.checkpoint``); the
     generator is rewound for the recompute, so the backward sees the same
-    dropout masks.  Running stats are committed once per micro-batch."""
+    dropout masks.  Running stats are committed once per micro-batch.
+
+    Under a multi-process launch (``parallel/distributed.py``) ``batch``
+    is this rank's rows of the global batch (``distributed.local_rows``:
+    its micro-batch ``i`` is its share of global micro-batch ``i``); BN,
+    the loss's labelled test and the PCK meter decide over the global
+    (micro-)batch, and the gradients and metrics are averaged across the
+    ranks before the optimizer, so every rank makes the JAX step's update
+    on the global batch and holds the same weights and running stats."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps (cfg.TPU.ACCUM_STEPS) must be >= 1, got {accum_steps}; "
                          "use 1 to disable gradient accumulation")
@@ -131,6 +141,12 @@ def make_train_step(model: OTPose, optimizer: Optimizer, *, compute_dtype=torch.
                 metrics = {k: v.detach().float() for k, v in metrics.items()}
                 sums = metrics if sums is None else {k: sums[k] + v for k, v in metrics.items()}
         out = {k: v / accum_steps for k, v in sums.items()}
+        if distributed.active():
+            # the global batch's gradients and metrics, once a step
+            distributed.average_(p.grad for p in optimizer.params if p.grad is not None)
+            values = torch.stack(list(out.values()))
+            distributed.average_([values])
+            out = dict(zip(out, values))
         out["grad_norm"] = optimizer.step()
         return out
 

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from otpose_tpu_torch.ops.heatmap import get_max_preds, get_max_preds_device
+from otpose_tpu_torch.parallel import distributed
 
 
 def calc_dists(preds: np.ndarray, target: np.ndarray, normalize: np.ndarray) -> np.ndarray:
@@ -62,7 +63,8 @@ def accuracy_device(pred_hm: torch.Tensor, target_hm: torch.Tensor, thr: float =
     """PCK on the device, with ``accuracy``'s semantics: per-joint fraction
     of visible joints within ``thr``, averaged over the joints that have a
     visible instance.  NHWC heatmaps in; returns (avg_acc, cnt) as 0-d
-    tensors."""
+    tensors.  Under a multi-process launch the counts are summed across the
+    ranks first, so every rank gets the global batch's meter."""
     pred = pred_hm.permute(0, 3, 1, 2)
     gt = target_hm.permute(0, 3, 1, 2)
     h, w = pred.shape[2], pred.shape[3]
@@ -73,7 +75,10 @@ def accuracy_device(pred_hm: torch.Tensor, target_hm: torch.Tensor, thr: float =
     d = torch.linalg.norm((p - g) / norm, dim=-1)                 # (B, J)
     hit = (d < thr) & visible
     n_vis = visible.sum(dim=0)                                   # (J,)
-    acc_j = hit.sum(dim=0) / n_vis.clamp(min=1)
+    hits = hit.sum(dim=0)
+    if distributed.active():     # the ratio of the global batch's counts
+        hits, n_vis = distributed.all_reduce_(torch.stack([hits, n_vis]))
+    acc_j = hits / n_vis.clamp(min=1)
     has_vis = n_vis > 0
     cnt = has_vis.sum()
     avg = torch.where(cnt > 0, (acc_j * has_vis).sum() / cnt.clamp(min=1),

@@ -32,6 +32,7 @@ from torch import nn
 
 from otpose_tpu_torch.ops.ct import (LN_EPS, dense_1x1_ct, depthwise_conv1d_k3_ct,  # noqa: F401
                                      gelu, layer_norm_ct)
+from otpose_tpu_torch.parallel import distributed
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1   # torch semantics: running = (1 - m) * running + m * batch
@@ -70,11 +71,20 @@ def batch_norm_train(x, weight, bias, running_mean, running_var,
     """Train BN on NCHW (JAX ``core.batch_norm``, train branch): batch
     statistics in f32 even for bf16 activations, ``var = E[x^2] - E[x]^2``
     (biased) to normalise, the unbiased ``var * n / (n - 1)`` for the running
-    variance.  Returns (y in x's dtype, new running mean, new running var)."""
+    variance.  Returns (y in x's dtype, new running mean, new running var).
+
+    Under a multi-process launch the statistics are the global batch's, as
+    the JAX step's are: ``[mean, E[x^2]]`` averaged across the ranks in one
+    differentiable all-reduce (``parallel/distributed.py``), ``n`` times
+    the number of ranks."""
     xf = x.float()
     n = x.numel() // x.shape[1]
     mean = xf.mean(dim=(0, 2, 3))
     mean_sq = (xf * xf).mean(dim=(0, 2, 3))
+    if distributed.active():
+        world = distributed.process_info()[1]
+        mean, mean_sq = distributed.all_reduce_sum(torch.stack([mean, mean_sq])) / world
+        n = n * world
     var = mean_sq - mean * mean
     with torch.no_grad():
         unbiased = var * (n / max(n - 1, 1))

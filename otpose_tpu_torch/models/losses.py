@@ -8,7 +8,8 @@ layout at its public functions; ``target_weight`` is (B, J, 1).
   joint's GT heatmap equals 1.0 (gaussian targets peak at exactly 1.0 when
   visible); unlabelled joints add a student-vs-teacher consistency term.
   OHKM keeps the top-k hardest joints per sample.  final = ohkm + summed
-  per-joint MSE.
+  per-joint MSE.  Under a multi-process launch the batch is every rank's
+  rows: the max is a MAX across the ranks (``parallel/distributed.py``).
 - ``joints_mse_ohkm_loss`` (ref: loss.py:95-148)
 - ``joint_mse_loss`` (ref: loss.py:151-182)
 """
@@ -16,6 +17,8 @@ layout at its public functions; ``target_weight`` is (B, J, 1).
 from __future__ import annotations
 
 import torch
+
+from otpose_tpu_torch.parallel import distributed
 
 
 def _flatten(hm: torch.Tensor) -> torch.Tensor:
@@ -40,7 +43,8 @@ def st_ohkw_mse_loss(output_s, output_t, target, target_weight, *, topk: int = 8
     if use_target_weight:
         w = target_weight[:, :, :1]                            # (B, J, 1)
         ps_w, pt_w, gt_w = ps * w, pt * w, gt * w
-        labeled = gt.amax(dim=(0, 2)) == 1.0                   # (J,) batch-global decision
+        # (J,) batch-global decision: across every rank's rows under a launch
+        labeled = distributed.all_reduce_(gt.amax(dim=(0, 2)), "max") == 1.0
         unl = (~labeled).to(ps_w.dtype)
         base = (ps_w - gt_w) ** 2                              # (B, J, HW)
         consist = (ps_w - pt_w) ** 2

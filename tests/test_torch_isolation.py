@@ -58,7 +58,8 @@ def test_every_port_module_imports_without_cv2():
         "        'data.pipeline', 'data.posetrack', 'data.synthetic',\n"
         "        'engine.base', 'engine.checkpoints', 'engine.export', 'engine.optim',\n"
         "        'engine.preempt', 'engine.runner', 'engine.trainer', 'models.losses',\n"
-        "        'ops.ct', 'ops.cuda.registry', 'tools.serve',\n"
+        "        'ops.ct', 'ops.cuda.registry', 'tools.serve', 'parallel.distributed',\n"
+        "        'parallel.mesh',\n"
         "        'evaluate.converters', 'evaluate.keypoints', 'evaluate.pck', 'evaluate.poseval',\n"
         "        'evaluate.tracking', 'utils.profiling', 'utils.table', 'utils.testing',\n"
         "        'utils.timing']\n"
@@ -135,6 +136,39 @@ def test_default_device_is_cuda_and_raises_without_a_gpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(tiny_otpose_cfg())
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_parallel_imports_no_jax():
+    """``otpose_tpu_torch/parallel/`` and what it pulls in import neither JAX
+    nor the JAX package (which has modules of the same names)."""
+    code = (
+        "import sys\n"
+        "import otpose_tpu_torch.parallel.distributed, otpose_tpu_torch.parallel.mesh\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'otpose_tpu'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("env", [
+    {"OTPOSE_COORDINATOR": "127.0.0.1:1", "OTPOSE_NUM_PROCESSES": "4", "OTPOSE_PROCESS_ID": "3"},
+    {"RANK": "3", "WORLD_SIZE": "4", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "1",
+     "LOCAL_RANK": "3"}], ids=["otpose", "torchrun"])
+def test_resolve_device_under_a_launch_gives_each_rank_its_card(env, monkeypatch):
+    """Under a multi-process launch ``None`` is the rank's card,
+    ``cuda:{local_rank % device_count}``; without a GPU it raises, as the
+    entry points do; an explicit device is kept."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve_device(None, env=env)
+    assert resolve_device("cpu", env=env).type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert resolve_device(None, env=env) == torch.device("cuda", 1)
+    assert resolve_device(None, env={}) == torch.device("cuda")
+    assert resolve_device("cuda:0", env=env) == torch.device("cuda", 0)
 
 
 def test_pose_estimator_defaults_to_cuda_and_raises_without_a_gpu():
