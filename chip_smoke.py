@@ -6,8 +6,8 @@
 Phases, each of which must pass or the script exits non-zero:
 
 1. checks for a CUDA device and prints its ``nvidia-smi`` name and power limit;
-2. builds the five kernel sources from ``otpose_tpu_torch/csrc`` with
-   ``nvcc``, in parallel;
+2. builds the five kernel sources and nvJPEG's (``jpeg_nv.cu``) from
+   ``otpose_tpu_torch/csrc`` with ``nvcc``, in parallel;
 3. holds each of the five kernel rows against its plain PyTorch version at
    the shapes its paths give it, in f32 (TF32 off) and bf16, and times both
    with CUDA events: fused attention, fused MLP and the DCN at the flagship
@@ -52,8 +52,9 @@ Phases, each of which must pass or the script exits non-zero:
 9. runs the eval CLI (``cli/eval.py::Eval("validate", args).eval()``) at
    flagship width and depth in bf16, B = 16, no flip, over a synthetic
    PoseTrack-format tree of 64 boxes made from a seed in a temporary
-   directory (frames as uint8 arrays, cropped by the port's torch warp: the
-   card's machine has no cv2), from a checkpoint of random weights saved in
+   directory (frames as uint8 arrays that ``ArrayFramesDataset`` reads and
+   crops with the port's torch warp, needing no cv2), from a checkpoint of
+   random weights saved in
    the reference's ``.pth`` layout, five times: an untimed first run with
    ``TPU.DEVICE_PREPROCESS full`` (the device warp; the process's first
    steps), then with the key left at the config's ``auto`` (the device
@@ -161,9 +162,37 @@ Phases, each of which must pass or the script exits non-zero:
     1e-9 and its keypoints held to that CLI's by phase 14's gate; a run
     whose rank 1 alone gets SIGTERM after 2 steps stops both ranks there,
     and its two-rank resume ends bit-equal to the uninterrupted run; the
-    phase's seconds.
+    phase's seconds;
+17. JPEG frames on the card and the detector: (1) probes the machine for
+    ``nvjpeg.h`` and ``libnvjpeg.so*`` beside ``nvcc``, ``jpeglib.h`` on
+    g++'s include path, ``find_library("jpeg")``, whether the JAX package's
+    committed ``native/libotpose_io.so`` loads (in a subprocess), PIL, cv2,
+    and the port's native library and nvJPEG; (2) decodes the JPEG fixture
+    (``tests/fixtures/jpeg/``: five 1280x720 4:2:0 frames, a 333x251 4:4:4,
+    a greyscale and a 333x251 4:2:2 one) with nvJPEG on each backend the
+    card has against the fixture's libjpeg decode (the maximum and mean
+    uint8 difference of the pixels, and of the planes, against bars), a
+    batch into a 1088x1920 staging buffer against each frame alone, a 4:4:0
+    frame refused by name, and decode rates at 1280x720 (nvJPEG on each
+    backend, cv2 and PIL on a host thread); (3) runs the detector
+    (``detector/yolov3.py``, full YOLOv3 and yolov3-tiny at 416, He-scaled
+    weights from a seed, BN calibrated on two fixture frames) on the card in
+    f32 against its plain CPU forward: raw outputs, kept boxes, ms a frame
+    beside the bound; (4) runs ``tools/generate_boxes`` over a tree of the
+    fixture's frames on the card (nvJPEG) and on the CPU, holds the two
+    boxes files to each other (the share of matched boxes against a
+    control's) and the detector's input from nvJPEG's pixels to libjpeg's,
+    then the eval CLI on the test split with ``USE_GT_BBOX`` false over the
+    card's boxes under ``full``: nvJPEG chosen, 12 / 16 / 1 launches a
+    batch, boxes/s, and its keypoints against the same run on cv2's frames
+    (the share within 4 px against a control's); (5) ``tools/bench_input_pipeline``'s
+    table on the card.  nvJPEG ports no TPU kernel: it gets a line of its
+    own (``nvjpeg: {...}``), not a ``kernels`` entry.
 
-Each path (phases 4 to 7, 9, 12, 14, 15 and 16) is driven with every launch
+``python3 chip_smoke.py --phase17`` builds the kernels and runs phase 17
+alone (a development run: no kernels line, no result line).
+
+Each path (phases 4 to 7, 9, 12, 14, 15, 16 and 17) is driven with every launch
 count set to 0 just before it and read just after (phase 15's in the process
 that serves, phase 16's in each rank).  It prints a ``kernels`` JSON line, the
 card line, and last ``{"ok": true, "device": {...}}``.
@@ -2773,7 +2802,614 @@ def _dp_cli(cfg, root, card: str) -> dict:
     return dict(step=w0["steps"][0]["counts"], val_batch=w0["val_batches"][0])
 
 
-def main() -> None:
+# ---------------------------------------------------------------------------
+# phase 17: JPEG frames on the card, the detector and the test split
+# ---------------------------------------------------------------------------
+
+FIXTURE = os.path.join(ROOT, "tests", "fixtures", "jpeg")
+FIXTURE_FRAMES = tuple(f"frame_{i:03d}" for i in range(5))
+# nvJPEG against libjpeg's decode of the fixture, each frame: the largest
+# uint8 difference and the mean difference of the RGB pixels, and the
+# largest difference of the planes before upsampling (those in
+# planes.npz).  The card's conversion kernel does libjpeg's own upsampling
+# and colour arithmetic, so only the two IDCTs' rounding is left: it read
+# max 3, mean <= 0.0251 and planes <= 1 on every frame (PERF.md section 6),
+# and nvJPEG's own RGB output, the design this replaced, read max 54-70 and
+# mean 0.547-0.603, which these bars refuse
+NVJPEG_MAX, NVJPEG_MEAN, NVJPEG_PLANES_MAX = 6, 0.1, 2
+# the detector on the card (f32, TF32 off) against its plain CPU forward at
+# the same weights: raw outputs to 1e-4 of their peak, probabilities to 1e-4,
+# and the same kept boxes to 0.05 px on every coordinate
+DET_REL, DET_PROB, DET_BOX_PX = 1e-4, 1e-4, 0.05
+# the detector's 416x416 input from nvJPEG's pixels against libjpeg's, in
+# uint8 steps: an average of pixels then a rounding, so at most one step
+# more than the pixels' own difference (it read 3)
+DET_INPUT_STEPS = 4
+# boxes from nvJPEG frames against boxes from the host's frames: the share
+# of both sides' boxes with a box on the other side within 4 px on every
+# coordinate.  The seeded detector is chaotic (a uint8 step in a few pixels
+# of its input moves its boxes), so the share is held against a control:
+# libjpeg's frames against the same with a uint8 step added to 0.5% of the
+# values.  nvJPEG's frames differ on about 2% of the values, by up to 3
+# steps, so the share may fall below the control's, by at most
+# BOX_MARGIN (it read 83.21% against 92.09%)
+BOX_MATCH_PX, BOX_MARGIN = 4.0, 0.10
+# the test-split eval's keypoints, frames by nvJPEG against frames by cv2:
+# the share within 4 px, held as the boxes are against a control (cv2's
+# frames with a uint8 step added to 0.5% of values; it read 86.62% against
+# 86.27%)
+KP_PX, KP_MARGIN = 4.0, 0.10
+DETECTOR_SEED = 0
+DETECTOR_BIASES = dict(obj_bias=-1.0, person_bias=1.0)
+
+
+def _gxx_include_dirs() -> list:
+    import shutil
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return []
+    out = subprocess.run([gxx, "-xc++", "-E", "-v", "-"], input="", capture_output=True,
+                         text=True, timeout=60).stderr.splitlines()
+    try:
+        start = out.index("#include <...> search starts here:") + 1
+        end = out.index("End of search list.")
+    except ValueError:
+        return []
+    return [d.strip() for d in out[start:end]]
+
+
+def probe_decoders() -> dict:
+    """What this machine offers to decode JPEG: nvJPEG beside nvcc, libjpeg's
+    header and library, whether the JAX package's committed native library
+    loads (in a subprocess), PIL and cv2, and the port's two decoders."""
+    import ctypes.util
+    import glob
+
+    from otpose_tpu_torch.data import native as native_io
+    from otpose_tpu_torch.data import nvjpeg
+    from otpose_tpu_torch.ops.cuda import build
+
+    cuda = os.path.dirname(os.path.dirname(build.nvcc_path()))
+    found = {}
+    for sub in ("include", "lib64", "targets/x86_64-linux/include", "targets/x86_64-linux/lib"):
+        found[sub] = sorted(os.path.basename(p) for pat in ("nvjpeg.h", "libnvjpeg.so*")
+                            for p in glob.glob(os.path.join(cuda, sub, pat)))
+    dirs = _gxx_include_dirs()
+    so = os.path.join(ROOT, "native", "libotpose_io.so")
+    proc = subprocess.run([sys.executable, "-c", "import ctypes, sys; ctypes.CDLL(sys.argv[1])",
+                           so], capture_output=True, text=True, timeout=120)
+    committed = "loads" if proc.returncode == 0 else (
+        "does not load: " + (proc.stderr.strip().splitlines() or ["?"])[-1])
+    mods = {}
+    for name in ("PIL", "cv2"):
+        try:
+            mod = __import__(name)
+            mods[name] = getattr(mod, "__version__", "?")
+        except ImportError as e:
+            mods[name] = f"absent ({e})"
+    nv = nvjpeg.is_available()
+    probe = {
+        "cuda_dir": cuda, "nvjpeg_files": found,
+        "jpeglib.h": [d for d in dirs if os.path.exists(os.path.join(d, "jpeglib.h"))],
+        "gxx_include_dirs": dirs, "find_library(jpeg)": ctypes.util.find_library("jpeg"),
+        "native/libotpose_io.so": committed, **mods,
+        "port native library": "builds and loads" if native_io.is_available()
+        else f"unavailable: {native_io.reason()}",
+        "nvjpeg": (("hardware backend" if nvjpeg.hardware_backend() else
+                    "default backend only: nvjpegCreateEx(NVJPEG_BACKEND_HARDWARE) returned "
+                    + nvjpeg.hardware_status()) if nv
+                   else f"unavailable: {nvjpeg.reason()}"),
+    }
+    for k, v in probe.items():
+        log(f"probe: {k}: {v}")
+    return probe
+
+
+def _diff(got, want):
+    import numpy as np
+
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return int(d.max()), float(d.mean()), float((d > 0).mean())
+
+
+def _rate(fn, count: int, reps: int = 5, sync=None) -> float:
+    fn()
+    if sync:
+        sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    if sync:
+        sync()
+    return count * reps / (time.perf_counter() - t0)
+
+
+def check_nvjpeg(card: str) -> dict:
+    """nvJPEG's decode of the fixture against libjpeg's (the fixture's
+    ``decoded.npz``) on each backend, its planes against libjpeg's
+    (``planes.npz``), the conversion kernel against its plain version
+    (``data/nvjpeg.py::ycc_to_rgb``) on nvJPEG's planes, a batch into a
+    larger staging buffer equal to the frames decoded alone with zeros
+    around them, and decode rates at 1280x720 on each backend and of the
+    host decoders this machine has."""
+    import numpy as np
+    import torch
+
+    from otpose_tpu_torch.data import native as native_io
+    from otpose_tpu_torch.data import nvjpeg
+
+    ref = np.load(os.path.join(FIXTURE, "decoded.npz"))
+    ref_planes = np.load(os.path.join(FIXTURE, "planes.npz"))
+    names = FIXTURE_FRAMES + ("odd_444", "grey", "odd_422")
+    paths = [os.path.join(FIXTURE, n + ".jpg") for n in names]
+    data = nvjpeg.read_bytes(paths)
+    report = {"frames": {}}
+    worst = 0
+    # "auto" runs the hardware backend where nvjpegCreateEx gave one, else
+    # the default backend: the forced default is a second path only then
+    backends = ("auto", "default") if nvjpeg.hardware_backend() else ("auto",)
+    for backend in backends:
+        for name, path, blob in zip(names, paths, data):
+            h, w = nvjpeg.jpeg_size(blob)
+            dec = nvjpeg.decode_jpeg_batch_device([path], h, w, "cuda", backend=backend,
+                                                  data=[blob], keep_planes=True)
+            got = dec.out[0].cpu().numpy()
+            if (dec.hs[0], dec.ws[0]) != ref[name].shape[:2]:
+                fail(f"nvJPEG: {name} decoded as {dec.hs[0]}x{dec.ws[0]}, libjpeg "
+                     f"{ref[name].shape}")
+            planes = dec.planes[0]
+            if planes is None:
+                fail(f"nvJPEG: {name} ({dec.conversions[0]}) did not go through the "
+                     f"conversion kernel")
+            plain = nvjpeg.ycc_to_rgb(*planes)
+            if not torch.equal(plain, dec.out[0]):
+                fail(f"nvJPEG: the conversion kernel differs from ycc_to_rgb on {name}")
+            plane_err = {}
+            for k, p in zip(("y", "cb", "cr"), planes):
+                if p is not None and f"{name}_{k}" in ref_planes:
+                    plane_err[k] = _diff(p.cpu().numpy(), ref_planes[f"{name}_{k}"])[0]
+            mx, mean, share = _diff(got, ref[name])
+            log(f"nvJPEG {backend} ({dec.backends[0]} backend ran, {dec.conversions[0]} "
+                f"conversion kernel, equal to its plain version) {name} {w}x{h}: against "
+                f"libjpeg max |d| {mx} (bar {NVJPEG_MAX}), mean {mean:.4f} (bar "
+                f"{NVJPEG_MEAN}), {share:.2%} of values differ"
+                + (f"; planes against libjpeg's max |d| {plane_err} (bar {NVJPEG_PLANES_MAX})"
+                   if plane_err else ""))
+            if (mx > NVJPEG_MAX or mean > NVJPEG_MEAN
+                    or any(v > NVJPEG_PLANES_MAX for v in plane_err.values())):
+                fail(f"nvJPEG: {name} on the {dec.backends[0]} backend differs from "
+                     f"libjpeg's decode beyond the bar")
+            report["frames"][f"{name}/{dec.backends[0]}"] = {
+                "max_abs_err": mx, "mean_abs_err": mean, "share_differ": share,
+                "planes_max_abs_err": plane_err}
+            worst = max(worst, mx)
+    report["max_abs_err"] = worst
+    # the loader's call: a batch into a larger zeroed buffer, pitch max_w * 3
+    big = torch.zeros((len(paths), 1088, 1920, 3), dtype=torch.uint8, device="cuda")
+    dec = nvjpeg.decode_jpeg_batch_device(paths, 1088, 1920, "cuda", out=big, data=data)
+    for i, (name, blob) in enumerate(zip(names, data)):
+        h, w = dec.hs[i], dec.ws[i]
+        alone = nvjpeg.decode_jpeg_batch_device(
+            [paths[i]], h, w, "cuda", backend="default" if dec.backends[i] == "default"
+            else "auto", data=[blob]).out
+        inside = torch.equal(big[i, :h, :w], alone[0])
+        outside = int(big[i, h:].count_nonzero()) + int(big[i, :h, w:].count_nonzero())
+        if not inside or outside:
+            fail(f"nvJPEG: {name} in a 1088x1920 staging buffer differs from its decode "
+                 f"alone ({outside} nonzero bytes outside the frame)")
+    log(f"nvJPEG: a batch of {len(paths)} into a 1088x1920 staging buffer equals each frame "
+        f"decoded alone, zeros around them (backends {dec.backends}, conversions "
+        f"{dec.conversions})")
+    # a sampling the conversion kernel lacks (4:4:0) is refused, naming the file
+    s440 = os.path.join(FIXTURE, "small_440.jpg")
+    try:
+        nvjpeg.decode_jpeg_batch_device([paths[0], s440], 1088, 1920, "cuda")
+        fail("nvJPEG: a 4:4:0 frame was decoded, not refused")
+    except ValueError as e:
+        if s440 not in str(e) or "chroma sampling" not in str(e):
+            fail(f"nvJPEG: the 4:4:0 frame was refused without its name: {e}")
+        log(f"nvJPEG: a 4:4:0 frame is refused: {e}")
+    # rates at 1280x720: 20 frames a call
+    hd = paths[:5] * 4
+    hd_data = data[:5] * 4
+    staging = torch.zeros((20, 720, 1280, 3), dtype=torch.uint8, device="cuda")
+    rates = {}
+    for backend in backends:
+        ran = "default" if backend == "default" or not nvjpeg.hardware_backend() else "hardware"
+        rates[f"nvjpeg_{ran}"] = _rate(
+            lambda b=backend: nvjpeg.decode_jpeg_batch_device(hd, 720, 1280, "cuda", out=staging,
+                                                              backend=b, data=hd_data),
+            20, sync=torch.cuda.synchronize)
+    import cv2
+
+    rates["cv2_host_1thread"] = _rate(lambda: [cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)
+                                               for p in hd], 20)
+    try:
+        from PIL import Image
+
+        rates["pil_host_1thread"] = _rate(
+            lambda: [np.asarray(Image.open(p).convert("RGB")) for p in hd], 20)
+    except ImportError:
+        rates["pil_host_1thread"] = None
+    rates["native_host"] = (_rate(lambda: native_io.decode_jpeg_batch(hd, 720, 1280), 20)
+                            if native_io.is_available() else None)
+    log("decode rates at 1280x720, frames/s (" + card + "): "
+        + ", ".join(f"{k} {v if v is None else f'{v:.2f}'}" for k, v in rates.items())
+        + " (host rates on one thread, native where its library builds)")
+    report["frames_per_s"] = rates
+    report["backend"] = "hardware" if nvjpeg.hardware_backend() else "default"
+    return report
+
+
+def _conv_flops(model, x) -> int:
+    import torch
+
+    total = []
+
+    def hook(mod, inp, out):
+        total.append(2 * out.numel() * mod.weight[0].numel())
+
+    handles = [m.register_forward_hook(hook) for m in model.convs]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(total)
+
+
+def _sorted_kept(kept):
+    import numpy as np
+
+    return kept[np.lexsort((kept[:, 1], kept[:, 0], kept[:, 6]))]
+
+
+def check_detector(card: str) -> dict:
+    """Both variants at 416 on the card against the plain CPU forward at the
+    same He-scaled weights (BN calibrated on two fixture frames, heads
+    scaled), on fixture frame 0 preprocessed on the CPU: raw outputs, kept
+    boxes, the card's own preprocessing, and ms a frame.  Returns the full
+    variant's weights for the tree's detector."""
+    import numpy as np
+    import torch
+
+    from otpose_tpu_torch.detector import yolov3 as Y
+
+    ref = np.load(os.path.join(FIXTURE, "decoded.npz"))
+    frames = [ref[n] for n in FIXTURE_FRAMES]
+    out = {}
+    with torch.no_grad():
+        x_cpu = torch.stack([Y.preprocess_image(f)[0] for f in frames[:2]]).permute(0, 3, 1, 2)
+        on_card = Y.preprocess_image(torch.from_numpy(frames[0]).cuda())[0]
+        if not torch.equal(on_card.cpu(), x_cpu[0].permute(1, 2, 0)):
+            fail("detector: preprocess_image on the card differs from the CPU's")
+        for variant in ("yolov3", "yolov3-tiny"):
+            cpu = Y.build_yolo(Y.init_he_weights(DETECTOR_SEED, variant, **DETECTOR_BIASES),
+                               variant, "cpu")
+            cpu.calibrate_bn_(x_cpu.contiguous())
+            weights = cpu.darknet_params()
+            gpu = Y.build_yolo(weights, variant, "cuda")
+            inp = x_cpu[:1].contiguous()
+            want = cpu(inp)[0].numpy()
+            got = gpu(inp.cuda())[0].cpu().numpy()
+            peak = float(np.abs(want).max())
+            rel = float(np.abs(got - want).max()) / peak
+            prob = float(np.abs(got[:, 4:] - want[:, 4:]).max())
+            kw, kg = (_sorted_kept(Y.non_max_suppression(d, 0.4, 0.4)) for d in (want, got))
+            box = float(np.abs(kw[:, :4] - kg[:, :4]).max()) if len(kw) == len(kg) and len(kw) \
+                else (0.0 if len(kw) == len(kg) else float("inf"))
+            same_cls = len(kw) == len(kg) and np.array_equal(kw[:, 6], kg[:, 6])
+            inp_c = inp.cuda()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            for _ in range(3):
+                gpu(inp_c)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(20):
+                gpu(inp_c)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / 20
+            t0 = time.perf_counter()
+            for _ in range(3):
+                cpu(inp)
+            cpu_ms = (time.perf_counter() - t0) / 3 * 1e3
+            flops = _conv_flops(cpu, inp)
+            bound = flops / PEAK_F32 * 1e3
+            log(f"detector {variant} at 416 on the card (f32, TF32 off) against the CPU: raw "
+                f"outputs {rel:.3e} of their peak {peak:.1f} (bar {DET_REL}), probabilities "
+                f"{prob:.3e} (bar {DET_PROB}); kept boxes {len(kg)} on the card, {len(kw)} on "
+                f"the CPU, coordinates within {box:.4f} px (bar {DET_BOX_PX}); {ms:.3f} ms a frame "
+                f"on the card (B=1, CUDA events), {cpu_ms:.1f} ms on the CPU; "
+                f"{flops / 1e9:.2f} GFLOP, bound {bound:.3f} ms at the f32 peak ({card})")
+            if not (rel <= DET_REL and prob <= DET_PROB and box <= DET_BOX_PX and same_cls):
+                fail(f"detector {variant}: the card's forward differs from the CPU's")
+            out[variant] = {"ms": ms, "cpu_ms": cpu_ms, "gflop": flops / 1e9, "bound_ms": bound,
+                            "rel_err": rel, "kept": len(kg), "weights": weights}
+    return out
+
+
+def _fixture_tree(root: str, seed: int = 0):
+    """A PoseTrack-format tree of one video whose five 1280x720 frames are
+    the fixture's jpgs (``make_synthetic_posetrack``'s jsons and annotations,
+    four people a frame)."""
+    import shutil
+
+    from otpose_tpu_torch.data.synthetic import make_synthetic_posetrack
+
+    json_dir, img_dir, annot_dir = make_synthetic_posetrack(
+        root, num_videos=1, frames_per_video=5, people_per_frame=4, img_w=1280, img_h=720,
+        seed=seed)
+    arrays = sorted(os.path.join(d, f) for d, _, fs in os.walk(img_dir) for f in fs
+                    if f.endswith(".npy"))
+    for name, path in zip(FIXTURE_FRAMES, arrays):
+        shutil.copyfile(os.path.join(FIXTURE, name + ".jpg"), path[:-4] + ".jpg")
+        os.remove(path)
+    return json_dir, img_dir, annot_dir
+
+
+def _nearest_box_px(a: list, b: list) -> list:
+    """For each box of ``a``, the largest coordinate difference to its
+    nearest box in ``b`` (inf when ``b`` is empty)."""
+    import numpy as np
+
+    if not b:
+        return [float("inf")] * len(a)
+    bb = np.asarray(b)
+    return [float(np.abs(bb - np.asarray(x)).max(axis=1).min()) for x in a]
+
+
+def _box_control(weights) -> float:
+    """The seeded detector's own sensitivity: on the card, its boxes on the
+    fixture's libjpeg frames against its boxes on the same frames with one
+    uint8 step added to 0.5% of the values (drawn from a seed); the share of
+    both sides' boxes with a match within BOX_MATCH_PX."""
+    import numpy as np
+
+    from otpose_tpu_torch.detector import yolov3 as Y
+
+    ref = np.load(os.path.join(FIXTURE, "decoded.npz"))
+    det = Y.YoloV3Detector(weights=weights, device="cuda")
+    rng = np.random.RandomState(0)
+    dists = []
+    for name in FIXTURE_FRAMES:
+        frame = ref[name]
+        bumped = frame.astype(np.int16) + (rng.rand(*frame.shape) < 0.005)
+        a = [b[:4] for b in det.detect_persons(frame)]
+        b = [b[:4] for b in det.detect_persons(np.clip(bumped, 0, 255).astype(np.uint8))]
+        dists += _nearest_box_px(a, b) + _nearest_box_px(b, a)
+    return float(np.mean([d <= BOX_MATCH_PX for d in dists])) if dists else 1.0
+
+
+def _stepped(read_frame):
+    """``read_frame`` with one uint8 step added to 0.5% of each frame's
+    values (drawn from a seed made from the path): the control of phase 17's
+    keypoint comparison."""
+    import zlib
+
+    import numpy as np
+
+    def read(path):
+        im = read_frame(path)
+        rng = np.random.RandomState(zlib.crc32(path.encode()))
+        return np.clip(im.astype(np.int16) + (rng.rand(*im.shape) < 0.005), 0,
+                       255).astype(np.uint8)
+
+    return read
+
+
+def test_split(card: str, weights) -> dict:
+    """``tools/generate_boxes`` over the fixture tree on the card (frames by
+    nvJPEG) and on the CPU (frames by the host's decoder), then the eval CLI
+    on the test split with ``USE_GT_BBOX`` false over the card's boxes, under
+    ``full`` with the decoder it chose (nvJPEG), and again with the frames
+    decoded by cv2 on the host: launches, boxes/s, keypoints."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from otpose_tpu_torch.cli.eval import Eval
+    from otpose_tpu_torch.config import default_parse_args
+    from otpose_tpu_torch.data import nvjpeg
+    from otpose_tpu_torch.detector import yolov3 as Y
+    from otpose_tpu_torch.models.factory import build_model
+    from otpose_tpu_torch.tools import generate_boxes
+    from otpose_tpu_torch.utils.testing import flagship_otpose_cfg
+
+    class LoadTimed(Eval):
+        def _load(self, model_file):
+            model = super()._load(model_file)
+            torch.cuda.synchronize()
+            self.loaded_at = time.perf_counter()
+            return model
+
+    root = tempfile.mkdtemp(prefix="otpose_test_split_")
+    try:
+        json_dir, img_dir, annot_dir = _fixture_tree(root)
+        wpath = os.path.join(root, "yolov3_seeded.weights")
+        Y.save_darknet_weights(wpath, weights, "yolov3")
+        if not all(np.array_equal(a["weight"], b["weight"])
+                   for a, b in zip(Y.load_darknet_weights(wpath), weights)):
+            fail("detector: the darknet file does not read back")
+        boxes_card, boxes_cpu = (os.path.join(root, f"test_boxes_{d}.json") for d in ("card", "cpu"))
+        base = ["--json_dir", json_dir, "--img_dir", img_dir, "--weights", wpath]
+        gb = generate_boxes.main(base + ["--out", boxes_card])
+        if not gb["decoder"].startswith("nvjpeg") or gb["frames"] != 5 or gb["boxes"] == 0:
+            fail(f"generate_boxes on the card: {gb}")
+        gb_cpu = generate_boxes.main(base + ["--out", boxes_cpu, "--device", "cpu"])
+        with open(boxes_card) as fh:
+            card_boxes = json.load(fh)
+        with open(boxes_cpu) as fh:
+            cpu_boxes = json.load(fh)
+        dists, counts = [], []
+        for name in sorted({b["image_name"] for b in card_boxes + cpu_boxes}):
+            a = [b["bbox"] for b in card_boxes if b["image_name"] == name]
+            c = [b["bbox"] for b in cpu_boxes if b["image_name"] == name]
+            dists += _nearest_box_px(a, c) + _nearest_box_px(c, a)
+            counts.append((len(a), len(c)))
+        share = float(np.mean([d <= BOX_MATCH_PX for d in dists])) if dists else 1.0
+        control = _box_control(weights)
+        ref = np.load(os.path.join(FIXTURE, "decoded.npz"))
+        steps = []
+        for name in FIXTURE_FRAMES:
+            path = os.path.join(FIXTURE, name + ".jpg")
+            h, w = ref[name].shape[:2]
+            frame = nvjpeg.decode_jpeg_batch_device([path], h, w, "cuda").out[0]
+            a = Y.preprocess_image(frame)[0]
+            b = Y.preprocess_image(torch.from_numpy(ref[name]).cuda())[0]
+            steps.append(int(((a - b).abs().max() * 255).round().item()))
+        log(f"generate_boxes: {gb['boxes']} boxes over {gb['frames']} frames on the card "
+            f"({gb['decoder']}), {gb['frames'] / gb['seconds']:.3f} frames/s; "
+            f"{gb_cpu['boxes']} on the CPU ({gb_cpu['decoder']}), "
+            f"{gb_cpu['frames'] / gb_cpu['seconds']:.3f} frames/s; boxes a frame (card, CPU) "
+            f"{counts}; {share:.2%} of both sides' boxes have a box on the other side within "
+            f"{BOX_MATCH_PX} px (control, libjpeg's frames against the same with a uint8 step "
+            f"added to 0.5% of values, on the card: {control:.2%}; bar: the control's less "
+            f"{BOX_MARGIN:.0%}); the detector's input from nvJPEG's pixels against libjpeg's, "
+            f"largest difference a frame {steps} uint8 steps (bar {DET_INPUT_STEPS}) ({card})")
+        if max(steps) > DET_INPUT_STEPS:
+            fail("generate_boxes: the detector's input from nvJPEG's pixels differs from "
+                 "libjpeg's beyond the bar")
+        if share < control - BOX_MARGIN:
+            fail("generate_boxes: the boxes from nvJPEG's frames match the CPU's less often "
+                 "than the control allows")
+
+        cfg = flagship_otpose_cfg()
+        cfg.EXPERIMENT_NAME = "chip_smoke_test_split"
+        cfg.OUTPUT_DIR = os.path.join(root, "output")
+        cfg.DATASET.NAME = "PoseTrack"
+        cfg.DATASET.JSON_DIR, cfg.DATASET.IMG_DIR, cfg.DATASET.TEST_IMG_DIR = (
+            json_dir, img_dir, img_dir)
+        cfg.DATASET.COLOR_RGB = True
+        cfg.TEST.ANNOT_DIR = annot_dir
+        cfg.TEST.USE_GT_BBOX = False
+        cfg.TEST.COCO_BBOX_FILE = boxes_card
+        cfg.TEST.IMAGE_THRE = 0.0
+        cfg.TEST.BATCH_SIZE_PER_GPU = BATCH
+        cfg.TEST.FLIP_TEST = False
+        cfg.TEST.MODEL_FILE = os.path.join(root, "random_weights.pth")
+        cfg.WORKERS = 4
+        cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+        cfg.TPU.PARAM_DTYPE = "bfloat16"
+        cfg.TPU.DEVICE_PREPROCESS = "full"
+        yaml_path = os.path.join(root, "test_split.yaml")
+        with open(yaml_path, "w") as fh:
+            fh.write(cfg.dump())
+        _, model = build_model(cfg, seed=0)
+        _scaled_weights_(model, 0)
+        _calibrate_refinement_(model, 0)
+        torch.save({"state_dict": model.state_dict()}, cfg.TEST.MODEL_FILE)
+        del model
+
+        runs = {}
+        for decoder in ("nvjpeg", "read_frame", "read_frame+step"):
+            ev = LoadTimed("test", default_parse_args(["--cfg", yaml_path, "--root_dir", root]))
+            if ev.loader.decoder != "nvjpeg":
+                fail(f"eval CLI on the test split under full chose {ev.loader.decoder}, "
+                     f"not nvjpeg")
+            ev.loader.decoder = ev.loader.decoder_detail = decoder.split("+")[0]
+            if decoder.endswith("+step"):
+                ev.dataset.read_frame = _stepped(ev.dataset.read_frame)
+            kept = {}
+            inner = ev.dataset.evaluate
+
+            def spy(cfg_, preds, *args, inner=inner, kept=kept, **kwargs):
+                kept["preds"] = np.array(preds)
+                return inner(cfg_, preds, *args, **kwargs)
+
+            ev.dataset.evaluate = spy
+            boxes, batches = len(ev.dataset), len(ev.loader)
+            if boxes != len(card_boxes):
+                fail(f"eval CLI on the test split: {boxes} boxes, the boxes file has "
+                     f"{len(card_boxes)}")
+            frames_before = dict(nvjpeg.frames)
+            torch.cuda.synchronize()
+            reset_counts()
+            results = ev.eval()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - ev.loaded_at
+            counts = read_counts()
+            want = {k: v * batches for k, v in FORWARD_COUNTS.items()}
+            if counts != want:
+                fail(f"eval CLI on the test split ({decoder}): launches {counts}, expected {want} "
+                     f"over {batches} batches")
+            decoded = sum(nvjpeg.frames.values()) - sum(frames_before.values())
+            if (decoded > 0) != (decoder == "nvjpeg"):
+                fail(f"eval CLI on the test split ({decoder}): nvJPEG decoded {decoded} frames")
+            _, name_values, _ = results[0]
+            table = np.asarray(list(name_values.values()), np.float64)
+            if table.shape != (8,) or not np.isfinite(kept["preds"]).all():
+                fail(f"eval CLI on the test split ({decoder}): AP table {table}")
+            log(f"eval CLI on the test split, USE_GT_BBOX false, full, frames decoded by "
+                f"{ev.loader.decoder_detail if decoder == 'nvjpeg' else decoder + ' (cv2)'}: "
+                f"{boxes} detector boxes, {batches} batches, {boxes / wall:.3f} boxes/s "
+                f"({wall:.3f} s from the model's load), {decoded} frames on nvJPEG; launches "
+                f"{counts}; AP " + " ".join(f"{k} {v:.4f}" for k, v in name_values.items()))
+            runs[decoder] = dict(counts=counts, batches=batches, boxes_per_s=boxes / wall,
+                                 preds=kept["preds"])
+        def keypoint_distances(x, y):
+            a, b = runs[x]["preds"][..., :2], runs[y]["preds"][..., :2]
+            return np.sqrt(((a - b) ** 2).sum(-1))
+
+        dist = keypoint_distances("nvjpeg", "read_frame")
+        ctrl = keypoint_distances("read_frame+step", "read_frame")
+        within, ctrl_within = float((dist <= KP_PX).mean()), float((ctrl <= KP_PX).mean())
+        log(f"eval CLI on the test split: keypoints from nvJPEG frames against cv2's: "
+            f"{float((dist == 0).mean()):.2%} identical, {within:.2%} within {KP_PX} px (bar: "
+            f"the control's less {KP_MARGIN:.0%}), median {float(np.median(dist)):.3f} px, max "
+            f"{dist.max():.2f} px; control, cv2's frames with a uint8 step added to 0.5% of "
+            f"values against cv2's: {float((ctrl == 0).mean()):.2%} identical, "
+            f"{ctrl_within:.2%} within {KP_PX} px, median {float(np.median(ctrl)):.3f} px")
+        if within < ctrl_within - KP_MARGIN:
+            fail("eval CLI on the test split: nvJPEG's keypoints match cv2's less often than "
+                 "the control allows")
+        return {"generate_boxes": gb, "generate_boxes_cpu": gb_cpu, "runs": runs}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def jpeg_phase(card: str) -> dict:
+    """Phase 17: the probe, nvJPEG against libjpeg, the detector on the card,
+    the test split through generate_boxes and the eval CLI, and
+    bench_input_pipeline's table on the card."""
+    import torch
+
+    from otpose_tpu_torch.data import nvjpeg
+    from otpose_tpu_torch.tools import bench_input_pipeline
+
+    phase_t0 = time.perf_counter()
+    probe = probe_decoders()
+    if not nvjpeg.is_available():
+        fail(f"nvJPEG is unavailable on this machine: {nvjpeg.reason()}")
+    nv = check_nvjpeg(card)
+    det = check_detector(card)
+    split = test_split(card, det["yolov3"]["weights"])
+    torch.cuda.empty_cache()
+    rows = bench_input_pipeline.run(samples=32, batch=BATCH, workers=(1, 4), videos=2, frames=6,
+                                    device="cuda", use_fixture=True, log=log)
+    run = split["runs"]["nvjpeg"]
+    nv_line = {"nvjpeg": {
+        "source": "otpose_tpu_torch/csrc/jpeg_nv.cu", "replaces": "host libjpeg decode "
+        "(otpose_tpu/data/device_loader.py:74-89)", "backend": nv["backend"],
+        "calls": nvjpeg.calls, "frames": dict(nvjpeg.frames),
+        "conversion_kernel_launches": nvjpeg.launches,
+        "max_abs_err": nv["max_abs_err"], "frames_per_s": nv["frames_per_s"],
+        "detector_ms": {v: det[v]["ms"] for v in det},
+        "detector_bound_ms": {v: det[v]["bound_ms"] for v in det},
+        "generate_boxes_frames_per_s": split["generate_boxes"]["frames"]
+        / split["generate_boxes"]["seconds"],
+        "test_split_boxes_per_s": run["boxes_per_s"],
+        "bench": [r for r in rows if "samples_per_s" in r]}}
+    print("nvjpeg: " + json.dumps(nv_line), flush=True)
+    log(f"JPEG and detector phase (17): {time.perf_counter() - phase_t0:.1f} s")
+    return {"probe": probe, "per_batch": {k: v // run["batches"] for k, v in run["counts"].items()}}
+
+
+def main(only: str | None = None) -> None:
     start = time.perf_counter()
     try:
         import torch
@@ -2795,7 +3431,7 @@ def main() -> None:
     _backend_flags(torch)
 
     t0 = time.perf_counter()
-    secs = build.build_all()
+    secs = build.build_all(build.KERNELS + ("jpeg_nv",))
     log(f"build: {len(secs)} kernels in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
     for name, report in build.ptxas_report.items():
@@ -2803,6 +3439,11 @@ def main() -> None:
             if "registers" in line or "spill" in line or "properties for" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
+    if only == "17":
+        # a development run of phase 17 alone: no kernels line, no result line
+        jpeg_phase(card)
+        log(f"phase 17 alone: {time.perf_counter() - start:.1f} s")
+        return
     rows = check_kernels()
     rows["token_shift"] = check_token_shift()
     flag = flagship_eval()
@@ -2834,6 +3475,9 @@ def main() -> None:
     dp = data_parallel(card)
     paths["dp_train_step_rank"] = dp["train"]
     paths["sharded_eval_batch_rank"] = dp["eval"]
+    torch.cuda.empty_cache()
+    jpeg = jpeg_phase(card)
+    paths["test_split_eval_cli_per_batch"] = jpeg["per_batch"]
     # each kernel's launches on its own path: the eval's for the model's
     # kernels, the experiment tool's for the other two, a train step's for
     # the DCN's backward
@@ -2867,6 +3511,7 @@ def main() -> None:
         f"{serve['latency_ms'][16]:.2f} ms at {BATCH}"
         + f"; data parallel (phase 16): launches a rank a train micro-batch {dp['train']}, a "
         f"sharded eval batch {dp['eval']}, a two-rank train-CLI step {dp['cli']['step']}"
+        + f"; the test split over detector boxes (phase 17): launches a batch {jpeg['per_batch']}"
         + f"; the script {time.perf_counter() - start:.1f} s ({card})")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(f"nvidia-smi: {card}", flush=True)
@@ -2884,5 +3529,7 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--dist-worker"]:
         sys.path.insert(0, ROOT)
         dist_worker(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--phase17"]:
+        main(only="17")
     else:
         main()

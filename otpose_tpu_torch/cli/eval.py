@@ -30,7 +30,7 @@ import os.path as osp
 import torch
 
 from otpose_tpu_torch.config import default_parse_args
-from otpose_tpu_torch.data import make_loader
+from otpose_tpu_torch.data import describe_loader, make_loader
 from otpose_tpu_torch.data.posetrack import PoseTrackDataset
 from otpose_tpu_torch.engine import checkpoints as ckpt
 from otpose_tpu_torch.engine.base import RunBase
@@ -68,6 +68,7 @@ class Eval(RunBase):
         self.batch = sub.BATCH_SIZE_PER_GPU * world
         self.loader = make_loader(cfg, self.dataset, self.batch, shuffle=False,
                                   device=self.device)
+        logger.info("=> %s loader: %s on %s", phase, describe_loader(self.loader), self.device)
         self.model_file = sub.MODEL_FILE
         self.flip = sub.FLIP_VAL if phase == "validate" else sub.FLIP_TEST
         self.compute_dtype = resolve_dtype(cfg.TPU.COMPUTE_DTYPE)

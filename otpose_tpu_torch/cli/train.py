@@ -36,7 +36,7 @@ import os.path as osp
 import torch
 
 from otpose_tpu_torch.config import default_parse_args
-from otpose_tpu_torch.data import make_loader
+from otpose_tpu_torch.data import describe_loader, make_loader
 from otpose_tpu_torch.data.posetrack import PoseTrackDataset
 from otpose_tpu_torch.engine import checkpoints as ckpt
 from otpose_tpu_torch.engine.base import RunBase
@@ -83,6 +83,7 @@ class Train(RunBase):
         self.loader = make_loader(cfg, self.train_dataset, self.batch_size,
                                   shuffle=cfg.TRAIN.SHUFFLE, drop_last=True, seed=self.seed,
                                   device=self.device, process_shard=True)
+        logger.info("=> train loader: %s on %s", describe_loader(self.loader), self.device)
 
         _, self.model = build_model(cfg, seed=self.seed, device=self.device)
         self.pretrained_loaded = self._load_pretrained(self.model)
@@ -210,6 +211,8 @@ class Train(RunBase):
             self._val_loader = None if self._val_dataset is None else make_loader(
                 cfg, self._val_dataset, cfg.VAL.BATCH_SIZE_PER_GPU * self.world, shuffle=False,
                 device=self.device)
+            if self._val_loader is not None:
+                logger.info("=> validation loader: %s", describe_loader(self._val_loader))
         if self._val_dataset is None:
             return None
         _, mean_ap = evaluate_epoch_decoded(

@@ -59,3 +59,13 @@ def make_loader(cfg, dataset, batch_size: int, *, shuffle: bool,
                             max_frame_hw=tuple(cfg.TPU.MAX_FRAME_HW),
                             device_prefetch=cfg.TPU.PREFETCH_DEPTH, device=device, **kwargs)
     return Loader(dataset, batch_size, **kwargs)
+
+
+def describe_loader(loader) -> str:
+    """One line for a run's log: the loader, its mode and how it decodes
+    (and, for the host loader, what warps)."""
+    name = type(loader).__name__
+    if hasattr(loader, "decoder_detail"):
+        return f"{name} ({loader.mode}; frames decoded by {loader.decoder_detail})"
+    return (f"{name} (host; frames decoded by {getattr(loader, 'decoder', '?')}, warped "
+            f"and targets drawn by {getattr(loader, 'host_warp', '?')})")

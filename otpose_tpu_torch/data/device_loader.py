@@ -19,11 +19,29 @@ Two modes:
   larger than the buffer raises and names ``max_frame_hw`` (silent cropping
   would corrupt geometry).
 
-Frames are read and warped through the dataset's ``read_frame`` and
-``warp_frame`` hooks, so ``data/synthetic.py::ArrayFramesDataset`` works
-without cv2; the train-time blur needs cv2, as on the host path.  The JAX
-package's C++ decode path (``otpose_tpu/data/native.py``) is not ported:
-this loader behaves as the JAX one does when that library is absent.
+Decoders (``decoder``, chosen when the loader is made by
+``data/decoders.py::choose_decoder`` for a dataset whose frames are JPEG
+files, ``reads_jpeg_files``):
+
+- ``"nvjpeg"``: on a CUDA device in ``full`` mode; the loader raises when
+  ``data/nvjpeg.py`` cannot build there.  The host reads the files' bytes
+  and each frame's size from its header; the card decodes the batch's
+  frames into the staging tensor.  A flip runs on the card; a train sample
+  that blurs or rotates copies its decoded frames to the host for cv2's
+  blur and the dataset's warp, as the host decode path does there.  A failure raises with the file's name and is
+  never retried on the host.
+- ``"native"``: the native IO library (``data/native.py``) decodes the
+  window on the host threads straight into the sample's staging array, as
+  the JAX package does whenever its library loads; a decode failure raises,
+  naming the files and ``max_frame_hw``.
+- ``"read_frame"``: the dataset's ``read_frame`` (cv2, or a subclass's own,
+  as ``data/synthetic.py::ArrayFramesDataset`` has for a machine without
+  cv2).
+
+The native library and nvJPEG emit RGB; ``DATASET.COLOR_RGB`` false flips
+the channels to BGR, as ``read_frame`` gives it.  ``crops`` mode decodes on
+the host (its warp runs there).  The train-time blur needs cv2, as on the
+host path.
 """
 
 from __future__ import annotations
@@ -37,11 +55,17 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
+from otpose_tpu_torch.data import native as native_io
+from otpose_tpu_torch.data import nvjpeg
+from otpose_tpu_torch.data.decoders import choose_decoder
 from otpose_tpu_torch.data.loader import Loader
 from otpose_tpu_torch.data.pipeline import preprocess_batch, preprocess_crops_batch
 from otpose_tpu_torch.data.posetrack import FLIP_PAIRS, JOINTS_WEIGHT
 from otpose_tpu_torch.ops.affine import (apply_affine_to_points, fliplr_joints,
                                          get_affine_transform, invert_affine)
+
+
+_IDENTITY = np.asarray([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], np.float32)
 
 
 class DeviceLoader(Loader):
@@ -67,6 +91,11 @@ class DeviceLoader(Loader):
         # 0 = move synchronously in the consumer
         self.device_prefetch = device_prefetch
         self.device = torch.device(device)
+        # decoder_detail: the decoder with its backend or reason, for a run's log
+        if getattr(self.dataset, "reads_jpeg_files", False):
+            self.decoder, self.decoder_detail = choose_decoder(self.device, mode)
+        else:
+            self.decoder = self.decoder_detail = "read_frame"
 
     # ---------------------------------------------------------------- host
 
@@ -75,55 +104,55 @@ class DeviceLoader(Loader):
         ds = self.dataset
         record = copy.deepcopy(ds.data[idx])
         window = ds.select_window(record["image"], record["nframes"])
-        imgs = [ds.read_frame(f) for f in window["files"]]
-        h, w = imgs[0].shape[:2]
-        if h > self.max_h or w > self.max_w:
-            raise ValueError(
-                f"frame {window['files'][0]} is ({h}, {w}) but the staging buffer is "
-                f"({self.max_h}, {self.max_w}); raise DeviceLoader max_frame_hw")
-        if self.mode == "full":
-            frames = np.zeros((5, self.max_h, self.max_w, 3), np.uint8)
-            for i, im in enumerate(imgs):
-                frames[i, :im.shape[0], :im.shape[1]] = im
-        else:   # only the (h, w) region of the staging buffer is ever read
-            frames = np.zeros((5, h, w, 3), np.uint8)
-            for i, im in enumerate(imgs):
-                part = im[:h, :w]
-                frames[i, :part.shape[0], :part.shape[1]] = part
+        files = window["files"]
+        if self.decoder == "nvjpeg":
+            # the card decodes in _to_device; the host needs only the sizes
+            data = nvjpeg.read_bytes(files)
+            h, w = nvjpeg.jpeg_size(data[0])
+            self._check_size(files[0], h, w)
+            frames = None
+        elif self.decoder == "native":
+            frames, hs, ws, fails = native_io.decode_jpeg_batch(files, self.max_h, self.max_w)
+            if fails:
+                raise ValueError(
+                    f"decode failure in {files} (a corrupt file, or a frame larger than "
+                    f"the ({self.max_h}, {self.max_w}) staging buffer: raise DeviceLoader "
+                    f"max_frame_hw)")
+            h, w = int(hs[0]), int(ws[0])
+            if not ds.color_rgb:
+                frames = np.ascontiguousarray(frames[..., ::-1])
+            if self.mode == "crops":
+                frames = np.ascontiguousarray(frames[:, :h, :w])
+        else:
+            imgs = [ds.read_frame(f) for f in files]
+            h, w = imgs[0].shape[:2]
+            self._check_size(files[0], h, w)
+            if self.mode == "full":
+                frames = np.zeros((5, self.max_h, self.max_w, 3), np.uint8)
+                for i, im in enumerate(imgs):
+                    frames[i, :im.shape[0], :im.shape[1]] = im
+            else:   # only the (h, w) region of the staging buffer is ever read
+                frames = np.zeros((5, h, w, 3), np.uint8)
+                for i, im in enumerate(imgs):
+                    part = im[:h, :w]
+                    frames[i, :part.shape[0], :part.shape[1]] = part
 
         aug = ds.sample_augmentation(record, rng)
         joints, joints_vis = aug["joints"], aug["joints_vis"]
         center, scale, r = aug["center"], aug["scale"], aug["rotation"]
-
         if aug["do_flip"]:
-            frames[:, :h, :w] = frames[:, :h, :w][:, :, ::-1]
             joints, joints_vis = fliplr_joints(joints, joints_vis, w, FLIP_PAIRS)
             center[0] = w - center[0] - 1
-        if aug["do_blur"]:
-            import cv2
-
-            s = aug["blur_sigma"]
-            for i in range(5):
-                frames[i, :h, :w] = cv2.GaussianBlur(frames[i, :h, :w], (9, 5), s)
-
+        blur = aug["blur_sigma"] if aug["do_blur"] else None
         trans = get_affine_transform(center, scale, r, ds.image_size)
-        ow, oh = int(ds.image_size[0]), int(ds.image_size[1])
-        if self.mode == "crops":
-            frames = np.stack([ds.warp_frame(np.ascontiguousarray(frames[i, :h, :w]), trans,
-                                             ow, oh) for i in range(5)])
-            inv = None
-        elif r != 0:
-            # the separable device warp takes axis-aligned maps only: warp a
-            # rotated sample here and hand the device an identity matrix over
-            # the pre-cropped region
-            warped = np.zeros_like(frames)
-            for i in range(5):
-                warped[i, :oh, :ow] = ds.warp_frame(np.ascontiguousarray(frames[i, :h, :w]),
-                                                    trans, ow, oh)
-            frames = warped
-            inv = np.asarray([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], np.float32)
+        if frames is None:
+            # nvJPEG: _to_device decodes, flips on the card, and brings a
+            # sample that blurs or rotates to the host for _host_pixels
+            frames = {"files": files, "data": data, "hw": (h, w), "flip": aug["do_flip"],
+                      "blur": blur, "trans": trans, "rotated": r != 0}
+            inv = _IDENTITY if r != 0 else invert_affine(trans)
         else:
-            inv = invert_affine(trans)
+            frames, inv = self._host_pixels(frames, h, w, aug["do_flip"], blur, trans, r != 0)
         joints_crop = joints[:, :2].copy()
         vis_mask = joints_vis[:, 0] > 0
         joints_crop[vis_mask] = apply_affine_to_points(joints[vis_mask, :2], trans)
@@ -146,6 +175,39 @@ class DeviceLoader(Loader):
                 "vis": vis, "margin": np.asarray(window["margins"], np.float32),
                 "meta": meta}
 
+    def _check_size(self, path: str, h: int, w: int) -> None:
+        if h > self.max_h or w > self.max_w:
+            raise ValueError(
+                f"frame {path} is ({h}, {w}) but the staging buffer is "
+                f"({self.max_h}, {self.max_w}); raise DeviceLoader max_frame_hw")
+
+    def _host_pixels(self, frames: np.ndarray, h: int, w: int, flip: bool, blur, trans,
+                     rotated: bool):
+        """A window's host pixel work on its (5, >= h, >= w, 3) uint8 frames:
+        flip, blur, then in crops mode the warp to crops (no matrix left for
+        the device) and in full mode a rotated sample's warp to the crop at
+        the top left (an identity matrix left: the separable device warp
+        takes axis-aligned maps only).  Returns (frames, inverse matrix)."""
+        if flip:
+            frames[:, :h, :w] = frames[:, :h, :w][:, :, ::-1]
+        if blur is not None:
+            import cv2
+
+            for i in range(5):
+                frames[i, :h, :w] = cv2.GaussianBlur(frames[i, :h, :w], (9, 5), blur)
+        ds = self.dataset
+        ow, oh = int(ds.image_size[0]), int(ds.image_size[1])
+        if self.mode == "crops":
+            return np.stack([ds.warp_frame(np.ascontiguousarray(frames[i, :h, :w]), trans,
+                                           ow, oh) for i in range(5)]), None
+        if rotated:
+            warped = np.zeros_like(frames)
+            for i in range(5):
+                warped[i, :oh, :ow] = ds.warp_frame(np.ascontiguousarray(frames[i, :h, :w]),
+                                                    trans, ow, oh)
+            return warped, _IDENTITY
+        return frames, invert_affine(trans)
+
     # -------------------------------------------------------------- device
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
@@ -156,9 +218,39 @@ class DeviceLoader(Loader):
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
+    def _decode_on_device(self, samples) -> torch.Tensor:
+        """nvJPEG: the batch's windows decoded on the card into a zeroed
+        (B, 5, max_h, max_w, 3) uint8 staging tensor, then each sample's
+        flip on the card and its blur or rotation on the host."""
+        ds = self.dataset
+        b = len(samples)
+        staging = torch.zeros((b * 5, self.max_h, self.max_w, 3), dtype=torch.uint8,
+                              device=self.device)
+        files = [f for s in samples for f in s["frames"]["files"]]
+        data = [d for s in samples for d in s["frames"]["data"]]
+        nvjpeg.decode_jpeg_batch_device(files, self.max_h, self.max_w, self.device,
+                                        out=staging, data=data)
+        staging = staging.view(b, 5, self.max_h, self.max_w, 3)
+        if not ds.color_rgb:
+            staging = staging.flip(-1)
+        for i, s in enumerate(samples):
+            f = s["frames"]
+            h, w = f["hw"]
+            if f["flip"]:
+                staging[i, :, :h, :w] = staging[i, :, :h, :w].flip(2)
+            if f["blur"] is not None or f["rotated"]:
+                host = staging[i].cpu().numpy()
+                host, _ = self._host_pixels(host, h, w, False, f["blur"], f["trans"],
+                                            f["rotated"])
+                staging[i] = torch.from_numpy(host).to(self.device)
+        return staging
+
     def _to_device(self, samples):
         ds = self.dataset
-        frames = self._tensor(np.stack([s["frames"] for s in samples]))
+        if self.decoder == "nvjpeg":
+            frames = self._decode_on_device(samples)
+        else:
+            frames = self._tensor(np.stack([s["frames"] for s in samples]))
         joints = self._tensor(np.stack([s["joints"] for s in samples]))
         vis = self._tensor(np.stack([s["vis"] for s in samples]))
         sigma = torch.tensor(float(ds.sigma), dtype=torch.float32, device=self.device)

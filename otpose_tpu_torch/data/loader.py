@@ -5,9 +5,14 @@ with a thread-pool pipeline: cv2 jpeg decode releases the GIL, so threads
 saturate host IO while the device computes; batches are staged ``prefetch``
 deep.  Deterministic per-epoch shuffling and per-sample RNG streams replicate
 ``worker_init_reset_seed`` determinism (ref: thirdparty/utils/data_utils.py:14-21).
-The port's copy of ``otpose_tpu/data/loader.py``, without the C++ batch
-kernels (ROADMAP Queue 1 item 6).  ``set_start_iteration`` restarts a pass
-mid-epoch for an iteration-exact resume.
+The port's copy of ``otpose_tpu/data/loader.py``: with ``native_host``
+(the default, as in the JAX package) each sample's warp, normalisation and
+targets go through the native IO library (``data/native.py``) when it
+loads, the JAX package's native path bit for bit; without it, or for a
+dataset whose frames are not JPEG files, through the dataset's cv2 path.
+The frames themselves are read by the dataset's ``read_frame`` either way
+(``decoder``).  ``set_start_iteration`` restarts a pass mid-epoch for an
+iteration-exact resume.
 
 Multi-process training (``process_count > 1``): ``batch_size`` is the
 global batch; every rank draws the same shuffled index batches (same seed
@@ -26,6 +31,7 @@ from typing import Iterator
 
 import numpy as np
 
+from otpose_tpu_torch.data import native as native_io
 from otpose_tpu_torch.data.pipeline import collate_host_samples
 from otpose_tpu_torch.parallel.distributed import local_rows
 
@@ -33,8 +39,15 @@ from otpose_tpu_torch.parallel.distributed import local_rows
 class Loader:
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  num_workers: int = 4, seed: int = 8888, drop_last: bool = False,
-                 prefetch: int = 2, process_index: int = 0, process_count: int = 1,
-                 accum_steps: int = 1):
+                 prefetch: int = 2, native_host: bool = True, process_index: int = 0,
+                 process_count: int = 1, accum_steps: int = 1):
+        # native_host: the warp, normalisation and targets through the native
+        # library's batch functions when it loads (float bilinear: up to a
+        # uint8 step from cv2's fixed point; PoseTrackDataset.get_sample_host)
+        self.native_host = native_host
+        # how frames are decoded: the host loader reads them with the
+        # dataset's read_frame whatever warps them (DeviceLoader chooses)
+        self.decoder = "read_frame"
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -51,6 +64,14 @@ class Loader:
                 raise ValueError("multi-process loading needs drop_last=True (every rank "
                                  "takes its share of full batches)")
             self._rows = local_rows(batch_size, accum_steps, process_index, process_count)
+
+    @property
+    def host_warp(self) -> str:
+        """What warps on the host: "native" (the native library) or the
+        dataset's ``warp_frame``."""
+        native = (self.native_host and getattr(self.dataset, "reads_jpeg_files", False)
+                  and native_io.is_available())
+        return "native" if native else "warp_frame"
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -92,7 +113,8 @@ class Loader:
             bidx, within, idx = args
             rng = np.random.RandomState(
                 (self.seed + self.epoch * 1_000_003 + idx) % (2 ** 31))
-            return self.dataset.get_sample_host(int(idx), rng=rng)
+            return self.dataset.get_sample_host(int(idx), rng=rng,
+                                                native_ok=self.native_host)
 
         def producer():
             # Any sample-load failure is forwarded to the consumer instead of

@@ -7,12 +7,16 @@ The port's copy of ``otpose_tpu/data/posetrack.py``'s host path: the host
 indexes records, picks the temporal window, reads the five frames, draws the
 augmentation parameters, warps, normalises and generates the gaussian
 targets (``data/device_loader.py`` reads and warps through the same hooks
-and leaves the rest to the device; the C++ batch kernels of the JAX package
-are not ported).  cv2 is needed only where a frame file is decoded,
-warped or blurred: ``read_frame``, ``warp_frame`` and the train-time blur
-import it when called, and a subclass may override ``frame_exists``,
-``read_frame`` and ``warp_frame`` to supply frames without it
-(``data/synthetic.py::ArrayFramesDataset`` does).
+and leaves the rest to the device).  With ``native_ok`` the warp,
+normalisation and targets go through the native IO library
+(``data/native.py``), as the JAX package's ``Loader`` does by default.
+cv2 is needed only where a frame file is decoded, warped or blurred:
+``read_frame``, ``warp_frame`` and the train-time blur import it when
+called, and a subclass may override ``frame_exists``, ``read_frame`` and
+``warp_frame`` to supply frames without it
+(``data/synthetic.py::ArrayFramesDataset`` does, and sets
+``reads_jpeg_files`` False: the native library and nvJPEG then keep off its
+frames).
 
 Reference behavioral quirks preserved because they shape the trained model /
 mAP (SURVEY.md "quirks"): ``nnext_delta`` equals ``next_delta`` when two
@@ -31,9 +35,11 @@ from typing import List, Optional
 
 import numpy as np
 
+from otpose_tpu_torch.data import native as native_io
 from otpose_tpu_torch.data.coco_json import CocoIndex
 from otpose_tpu_torch.ops.bbox import box2cs, half_body_center_scale
-from otpose_tpu_torch.ops.affine import fliplr_joints, get_affine_transform, exec_affine_transform
+from otpose_tpu_torch.ops.affine import (exec_affine_transform, fliplr_joints,
+                                         get_affine_transform, invert_affine)
 from otpose_tpu_torch.ops.heatmap import generate_heatmaps
 
 logger = logging.getLogger(__name__)
@@ -50,6 +56,11 @@ UPPER_BODY_IDS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
 
 class PoseTrackDataset:
     """Per-person-box video pose dataset (ref: PoseTrackDataset.py:24-451)."""
+
+    # the frames are the JPEG files the records name, read by ``read_frame``
+    # and warped by ``warp_frame`` (cv2): the native library's decode and
+    # warp and nvJPEG may stand in for them
+    reads_jpeg_files = True
 
     def __init__(self, cfg, phase: str):
         self.cfg = cfg
@@ -304,9 +315,17 @@ class PoseTrackDataset:
     # ------------------------------------------------------------- host path
 
     def get_sample_host(self, item_idx: int,
-                        rng: Optional[np.random.RandomState] = None) -> dict:
+                        rng: Optional[np.random.RandomState] = None,
+                        native_ok: bool = False) -> dict:
         """Full host-side sample (5 warped frames + targets + meta), matching
-        the reference __getitem__ (ref: PoseTrackDataset.py:228-451)."""
+        the reference __getitem__ (ref: PoseTrackDataset.py:228-451).
+
+        ``native_ok=True`` (the ``Loader``'s default) routes the warp and
+        normalisation and the target generation through the native IO
+        library's batch functions when it loads, the frames have one shape
+        and the dataset reads JPEG files (``reads_jpeg_files``): the JAX
+        package's native path, bit for bit.  Its float bilinear warp differs
+        from cv2's fixed point by up to a uint8 step."""
         record = copy.deepcopy(self.data[item_idx])
         window = self.select_window(record["image"], record["nframes"])
         imgs = [self.read_frame(f) for f in window["files"]]
@@ -336,9 +355,19 @@ class PoseTrackDataset:
 
         trans = get_affine_transform(center, scale, r, self.image_size)
         w, h = int(self.image_size[0]), int(self.image_size[1])
-        warped = [self.warp_frame(im, trans, w, h) for im in imgs]
-        frames = [((im.astype(np.float32) / 255.0) - IMAGENET_MEAN) / IMAGENET_STD
-                  for im in warped]
+        use_native = (native_ok and self.reads_jpeg_files
+                      and len({im.shape for im in imgs}) == 1 and native_io.is_available())
+        if use_native:
+            stack = np.ascontiguousarray(np.stack(imgs))
+            n = stack.shape[0]
+            hs = np.full(n, stack.shape[1], np.int32)
+            ws = np.full(n, stack.shape[2], np.int32)
+            inv = np.repeat(invert_affine(trans)[None], n, axis=0)
+            frames = list(native_io.warp_normalize_batch(stack, hs, ws, inv, h, w))
+        else:
+            warped = [self.warp_frame(im, trans, w, h) for im in imgs]
+            frames = [((im.astype(np.float32) / 255.0) - IMAGENET_MEAN) / IMAGENET_STD
+                      for im in warped]
 
         for i in range(self.num_joints):
             if joints_vis[i, 0] > 0.0:
@@ -347,11 +376,22 @@ class PoseTrackDataset:
             if x < 0 or y < 0 or x > self.image_size[0] or y > self.image_size[1]:
                 joints_vis[i] = [0, 0, 0]
 
-        target, target_weight = generate_heatmaps(
-            joints, joints_vis, self.sigma, self.image_size, self.heatmap_size,
-            self.num_joints,
-            use_different_joints_weight=self.use_different_joints_weight,
-            joints_weight=JOINTS_WEIGHT)
+        if use_native:
+            tgt, wgt = native_io.generate_targets_batch(
+                joints[None, :, :2], joints_vis[None, :, 0].astype(np.float32),
+                float(self.sigma),
+                float(self.image_size[0]) / float(self.heatmap_size[0]),
+                float(self.image_size[1]) / float(self.heatmap_size[1]),
+                int(self.heatmap_size[0]), int(self.heatmap_size[1]))
+            target, target_weight = tgt[0], wgt[0][:, None]
+            if self.use_different_joints_weight:
+                target_weight = target_weight * JOINTS_WEIGHT
+        else:
+            target, target_weight = generate_heatmaps(
+                joints, joints_vis, self.sigma, self.image_size, self.heatmap_size,
+                self.num_joints,
+                use_different_joints_weight=self.use_different_joints_weight,
+                joints_weight=JOINTS_WEIGHT)
 
         meta = {
             "image": record["image"],

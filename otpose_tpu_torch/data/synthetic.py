@@ -89,7 +89,11 @@ class ArrayFramesDataset(PoseTrackDataset):
     beside their ``<frame>.jpg`` names (``make_synthetic_posetrack``), for a
     machine without cv2: the frame is loaded with numpy and cropped by the
     port's torch ``warp_affine`` on the CPU, rounded to uint8 as
-    ``cv2.warpAffine`` returns it."""
+    ``cv2.warpAffine`` returns it.  Its frames are no JPEG files, so the
+    loaders read and warp them through these hooks whatever decoders the
+    machine has."""
+
+    reads_jpeg_files = False
 
     @staticmethod
     def _array_path(path: str) -> str:

@@ -10,7 +10,9 @@ Libraries go to ``build/otpose_tpu_torch/`` at the repository root, named by
 a hash of their sources and flags, so an edited source is rebuilt.  ``build_all`` starts one
 ``nvcc`` per source at once.  Kernels are built only from the sources in
 ``csrc/``.  A build with extra preprocessor ``defines`` (the phase clocks of
-``tools/kernel_phases.py``) is a library of its own.
+``tools/kernel_phases.py``) is a library of its own.  ``jpeg_nv`` (nvJPEG
+decode for ``data/nvjpeg.py``) is built the same way, linked with
+``-lnvjpeg``; it ports no TPU kernel, so it is not one of ``KERNELS``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,10 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "otpose_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# libraries a source links beyond the CUDA runtime (found at run time through
+# the toolkit's library directory, written into the library's rpath)
+LINK = {"jpeg_nv": ("-lnvjpeg",)}
 
 _libs: dict = {}
 # ptxas report (registers, shared memory, spills) of each build in this process
@@ -51,8 +57,15 @@ def _flags(defines=()) -> tuple:
     return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
 
 
+def _link(name: str) -> tuple:
+    if name not in LINK:
+        return ()
+    lib_dir = os.path.join(os.path.dirname(os.path.dirname(nvcc_path())), "lib64")
+    return LINK[name] + ("-Xlinker", f"-rpath={lib_dir}")
+
+
 def _target(name: str, defines=()) -> Path:
-    h = hashlib.sha256(" ".join(_flags(defines)).encode())
+    h = hashlib.sha256(" ".join(_flags(defines) + LINK.get(name, ())).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
@@ -68,7 +81,8 @@ def build_all(names=KERNELS, defines=()) -> dict:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu"),
+               *_link(name)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -8,7 +8,9 @@ not a multiple of its tile, rows of x not a multiple of 16 bytes, O other
 than 17, B = 1 and 3, planes too large for shared memory, every sample
 outside the image), bit-equal from call to call in every gradient, and
 marking the planes that a non-finite gradient reaches; the kernels without a
-backward refusing grad).
+backward refusing grad).  Also nvJPEG's decode (``csrc/jpeg_nv.cu``) against
+the fixture's libjpeg decode, into a staging buffer, its errors, the device
+loader that decodes with it, and the detector on the card against the CPU.
 
 Needs a CUDA device and nvcc; skips elsewhere.  On a machine with the card
 (which need not have JAX), run without the repository's conftest:
@@ -17,7 +19,10 @@ Needs a CUDA device and nvcc; skips elsewhere.  On a machine with the card
 """
 
 import math
+import os
+import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -549,3 +554,130 @@ def test_exported_program_on_the_card_equals_the_live_step(tmp_path):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     on_cpu = load_exported(out, device="cpu")(x.cpu(), margin.cpu())
     assert all(t.device.type == "cpu" and t.shape == w.shape for t, w in zip(on_cpu, want))
+
+
+# ---------------------------------------------------------------------------
+# nvJPEG (csrc/jpeg_nv.cu, data/nvjpeg.py): no TPU kernel's port, but built
+# and launched the same way; bars as chip_smoke.py's phase 17
+# ---------------------------------------------------------------------------
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "jpeg")
+JPEG_NAMES = tuple(f"frame_{i:03d}" for i in range(5)) + ("odd_444", "grey", "odd_422")
+
+
+def _jpeg_paths(names=JPEG_NAMES):
+    return [os.path.join(FIXTURE, n + ".jpg") for n in names]
+
+
+@pytest.mark.parametrize("backend", ["auto", "default"])
+def test_nvjpeg_decodes_the_fixture_close_to_libjpeg(backend):
+    from otpose_tpu_torch.data import nvjpeg
+
+    ref = np.load(os.path.join(FIXTURE, "decoded.npz"))
+    ref_planes = np.load(os.path.join(FIXTURE, "planes.npz"))
+    for name, path in zip(JPEG_NAMES, _jpeg_paths()):
+        h, w = ref[name].shape[:2]
+        dec = nvjpeg.decode_jpeg_batch_device([path], h, w, "cuda", backend=backend,
+                                              keep_planes=True)
+        assert (dec.hs[0], dec.ws[0]) == (h, w)
+        assert backend == "auto" or dec.backends == ["default"]
+        # the conversion kernel equals its plain version on nvJPEG's planes
+        assert torch.equal(nvjpeg.ycc_to_rgb(*dec.planes[0]), dec.out[0])
+        d = np.abs(dec.out[0].cpu().numpy().astype(np.int16) - ref[name].astype(np.int16))
+        assert d.max() <= 6 and d.mean() <= 0.1, (name, dec.backends, d.max(), d.mean())
+        for k, plane in zip(("y", "cb", "cr"), dec.planes[0]):
+            if plane is not None and f"{name}_{k}" in ref_planes:
+                want = ref_planes[f"{name}_{k}"].astype(np.int16)
+                assert np.abs(plane.cpu().numpy().astype(np.int16) - want).max() <= 2, (name, k)
+
+
+def test_nvjpeg_writes_each_frame_at_the_top_left_of_its_buffer_row():
+    from otpose_tpu_torch.data import nvjpeg
+
+    paths = _jpeg_paths()
+    big = torch.zeros((len(paths), 1088, 1920, 3), dtype=torch.uint8, device="cuda")
+    dec = nvjpeg.decode_jpeg_batch_device(paths, 1088, 1920, out=big)
+    hs, ws = dec.hs, dec.ws
+    for i, path in enumerate(paths):
+        alone = nvjpeg.decode_jpeg_batch_device(
+            [path], hs[i], ws[i], backend="default" if dec.backends[i] == "default"
+            else "auto").out
+        assert torch.equal(big[i, :hs[i], :ws[i]], alone[0])
+        assert not big[i, hs[i]:].any() and not big[i, :, ws[i]:].any()
+
+
+def test_nvjpeg_raises_naming_the_file(tmp_path):
+    from otpose_tpu_torch.data import nvjpeg
+
+    path = _jpeg_paths()[0]
+    with pytest.raises(ValueError, match="max_frame_hw") as err:
+        nvjpeg.decode_jpeg_batch_device([_jpeg_paths()[5], path], 720, 1000)
+    assert path in str(err.value)
+    # a truncated file decodes, its missing rows filled, as libjpeg (the
+    # native library) decodes it; a corrupt header raises, naming the file
+    short = tmp_path / "truncated.jpg"
+    short.write_bytes(open(path, "rb").read()[:2000])
+    assert nvjpeg.decode_jpeg_batch_device([str(short)], 720, 1280).hs == [720]
+    bad = tmp_path / "corrupt.jpg"
+    bad.write_bytes(b"\xff\xd8garbage")
+    with pytest.raises((RuntimeError, ValueError)) as err:
+        nvjpeg.decode_jpeg_batch_device([str(bad)], 720, 1280)
+    assert "corrupt.jpg" in str(err.value)
+    # 4:4:0 chroma: no conversion of libjpeg's for it on the card, so refused
+    s440 = os.path.join(FIXTURE, "small_440.jpg")
+    with pytest.raises(ValueError, match="chroma sampling") as err:
+        nvjpeg.decode_jpeg_batch_device([path, s440], 720, 1280)
+    assert s440 in str(err.value)
+
+
+def test_device_loader_full_decodes_on_the_card(tmp_path):
+    """``DeviceLoader`` in full mode on the card takes nvJPEG; its batches
+    against the same loader with the frames read by cv2 on the host: the
+    inputs within the decoders' difference, targets and metas equal."""
+    pytest.importorskip("cv2")
+    from otpose_tpu_torch.data.device_loader import DeviceLoader
+    from otpose_tpu_torch.data.posetrack import PoseTrackDataset
+    from otpose_tpu_torch.data.synthetic import make_synthetic_posetrack
+    from otpose_tpu_torch.utils.testing import tiny_otpose_cfg
+
+    json_dir, img_dir, annot_dir = make_synthetic_posetrack(
+        str(tmp_path), num_videos=1, frames_per_video=5, people_per_frame=2, img_w=1280,
+        img_h=720)
+    arrays = sorted(os.path.join(d, f) for d, _, fs in os.walk(img_dir) for f in fs
+                    if f.endswith(".npy"))
+    for src, path in zip(_jpeg_paths(JPEG_NAMES[:5]), arrays):
+        shutil.copyfile(src, path[:-4] + ".jpg")
+        os.remove(path)
+    for phase in ("validate", "train"):
+        cfg = tiny_otpose_cfg()
+        cfg.DATASET.JSON_DIR, cfg.DATASET.IMG_DIR, cfg.DATASET.TEST_IMG_DIR = (
+            json_dir, img_dir, img_dir)
+        cfg.VAL.ANNOT_DIR = annot_dir
+        cfg.TRAIN.PROB_HALF_BODY = 0.0
+        ds = PoseTrackDataset(cfg, phase)
+        kw = dict(shuffle=False, num_workers=2, mode="full", device="cuda", device_prefetch=0)
+        card = DeviceLoader(ds, 4, **kw)
+        host = DeviceLoader(ds, 4, **kw)
+        assert card.decoder == "nvjpeg"
+        host.decoder = "read_frame"
+        for (a, am), (b, bm) in zip(card, host):
+            d = (a["inputs"] - b["inputs"]).abs()
+            assert d.mean().item() < 0.05 and a["inputs"].is_cuda
+            for k in ("target", "target_weight", "margin"):
+                assert torch.equal(a[k], b[k]), (phase, k)
+            assert [m["image"] for m in am] == [m["image"] for m in bm]
+
+
+@pytest.mark.parametrize("variant", ["yolov3", "yolov3-tiny"])
+def test_detector_on_the_card_matches_the_cpu(variant):
+    from otpose_tpu_torch.detector import yolov3 as Y
+
+    rng = np.random.RandomState(0)
+    cpu = Y.build_yolo(Y.init_he_weights(0, variant, obj_bias=-1.0), variant, "cpu")
+    cpu.calibrate_bn_(torch.from_numpy(rng.rand(2, 3, 416, 416).astype(np.float32)))
+    gpu = Y.build_yolo(cpu.darknet_params(), variant, "cuda")
+    x = torch.from_numpy(rng.rand(1, 3, 416, 416).astype(np.float32))
+    with torch.no_grad():
+        want, got = cpu(x)[0].numpy(), gpu(x.cuda())[0].cpu().numpy()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    assert torch.backends.cudnn.allow_tf32      # restored after the forward

@@ -240,7 +240,7 @@ def test_device_loader_bgr_when_color_rgb_false(ds):
     """``DATASET.COLOR_RGB`` false gives BGR frames, as on the host path."""
     bgr = copy.copy(ds)
     bgr.color_rgb = False
-    (hb, _), (db, _) = (next(iter(Loader(bgr, 2, shuffle=False, num_workers=2))),
+    (hb, _), (db, _) = (next(iter(Loader(bgr, 2, shuffle=False, num_workers=2, native_host=False))),
                         next(iter(DeviceLoader(bgr, 2, device="cpu",
                                                **_loader_kwargs("crops")))))
     np.testing.assert_allclose(_np(db["inputs"]), hb["inputs"], rtol=0, atol=1e-6)

@@ -36,6 +36,7 @@ from otpose_tpu.models.otpose import _init_otpose_impl
 from otpose_tpu.utils.testing import tiny_otpose_cfg as jax_tiny_cfg
 from otpose_tpu_torch.cli.eval import Eval
 from otpose_tpu_torch.config import default_parse_args
+from otpose_tpu_torch.data import native as port_native
 from otpose_tpu_torch.data.device_loader import DeviceLoader
 from otpose_tpu_torch.engine.runner import (AverageMeter, _pipelined_forward, evaluate_epoch,
                                             make_flip_eval_step)
@@ -49,6 +50,16 @@ from tests.helpers.torch_port import numpy_weights, one_torch_thread  # noqa: F4
 
 pytest.importorskip("cv2")
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _port_native_off():
+    """The port's native IO library reported absent too, as the JAX
+    package's is below: both packages read, crop and draw targets on the
+    cv2 path (the native warp differs from cv2's by a uint8 step)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_native, "is_available", lambda: False)
+        yield
 AP_KEYS = ("Head", "Shoulder", "Elbow", "Wrist", "Hip", "Knee", "Ankle", "Mean")
 
 

@@ -59,7 +59,9 @@ def test_every_port_module_imports_without_cv2():
         "        'engine.base', 'engine.checkpoints', 'engine.export', 'engine.optim',\n"
         "        'engine.preempt', 'engine.runner', 'engine.trainer', 'models.losses',\n"
         "        'ops.ct', 'ops.cuda.registry', 'tools.serve', 'parallel.distributed',\n"
-        "        'parallel.mesh',\n"
+        "        'parallel.mesh', 'data.native', 'data.nvjpeg', 'data.decoders',\n"
+        "        'detector.yolov3', 'ops.nms',\n"
+        "        'tools.generate_boxes', 'tools.bench_input_pipeline',\n"
         "        'evaluate.converters', 'evaluate.keypoints', 'evaluate.pck', 'evaluate.poseval',\n"
         "        'evaluate.tracking', 'utils.profiling', 'utils.table', 'utils.testing',\n"
         "        'utils.timing']\n"
@@ -67,6 +69,30 @@ def test_every_port_module_imports_without_cv2():
         "assert not missing, missing\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'otpose_tpu', 'orbax'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_decoders_detector_and_their_tools_import_neither_cv2_nor_pil():
+    """The native IO bindings, nvJPEG's wrapper, the decoders' choice, the
+    detector, NMS and the two tools import cv2 and PIL only where a path
+    needs them (the cv2 decode of ``generate_boxes`` without a native
+    library, the host loader's frames, PIL's rate in ``chip_smoke.py``), not
+    when imported; nothing of them builds a library at import either."""
+    code = (
+        "import sys\n"
+        "sys.modules['cv2'] = None\n"
+        "sys.modules['PIL'] = None\n"
+        "import otpose_tpu_torch.data.native as n, otpose_tpu_torch.data.nvjpeg as nv\n"
+        "import otpose_tpu_torch.data.decoders\n"
+        "import otpose_tpu_torch.detector.yolov3, otpose_tpu_torch.ops.nms\n"
+        "import otpose_tpu_torch.tools.generate_boxes, otpose_tpu_torch.tools.bench_input_pipeline\n"
+        "import otpose_tpu_torch.data.device_loader, otpose_tpu_torch.data.loader\n"
+        "assert n._lib is None and n._reason is None and nv._ctx is None\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'otpose_tpu', 'cv2', 'PIL') and sys.modules[k] is not None)\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)

@@ -167,13 +167,14 @@ def test_train_sample_with_a_fixed_random_state_is_equal(tree):
 def test_loader_batches_are_equal(tree):
     want_ds, got_ds = _pair(tree, "validate")
     want = list(JaxLoader(want_ds, 3, num_workers=2, native_host=False))
-    got_loader = Loader(got_ds, 3, num_workers=2)
+    got_loader = Loader(got_ds, 3, num_workers=2, native_host=False)
     got = list(got_loader)
     assert len(got) == len(want) == len(got_loader)
     for (wb, wm), (gb, gm) in zip(want, got):
         _assert_same(wb, gb, "batch")
         _assert_same(wm, gm, "metas")
-    shuffled = Loader(got_ds, 3, num_workers=2, shuffle=True, drop_last=True, seed=5)
+    shuffled = Loader(got_ds, 3, num_workers=2, shuffle=True, drop_last=True, seed=5,
+                      native_host=False)
     want_shuffled = JaxLoader(want_ds, 3, num_workers=2, shuffle=True, drop_last=True, seed=5,
                               native_host=False)
     assert [m["image"] for _, ms in shuffled for m in ms] == \

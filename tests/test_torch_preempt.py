@@ -52,6 +52,7 @@ from otpose_tpu.models.otpose import OTPoseSpec as JaxSpec
 from otpose_tpu.models.otpose import _init_otpose_impl
 from otpose_tpu.ops.heatmap import adjust_sigma as jax_adjust_sigma
 from otpose_tpu.utils.testing import tiny_otpose_cfg as jax_tiny_cfg
+from otpose_tpu_torch.data import native as port_native
 from otpose_tpu_torch.data.device_loader import DeviceLoader
 from otpose_tpu_torch.data.loader import Loader
 from otpose_tpu_torch.data.posetrack import PoseTrackDataset
@@ -74,6 +75,16 @@ from tests.helpers.torch_port import (calibrate_refinement, numpy_weights,  # no
 
 pytest.importorskip("cv2")
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _port_native_off():
+    """The port's native IO library reported absent too, as the JAX
+    package's is below: both packages read, crop and draw targets on the
+    cv2 path (the native warp differs from cv2's by a uint8 step)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_native, "is_available", lambda: False)
+        yield
 METRICS = ("final_loss", "ohkm_loss_s", "mse_loss_s", "occ_final_loss", "pck_acc", "grad_norm")
 
 
