@@ -27,16 +27,22 @@ Phases, each of which must pass or the script exits non-zero:
    DCN must stay at or below 5%); the fused kernels and the DCN are timed
    through weights packed once, as the model calls them, and the packed
    call must give the raw-weight call's bits (every kernel sums in a fixed
-   order); every row's ``ms``
+   order), twice; every row's ``ms``
    is CUDA events around eager calls, and the DCN (at B = 16 and B = 1, both
    modes, both dtypes) is also timed by replaying a CUDA graph of 20 calls
-   (``graph_ms``), the device's time without the wrapper's host work;
+   (``graph_ms``), the device's time without the wrapper's host work; the
+   f32 fused attention and MLP (split TF32 on the tensor cores) must meet an
+   f64 witness within 1e-4 of the output's peak (the attention's score,
+   softmax and att @ v tail in f64; the MLP's whole tail) and be faster than
+   their plain versions at B = 16 (B = 1 printed), their bound being three
+   TF32 passes at 495 TFLOP/s;
 4. runs the flagship decoded eval (HRNet-W48, 384x288, B = 16) from
-   ``build_model`` in bf16 with bf16 weights, then in f32, checks the output
+   ``build_model`` in bf16 with bf16 weights, then in f32 with and without
+   the fused kernels (``fused=False``: 0 / 0 / 1 launches), checks the output
    shapes and values and the kernel launch counts (12 / 16 / 1 per forward),
    that the counted step packs no weights (the blocks and the model cache
-   their packs, the DCN's included),
-   and times the bf16 step in clips/s;
+   their packs, the DCN's included), and times the steps in clips/s (the
+   two f32 steps in turns: kernels, plain, plain, kernels);
 5. runs the flagship flip-test decoded eval in bf16 (two forwards a step:
    24 / 32 / 2 launches) and times it in clips/s;
 6. runs the single-clip inference API (``PoseEstimator.infer_images``, B = 1,
@@ -212,6 +218,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
 BATCH = 16
 KERNEL_MODULES = ("fused_attn", "fused_mlp", "deform_conv", "deform_conv_fused", "token_shift")
@@ -292,12 +299,13 @@ def dcn_case(dtype, gen, batch):
 
 def work(name, args):
     """(bytes, operations, peak rate of those operations) the function needs:
-    matrix products at the tensor-core bf16 rate, or the f32 rate outside
-    the tensor cores in f32 (TF32 is off); the deformable conv's sampling
-    and FMAs are scalar f32 work."""
+    matrix products at the tensor-core bf16 rate, or in f32 as three TF32
+    passes on the tensor cores (the least work that keeps f32 accuracy
+    there: the f32 fused kernels' split); the deformable conv's sampling and
+    FMAs are scalar f32 work."""
     import torch
 
-    mm_peak = PEAK_F32 if args[0].dtype == torch.float32 else PEAK_BF16
+    mm_peak = PEAK_TF32 / 3 if args[0].dtype == torch.float32 else PEAK_BF16
     if name == "fused_attn":
         x = args[0]
         b, c, t = x.shape
@@ -338,6 +346,21 @@ def attn_f64_errors(args, got, want):
     qs = (q * q.new_tensor(1 / math.sqrt(hs))).double().reshape(b, n_head, hs, t)
     s64 = qs @ k.double().reshape(b, n_head, hs, t).transpose(-1, -2)
     ref = (torch.softmax(s64, -1) @ v.double().reshape(b, n_head, hs, t)).reshape(b, c, t)
+    return ((got.double() - ref).abs().max().item(), (want.double() - ref).abs().max().item())
+
+
+def mlp_f64_errors(args, got, want):
+    """max|kernel - ref| and max|plain - ref|, where ref is the whole MLP
+    tail (LN, both products, exact GELU, residual) in f64 from the same f32
+    inputs."""
+    import torch
+
+    x, lw, lb, w1, b1, w2, b2 = (a.double() for a in args)
+    mu = x.mean(1, keepdim=True)
+    var = ((x - mu) ** 2).mean(1, keepdim=True)
+    n = (x - mu) / torch.sqrt(var + 1e-5) * lw.reshape(1, -1, 1) + lb.reshape(1, -1, 1)
+    h = torch.nn.functional.gelu(w1[:, :, 0] @ n + b1[:, None])
+    ref = x + w2[:, :, 0] @ h + b2[:, None]
     return ((got.double() - ref).abs().max().item(), (want.double() - ref).abs().max().item())
 
 
@@ -389,7 +412,7 @@ def check_kernels():
     # boundary, the tolerance of the JAX package's bf16 kernel tests.
     tol = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, shares, dcn_ms, dcn_graph_ms = {}, {}, {}, {}
+    rows, shares, dcn_ms, dcn_graph_ms, f32_rows = {}, {}, {}, {}, {}
     for name, (kern, plain, src, replaces) in kernels.items():
         for dtype in (torch.float32, torch.bfloat16):
             # the eval's batch first (the timed case), then the inference API's
@@ -416,6 +439,13 @@ def check_kernels():
                         f"{k_err:.3e}, plain {p_err:.3e} (kernel tolerance 1e-04 x {scale:.3g})")
                     if not k_err <= 1e-4 * scale:
                         fail("fused_attn f32 disagrees with the f64 reference")
+                if name == "fused_mlp" and dtype == torch.float32:
+                    k_err, p_err = mlp_f64_errors(args, got, want)
+                    log(f"check fused_mlp float32 x{tuple(args[0].shape)} against the tail in "
+                        f"f64: kernel {k_err:.3e}, plain {p_err:.3e} (kernel tolerance 1e-04 x "
+                        f"{scale:.3g})")
+                    if not k_err <= 1e-4 * scale:
+                        fail("fused_mlp f32 disagrees with the f64 reference")
                 if name in ("fused_attn", "fused_mlp") and dtype == torch.bfloat16:
                     # the max error cannot see a dropped rounding point (it
                     # stays within an ulp of the peak); the share of outputs
@@ -461,14 +491,18 @@ def check_kernels():
                         f"mode {other:.4%} (kernel must stay below a tenth of the other)")
                     if not own < 0.1 * other:
                         fail("deform_conv_fused bf16 does not round as its plain version does")
-                # time the eval's case, and the DCN's inference case too
+                # time the eval's case, the DCN's inference case too, and the
+                # f32 fused kernels' inference case (B = 1, T = 6912)
                 dcn = name in ("deform_conv", "deform_conv_fused")
-                if i == 0 or (dcn and i == len(cases) - 1):
+                fused32 = name in ("fused_attn", "fused_mlp") and dtype == torch.float32
+                if (i == 0 or (dcn and i == len(cases) - 1)
+                        or (fused32 and shape[0] == 1 and shape[2] == 6912)):
                     call = packed_call(name, kern, args)
                     # every kernel sums in a fixed order: a call gives the same
                     # bits each time, the raw-weight call the packed call's
-                    if name != "deform_conv_fused" and not torch.equal(call(), got):
-                        fail(f"{name} {dtype}: the packed-weight call differs from the "
+                    if name != "deform_conv_fused" and not (
+                            torch.equal(call(), got) and torch.equal(call(), got)):
+                        fail(f"{name} {dtype}: the packed-weight calls differ from the "
                              "raw-weight call")
                     ms = time_ms(call, iters=20)
                     # the DCN by graph replay too: at B = 1 eager calls time
@@ -481,7 +515,17 @@ def check_kernels():
                     log(f"time {name} {str(dtype)[6:]} B={shape[0]}: kernel {ms:.4f} ms"
                         + (f" (graph replay {gms:.4f} ms)" if dcn else "")
                         + f", plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({moved / 1e6:.1f} MB,"
-                        f" {ops / 1e9:.2f} GFLOP; {bound / ms:.1%} of it)")
+                        f" {ops / 1e9:.2f} GFLOP; {bound / ms:.1%} of it)"
+                        + (f"; at the f32 rate outside the tensor cores the bound is "
+                           f"{ops / PEAK_F32 * 1e3:.4f} ms" if fused32 else ""))
+                    if fused32:
+                        f32_rows.setdefault(name, {}).update(
+                            {f"ms_b{shape[0]}": ms, f"plain_ms_b{shape[0]}": plain_ms,
+                             f"bound_ms_b{shape[0]}": bound,
+                             f"bound_ms_fp32_cores_b{shape[0]}": ops / PEAK_F32 * 1e3})
+                        if shape[0] == BATCH and not ms < plain_ms:
+                            fail(f"{name} f32 ({ms:.4f} ms) is not faster than its plain "
+                                 f"version ({plain_ms:.4f} ms) at B={BATCH}")
                     if dtype == torch.bfloat16 and i == 0:
                         rows[name] = dict(
                             name=name, route="cuda", source=src, replaces=replaces,
@@ -503,6 +547,8 @@ def check_kernels():
     for name, by_case in dcn_ms.items():
         rows[name]["ms_by_case"] = by_case
         rows[name]["graph_ms_by_case"] = dcn_graph_ms[name]
+    for name, f32 in f32_rows.items():
+        rows[name]["f32"] = f32
     return rows
 
 
@@ -610,12 +656,25 @@ def flagship_eval():
     inputs = torch.randn(BATCH, h, w, 15, generator=gen, device="cuda")
     margin = torch.randint(0, 3, (BATCH, 4), generator=gen, device="cuda").float()
     j = spec.num_joints
-    want_counts = FORWARD_COUNTS
-    results = {}
+    results, steps = {}, {}
     f32_model = copy.deepcopy(model)
     prepare_eval_params(model, torch.bfloat16)
-    for label, m, dtype in (("bf16", model, torch.bfloat16), ("f32", f32_model, torch.float32)):
-        step = make_decoded_eval_step(m, compute_dtype=dtype)
+
+    def clips_per_s(label, iters=5):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            steps[label](inputs, margin)
+        torch.cuda.synchronize()
+        return BATCH / (time.perf_counter() - t0) * iters
+
+    # f32 with and without the kernels ("f32 plain": every block on the
+    # plain path, the DCN still its kernel)
+    for label, m, dtype, fused in (("bf16", model, torch.bfloat16, True),
+                                   ("f32", f32_model, torch.float32, True),
+                                   ("f32 plain", f32_model, torch.float32, False)):
+        want_counts = FORWARD_COUNTS if fused else dict(FORWARD_COUNTS, fused_attn=0,
+                                                        fused_mlp=0)
+        step = steps[label] = make_decoded_eval_step(m, compute_dtype=dtype, fused=fused)
         step(inputs, margin)                   # warm-up: cuDNN picks its algorithms
         torch.cuda.synchronize()
         reset_counts()
@@ -633,17 +692,26 @@ def flagship_eval():
                                ("raw_coords", raw, (BATCH, j, 2))):
             if tuple(t.shape) != shape or not torch.isfinite(t).all():
                 fail(f"flagship {label} {name}: shape {tuple(t.shape)} or non-finite values")
-        iters = 5
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            step(inputs, margin)
-        torch.cuda.synchronize()
-        sec = (time.perf_counter() - t0) / iters
-        log(f"flagship {label}: {sec * 1e3:.2f} ms per step of {BATCH} clips, "
-            f"{BATCH / sec:.3f} clips/s")
-        results[label] = dict(counts=counts, clips_per_s=BATCH / sec,
-                              peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        results[label] = dict(counts=counts, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                               coords=coords.float().cpu(), maxvals=maxvals.float().cpu())
+        if label == "bf16":          # timed right after its counted step, as before
+            results[label]["clips_per_s"] = clips_per_s(label)
+    # the f32 pair in turns (kernels, plain, plain, kernels) inside this call
+    f32_turns = {"f32": [], "f32 plain": []}
+    for label in ("f32", "f32 plain", "f32 plain", "f32"):
+        f32_turns[label].append(clips_per_s(label))
+    for label, rates in f32_turns.items():
+        results[label]["clips_per_s"] = sum(rates) / len(rates)
+    for label in ("bf16", "f32", "f32 plain"):
+        rate = results[label]["clips_per_s"]
+        log(f"flagship {label}: {BATCH / rate * 1e3:.2f} ms per step of {BATCH} clips, "
+            f"{rate:.3f} clips/s" + (f" (turns {', '.join(f'{r:.3f}' for r in f32_turns[label])})"
+                                     if label in f32_turns else ""))
+    fused, plain = results["f32"], results["f32 plain"]
+    d = (fused["maxvals"] - plain["maxvals"]).abs().max().item()
+    same = (fused["coords"] == plain["coords"]).all(-1).float().mean().item()
+    log(f"flagship f32 with the kernels against without: maxvals differ by {d:.3e} at most "
+        f"(peak {plain['maxvals'].abs().max().item():.3e}), keypoints identical on {same:.2%}")
     # bf16 (bf16 weights) against f32 keypoints on the same clips: the
     # reference init's heatmaps are nearly flat, so ties and near-ties move
     same = (results["bf16"]["coords"] == results["f32"]["coords"]).all(-1).float().mean().item()
@@ -3448,7 +3516,7 @@ def main(only: str | None = None) -> None:
     rows["token_shift"] = check_token_shift()
     flag = flagship_eval()
     infer = inference_api(*flag["model"])
-    eval_rates = {k: flag[k]["clips_per_s"] for k in ("bf16", "f32", "flip")}
+    eval_rates = {k: flag[k]["clips_per_s"] for k in ("bf16", "f32", "f32 plain", "flip")}
     latency = infer["latency_ms"]
     paths = {"decoded_eval": flag["bf16"]["counts"], "flip_eval": flag["flip"]["counts"],
              "inference": infer["counts"], **tools()}
@@ -3487,7 +3555,8 @@ def main(only: str | None = None) -> None:
         row["launches"] = paths[own.get(name, "decoded_eval")][name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items()}
     log(f"flagship decoded eval bf16: {eval_rates['bf16']:.3f} clips/s, "
-        f"f32: {eval_rates['f32']:.3f} clips/s, flip bf16: "
+        f"f32: {eval_rates['f32']:.3f} clips/s (without the fused kernels "
+        f"{eval_rates['f32 plain']:.3f}), flip bf16: "
         f"{eval_rates['flip']:.3f} clips/s (B={BATCH}); inference latency B=1: "
         f"{latency:.3f} ms; train step: "
         + "; ".join(f"{k} {sorted(r['ms'])[len(r['ms']) // 2]:.2f} ms, peak {r['peak_gib']:.2f} GiB"

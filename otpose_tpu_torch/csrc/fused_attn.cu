@@ -71,142 +71,31 @@
 //     ms at the bound); recomputing it in phase 3 would read x again (30 MB,
 //     0.009 ms) and redo ln1, the depthwise conv, its LN and the 4.1 GFLOP
 //     projection, whose scalar front is the slow part of phase 1.
-// f32 (`qkv_scores_kernel`, `softmax_kernel`, `att_v_kernel`): the same three
-// phases as f32 FMA loops from shared memory, the parity path (on the tensor
-// cores f32 would run as TF32).
+// f32 (`qkv_scores_tf32_kernel`, `attn_softmax_f32_kernel`,
+// `att_v_tf32_kernel`): the same three phases in split TF32 (mma.sync
+// m16n8k8, each operand split as hi + lo, three passes lo hi + hi lo + hi hi
+// into f32 accumulators, `csrc/mma.cuh`), to f32 accuracy: the JAX package's
+// f32 path asks its matrix unit for the highest precision, and the scores
+// sum over all of T with |S| in the hundreds.  Bound on the H100: three TF32
+// passes of the 16.4 GFLOP at 495 TFLOP/s, 0.099 ms, against 120 MB of f32
+// traffic (0.036 ms), so operations.
+//   - Weights packed once: (3, Cp, Cp) f32 with C zero-padded to Cp, a
+//     multiple of 8 (the TF32 mma depth: 136 stays 136), split where they
+//     are loaded.  The three f32 projections would take 228 KB of shared
+//     memory at C = 136 (227 KB a block), so one projection's weights are
+//     resident at a time, the next streaming from L2 by cp.async while the
+//     depthwise conv and LN run (see `qkv_scores_tf32_kernel`).
+//   - The scalar front is the bf16 kernel's column passes on f32 tiles; the
+//     conv is the plain version's three products and two sums, unfused.
+//   - v is an f32 scratch in device memory, as in the plain f32 path; the
+//     softmax is f32 with att's columns zero-padded to kp = hs rounded up to
+//     8, the K of att @ v.
 #include "common.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int kTT = 32;       // tokens per chunk in qkv_scores (one per lane)
 constexpr int kThreads = 256;
-constexpr int kTV = 128;      // tokens per block in att_v
-
-// Two blocks an SM, the most its shared memory holds at C = 136 (110 KB a
-// block): without that hint ptxas aimed at more blocks and spilled.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-qkv_scores_kernel(const T* __restrict__ x, const float* __restrict__ ln1w,
-                  const float* __restrict__ ln1b, const float* __restrict__ dw,
-                  const float* __restrict__ nw, const float* __restrict__ nb,
-                  const float* __restrict__ pw, const float* __restrict__ pb,
-                  T* __restrict__ v_out, float* __restrict__ s_out, int C, int Tn,
-                  int hs, int nsplit, float scale) {
-  extern __shared__ float sm[];
-  const int LDN = kTT + 2, LD = kTT + 1;
-  float* n_sh = sm;                 // C x LDN   ln1(x) with halo
-  float* y_sh = n_sh + C * LDN;     // C x LD    dwconv, then its LN
-  float* q_sh = y_sh + C * LD;      // C x LD    q * scale
-  float* k_sh = q_sh + C * LD;      // C x LD
-  float* s_sh = k_sh + C * LD;      // C x hs    this block's score sum
-  float* mu_sh = s_sh + C * hs;     // LDN
-  float* sd_sh = mu_sh + LDN;       // LDN
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = kThreads / 32;
-  const int b = blockIdx.y;
-  const int nchunks = (Tn + kTT - 1) / kTT;
-  const T* xb = x + (size_t)b * C * Tn;
-  const float eps = 1e-5f;
-
-  for (int e = tid; e < C * hs; e += kThreads) s_sh[e] = 0.f;
-
-  for (int chunk = blockIdx.x; chunk < nchunks; chunk += nsplit) {
-    const int t0 = chunk * kTT;
-    const int tcount = min(kTT, Tn - t0);
-    __syncthreads();
-    for (int i = tid; i < C * LDN; i += kThreads) {
-      const int c = i / LDN, j = i % LDN, t = t0 - 1 + j;
-      n_sh[i] = (t >= 0 && t < Tn) ? to_f<T>(xb[(size_t)c * Tn + t]) : 0.f;
-    }
-    __syncthreads();
-    if (tid < LDN) {
-      float s = 0.f;
-      for (int c = 0; c < C; ++c) s += n_sh[c * LDN + tid];
-      const float mu = s / C;
-      float v = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float r = n_sh[c * LDN + tid] - mu;
-        v += r * r;
-      }
-      mu_sh[tid] = mu;
-      sd_sh[tid] = sqrtf(v / C + eps);
-    }
-    __syncthreads();
-    for (int i = tid; i < C * LDN; i += kThreads) {
-      const int c = i / LDN, j = i % LDN, t = t0 - 1 + j;
-      n_sh[i] = (t >= 0 && t < Tn)
-          ? rnd<T>((n_sh[i] - mu_sh[j]) / sd_sh[j] * ln1w[c] + ln1b[c]) : 0.f;
-    }
-    __syncthreads();
-
-    for (int p = 0; p < 3; ++p) {
-      const float* dwp = dw + p * C * 3;
-      for (int i = tid; i < C * kTT; i += kThreads) {
-        const int c = i / kTT, t = i % kTT;
-        if (t < tcount) {
-          const float* nr = n_sh + c * LDN + t;
-          const float a = rnd<T>(rnd<T>(nr[0] * dwp[c * 3 + 0]) +
-                                 rnd<T>(nr[1] * dwp[c * 3 + 1]));
-          y_sh[c * LD + t] = rnd<T>(a + rnd<T>(nr[2] * dwp[c * 3 + 2]));
-        }
-      }
-      __syncthreads();
-      if (tid < tcount) {
-        float s = 0.f;
-        for (int c = 0; c < C; ++c) s += y_sh[c * LD + tid];
-        const float mu = s / C;
-        float v = 0.f;
-        for (int c = 0; c < C; ++c) {
-          const float r = y_sh[c * LD + tid] - mu;
-          v += r * r;
-        }
-        mu_sh[tid] = mu;
-        sd_sh[tid] = sqrtf(v / C + eps);
-      }
-      __syncthreads();
-      for (int i = tid; i < C * kTT; i += kThreads) {
-        const int c = i / kTT, t = i % kTT;
-        if (t < tcount)
-          y_sh[c * LD + t] = rnd<T>((y_sh[c * LD + t] - mu_sh[t]) / sd_sh[t] *
-                                    nw[p * C + c] + nb[p * C + c]);
-      }
-      __syncthreads();
-      // projection: lane = token, warps stride over output channels
-      const float* wp = pw + (size_t)p * C * C;
-      if (lane < tcount) {
-        for (int o = warp; o < C; o += nwarps) {
-          const float* wr = wp + (size_t)o * C;
-          float acc = 0.f;
-          for (int c = 0; c < C; ++c) acc += __ldg(wr + c) * y_sh[c * LD + lane];
-          const float val = rnd<T>(rnd<T>(acc) + pb[p * C + o]);
-          if (p == 0) {
-            q_sh[o * LD + lane] = rnd<T>(val * scale);
-          } else if (p == 1) {
-            k_sh[o * LD + lane] = val;
-          } else {
-            v_out[((size_t)b * C + o) * Tn + t0 + lane] = from_f<T>(val);
-          }
-        }
-      }
-      __syncthreads();
-    }
-    // same-head scores of this chunk
-    for (int e = tid; e < C * hs; e += kThreads) {
-      const int i = e / hs;
-      const int j = (i / hs) * hs + e % hs;
-      const float* qr = q_sh + i * LD;
-      const float* kr = k_sh + j * LD;
-      float acc = 0.f;
-      for (int t = 0; t < tcount; ++t) acc += qr[t] * kr[t];
-      s_sh[e] += acc;
-    }
-  }
-  __syncthreads();
-  float* sb = s_out + ((size_t)blockIdx.x * gridDim.y + b) * C * hs;
-  for (int e = tid; e < C * hs; e += kThreads) sb[e] = s_sh[e];
-}
 
 // S (the first n floats of s) = the nsplit partials of n floats each, added
 // in split order
@@ -216,62 +105,6 @@ __global__ void qkv_scores_reduce_kernel(float* __restrict__ s, long long n, int
   float acc = s[e];
   for (int p = 1; p < nsplit; ++p) acc += s[p * n + e];
   s[e] = acc;
-}
-
-template <typename T>
-__global__ void softmax_kernel(const float* __restrict__ s, float* __restrict__ att,
-                               int rows, int hs) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const float* sr = s + (size_t)r * hs;
-  float* ar = att + (size_t)r * hs;
-  float m = -INFINITY;
-  for (int j = 0; j < hs; ++j) m = fmaxf(m, rnd<T>(sr[j]));
-  float sum = 0.f;
-  for (int j = 0; j < hs; ++j) {
-    const float e = expf(rnd<T>(sr[j]) - m);
-    ar[j] = e;
-    sum += e;
-  }
-  for (int j = 0; j < hs; ++j) ar[j] = rnd<T>(ar[j] / sum);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-att_v_kernel(const float* __restrict__ att, const T* __restrict__ v, T* __restrict__ out,
-             int C, int Tn, int hs) {
-  extern __shared__ float sm[];
-  float* a_sh = sm;               // C x hs
-  float* v_sh = a_sh + C * hs;    // C x kTV
-  const int tid = threadIdx.x, b = blockIdx.y;
-  const int t0 = blockIdx.x * kTV;
-  const int tcount = min(kTV, Tn - t0);
-  const float* ab = att + (size_t)b * C * hs;
-  const T* vb = v + (size_t)b * C * Tn;
-  for (int i = tid; i < C * hs; i += kThreads) a_sh[i] = ab[i];
-  for (int i = tid; i < C * kTV; i += kThreads) {
-    const int c = i / kTV, t = i % kTV;
-    v_sh[i] = t < tcount ? to_f<T>(vb[(size_t)c * Tn + t0 + t]) : 0.f;
-  }
-  __syncthreads();
-  const int t = tid % kTV;
-  if (t >= tcount) return;
-  for (int i = tid / kTV; i < C; i += kThreads / kTV) {
-    const float* ar = a_sh + i * hs;
-    const float* vr = v_sh + (i / hs) * hs * kTV + t;
-    float acc = 0.f;
-    for (int j = 0; j < hs; ++j) acc += ar[j] * vr[j * kTV];
-    out[((size_t)b * C + i) * Tn + t0 + t] = from_f<T>(acc);
-  }
-}
-
-size_t smem_scores(int C, int hs) {
-  return sizeof(float) * ((size_t)C * (kTT + 2) + 3 * (size_t)C * (kTT + 1) +
-                          (size_t)C * hs + 2 * (kTT + 2));
-}
-
-size_t smem_att_v(int C, int hs) {
-  return sizeof(float) * ((size_t)C * hs + (size_t)C * kTV);
 }
 
 // ---------------------------------------------------------------------------
@@ -306,15 +139,15 @@ __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 // LayerNorm over C of one tile column whose values SUBS threads hold, the
 // thread `sub` channels sub, sub + SUBS, ... in v[]: f32 mean and standard
 // deviation combined with shuffles (the SUBS threads are adjacent lanes),
-// then rnd((v - mu) * (1 / sd) * w[c] + b[c]) (0 where `zero`) stored at
-// dst[c * ld] when `store`.  Every lane of the warp calls it.  The
+// then (v - mu) * (1 / sd) * w[c] + b[c] (0 where `zero`) stored as D (bf16
+// or f32) at dst[c * ld] when `store`.  Every lane of the warp calls it.  The
 // reciprocal, taken once a column, keeps an IEEE division (a branchy
 // sequence of dependent instructions) out of the per-element work; it moves
 // the f32 value by at most an ulp or so before the bf16 rounding.
-template <int PER, int SUBS>
+template <int PER, int SUBS, typename D>
 __device__ __forceinline__ void ln_column(const float (&v)[PER], int C, int sub,
                                           const float* __restrict__ w,
-                                          const float* __restrict__ b, bf16* dst, int ld,
+                                          const float* __restrict__ b, D* dst, int ld,
                                           bool store, bool zero) {
   float s = 0.f;
 #pragma unroll
@@ -337,7 +170,7 @@ __device__ __forceinline__ void ln_column(const float (&v)[PER], int C, int sub,
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int c = sub + SUBS * i;
-    if (c < C) dst[c * ld] = __float2bfloat16_rn(zero ? 0.f : (v[i] - mu) * rs * w[c] + b[c]);
+    if (c < C) dst[c * ld] = from_f<D>(zero ? 0.f : (v[i] - mu) * rs * w[c] + b[c]);
   }
 }
 
@@ -672,6 +505,438 @@ att_v_tc_kernel(const bf16* __restrict__ att, const bf16* __restrict__ v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32: split TF32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kLDNf = kTcTok + 12;       // ln1 tile: halo at column 3, body 4..35, halo 36
+constexpr int kH0f = 3;
+constexpr int kLDQf = kTcTok + 4;        // q and k tiles (channels x tokens): 4 mod 8
+constexpr int kLDVf = kTokV + 8;         // att_v_tf32's v and out tiles: 8 mod 32
+constexpr int kF32MaxSlots = 10;         // score tiles a warp holds without spilling
+
+// one warp's m16 x n8 tile d += A @ B in split TF32, A's fragment and B's
+// two registers as ldmatrix gives them (f32 bits)
+__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  uint32_t ahi[4], alo[4], bh0, bh1, bl0, bl1;
+  split_tf32_x4(a, ahi, alo);
+  split_tf32(__uint_as_float(b0), bh0, bl0);
+  split_tf32(__uint_as_float(b1), bh1, bl1);
+  mma_3xtf32(d, ahi, alo, bh0, bh1, bl0, bl1);
+}
+
+// Phase 1 in f32.  The bf16 kernel's plan (one block an SM walking every
+// nsplit-th chunk of 32 tokens, column passes for the front, the same-head
+// score tiles dealt to the warps and held in registers across chunks,
+// partial sums stored per split), with four differences:
+//   - the three f32 projection weights (3 x 136 x 140 x 4 = 228 KB at
+//     C = 136) do not fit beside the tiles in 227 KB, so one projection's
+//     weights sit in shared memory at a time: W[p + 1] streams from L2 by
+//     cp.async while the depthwise conv and LN of p + 1 run, which do not
+//     read them (and W[0] of the next chunk behind the scores and ln1);
+//   - 512 threads leave 128 registers a thread, which the split fragments
+//     and the score tiles share.  With up to 6 score tiles a warp (the
+//     flagship: 90 tiles), warp w < Mp / 16 computes m16 row tile w of a
+//     projection over all four token tiles, as in bf16; with 7 to 10 (hs up
+//     to 136) the projection is dealt to all 16 warps as tasks of one row
+//     tile by two token tiles, which need fewer registers and split each
+//     weight fragment twice (-Xptxas -v: no spills either way; more than
+//     10 tiles a warp spilled, so the wrapper refuses those shapes);
+//   - LN(dwconv) is stored token-major (kTcTok x LDY), so that ldmatrix
+//     gives the projection's B fragments (TF32 fragments hold one 32-bit
+//     element a register: a matrix stored [k][n] has no transposing load);
+//   - v goes from the accumulators straight to the f32 scratch (each lane
+//     pair writes whole 32-byte sectors), not through shared memory.
+// SMAX: score tiles (m16 x n8) a warp holds, at least
+// ceil(n_head * ceil(hs / 16) * ceil(hs / 8) / kWarps1).
+template <int SMAX>
+__global__ void __launch_bounds__(kThreads1, 1)
+qkv_scores_tf32_kernel(const float* __restrict__ x, const float* __restrict__ ln1w,
+                       const float* __restrict__ ln1b, const float* __restrict__ dw,
+                       const float* __restrict__ nw, const float* __restrict__ nb,
+                       const float* __restrict__ pw, const float* __restrict__ pb,
+                       float* __restrict__ v_out, float* __restrict__ s_out, int C, int Cp,
+                       int Tn, int hs, int n_head, int nsplit, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Mp = (Cp + 15) & ~15, LDW = Cp + 4, LDY = Cp + 4, R = C + 16;
+  float* w_sh = reinterpret_cast<float*>(smem);   // Mp x LDW: one projection's weights
+  float* n_sh = w_sh + Mp * LDW;                  // C x kLDNf: ln1(x) with its halo
+  float* y_sh = n_sh + C * kLDNf;                 // kTcTok x LDY: LN(dwconv)^T
+  float* q_sh = y_sh + kTcTok * LDY;              // R x kLDQf
+  float* k_sh = q_sh + R * kLDQf;                 // R x kLDQf
+  float* ln1w_sh = k_sh + R * kLDQf;              // C
+  float* ln1b_sh = ln1w_sh + C;                   // C
+  float* nw_sh = ln1b_sh + C;                     // 3 x C
+  float* nb_sh = nw_sh + 3 * C;                   // 3 x C
+  float* pb_sh = nb_sh + 3 * C;                   // 3 x Cp
+  float* dw_sh = pb_sh + 3 * Cp;                  // 3 x C x 4: 3 taps, 0
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int b = blockIdx.y;
+  const int nchunks = (Tn + kTcTok - 1) / kTcTok;
+  const float* xb = x + (size_t)b * C * Tn;
+  const int MT = Mp / 16, KT = Cp / 8;
+  const int MTh = (hs + 15) / 16, NTh = (hs + 7) / 8, ntiles = n_head * MTh * NTh;
+
+  // A chunk's x: the body by cp.async where it is whole and its rows
+  // 16-byte aligned, the two halo tokens by plain loads into registers
+  const bool vec = Tn % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  float halo[kHaloPer];
+  auto fetch = [&](int chunk) {
+    const int t0 = chunk * kTcTok;
+    if (vec && t0 + kTcTok <= Tn) {
+      for (int e = tid; e < C * (kTcTok / 4); e += kThreads1) {
+        const int c = e / (kTcTok / 4), ch = e % (kTcTok / 4);
+        cp_async16(n_sh + c * kLDNf + kH0f + 1 + ch * 4, xb + (size_t)c * Tn + t0 + ch * 4);
+      }
+    }
+    cp_async_commit();
+#pragma unroll
+    for (int k = 0; k < kHaloPer; ++k) {
+      const int e = tid + k * kThreads1, c = e >> 1;
+      const int t = (e & 1) ? t0 + kTcTok : t0 - 1;
+      halo[k] = (c < C && t >= 0 && t < Tn) ? xb[(size_t)c * Tn + t] : 0.f;
+    }
+  };
+  // the x chunk has landed (W_0, committed after it, may still be in flight)
+  auto land = [&](int chunk) {
+    const int t0 = chunk * kTcTok;
+    cp_async_wait<1>();
+#pragma unroll
+    for (int k = 0; k < kHaloPer; ++k) {
+      const int e = tid + k * kThreads1, c = e >> 1;
+      if (c < C) n_sh[c * kLDNf + ((e & 1) ? kH0f + 1 + kTcTok : kH0f)] = halo[k];
+    }
+    if (!(vec && t0 + kTcTok <= Tn)) {
+      for (int i = tid; i < C * kTcTok; i += kThreads1) {
+        const int c = i / kTcTok, j = i % kTcTok, t = t0 + j;
+        n_sh[c * kLDNf + kH0f + 1 + j] = t < Tn ? xb[(size_t)c * Tn + t] : 0.f;
+      }
+    }
+    __syncthreads();
+  };
+  // projection p's weights (Cp rows of Cp) into w_sh
+  auto load_w = [&](int p) {
+    const float* src = pw + (size_t)p * Cp * Cp;
+    for (int e = tid; e < Cp * (Cp / 4); e += kThreads1) {
+      const int r = e / (Cp / 4), ch = e % (Cp / 4);
+      cp_async16(w_sh + r * LDW + ch * 4, src + (size_t)r * Cp + ch * 4);
+    }
+    cp_async_commit();
+  };
+
+  for (int i = tid; i < C; i += kThreads1) {
+    ln1w_sh[i] = ln1w[i];
+    ln1b_sh[i] = ln1b[i];
+  }
+  for (int i = tid; i < 3 * C; i += kThreads1) {
+    nw_sh[i] = nw[i];
+    nb_sh[i] = nb[i];
+  }
+  for (int i = tid; i < 3 * Cp; i += kThreads1) pb_sh[i] = pb[i];
+  for (int i = tid; i < 12 * C; i += kThreads1)
+    dw_sh[i] = (i & 3) == 3 ? 0.f : dw[(i >> 2) * 3 + (i & 3)];
+  // zero for the whole kernel: weight rows past Cp, y columns past C, q and
+  // k rows past C (the tiles of the last head read up to 15 rows past it)
+  for (int i = tid; i < (Mp - Cp) * LDW; i += kThreads1) w_sh[Cp * LDW + i] = 0.f;
+  for (int i = tid; i < kTcTok * LDY; i += kThreads1) y_sh[i] = 0.f;
+  for (int i = tid; i < 2 * R * kLDQf; i += kThreads1) q_sh[i] = 0.f;   // q_sh, k_sh
+  __syncthreads();
+
+  float sacc[SMAX][4];
+#pragma unroll
+  for (int s = 0; s < SMAX; ++s) sacc[s][0] = sacc[s][1] = sacc[s][2] = sacc[s][3] = 0.f;
+
+  if (blockIdx.x < nchunks) {
+    fetch(blockIdx.x);
+    load_w(0);
+  }
+  for (int chunk = blockIdx.x; chunk < nchunks; chunk += nsplit) {
+    const int t0 = chunk * kTcTok;
+    const int tcount = min(kTcTok, Tn - t0);
+    const bool more = chunk + nsplit < nchunks;
+    OTP_PHASE_START;
+    land(chunk);
+    OTP_PHASE(0);
+    float* nh = n_sh + kH0f;                    // column j: token t0 - 1 + j
+    {
+      // ln1 of the 34 columns: kSubs1 threads a column
+      const int j = tid / kSubs1, sub = tid % kSubs1, t = t0 - 1 + j;
+      float v[kChPer1];
+#pragma unroll
+      for (int i = 0; i < kChPer1; ++i) {
+        const int c = sub + kSubs1 * i;
+        v[i] = (j < kTcHalo && c < C) ? nh[c * kLDNf + j] : 0.f;
+      }
+      ln_column<kChPer1, kSubs1>(v, C, sub, ln1w_sh, ln1b_sh, nh + j, kLDNf, j < kTcHalo,
+                                 t < 0 || t >= Tn);
+    }
+    __syncthreads();
+    OTP_PHASE(1);
+
+    for (int p = 0; p < 3; ++p) {
+      {
+        // depthwise conv as the plain version's three products and two sums
+        // (no fused multiply-add), then its LN: kSubs threads a token column
+        const int t = tid / kSubs, sub = tid % kSubs;
+        const float* dwp = dw_sh + p * C * 4;
+        float v[kChPer];
+#pragma unroll
+        for (int i = 0; i < kChPer; ++i) {
+          const int c = min(sub + kSubs * i, C - 1);   // straight-line code; masked below
+          const float* nr = nh + c * kLDNf + t;
+          const float2 d01 = *reinterpret_cast<const float2*>(dwp + c * 4);   // the 3 taps
+          const float a = __fadd_rn(__fmul_rn(nr[0], d01.x), __fmul_rn(nr[1], d01.y));
+          v[i] = sub + kSubs * i < C ? __fadd_rn(a, __fmul_rn(nr[2], dwp[c * 4 + 2])) : 0.f;
+        }
+        ln_column<kChPer, kSubs>(v, C, sub, nw_sh + p * C, nb_sh + p * C, y_sh + t * LDY, 1,
+                                 true, false);
+      }
+      __syncthreads();
+      OTP_PHASE(2);
+      if (p == 2) {
+        if (more) fetch(chunk + nsplit);   // n_sh is free
+        else cp_async_commit();            // keeps the wait below the same
+      }
+      if (p == 2) cp_async_wait<1>();      // W_2 (the next chunk's x may still be in flight)
+      else cp_async_wait<0>();
+      __syncthreads();
+      OTP_PHASE(6);
+
+      // the epilogue of one m16 x n8 tile of the projection (row tile mt,
+      // token tile nt): q, scaled, into q_sh; k into k_sh; v to the scratch
+      auto store = [&](const float (&acc)[4], int mt, int nt) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int o = mt * 16 + g + hh * 8, tt = nt * 8 + 2 * qd;
+          if (o >= C) continue;
+          const float bias = pb_sh[p * Cp + o];
+          float v0 = acc[2 * hh] + bias, v1 = acc[2 * hh + 1] + bias;
+          if (p == 2) {
+            float* vr = v_out + ((size_t)b * C + o) * Tn + t0 + tt;
+            if (tt + 1 < tcount && Tn % 2 == 0) {
+              *reinterpret_cast<float2*>(vr) = make_float2(v0, v1);
+            } else {
+              if (tt < tcount) vr[0] = v0;
+              if (tt + 1 < tcount) vr[1] = v1;
+            }
+            continue;
+          }
+          if (p == 0) {
+            v0 *= scale;
+            v1 *= scale;
+          }
+          if (tt >= tcount) v0 = 0.f;
+          if (tt + 1 >= tcount) v1 = 0.f;
+          *reinterpret_cast<float2*>((p == 0 ? q_sh : k_sh) + o * kLDQf + tt) =
+              make_float2(v0, v1);
+        }
+      };
+      // projection: P (Mp x 32 tokens) = Wp @ Y
+      if constexpr (SMAX <= 6) {
+        // warp w < MT owns m16 row tile w and all four token tiles, as in bf16
+        float pacc[kTcTok / 8][4];
+#pragma unroll
+        for (int j = 0; j < kTcTok / 8; ++j)
+          pacc[j][0] = pacc[j][1] = pacc[j][2] = pacc[j][3] = 0.f;
+        if (warp < MT) {
+          const float* wa = w_sh + warp * 16 * LDW + a_off_f32(lane, LDW);
+          const float* yb = y_sh + bnk_x4_off_f32(lane, LDY);
+#pragma unroll 1
+          for (int kk = 0; kk < KT; ++kk) {
+            uint32_t a[4], b01[4], b23[4];
+            ldsm_x4(a, wa + kk * 8);
+            ldsm_x4(b01, yb + kk * 8);
+            ldsm_x4(b23, yb + 16 * LDY + kk * 8);
+            uint32_t ahi[4], alo[4], bhi[4], blo[4];
+            split_tf32_x4(a, ahi, alo);
+            split_tf32_x4(b01, bhi, blo);
+            mma_3xtf32(pacc[0], ahi, alo, bhi[0], bhi[1], blo[0], blo[1]);
+            mma_3xtf32(pacc[1], ahi, alo, bhi[2], bhi[3], blo[2], blo[3]);
+            split_tf32_x4(b23, bhi, blo);
+            mma_3xtf32(pacc[2], ahi, alo, bhi[0], bhi[1], blo[0], blo[1]);
+            mma_3xtf32(pacc[3], ahi, alo, bhi[2], bhi[3], blo[2], blo[3]);
+          }
+        }
+        OTP_PHASE(3);
+        __syncthreads();   // every warp is done with w_sh and y_sh
+        if (p < 2) load_w(p + 1);
+        else if (more) load_w(0);
+        if (warp < MT) {
+#pragma unroll
+          for (int j = 0; j < kTcTok / 8; ++j) store(pacc[j], warp, j);
+        }
+      } else {
+        // more score tiles than fit beside a warp's four token tiles: tasks
+        // of one row tile by two token tiles, dealt to all warps, each
+        // storing its epilogue at once (the projection reads neither q_sh
+        // nor k_sh)
+        for (int task = warp; task < 2 * MT; task += kWarps1) {
+          const int mt = task % MT, nt0 = 2 * (task / MT);
+          float pacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+          const float* wa = w_sh + mt * 16 * LDW + a_off_f32(lane, LDW);
+          const float* yb = y_sh + nt0 * 8 * LDY + bnk_x4_off_f32(lane, LDY);
+#pragma unroll 1
+          for (int kk = 0; kk < KT; ++kk) {
+            uint32_t a[4], bt[4], ahi[4], alo[4], bhi[4], blo[4];
+            ldsm_x4(a, wa + kk * 8);
+            ldsm_x4(bt, yb + kk * 8);
+            split_tf32_x4(a, ahi, alo);
+            split_tf32_x4(bt, bhi, blo);
+            mma_3xtf32(pacc[0], ahi, alo, bhi[0], bhi[1], blo[0], blo[1]);
+            mma_3xtf32(pacc[1], ahi, alo, bhi[2], bhi[3], blo[2], blo[3]);
+          }
+          store(pacc[0], mt, nt0);
+          store(pacc[1], mt, nt0 + 1);
+        }
+        OTP_PHASE(3);
+        __syncthreads();   // every warp is done with w_sh and y_sh
+        if (p < 2) load_w(p + 1);
+        else if (more) load_w(0);
+      }
+      OTP_PHASE(4);
+    }
+    __syncthreads();   // q and k of the chunk are complete
+
+    // same-head scores of this chunk, K = its tokens.  A warp's slots past
+    // the last tile repeat that tile; their sums are never stored.
+#pragma unroll
+    for (int s = 0; s < SMAX; ++s) {
+      const int tile = min(warp + kWarps1 * s, ntiles - 1);
+      const int h = tile / (MTh * NTh), r = tile % (MTh * NTh);
+      const int mt = r / NTh, nt = r % NTh;
+      const float* qa = q_sh + (h * hs + mt * 16) * kLDQf + a_off_f32(lane, kLDQf);
+      const float* kb = k_sh + (h * hs + nt * 8) * kLDQf + bnk_x2_off_f32(lane, kLDQf);
+#pragma unroll
+      for (int kk = 0; kk < kTcTok / 8; ++kk) {
+        uint32_t a[4], b0, b1;
+        ldsm_x4(a, qa + kk * 8);
+        ldsm_x2(b0, b1, kb + kk * 8);
+        mma_split(sacc[s], a, b0, b1);
+      }
+    }
+    OTP_PHASE(5);
+  }
+
+  float* sb = s_out + ((size_t)blockIdx.x * gridDim.y + b) * C * hs;
+#pragma unroll
+  for (int s = 0; s < SMAX; ++s) {
+    const int tile = warp + kWarps1 * s;
+    if (tile < ntiles) {
+      const int h = tile / (MTh * NTh), r = tile % (MTh * NTh);
+      const int mt = r / NTh, nt = r % NTh;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = mt * 16 + g + (e >> 1) * 8, j = nt * 8 + 2 * qd + (e & 1);
+        if (i < hs && j < hs) sb[(size_t)(h * hs + i) * hs + j] = sacc[s][e];
+      }
+    }
+  }
+}
+
+// att (rows x kp) = softmax(S) in f32 over the hs real columns; the columns
+// [hs, kp) are zero
+__global__ void attn_softmax_f32_kernel(const float* __restrict__ s, float* __restrict__ att,
+                                        int rows, int hs, int kp) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const float* sr = s + (size_t)r * hs;
+  float* ar = att + (size_t)r * kp;
+  float m = -INFINITY;
+  for (int j = 0; j < hs; ++j) m = fmaxf(m, sr[j]);
+  float sum = 0.f;
+  for (int j = 0; j < hs; ++j) sum += expf(sr[j] - m);
+  for (int j = 0; j < hs; ++j) ar[j] = expf(sr[j] - m) / sum;
+  for (int j = hs; j < kp; ++j) ar[j] = 0.f;
+}
+
+// out_h (hs x 64 tokens) = att_h @ v_h per block in split TF32, K = hs
+// padded to kp (a multiple of 8; att's padded columns are zero), one n8
+// token tile a warp.  v's B fragments are plain loads (v is stored [k][n]).
+__global__ void __launch_bounds__(kThreads)
+att_v_tf32_kernel(const float* __restrict__ att, const float* __restrict__ v,
+                  float* __restrict__ out, int C, int Tn, int hs, int n_head, int kp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int LDA = kp + 4, R = C + 16;
+  float* a_sh = reinterpret_cast<float*>(smem);   // R x LDA: att, rows past C zero
+  float* v_sh = a_sh + R * LDA;                   // (C + 8) x kLDVf: v tile, rows past C zero
+  float* o_sh = v_sh + (C + 8) * kLDVf;           // C x kLDVf: out tile
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int b = blockIdx.y, t0 = blockIdx.x * kTokV;
+  const int tcount = min(kTokV, Tn - t0);
+  const float* ab = att + (size_t)b * C * kp;
+  const float* vb = v + (size_t)b * C * Tn + t0;
+  // att rows are 16-byte aligned (kp is a multiple of 8); v rows where the
+  // tile is whole and T a multiple of 4
+  for (int e = tid; e < C * (kp / 4); e += kThreads) {
+    const int c = e / (kp / 4), ch = e % (kp / 4);
+    cp_async16(a_sh + c * LDA + ch * 4, ab + (size_t)c * kp + ch * 4);
+  }
+  for (int i = tid; i < 16 * kp; i += kThreads) a_sh[(C + i / kp) * LDA + i % kp] = 0.f;
+  if (tcount == kTokV && Tn % 4 == 0) {
+    for (int e = tid; e < C * (kTokV / 4); e += kThreads) {
+      const int c = e / (kTokV / 4), ch = e % (kTokV / 4);
+      cp_async16(v_sh + c * kLDVf + ch * 4, vb + (size_t)c * Tn + ch * 4);
+    }
+  } else {
+    for (int i = tid; i < C * kTokV; i += kThreads) {
+      const int c = i / kTokV, t = i % kTokV;
+      v_sh[c * kLDVf + t] = t < tcount ? vb[(size_t)c * Tn + t] : 0.f;
+    }
+  }
+  for (int i = tid; i < 8 * kTokV; i += kThreads) v_sh[(C + i / kTokV) * kLDVf + i % kTokV] = 0.f;
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int MTh = (hs + 15) / 16, KT = kp / 8;
+  for (int pr = 0; pr < n_head * MTh; ++pr) {
+    const int h = pr / MTh, mt = pr % MTh;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* aa = a_sh + (h * hs + mt * 16) * LDA + a_off_f32(lane, LDA);
+    const float* vv = v_sh + (h * hs + qd) * kLDVf + warp * 8 + g;
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, aa + kk * 8);
+      mma_split(acc, a, __float_as_uint(vv[kk * 8 * kLDVf]),
+                __float_as_uint(vv[(kk * 8 + 4) * kLDVf]));
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = mt * 16 + g + hh * 8;
+      if (i < hs)
+        *reinterpret_cast<float2*>(o_sh + (h * hs + i) * kLDVf + warp * 8 + 2 * qd) =
+            make_float2(acc[2 * hh], acc[2 * hh + 1]);
+    }
+  }
+  __syncthreads();
+  if (tcount == kTokV && Tn % 4 == 0) {
+    for (int e = tid; e < C * (kTokV / 4); e += kThreads) {
+      const int c = e / (kTokV / 4), ch = e % (kTokV / 4);
+      *reinterpret_cast<float4*>(out + ((size_t)b * C + c) * Tn + t0 + ch * 4) =
+          *reinterpret_cast<const float4*>(o_sh + c * kLDVf + ch * 4);
+    }
+  } else {
+    for (int i = tid; i < C * kTokV; i += kThreads) {
+      const int c = i / kTokV, t = i % kTokV;
+      if (t < tcount) out[((size_t)b * C + c) * Tn + t0 + t] = o_sh[c * kLDVf + t];
+    }
+  }
+}
+
+size_t tf32_scores_smem(int C, int Cp) {
+  const size_t mp = (Cp + 15) / 16 * 16, ld = Cp + 4;
+  return sizeof(float) * (mp * ld + (size_t)C * kLDNf + kTcTok * ld +
+                          2 * (size_t)(C + 16) * kLDQf + 20 * (size_t)C + 3 * (size_t)Cp);
+}
+
+size_t tf32_att_v_smem(int C, int kp) {
+  return sizeof(float) * ((size_t)(C + 16) * (kp + 4) + (size_t)(C + 8) * kLDVf +
+                          (size_t)C * kLDVf);
+}
+
 int round16(int n) { return (n + 15) / 16 * 16; }
 
 size_t tc_scores_smem(int C, int Cp) {
@@ -693,44 +958,64 @@ void reduce_scores(float* s, long long n, int nsplit, cudaStream_t st) {
 }  // namespace
 
 // Dynamic shared memory the largest of the kernels of `dtype` needs (0 =
-// f32, 1 = bf16); the bf16 kernels take C <= 160 only.
+// f32, 1 = bf16), or (size_t)-1 for a shape they do not take: C above 160,
+// and in f32 more than 16 x kF32MaxSlots same-head score tiles (hs above 136
+// with one head).
 extern "C" size_t otp_fused_attn_smem(int C, int n_head, int dtype) {
   const int hs = C / n_head;
+  if (C > kMaxCp) return (size_t)-1;
+  if (dtype == 0 && n_head * ((hs + 15) / 16) * ((hs + 7) / 8) > kWarps1 * kF32MaxSlots)
+    return (size_t)-1;
   if (dtype == 1) {
-    if (C > kMaxCp) return (size_t)-1;
     const size_t a = tc_scores_smem(C, round16(C)), c = tc_att_v_smem(C, round16(hs));
     return a > c ? a : c;
   }
-  const size_t a = smem_scores(C, hs), c = smem_att_v(C, hs);
+  const size_t a = tf32_scores_smem(C, (C + 7) / 8 * 8), c = tf32_att_v_smem(C, (hs + 7) / 8 * 8);
   return a > c ? a : c;
 }
 
 // f32.  x, v_scr, out: (B, C, T).  ln1w/ln1b: (C,).  dw: (3, C, 3), nw/nb:
-// (3, C), pw: (3, C_out, C_in), pb: (3, C).  s_scr: (nsplit, B, C, hs);
-// att_scr: (B, C, hs).
+// (3, C).  pw: (3, Cp, Cp) and pb: (3, Cp), zero-padded (`pack_attn_weights`),
+// Cp = C rounded up to 8.  s_scr: (nsplit, B, C, hs); att_scr: (B, C, kp) with
+// kp = hs rounded up to 8.
 extern "C" int otp_fused_attn_f32(const void* x, const void* ln1w, const void* ln1b,
                                   const void* dw, const void* nw, const void* nb,
                                   const void* pw, const void* pb, void* v_scr, void* s_scr,
-                                  void* att_scr, void* out, int B, int C, int Tn, int n_head,
-                                  float scale, int nsplit, void* stream) {
-  using T = float;
+                                  void* att_scr, void* out, int B, int C, int Cp, int Tn,
+                                  int n_head, float scale, int nsplit, void* stream) {
+  if (n_head <= 0 || C % n_head || Cp != (C + 7) / 8 * 8 || Cp > kMaxCp)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int hs = C / n_head;
-  const size_t smem_a = smem_scores(C, hs), smem_c = smem_att_v(C, hs);
-  cudaFuncSetAttribute(qkv_scores_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem_a);
-  cudaFuncSetAttribute(att_v_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem_c);
-  qkv_scores_kernel<T><<<dim3(nsplit, B), kThreads, smem_a, st>>>(
-      (const T*)x, (const float*)ln1w, (const float*)ln1b, (const float*)dw, (const float*)nw,
-      (const float*)nb, (const float*)pw, (const float*)pb, (T*)v_scr, (float*)s_scr, C, Tn,
-      hs, nsplit, scale);
+  const int hs = C / n_head, kp = (hs + 7) / 8 * 8;
+  const int ntiles = n_head * ((hs + 15) / 16) * ((hs + 7) / 8);
+  const int per_warp = (ntiles + kWarps1 - 1) / kWarps1;
+  const size_t smem_a = tf32_scores_smem(C, Cp), smem_c = tf32_att_v_smem(C, kp);
+  const dim3 grid_a(nsplit, B);
+#define OTP_SCORES(S)                                                                     \
+  do {                                                                                    \
+    cudaFuncSetAttribute(qkv_scores_tf32_kernel<S>,                                       \
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);       \
+    qkv_scores_tf32_kernel<S><<<grid_a, kThreads1, smem_a, st>>>(                         \
+        (const float*)x, (const float*)ln1w, (const float*)ln1b, (const float*)dw,        \
+        (const float*)nw, (const float*)nb, (const float*)pw, (const float*)pb,           \
+        (float*)v_scr, (float*)s_scr, C, Cp, Tn, hs, n_head, nsplit, scale);              \
+  } while (0)
+  // the score accumulators share the 128 registers a thread has with the
+  // projection's split fragments: no more slots than the shape needs
+  if (per_warp <= 4) OTP_SCORES(4);
+  else if (per_warp <= 6) OTP_SCORES(6);      // the flagship: 90 tiles
+  else if (per_warp <= 8) OTP_SCORES(8);
+  else if (per_warp <= kF32MaxSlots) OTP_SCORES(kF32MaxSlots);   // hs = 136, one head: 153
+  else return (int)cudaErrorInvalidValue;
+#undef OTP_SCORES
   const int rows = B * C;
   reduce_scores((float*)s_scr, (long long)rows * hs, nsplit, st);
-  softmax_kernel<T><<<(rows + 127) / 128, 128, 0, st>>>((const float*)s_scr, (float*)att_scr,
-                                                        rows, hs);
-  att_v_kernel<T><<<dim3((Tn + kTV - 1) / kTV, B), kThreads, smem_c, st>>>(
-      (const float*)att_scr, (const T*)v_scr, (T*)out, C, Tn, hs);
+  attn_softmax_f32_kernel<<<(rows + 127) / 128, 128, 0, st>>>((const float*)s_scr,
+                                                              (float*)att_scr, rows, hs, kp);
+  cudaFuncSetAttribute(att_v_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem_c);
+  att_v_tf32_kernel<<<dim3((Tn + kTokV - 1) / kTokV, B), kThreads, smem_c, st>>>(
+      (const float*)att_scr, (const float*)v_scr, (float*)out, C, Tn, hs, n_head, kp);
   return (int)cudaGetLastError();
 }
 

@@ -46,9 +46,37 @@
 //   Rounding points as the plain version: rnd(rnd(acc1) + b1), GELU in f32
 //   (the exact erf form) rounded, rnd(rnd(acc2) + b2), rnd(x + y).
 //
-// f32: `fused_mlp_kernel`, f32 FMA loops from shared memory (the parity path:
-// on the tensor cores f32 would run as TF32).  A block owns 64 tokens and
-// walks the hidden rows in tiles of 32.
+// f32: `fused_mlp_tf32_kernel`, the same plan in split TF32 (mma.sync
+// m16n8k8: each operand split as hi + lo, three passes lo hi + hi lo + hi hi
+// into f32 accumulators, `csrc/mma.cuh`), to f32 accuracy: the JAX package's
+// f32 path asks its matrix unit for the highest precision.  Bound on the
+// H100: three TF32 passes of the 32.7 GFLOP at 495 TFLOP/s, 0.198 ms,
+// against 120 MB of traffic in f32 (0.036 ms), so operations.
+//   - Weights packed once (`pack_mlp_weights`): W1 (Hp, Cp) and W2 (Cp, Hp)
+//     f32, C zero-padded to Cp (a multiple of 8, the TF32 mma depth: 136
+//     stays 136), split into hi and lo where they are loaded, so the pack
+//     holds the weights themselves.
+//   - Fragment layouts: in TF32 two n8 C tiles are not the next product's A
+//     fragment (C holds columns 2q and 2q + 1, A wants q and q + 4).  The
+//     hidden index is a sum index of the second product, so the pack
+//     permutes W2's hidden columns inside each group of 8 (`HIDDEN_ORDER`)
+//     and the GELU tile stays in the lanes that computed it.
+//   - Registers: the LN output split in hi and lo is four times the bf16
+//     kernel's packed pairs (136 registers at Cp = 136 beside the 68 of the
+//     accumulators), so it stays in shared memory and each warp reads its A
+//     fragments with ldmatrix (which gives the TF32 layouts on f32 data)
+//     for every hidden tile.
+//   - 128 tokens and eight warps a block, 145 KB of shared memory at C = 136
+//     (one block an SM; 238 registers a thread): the LN reads x straight from
+//     device memory into registers (two threads a token), W1 / W2 hidden
+//     tiles of 32 stream from L2 double buffered by cp.async, the second
+//     product's accumulators stay in registers, and the output tile goes
+//     back through the freed weight buffers for coalesced stores of x + y
+//     (x read again).  128 tokens, not 64 with two blocks an SM, halve the
+//     weight traffic a token for the eval's B = 16; at B = 1 they leave 54
+//     blocks for 132 SMs.
+//   No rounding points of bf16: f32 LN (the division of the plain version),
+//   GELU in its exact erf form, out = x + (acc + b2).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -57,112 +85,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace otp_mma;
 
-// ---------------------------------------------------------------------------
-// f32: FMA loops
-// ---------------------------------------------------------------------------
-
-constexpr int kMT = 64;        // tokens per block
 constexpr int kHT = 32;        // hidden rows per tile (both kernels)
-constexpr int kThreads = 256;
-constexpr int kGroups = kThreads / kMT;   // row groups in the second product
-constexpr int kMaxRows = 40;              // C <= kGroups * kMaxRows = 160
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_mlp_kernel(const T* __restrict__ x, T* __restrict__ out, const float* __restrict__ lnw,
-                 const float* __restrict__ lnb, const float* __restrict__ w1,
-                 const float* __restrict__ b1, const float* __restrict__ w2,
-                 const float* __restrict__ b2, int C, int H, int Tn) {
-  extern __shared__ float sm[];
-  float* xn_sh = sm;                 // C x kMT
-  float* w1_sh = xn_sh + C * kMT;    // kHT x C
-  float* w2_sh = w1_sh + kHT * C;    // C x kHT
-  float* h_sh = w2_sh + C * kHT;     // kHT x kMT
-  float* mu_sh = h_sh + kHT * kMT;   // kMT
-  float* sd_sh = mu_sh + kMT;        // kMT
-
-  const int tid = threadIdx.x, b = blockIdx.y;
-  const int t0 = blockIdx.x * kMT;
-  const int tcount = min(kMT, Tn - t0);
-  const T* xb = x + (size_t)b * C * Tn + t0;
-  T* ob = out + (size_t)b * C * Tn + t0;
-
-  for (int i = tid; i < C * kMT; i += kThreads) {
-    const int c = i / kMT, t = i % kMT;
-    xn_sh[i] = t < tcount ? to_f<T>(xb[(size_t)c * Tn + t]) : 0.f;
-  }
-  __syncthreads();
-  if (tid < tcount) {
-    float s = 0.f;
-    for (int c = 0; c < C; ++c) s += xn_sh[c * kMT + tid];
-    const float mu = s / C;
-    float v = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float r = xn_sh[c * kMT + tid] - mu;
-      v += r * r;
-    }
-    mu_sh[tid] = mu;
-    sd_sh[tid] = sqrtf(v / C + 1e-5f);
-  }
-  __syncthreads();
-  for (int i = tid; i < C * kMT; i += kThreads) {
-    const int c = i / kMT, t = i % kMT;
-    if (t < tcount)
-      xn_sh[i] = rnd<T>((xn_sh[i] - mu_sh[t]) / sd_sh[t] * lnw[c] + lnb[c]);
-  }
-
-  const int t = tid % kMT, grp = tid / kMT;
-  float acc[kMaxRows];
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.f;
-
-  for (int h0 = 0; h0 < H; h0 += kHT) {
-    __syncthreads();
-    for (int i = tid; i < kHT * C; i += kThreads) {
-      const int k = i / C, c = i % C;
-      w1_sh[i] = h0 + k < H ? w1[(size_t)(h0 + k) * C + c] : 0.f;
-    }
-    for (int i = tid; i < C * kHT; i += kThreads) {
-      const int c = i / kHT, k = i % kHT;
-      w2_sh[i] = h0 + k < H ? w2[(size_t)c * H + h0 + k] : 0.f;
-    }
-    __syncthreads();
-    for (int k = grp; k < kHT; k += kGroups) {
-      float a = 0.f;
-      const float* wr = w1_sh + k * C;
-      for (int c = 0; c < C; ++c) a += wr[c] * xn_sh[c * kMT + t];
-      float g = 0.f;
-      if (h0 + k < H) {
-        const float hv = rnd<T>(rnd<T>(a) + b1[h0 + k]);
-        g = rnd<T>(0.5f * hv * (1.f + erff(hv * 0.70710678118654752f)));
-      }
-      h_sh[k * kMT + t] = g;
-    }
-    __syncthreads();
-    for (int k = 0; k < kHT; ++k) {
-      const float g = h_sh[k * kMT + t];
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        const int c = grp + r * kGroups;
-        if (c < C) acc[r] += w2_sh[c * kHT + k] * g;
-      }
-    }
-  }
-  if (t >= tcount) return;
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
-    const int c = grp + r * kGroups;
-    if (c < C) {
-      const float y = rnd<T>(rnd<T>(acc[r]) + b2[c]);
-      const size_t off = (size_t)c * Tn + t;
-      ob[off] = from_f<T>(to_f<T>(xb[off]) + y);
-    }
-  }
-}
-
-size_t smem_bytes(int C) {
-  return sizeof(float) * ((size_t)C * kMT + 2 * (size_t)kHT * C + kHT * kMT + 2 * kMT);
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -411,22 +334,251 @@ int launch_tc(const void* x, void* out, const void* lnw, const void* lnb, const 
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32: split TF32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Warps = 8;
+constexpr int kF32Tok = 16 * kF32Warps;       // tokens per block: 128
+constexpr int kF32Threads = 32 * kF32Warps;   // 256 = 2 threads a token in the LN
+constexpr int kLDW2f = kHT + 4;               // W2 tile (Cp x kHT) row stride
+constexpr int kLDOf = kF32Tok + 4;            // output tile (Cp x tokens) row stride
+
+__device__ __forceinline__ float gelu_f32(float h) {
+  return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
+}
+
+// KC = Cp / 8: the k steps of the first product and the n8 tiles of the
+// second, a template parameter so the register arrays have no unused part.
+template <int KC>
+__global__ void __launch_bounds__(kF32Threads, 1)
+fused_mlp_tf32_kernel(const float* __restrict__ x, float* __restrict__ out,
+                      const float* __restrict__ lnw, const float* __restrict__ lnb,
+                      const float* __restrict__ w1, const float* __restrict__ b1,
+                      const float* __restrict__ w2, const float* __restrict__ b2, int C, int Hp,
+                      int Tn) {
+  constexpr int Cp = 8 * KC, LDA = Cp + 4;      // LDA = 4 mod 8: ldmatrix without conflicts
+  constexpr int PER = Cp / 2;                   // channels a thread holds in the LN
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xn_sh = reinterpret_cast<float*>(smem);   // kF32Tok x LDA: LN_C(x)^T
+  float* w1_sh = xn_sh + kF32Tok * LDA;            // 2 stages of kHT x LDA
+  float* w2_sh = w1_sh + 2 * kHT * LDA;            // 2 stages of Cp x kLDW2f
+  float* b1_sh = w2_sh + 2 * Cp * kLDW2f;          // 2 stages of kHT
+  float* part_sh = b1_sh + 2 * kHT;                // kF32Threads
+  float* y_sh = w1_sh;                             // after the loop: Cp x kLDOf
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int b = blockIdx.y, t0 = blockIdx.x * kF32Tok;
+  const int tcount = min(kF32Tok, Tn - t0);
+  const float* xb = x + (size_t)b * C * Tn + t0;
+  float* ob = out + (size_t)b * C * Tn + t0;
+  const int ntiles = Hp / kHT;
+  OTP_PHASE_START;
+
+  // one hidden tile of W1 (kHT rows of Cp), of W2 (Cp rows of kHT) and of b1
+  auto load_tile = [&](int i, int stage) {
+    const int h0 = i * kHT;
+    float* d1 = w1_sh + stage * kHT * LDA;
+    for (int e = tid; e < kHT * (Cp / 4); e += kF32Threads) {
+      const int r = e / (Cp / 4), ch = e % (Cp / 4);
+      cp_async16(d1 + r * LDA + ch * 4, w1 + (size_t)(h0 + r) * Cp + ch * 4);
+    }
+    float* d2 = w2_sh + stage * Cp * kLDW2f;
+    for (int e = tid; e < Cp * (kHT / 4); e += kF32Threads) {
+      const int r = e / (kHT / 4), ch = e % (kHT / 4);
+      cp_async16(d2 + r * kLDW2f + ch * 4, w2 + (size_t)r * Hp + h0 + ch * 4);
+    }
+    if (tid < kHT / 4) cp_async16(b1_sh + stage * kHT + tid * 4, b1 + h0 + tid * 4);
+    cp_async_commit();
+  };
+  load_tile(0, 0);
+  OTP_PHASE(0);
+  {
+    // the LN in f32, two threads a token, each holding half the channels in
+    // registers (read straight from x: lanes are neighbouring tokens)
+    const int t = tid % kF32Tok, half = tid / kF32Tok;
+    const bool live = t < tcount;
+    float v[PER];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int c = half + 2 * i;
+      v[i] = (live && c < C) ? __ldg(xb + (size_t)c * Tn + t) : 0.f;
+      s += v[i];
+    }
+    part_sh[tid] = s;
+    __syncthreads();
+    const float mu = (part_sh[t] + part_sh[t + kF32Tok]) / C;
+    __syncthreads();
+    float var = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      if (half + 2 * i < C) {
+        const float r = v[i] - mu;
+        var += r * r;
+      }
+    part_sh[tid] = var;
+    __syncthreads();
+    const float sd = sqrtf((part_sh[t] + part_sh[t + kF32Tok]) / C + 1e-5f);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int c = half + 2 * i;
+      xn_sh[t * LDA + c] = (live && c < C) ? (v[i] - mu) / sd * lnw[c] + lnb[c] : 0.f;
+    }
+  }
+  OTP_PHASE(1);
+
+  float acc[KC][4];
+#pragma unroll
+  for (int j = 0; j < KC; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const float* arow = xn_sh + warp * 16 * LDA + a_off_f32(lane, LDA);
+
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles) {
+      load_tile(i + 1, (i + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    OTP_PHASE(2);
+    const float* w1s = w1_sh + (i & 1) * kHT * LDA;
+    const float* w2s = w2_sh + (i & 1) * Cp * kLDW2f;
+    const float* b1s = b1_sh + (i & 1) * kHT;
+
+    // first product: h (16 tokens x kHT hidden) = xn^T @ W1_tile^T
+    float h[kHT / 8][4];
+#pragma unroll
+    for (int j = 0; j < kHT / 8; ++j) h[j][0] = h[j][1] = h[j][2] = h[j][3] = 0.f;
+    const float* brow = w1s + bnk_x4_off_f32(lane, LDA);
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      uint32_t a[4], ahi[4], alo[4];
+      ldsm_x4(a, arow + kk * 8);
+      split_tf32_x4(a, ahi, alo);
+#pragma unroll
+      for (int np = 0; np < kHT / 16; ++np) {
+        uint32_t r[4], rhi[4], rlo[4];
+        ldsm_x4(r, brow + np * 16 * LDA + kk * 8);
+        split_tf32_x4(r, rhi, rlo);
+        mma_3xtf32(h[2 * np], ahi, alo, rhi[0], rhi[1], rlo[0], rlo[1]);
+        mma_3xtf32(h[2 * np + 1], ahi, alo, rhi[2], rhi[3], rlo[2], rlo[3]);
+      }
+    }
+    OTP_PHASE(3);
+    // epilogue in registers.  The C fragment of n8 tile j holds hidden
+    // columns 2q and 2q + 1; the A fragment of k step j of the second product
+    // wants k positions q and q + 4.  The pack orders W2's hidden columns so
+    // that, inside each group of 8, position q holds hidden 2q and position
+    // q + 4 hidden 2q + 1 (`ops/cuda/fused_mlp.py::HIDDEN_ORDER`), so the GELU
+    // values need no move between lanes.
+    uint32_t ghi[kHT / 8][4], glo[kHT / 8][4];
+#pragma unroll
+    for (int j = 0; j < kHT / 8; ++j) {
+      const int hc = j * 8 + 2 * q;
+      const float bb0 = b1s[hc], bb1 = b1s[hc + 1];
+      split_tf32(gelu_f32(h[j][0] + bb0), ghi[j][0], glo[j][0]);   // token g, hidden 2q
+      split_tf32(gelu_f32(h[j][2] + bb0), ghi[j][1], glo[j][1]);   // token g + 8, hidden 2q
+      split_tf32(gelu_f32(h[j][1] + bb1), ghi[j][2], glo[j][2]);   // token g, hidden 2q + 1
+      split_tf32(gelu_f32(h[j][3] + bb1), ghi[j][3], glo[j][3]);   // token g + 8, 2q + 1
+    }
+    OTP_PHASE(4);
+    // second product: acc (16 tokens x Cp) += gelu @ W2_tile^T
+    const float* b2row = w2s + bnk_x4_off_f32(lane, kLDW2f);
+#pragma unroll
+    for (int s = 0; s < kHT / 8; ++s) {
+#pragma unroll
+      for (int np = 0; np < KC / 2; ++np) {
+        uint32_t r[4], rhi[4], rlo[4];
+        ldsm_x4(r, b2row + np * 16 * kLDW2f + s * 8);
+        split_tf32_x4(r, rhi, rlo);
+        mma_3xtf32(acc[2 * np], ghi[s], glo[s], rhi[0], rhi[1], rlo[0], rlo[1]);
+        mma_3xtf32(acc[2 * np + 1], ghi[s], glo[s], rhi[2], rhi[3], rlo[2], rlo[3]);
+      }
+      if (KC & 1) {
+        uint32_t r0, r1, h0, h1, l0, l1;
+        ldsm_x2(r0, r1, w2s + bnk_x2_off_f32(lane, kLDW2f) + (KC - 1) * 8 * kLDW2f + s * 8);
+        split_tf32(__uint_as_float(r0), h0, l0);
+        split_tf32(__uint_as_float(r1), h1, l1);
+        mma_3xtf32(acc[KC - 1], ghi[s], glo[s], h0, h1, l0, l1);
+      }
+    }
+    OTP_PHASE(5);
+    __syncthreads();   // the next iteration refills this stage; the last frees y_sh
+  }
+
+  // y = acc + b2 into the output tile (channels x tokens), then
+  // out = x + y with coalesced loads and stores
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = j * 8 + 2 * q + (e & 1), t = warp * 16 + g + (e >> 1) * 8;
+      if (c < C) y_sh[c * kLDOf + t] = acc[j][e] + b2[c];
+    }
+  }
+  __syncthreads();
+  const bool vec = tcount == kF32Tok && Tn % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  if (vec) {
+    for (int e = tid; e < C * (kF32Tok / 4); e += kF32Threads) {
+      const int c = e / (kF32Tok / 4), ch = e % (kF32Tok / 4);
+      const float4 xv = __ldg(reinterpret_cast<const float4*>(xb + (size_t)c * Tn + ch * 4));
+      const float4 yv = *reinterpret_cast<const float4*>(y_sh + c * kLDOf + ch * 4);
+      *reinterpret_cast<float4*>(ob + (size_t)c * Tn + ch * 4) =
+          make_float4(xv.x + yv.x, xv.y + yv.y, xv.z + yv.z, xv.w + yv.w);
+    }
+  } else {
+    for (int i = tid; i < C * kF32Tok; i += kF32Threads) {
+      const int c = i / kF32Tok, t = i % kF32Tok;
+      if (t < tcount) ob[(size_t)c * Tn + t] = xb[(size_t)c * Tn + t] + y_sh[c * kLDOf + t];
+    }
+  }
+  OTP_PHASE(6);
+}
+
+size_t tf32_smem_bytes(int Cp) {
+  const size_t lda = Cp + 4;
+  return sizeof(float) * (kF32Tok * lda + 2 * kHT * lda + 2 * (size_t)Cp * kLDW2f + 2 * kHT +
+                          kF32Threads);
+}
+
+template <int KC>
+int launch_tf32(const void* x, void* out, const void* lnw, const void* lnb, const void* w1,
+                const void* b1, const void* w2, const void* b2, int B, int C, int Hp, int Tn,
+                cudaStream_t st) {
+  const size_t smem = tf32_smem_bytes(8 * KC);
+  cudaFuncSetAttribute(fused_mlp_tf32_kernel<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  fused_mlp_tf32_kernel<KC><<<dim3((Tn + kF32Tok - 1) / kF32Tok, B), kF32Threads, smem, st>>>(
+      (const float*)x, (float*)out, (const float*)lnw, (const float*)lnb, (const float*)w1,
+      (const float*)b1, (const float*)w2, (const float*)b2, C, Hp, Tn);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// f32.  x, out: (B, C, T).  lnw/lnb: (C,).  w1: (H, C), b1: (H,), w2: (C, H),
-// b2: (C,), w2/b2 with the drop-path scale folded in.
+// f32.  x, out: (B, C, T).  lnw/lnb: (C,).  w1: (Hp, Cp), b1: (Hp,),
+// w2: (Cp, Hp) with its hidden columns in `HIDDEN_ORDER` inside each group of
+// 8, b2: (Cp,), zero-padded, w2/b2 with the drop-path scale folded in
+// (`pack_mlp_weights`).  Cp: a multiple of 8 in [C, C + 8); Hp: a multiple of 32.
 extern "C" int otp_fused_mlp_f32(const void* x, void* out, const void* lnw, const void* lnb,
                                  const void* w1, const void* b1, const void* w2,
-                                 const void* b2, int B, int C, int H, int Tn, void* stream) {
-  if (C > kGroups * kMaxRows) return (int)cudaErrorInvalidValue;
+                                 const void* b2, int B, int C, int Cp, int Hp, int Tn,
+                                 void* stream) {
+  if (Cp % 8 || Cp < C || Cp >= C + 8 || Cp > kMaxCp || Hp % kHT || Hp <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = smem_bytes(C);
-  cudaFuncSetAttribute(fused_mlp_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  fused_mlp_kernel<float><<<dim3((Tn + kMT - 1) / kMT, B), kThreads, smem, st>>>(
-      (const float*)x, (float*)out, (const float*)lnw, (const float*)lnb, (const float*)w1,
-      (const float*)b1, (const float*)w2, (const float*)b2, C, H, Tn);
-  return (int)cudaGetLastError();
+  switch (Cp / 8) {
+#define OTP_KC(K) \
+  case K: return launch_tf32<K>(x, out, lnw, lnb, w1, b1, w2, b2, B, C, Hp, Tn, st);
+    OTP_KC(1) OTP_KC(2) OTP_KC(3) OTP_KC(4) OTP_KC(5) OTP_KC(6) OTP_KC(7)
+    OTP_KC(8) OTP_KC(9) OTP_KC(10) OTP_KC(11) OTP_KC(12) OTP_KC(13) OTP_KC(14)
+    OTP_KC(15) OTP_KC(16) OTP_KC(17) OTP_KC(18) OTP_KC(19) OTP_KC(20)
+#undef OTP_KC
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // bf16.  x, out: (B, C, T) bf16.  lnw/lnb: (C,) f32.  w1: (Hp, Cp) bf16,

@@ -411,11 +411,14 @@ def yolo_params_from_jax(weights: List[dict], variant: str = "yolov3") -> dict:
     return state
 
 
-def build_yolo(weights: List[dict], variant: str = "yolov3", device="cpu") -> YoloV3:
-    """A ``YoloV3`` in eval mode on ``device`` holding ``weights``."""
+def build_yolo(weights: List[dict], variant: str = "yolov3", device=None) -> YoloV3:
+    """A ``YoloV3`` in eval mode on ``device`` (``None``: the card, as
+    ``utils/device.py::resolve_device`` rules) holding ``weights``."""
+    from otpose_tpu_torch.utils.device import resolve_device
+
     model = YoloV3(variant)
     model.load_state_dict(yolo_params_from_jax(weights, variant))
-    return model.eval().to(device)
+    return model.eval().to(resolve_device(device))
 
 
 # ---------------------------------------------------------------------------

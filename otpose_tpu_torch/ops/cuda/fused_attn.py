@@ -7,10 +7,10 @@ pre-scramble ``att @ v`` (B, C, T).  The reference's scramble, the output
 projection and the residual stay outside (``blocks.transformer_block_ct``).
 
 The wrapper calls the registered op ``otpose::fused_attn``: on a CUDA
-tensor it launches ``csrc/fused_attn.cu`` (bf16 on the tensor cores, f32 as
-FMA loops), on a CPU tensor it runs ``fused_attn_plain``, the same function
-in plain PyTorch, from the pack.  It has no backward: on a CUDA tensor under
-grad the wrapper raises.
+tensor it launches ``csrc/fused_attn.cu`` (bf16 on the tensor cores, f32 on
+them in split TF32), on a CPU tensor it runs ``fused_attn_plain``, the same
+function in plain PyTorch, from the pack.  It has no backward: on a CUDA
+tensor under grad the wrapper raises.
 
 ``pack_attn_weights`` puts the weights in the kernel's layout once
 (``models/blocks.py`` caches the result on each block); the wrapper takes
@@ -34,12 +34,12 @@ calls = 0
 launches = 0
 packs = 0
 
-CHANNEL_ALIGN = 16    # C is zero-padded to the mma depth in the bf16 pack
+CHANNEL_ALIGN = {torch.bfloat16: 16, torch.float32: 8}   # C padded to the mma depth
 
 _SMEM_LIMIT = 232448   # bytes of shared memory one H100 block may use
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "otp_fused_attn_f32": (_I, [_P] * 12 + [_I] * 4 + [ctypes.c_float, _I, _P]),
+    "otp_fused_attn_f32": (_I, [_P] * 12 + [_I] * 5 + [ctypes.c_float, _I, _P]),
     "otp_fused_attn_tc": (_I, [_P] * 12 + [_I] * 5 + [ctypes.c_float, _I, _P]),
     "otp_fused_attn_smem": (ctypes.c_size_t, [_I, _I, _I]),
 }
@@ -79,10 +79,11 @@ def fused_attn_plain(x, ln1_w, ln1_b, dw_q, dw_k, dw_v, nq_w, nq_b, nk_w, nk_b,
 @dataclass(frozen=True)
 class AttnPack:
     """Weights in the kernel's layout for compute dtype ``dtype``: ``pw``
-    (3, Cp, Cp) bf16 zero-padded for bf16, (3, C, C) f32 for f32, and ``pb``
-    f32 (3, Cp) or (3, C), holding values of ``dtype``; ``dw`` (3, C, 3) f32
-    holding values of ``dtype``; the LayerNorm affines f32: ``ln1_w``/``ln1_b``
-    (C,), ``nw``/``nb`` (3, C).  Index 0, 1, 2 is q, k, v."""
+    (3, Cp, Cp) in ``dtype`` and ``pb`` f32 (3, Cp) holding values of
+    ``dtype``, zero-padded (Cp: C rounded up to ``CHANNEL_ALIGN[dtype]``);
+    ``dw`` (3, C, 3) f32 holding values of ``dtype``; the LayerNorm affines
+    f32: ``ln1_w``/``ln1_b`` (C,), ``nw``/``nb`` (3, C).  Index 0, 1, 2 is
+    q, k, v."""
     dtype: torch.dtype
     c: int
     ln1_w: torch.Tensor
@@ -114,16 +115,13 @@ def pack_attn_weights(ln1_w, ln1_b, dw_q, dw_k, dw_v, nq_w, nq_b, nk_w, nk_b, nv
     nb = torch.stack([vec(w, c, "norm bias") for w in (nq_b, nk_b, nv_b)])
     pw = torch.stack([vec(w, c * c, "projection weight", True) for w in (wq, wk, wv)])
     pb = torch.stack([vec(w, c, "projection bias", True) for w in (bq, bk, bv)])
-    pw = pw.reshape(3, c, c)
-    if dtype == torch.bfloat16:
-        cp = -(-c // CHANNEL_ALIGN) * CHANNEL_ALIGN
-        pwp = torch.zeros(3, cp, cp, device=device, dtype=dtype)
-        pbp = torch.zeros(3, cp, device=device)
-        pwp[:, :c, :c], pbp[:, :c] = pw, pb
-        pw, pb = pwp, pbp
+    cp = -(-c // CHANNEL_ALIGN[dtype]) * CHANNEL_ALIGN[dtype]
+    pwp = torch.zeros(3, cp, cp, device=device, dtype=dtype)
+    pbp = torch.zeros(3, cp, device=device)
+    pwp[:, :c, :c], pbp[:, :c] = pw.reshape(3, c, c), pb
     packs += 1
     return AttnPack(dtype, c, vec(ln1_w, c, "ln1.weight"), vec(ln1_b, c, "ln1.bias"),
-                    dw.reshape(3, c, 3), nw, nb, pw, pb)
+                    dw.reshape(3, c, 3), nw, nb, pwp, pbp)
 
 
 @functools.lru_cache(maxsize=None)
@@ -164,32 +162,27 @@ def _fused_attn_cuda(x, ln1_w, ln1_b, dw, nw, nb, pw, pb, n_head):
     lib = build.load("fused_attn", _SIGNATURES)
     if lib.otp_fused_attn_smem(c, n_head, code) > _SMEM_LIMIT:
         raise ValueError(f"fused_attn_ct: C={c}, n_head={n_head} is not a shape the "
-                         f"{x.dtype} kernel takes (shared memory or C above 160)")
+                         f"{x.dtype} kernel takes (shared memory, C above 160, or in f32 "
+                         "more than 160 same-head score tiles: hs above 136 with one head)")
     if ln1_w.numel() != c or pw.device != x.device:
         raise ValueError(f"fused_attn_ct: weights packed for C={ln1_w.numel()} on "
                          f"{pw.device}, x has C={c} on {x.device}")
     dev = x.device
     hs = c // n_head
     chunks = -(-t // 32)
-    if code == 1:
-        # about one block a SM: each holds the projection weights for all its chunks
-        nsplit = max(1, min(chunks, _sm_count(dev.index or 0) // bsz))
-        att_scr = torch.empty(bsz, c, -(-hs // 16) * 16, device=dev, dtype=x.dtype)
-    else:
-        nsplit = max(1, min(chunks, 512 // bsz))   # about 512 blocks in flight
-        att_scr = torch.empty(bsz, c, hs, device=dev, dtype=torch.float32)
+    # about one block a SM: each holds projection weights for all its chunks
+    nsplit = max(1, min(chunks, _sm_count(dev.index or 0) // bsz))
+    kp = -(-hs // CHANNEL_ALIGN[x.dtype]) * CHANNEL_ALIGN[x.dtype]
+    att_scr = torch.empty(bsz, c, kp, device=dev, dtype=x.dtype)
     v_scr = torch.empty_like(x)
     # each split's partial score sums, added in split order by the kernel
     s_scr = torch.empty(nsplit, bsz, c, hs, device=dev, dtype=torch.float32)
     out = torch.empty_like(x)
     ptrs = [a.data_ptr() for a in (x, ln1_w, ln1_b, dw, nw, nb, pw, pb, v_scr, s_scr, att_scr,
                                    out)]
-    if code == 1:
-        err = lib.otp_fused_attn_tc(*ptrs, bsz, c, pw.shape[1], t, n_head, _scale(hs, x.dtype),
-                                    nsplit, build.stream_ptr(dev))
-    else:
-        err = lib.otp_fused_attn_f32(*ptrs, bsz, c, t, n_head, _scale(hs, x.dtype), nsplit,
-                                     build.stream_ptr(dev))
+    launch = lib.otp_fused_attn_tc if code == 1 else lib.otp_fused_attn_f32
+    err = launch(*ptrs, bsz, c, pw.shape[1], t, n_head, _scale(hs, x.dtype), nsplit,
+                 build.stream_ptr(dev))
     build.check(lib, err, "fused_attn_ct")
     launches += 1
     return out

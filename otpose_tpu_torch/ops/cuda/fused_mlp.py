@@ -3,8 +3,8 @@
 ``fused_mlp_residual_ct`` computes ``x + W2 @ gelu(W1 @ LN_C(x) + b1) + b2``
 on (B, C, T), the ln2 + mlp + residual tail of an eval transformer block.
 The wrapper calls the registered op ``otpose::fused_mlp``: on a CUDA tensor
-it launches ``csrc/fused_mlp.cu`` (bf16 on the tensor cores, f32 as FMA
-loops), on a CPU tensor it runs ``fused_mlp_plain``, the same function in
+it launches ``csrc/fused_mlp.cu`` (bf16 on the tensor cores, f32 on them in
+split TF32), on a CPU tensor it runs ``fused_mlp_plain``, the same function in
 plain PyTorch, from the pack.  It has no backward: on a CUDA tensor under
 grad the wrapper raises.
 
@@ -28,13 +28,19 @@ calls = 0
 launches = 0
 packs = 0
 
-CHANNEL_ALIGN = 16    # C is zero-padded to the mma depth in the bf16 pack
-HIDDEN_TILE = 32      # the bf16 kernel streams W1/W2 in tiles of 32 hidden rows
+CHANNEL_ALIGN = {torch.bfloat16: 16, torch.float32: 8}   # C padded to the mma depth
+HIDDEN_TILE = 32      # the kernels stream W1/W2 in tiles of 32 hidden rows
 MAX_CHANNELS = 160    # the limit of both kernels
+# The f32 pack's order of W2's hidden columns inside each group of 8: column
+# k holds hidden HIDDEN_ORDER[k].  The first product's C fragment gives a lane
+# hidden 2q and 2q + 1; the second product's A fragment wants k positions q
+# and q + 4 (``csrc/fused_mlp.cu``).
+HIDDEN_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+_INVERSE_ORDER = tuple(HIDDEN_ORDER.index(k) for k in range(8))
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "otp_fused_mlp_f32": (_I, [_P] * 8 + [_I] * 4 + [_P]),
+    "otp_fused_mlp_f32": (_I, [_P] * 8 + [_I] * 5 + [_P]),
     "otp_fused_mlp_tc": (_I, [_P] * 8 + [_I] * 5 + [_P]),
 }
 
@@ -43,12 +49,26 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def permute_hidden(w2: torch.Tensor, order=HIDDEN_ORDER) -> torch.Tensor:
+    """(C, H) with H a multiple of 8 -> its columns in ``order`` inside each
+    group of 8 (column 8 s + k holds 8 s + order[k])."""
+    c, h = w2.shape
+    return w2.reshape(c, h // 8, 8)[:, :, list(order)].reshape(c, h)
+
+
+def unpermute_hidden(w2: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``permute_hidden``: an f32 pack's W2 in hidden order."""
+    return permute_hidden(w2, _INVERSE_ORDER)
+
+
 @dataclass(frozen=True)
 class MlpPack:
-    """Weights in the kernel's layout for compute dtype ``dtype``.  bf16:
-    ``w1`` (Hp, Cp) and ``w2`` (Cp, Hp) bf16, zero-padded; f32: (H, C) and
-    (C, H).  Biases f32 holding values of ``dtype`` (zero-padded like the
-    weights), the LN affine f32 (C,); the drop-path scale is in w2/b2."""
+    """Weights in the kernel's layout for compute dtype ``dtype``: ``w1``
+    (Hp, Cp) and ``w2`` (Cp, Hp) in ``dtype``, zero-padded (Cp: C rounded up
+    to ``CHANNEL_ALIGN[dtype]``, Hp: H to ``HIDDEN_TILE``); in f32 ``w2``'s
+    hidden columns are in ``HIDDEN_ORDER`` inside each group of 8.  Biases
+    f32 holding values of ``dtype`` (zero-padded like the weights), the LN
+    affine f32 (C,); the drop-path scale is in w2/b2."""
     dtype: torch.dtype
     c: int
     hid: int
@@ -80,17 +100,15 @@ def pack_mlp_weights(ln_w, ln_b, w1, b1, w2, b2, dtype, scale=None, device=None)
         s = f32(scale, c, "drop-path scale")
         w2f, b2f = w2f * s[:, None], b2f * s
     rounded = lambda a: a.to(dtype).float()  # noqa: E731
-    if dtype == torch.bfloat16:
-        cp, hp = _round_up(c, CHANNEL_ALIGN), _round_up(hid, HIDDEN_TILE)
-        w1p = torch.zeros(hp, cp, device=device, dtype=dtype)
-        w2p = torch.zeros(cp, hp, device=device, dtype=dtype)
-        w1p[:hid, :c], w2p[:c, :hid] = w1f, w2f
-        b1p = torch.zeros(hp, device=device)
-        b2p = torch.zeros(cp, device=device)
-        b1p[:hid], b2p[:c] = rounded(b1f), rounded(b2f)
-    else:
-        w1p, w2p = w1f.contiguous(), w2f.contiguous()
-        b1p, b2p = b1f, b2f
+    cp, hp = _round_up(c, CHANNEL_ALIGN[dtype]), _round_up(hid, HIDDEN_TILE)
+    w1p = torch.zeros(hp, cp, device=device, dtype=dtype)
+    w2p = torch.zeros(cp, hp, device=device, dtype=dtype)
+    w1p[:hid, :c], w2p[:c, :hid] = w1f, w2f
+    b1p = torch.zeros(hp, device=device)
+    b2p = torch.zeros(cp, device=device)
+    b1p[:hid], b2p[:c] = rounded(b1f), rounded(b2f)
+    if dtype == torch.float32:
+        w2p = permute_hidden(w2p).contiguous()
     packs += 1
     return MlpPack(dtype, c, hid, f32(ln_w, c, "ln weight"), f32(ln_b, c, "ln bias"),
                    w1p, b1p, w2p, b2p)
@@ -110,6 +128,8 @@ def fused_mlp_op(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: to
     global calls
     calls += 1
     c = ln_w.numel()
+    if w1.dtype == torch.float32:
+        w2 = unpermute_hidden(w2)
     return fused_mlp_plain(x, ln_w, ln_b, w1[:hid, :c, None], b1[:hid], w2[:c, :hid, None],
                            b2[:c])
 
@@ -130,11 +150,8 @@ def _fused_mlp_cuda(x, ln_w, ln_b, w1, b1, w2, b2, hid):
     out = torch.empty_like(x)
     ptrs = (a.data_ptr() for a in (x, out, ln_w, ln_b, w1, b1, w2, b2))
     lib = build.load("fused_mlp", _SIGNATURES)
-    if code == 1:
-        err = lib.otp_fused_mlp_tc(*ptrs, bsz, c, w2.shape[0], w1.shape[0], t,
-                                   build.stream_ptr(x.device))
-    else:
-        err = lib.otp_fused_mlp_f32(*ptrs, bsz, c, hid, t, build.stream_ptr(x.device))
+    launch = lib.otp_fused_mlp_tc if code == 1 else lib.otp_fused_mlp_f32
+    err = launch(*ptrs, bsz, c, w2.shape[0], w1.shape[0], t, build.stream_ptr(x.device))
     build.check(lib, err, "fused_mlp_residual_ct")
     launches += 1
     return out

@@ -1,4 +1,4 @@
-"""Where the time of the bf16 fused kernels and the DCN goes, phase by phase.
+"""Where the time of the fused kernels and the DCN goes, phase by phase.
 
     python -m otpose_tpu_torch.tools.kernel_phases [--batch 16 1] [--bwd-batch 8 1]
 
@@ -6,8 +6,10 @@ Builds ``csrc/fused_attn.cu``, ``csrc/fused_mlp.cu``, ``csrc/deform_conv.cu``
 and ``csrc/deform_conv_bwd.cu`` a second time with ``-DOTP_PHASE_CLOCK``
 (thread 0 of every block adds the ``clock64()`` cycles of each phase to a
 slot: ``csrc/common.cuh``), runs each at the flagship shapes (C = 136, two
-heads, T = 6912; the DCN at 17 x 96 x 72 with five dilations, in both
-rounding modes; its backward at ``--bwd-batch``, bf16 and f32) on random
+heads, T = 6912, the fused kernels in bf16 and in f32, whose split-TF32
+kernels have the same phase marks; the DCN at 17 x 96 x 72 with
+five dilations, bf16, in both rounding modes; its backward at
+``--bwd-batch``, bf16 and f32) on random
 inputs and prints each phase's share of the summed cycles, beside the
 kernel's time in the normal build (CUDA events, 20 launches).  The shares
 are of thread 0's time between marks, so a phase includes its wait for the
@@ -31,8 +33,10 @@ import torch
 
 from otpose_tpu_torch.utils.timing import time_ms
 
+# f32: the epilogue's slot also holds the barrier after the projection and
+# the next weights' copy being issued
 ATTN_PHASES = ("chunk load", "ln1", "conv + LN (x3)", "projection (x3)",
-               "epilogue + v store (x3)", "scores")
+               "epilogue + v store (x3)", "scores", "weight wait (x3, f32 only)")
 MLP_PHASES = ("x load", "LN", "tile wait", "product 1", "GELU", "product 2",
               "epilogue + store")
 DCN_PHASES = ("stage wait", "sampling", "contraction", "B = 1 reduction")
@@ -40,23 +44,24 @@ DCN_BWD_PHASES = ("stage wait and plane changes", "sampling", "G", "d x atomics"
                   "stores and d W", "last segment out", "d x reduction")
 
 
-def _inputs(batch: int, gen):
-    """Flagship-shaped attention and MLP arguments in bf16 (the q and k
-    projections drawn small so that |S| stays near 10, as in chip_smoke.py)."""
-    c, t, bf = 136, 6912, torch.bfloat16
+def _inputs(batch: int, gen, dtype):
+    """Flagship-shaped attention and MLP arguments in ``dtype`` (the q and k
+    projections drawn small so that |S| stays near 10, as in chip_smoke.py's
+    bf16 case)."""
+    c, t = 136, 6912
     r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device="cuda") * scale  # noqa: E731
-    x = r(batch, c, t).to(bf)
+    x = r(batch, c, t).to(dtype)
     attn = [x, 1 + r(1, c, 1, scale=0.1), r(1, c, 1, scale=0.1)]
-    attn += [r(c, 1, 3, scale=1 / math.sqrt(3)).to(bf) for _ in range(3)]
+    attn += [r(c, 1, 3, scale=1 / math.sqrt(3)).to(dtype) for _ in range(3)]
     for _ in range(3):
         attn += [1 + r(1, c, 1, scale=0.1), r(1, c, 1, scale=0.1)]
     for p in range(3):
         small = p < 2
-        attn += [r(c, c, 1, scale=(0.25 if small else 1.0) / math.sqrt(c)).to(bf),
-                 r(c, scale=0.01 if small else 0.1).to(bf)]
+        attn += [r(c, c, 1, scale=(0.25 if small else 1.0) / math.sqrt(c)).to(dtype),
+                 r(c, scale=0.01 if small else 0.1).to(dtype)]
     mlp = [x, 1 + r(1, c, 1, scale=0.1), r(1, c, 1, scale=0.1),
-           r(4 * c, c, 1, scale=1 / math.sqrt(c)).to(bf), r(4 * c, scale=0.1).to(bf),
-           r(c, 4 * c, 1, scale=1 / math.sqrt(4 * c)).to(bf), r(c, scale=0.1).to(bf)]
+           r(4 * c, c, 1, scale=1 / math.sqrt(c)).to(dtype), r(4 * c, scale=0.1).to(dtype),
+           r(c, 4 * c, 1, scale=1 / math.sqrt(4 * c)).to(dtype), r(c, scale=0.1).to(dtype)]
     return attn, mlp
 
 
@@ -130,19 +135,20 @@ def main(argv=None) -> None:
     print(f"card: {card}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for batch in args.batch:
-        attn, mlp = _inputs(batch, gen)
-        apk = fused_attn.pack_attn_weights(*attn[1:], torch.bfloat16)
-        mpk = fused_mlp.pack_mlp_weights(*mlp[1:], torch.bfloat16)
-        for name, sigs, call, names in (
-                ("fused_attn", fused_attn._SIGNATURES,
-                 lambda: fused_attn.fused_attn_ct(attn[0], packed=apk, n_head=2),
-                 ATTN_PHASES),
-                ("fused_mlp", fused_mlp._SIGNATURES,
-                 lambda: fused_mlp.fused_mlp_residual_ct(mlp[0], packed=mpk), MLP_PHASES)):
-            res = phases(name, sigs, call, names)
-            shares = ", ".join(f"{n} {s:.1%}" for n, s in res["shares"].items())
-            print(f"{name} bf16 B={batch}: {res['ms']:.4f} ms; {shares} "
-                  f"({res['cycles']} cycles over all blocks)", flush=True)
+        for dtype in (torch.bfloat16, torch.float32):
+            attn, mlp = _inputs(batch, gen, dtype)
+            apk = fused_attn.pack_attn_weights(*attn[1:], dtype)
+            mpk = fused_mlp.pack_mlp_weights(*mlp[1:], dtype)
+            for name, sigs, call, names in (
+                    ("fused_attn", fused_attn._SIGNATURES,
+                     lambda: fused_attn.fused_attn_ct(attn[0], packed=apk, n_head=2),
+                     ATTN_PHASES),
+                    ("fused_mlp", fused_mlp._SIGNATURES,
+                     lambda: fused_mlp.fused_mlp_residual_ct(mlp[0], packed=mpk), MLP_PHASES)):
+                res = phases(name, sigs, call, names)
+                shares = ", ".join(f"{n} {s:.1%}" for n, s in res["shares"].items())
+                print(f"{name} {str(dtype)[6:]} B={batch}: {res['ms']:.4f} ms; {shares} "
+                      f"({res['cycles']} cycles over all blocks)", flush=True)
         for mode, call in dcn_calls(batch, gen).items():
             res = phases("deform_conv", deform_conv._SIGNATURES, call, DCN_PHASES)
             shares = ", ".join(f"{n} {s:.1%}" for n, s in res["shares"].items())

@@ -1,14 +1,16 @@
 """Where the time of one flagship decoded-eval step goes on the GPU.
 
     python -m otpose_tpu_torch.tools.profile_eval [--batch 16] [--dtype bfloat16]
-        [--steps 3] [--trace eval_trace.json]
+        [--steps 3] [--trace eval_trace.json] [--no-fused]
 
 Builds the flagship model (random reference init), runs the decoded eval
 step under ``torch.profiler`` and prints: the wall time per step, the summed
 device (kernel) time per step and the device's idle share, the device time
 by category (the port's three kernels, convolutions, matrix products, other
-elementwise and copy kernels), and the top kernels by device time.  Needs a
-CUDA device.
+elementwise and copy kernels), and the top kernels by device time.
+``--no-fused`` runs every transformer block on its plain PyTorch path
+(``make_decoded_eval_step(fused=False)``), the counterpart of the JAX
+package's ``tools/perf_experiments.py::exp_fused_*``.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import time
 import torch
 
 CATEGORIES = (
-    ("fused_attn", ("qkv_scores", "softmax_kernel", "att_v_")),   # f32 and bf16 (_tc) kernels
+    ("fused_attn", ("qkv_scores", "attn_softmax", "att_v_")),   # f32 (_tf32), bf16 (_tc)
     ("fused_mlp", ("fused_mlp_",)),
     ("deform_conv", ("deform_staged_kernel", "deform_reduce_kernel")),
     ("convolution", ("conv", "cudnn", "implicit_gemm", "wgrad", "dgrad", "xmma_fprop",
@@ -45,6 +47,8 @@ def main(argv=None) -> None:
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default="")
+    ap.add_argument("--no-fused", dest="fused", action="store_false",
+                    help="every block on its plain path (no fused attention or MLP)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_eval: needs a CUDA device")
@@ -65,7 +69,7 @@ def main(argv=None) -> None:
     _, model = build_model(cfg, seed=0)
     if dtype == torch.bfloat16:
         prepare_eval_params(model, dtype)
-    step = make_decoded_eval_step(model, compute_dtype=dtype)
+    step = make_decoded_eval_step(model, compute_dtype=dtype, fused=args.fused)
     gen = torch.Generator(device="cuda").manual_seed(1)
     w, h = cfg.MODEL.IMAGE_SIZE
     x = torch.randn(args.batch, h, w, 15, generator=gen, device="cuda")
@@ -97,7 +101,8 @@ def main(argv=None) -> None:
         cat = category(e.key)
         by_cat[cat] = by_cat.get(cat, 0.0) + ms
     busy = sum(by_cat.values())
-    print(f"card: {card}; batch {args.batch} {args.dtype}; {args.steps} profiled steps")
+    print(f"card: {card}; batch {args.batch} {args.dtype}"
+          f"{'' if args.fused else ', no fused kernels'}; {args.steps} profiled steps")
     print(f"wall {wall * 1e3:.3f} ms per step ({args.batch / wall:.3f} clips/s); device "
           f"kernels {busy:.3f} ms per step; device idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}")
     for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
@@ -106,7 +111,8 @@ def main(argv=None) -> None:
     for ms, n, name in sorted(kernels, reverse=True)[:25]:
         print(f"  {ms:9.3f}  {n:4d}  {name[:110]}")
     print(json.dumps({"wall_ms": wall * 1e3, "device_ms": busy, "by_category_ms": by_cat,
-                      "card": card, "batch": args.batch, "dtype": args.dtype}))
+                      "card": card, "batch": args.batch, "dtype": args.dtype,
+                      "fused": args.fused}))
 
 
 if __name__ == "__main__":

@@ -107,32 +107,58 @@ def test_fused_mlp_matches_plain(b, c, t, dtype):
     _close(got, fused_mlp.fused_mlp_plain(*args), dtype)
 
 
-# the bf16 tensor-core kernels: fused_mlp tiles 48 tokens a block; fused_attn
-# walks 32-token chunks and writes att @ v in 64-token tiles
-@pytest.mark.parametrize("b,t", [(2, 1), (2, 47), (2, 49), (3, 95), (1, 6912)])
-@pytest.mark.parametrize("c", [32, 40, 64, 136, 160])
-def test_fused_mlp_bf16_ragged(b, c, t):
+# the tensor-core kernels (bf16, and f32 in split TF32): fused_mlp tiles 48
+# tokens a block in bf16, 64 in f32; fused_attn walks 32-token chunks and
+# writes att @ v in 64-token tiles.  (The names keep "bf16" from before the
+# f32 kernels moved to the tensor cores.)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t", [(2, 1), (2, 47), (2, 49), (2, 63), (2, 65), (3, 95),
+                                 (1, 6912)])
+@pytest.mark.parametrize("c", [32, 37, 40, 64, 136, 160])
+def test_fused_mlp_bf16_ragged(b, c, t, dtype):
     gen = torch.Generator(device="cuda").manual_seed(5)
-    args = _mlp_args(b, c, t, torch.bfloat16, gen)
+    args = _mlp_args(b, c, t, dtype, gen)
     launches = fused_mlp.launches
     got = fused_mlp.fused_mlp_residual_ct(*args)
     torch.cuda.synchronize()
     assert fused_mlp.launches == launches + 1
     want = fused_mlp.fused_mlp_plain(*args)
-    _close(got, want, torch.bfloat16)
-    if got.numel() >= 10000:     # the rounding check of chip_smoke.py
+    _close(got, want, dtype)
+    if dtype == torch.bfloat16 and got.numel() >= 10000:   # chip_smoke.py's rounding check
         assert (got != want).float().mean().item() <= 0.05
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t", [(2, 1), (2, 31), (2, 33), (1, 63), (2, 65), (1, 6912)])
 @pytest.mark.parametrize("c,n_head", [(32, 1), (32, 2), (40, 4), (64, 4), (136, 1), (136, 2),
                                       (160, 2), (160, 4)])
-def test_fused_attn_bf16_ragged(b, c, t, n_head):
+def test_fused_attn_bf16_ragged(b, c, t, n_head, dtype):
     gen = torch.Generator(device="cuda").manual_seed(6)
-    args = _attn_args(b, c, t, n_head, torch.bfloat16, gen)
+    args = _attn_args(b, c, t, n_head, dtype, gen)
     got = fused_attn.fused_attn_ct(*args)
     torch.cuda.synchronize()
-    _close(got, fused_attn.fused_attn_plain(*args), torch.bfloat16)
+    _close(got, fused_attn.fused_attn_plain(*args), dtype)
+
+
+def test_fused_f32_kernels_meet_an_f64_witness():
+    """The f32 kernels at the flagship width against the plain version run
+    in f64 from the same f32 inputs, within 1e-4 of the output's peak, at
+    O(1) projection weights (|S| in the tens, summed over T = 6912), and
+    bit-equal from call to call."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    args = _mlp_args(2, 136, 6912, torch.float32, gen)
+    got = fused_mlp.fused_mlp_residual_ct(*args)
+    want = fused_mlp.fused_mlp_plain(*(a.double() for a in args))
+    _close(got, want, torch.float32)
+    assert torch.equal(fused_mlp.fused_mlp_residual_ct(*args), got)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device="cuda") * scale  # noqa: E731
+    args = _attn_args(2, 136, 6912, 2, torch.float32, gen)
+    for i in (12, 14):                 # q and k projections at the scale of v's
+        args[i] = r(136, 136, 1, scale=1 / math.sqrt(136))
+    got = fused_attn.fused_attn_ct(*args)
+    want = fused_attn.fused_attn_plain(*(a.double() if torch.is_tensor(a) else a for a in args))
+    _close(got, want, torch.float32)
+    assert torch.equal(fused_attn.fused_attn_ct(*args), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -488,6 +514,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="C=200"):
         fused_mlp.fused_mlp_residual_ct(x, ln, ln, w, w[:, 0, 0], w.reshape(200, 800, 1),
                                         ln)
+    for dtype in (torch.float32, torch.bfloat16):      # C above 160: both kernels refuse
+        args = _attn_args(1, 200, 8, 2, dtype, torch.Generator(device="cuda"))
+        with pytest.raises(ValueError, match="C=200"):
+            fused_attn.fused_attn_ct(*args)
+    args = _attn_args(1, 160, 8, 1, torch.float32, torch.Generator(device="cuda"))
+    with pytest.raises(ValueError, match="score tiles"):      # f32: 200 tiles, hs = 160
+        fused_attn.fused_attn_ct(*args)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         args = _attn_args(1, 32, 8, 2, torch.float32, torch.Generator(device="cuda"))
         fused_attn.fused_attn_ct(args[0].half(), *args[1:])

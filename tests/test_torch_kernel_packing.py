@@ -80,9 +80,18 @@ def test_mlp_pack_is_exact_and_zero_padded(c):
     assert torch.equal(pk.ln_w, ln_w.reshape(c)) and torch.equal(pk.ln_b, ln_b.reshape(c))
     for pad in (pk.w1[hid:], pk.w1[:, c:], pk.w2[c:], pk.w2[:, hid:], pk.b1[hid:], pk.b2[c:]):
         assert not pad.any()
+    # f32: C padded to 8 (the TF32 mma depth), W2's hidden columns permuted
+    # inside each group of 8 (tests/test_torch_tf32_split.py), unpadded biases
     f = fused_mlp.pack_mlp_weights(ln_w, ln_b, w1, b1, w2, b2, torch.float32)
-    assert f.w1.shape == (hid, c) and torch.equal(f.w1, w1[:, :, 0])
-    assert f.w2.shape == (c, hid) and torch.equal(f.w2, w2[:, :, 0])
+    cp8 = -(-c // 8) * 8
+    assert f.w1.shape == (hp, cp8) and f.w1.dtype == torch.float32
+    assert f.w2.shape == (cp8, hp) and f.w2.dtype == torch.float32
+    assert torch.equal(f.w1[:hid, :c], w1[:, :, 0])
+    w2f = fused_mlp.unpermute_hidden(f.w2)
+    assert torch.equal(w2f[:c, :hid], w2[:, :, 0])
+    assert torch.equal(f.b1[:hid], b1) and torch.equal(f.b2[:c], b2)
+    for pad in (f.w1[hid:], f.w1[:, c:], w2f[c:], w2f[:, hid:], f.b1[hid:], f.b2[c:]):
+        assert not pad.any()
 
 
 @pytest.mark.parametrize("c,n_head", [(136, 2), (64, 4), (48, 1), (32, 2), (40, 1),
@@ -104,6 +113,24 @@ def test_attn_pack_is_exact_and_zero_padded(c, n_head):
     # on the CPU the wrapper runs the plain version from the pack: the same
     # values as from the raw weights, bit for bit
     x = torch.from_numpy(np.random.RandomState(2).randn(2, c, 37).astype(np.float32)).to(BF16)
+    want = fused_attn.fused_attn_plain(x, *raw, n_head)
+    assert torch.equal(fused_attn.fused_attn_ct(x, packed=pk, n_head=n_head), want)
+
+
+@pytest.mark.parametrize("c,n_head", [(136, 2), (64, 4), (44, 2), (37, 1), (160, 4)])
+def test_attn_pack_f32_is_exact_and_zero_padded(c, n_head):
+    """f32: C padded to 8 (the TF32 mma depth), the weights and biases exact;
+    the plain version from the pack equals the raw-weight one bit for bit."""
+    blk = _block(c, n_head, seed=7)
+    raw = _attn_raw(blk)
+    pk = fused_attn.pack_attn_weights(*raw, torch.float32)
+    cp = -(-c // 8) * 8
+    assert pk.pw.shape == (3, cp, cp) and pk.pw.dtype == torch.float32
+    assert pk.pb.shape == (3, cp)
+    for p, (w, b) in enumerate(((raw[11], raw[12]), (raw[13], raw[14]), (raw[15], raw[16]))):
+        assert torch.equal(pk.pw[p, :c, :c], w[:, :, 0]) and torch.equal(pk.pb[p, :c], b)
+        assert not pk.pw[p, c:].any() and not pk.pw[p, :, c:].any() and not pk.pb[p, c:].any()
+    x = torch.from_numpy(np.random.RandomState(8).randn(2, c, 37).astype(np.float32))
     want = fused_attn.fused_attn_plain(x, *raw, n_head)
     assert torch.equal(fused_attn.fused_attn_ct(x, packed=pk, n_head=n_head), want)
 

@@ -92,7 +92,7 @@ def test_darknet_reader_refuses_a_file_of_the_wrong_size(tmp_path, cut):
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_params_cross_into_the_module_as_oihw(variant):
     weights = P.init_he_weights(2, variant)
-    model = P.build_yolo(weights, variant)
+    model = P.build_yolo(weights, variant, "cpu")
     i = 4 if variant == "yolov3" else 3
     np.testing.assert_array_equal(model.convs[i].weight.detach().numpy(),
                                   weights[i]["weight"].transpose(3, 2, 0, 1))
@@ -125,7 +125,7 @@ def test_decode_head_matches_jax(head_idx, img_size):
 
 def _calibrated(variant, size, seed=0, **kw):
     """He-scaled weights with BN statistics calibrated on a batch of 2."""
-    model = P.build_yolo(P.init_he_weights(seed, variant, **kw), variant)
+    model = P.build_yolo(P.init_he_weights(seed, variant, **kw), variant, "cpu")
     x = np.random.RandomState(seed + 10).rand(2, 3, size, size).astype(np.float32)
     model.calibrate_bn_(torch.from_numpy(x))
     return model
@@ -153,14 +153,14 @@ def test_forward_matches_jax(variant, size):
 
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_forward_at_the_jax_init_gives_finite_probabilities(variant):
-    model = P.build_yolo(P.init_random_weights(0, variant), variant)
+    model = P.build_yolo(P.init_random_weights(0, variant), variant, "cpu")
     with torch.no_grad():
         out = model(torch.zeros(1, 3, 64, 64)).numpy()
     assert np.isfinite(out).all() and ((out[..., 4] >= 0) & (out[..., 4] <= 1)).all()
 
 
 def test_tiny_stride1_maxpool_keeps_size():
-    model = P.build_yolo(P.init_he_weights(0, "yolov3-tiny"), "yolov3-tiny")
+    model = P.build_yolo(P.init_he_weights(0, "yolov3-tiny"), "yolov3-tiny", "cpu")
     sizes = []
     handle = model.convs[6].register_forward_hook(lambda m, i, o: sizes.append(i[0].shape))
     with torch.no_grad():
@@ -228,7 +228,7 @@ def test_detector_on_a_fixture_frame_matches_the_jax_pipeline():
     ref = np.load(osp.join(FIXTURE, "decoded.npz"))
     frame = ref["frame_003"]
     model = P.build_yolo(P.init_he_weights(0, "yolov3-tiny", obj_bias=-1.0, person_bias=1.0),
-                         "yolov3-tiny")
+                         "yolov3-tiny", "cpu")
     x = torch.stack([P.preprocess_image(ref[f"frame_00{i}"])[0] for i in range(2)])
     model.calibrate_bn_(x.permute(0, 3, 1, 2).contiguous())
     weights = model.darknet_params()
