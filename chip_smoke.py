@@ -193,12 +193,37 @@ Phases, each of which must pass or the script exits non-zero:
     batch, boxes/s, and its keypoints against the same run on cv2's frames
     (the share within 4 px against a control's); (5) ``tools/bench_input_pipeline``'s
     table on the card.  nvJPEG ports no TPU kernel: it gets a line of its
-    own (``nvjpeg: {...}``), not a ``kernels`` entry.
+    own (``nvjpeg: {...}``), not a ``kernels`` entry;
+18. the modules ported last: (1) the eval CLI on its heatmap path
+    (``DEBUG.VIS_SKELETON`` and ``VIS_BBOX`` on: ``make_eval_step`` /
+    ``make_flip_eval_step`` and ``evaluate_epoch``, the drawing on the
+    original frames) in bf16 at B = 16 over a tree of the fixture's jpg
+    frames (validation, ground-truth boxes), without and with the flip, each
+    beside the decoded path on the same tree and weights: 12 / 16 / 1
+    launches a batch (24 / 32 / 2 with the flip), one drawn image a frame
+    and a result dump a batch, keypoints within one f32 step of the decoded
+    path's and equal max values, boxes/s; (2) ``build_model`` with
+    ``MODEL.NAME pose_hrnet`` (HRNet-W48, 384x288, B = 16, f32, TF32 off,
+    weights of std 1/sqrt(fan_in)): the card against the CPU to 2e-4 of the
+    peak, ms a forward; (3) a ConvTransformer at C = 136, T = 6912, arch (1, 6, 2),
+    window 19 at every level, ``use_rel_pe``, B = 2, in eval in f32 (1e-4
+    of the peak against the CPU) and bf16 (RMS from the CPU's f32 answer no
+    more than twice the CPU bf16 plain version's; the share of outputs that
+    differ from it printed): 8 fused-MLP launches a forward (every window
+    block's MLP), no fused attention; (4) ``tools/time_train_step`` in bf16
+    at B = 8 without remat (0 / 0 / 1 / 1 launches a step), the median ms of
+    three steps each timed alone, beside phase 12's median; (5) K2, ``tools/exp_fused_train_mlp`` (6 blocks, B = 8,
+    C = 136, T = 6912, bf16): three interleaved rounds of 10 calls an arm,
+    each arm's ms, the fused arm's share, one block's gradients fused
+    against plain no farther apart than two plain runs, 6 fused-MLP
+    launches a fused call; (6) the DCN variants (groups 2, deformable groups
+    4, stride 2, dilation 2, C = 64) and ``deform_psroi_pool`` on the card
+    against the CPU to 1e-5 of the peak; the phase's seconds.
 
-``python3 chip_smoke.py --phase17`` builds the kernels and runs phase 17
-alone (a development run: no kernels line, no result line).
+``python3 chip_smoke.py --phase17`` (or ``--phase18``) builds the kernels and
+runs that phase alone (a development run: no kernels line, no result line).
 
-Each path (phases 4 to 7, 9, 12, 14, 15, 16 and 17) is driven with every launch
+Each path (phases 4 to 7, 9, 12, 14, 15, 16, 17 and 18) is driven with every launch
 count set to 0 just before it and read just after (phase 15's in the process
 that serves, phase 16's in each rank).  It prints a ``kernels`` JSON line, the
 card line, and last ``{"ok": true, "device": {...}}``.
@@ -3477,6 +3502,359 @@ def jpeg_phase(card: str) -> dict:
     return {"probe": probe, "per_batch": {k: v // run["batches"] for k, v in run["counts"].items()}}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the remaining modules (the eval CLI's drawing path, pose_hrnet,
+# window attention and embedding convs, the two tools, the DCN variants)
+# ---------------------------------------------------------------------------
+
+# the encoder of phase 18: the temporal encoder's width and depth with an
+# embedding conv and window 19 at every level (2 * 9 = 18 divides 6912, 3456
+# and 1728, as the reference's banded form needs)
+WINDOW_SPEC = dict(n_in=136, n_embd=136, n_head=2, n_embd_ks=3, max_len=6912, arch=(1, 6, 2),
+                   mha_win_size=(19,), use_rel_pe=True)
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float().cpu() - want.float().cpu()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def vis_eval_cli(card: str) -> dict:
+    """Phase 18 (1): the eval CLI on its heatmap path, ``DEBUG.VIS_SKELETON``
+    and ``VIS_BBOX`` on, B = 16, bf16, without and with the flip, over the
+    fixture's jpg tree (validation split, ground-truth boxes), each against
+    the decoded path on the same tree and weights: launches a batch, the
+    image files written (one a frame with a box, a result dump a batch at
+    ``PRINT_FREQ`` 1), keypoints within one f32 step of each coordinate (the
+    heatmap path's decode stores its back-projection in f32, the decoded
+    path's in f64; both decode the same heatmaps) and max values equal."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from otpose_tpu_torch.cli.eval import Eval
+    from otpose_tpu_torch.config import default_parse_args
+    from otpose_tpu_torch.models.factory import build_model
+    from otpose_tpu_torch.utils.testing import flagship_otpose_cfg
+
+    class Cached(Eval):
+        """One model for the phase's four runs, its load timed."""
+        model = None
+
+        def _load(self, model_file):
+            if Cached.model is None:
+                Cached.model = super()._load(model_file)
+            torch.cuda.synchronize()
+            self.loaded_at = time.perf_counter()
+            return Cached.model
+
+    root = tempfile.mkdtemp(prefix="otpose_vis_cli_")
+    try:
+        json_dir, img_dir, annot_dir = _fixture_tree(root)
+        cfg = flagship_otpose_cfg()
+        cfg.DATASET.NAME = "PoseTrack"
+        cfg.DATASET.JSON_DIR, cfg.DATASET.IMG_DIR, cfg.DATASET.TEST_IMG_DIR = (
+            json_dir, img_dir, img_dir)
+        cfg.DATASET.COLOR_RGB = True
+        cfg.VAL.ANNOT_DIR = annot_dir
+        cfg.VAL.USE_GT_BBOX = True
+        cfg.VAL.BATCH_SIZE_PER_GPU = BATCH
+        cfg.VAL.MODEL_FILE = os.path.join(root, "random_weights.pth")
+        cfg.PRINT_FREQ = 1
+        cfg.WORKERS = 4
+        cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+        cfg.TPU.PARAM_DTYPE = "bfloat16"
+        _, model = build_model(cfg, seed=0)
+        _scaled_weights_(model, 0)
+        _calibrate_refinement_(model, 0)
+        torch.save({"state_dict": model.state_dict()}, cfg.VAL.MODEL_FILE)
+        del model
+        runs = {}
+        for flip in (False, True):
+            for draw in (False, True):
+                label = ("heatmap path, drawing" if draw else "decoded path") + (
+                    ", flip" if flip else "")
+                cfg.EXPERIMENT_NAME = f"vis_{int(flip)}{int(draw)}"
+                cfg.VAL.FLIP_VAL = flip
+                cfg.DEBUG.VIS_SKELETON = cfg.DEBUG.VIS_BBOX = draw
+                yaml_path = os.path.join(root, cfg.EXPERIMENT_NAME + ".yaml")
+                with open(yaml_path, "w") as fh:
+                    fh.write(cfg.dump())
+                ev = Cached("validate", default_parse_args(["--cfg", yaml_path,
+                                                            "--root_dir", root]))
+                if ev.use_decoded == draw:
+                    fail(f"eval CLI ({label}): use_decoded {ev.use_decoded}")
+                kept = {}
+                inner = ev.dataset.evaluate
+
+                def spy(cfg_, preds, *args, inner=inner, kept=kept, **kwargs):
+                    kept["preds"] = np.array(preds)
+                    return inner(cfg_, preds, *args, **kwargs)
+
+                ev.dataset.evaluate = spy
+                boxes, batches = len(ev.dataset), len(ev.loader)
+                torch.cuda.synchronize()
+                reset_counts()
+                results = ev.eval()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - ev.loaded_at
+                counts = read_counts()
+                want = {k: v * batches * (2 if flip else 1) for k, v in FORWARD_COUNTS.items()}
+                if counts != want:
+                    fail(f"eval CLI ({label}): launches {counts}, expected {want} over "
+                         f"{batches} batches")
+                _, name_values, _ = results[0]
+                if len(name_values) != 8 or not np.isfinite(kept["preds"]).all():
+                    fail(f"eval CLI ({label}): AP table {name_values}")
+                vis_dir = os.path.join(ev.cfg.OUTPUT_DIR, "validate_vis")
+                written = sorted(os.path.relpath(os.path.join(r, f), vis_dir)
+                                 for r, _, fs in os.walk(vis_dir) for f in fs)
+                frames = {r["image"] for r in ev.dataset.data}
+                drawn = [n for n in written if n.startswith("SkeletonAndBbox")]
+                dumps = [n for n in written if n.endswith("_pred_result.jpg")]
+                log(f"eval CLI on the fixture's jpg tree, {label} (B={BATCH}, bf16): {boxes} "
+                    f"boxes, {batches} batches, {boxes / wall:.3f} boxes/s ({wall:.3f} s from "
+                    f"the model's load); launches {counts}; {len(drawn)} frames drawn, "
+                    f"{len(dumps)} result dumps; AP "
+                    + " ".join(f"{k} {v:.4f}" for k, v in name_values.items()) + f" ({card})")
+                if draw:
+                    if len(drawn) != len(frames) or len(dumps) != batches:
+                        fail(f"eval CLI ({label}): wrote {len(drawn)} frames (want "
+                             f"{len(frames)}) and {len(dumps)} dumps (want {batches})")
+                    if not all(os.path.getsize(os.path.join(vis_dir, n)) > 0 for n in written):
+                        fail(f"eval CLI ({label}): an empty image file")
+                elif written:
+                    fail(f"eval CLI ({label}): drew {len(written)} files with the flags off")
+                runs[(flip, draw)] = dict(counts=counts, batches=batches,
+                                          boxes_per_s=boxes / wall, preds=kept["preds"])
+            a, b = runs[(flip, True)]["preds"], runs[(flip, False)]["preds"]
+            d = np.abs(a[..., :2] - b[..., :2])
+            ulps = float((d / np.spacing(np.abs(b[..., :2]).astype(np.float32))).max())
+            same_max = bool(np.array_equal(a[..., 2], b[..., 2]))
+            log(f"eval CLI{' flip' if flip else ''}: the heatmap path's keypoints against the "
+                f"decoded path's: max |d| {d.max():.3e} px, {ulps:.3f} f32 steps of the "
+                f"coordinate at most (bar 1: the heatmap path keeps its back-projection in "
+                f"f32), max values equal: {same_max}")
+            if ulps > 1.0 or not same_max:
+                fail("eval CLI: the heatmap path's keypoints differ from the decoded path's")
+        return runs
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def pose_hrnet(card: str) -> dict:
+    """Phase 18 (2): ``build_model`` with ``MODEL.NAME pose_hrnet``:
+    HRNet-W48 at 384x288, B = 16, f32 (TF32 off), weights of std
+    1/sqrt(fan_in) from a seed (``_scaled_weights_``);
+    the card's heatmaps against the CPU forward of the same weights (2e-4 of
+    the peak), ms a forward by CUDA events."""
+    import torch
+
+    from otpose_tpu_torch.models.factory import build_model
+    from otpose_tpu_torch.models.hrnet import HRNet
+    from otpose_tpu_torch.utils.testing import flagship_otpose_cfg
+    from otpose_tpu_torch.utils.timing import time_ms
+
+    cfg = flagship_otpose_cfg()
+    cfg.MODEL.NAME = "pose_hrnet"
+    _, model = build_model(cfg, seed=0)
+    if not isinstance(model, HRNet) or next(model.parameters()).device.type != "cuda":
+        fail("build_model(pose_hrnet) did not give an HRNet on the card")
+    _scaled_weights_(model, 18)
+    cpu = copy.deepcopy(model).cpu()
+    w, h = cfg.MODEL.IMAGE_SIZE
+    x = torch.randn(BATCH, 3, h, w, generator=torch.Generator().manual_seed(18))
+    with torch.no_grad():
+        got = model(x.cuda())
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: model(x.cuda()), iters=5, warmup=1)
+        t0 = time.perf_counter()
+        want = cpu(x)
+        cpu_s = time.perf_counter() - t0
+    err = _rel_err(got, want)
+    log(f"pose_hrnet (HRNet-W48, 384x288, B={BATCH}, f32, TF32 off): heatmaps "
+        f"{tuple(got.shape)}, card against CPU {err:.3e} of the peak (bar 2e-4); "
+        f"{ms:.2f} ms a forward on the card, {cpu_s:.1f} s on the CPU ({card})")
+    if tuple(got.shape) != (BATCH, 17, h // 4, w // 4) or not torch.isfinite(got).all() \
+            or not err <= 2e-4:
+        fail("pose_hrnet: the card's heatmaps disagree with the CPU's")
+    return dict(ms=ms, err=err)
+
+
+def window_encoder(card: str) -> dict:
+    """Phase 18 (3): a ConvTransformer at the temporal encoder's width (C =
+    136, T = 6912, arch (1, 6, 2), window 19 at every level, ``use_rel_pe``)
+    in eval on the card in f32 and bf16 against its plain version on the
+    CPU, B = 2: f32 to 1e-4 of the peak; bf16 no farther from the CPU's f32
+    answer (RMS) than twice the CPU's own bf16 plain version, and the share
+    of outputs that differ from that plain version printed.  Each window
+    block's MLP takes the fused kernel: 8 fused-MLP launches a forward, no
+    fused attention."""
+    import torch
+
+    from otpose_tpu_torch.models.conv_transformer import (ConvTransformer,
+                                                          ConvTransformerSpec,
+                                                          init_conv_transformer_)
+    from otpose_tpu_torch.utils.timing import time_ms
+
+    spec = ConvTransformerSpec(**WINDOW_SPEC)
+    cpu = init_conv_transformer_(ConvTransformer(spec), torch.Generator().manual_seed(19)).eval()
+    card_model = copy.deepcopy(cpu).cuda()
+    x = torch.randn(2, 136, 96, 72, generator=torch.Generator().manual_seed(20))
+    blocks = spec.arch[1] + spec.arch[2]
+    out, counts = {}, {}
+    with torch.no_grad():
+        ref = cpu(x)
+        ref_bf16 = cpu(x.bfloat16())
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.cuda().to(dtype)
+            card_model(xd)
+            torch.cuda.synchronize()
+            reset_counts()
+            out[dtype] = card_model(xd)
+            torch.cuda.synchronize()
+            counts[dtype] = read_counts()
+            out[dtype].append(time_ms(lambda: card_model(xd), iters=5, warmup=1))
+    want = dict(FORWARD_COUNTS, fused_attn=0, fused_mlp=blocks, deform_conv=0)
+    f32_err = max(_rel_err(g, w) for g, w in zip(out[torch.float32][:-1], ref))
+    rms = lambda a, b: ((a.float().cpu() - b.float()) ** 2).mean().sqrt().item()  # noqa: E731
+    card_rms = max(rms(g, w) for g, w in zip(out[torch.bfloat16][:-1], ref))
+    plain_rms = max(rms(g, w) for g, w in zip(ref_bf16, ref))
+    differ = sum(int((g.cpu() != w).sum()) for g, w in zip(out[torch.bfloat16][:-1], ref_bf16))
+    share = differ / sum(w.numel() for w in ref_bf16)
+    log(f"window encoder (C=136, T=6912, arch (1, 6, 2), window 19, rel_pe, B=2): launches f32 "
+        f"{counts[torch.float32]}, bf16 {counts[torch.bfloat16]}; f32 card against CPU "
+        f"{f32_err:.3e} of the peak (bar 1e-4); bf16 RMS from the CPU's f32 {card_rms:.3e} "
+        f"against the CPU bf16 plain version's {plain_rms:.3e} (bar 2x), "
+        f"{share:.2%} of outputs differ from that plain version; "
+        f"{out[torch.float32][-1]:.3f} ms f32, {out[torch.bfloat16][-1]:.3f} ms bf16 a forward "
+        f"({card})")
+    if any(c != want for c in counts.values()):
+        fail(f"window encoder: launches {counts}, expected {want}")
+    if not f32_err <= 1e-4 or not card_rms <= 2 * plain_rms:
+        fail("window encoder: the card disagrees with the CPU plain version")
+    return dict(counts=counts[torch.bfloat16], f32_err=f32_err, share=share)
+
+
+def dcn_variants(card: str) -> dict:
+    """Phase 18 (6): ``ops/deform_conv.py``'s DCNv2 (groups 2, deformable
+    groups 4, stride 2, dilation 2, C = 64), its gather form and DCNv1, and
+    ``ops/deform_pool.py::deform_psroi_pool`` with part offsets, on the card
+    against the CPU in f32 (1e-5 of the peak; the pool's sample counts
+    equal)."""
+    import importlib
+
+    import torch
+
+    dc = importlib.import_module("otpose_tpu_torch.ops.deform_conv")
+    dp = importlib.import_module("otpose_tpu_torch.ops.deform_pool")
+    gen = torch.Generator().manual_seed(21)
+    b, c, h, w, o, dg, groups, stride, dil = 2, 64, 64, 64, 64, 4, 2, 2, 2
+    ho = wo = (h + 2 * dil - dil * 2 - 1) // stride + 1
+    args = dict(x=torch.randn(b, c, h, w, generator=gen),
+                off=1.5 * torch.randn(b, dg * 18, ho, wo, generator=gen),
+                mask=torch.rand(b, dg * 9, ho, wo, generator=gen),
+                weight=torch.randn(o, c // groups, 3, 3, generator=gen) / 24.0,
+                bias=0.1 * torch.randn(o, generator=gen))
+    kw = dict(stride=stride, padding=dil, dilation=dil, deformable_groups=dg)
+    calls = {
+        "modulated_deform_conv": lambda a: dc.modulated_deform_conv(
+            a["x"], a["off"], a["mask"], a["weight"], a["bias"], groups=groups, **kw),
+        "deform_conv": lambda a: dc.deform_conv(a["x"], a["off"], a["weight"], a["bias"],
+                                                groups=groups, **kw),
+        "modulated_deform_conv_gather": lambda a: dc.modulated_deform_conv_gather(
+            a["x"], a["off"][:, :dg * 18], a["mask"], torch.cat([a["weight"]] * groups, 1),
+            a["bias"], **kw)}
+    errs = {}
+    for name, fn in calls.items():
+        got = fn({k: v.cuda() for k, v in args.items()})
+        errs[name] = _rel_err(got, fn(args))
+    rois = torch.tensor([[0, 2, 3, 40, 50], [1, 0, 0, 63, 63], [1, 10.4, 6.6, 30.5, 60],
+                         [0, -6, -4, 20, 17]])
+    trans = torch.randn(4, 2, 7, 7, generator=gen)
+    xp = torch.randn(b, 8 * 49, 48, 48, generator=gen)
+    pk = dict(spatial_scale=0.75, out_size=7, output_dim=8, group_size=7, sample_per_part=4,
+              trans_std=0.1, no_trans=False)
+    top, count = dp.deform_psroi_pool(xp.cuda(), rois.cuda(), trans.cuda(), **pk)
+    want_top, want_count = dp.deform_psroi_pool(xp, rois, trans, **pk)
+    errs["deform_psroi_pool"] = _rel_err(top, want_top)
+    same_count = torch.equal(count.cpu(), want_count)
+    log("DCN variants and PSRoI pooling on the card against the CPU (f32, C=64, groups 2, "
+        "deformable groups 4, stride 2, dilation 2; the pool 8 x 7 x 7 from 392 channels): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" of the peak (bar 1e-5); the pool's counts equal: {same_count} ({card})")
+    if not all(v <= 1e-5 for v in errs.values()) or not same_count:
+        fail("DCN variants: the card disagrees with the CPU")
+    return errs
+
+
+def remaining_modules(card: str, train_ms: float | None = None) -> dict:
+    """Phase 18: the modules of the JAX package ported last, on the card:
+    the eval CLI's drawing path, ``pose_hrnet``, the window encoder,
+    ``tools/time_train_step``, ``tools/exp_fused_train_mlp`` (K2) and the
+    DCN variants.  Returns each path's launches."""
+    import torch
+
+    from otpose_tpu_torch.ops.cuda import fused_mlp
+    from otpose_tpu_torch.tools import exp_fused_train_mlp, time_train_step
+
+    phase_t0 = time.perf_counter()
+    cli = vis_eval_cli(card)
+    torch.cuda.empty_cache()
+    pose_hrnet(card)
+    torch.cuda.empty_cache()
+    enc = window_encoder(card)
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    tts = time_train_step.run(batch=8, iters=3, remat=False, log=log)
+    counts = read_counts()
+    log(f"tools/time_train_step (bf16, B=8, no remat): {tts['ms']:.2f} ms a step, "
+        f"{tts['clips_per_s']:.3f} clips/s; phase 12's bf16 B=8 step in this call: "
+        + (f"{train_ms:.2f} ms" if train_ms is not None else "not run") + f" ({card})")
+    if tts["launches"] != TRAIN_COUNTS or counts["deform_conv_bwd"] != 5:
+        fail(f"time_train_step: launches a step {tts['launches']} (expected {TRAIN_COUNTS}), "
+             f"{counts['deform_conv_bwd']} DCN backward launches over 5 steps")
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    k2 = exp_fused_train_mlp.run(batch=8, channels=136, tokens=6912, blocks=6, iters=10,
+                                 rounds=3, log=log)
+    k2_counts = read_counts()
+    fused_share = sum(k2["fused_ms"]) / sum(k2["plain_ms"])
+    x, params = exp_fused_train_mlp.make_inputs(8, 136, 6912, 1, torch.bfloat16, "cuda")
+    a = exp_fused_train_mlp.one_block_gradients(x, params[0])
+    b = exp_fused_train_mlp.one_block_gradients(x, params[0])
+    spread = max((p - q).abs().max().item() for p, q in zip(a["plain"][1], b["plain"][1]))
+    grads_gap = max(k2["one_block"][n] for n in ("x",) + exp_fused_train_mlp.PARAMS)
+    log(f"K2 (tools/exp_fused_train_mlp, 6 blocks, B=8, C=136, T=6912, bf16): plain "
+        + ", ".join(f"{v:.3f}" for v in k2["plain_ms"]) + " ms, fused "
+        + ", ".join(f"{v:.3f}" for v in k2["fused_ms"])
+        + f" ms a round's call (bound {k2['bound_ms']:.4f} ms, {k2['bound_by']}); fused / "
+        f"plain {fused_share:.3f}; one block's gradients, fused "
+        f"against plain: max |d| {grads_gap:.3e} (two plain runs' spread {spread:.3e}); "
+        f"fused-MLP launches {k2['launches']} over {3 * 10} timed fused calls ({card})")
+    if grads_gap > spread or k2["launches"] != 6 * 3 * 10 or \
+            k2_counts["fused_mlp"] < k2["launches"]:
+        fail(f"K2: gradients {k2['one_block']} (spread {spread}), launches {k2['launches']}")
+    del x, params, a, b
+    torch.cuda.empty_cache()
+
+    dcn_variants(card)
+    log(f"remaining modules (phase 18): {time.perf_counter() - phase_t0:.1f} s")
+    return {"eval_cli_heatmap_per_batch": {k: v // cli[(False, True)]["batches"]
+                                           for k, v in cli[(False, True)]["counts"].items()},
+            "eval_cli_heatmap_flip_per_batch": {k: v // cli[(True, True)]["batches"]
+                                                for k, v in cli[(True, True)]["counts"].items()},
+            "window_encoder": enc["counts"], "time_train_step": tts["launches"],
+            # a fused-arm call: forward and backward through the six blocks
+            "k2_tool": dict(k2_counts, fused_mlp=k2["launches"] // 30),
+            "k2": dict(plain_ms=k2["plain_ms"], fused_ms=k2["fused_ms"], share=fused_share,
+                       bound_ms=k2["bound_ms"])}
+
+
 def main(only: str | None = None) -> None:
     start = time.perf_counter()
     try:
@@ -3507,10 +3885,10 @@ def main(only: str | None = None) -> None:
             if "registers" in line or "spill" in line or "properties for" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
-    if only == "17":
-        # a development run of phase 17 alone: no kernels line, no result line
-        jpeg_phase(card)
-        log(f"phase 17 alone: {time.perf_counter() - start:.1f} s")
+    if only in ("17", "18"):
+        # a development run of one phase alone: no kernels line, no result line
+        (jpeg_phase if only == "17" else remaining_modules)(card)
+        log(f"phase {only} alone: {time.perf_counter() - start:.1f} s")
         return
     rows = check_kernels()
     rows["token_shift"] = check_token_shift()
@@ -3546,6 +3924,11 @@ def main(only: str | None = None) -> None:
     torch.cuda.empty_cache()
     jpeg = jpeg_phase(card)
     paths["test_split_eval_cli_per_batch"] = jpeg["per_batch"]
+    torch.cuda.empty_cache()
+    bf16_train_ms = sorted(train["bf16 B=8"]["ms"])[len(train["bf16 B=8"]["ms"]) // 2]
+    rest = remaining_modules(card, train_ms=bf16_train_ms)
+    k2 = rest.pop("k2")
+    paths.update(rest)
     # each kernel's launches on its own path: the eval's for the model's
     # kernels, the experiment tool's for the other two, a train step's for
     # the DCN's backward
@@ -3581,6 +3964,11 @@ def main(only: str | None = None) -> None:
         + f"; data parallel (phase 16): launches a rank a train micro-batch {dp['train']}, a "
         f"sharded eval batch {dp['eval']}, a two-rank train-CLI step {dp['cli']['step']}"
         + f"; the test split over detector boxes (phase 17): launches a batch {jpeg['per_batch']}"
+        + f"; phase 18: the eval CLI's heatmap path launches a batch "
+        f"{rest['eval_cli_heatmap_per_batch']} (flip {rest['eval_cli_heatmap_flip_per_batch']}), "
+        f"the window encoder a forward {rest['window_encoder']}, K2 fused / plain "
+        f"{k2['share']:.3f} (plain {', '.join(f'{v:.3f}' for v in k2['plain_ms'])} ms, fused "
+        f"{', '.join(f'{v:.3f}' for v in k2['fused_ms'])} ms)"
         + f"; the script {time.perf_counter() - start:.1f} s ({card})")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(f"nvidia-smi: {card}", flush=True)
@@ -3598,7 +3986,7 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--dist-worker"]:
         sys.path.insert(0, ROOT)
         dist_worker(*sys.argv[2:4])
-    elif sys.argv[1:2] == ["--phase17"]:
-        main(only="17")
+    elif sys.argv[1:2] in (["--phase17"], ["--phase18"]):
+        main(only=sys.argv[1][-2:])
     else:
         main()

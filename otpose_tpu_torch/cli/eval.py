@@ -16,6 +16,11 @@ so one yaml serves both packages.
 (the repository's yamls) takes the device loader in its ``crops`` mode on a
 GPU and the host loader on the CPU; ``crops``, ``full`` and ``off`` choose.
 
+With ``DEBUG.VIS_SKELETON`` or ``VIS_BBOX`` set the heatmaps come to the
+host (``make_eval_step`` or, with flip, ``make_flip_eval_step``, then
+``evaluate_epoch``), which decodes them and draws, as the JAX CLI does;
+otherwise the decode runs on the device and 17 coords a box come back.
+
 Under a multi-process launch (``parallel/distributed.py``) the batch is
 ``BATCH_SIZE_PER_GPU`` times the number of ranks, every rank loads it whole
 and runs its row block (a batch that does not divide runs whole on every
@@ -34,8 +39,9 @@ from otpose_tpu_torch.data import describe_loader, make_loader
 from otpose_tpu_torch.data.posetrack import PoseTrackDataset
 from otpose_tpu_torch.engine import checkpoints as ckpt
 from otpose_tpu_torch.engine.base import RunBase
-from otpose_tpu_torch.engine.runner import refuse_vis, evaluate_epoch_decoded
-from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
+from otpose_tpu_torch.engine.runner import (evaluate_epoch, evaluate_epoch_decoded,
+                                            make_flip_eval_step)
+from otpose_tpu_torch.engine.trainer import make_decoded_eval_step, make_eval_step
 from otpose_tpu_torch.models.factory import build_model
 from otpose_tpu_torch.models.otpose import prepare_eval_params
 from otpose_tpu_torch.parallel import distributed
@@ -59,8 +65,6 @@ class Eval(RunBase):
                                      else getattr(args, "device", None))
         super().__init__(phase, args=args)
         cfg = self.cfg
-        # the heatmap path that the drawing flags select needs the drawing helpers
-        refuse_vis(cfg)
         world = distributed.maybe_initialize(cfg, device=self.device)[1]
         self.shard_fn = make_eval_shard_fn(make_mesh(cfg))
         self.dataset = dataset_cls(cfg, phase)
@@ -72,6 +76,8 @@ class Eval(RunBase):
         self.model_file = sub.MODEL_FILE
         self.flip = sub.FLIP_VAL if phase == "validate" else sub.FLIP_TEST
         self.compute_dtype = resolve_dtype(cfg.TPU.COMPUTE_DTYPE)
+        # drawing needs the heatmaps on the host; otherwise decode on the device
+        self.use_decoded = not (cfg.DEBUG.VIS_SKELETON or cfg.DEBUG.VIS_BBOX)
 
     def list_model_files(self):
         """ref: eval.py:64-83."""
@@ -91,10 +97,15 @@ class Eval(RunBase):
         return [latest]
 
     def make_step(self, model):
-        """The decoded eval step of ``model`` (forward and decode on its
-        device; 17 coords a box come back)."""
-        return make_decoded_eval_step(model, compute_dtype=self.compute_dtype,
-                                      flip=self.flip)
+        """The eval step of ``model``: decoded (forward and decode on its
+        device; 17 coords a box come back), or with ``use_decoded`` false
+        the heatmap step (with the flip average when ``flip``)."""
+        if self.use_decoded:
+            return make_decoded_eval_step(model, compute_dtype=self.compute_dtype,
+                                          flip=self.flip)
+        if self.flip:
+            return make_flip_eval_step(model, compute_dtype=self.compute_dtype)
+        return make_eval_step(model, compute_dtype=self.compute_dtype)
 
     def eval(self):
         results = []
@@ -106,7 +117,8 @@ class Eval(RunBase):
         for model_file in model_files:
             logger.info("=> evaluating %s", model_file)
             model = self._load(model_file)
-            name_values, mean_ap = evaluate_epoch_decoded(
+            eval_epoch = evaluate_epoch_decoded if self.use_decoded else evaluate_epoch
+            name_values, mean_ap = eval_epoch(
                 self.make_step(model), self.loader, self.dataset, self.cfg,
                 self.cfg.OUTPUT_DIR, phase=self.phase, device=self.device,
                 shard_fn=self.shard_fn)

@@ -42,7 +42,7 @@ from otpose_tpu_torch.engine import checkpoints as ckpt
 from otpose_tpu_torch.engine.base import RunBase
 from otpose_tpu_torch.engine.optim import make_optimizer, make_schedule
 from otpose_tpu_torch.engine.preempt import make_preemption_guard
-from otpose_tpu_torch.engine.runner import evaluate_epoch_decoded, refuse_vis, train_epoch
+from otpose_tpu_torch.engine.runner import evaluate_epoch_decoded, train_epoch
 from otpose_tpu_torch.engine.trainer import (init_train_state, make_decoded_eval_step,
                                              make_train_step)
 from otpose_tpu_torch.models.factory import build_model
@@ -72,7 +72,6 @@ class Train(RunBase):
                                      else getattr(args, "device", None))
         super().__init__("train", args=args)
         cfg = self.cfg
-        refuse_vis(cfg)
         self.world = distributed.maybe_initialize(cfg, device=self.device)[1]
         self.mesh = make_mesh(cfg)
         self.dataset_cls = dataset_cls

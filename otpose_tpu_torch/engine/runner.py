@@ -11,8 +11,12 @@ holds the full eval batch, runs its row block (``parallel/mesh.py::
 make_eval_shard_fn``) and gathers every rank's outputs; rank 0 alone runs
 poseval and its mean AP reaches the others by ``broadcast_scalar``.
 ``make_flip_eval_step`` is the flip-test averaging behind ``VAL.FLIP_VAL`` /
-``TEST.FLIP_TEST``.  The ``DEBUG.VIS_*`` drawing helpers are not ported yet
-(ROADMAP Queue 1 item 10): with such a flag set the loops raise.
+``TEST.FLIP_TEST``.  The ``DEBUG.VIS_*`` flags draw as the JAX loops do, on
+the primary rank: ``VIS_SKELETON`` / ``VIS_BBOX`` put each box's skeleton and
+box on its original frame every eval iteration (both loops) and, in
+``evaluate_epoch``, dump a crop-space result image every ``PRINT_FREQ``
+iterations; ``VIS_TENSORBOARD`` adds input and target grids to the train
+loop's TensorBoard writer.
 """
 
 from __future__ import annotations
@@ -95,13 +99,6 @@ def make_flip_eval_step(model: OTPose, *, compute_dtype=torch.float32,
     return step
 
 
-def refuse_vis(cfg) -> None:
-    if cfg.DEBUG.VIS_SKELETON or cfg.DEBUG.VIS_BBOX:
-        raise NotImplementedError(
-            "DEBUG.VIS_SKELETON / DEBUG.VIS_BBOX: the drawing helpers are not ported "
-            "yet (ROADMAP Queue 1 item 10)")
-
-
 def _batch_on(batch, keys, device: torch.device) -> list:
     """The tensors ``batch[k]`` for ``keys`` on ``device``.  A batch of the
     device loader is already there and is taken as it is; a host batch is
@@ -138,10 +135,6 @@ def train_epoch(step_fn, state, loader, epoch: int, cfg, *, seed: int,
     host only every ``PRINT_FREQ`` iterations and on the last one (a fetch
     waits for the device), for the log line and the TensorBoard scalars;
     steps [10, 15) are traced into ``TPU.PROFILE_DIR`` when it is set."""
-    if cfg.DEBUG.VIS_TENSORBOARD and tb_writer is not None:
-        raise NotImplementedError(
-            "DEBUG.VIS_TENSORBOARD: the TensorBoard image grids are not ported yet (ROADMAP "
-            "Queue 1 item 10)")
     device = next(state.model.parameters()).device
     batch_time = AverageMeter()
     data_time = AverageMeter()
@@ -172,6 +165,8 @@ def train_epoch(step_fn, state, loader, epoch: int, cfg, *, seed: int,
             if tb_writer is not None:
                 for k, v in host_metrics.items():
                     tb_writer.add_scalar(f"train/{k}", v, global_steps)
+                if cfg.DEBUG.VIS_TENSORBOARD:
+                    _tb_image_grids(tb_writer, batch, global_steps)
             acc_meter.update(host_metrics.get("pck_acc", 0.0))
             bsz = batch["inputs"].shape[0]
             loss_meter = losses["final_loss"]
@@ -227,6 +222,61 @@ def _to_host(t) -> np.ndarray:
     return t.float().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
+def _drawing(cfg) -> bool:
+    """Whether the eval loops draw on this rank (``DEBUG.VIS_SKELETON`` or
+    ``VIS_BBOX``, on the primary rank only)."""
+    return bool(cfg.DEBUG.VIS_SKELETON or cfg.DEBUG.VIS_BBOX) and is_primary()
+
+
+def _tb_image_grids(tb_writer, batch, global_steps, max_images: int = 6):
+    """Input-frame and target-heatmap grids for TensorBoard
+    (ref: script/Common.py:455-589, behind DEBUG.VIS_TENSORBOARD)."""
+    from otpose_tpu_torch.utils.images import tensor2im
+
+    inputs = _to_host(batch["inputs"][:max_images])
+    imgs = np.stack([tensor2im(x[:, :, :3])[..., ::-1] for x in inputs])  # RGB
+    tb_writer.add_images("train/input_images", imgs, global_steps, dataformats="NHWC")
+    target = _to_host(batch["target"][:max_images])               # (N, Hh, Hw, J)
+    heat = target.max(axis=-1, keepdims=True)
+    heat = (heat / np.maximum(heat.max(axis=(1, 2, 3), keepdims=True), 1e-6)
+            * 255).astype(np.uint8)
+    tb_writer.add_images("train/gt_heatmaps", heat, global_steps, dataformats="NHWC")
+
+
+def _dump_vis(cfg, output_dir, phase, it, batch, metas, preds_heat):
+    """Crop-space skeleton and heatmap result image of a batch's first box,
+    behind the DEBUG.VIS_* flags (ref: utils/evaluate.py:244-338)."""
+    import os.path as osp
+
+    from otpose_tpu_torch.utils.images import save_result_images, tensor2im
+
+    out_dir = osp.join(output_dir, f"{phase}_vis")
+    pose, conf = get_max_preds(preds_heat.transpose(0, 3, 1, 2))
+    inputs = _to_host(batch["inputs"][:1])
+    img = tensor2im(inputs[0, :, :, :3])
+    stride = inputs.shape[1] / preds_heat.shape[1]
+    return save_result_images(out_dir, img, pose[0] * stride, conf[0, :, 0],
+                              heatmaps=preds_heat[0].transpose(2, 0, 1), name=f"{it}_pred_")
+
+
+def _vis_origin_images(cfg, output_dir, phase, metas, preds, maxvals):
+    """Skeleton and box overlays accumulated on the original frames, every
+    eval iteration (ref: script/Common.py:591-602 and utils/images.py:40-88).
+    ``preds`` are back-projected origin-image coordinates, so boxes and
+    joints land on the same frame."""
+    import os.path as osp
+
+    from otpose_tpu_torch.ops.bbox import cs2box
+    from otpose_tpu_torch.utils.images import draw_skeleton_in_origin_image
+
+    coords = np.concatenate([preds[:, :, :2], maxvals], axis=-1)
+    paths = [m["image"] for m in metas]
+    bboxes = [cs2box(m["center"], m["scale"], pattern="xyxy") for m in metas]
+    return draw_skeleton_in_origin_image(
+        paths, coords, bboxes, osp.join(output_dir, f"{phase}_vis"),
+        vis_skeleton=cfg.DEBUG.VIS_SKELETON, vis_bbox=cfg.DEBUG.VIS_BBOX)
+
+
 def _box_rows(all_boxes, idx, metas):
     """Fill rows idx.. of the (N, 6) box table [center | scale | area | score]
     from a batch's metas; returns (center, scale)."""
@@ -263,8 +313,8 @@ def evaluate_epoch(eval_fn, loader, dataset, cfg, output_dir: str, *,
     ``make_flip_eval_step`` step of a model on ``device``; ``shard_fn``
     places each batch over the ranks (see ``_pipelined_forward``).
     Returns (name_values, mean_ap); under a launch rank 0's table, the
-    other ranks' empty, the mean AP on every rank."""
-    refuse_vis(cfg)
+    other ranks' empty, the mean AP on every rank.  With ``DEBUG.VIS_*``
+    the primary rank draws (``_vis_origin_images``, ``_dump_vis``)."""
     device = resolve_device(device)
     batch_time = AverageMeter()
     acc_meter = AverageMeter()
@@ -292,10 +342,14 @@ def evaluate_epoch(eval_fn, loader, dataset, cfg, output_dir: str, *,
         all_preds[idx:idx + n, :, 0:2] = preds[:, :, 0:2]
         all_preds[idx:idx + n, :, 2:3] = maxvals
         idx += n
+        if _drawing(cfg):
+            _vis_origin_images(cfg, output_dir, phase, metas, preds, maxvals)
         if it % cfg.PRINT_FREQ == 0:
             logger.info("%s: [%d/%d]\tTime %.3f (%.3f)\tAccuracy %.3f (%.3f)",
                         phase, it, len(loader), batch_time.val, batch_time.avg,
                         acc_meter.val, acc_meter.avg)
+            if _drawing(cfg):
+                _dump_vis(cfg, output_dir, phase, it, batch, metas, preds_np)
     return _finish(dataset, cfg, all_preds, all_boxes, filenames_map, output_dir, phase,
                    tb_writer, global_steps)
 
@@ -318,8 +372,8 @@ def evaluate_epoch_decoded(decoded_fn, loader, dataset, cfg, output_dir: str, *,
     box, ref: script/Common.py:419-432).  ``decoded_fn`` is a
     ``make_decoded_eval_step`` step of a model on ``device``.  Functionally
     equivalent to ``evaluate_epoch`` (same PCK meter semantics, same poseval
-    output, the same ``shard_fn`` and return values)."""
-    refuse_vis(cfg)
+    output, the same ``shard_fn`` and return values; ``DEBUG.VIS_*`` draws
+    on the original frames)."""
     device = resolve_device(device)
     batch_time = AverageMeter()
     acc_meter = AverageMeter()
@@ -356,6 +410,8 @@ def evaluate_epoch_decoded(decoded_fn, loader, dataset, cfg, output_dir: str, *,
             all_preds[idx + i, :, 0:2] = apply_affine_to_points(coords[i], trans)
         all_preds[idx:idx + n, :, 2:3] = maxvals
         idx += n
+        if _drawing(cfg):
+            _vis_origin_images(cfg, output_dir, phase, metas, all_preds[idx - n:idx], maxvals)
         if it % cfg.PRINT_FREQ == 0:
             logger.info("%s: [%d/%d]\tTime %.3f (%.3f)\tAccuracy %.3f (%.3f)",
                         phase, it, len(loader), batch_time.val, batch_time.avg,

@@ -7,15 +7,21 @@ transpose (ref: model/blocks.py:427-429), so attention runs over each head's
 reshape (ref: blocks.py:447) interleaves (T, hs) on the way back to
 (B, C, T).  Trained checkpoints depend on both quirks, so they stay.
 
+A block built with ``mha_win_size > 1`` runs the reference's
+``LocalMaskedMHCA`` instead (ref: blocks.py:479-833): token attention over a
+window of +-(window // 2) positions, which the reference really transposes
+to, as 2w + 1 shifted dot products with out-of-range positions at -inf
+(``local_masked_mhca_ct``).
+
 Eval dispatch follows the JAX ``fused_ok`` gate: with ``fused``, in eval
-mode and C >= 32, a stride-1 block's attention front goes to
-``ops.cuda.fused_attn`` and every block's ln2 + MLP + residual to
-``ops.cuda.fused_mlp``.  The flow encoder (C = 17), the strided branch
-attention and every block in train mode take the plain PyTorch path (the
-kernels have no backward, as in JAX).  Train mode adds the JAX dropout
-sites: ``attn_pdrop`` on the attention weights, ``proj_pdrop`` after the
-projection, the GELU and ``mlp.3``, and ``path_pdrop`` through the
-drop-path scales.  The rates live on the block apart from the presence of
+mode and C >= 32, a stride-1 global block's attention front goes to
+``ops.cuda.fused_attn`` and every block's ln2 + MLP + residual, window
+blocks' too, to ``ops.cuda.fused_mlp``.  The flow encoder (C = 17), the
+strided branch attention, the window attention and every block in train
+mode take the plain PyTorch path (the kernels have no backward, as in JAX).
+Train mode adds the JAX dropout sites: ``attn_pdrop`` on the attention
+weights, ``proj_pdrop`` after the projection, the GELU and ``mlp.3``, and
+``path_pdrop`` through the drop-path scales.  The rates live on the block apart from the presence of
 the ``drop_path_*`` scales, so ``set_drop_rates`` can zero them and keep the
 parameter set.
 The two kernels' weights are packed once per block and compute dtype
@@ -69,19 +75,33 @@ class MaskedMHCA(nn.Module):
         self.proj = Conv1d(c, c, 1)
 
 
+class LocalMaskedMHCA(MaskedMHCA):
+    """Params of the reference LocalMaskedMHCA (ref: blocks.py:479-833): the
+    MaskedMHCA set, and with ``use_rel_pe`` the relative position bias
+    ``rel_pe`` stored (1, 1, n_head, window) as the reference stores it."""
+
+    def __init__(self, c: int, n_head: int, window: int, use_rel_pe: bool = False):
+        super().__init__(c)
+        self.rel_pe = (nn.Parameter(torch.zeros(1, 1, n_head, window)) if use_rel_pe
+                       else None)
+
+
 class TransformerBlock(nn.Module):
-    """Pre-LN block with channel attention and a conv MLP
-    (ref: blocks.py:185-280); ``mlp`` keeps the reference Sequential's
-    indices 0 and 3."""
+    """Pre-LN block with channel attention, or window attention when
+    ``mha_win_size > 1``, and a conv MLP (ref: blocks.py:185-280); ``mlp``
+    keeps the reference Sequential's indices 0 and 3."""
 
     def __init__(self, c: int, n_head: int, ds_stride: int = 1,
-                 path_pdrop: float = 0.0, attn_pdrop: float = 0.0, proj_pdrop: float = 0.0):
+                 path_pdrop: float = 0.0, attn_pdrop: float = 0.0, proj_pdrop: float = 0.0,
+                 mha_win_size: int = -1, use_rel_pe: bool = False):
         super().__init__()
-        self.n_head, self.ds_stride = n_head, ds_stride
+        self.n_head, self.ds_stride, self.window = n_head, ds_stride, mha_win_size
+        self.use_rel_pe = use_rel_pe
         self.attn_pdrop, self.proj_pdrop, self.path_pdrop = attn_pdrop, proj_pdrop, path_pdrop
         self.ln1 = LayerNormCT(c)
         self.ln2 = LayerNormCT(c)
-        self.attn = MaskedMHCA(c)
+        self.attn = (LocalMaskedMHCA(c, n_head, mha_win_size, use_rel_pe)
+                     if mha_win_size > 1 else MaskedMHCA(c))
         self.mlp = nn.ModuleDict({"0": Conv1d(c, 4 * c, 1), "3": Conv1d(4 * c, c, 1)})
         self.drop_path_attn = AffineScale(c) if path_pdrop > 0 else None
         self.drop_path_mlp = AffineScale(c) if path_pdrop > 0 else None
@@ -100,16 +120,69 @@ def set_drop_rates(model: nn.Module, *, attn: float = 0.0, proj: float = 0.0,
     return model
 
 
-def masked_mhca_ct(attn: MaskedMHCA, x, n_head: int, stride: int = 1, attn_drop=None):
-    """Plain MaskedMHCA on normed (B, C, T) -> (B, C, T/stride), before the
-    projection's dropout; ``attn_drop`` is applied to the attention weights."""
-    q, k, v = (core.dense_1x1_ct(core.layer_norm_ct(
+def _qkv_ct(attn: MaskedMHCA, x, stride: int):
+    """q, k, v of normed (B, C, T): strided depthwise k = 3 conv, channel LN,
+    1x1 projection each."""
+    return (core.dense_1x1_ct(core.layer_norm_ct(
         core.depthwise_conv1d_k3_ct(x, conv.weight, stride=stride),
         norm.weight, norm.bias), lin.weight, lin.bias)
         for conv, norm, lin in ((attn.query_conv, attn.query_norm, attn.query),
                                 (attn.key_conv, attn.key_norm, attn.key),
                                 (attn.value_conv, attn.value_norm, attn.value)))
+
+
+def masked_mhca_ct(attn: MaskedMHCA, x, n_head: int, stride: int = 1, attn_drop=None):
+    """Plain MaskedMHCA on normed (B, C, T) -> (B, C, T/stride), before the
+    projection's dropout; ``attn_drop`` is applied to the attention weights."""
+    q, k, v = _qkv_ct(attn, x, stride)
     return _mhca_tail_ct(attn, channel_attention_ct(q, k, v, n_head, drop=attn_drop), n_head)
+
+
+def local_masked_mhca_ct(attn: LocalMaskedMHCA, x, n_head: int, window: int,
+                         stride: int = 1, attn_drop=None, use_rel_pe: bool = False):
+    """LocalMaskedMHCA on normed (B, C, T) -> (B, C, T/stride), before the
+    projection's dropout (JAX ``blocks.local_masked_mhca``).
+
+    Head h's token t attends to tokens t - w .. t + w (w = window // 2):
+    q (scaled by 1/sqrt(hs) first) against each of the 2w + 1 shifted keys,
+    f32 scores, positions whose shifted index leaves [0, T) at -inf before
+    the max-subtracted softmax, the relative bias ``rel_pe`` added where the
+    block has it and ``use_rel_pe`` asks for it; ``attn_drop`` is applied to
+    the weights in ``x.dtype``; each weighted shifted value is a product in
+    ``x.dtype`` summed in f32.  Channel c = h * hs + j holds head h's
+    feature j throughout.  In bf16 the JAX function's q scale (a numpy
+    scalar) promotes the scores, the sum and the projection's output to f32;
+    here the sum is rounded to ``x.dtype`` for the projection, so the block
+    stays in its activation dtype."""
+    q, k, v = _qkv_ct(attn, x, stride)
+    b, c, t = q.shape
+    hs = c // n_head
+    w = window // 2
+    qh = (q.float() * (1.0 / np.sqrt(hs))).reshape(b, n_head, hs, t)
+    # zero padding stands in for the JAX package's roll: every position it
+    # fills is masked to -inf in the scores and weighted 0 in the sum
+    kp = torch.nn.functional.pad(k.reshape(b, n_head, hs, t), (w, w))
+    vp = torch.nn.functional.pad(v.reshape(b, n_head, hs, t), (w, w))
+    idx = torch.arange(t, device=x.device)
+    scores = []
+    for d in range(-w, w + 1):
+        s = (qh * kp[..., w + d:w + d + t].float()).sum(dim=2)        # (B, nh, T)
+        valid = (idx + d >= 0) & (idx + d < t)
+        scores.append(torch.where(valid, s, float("-inf")))
+    att = torch.stack(scores, dim=-1)                                   # (B, nh, T, 2w+1)
+    if use_rel_pe and attn.rel_pe is not None:
+        att = att + attn.rel_pe.float().transpose(1, 2)                 # (1, nh, 1, 2w+1)
+    att = att - att.amax(dim=-1, keepdim=True)
+    att = torch.exp(att)
+    att = att / att.sum(dim=-1, keepdim=True)
+    att = att.to(x.dtype)
+    if attn_drop is not None:
+        att = attn_drop(att)
+    out = torch.zeros(b, n_head, hs, t, device=x.device)
+    for j, d in enumerate(range(-w, w + 1)):
+        out = out + (att[..., j][:, :, None, :] * vp[..., w + d:w + d + t]).float()
+    return core.dense_1x1_ct(out.reshape(b, c, t).to(x.dtype), attn.proj.weight,
+                             attn.proj.bias)
 
 
 def _mhca_tail_ct(attn: MaskedMHCA, pre, n_head: int):
@@ -228,7 +301,11 @@ def transformer_block_ct(block: TransformerBlock, x, fused: bool = True):
     n_head, ds, train = block.n_head, block.ds_stride, block.training
     drop = lambda t: core.dropout(t, block.proj_pdrop, train)  # noqa: E731
     fused_ok = fused and not train and x.shape[1] >= 32
-    if fused_ok and ds == 1:
+    if block.window > 1:
+        out = local_masked_mhca_ct(block.attn, block.ln1(x), n_head, block.window, stride=ds,
+                                   attn_drop=lambda t: core.dropout(t, block.attn_pdrop, train),
+                                   use_rel_pe=block.use_rel_pe)
+    elif fused_ok and ds == 1:
         out = _mhca_tail_ct(block.attn, fused_attn_block_ct(block, x), n_head)
     else:
         out = masked_mhca_ct(block.attn, block.ln1(x), n_head, stride=ds,

@@ -5,19 +5,24 @@ ref: model/ConvVideoTransformer.py:16-185.  The sequence is the row-major
 flattened (H, W) grid (T = 6912 for 96x72 heatmaps) and tokens are
 (B, C, T), which for an NCHW map is a free reshape.  Architecture is
 (#embedding convs, #stem blocks, #branch blocks); each branch block halves T.
-The sinusoid PE scaled by 1/sqrt(C) is added once in f32 and rounded back,
-and is re-interpolated at eval for sequences of max_len or longer.
+The embedding convs (2-D conv, channel LN, ReLU) come first; the sinusoid
+PE scaled by 1/sqrt(C) is added once in f32 and rounded back, and is
+re-interpolated at eval for sequences of max_len or longer.  A level whose
+window (``ConvTransformerSpec.win_size``) is above 1 runs window attention.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Tuple
 
+import torch
 from torch import nn
 
 from otpose_tpu_torch.models import core
-from otpose_tpu_torch.models.blocks import TransformerBlock, get_sinusoid_encoding
+from otpose_tpu_torch.models.blocks import (LocalMaskedMHCA, TransformerBlock,
+                                            get_sinusoid_encoding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,22 +39,34 @@ class ConvTransformerSpec:
     proj_pdrop: float = 0.0
     path_pdrop: float = 0.0
     use_abs_pe: bool = True
-    mha_win_size: tuple = ()
+    mha_win_size: tuple = ()      # per-level window sizes; empty / <= 1: global
     use_rel_pe: bool = False
+
+    def win_size(self, level: int) -> int:
+        """The attention window of pyramid level ``level`` (-1: global): the
+        one source of the level -> window mapping, which the blocks' params
+        and their forward share."""
+        if not self.mha_win_size:
+            return -1
+        return self.mha_win_size[min(level, len(self.mha_win_size) - 1)]
 
 
 class ConvTransformer(nn.Module):
-    """Embedding-free (arch[0] == 0), global-attention ConvTransformer: the
-    configuration OTPose builds.  Embedding convs and local-window attention
-    are not ported yet and are refused."""
+    """``arch[0]`` embedding convs (k = ``n_embd_ks``, padding k // 2, a bias
+    only without LN), then ``arch[1]`` stem blocks at level 0 and
+    ``arch[2]`` strided branch blocks at levels 1, 2, ...; each level's
+    window from ``spec.win_size``."""
 
     def __init__(self, spec: ConvTransformerSpec):
         super().__init__()
-        if spec.arch[0] != 0 or any(w > 1 for w in spec.mha_win_size):
-            raise NotImplementedError(
-                "otpose_tpu_torch ConvTransformer: embedding convs and local "
-                "attention are not ported")
         self.spec = spec
+        k = spec.n_embd_ks
+        self.embd = nn.ModuleList([
+            core.Conv2d(spec.n_in if i == 0 else spec.n_embd, spec.n_embd, k,
+                        bias=not spec.with_ln, padding=k // 2)
+            for i in range(spec.arch[0])])
+        self.embd_norm = nn.ModuleList([core.LayerNormCT(spec.n_embd)
+                                        for _ in range(spec.arch[0] if spec.with_ln else 0)])
         if spec.use_abs_pe:
             pe = get_sinusoid_encoding(spec.max_len, spec.n_embd) / (spec.n_embd ** 0.5)
             self.register_buffer("pos_embd", pe)
@@ -58,11 +75,14 @@ class ConvTransformer(nn.Module):
         rates = dict(path_pdrop=spec.path_pdrop, attn_pdrop=spec.attn_pdrop,
                      proj_pdrop=spec.proj_pdrop)
         self.stem = nn.ModuleList([
-            TransformerBlock(spec.n_embd, spec.n_head, 1, **rates)
+            TransformerBlock(spec.n_embd, spec.n_head, 1, mha_win_size=spec.win_size(0),
+                             use_rel_pe=spec.use_rel_pe, **rates)
             for _ in range(spec.arch[1])])
         self.branch = nn.ModuleList([
-            TransformerBlock(spec.n_embd, spec.n_head, spec.scale_factor, **rates)
-            for _ in range(spec.arch[2])])
+            TransformerBlock(spec.n_embd, spec.n_head, spec.scale_factor,
+                             mha_win_size=spec.win_size(1 + i), use_rel_pe=spec.use_rel_pe,
+                             **rates)
+            for i in range(spec.arch[2])])
 
     def forward(self, x, upsample: bool = True, fused: bool = True) -> List:
         return conv_transformer_forward(self, x, upsample=upsample, fused=fused)
@@ -73,9 +93,14 @@ def conv_transformer_forward(model: ConvTransformer, x, upsample: bool = True,
     """x: (B, C, H, W) map -> [stem output] + arch[2] branch outputs, each
     (B, C, T).  ``upsample=False`` leaves branch outputs at their strided
     lengths (the caller commutes its 1x1 conv with the upsampling)."""
-    b, c, h, w = x.shape
+    b, _, h, w = x.shape
     t = h * w
-    tokens = x.reshape(b, c, t)
+    for i, conv in enumerate(model.embd):
+        x = conv(x)
+        if model.spec.with_ln:
+            x = model.embd_norm[i](x.reshape(b, -1, t)).reshape(b, -1, h, w)
+        x = core.relu(x)
+    tokens = x.reshape(b, x.shape[1], t)
     if model.pos_embd is not None:
         pe = model.pos_embd
         if t >= model.spec.max_len:
@@ -88,3 +113,24 @@ def conv_transformer_forward(model: ConvTransformer, x, upsample: bool = True,
         tokens = blk(tokens, fused=fused)
         feats.append(core.upsample_linear_1d_ct(tokens, t) if upsample else tokens)
     return feats
+
+
+@torch.no_grad()
+def init_conv_transformer_(model: ConvTransformer, gen: torch.Generator) -> ConvTransformer:
+    """The JAX ``init_conv_transformer`` distributions drawn from ``gen`` on
+    the CPU: embedding convs normal std 0.001 (their bias, if any, zero),
+    conv1d torch-default with zero bias, LN 1 / 0, drop-path scale 1e-4, and
+    ``rel_pe`` normal with std sqrt(2 / n_embd)."""
+    std = math.sqrt(2.0 / model.spec.n_embd)
+    for m in model.modules():
+        if isinstance(m, core.Conv2d):
+            core.normal_(m.weight, gen, 0.001)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, core.Conv1d):
+            core.kaiming_uniform_(m.weight, gen)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, LocalMaskedMHCA) and m.rel_pe is not None:
+            core.normal_(m.rel_pe, gen, std)
+    return model

@@ -14,9 +14,11 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Tuple
 
+import torch
 from torch import nn
 
-from otpose_tpu_torch.models.core import BatchNorm, Conv2d, conv_bn, relu, upsample_nearest
+from otpose_tpu_torch.models.core import (BatchNorm, Conv2d, conv_bn, normal_, relu,
+                                          upsample_nearest)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,6 +238,22 @@ class HRNet(nn.Module):
                 xs = module(xs)
             prev = cur
         return self.final_layer(xs[0])
+
+
+@torch.no_grad()
+def init_hrnet_(model: HRNet, gen: torch.Generator) -> HRNet:
+    """The reference init of a standalone HRNet, as the JAX ``init_hrnet``
+    draws it (ref: model/OTPose.py:439-447): every conv normal std 0.001 drawn
+    from ``gen`` on the CPU, ``final_layer``'s bias zero, BN 1 / 0."""
+    for m in model.modules():
+        if isinstance(m, Conv2d):
+            normal_(m.weight, gen, 0.001)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    return model
 
 
 def hrnet_forward(model: HRNet, x):

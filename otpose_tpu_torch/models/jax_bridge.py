@@ -5,9 +5,14 @@ The inverse of the JAX package's ``models/torch2jax.py::convert_state_dict``:
 - 4-D conv kernels HWIO -> OIHW
 - 3-D conv1d kernels (K, I, O) -> (O, I, K)
 - (C,) channel-LayerNorm and drop-path params -> (1, C, 1), chosen by the
-  owning module's name exactly as ``convert_state_dict`` chooses them
+  owning module's name as ``convert_state_dict`` chooses them; the
+  ConvTransformer's ``embd_norm.{i}`` LNs, whose owner is an index, too
+- ``rel_pe`` (1, 1, n_head, window) as stored
 - ``pos_embd`` state (1, T, C) -> (1, C, T)
 - BN running stats taken from ``state``
+
+A bare ``pose_hrnet`` tree (the HRNet keys without OTPose's
+``rough_pose_estimation_net.`` prefix) goes through the same rules.
 
 Arrays arrive as numpy (the port never imports JAX); ``load_jax_weights``
 loads them with ``strict=True``.  ``to_jax`` is the inverse, for holding a
@@ -29,7 +34,10 @@ def is_channel_param(name: str) -> bool:
     """A channel-LN / drop-path param: stored (1, C, 1) in torch, (C,) in
     JAX.  Matched on the owning module's name, as ``convert_state_dict``
     does."""
-    owner = name.split(".")[-2] if "." in name else ""
+    parts = name.split(".")
+    owner = parts[-2] if len(parts) > 1 else ""
+    if owner.isdigit() and len(parts) > 2 and parts[-3] == "embd_norm":
+        owner = "embd_norm"            # the ModuleList of embedding-conv LNs
     return (name.endswith((".weight", ".bias", ".scale"))
             and any(t in owner for t in _CHANNEL_TOKENS))
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -294,3 +295,35 @@ def init_otpose_(model: OTPose, gen: torch.Generator) -> OTPose:
             if m.bias is not None:
                 m.bias.zero_()
     return model
+
+
+def make_sine_position_embedding(pe_h: int, pe_w: int, d_model: int,
+                                 temperature: float = 10000,
+                                 scale: float = 2 * np.pi) -> torch.Tensor:
+    """2-D sine position embedding, (1, H*W, d_model) f32, as the reference
+    lays it out (ref: OTPose.py:281-305, defined there and never called;
+    kept for users who enable it downstream)."""
+    area = np.ones((1, pe_h, pe_w), np.float32)
+    y_embed = area.cumsum(1)
+    x_embed = area.cumsum(2)
+    one_direction = d_model // 2
+    eps = 1e-6
+    y_embed = y_embed / (y_embed[:, -1:, :] + eps) * scale
+    x_embed = x_embed / (x_embed[:, :, -1:] + eps) * scale
+    dim_t = np.arange(one_direction, dtype=np.float32)
+    dim_t = temperature ** (2 * (dim_t // 2) / one_direction)
+    pos_x = x_embed[..., None] / dim_t
+    pos_y = y_embed[..., None] / dim_t
+    pos_x = np.stack([np.sin(pos_x[..., 0::2]), np.cos(pos_x[..., 1::2])],
+                     axis=4).reshape(1, pe_h, pe_w, -1)
+    pos_y = np.stack([np.sin(pos_y[..., 0::2]), np.cos(pos_y[..., 1::2])],
+                     axis=4).reshape(1, pe_h, pe_w, -1)
+    pos = np.concatenate([pos_y, pos_x], axis=3)
+    return torch.from_numpy(pos.reshape(1, pe_h * pe_w, d_model).astype(np.float32))
+
+
+def make_learnable_position_embedding(gen: torch.Generator, num_patches: int,
+                                      dim: int) -> torch.Tensor:
+    """The learnable position embedding's initial value, (1, num_patches,
+    dim) standard normal drawn from ``gen`` (ref: OTPose.py:266-271)."""
+    return torch.randn((1, num_patches, dim), generator=gen)

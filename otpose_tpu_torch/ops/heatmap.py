@@ -173,6 +173,14 @@ def generate_heatmaps(joints: np.ndarray, joints_vis: np.ndarray, sigma: float,
     return target, target_weight
 
 
+def normalize_0_to_1(heatmaps: torch.Tensor) -> torch.Tensor:
+    """Per-map shift to a minimum of 0, then division by the map's maximum
+    (not by max - min), as the reference does (ref: utils/heatmap.py:174-178)."""
+    min_val = heatmaps.amin(dim=(-2, -1), keepdim=True)
+    max_val = heatmaps.amax(dim=(-2, -1), keepdim=True)
+    return (heatmaps - min_val) / max_val
+
+
 def adjust_sigma(epoch: int, sigma: float, schedule) -> float:
     """Sigma annealing (ref: utils/heatmap.py:181-187): one less for each
     epoch of ``schedule`` that ``epoch`` has reached, never below 1."""

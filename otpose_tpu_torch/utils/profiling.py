@@ -3,17 +3,19 @@
 
 ``maybe_trace`` records a ``torch.profiler`` trace of train steps
 [first, first + num) into ``cfg.TPU.PROFILE_DIR`` (CPU activity, and CUDA
-activity when a GPU is visible) and writes it there as a Chrome trace.  The
-step timer and ``synchronize`` of the JAX module are not ported yet
-(ROADMAP Queue 1 item 10).
+activity when a GPU is visible) and writes it there as a Chrome trace.
+``StepTimer`` is a rolling step-time meter that waits for the device only
+every ``sync_every`` steps, through ``synchronize``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import math
 import os
 import os.path as osp
+import time
 from typing import Optional
 
 import torch
@@ -57,3 +59,59 @@ def maybe_trace(profile_dir: Optional[str], step: int = 0, first_step: int = 10,
             prof.export_chrome_trace(path)
             _active["prof"] = None
             logger.info("profiler trace written to %s", path)
+
+
+def _first_tensor(tree):
+    """The first tensor of a nested dict / list / tuple, in the JAX package's
+    leaf order (dict keys sorted), or None."""
+    if isinstance(tree, torch.Tensor):
+        return tree
+    if isinstance(tree, dict):
+        tree = [tree[k] for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        for leaf in tree:
+            found = _first_tensor(leaf)
+            if found is not None:
+                return found
+    return None
+
+
+def synchronize(tree) -> None:
+    """Wait for the device work behind ``tree``'s first tensor: its CUDA
+    device is synchronized.  Without a tensor, or for a CPU one, nothing
+    runs asynchronously and this does nothing."""
+    t = _first_tensor(tree)
+    if t is not None and t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+class StepTimer:
+    """Rolling step-time / throughput meter that waits for the device only
+    at its sync points (every ``sync_every`` steps)."""
+
+    def __init__(self, sync_every: int = 50):
+        self.sync_every = sync_every
+        self._count = 0
+        self._t_last_sync = time.perf_counter()
+        self._steps_since_sync = 0
+        self.avg_step_time = float("nan")
+
+    def step(self, output_tree=None) -> Optional[float]:
+        """Call once a step; returns the average step time since the last
+        sync point at a sync point, else None."""
+        self._count += 1
+        self._steps_since_sync += 1
+        if self._count % self.sync_every == 0:
+            if output_tree is not None:
+                synchronize(output_tree)
+            now = time.perf_counter()
+            self.avg_step_time = (now - self._t_last_sync) / self._steps_since_sync
+            self._t_last_sync = now
+            self._steps_since_sync = 0
+            return self.avg_step_time
+        return None
+
+    def throughput(self, batch_size: int) -> float:
+        if not math.isfinite(self.avg_step_time) or self.avg_step_time <= 0:
+            return float("nan")
+        return batch_size / self.avg_step_time

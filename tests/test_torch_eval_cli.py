@@ -249,8 +249,9 @@ def test_cli_refuses_what_is_not_ported(workspace):
     yaml = _fill(cfg, root, *dirs, pth, "torch_refuse", False)
     args = lambda *opts: default_parse_args(  # noqa: E731
         ["--cfg", yaml, "--root_dir", str(root), *opts])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Eval("validate", args("DEBUG.VIS_SKELETON", "True"), device="cpu")
+    # the drawing flags are ported: they take the heatmap path, as the JAX CLI's do
+    assert not Eval("validate", args("DEBUG.VIS_SKELETON", "True"), device="cpu").use_decoded
+    assert Eval("validate", args(), device="cpu").use_decoded
     # device preprocessing is ported: auto takes the device loader on a GPU
     from otpose_tpu_torch.data import make_loader
     cfg.TPU.DEVICE_PREPROCESS = "auto"

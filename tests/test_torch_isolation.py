@@ -38,9 +38,10 @@ def test_importing_every_port_module_loads_no_jax():
 
 
 def test_every_port_module_imports_without_cv2():
-    """cv2 is imported only where an image file is read, warped or blurred
-    (the path-reading ``PoseEstimator.__call__``; ``PoseTrackDataset``'s
-    ``read_frame``, ``warp_frame`` and train-time blur), and tabulate nowhere:
+    """cv2 is imported only where an image file is read, warped, blurred or
+    drawn (the path-reading ``PoseEstimator.__call__``; ``PoseTrackDataset``'s
+    ``read_frame``, ``warp_frame`` and train-time blur; each function of
+    ``utils/images.py``), and tabulate nowhere:
     the card's machine is promised neither.  The eval and training engines'
     modules are named so that a rename cannot drop them from the walk
     unnoticed."""
@@ -64,7 +65,9 @@ def test_every_port_module_imports_without_cv2():
         "        'tools.generate_boxes', 'tools.bench_input_pipeline',\n"
         "        'evaluate.converters', 'evaluate.keypoints', 'evaluate.pck', 'evaluate.poseval',\n"
         "        'evaluate.tracking', 'utils.profiling', 'utils.table', 'utils.testing',\n"
-        "        'utils.timing']\n"
+        "        'utils.timing', 'utils.images', 'utils.io', 'ops.deform_conv',\n"
+        "        'ops.deform_pool', 'models.factory', 'tools.time_train_step',\n"
+        "        'tools.exp_fused_train_mlp']\n"
         "missing = [w for w in want if 'otpose_tpu_torch.' + w not in names]\n"
         "assert not missing, missing\n"
         "bad = sorted(n for n in sys.modules\n"
