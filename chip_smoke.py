@@ -220,12 +220,34 @@ Phases, each of which must pass or the script exits non-zero:
     4, stride 2, dilation 2, C = 64) and ``deform_psroi_pool`` on the card
     against the CPU to 1e-5 of the peak; the phase's seconds.
 
-``python3 chip_smoke.py --phase17`` (or ``--phase18``) builds the kernels and
-runs that phase alone (a development run: no kernels line, no result line).
+19. runs the port's sequence parallelism (``parallel/sequence.py``: a
+    ``data x seq`` mesh, the conv-transformers' tokens split over the seq
+    ranks) with ranks sharing the card (``--dist-worker`` processes, a
+    ``gloo`` device group), the flagship from weights of std
+    1/sqrt(fan_in) and a calibrated refinement, against this process's
+    one-rank steps on the same weights and inputs: (1) four ranks at
+    ``data 2 x seq 2``: the bf16 decoded, heatmap and flip eval at B = 16
+    (8 rows a data group): the heatmaps' RMS from the one-rank f32 answer
+    no more than twice the one-rank bf16 plain step's (the share of
+    outputs that differ from it printed); (2) two ranks at ``data 1 x seq
+    2``: the f32 eval at B = 2 against the one-rank plain step (heatmaps to
+    1e-5 of their peak, keypoints equal where the top-two gap is clear), a
+    bf16 train step at B = 4 (finite, the ranks bit-equal) and an f32 SGD
+    step at B = 2 with dropout at the yaml's rates from one generator seed
+    (each tensor's update to 1e-4 of its peak plus 1e-6 of the largest);
+    launches a rank 0 / 0 / 1 an eval forward and 0 / 0 / 1 / 1 a train
+    micro-batch, the collectives by group a forward and a micro-batch
+    against the count the blocks make, ms and clips/s and each rank's peak
+    memory beside the one rank's (recorded, not gated: the ranks share one
+    card); the phase's seconds.
 
-Each path (phases 4 to 7, 9, 12, 14, 15, 16, 17 and 18) is driven with every launch
-count set to 0 just before it and read just after (phase 15's in the process
-that serves, phase 16's in each rank).  It prints a ``kernels`` JSON line, the
+``python3 chip_smoke.py --phase17`` (or ``--phase18``, ``--phase19``) builds the
+kernels and runs that phase alone (a development run: no kernels line, no
+result line).
+
+Each path (phases 4 to 7, 9, 12, 14, 15, 16, 17, 18 and 19) is driven with every
+launch count set to 0 just before it and read just after (phase 15's in the
+process that serves, phase 16's and 19's in each rank).  It prints a ``kernels`` JSON line, the
 card line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -2371,19 +2393,19 @@ def _ms(steps) -> str:
     return " / ".join(f"{s['ms']:.2f}" for s in steps)
 
 
-def _dist_start(task: str, spec: dict, tag: str):
-    """``DP_WORLD`` ranks of ``chip_smoke.py --dist-worker task`` on a free
+def _dist_start(task: str, spec: dict, tag: str, world: int = DP_WORLD):
+    """``world`` ranks of ``chip_smoke.py --dist-worker task`` on a free
     port, sharing the card, with ``spec`` written beside their outputs."""
     path = spec["out"].replace("%d", f"{tag}_spec") + ".json"
     with open(path, "w") as fh:
         json.dump(spec, fh)
     port = _free_port()
     base = dict(os.environ, OTPOSE_COORDINATOR=f"127.0.0.1:{port}",
-                OTPOSE_NUM_PROCESSES=str(DP_WORLD))
+                OTPOSE_NUM_PROCESSES=str(world))
     return [subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
                               "--dist-worker", task, path], cwd=ROOT,
                              env=dict(base, OTPOSE_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True) for r in range(DP_WORLD)]
+                             stderr=subprocess.STDOUT, text=True) for r in range(world)]
 
 
 def _dist_wait(procs, spec: dict, what: str) -> list:
@@ -2404,17 +2426,19 @@ def _dist_wait(procs, spec: dict, what: str) -> list:
         if p.returncode != 0:
             fail(f"data parallel {what}: rank {r} exited with {p.returncode}\n{out[-4000:]}")
     results = []
-    for r in range(DP_WORLD):
+    for r in range(len(procs)):
         with open(spec["out"] % r) as fh:
             results.append(json.load(fh))
     return results
 
 
 def dist_worker(task: str, spec_path: str) -> None:
-    """A rank of phase 16 (``chip_smoke.py --dist-worker TASK SPEC``, with
-    ``OTPOSE_COORDINATOR`` / ``OTPOSE_NUM_PROCESSES`` / ``OTPOSE_PROCESS_ID``
-    set): ``steps`` (the train steps and the sharded decoded eval) or
-    ``cli`` (the train CLI).  Writes its results to ``spec["out"] % rank``."""
+    """A rank of phase 16 or 19 (``chip_smoke.py --dist-worker TASK SPEC``,
+    with ``OTPOSE_COORDINATOR`` / ``OTPOSE_NUM_PROCESSES`` /
+    ``OTPOSE_PROCESS_ID`` set): ``steps`` (the train steps and the sharded
+    decoded eval), ``cli`` (the train CLI), ``seq_eval`` or ``seq_train``
+    (phase 19's sequence-parallel eval and train).  Writes its results to
+    ``spec["out"] % rank``."""
     import torch
 
     from otpose_tpu_torch.parallel import distributed
@@ -2424,7 +2448,8 @@ def dist_worker(task: str, spec_path: str) -> None:
     with open(spec_path) as fh:
         spec = json.load(fh)
     try:
-        out = {"steps": _worker_steps, "cli": _worker_cli}[task](spec)
+        out = {"steps": _worker_steps, "cli": _worker_cli, "seq_eval": _worker_seq_eval,
+               "seq_train": _worker_seq_train}[task](spec)
     finally:
         distributed.shutdown()
     with open(spec["out"] % out["rank"], "w") as fh:
@@ -3855,6 +3880,424 @@ def remaining_modules(card: str, train_ms: float | None = None) -> dict:
                        bound_ms=k2["bound_ms"])}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: sequence parallelism on the card
+# ---------------------------------------------------------------------------
+
+SP_EVAL_LAYOUT = (2, 2)     # data x seq: four ranks, bf16 eval at B = 16 and the flip
+SP_TRAIN_LAYOUT = (1, 2)    # two ranks: f32 eval at B = 2 and the train steps
+SP_SEED = 19
+
+
+def _calibrate_bn_(model, x, margin) -> None:
+    """Set every BN layer's running statistics to its input's (biased)
+    statistics on the clip ``x``, layer by layer in one eval forward, so
+    that every BN output is normalised: at weights of std 1/sqrt(fan_in)
+    the running statistics 0 / 1 let HRNet's activations grow to ~1e8."""
+    import torch
+
+    from otpose_tpu_torch.models.core import BatchNorm
+
+    def calibrate(m, args):
+        xf = args[0].float()
+        m.running_mean.copy_(xf.mean(dim=(0, 2, 3)))
+        m.running_var.copy_(xf.var(dim=(0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(calibrate) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    try:
+        with torch.no_grad():
+            model.eval()(x, margin)
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+
+def _sp_cfg(layout):
+    cfg = _flagship_cfg()
+    cfg.TPU.MESH_AXES, cfg.TPU.MESH_SHAPE = ["data", "seq"], list(layout)
+    return cfg
+
+
+def _sp_base(cfg, state):
+    """The flagship model with phase 19's weights ``state``, built once a
+    process (the reference init's draws take seconds on the host)."""
+    from otpose_tpu_torch.models.factory import build_model
+
+    model = build_model(cfg, seed=0)[1]
+    model.load_state_dict(state)
+    return model
+
+
+def _sp_model(base, dtype=None):
+    """A copy of ``base``: bf16 weights for a bf16 eval (``dtype``), the f32
+    master weights for training (``dtype`` None)."""
+    import torch
+
+    from otpose_tpu_torch.models.otpose import prepare_eval_params
+
+    model = copy.deepcopy(base)
+    if dtype is None:
+        return model
+    return prepare_eval_params(model, torch.bfloat16 if dtype == "bfloat16" else None)
+
+
+def _sp_runs(fn, reps: int, barrier=None) -> tuple:
+    """``fn()`` ``reps`` times, each after a barrier (``barrier``) and timed
+    by CUDA events: the last outputs and each run's ms, launches, peak
+    memory and collectives by group."""
+    import torch
+
+    from otpose_tpu_torch.parallel import distributed
+
+    runs, outs = [], None
+    for _ in range(reps):
+        if barrier is not None:
+            barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        before = dict(distributed.COUNTS)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        outs = fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(dict(ms=start.elapsed_time(end), counts=read_counts(),
+                         collectives={k: distributed.COUNTS[k] - before[k] for k in before},
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+    return outs, runs
+
+
+def _sp_eval_worker(spec, base, seq, mesh, dtype: str, batch: int, flip: bool) -> tuple:
+    """This rank's decoded (timed: a warm-up, then ``spec["reps"]``) and
+    heatmap eval steps, and the flip once where asked, on its data group's
+    rows of the first ``batch`` clips; the fetched outputs."""
+    import torch
+
+    from otpose_tpu_torch.engine.trainer import make_decoded_eval_step, make_eval_step
+    from otpose_tpu_torch.parallel import distributed
+    from otpose_tpu_torch.parallel.mesh import make_eval_shard_fn
+
+    model = _sp_model(base, dtype)
+    clips = torch.load(spec["clips"], weights_only=True)
+    rows, sharded = make_eval_shard_fn(mesh)({k: v[:batch].cuda() for k, v in clips.items()},
+                                             "cuda")
+    if not sharded:
+        fail(f"sequence parallel eval: a batch of {batch} was not split over the data groups")
+    steps = {"decoded": make_decoded_eval_step(model, compute_dtype=dtype, seq=seq),
+             "heatmap": make_eval_step(model, compute_dtype=dtype, seq=seq)}
+    if flip:
+        steps["flip"] = make_decoded_eval_step(model, compute_dtype=dtype, flip=True, seq=seq)
+    out, arrays = {"rows": len(rows["inputs"])}, {}
+    for name, step in steps.items():
+        reps = spec["reps"] + 1 if name == "decoded" else 1
+        outs, runs = _sp_runs(lambda step=step: step(rows["inputs"], rows["margin"]), reps,
+                              distributed.barrier)
+        out[name] = runs[1:] if name == "decoded" else runs
+        arrays[name] = [distributed.fetch(o) for o in outs]
+    del model, steps
+    torch.cuda.empty_cache()
+    return out, arrays
+
+
+def _worker_seq_eval(spec: dict) -> dict:
+    """Phase 19's four ranks at ``data = 2 x seq = 2``: bf16 eval at B = 16
+    (decoded, heatmap, flip)."""
+    import numpy as np
+    import torch
+
+    from otpose_tpu_torch.parallel import distributed
+    from otpose_tpu_torch.parallel.mesh import make_mesh, seq_group
+
+    cfg = _sp_cfg(spec["layout"])
+    rank, world = distributed.maybe_initialize(cfg)
+    mesh = make_mesh(cfg)
+    t0 = time.perf_counter()
+    base = _sp_base(cfg, torch.load(spec["model"], weights_only=True))
+    built = time.perf_counter() - t0
+    res, arrays = _sp_eval_worker(spec, base, seq_group(mesh), mesh, "bfloat16", BATCH, True)
+    if rank == 0:
+        np.savez(spec["arrays"], **{f"{n}_{i}": a for n, v in arrays.items()
+                                    for i, a in enumerate(v)})
+    return dict(rank=rank, world=world, transport=distributed.device_transport(),
+                seq=distributed.seq_info(), data=distributed.data_info(),
+                seconds=dict(build=built, run=time.perf_counter() - t0 - built), **res)
+
+
+def _worker_seq_train(spec: dict) -> dict:
+    """Phase 19's two ranks at ``data = 1 x seq = 2``: f32 eval at B = 2,
+    a bf16 train step at B = 4 (after a warm-up step) and an f32 SGD step at
+    B = 2 (rank 0's state after it to ``spec["state"]``)."""
+    import numpy as np
+    import torch
+
+    from otpose_tpu_torch.engine.optim import make_optimizer, make_schedule
+    from otpose_tpu_torch.engine.trainer import make_train_step
+    from otpose_tpu_torch.parallel import distributed
+    from otpose_tpu_torch.parallel.mesh import make_mesh, seq_group
+
+    cfg = _sp_cfg(spec["layout"])
+    rank, world = distributed.maybe_initialize(cfg)
+    mesh = make_mesh(cfg)
+    seq = seq_group(mesh)
+    t0 = time.perf_counter()
+    base = _sp_base(cfg, torch.load(spec["model"], weights_only=True))
+    built = time.perf_counter() - t0
+    res, arrays = _sp_eval_worker(spec, base, seq, mesh, "float32", 2, False)
+    if rank == 0:
+        np.savez(spec["arrays"], **{f"{n}_{i}": a for n, v in arrays.items()
+                                    for i, a in enumerate(v)})
+    out = dict(rank=rank, world=world, transport=distributed.device_transport(),
+               seq=distributed.seq_info(), data=distributed.data_info(), eval=res)
+    batches = torch.load(spec["batches"], weights_only=True)
+    for dtype, reps, conf in (("bfloat16", 2, cfg), ("float32", 1, _sgd(cfg))):
+        model = _sp_model(base)
+        step = make_train_step(model, make_optimizer(model, conf, make_schedule(conf, 1)),
+                               compute_dtype=dtype, seq=seq,
+                               generator=torch.Generator(device="cuda").manual_seed(SP_SEED))
+        full = batches[dtype]
+        rows = distributed.local_rows(len(full["inputs"]))
+        batch = {k: v[rows].cuda() for k, v in full.items()}
+        metrics, runs = _sp_runs(lambda step=step, batch=batch: step(batch), reps,
+                                 distributed.barrier)
+        # the first of two steps warms up (cuDNN's and cuBLAS's handles, the
+        # DCN backward's scratch)
+        out[dtype] = dict(runs=runs[-1:], rows=len(rows), digest=_digest(model),
+                          metrics={k: v.item() for k, v in metrics.items()})
+        if dtype == "float32" and rank == 0:
+            torch.save(_host_sd(model), spec["state"])
+        del model, step
+        torch.cuda.empty_cache()
+    out["seconds"] = dict(build=built, run=time.perf_counter() - t0 - built)
+    return out
+
+
+def _sp_one_rank(cfg, base, clips, batches) -> dict:
+    """The references in this process, without a launch: the plain eval
+    steps (f32 at B = 16 and B = 2, bf16 at B = 16, timed), and the train
+    steps (bf16 at B = 4, a warm-up and a timed step; one f32 SGD step at
+    B = 2) from the same weights and generator seed."""
+    import torch
+
+    from otpose_tpu_torch.engine.optim import make_optimizer, make_schedule
+    from otpose_tpu_torch.engine.trainer import (make_decoded_eval_step, make_eval_step,
+                                                 make_train_step)
+
+    ref = {}
+    for dtype in ("float32", "bfloat16"):
+        model = _sp_model(base, dtype)
+        heat = make_eval_step(model, compute_dtype=dtype, fused=False)
+        ref[f"heat_{dtype}"] = _to_numpy(heat(clips["inputs"], clips["margin"])[0])
+        decoded = make_decoded_eval_step(model, compute_dtype=dtype, fused=False)
+        if dtype == "float32":
+            ref["heat_f32_b2"] = _to_numpy(heat(clips["inputs"][:2], clips["margin"][:2])[0])
+            ref["decoded_f32_b2"] = [_to_numpy(o) for o in
+                                     decoded(clips["inputs"][:2], clips["margin"][:2])]
+        else:
+            _, runs = _sp_runs(lambda: decoded(clips["inputs"], clips["margin"]), 3)
+            ref["decoded_bf16"] = runs[1:]
+        del model, heat, decoded
+        torch.cuda.empty_cache()
+    for dtype, reps, conf in (("bfloat16", 2, cfg), ("float32", 1, _sgd(cfg))):
+        model = _sp_model(base)
+        step = make_train_step(model, make_optimizer(model, conf, make_schedule(conf, 1)),
+                               compute_dtype=dtype,
+                               generator=torch.Generator(device="cuda").manual_seed(SP_SEED))
+        metrics, runs = _sp_runs(lambda step=step, batch=batches[dtype]: step(batch), reps)
+        ref[f"train_{dtype}"] = dict(runs=runs[-1:],
+                                     metrics={k: v.item() for k, v in metrics.items()})
+        if dtype == "float32":
+            ref["state_f32"] = _host_sd(model)
+        del model, step
+        torch.cuda.empty_cache()
+    return ref
+
+
+def _median_ms(runs) -> float:
+    return sorted(r["ms"] for r in runs)[len(runs) // 2]
+
+
+def _sp_checks(cfg, one, ev, tr, spec_e, spec_t, state, card: str) -> None:
+    """Phase 19's gates and lines (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from otpose_tpu_torch.models.otpose import OTPoseSpec
+
+    spec = OTPoseSpec.from_cfg(cfg)
+    encoders = (spec.flow_scale_arch, spec.scale_arch, spec.scale_arch)
+    # a stem block's halo, score sum and scramble, a branch block's and its
+    # skip's halo, a gather an encoder output; backward: the gathers' are
+    # local, the shards' gather; one sum of the encoders' gradients a step
+    fwd = sum(3 * a[1] + 4 * a[2] + 1 + a[2] for a in encoders)
+    bwd = fwd - sum(1 + a[2] for a in encoders) + len(encoders)
+    eval_counts = dict(FORWARD_COUNTS, fused_attn=0, fused_mlp=0)
+    flip_counts = {k: 2 * v for k, v in eval_counts.items()}
+    if any(r["transport"][0] != "gloo" for r in ev + tr):
+        fail(f"sequence parallel: ranks sharing one card took {ev[0]['transport']}")
+
+    def load(path):
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files}
+
+    # ------------------------------------------- f32 eval, 1 x 2, B = 2
+    got = load(spec_t["arrays"])
+    heat, want = got["heatmap_0"], one["heat_f32_b2"]
+    peak = np.abs(want).max()
+    err = np.abs(heat - want).max() / peak
+    flat = np.sort(want.transpose(0, 3, 1, 2).reshape(2, want.shape[-1], -1), axis=-1)
+    clear = (flat[..., -1] - flat[..., -2]) > 2e-5 * peak
+    same = (got["decoded_0"] == one["decoded_f32_b2"][0]).all(-1)
+    log(f"sequence parallel f32 decoded eval, B=2 at data 1 x seq 2 (two ranks sharing the "
+        f"card, gloo): heatmaps to {err:.3e} of their peak {peak:.4g} against the one-rank "
+        f"plain step (limit 1e-5); keypoints equal on {int(same[clear].sum())}/"
+        f"{int(clear.sum())} clear peaks ({int(same.sum())}/{same.size} in all; "
+        f"{clear.mean():.1%} of the peaks are clear: a top-two gap above 2e-5 of the peak) "
+        f"({card})")
+    if not (err <= 1e-5 and clear.mean() >= 0.5 and same[clear].all()):
+        fail("sequence parallel: the f32 eval is not the one-rank step")
+    # ------------------------------------------- bf16 eval, 2 x 2, B = 16
+    got = load(spec_e["arrays"])
+    f32 = one["heat_float32"]
+    rms = lambda a: float(np.sqrt(np.mean((a - f32) ** 2)))  # noqa: E731
+    rms_sp, rms_one = rms(got["heatmap_0"]), rms(one["heat_bfloat16"])
+    differ = float((got["heatmap_0"] != one["heat_bfloat16"]).mean())
+    finite = all(np.isfinite(v).all() for v in got.values())
+    log(f"sequence parallel bf16 eval, B=16 at data 2 x seq 2 (four ranks): heatmaps' RMS "
+        f"from the f32 answer {rms_sp:.4e} against the one-rank bf16 plain step's "
+        f"{rms_one:.4e} (limit twice); {differ:.2%} of the outputs differ from the one-rank "
+        f"bf16 plain step's; the flip's keypoints finite: {finite} ({card})")
+    if not (finite and rms_sp <= 2 * rms_one):
+        fail("sequence parallel: the bf16 eval")
+    # ------------------------------------------- launches and collectives
+    bad = [(r["rank"], n, run["counts"]) for r in ev for n in ("decoded", "heatmap", "flip")
+           for run in r[n] if run["counts"] != (flip_counts if n == "flip" else eval_counts)]
+    bad += [(r["rank"], "f32 eval", run["counts"]) for r in tr for run in r["eval"]["decoded"]
+            if run["counts"] != eval_counts]
+    bad += [(r["rank"], d, run["counts"]) for r in tr for d in ("bfloat16", "float32")
+            for run in r[d]["runs"] if run["counts"] != TRAIN_COUNTS]
+    per_fwd = ev[0]["decoded"][0]["collectives"]
+    per_micro = tr[0]["bfloat16"]["runs"][-1]["collectives"]
+    log(f"sequence parallel launches a rank: an eval batch {ev[0]['decoded'][0]['counts']}, a "
+        f"flip batch {ev[0]['flip'][0]['counts']}, a train micro-batch "
+        f"{tr[0]['bfloat16']['runs'][-1]['counts']}; collectives by group a forward {per_fwd} "
+        f"({fwd} seq expected), a train micro-batch {per_micro} ({fwd + bwd + 1} seq expected)")
+    if bad:
+        fail(f"sequence parallel: launches {bad[:4]}")
+    if per_fwd["seq"] != fwd or per_fwd["device"] != 0 or per_micro["seq"] != fwd + bwd + 1:
+        fail("sequence parallel: the collectives a forward or a micro-batch")
+    # ------------------------------------------- f32 train step, 1 x 2, B = 2
+    sp_state = torch.load(spec_t["state"], weights_only=True)
+    want = one["state_f32"]
+    refs = {k: want[k] - state[k] for k, v in sp_state.items() if v.is_floating_point()}
+    top = max(r.abs().max().item() for r in refs.values())
+    ratios = sorted((((sp_state[k] - state[k] - ref).abs().max().item()
+                      / (1e-4 * ref.abs().max().item() + 1e-6 * top)), k)
+                    for k, ref in refs.items() if ref.abs().max() > 0)[::-1]
+    m_sp, m_one = tr[0]["float32"]["metrics"], one["train_float32"]["metrics"]
+    worst_m = max((abs(m_sp[k] / m_one[k] - 1), k) for k in m_one if m_one[k])
+    digests = {r["float32"]["digest"] for r in tr}
+    log(f"sequence parallel f32 SGD train step, B=2 at data 1 x seq 2, dropout at the yaml's "
+        f"rates from one generator seed: each tensor's update (weights and running stats) "
+        f"against its limit (1e-4 of its peak plus 1e-6 of the largest), the five worst: "
+        + ", ".join(f"{k} {r:.3g}" for r, k in ratios[:5])
+        + f"; metrics to {worst_m[0]:.3e} ({worst_m[1]}) relative; the two ranks "
+        + ("bit-equal" if len(digests) == 1 else "DIFFER") + f" ({card})")
+    if not (ratios[0][0] <= 1 and len(digests) == 1):
+        fail("sequence parallel: the f32 train step is not the one-rank step")
+    # ------------------------------------------- bf16 train, time, memory
+    bf = [r["bfloat16"] for r in tr]
+    finite = all(math.isfinite(v) for b in bf for v in b["metrics"].values())
+    log(f"sequence parallel bf16 train step, B=4 at data 1 x seq 2: metrics {bf[0]['metrics']}; "
+        f"the ranks " + ("bit-equal" if len({b['digest'] for b in bf}) == 1 else "DIFFER")
+        + f"; ms a step {', '.join(f'{_median_ms(b['runs']):.2f}' for b in bf)} (one rank "
+        f"{_median_ms(one['train_bfloat16']['runs']):.2f}); peak memory a rank "
+        + ", ".join(f"{max(r['peak_gib'] for r in b['runs']):.2f}" for b in bf)
+        + f" GiB (one rank at B=4 {max(r['peak_gib'] for r in one['train_bfloat16']['runs']):.2f}"
+        f" GiB) ({card})")
+    if not (finite and len({b["digest"] for b in bf}) == 1):
+        fail("sequence parallel: the bf16 train step")
+    ms_sp = max(_median_ms(r["decoded"]) for r in ev)
+    ms_one = _median_ms(one["decoded_bf16"])
+    log(f"sequence parallel bf16 decoded eval, B=16 at data 2 x seq 2: {BATCH / ms_sp * 1e3:.3f}"
+        f" clips/s ({ms_sp:.2f} ms a batch, the slowest rank's median) against one rank's plain "
+        f"step {BATCH / ms_one * 1e3:.3f} clips/s ({ms_one:.2f} ms); peak memory a rank "
+        + ", ".join(f"{max(x['peak_gib'] for x in r['decoded']):.2f}" for r in ev)
+        + f" GiB (one rank at B=16 {max(x['peak_gib'] for x in one['decoded_bf16']):.2f} GiB). "
+        f"The ranks share one card over gloo: these are no scaling numbers ({card})")
+
+
+def sequence_parallel(card: str) -> dict:
+    """Phase 19: the port's sequence parallelism on the card, ranks sharing
+    it as ``--dist-worker`` processes (a ``gloo`` device group) against this
+    process's one-rank steps on the same weights (``_scaled_weights_`` and a
+    calibrated refinement) and inputs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from otpose_tpu_torch.models.factory import build_model
+
+    phase_t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="otpose_sp_")
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        cfg = _flagship_cfg()
+        model = build_model(cfg, seed=0)[1]
+        _scaled_weights_(model, SP_SEED)
+        gen = torch.Generator(device="cuda").manual_seed(SP_SEED)
+        w, h = cfg.MODEL.IMAGE_SIZE
+        _calibrate_bn_(model, torch.randn(2, h, w, 15, generator=gen, device="cuda"),
+                       torch.ones(2, 4, device="cuda"))
+        _calibrate_refinement_(model, SP_SEED)
+        state = _host_sd(model)
+        torch.save(state, os.path.join(root, "model.pt"))
+        clips = {"inputs": torch.randn(BATCH, h, w, 15, generator=gen, device="cuda"),
+                 "margin": torch.randint(0, 3, (BATCH, 4), generator=gen,
+                                         device="cuda").float()}
+        batches = {"bfloat16": synthetic_train_batch(cfg, 4, gen),
+                   "float32": synthetic_train_batch(cfg, 2, gen)}
+        torch.save({k: v.cpu() for k, v in clips.items()}, os.path.join(root, "clips.pt"))
+        torch.save({d: {k: v.cpu() for k, v in b.items()} for d, b in batches.items()},
+                   os.path.join(root, "batches.pt"))
+        t0 = time.perf_counter()
+        one = _sp_one_rank(cfg, model, clips, batches)
+        one_s = time.perf_counter() - t0
+        del clips, batches, model
+        torch.cuda.empty_cache()
+        common = {"model": os.path.join(root, "model.pt"),
+                  "clips": os.path.join(root, "clips.pt"),
+                  "batches": os.path.join(root, "batches.pt"), "reps": 2}
+        spec_e = dict(common, layout=list(SP_EVAL_LAYOUT), arrays=os.path.join(root, "ev.npz"),
+                      out=os.path.join(root, "seq_eval_%d.json"))
+        spec_t = dict(common, layout=list(SP_TRAIN_LAYOUT), arrays=os.path.join(root, "tr.npz"),
+                      state=os.path.join(root, "state.pt"),
+                      out=os.path.join(root, "seq_train_%d.json"))
+        t0 = time.perf_counter()
+        ev = _dist_wait(_dist_start("seq_eval", spec_e, "seq_eval",
+                                    SP_EVAL_LAYOUT[0] * SP_EVAL_LAYOUT[1]),
+                        spec_e, "sequence parallel eval")
+        ev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tr = _dist_wait(_dist_start("seq_train", spec_t, "seq_train",
+                                    SP_TRAIN_LAYOUT[0] * SP_TRAIN_LAYOUT[1]),
+                        spec_t, "sequence parallel train")
+        tr_s = time.perf_counter() - t0
+        _sp_checks(cfg, one, ev, tr, spec_e, spec_t, state, card)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"sequence parallel phase: {time.perf_counter() - phase_t0:.1f} s (one rank "
+        f"{one_s:.1f} s, the four eval ranks {ev_s:.1f} s, the two train ranks {tr_s:.1f} s; "
+        f"a rank's model build / its work: eval "
+        f"{ev[0]['seconds']['build']:.1f} / {ev[0]['seconds']['run']:.1f} s, train "
+        f"{tr[0]['seconds']['build']:.1f} / {tr[0]['seconds']['run']:.1f} s)")
+    return dict(eval=ev[0]["decoded"][0]["counts"], train=tr[0]["bfloat16"]["runs"][-1]["counts"])
+
+
 def main(only: str | None = None) -> None:
     start = time.perf_counter()
     try:
@@ -3885,9 +4328,9 @@ def main(only: str | None = None) -> None:
             if "registers" in line or "spill" in line or "properties for" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
-    if only in ("17", "18"):
+    if only in ("17", "18", "19"):
         # a development run of one phase alone: no kernels line, no result line
-        (jpeg_phase if only == "17" else remaining_modules)(card)
+        {"17": jpeg_phase, "18": remaining_modules, "19": sequence_parallel}[only](card)
         log(f"phase {only} alone: {time.perf_counter() - start:.1f} s")
         return
     rows = check_kernels()
@@ -3929,6 +4372,10 @@ def main(only: str | None = None) -> None:
     rest = remaining_modules(card, train_ms=bf16_train_ms)
     k2 = rest.pop("k2")
     paths.update(rest)
+    torch.cuda.empty_cache()
+    sp = sequence_parallel(card)
+    paths["sp_eval_batch_rank"] = sp["eval"]
+    paths["sp_train_micro_batch_rank"] = sp["train"]
     # each kernel's launches on its own path: the eval's for the model's
     # kernels, the experiment tool's for the other two, a train step's for
     # the DCN's backward
@@ -3969,6 +4416,8 @@ def main(only: str | None = None) -> None:
         f"the window encoder a forward {rest['window_encoder']}, K2 fused / plain "
         f"{k2['share']:.3f} (plain {', '.join(f'{v:.3f}' for v in k2['plain_ms'])} ms, fused "
         f"{', '.join(f'{v:.3f}' for v in k2['fused_ms'])} ms)"
+        + f"; sequence parallel (phase 19): launches a rank an eval batch {sp['eval']}, a train "
+        f"micro-batch {sp['train']}"
         + f"; the script {time.perf_counter() - start:.1f} s ({card})")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(f"nvidia-smi: {card}", flush=True)
@@ -3986,7 +4435,7 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--dist-worker"]:
         sys.path.insert(0, ROOT)
         dist_worker(*sys.argv[2:4])
-    elif sys.argv[1:2] in (["--phase17"], ["--phase18"]):
+    elif sys.argv[1:2] in (["--phase17"], ["--phase18"], ["--phase19"]):
         main(only=sys.argv[1][-2:])
     else:
         main()

@@ -23,8 +23,11 @@ otherwise the decode runs on the device and 17 coords a box come back.
 
 Under a multi-process launch (``parallel/distributed.py``) the batch is
 ``BATCH_SIZE_PER_GPU`` times the number of ranks, every rank loads it whole
-and runs its row block (a batch that does not divide runs whole on every
-rank), and rank 0 scores the gathered keypoints.
+and runs its data group's row block (a batch that does not divide runs
+whole on every data group), and rank 0 scores the gathered keypoints.
+``TPU.MESH_AXES ["data", "seq"]`` with ``MESH_SHAPE [D, S]`` (-1: the ranks
+left) lays the ranks out as D data groups of S ranks that split the
+conv-transformer's tokens (``parallel/sequence.py``; JAX's ``seq_axis``).
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ from otpose_tpu_torch.engine.trainer import make_decoded_eval_step, make_eval_st
 from otpose_tpu_torch.models.factory import build_model
 from otpose_tpu_torch.models.otpose import prepare_eval_params
 from otpose_tpu_torch.parallel import distributed
-from otpose_tpu_torch.parallel.mesh import make_eval_shard_fn, make_mesh
+from otpose_tpu_torch.parallel.mesh import make_eval_shard_fn, make_mesh, seq_group
 from otpose_tpu_torch.utils.device import resolve_device, resolve_dtype
 
 logger = logging.getLogger(__name__)
@@ -66,7 +69,9 @@ class Eval(RunBase):
         super().__init__(phase, args=args)
         cfg = self.cfg
         world = distributed.maybe_initialize(cfg, device=self.device)[1]
-        self.shard_fn = make_eval_shard_fn(make_mesh(cfg))
+        mesh = make_mesh(cfg)
+        self.seq = seq_group(mesh)
+        self.shard_fn = make_eval_shard_fn(mesh)
         self.dataset = dataset_cls(cfg, phase)
         sub = cfg.VAL if phase == "validate" else cfg.TEST
         self.batch = sub.BATCH_SIZE_PER_GPU * world
@@ -99,13 +104,14 @@ class Eval(RunBase):
     def make_step(self, model):
         """The eval step of ``model``: decoded (forward and decode on its
         device; 17 coords a box come back), or with ``use_decoded`` false
-        the heatmap step (with the flip average when ``flip``)."""
+        the heatmap step (with the flip average when ``flip``); sequence
+        parallel under a ``seq`` axis."""
         if self.use_decoded:
             return make_decoded_eval_step(model, compute_dtype=self.compute_dtype,
-                                          flip=self.flip)
+                                          flip=self.flip, seq=self.seq)
         if self.flip:
-            return make_flip_eval_step(model, compute_dtype=self.compute_dtype)
-        return make_eval_step(model, compute_dtype=self.compute_dtype)
+            return make_flip_eval_step(model, compute_dtype=self.compute_dtype, seq=self.seq)
+        return make_eval_step(model, compute_dtype=self.compute_dtype, seq=self.seq)
 
     def eval(self):
         results = []

@@ -15,7 +15,9 @@ compute and weight dtypes, ``VAL.FLIP_VAL`` (``TEST.FLIP_TEST`` with
 op-registering module only: ``load_exported(DIR)(inputs, margin)``, or
 ``python -m otpose_tpu_torch.tools.serve --artifact DIR``.  Under a
 multi-process launch (``parallel/distributed.py``) rank 0 alone exports and
-writes; the others wait for it.
+writes; the others wait for it.  The exported program is the single-device
+one whatever ``TPU.MESH_AXES`` say (a ``seq`` axis included), as the JAX
+package exports outside any mesh.
 """
 
 from __future__ import annotations

@@ -23,9 +23,13 @@ Under a multi-process launch (``torchrun``, or the JAX package's
 ``parallel/distributed.py``) each rank runs on its own card, the global
 batch is ``TRAIN.BATCH_SIZE_PER_GPU`` times the number of ranks, each rank
 loads its rows of it, the step averages the gradients across the ranks, and
-validation splits each batch over the ranks.  Rank 0 alone writes
-checkpoints and TensorBoard; a SIGTERM to any rank stops every rank at the
-same iteration.
+validation splits each batch over the ranks.  With ``TPU.MESH_AXES
+["data", "seq"]`` and ``MESH_SHAPE [D, S]`` the ranks form D data groups of
+S ranks: each data group loads its rows of the global batch (still
+``BATCH_SIZE_PER_GPU`` times the number of ranks), and its S ranks split
+the conv-transformer's tokens (``parallel/sequence.py``), in the train step
+and in validation.  Rank 0 alone writes checkpoints and TensorBoard; a
+SIGTERM to any rank stops every rank at the same iteration.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from otpose_tpu_torch.engine.trainer import (init_train_state, make_decoded_eval
 from otpose_tpu_torch.models.factory import build_model
 from otpose_tpu_torch.ops.heatmap import adjust_sigma
 from otpose_tpu_torch.parallel import distributed
-from otpose_tpu_torch.parallel.mesh import make_eval_shard_fn, make_mesh, replicate
+from otpose_tpu_torch.parallel.mesh import make_eval_shard_fn, make_mesh, replicate, seq_group
 from otpose_tpu_torch.utils.device import resolve_device, resolve_dtype
 
 logger = logging.getLogger(__name__)
@@ -63,7 +67,8 @@ class Train(RunBase):
     The step takes ``TPU.COMPUTE_DTYPE``, ``LOSS.TOPK``,
     ``LOSS.USE_TARGET_WEIGHT``, ``TPU.REMAT`` and ``TPU.ACCUM_STEPS``;
     ``TPU.DONATE_STATE`` has no meaning here (PyTorch updates the weights
-    in place); the mesh keys allow one ``data`` axis over every rank."""
+    in place); the mesh keys allow a ``data`` axis and an optional ``seq``
+    axis (``parallel/mesh.py::make_mesh``)."""
 
     def __init__(self, args=None, device=None, dataset_cls=PoseTrackDataset):
         args = args if args is not None else default_parse_args()
@@ -74,6 +79,7 @@ class Train(RunBase):
         cfg = self.cfg
         self.world = distributed.maybe_initialize(cfg, device=self.device)[1]
         self.mesh = make_mesh(cfg)
+        self.seq = seq_group(self.mesh)
         self.dataset_cls = dataset_cls
         self.seed = cfg.SEED
         self.train_dataset = dataset_cls(cfg, "train")
@@ -97,10 +103,11 @@ class Train(RunBase):
                                        compute_dtype=self.compute_dtype, topk=cfg.LOSS.TOPK,
                                        use_target_weight=cfg.LOSS.USE_TARGET_WEIGHT,
                                        remat=cfg.TPU.REMAT, accum_steps=cfg.TPU.ACCUM_STEPS,
-                                       generator=self.generator)
+                                       generator=self.generator, seq=self.seq)
         # validation decodes on the device from the f32 master weights, as
         # they are: prepare_eval_params would cast them in place
-        self.eval_fn = make_decoded_eval_step(self.model, compute_dtype=self.compute_dtype)
+        self.eval_fn = make_decoded_eval_step(self.model, compute_dtype=self.compute_dtype,
+                                              seq=self.seq)
 
         self.tb_writer = None
         if distributed.is_primary():

@@ -35,8 +35,10 @@ def make_loader(cfg, dataset, batch_size: int, *, shuffle: bool,
     ``device``), the host ``Loader`` for "off".
 
     ``process_shard=True`` (multi-process training): ``batch_size`` is the
-    global batch and this rank loads only its rows of each batch
-    (``parallel/distributed.py::local_rows`` with ``TPU.ACCUM_STEPS``).
+    global batch and this rank loads only its data group's rows of each
+    batch (``parallel/distributed.py::local_rows`` with ``TPU.ACCUM_STEPS``:
+    the loader's process index and count are the data index and the number
+    of data groups; the ranks of a seq group load the same rows).
     Eval loaders keep full batches on every rank (the eval shard function
     splits them), so the host's bookkeeping sees every row."""
     from otpose_tpu_torch.data.loader import Loader
@@ -45,11 +47,11 @@ def make_loader(cfg, dataset, batch_size: int, *, shuffle: bool,
                   seed=cfg.SEED if seed is None else seed, drop_last=drop_last,
                   prefetch=cfg.TPU.PREFETCH_DEPTH)
     if process_shard:
-        from otpose_tpu_torch.parallel.distributed import process_info
+        from otpose_tpu_torch.parallel.distributed import data_info
 
-        rank, world = process_info()
-        if world > 1:
-            kwargs.update(process_index=rank, process_count=world,
+        index, groups = data_info()
+        if groups > 1:
+            kwargs.update(process_index=index, process_count=groups,
                           accum_steps=cfg.TPU.ACCUM_STEPS)
     mode = resolve_device_preprocess(cfg, device)
     if mode != "off":

@@ -11,6 +11,9 @@ a fixed batch (static shapes, as the JAX package fixes its batch) into an
   program runs on either device (``"fused": true`` in the manifest);
 - the kernels' weight packs are made once, at export time, and pinned
   (``models/blocks.py::pin_packs``): a served call makes no pack;
+- the program is the single-device step whatever mesh the process formed
+  (it runs no collective and takes no ``seq``), as the JAX package exports
+  outside any mesh (``null_mesh_context``);
 - ``bake_weights`` keeps the weights and packs in the program; without it
   the program holds code only and takes them as its first argument, from an
   ``otpose_weights.npz`` sidecar (bf16 as a uint16 view plus a dtype map).

@@ -3,13 +3,15 @@
 
 ref: script/Common.py:79-453.  ``train_epoch`` runs one epoch of train
 steps, each on the model's device with its dropout generator re-seeded from
-(seed, epoch, step) and, under a multi-process launch, the rank.  In
+(seed, epoch, step) and, under a multi-process launch, the data index.  In
 evaluation the forward and the decode run on the model's device; the host
 feeds batches, keeps the PCK meter, back-projects 17 points a box and runs
 the poseval stage.  Under a launch (``parallel/distributed.py``) every rank
-holds the full eval batch, runs its row block (``parallel/mesh.py::
-make_eval_shard_fn``) and gathers every rank's outputs; rank 0 alone runs
-poseval and its mean AP reaches the others by ``broadcast_scalar``.
+holds the full eval batch, runs its data group's row block
+(``parallel/mesh.py::make_eval_shard_fn``; under a ``seq`` axis the ranks of
+a seq group split its tokens) and gathers every data group's outputs; rank
+0 alone runs poseval and its mean AP reaches the others by
+``broadcast_scalar``.
 ``make_flip_eval_step`` is the flip-test averaging behind ``VAL.FLIP_VAL`` /
 ``TEST.FLIP_TEST``.  The ``DEBUG.VIS_*`` flags draw as the JAX loops do, on
 the primary rank: ``VIS_SKELETON`` / ``VIS_BBOX`` put each box's skeleton and
@@ -34,8 +36,8 @@ from otpose_tpu_torch.evaluate.pck import accuracy, calc_dists, dist_acc
 from otpose_tpu_torch.models.otpose import OTPose, otpose_forward
 from otpose_tpu_torch.ops.affine import apply_affine_to_points, get_affine_transform
 from otpose_tpu_torch.ops.heatmap import get_final_preds, get_max_preds
-from otpose_tpu_torch.parallel.distributed import (broadcast_scalar, fetch, is_primary,
-                                                   process_info)
+from otpose_tpu_torch.parallel.distributed import (broadcast_scalar, data_info, fetch,
+                                                   is_primary)
 from otpose_tpu_torch.parallel.mesh import place
 from otpose_tpu_torch.utils.device import resolve_device, resolve_dtype
 from otpose_tpu_torch.utils.profiling import maybe_trace
@@ -73,7 +75,7 @@ def flip_permutation(num_joints: int) -> list:
 
 
 def make_flip_eval_step(model: OTPose, *, compute_dtype=torch.float32,
-                        fused: bool = True) -> Callable:
+                        fused: bool = True, seq=None) -> Callable:
     """Eval forward with horizontal flip-test averaging: ``step(inputs
     (B, H, W, 15), margin (B, 4))`` -> (heatmaps (B, Hh, Hw, J), teacher
     (B, Hh, Hw, J)).
@@ -82,16 +84,17 @@ def make_flip_eval_step(model: OTPose, *, compute_dtype=torch.float32,
     unflipped, their left/right joints swapped, and shifted right by one
     column with column 0 duplicated (the simple-baselines shift), then
     averaged with the direct pass.  The teacher is the direct pass's rough
-    heatmaps of the current frame.  The step puts the model in eval mode."""
+    heatmaps of the current frame.  The step puts the model in eval mode;
+    ``seq`` runs both passes sequence parallel."""
     dtype = resolve_dtype(compute_dtype)
     perm = flip_permutation(model.spec.num_joints)
 
     @torch.inference_mode()
     def step(inputs, margin):
         model.eval()
-        out = otpose_forward(model, inputs, margin, compute_dtype=dtype, fused=fused)
+        out = otpose_forward(model, inputs, margin, compute_dtype=dtype, fused=fused, seq=seq)
         out_f = otpose_forward(model, torch.flip(inputs, dims=[2]), margin,
-                               compute_dtype=dtype, fused=fused)
+                               compute_dtype=dtype, fused=fused, seq=seq)
         heat_f = torch.flip(out_f[0], dims=[2])[..., perm]
         heat_f = torch.cat([heat_f[:, :, :1], heat_f[:, :, :-1]], dim=2)
         return (out[0] + heat_f) * 0.5, out[1][:inputs.shape[0]]
@@ -114,7 +117,8 @@ def step_seed(seed: int, epoch: int, global_steps: int, rank: int = 0) -> int:
     uninterrupted run drew (the bits differ from JAX's).  A rank above 0 of
     a multi-process launch hashes its rank in too, so the ranks draw
     independent masks for their different rows; rank 0's seed is the
-    single-process one."""
+    single-process one.  ``rank`` is the data index: the ranks of a seq
+    group hold the same rows and draw the same masks."""
     entropy = [seed, epoch, global_steps] + ([rank] if rank else [])
     return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0])
 
@@ -144,7 +148,7 @@ def train_epoch(step_fn, state, loader, epoch: int, cfg, *, seed: int,
     end = time.time()
     max_iter = len(loader)
     completed = start_iteration
-    rank = process_info()[0]
+    rank = data_info()[0]
     if start_iteration:
         loader.set_start_iteration(start_iteration)
     for it, (batch, _metas) in enumerate(loader, start=start_iteration):

@@ -9,7 +9,9 @@ occlusion auxiliary loss, backward, then the optimizer of ``engine/optim.py``
 (global-norm clip, AdamW or SGD, the LR schedule).  Dropout and drop-path
 draw from the step's ``torch.Generator``.  On the card the DCN's gradient
 comes from its backward kernel; the fused attention and MLP are eval-only,
-as in JAX.
+as in JAX.  Every step takes ``seq`` (``parallel/mesh.py::seq_group``), the
+JAX steps' ``seq_axis``: the encoders' blocks then run on this rank's slice
+of the tokens (sequence parallelism).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from otpose_tpu_torch.engine.optim import Optimizer
 from otpose_tpu_torch.engine.runner import make_flip_eval_step
 from otpose_tpu_torch.evaluate.pck import accuracy_device
 from otpose_tpu_torch.models import core
+from otpose_tpu_torch.models.conv_transformer import seq_sharded_parameters
 from otpose_tpu_torch.models.losses import st_ohkw_mse_loss
 from otpose_tpu_torch.models.otpose import OTPose, otpose_forward
 from otpose_tpu_torch.ops.heatmap import get_max_preds_device, refine_coords_device
@@ -50,7 +53,7 @@ def init_train_state(model: OTPose, optimizer: Optimizer) -> TrainState:
 
 def compute_losses(model: OTPose, batch: Dict[str, torch.Tensor], *,
                    compute_dtype=torch.float32, topk: int = 8,
-                   use_target_weight: bool = True):
+                   use_target_weight: bool = True, seq=None):
     """Forward + the reference's loss combination (ref: Common.py:122-130).
 
     batch: 'inputs' (B, H, W, 15), 'margin' (B, 4), 'target' (B, Hh, Hw, J),
@@ -58,7 +61,8 @@ def compute_losses(model: OTPose, batch: Dict[str, torch.Tensor], *,
     teacher is ``rough[:B]``, not detached, as in the reference; the
     occlusion target ``(target + intersection) / 2`` is scored against
     ``context_encoding``."""
-    out = otpose_forward(model, batch["inputs"], batch["margin"], compute_dtype=compute_dtype)
+    out = otpose_forward(model, batch["inputs"], batch["margin"], compute_dtype=compute_dtype,
+                         seq=seq)
     output, rough, intersection, _prev_b, context_encoding, _sq, _tb = out
     target, weight = batch["target"], batch["target_weight"]
     losses = st_ohkw_mse_loss(output, rough[:batch["inputs"].shape[0]], target, weight,
@@ -77,7 +81,7 @@ def compute_losses(model: OTPose, batch: Dict[str, torch.Tensor], *,
 def make_train_step(model: OTPose, optimizer: Optimizer, *, compute_dtype=torch.float32,
                     topk: int = 8, use_target_weight: bool = True, remat: bool = False,
                     accum_steps: int = 1,
-                    generator: torch.Generator | None = None) -> Callable:
+                    generator: torch.Generator | None = None, seq=None) -> Callable:
     """``step(batch) -> metrics``: one optimizer update of ``model`` on
     ``batch`` (see ``compute_losses``; tensors on the model's device).
     Metrics are 0-d f32 tensors on the device: the five of
@@ -98,15 +102,28 @@ def make_train_step(model: OTPose, optimizer: Optimizer, *, compute_dtype=torch.
     the loss's labelled test and the PCK meter decide over the global
     (micro-)batch, and the gradients and metrics are averaged across the
     ranks before the optimizer, so every rank makes the JAX step's update
-    on the global batch and holds the same weights and running stats."""
+    on the global batch and holds the same weights and running stats.
+
+    Under a ``data x seq`` mesh ``seq`` is this rank's ``SeqGroup``: the
+    ranks of a seq group hold the same rows (their data group's) and split
+    the encoders' tokens, with the same generator state (the dropout masks
+    are drawn whole and sliced).  Each encoder block's parameter
+    (``seq_sharded_parameters``) then has a partial gradient, from this
+    rank's tokens only: those are summed over the seq group first.  Every
+    other gradient is already whole and equal on the seq group's ranks.
+    Then every gradient and metric is averaged over the data group (one
+    average over every rank would leave the encoders' gradients S times
+    too small), and BN, the labelled test and the meter decide over the
+    data group."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps (cfg.TPU.ACCUM_STEPS) must be >= 1, got {accum_steps}; "
                          "use 1 to disable gradient accumulation")
     dtype = resolve_dtype(compute_dtype)
+    sharded = [] if seq is None else list(seq_sharded_parameters(model))
 
     def loss_fn(mb):
         total, metrics, _ = compute_losses(model, mb, compute_dtype=dtype, topk=topk,
-                                           use_target_weight=use_target_weight)
+                                           use_target_weight=use_target_weight, seq=seq)
         return total, metrics
 
     def run(mb):
@@ -142,7 +159,9 @@ def make_train_step(model: OTPose, optimizer: Optimizer, *, compute_dtype=torch.
                 sums = metrics if sums is None else {k: sums[k] + v for k, v in metrics.items()}
         out = {k: v / accum_steps for k, v in sums.items()}
         if distributed.active():
+            # the encoders' partial gradients summed over the seq group, then
             # the global batch's gradients and metrics, once a step
+            distributed.sum_((p.grad for p in sharded if p.grad is not None), group="seq")
             distributed.average_(p.grad for p in optimizer.params if p.grad is not None)
             values = torch.stack(list(out.values()))
             distributed.average_([values])
@@ -154,36 +173,37 @@ def make_train_step(model: OTPose, optimizer: Optimizer, *, compute_dtype=torch.
 
 
 def make_eval_step(model: OTPose, *, compute_dtype=torch.float32,
-                   fused: bool = True) -> Callable:
+                   fused: bool = True, seq=None) -> Callable:
     """Eval forward: ``step(inputs (B, H, W, 15), margin (B, 4))`` ->
     (heatmaps (B, Hh, Hw, J), teacher (B, Hh, Hw, J)): the refined heatmaps
     and the rough heatmaps of the current frame.  The step puts the model
     in eval mode (running-stat BN, no dropout, the fused kernels), as the
-    train step puts it in train mode."""
+    train step puts it in train mode.  ``seq``: sequence parallelism (no
+    fused kernel runs, as under JAX's ``seq_axis``)."""
     dtype = resolve_dtype(compute_dtype)
 
     @torch.inference_mode()
     def step(inputs, margin):
         model.eval()
-        out = otpose_forward(model, inputs, margin, compute_dtype=dtype, fused=fused)
+        out = otpose_forward(model, inputs, margin, compute_dtype=dtype, fused=fused, seq=seq)
         return out[0], out[1][:inputs.shape[0]]
 
     return step
 
 
 def make_decoded_eval_step(model: OTPose, *, compute_dtype=torch.float32,
-                           flip: bool = False, fused: bool = True) -> Callable:
+                           flip: bool = False, fused: bool = True, seq=None) -> Callable:
     """Eval forward + on-device decode: ``step(inputs (B, H, W, 15),
     margin (B, 4))`` -> (refined_coords (B, J, 2), maxvals (B, J, 1),
     raw_coords (B, J, 2)), in heatmap space, on the model's device.
     ``flip=True`` decodes the flip-test average of ``make_flip_eval_step``
     (two forwards a step).  ``fused=False`` keeps every block on the plain
-    PyTorch path."""
+    PyTorch path; ``seq`` runs it sequence parallel."""
     dtype = resolve_dtype(compute_dtype)
     if flip:
-        forward = make_flip_eval_step(model, compute_dtype=dtype, fused=fused)
+        forward = make_flip_eval_step(model, compute_dtype=dtype, fused=fused, seq=seq)
     else:
-        forward = make_eval_step(model, compute_dtype=dtype, fused=fused)
+        forward = make_eval_step(model, compute_dtype=dtype, fused=fused, seq=seq)
 
     @torch.inference_mode()
     def step(inputs, margin):

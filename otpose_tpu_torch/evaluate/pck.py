@@ -64,7 +64,8 @@ def accuracy_device(pred_hm: torch.Tensor, target_hm: torch.Tensor, thr: float =
     of visible joints within ``thr``, averaged over the joints that have a
     visible instance.  NHWC heatmaps in; returns (avg_acc, cnt) as 0-d
     tensors.  Under a multi-process launch the counts are summed across the
-    ranks first, so every rank gets the global batch's meter."""
+    data group first (each row once: the ranks of a seq group hold the same
+    rows), so every rank gets the global batch's meter."""
     pred = pred_hm.permute(0, 3, 1, 2)
     gt = target_hm.permute(0, 3, 1, 2)
     h, w = pred.shape[2], pred.shape[3]

@@ -24,6 +24,16 @@ weights, ``proj_pdrop`` after the projection, the GELU and ``mlp.3``, and
 ``path_pdrop`` through the drop-path scales.  The rates live on the block apart from the presence of
 the ``drop_path_*`` scales, so ``set_drop_rates`` can zero them and keep the
 parameter set.
+Under sequence parallelism (``seq``, a ``parallel/sequence.py::SeqGroup``)
+a block runs on this rank's slice of T, as the JAX package's ``seq_axis``
+does: the k = 3 depthwise convs and the max-pool skip read one neighbour
+token through ``halo`` (zero or -inf beyond the ends), the channel
+attention's partial scores are summed over the seq group in f32 before the
+softmax, the scramble is done across the slices (``scramble_across``), the
+window attention's keys and values take ``w`` halo tokens with the mask and
+``rel_pe`` at global positions, and each dropout mask is drawn whole and
+sliced; LN, the 1x1 projections, the MLP and the residuals are local.
+``fused_ok`` is off under ``seq``, as in JAX: no fused kernel runs.
 The two kernels' weights are packed once per block and compute dtype
 (``attn_pack`` / ``mlp_pack``) and cached on the block, keyed by each source
 parameter's storage and version, so a steady forward packs nothing.  For
@@ -44,6 +54,7 @@ from otpose_tpu_torch.models.core import AffineScale, Conv1d, LayerNormCT
 from otpose_tpu_torch.ops.cuda.fused_attn import (channel_attention_ct, fused_attn_ct,
                                                    pack_attn_weights)
 from otpose_tpu_torch.ops.cuda.fused_mlp import fused_mlp_residual_ct, pack_mlp_weights
+from otpose_tpu_torch.parallel import sequence
 
 
 def get_sinusoid_encoding(n_position: int, d_hid: int) -> torch.Tensor:
@@ -106,8 +117,8 @@ class TransformerBlock(nn.Module):
         self.drop_path_attn = AffineScale(c) if path_pdrop > 0 else None
         self.drop_path_mlp = AffineScale(c) if path_pdrop > 0 else None
 
-    def forward(self, x, fused: bool = True):
-        return transformer_block_ct(self, x, fused=fused)
+    def forward(self, x, fused: bool = True, seq=None):
+        return transformer_block_ct(self, x, fused=fused, seq=seq)
 
 
 def set_drop_rates(model: nn.Module, *, attn: float = 0.0, proj: float = 0.0,
@@ -120,26 +131,35 @@ def set_drop_rates(model: nn.Module, *, attn: float = 0.0, proj: float = 0.0,
     return model
 
 
-def _qkv_ct(attn: MaskedMHCA, x, stride: int):
+def _qkv_ct(attn: MaskedMHCA, x, stride: int, seq=None):
     """q, k, v of normed (B, C, T): strided depthwise k = 3 conv, channel LN,
-    1x1 projection each."""
+    1x1 projection each.  Under ``seq`` the convs read one token of each
+    neighbouring slice (only the left one at stride 2: output j reads
+    inputs 2j - 1, 2j and 2j + 1)."""
+    if seq is not None:
+        x = sequence.halo(x, 1, 1 if stride == 1 else 0, seq)
     return (core.dense_1x1_ct(core.layer_norm_ct(
-        core.depthwise_conv1d_k3_ct(x, conv.weight, stride=stride),
+        core.depthwise_conv1d_k3_ct(x, conv.weight, stride=stride, padded=seq is not None),
         norm.weight, norm.bias), lin.weight, lin.bias)
         for conv, norm, lin in ((attn.query_conv, attn.query_norm, attn.query),
                                 (attn.key_conv, attn.key_norm, attn.key),
                                 (attn.value_conv, attn.value_norm, attn.value)))
 
 
-def masked_mhca_ct(attn: MaskedMHCA, x, n_head: int, stride: int = 1, attn_drop=None):
+def masked_mhca_ct(attn: MaskedMHCA, x, n_head: int, stride: int = 1, attn_drop=None,
+                   seq=None):
     """Plain MaskedMHCA on normed (B, C, T) -> (B, C, T/stride), before the
-    projection's dropout; ``attn_drop`` is applied to the attention weights."""
-    q, k, v = _qkv_ct(attn, x, stride)
-    return _mhca_tail_ct(attn, channel_attention_ct(q, k, v, n_head, drop=attn_drop), n_head)
+    projection's dropout; ``attn_drop`` is applied to the attention weights.
+    Under ``seq`` the scores are summed over the seq group."""
+    q, k, v = _qkv_ct(attn, x, stride, seq)
+    reduce = None if seq is None else sequence.all_reduce_partial
+    pre = channel_attention_ct(q, k, v, n_head, drop=attn_drop, reduce=reduce)
+    return _mhca_tail_ct(attn, pre, n_head, seq)
 
 
 def local_masked_mhca_ct(attn: LocalMaskedMHCA, x, n_head: int, window: int,
-                         stride: int = 1, attn_drop=None, use_rel_pe: bool = False):
+                         stride: int = 1, attn_drop=None, use_rel_pe: bool = False,
+                         seq=None):
     """LocalMaskedMHCA on normed (B, C, T) -> (B, C, T/stride), before the
     projection's dropout (JAX ``blocks.local_masked_mhca``).
 
@@ -153,21 +173,29 @@ def local_masked_mhca_ct(attn: LocalMaskedMHCA, x, n_head: int, window: int,
     feature j throughout.  In bf16 the JAX function's q scale (a numpy
     scalar) promotes the scores, the sum and the projection's output to f32;
     here the sum is rounded to ``x.dtype`` for the projection, so the block
-    stays in its activation dtype."""
-    q, k, v = _qkv_ct(attn, x, stride)
+    stays in its activation dtype.  Under ``seq`` (x a slice of T) the
+    keys and values take ``w`` tokens of each neighbouring slice and the
+    mask is at global positions; ``attn_drop`` then slices axis 2."""
+    q, k, v = _qkv_ct(attn, x, stride, seq)
     b, c, t = q.shape
     hs = c // n_head
     w = window // 2
     qh = (q.float() * (1.0 / np.sqrt(hs))).reshape(b, n_head, hs, t)
     # zero padding stands in for the JAX package's roll: every position it
     # fills is masked to -inf in the scores and weighted 0 in the sum
-    kp = torch.nn.functional.pad(k.reshape(b, n_head, hs, t), (w, w))
-    vp = torch.nn.functional.pad(v.reshape(b, n_head, hs, t), (w, w))
-    idx = torch.arange(t, device=x.device)
+    if seq is None:
+        kp = torch.nn.functional.pad(k.reshape(b, n_head, hs, t), (w, w))
+        vp = torch.nn.functional.pad(v.reshape(b, n_head, hs, t), (w, w))
+        lo, total = 0, t
+    else:
+        kp = sequence.halo(k.reshape(b, n_head, hs, t), w, w, seq)
+        vp = sequence.halo(v.reshape(b, n_head, hs, t), w, w, seq)
+        lo, total = seq.index * t, seq.size * t
+    idx = lo + torch.arange(t, device=x.device)
     scores = []
     for d in range(-w, w + 1):
         s = (qh * kp[..., w + d:w + d + t].float()).sum(dim=2)        # (B, nh, T)
-        valid = (idx + d >= 0) & (idx + d < t)
+        valid = (idx + d >= 0) & (idx + d < total)
         scores.append(torch.where(valid, s, float("-inf")))
     att = torch.stack(scores, dim=-1)                                   # (B, nh, T, 2w+1)
     if use_rel_pe and attn.rel_pe is not None:
@@ -185,11 +213,12 @@ def local_masked_mhca_ct(attn: LocalMaskedMHCA, x, n_head: int, window: int,
                              attn.proj.bias)
 
 
-def _mhca_tail_ct(attn: MaskedMHCA, pre, n_head: int):
+def _mhca_tail_ct(attn: MaskedMHCA, pre, n_head: int, seq=None):
     """The reference's scrambled reassembly (ref: blocks.py:447) of the
-    pre-scramble ``att @ v`` (B, C, T), then the output projection."""
-    b, c, t = pre.shape
-    out = pre.reshape(b, n_head, c // n_head, t).transpose(2, 3).reshape(b, c, t)
+    pre-scramble ``att @ v`` (B, C, T), then the output projection; under
+    ``seq`` the reassembly of the whole T, sliced."""
+    out = (sequence.scramble(pre, n_head) if seq is None
+           else sequence.scramble_across(pre, n_head, seq))
     return core.dense_1x1_ct(out, attn.proj.weight, attn.proj.bias)
 
 
@@ -296,21 +325,35 @@ def fused_mlp_block_ct(block: TransformerBlock, x):
     return fused_mlp_residual_ct(x, packed=mlp_pack(block, x.dtype))
 
 
-def transformer_block_ct(block: TransformerBlock, x, fused: bool = True):
-    """(B, C, T) -> (B, C, T/ds_stride), in the block's mode."""
+def _max_pool_skip(x, ds: int, seq=None):
+    """The strided block's skip: max-pool of kernel ds + 1, stride ds and
+    -inf padding (ds + 1) // 2; under ``seq`` the padding is the
+    neighbouring slices' tokens, -inf only at the global ends."""
+    k, pad = ds + 1, (ds + 1) // 2
+    if seq is None:
+        return core.max_pool1d_ct(x, k, ds, pad)
+    xh = sequence.halo(x, pad, max(0, k - ds - pad), seq, fill=float("-inf"))
+    return core.max_pool1d_ct(xh, k, ds, 0)[..., :x.shape[-1] // ds]
+
+
+def transformer_block_ct(block: TransformerBlock, x, fused: bool = True, seq=None):
+    """(B, C, T) -> (B, C, T/ds_stride), in the block's mode; under ``seq``
+    on this rank's slice of T (see the module docstring)."""
     n_head, ds, train = block.n_head, block.ds_stride, block.training
-    drop = lambda t: core.dropout(t, block.proj_pdrop, train)  # noqa: E731
-    fused_ok = fused and not train and x.shape[1] >= 32
+    drop = lambda t: core.dropout(t, block.proj_pdrop, train, seq)  # noqa: E731
+    fused_ok = fused and not train and seq is None and x.shape[1] >= 32
     if block.window > 1:
         out = local_masked_mhca_ct(block.attn, block.ln1(x), n_head, block.window, stride=ds,
-                                   attn_drop=lambda t: core.dropout(t, block.attn_pdrop, train),
-                                   use_rel_pe=block.use_rel_pe)
+                                   attn_drop=lambda t: core.dropout(t, block.attn_pdrop, train,
+                                                                    seq, dim=2),
+                                   use_rel_pe=block.use_rel_pe, seq=seq)
     elif fused_ok and ds == 1:
         out = _mhca_tail_ct(block.attn, fused_attn_block_ct(block, x), n_head)
     else:
         out = masked_mhca_ct(block.attn, block.ln1(x), n_head, stride=ds,
-                             attn_drop=lambda t: core.dropout(t, block.attn_pdrop, train))
-    skip = core.max_pool1d_ct(x, ds + 1, ds, (ds + 1) // 2) if ds > 1 else x
+                             attn_drop=lambda t: core.dropout(t, block.attn_pdrop, train),
+                             seq=seq)
+    skip = _max_pool_skip(x, ds, seq) if ds > 1 else x
     out = skip + _affine_drop_path(block, block.drop_path_attn, drop(out))
     if fused_ok:
         return fused_mlp_block_ct(block, out)

@@ -9,13 +9,24 @@ The embedding convs (2-D conv, channel LN, ReLU) come first; the sinusoid
 PE scaled by 1/sqrt(C) is added once in f32 and rounded back, and is
 re-interpolated at eval for sequences of max_len or longer.  A level whose
 window (``ConvTransformerSpec.win_size``) is above 1 runs window attention.
+
+Under sequence parallelism (``seq``, JAX's ``seq_axis``: ref
+``otpose_tpu/models/conv_transformer.py:90-135``) the embedding convs run
+replicated, the tokens are sharded after the reshape (``shard_tokens``),
+each rank adds its slice of the PE interpolated at full length, the stem
+and branch blocks run on the slices, and every output is gathered back
+(``gather_tokens``: the stem's at T, each branch's at its strided length
+before any upsampling), so the layers after the encoder run replicated.
+The stem's and branches' parameters (``seq_sharded_parameters``) then get
+a partial gradient on each rank, which the train step sums over the seq
+group.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Tuple
+from typing import Iterator, List, Tuple
 
 import torch
 from torch import nn
@@ -23,6 +34,7 @@ from torch import nn
 from otpose_tpu_torch.models import core
 from otpose_tpu_torch.models.blocks import (LocalMaskedMHCA, TransformerBlock,
                                             get_sinusoid_encoding)
+from otpose_tpu_torch.parallel import sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,15 +96,27 @@ class ConvTransformer(nn.Module):
                              **rates)
             for i in range(spec.arch[2])])
 
-    def forward(self, x, upsample: bool = True, fused: bool = True) -> List:
-        return conv_transformer_forward(self, x, upsample=upsample, fused=fused)
+    def forward(self, x, upsample: bool = True, fused: bool = True, seq=None) -> List:
+        return conv_transformer_forward(self, x, upsample=upsample, fused=fused, seq=seq)
+
+
+def seq_sharded_parameters(model: nn.Module) -> Iterator[nn.Parameter]:
+    """The parameters of every ``ConvTransformer`` in ``model`` that run on
+    token slices under sequence parallelism (its stem and branch blocks)."""
+    for m in model.modules():
+        if isinstance(m, ConvTransformer):
+            yield from m.stem.parameters()
+            yield from m.branch.parameters()
 
 
 def conv_transformer_forward(model: ConvTransformer, x, upsample: bool = True,
-                             fused: bool = True) -> List:
+                             fused: bool = True, seq=None) -> List:
     """x: (B, C, H, W) map -> [stem output] + arch[2] branch outputs, each
     (B, C, T).  ``upsample=False`` leaves branch outputs at their strided
-    lengths (the caller commutes its 1x1 conv with the upsampling)."""
+    lengths (the caller commutes its 1x1 conv with the upsampling).  With
+    ``seq`` (a ``parallel/sequence.py::SeqGroup``) the blocks run on this
+    rank's slice of T and the outputs are the whole, gathered tensors; a T
+    that the seq size and the branches' strides do not divide raises."""
     b, _, h, w = x.shape
     t = h * w
     for i, conv in enumerate(model.embd):
@@ -101,17 +125,24 @@ def conv_transformer_forward(model: ConvTransformer, x, upsample: bool = True,
             x = model.embd_norm[i](x.reshape(b, -1, t)).reshape(b, -1, h, w)
         x = core.relu(x)
     tokens = x.reshape(b, x.shape[1], t)
+    lo, hi = 0, t
+    if seq is not None:
+        sequence.check_shardable(t, seq.size, model.spec.scale_factor ** model.spec.arch[2])
+        tokens = sequence.shard_tokens(tokens, seq)
+        lo, hi = seq.bounds(t)
     if model.pos_embd is not None:
         pe = model.pos_embd
         if t >= model.spec.max_len:
             pe = core.upsample_linear_1d_ct(pe, t)
-        tokens = (tokens.float() + pe[..., :t]).to(x.dtype)
+        tokens = (tokens.float() + pe[..., lo:hi]).to(x.dtype)
+    whole = (lambda f: f) if seq is None else (lambda f: sequence.gather_tokens(f, seq))
     for blk in model.stem:
-        tokens = blk(tokens, fused=fused)
-    feats = [tokens]
+        tokens = blk(tokens, fused=fused, seq=seq)
+    feats = [whole(tokens)]
     for blk in model.branch:
-        tokens = blk(tokens, fused=fused)
-        feats.append(core.upsample_linear_1d_ct(tokens, t) if upsample else tokens)
+        tokens = blk(tokens, fused=fused, seq=seq)
+        out = whole(tokens)
+        feats.append(core.upsample_linear_1d_ct(out, t) if upsample else out)
     return feats
 
 

@@ -74,17 +74,18 @@ def batch_norm_train(x, weight, bias, running_mean, running_var,
     variance.  Returns (y in x's dtype, new running mean, new running var).
 
     Under a multi-process launch the statistics are the global batch's, as
-    the JAX step's are: ``[mean, E[x^2]]`` averaged across the ranks in one
-    differentiable all-reduce (``parallel/distributed.py``), ``n`` times
-    the number of ranks."""
+    the JAX step's are: ``[mean, E[x^2]]`` averaged across the data group
+    in one differentiable all-reduce (``parallel/distributed.py``), ``n``
+    times the data group's size (the ranks of a seq group hold the same
+    rows, so they count once)."""
     xf = x.float()
     n = x.numel() // x.shape[1]
     mean = xf.mean(dim=(0, 2, 3))
     mean_sq = (xf * xf).mean(dim=(0, 2, 3))
     if distributed.active():
-        world = distributed.process_info()[1]
-        mean, mean_sq = distributed.all_reduce_sum(torch.stack([mean, mean_sq])) / world
-        n = n * world
+        groups = distributed.group_size("data")
+        mean, mean_sq = distributed.all_reduce_sum(torch.stack([mean, mean_sq])) / groups
+        n = n * groups
     var = mean_sq - mean * mean
     with torch.no_grad():
         unbiased = var * (n / max(n - 1, 1))
@@ -145,13 +146,23 @@ def _uniform(shape, like) -> torch.Tensor:
     return torch.rand(shape, generator=_generator, device=like.device)
 
 
-def dropout(x, rate: float, training: bool) -> torch.Tensor:
+def dropout(x, rate: float, training: bool, seq=None, dim: int = -1) -> torch.Tensor:
     """Elementwise dropout with ``x / keep`` on the kept elements (JAX
-    ``Ctx.dropout``); the identity in eval or at rate 0."""
+    ``Ctx.dropout``); the identity in eval or at rate 0.  With ``seq``
+    (``parallel/sequence.py::SeqGroup``) ``x`` is this rank's slice of axis
+    ``dim``: the mask is drawn whole and sliced, so it is the one-rank
+    step's mask."""
     if not training or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    return torch.where(_uniform(x.shape, x) < keep, x / keep, 0.0).to(x.dtype)
+    if seq is None:
+        u = _uniform(x.shape, x)
+    else:
+        dim = dim % x.dim()
+        n = x.shape[dim]
+        whole = x.shape[:dim] + (n * seq.size,) + x.shape[dim + 1:]
+        u = _uniform(whole, x).narrow(dim, seq.index * n, n)
+    return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
 
 
 def drop_path(x, rate: float, training: bool) -> torch.Tensor:

@@ -43,7 +43,7 @@ def st_ohkw_mse_loss(output_s, output_t, target, target_weight, *, topk: int = 8
     if use_target_weight:
         w = target_weight[:, :, :1]                            # (B, J, 1)
         ps_w, pt_w, gt_w = ps * w, pt * w, gt * w
-        # (J,) batch-global decision: across every rank's rows under a launch
+        # (J,) batch-global decision: across the data groups' rows under a launch
         labeled = distributed.all_reduce_(gt.amax(dim=(0, 2)), "max") == 1.0
         unl = (~labeled).to(ps_w.dtype)
         base = (ps_w - gt_w) ** 2                              # (B, J, HW)

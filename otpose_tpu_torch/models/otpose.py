@@ -142,8 +142,9 @@ class OTPose(nn.Module):
         self.modulated_deform_conv_list = nn.ModuleList([
             nn.ModuleDict({"deform_conv": DeformConvParams(j, j)}) for _ in spec.dilations])
 
-    def forward(self, x, margin, compute_dtype=torch.float32, fused: bool = True):
-        return otpose_forward(self, x, margin, compute_dtype=compute_dtype, fused=fused)
+    def forward(self, x, margin, compute_dtype=torch.float32, fused: bool = True, seq=None):
+        return otpose_forward(self, x, margin, compute_dtype=compute_dtype, fused=fused,
+                              seq=seq)
 
 
 def dcn_pack(model: OTPose):
@@ -192,11 +193,14 @@ def _final_layer_ct(conv: Conv2d, feats, h: int, w: int):
 
 
 def otpose_forward(model: OTPose, x, margin, compute_dtype=torch.float32,
-                   fused: bool = True):
+                   fused: bool = True, seq=None):
     """x: (B, H, W, 15) five RGB frames (current, prev, next, pprev, nnext);
     margin: (B, 4).  Returns the reference 7-tuple, NHWC:
     (output_heatmaps f32, rough_heatmaps (5B), intersection, prev_b,
-     context_encoding, squeezed, total_b)."""
+     context_encoding, squeezed, total_b).  ``seq`` (a
+    ``parallel/sequence.py::SeqGroup``) runs the three encoders' blocks on
+    this rank's slice of the tokens; everything else, and the result, is
+    whole on every rank of the seq group."""
     spec = model.spec
     b = x.shape[0]
     j = spec.num_joints
@@ -214,7 +218,7 @@ def otpose_forward(model: OTPose, x, margin, compute_dtype=torch.float32,
     squeezed = total_b.sum(dim=1, keepdim=True).expand_as(total_b)
     intersection = total_b * squeezed
 
-    context_encoding = _tokens_to_map(model.flow_encoder(total_b, fused=fused), h, w)
+    context_encoding = _tokens_to_map(model.flow_encoder(total_b, fused=fused, seq=seq), h, w)
 
     margin = margin.to(device=total_b.device, dtype=total_b.dtype)
     prev = prev / (margin[:, 0] + 1)[:, None, None, None]
@@ -238,8 +242,8 @@ def otpose_forward(model: OTPose, x, margin, compute_dtype=torch.float32,
                  next_int, close_int, far_int])
 
     commute = spec.hrnet.final_conv_kernel == 1
-    x1_feats = model.temporal_encoder1(x1, upsample=not commute, fused=fused)
-    x2_feats = model.temporal_encoder2(x2, upsample=not commute, fused=fused)
+    x1_feats = model.temporal_encoder1(x1, upsample=not commute, fused=fused, seq=seq)
+    x2_feats = model.temporal_encoder2(x2, upsample=not commute, fused=fused, seq=seq)
     if commute:
         y1 = _final_layer_ct(model.final_layer1, x1_feats, h, w)
         y2 = _final_layer_ct(model.final_layer2, x2_feats, h, w)

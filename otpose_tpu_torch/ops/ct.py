@@ -26,17 +26,19 @@ def layer_norm_ct(x, weight, bias, eps: float = LN_EPS) -> torch.Tensor:
     return (out * w + b).to(x.dtype)
 
 
-def depthwise_conv1d_k3_ct(x, w, b=None, *, stride: int = 1) -> torch.Tensor:
+def depthwise_conv1d_k3_ct(x, w, b=None, *, stride: int = 1, padded: bool = False) -> torch.Tensor:
     """Depthwise conv1d, kernel 3, zero padding 1, on (B, C, T) with a
-    (C, 1, 3) kernel, as three shifted multiply-adds in ``x.dtype``."""
-    t = x.shape[-1]
-    xp = F.pad(x, (1, 1))
+    (C, 1, 3) kernel, as three shifted multiply-adds in ``x.dtype``.
+    ``padded``: ``x`` already carries its padding (a sequence-parallel
+    slice with its neighbours' tokens), and none is added."""
+    xp = x if padded else F.pad(x, (1, 1))
+    n = xp.shape[-1]
     w = w.to(x.dtype)
     w0, w1, w2 = w[:, 0, 0, None], w[:, 0, 1, None], w[:, 0, 2, None]
     if stride == 1:
-        y = xp[..., 0:t] * w0 + xp[..., 1:t + 1] * w1 + xp[..., 2:t + 2] * w2
+        y = xp[..., 0:n - 2] * w0 + xp[..., 1:n - 1] * w1 + xp[..., 2:n] * w2
     else:
-        to = (t + 2 - 3) // stride + 1
+        to = (n - 3) // stride + 1
         end = (to - 1) * stride + 1
         y = (xp[..., 0:end:stride][..., :to] * w0
              + xp[..., 1:end + 1:stride][..., :to] * w1

@@ -45,19 +45,25 @@ _SIGNATURES = {
 }
 
 
-def channel_attention_ct(q, k, v, n_head: int, drop=None) -> torch.Tensor:
+def channel_attention_ct(q, k, v, n_head: int, drop=None, reduce=None) -> torch.Tensor:
     """Per-head attention over the channel axis of projected (B, C, T)
     q/k/v (the MaskedMHCA quirk), returned as the contiguous (B, C, T) view
     of (B, nh, hs, T), before the scramble.  Scores are summed over T and
     rounded to the compute dtype, then softmaxed in f32; ``drop`` (train
-    mode's attention dropout) is applied to the rounded weights."""
+    mode's attention dropout) is applied to the rounded weights.  With
+    ``reduce`` (sequence parallelism: q/k/v hold a slice of T) each rank's
+    partial scores are summed in f32 by ``reduce`` and rounded once."""
     b, c, t = q.shape
     hs = c // n_head
     scale = q.new_tensor(1.0 / math.sqrt(hs))     # rounded like the activations
     qh = q.reshape(b, n_head, hs, t)
     kh = k.reshape(b, n_head, hs, t)
     vh = v.reshape(b, n_head, hs, t)
-    att = torch.matmul(qh * scale, kh.transpose(-1, -2)).float()
+    if reduce is None:
+        att = torch.matmul(qh * scale, kh.transpose(-1, -2)).float()
+    else:
+        att = reduce(torch.matmul((qh * scale).float(), kh.transpose(-1, -2).float()))
+        att = att.to(q.dtype).float()
     att = torch.softmax(att, dim=-1).to(q.dtype)
     if drop is not None:
         att = drop(att)

@@ -1,5 +1,5 @@
-"""Data parallelism across processes, one GPU each (counterpart of
-``otpose_tpu/parallel/distributed.py``).
+"""Data and sequence parallelism across processes, one GPU each
+(counterpart of ``otpose_tpu/parallel/distributed.py``).
 
 The JAX package runs one program over a mesh of every device, and XLA
 reduces whatever the step reduces over the batch over the *global* batch.
@@ -23,18 +23,35 @@ collective runs and every function here is the single-process identity.
 
 Two process groups:
 
-- the *device group* carries BN statistics, the loss's and meter's
-  decisions and the gradients: NCCL when every rank on the host has a card
-  of its own, else ``gloo`` (the CPU, or ranks sharing a card, which NCCL
-  refuses); ``transport`` is the rule, and the choice is logged;
+- the *device group* carries the weights' broadcast and, without a ``seq``
+  axis, BN statistics, the loss's and meter's decisions and the gradients:
+  NCCL when every rank on the host has a card of its own, else ``gloo``
+  (the CPU, or ranks sharing a card, which NCCL refuses); ``transport`` is
+  the rule, and the choice is logged;
 - the *host group* (``gloo``, CPU tensors) carries ``fetch``,
   ``broadcast_scalar``, ``barrier`` and the preemption agreement.
 
+Under a ``data x seq`` mesh (``parallel/mesh.py::make_mesh``, which calls
+``form_mesh``) rank r sits at data index r // S and seq index r % S, and two
+more groups of each rank carry the device collectives:
+
+- its *data group* (the ranks of its seq index, one a data index): BN
+  statistics, the loss's and meter's decisions, the gradients' and the
+  metrics' average;
+- its *seq group* (the S ranks of its data index, which hold the same rows
+  and split the conv-transformer's tokens): the halo exchanges, the partial
+  scores and the gathers of ``parallel/sequence.py``, and the encoders'
+  gradient sum.
+
+Every rank makes every one of those groups in the same order, with the
+device group's transport.  Without a ``seq`` axis the data group is the
+device group and there is no seq group.
+
 Once a group exists the collectives run even at world size 1, so a
 one-rank run exercises them.  ``COUNTS`` counts the collectives each group
-has run.  Only rank 0 (``is_primary``) writes checkpoints, TensorBoard and
-the poseval files; a scalar it computes reaches the others through
-``broadcast_scalar``.
+has run (``device``: the device group and the data groups).  Only rank 0
+(``is_primary``) writes checkpoints, TensorBoard and the poseval files; a
+scalar it computes reaches the others through ``broadcast_scalar``.
 """
 
 from __future__ import annotations
@@ -51,7 +68,7 @@ import torch.distributed as dist
 logger = logging.getLogger(__name__)
 
 # collectives run on each group since the process started
-COUNTS = {"device": 0, "host": 0}
+COUNTS = {"device": 0, "seq": 0, "host": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +91,12 @@ class _Groups:
     device: "dist.ProcessGroup"
     transport: str
     reason: str
+    # the data x seq layout (``form_mesh``): this rank's groups, and each
+    # formed layout's by (data, seq), made once
+    data: Optional["dist.ProcessGroup"] = None
+    seq: Optional["dist.ProcessGroup"] = None
+    seq_size: int = 0          # 0: no seq axis
+    formed: dict = dataclasses.field(default_factory=dict)
 
 
 _GROUPS: Optional[_Groups] = None
@@ -168,29 +191,83 @@ def is_primary() -> bool:
     return process_info()[0] == 0
 
 
+def form_mesh(data: int, seq: int) -> None:
+    """Lay the launch's ranks out as ``data x seq`` (rank r at data index
+    r // seq, seq index r % seq) and make every seq and data group, each
+    rank the same ones in the same order; ``seq = 0`` is the plain data
+    axis (the device group).  A layout is formed once and can be formed
+    again to switch to it.  Without a launch only ``1 x seq`` (seq 0 or 1)
+    exists and nothing is made."""
+    world = process_info()[1]
+    if data * max(seq, 1) != world:
+        raise ValueError(f"a {data} x {max(seq, 1)} mesh needs {data * max(seq, 1)} ranks, "
+                         f"the launch has {world}")
+    if _GROUPS is None:
+        return
+    if seq == 0:
+        _GROUPS.data, _GROUPS.seq, _GROUPS.seq_size = _GROUPS.device, None, 0
+        return
+    if (data, seq) not in _GROUPS.formed:
+        rank = dist.get_rank()
+        backend = _GROUPS.transport
+        mine = {}
+        for d in range(data):
+            ranks = list(range(d * seq, (d + 1) * seq))
+            group = dist.new_group(ranks, backend=backend)
+            if rank in ranks:
+                mine["seq"] = group
+        for s in range(seq):
+            ranks = list(range(s, world, seq))
+            group = dist.new_group(ranks, backend=backend)
+            if rank in ranks:
+                mine["data"] = group
+        _GROUPS.formed[(data, seq)] = mine
+        logger.info("=> rank %d: a %d x %d data x seq mesh (%s groups)", rank, data, seq,
+                    backend)
+    mine = _GROUPS.formed[(data, seq)]
+    _GROUPS.data, _GROUPS.seq, _GROUPS.seq_size = mine["data"], mine["seq"], seq
+
+
+def seq_info() -> tuple:
+    """``(seq index, seq size)`` of this rank; ``(0, 0)`` without a seq axis."""
+    if _GROUPS is None or not _GROUPS.seq_size:
+        return 0, 0
+    return dist.get_rank() % _GROUPS.seq_size, _GROUPS.seq_size
+
+
+def data_info() -> tuple:
+    """``(data index, data size)`` of this rank: ``(rank, world)`` without a
+    seq axis, ``(0, 1)`` without a launch."""
+    rank, world = process_info()
+    s = max(seq_info()[1], 1)
+    return rank // s, world // s
+
+
 def local_row_block(global_batch: int) -> tuple:
     """This rank's contiguous ``[lo, hi)`` row block of a global batch, in
-    rank order (JAX's process-major layout of the ``data`` axis)."""
-    rank, world = process_info()
-    if global_batch % world:
-        raise ValueError(f"global batch {global_batch} not divisible by {world} processes")
-    per = global_batch // world
-    return rank * per, (rank + 1) * per
+    data-index order (JAX's process-major layout of the ``data`` axis); the
+    ranks of one seq group get the same block."""
+    index, size = data_info()
+    if global_batch % size:
+        raise ValueError(f"global batch {global_batch} not divisible by the {size} data groups")
+    per = global_batch // size
+    return index * per, (index + 1) * per
 
 
 def local_rows(global_batch: int, accum_steps: int = 1, rank: Optional[int] = None,
                world: Optional[int] = None) -> np.ndarray:
-    """The rows of a global train batch that ``rank`` (default: this one)
-    loads, in order, so that its ``i``-th of ``accum_steps`` micro-batches
+    """The rows of a global train batch that data index ``rank`` of
+    ``world`` (default: this rank's data index and the data size) loads, in
+    order, so that its ``i``-th of ``accum_steps`` micro-batches
     is its share of the JAX step's global micro-batch ``i``, rows
     ``[i B / K, (i + 1) B / K)``: the concatenation over ``i`` of the
     rank's 1/N of micro-batch ``i``.  At ``accum_steps = 1`` this is
     ``local_row_block``."""
     if rank is None or world is None:
-        rank, world = process_info()
+        rank, world = data_info()
     if global_batch % (accum_steps * world):
         raise ValueError(f"global batch {global_batch} not divisible by accum_steps "
-                         f"{accum_steps} x {world} processes (TRAIN.BATCH_SIZE_PER_GPU must "
+                         f"{accum_steps} x {world} data groups (TRAIN.BATCH_SIZE_PER_GPU must "
                          f"divide by TPU.ACCUM_STEPS)")
     micro = global_batch // accum_steps
     per = micro // world
@@ -205,41 +282,90 @@ def local_rows(global_batch: int, accum_steps: int = 1, rank: Optional[int] = No
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
-def all_reduce_(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-    """``t`` reduced in place across the ranks over the device group (no
-    gradient); ``t`` as it is without a launch."""
+def _group(name: str):
+    """(process group, its ``COUNTS`` key) of ``name``: "data" (this rank's
+    data group, the device group without a seq axis), "seq" (None without
+    one) or "device"."""
+    if name == "seq":
+        return _GROUPS.seq, "seq"
+    if name == "data":
+        return _GROUPS.data or _GROUPS.device, "device"
+    if name == "device":
+        return _GROUPS.device, "device"
+    raise ValueError(f"no {name!r} group: data, seq or device")
+
+
+def group_size(group: str = "data") -> int:
+    """The number of ranks of ``group`` (1 without a launch or the group)."""
+    if _GROUPS is None:
+        return 1
+    pg, _ = _group(group)
+    return 1 if pg is None else dist.get_world_size(pg)
+
+
+def all_reduce_(t: torch.Tensor, op: str = "sum", group: str = "data") -> torch.Tensor:
+    """``t`` reduced in place across the ranks of ``group`` (no gradient);
+    ``t`` as it is without a launch or the group."""
     if _GROUPS is not None:
-        COUNTS["device"] += 1
-        dist.all_reduce(t, op=_OPS[op], group=_GROUPS.device)
+        pg, key = _group(group)
+        if pg is not None:
+            COUNTS[key] += 1
+            dist.all_reduce(t, op=_OPS[op], group=pg)
     return t
 
 
+def all_gather(t: torch.Tensor, group: str = "seq") -> list:
+    """Every rank's ``t`` (one shape) across ``group``, in rank order (no
+    gradient); ``[t]`` without a launch or the group."""
+    pg, key = (None, None) if _GROUPS is None else _group(group)
+    if pg is None:
+        return [t]
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(pg))]
+    COUNTS[key] += 1
+    dist.all_gather(parts, t, group=pg)
+    return parts
+
+
 class _AllReduceSum(torch.autograd.Function):
-    """The sum across the ranks; its gradient is the sum of the ranks'
+    """The sum across a group's ranks; its gradient is the sum of the ranks'
     gradients (every rank's loss depends on every rank's input)."""
 
     @staticmethod
-    def forward(ctx, t):
-        return all_reduce_(t.clone())
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce_(t.clone(), group=group)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce_(grad.contiguous().clone())
+        return all_reduce_(grad.contiguous().clone(), group=ctx.group), None
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """A differentiable sum of ``t`` across the ranks (a new tensor); ``t``
-    itself without a launch."""
-    return t if _GROUPS is None else _AllReduceSum.apply(t)
+def all_reduce_sum(t: torch.Tensor, group: str = "data") -> torch.Tensor:
+    """A differentiable sum of ``t`` across the ranks of ``group`` (a new
+    tensor); ``t`` itself without a launch."""
+    return t if _GROUPS is None else _AllReduceSum.apply(t, group)
 
 
-def average_(tensors) -> None:
+def average_(tensors, group: str = "data") -> None:
     """Replace each tensor of ``tensors`` (one dtype) by its mean across the
-    ranks, in one collective; nothing without a launch."""
+    ranks of ``group``, in one collective; nothing without a launch."""
+    _reduce_flat(tensors, group, mean=True)
+
+
+def sum_(tensors, group: str = "seq") -> None:
+    """Replace each tensor of ``tensors`` (one dtype) by its sum across the
+    ranks of ``group``, in one collective; nothing without a launch."""
+    _reduce_flat(tensors, group, mean=False)
+
+
+def _reduce_flat(tensors, group: str, mean: bool) -> None:
     tensors = list(tensors)
-    if _GROUPS is None or not tensors:
+    if _GROUPS is None or not tensors or _group(group)[0] is None:
         return
-    flat = all_reduce_(torch._utils._flatten_dense_tensors(tensors)).div_(process_info()[1])
+    flat = all_reduce_(torch._utils._flatten_dense_tensors(tensors), group=group)
+    if mean:
+        flat.div_(group_size(group))
     for t, v in zip(tensors, torch._utils._unflatten_dense_tensors(flat, tensors)):
         t.copy_(v)
 
@@ -272,9 +398,10 @@ def _host_numpy(x) -> np.ndarray:
 
 def fetch(x) -> np.ndarray:
     """``x`` (a tensor on any device, or an array) on the host, with every
-    rank's rows: an all-gather over the host group, concatenated in rank
-    order (each rank passes its rows, all of one shape).  Without a launch,
-    ``x`` as a numpy array."""
+    data group's rows: an all-gather over the host group, concatenated in
+    data-index order from one rank of each data group (each rank passes its
+    rows, all of one shape; the ranks of a seq group pass the same rows).
+    Without a launch, ``x`` as a numpy array."""
     host = _host_numpy(x)
     if _GROUPS is None:
         return host
@@ -282,7 +409,7 @@ def fetch(x) -> np.ndarray:
     parts = [torch.empty_like(t) for _ in range(process_info()[1])]
     COUNTS["host"] += 1
     dist.all_gather(parts, t, group=_GROUPS.host)
-    return torch.cat(parts).numpy()
+    return torch.cat(parts[::max(seq_info()[1], 1)]).numpy()
 
 
 def barrier() -> None:

@@ -138,13 +138,21 @@ def test_transport_rule():
 
 
 def test_make_mesh_is_one_data_axis_and_refuses_seq():
+    """The default mesh is one ``data`` axis; ``["data", "seq"]`` is taken,
+    and a ``seq`` size (or any size) that the ranks do not fill, or another
+    axis list, is refused."""
     cfg = get_cfg()
     assert make_mesh(cfg) == make_mesh() == Mesh(1)
-    cfg.TPU.MESH_AXES, cfg.TPU.MESH_SHAPE = ["data", "seq"], [-1, 2]
-    with pytest.raises(NotImplementedError, match="item 7"):
+    cfg.TPU.MESH_AXES, cfg.TPU.MESH_SHAPE = ["data", "seq"], [-1, 1]
+    assert make_mesh(cfg) == Mesh(1, 1)
+    cfg.TPU.MESH_SHAPE = [-1, 2]
+    with pytest.raises(ValueError, match="not a multiple of 2"):
+        make_mesh(cfg)
+    cfg.TPU.MESH_AXES, cfg.TPU.MESH_SHAPE = ["seq"], [-1]
+    with pytest.raises(ValueError, match="axes"):
         make_mesh(cfg)
     cfg.TPU.MESH_AXES, cfg.TPU.MESH_SHAPE = ["data"], [4]
-    with pytest.raises(ValueError, match="data"):
+    with pytest.raises(ValueError, match="multiply"):
         make_mesh(cfg)
 
 
