@@ -235,11 +235,16 @@ Phases, each of which must pass or the script exits non-zero:
     bf16 train step at B = 4 (finite, the ranks bit-equal) and an f32 SGD
     step at B = 2 with dropout at the yaml's rates from one generator seed
     (each tensor's update to 1e-4 of its peak plus 1e-6 of the largest);
-    launches a rank 0 / 0 / 1 an eval forward and 0 / 0 / 1 / 1 a train
-    micro-batch, the collectives by group a forward and a micro-batch
-    against the count the blocks make, ms and clips/s and each rank's peak
-    memory beside the one rank's (recorded, not gated: the ranks share one
-    card); the phase's seconds.
+    (3) five ranks at ``data 1 x seq 5``, where T = 6912 splits into
+    unequal slices (``SeqGroup.split``: 1384, 1384, 1384, 1380 and 1380
+    tokens in the scale encoders, stride 4; 1383, 1383, 1382, 1382 and 1382
+    in the flow encoder): the f32 eval at B = 2 and the f32 SGD step at B =
+    2, held as (2) holds them, with the slices printed; launches a rank 0 /
+    0 / 1 an eval forward and 0 / 0 / 1 / 1 a train micro-batch, the
+    collectives by group a forward and a micro-batch against the count the
+    blocks make (the same on unequal slices), ms and clips/s and each rank's
+    peak memory beside the one rank's (recorded, not gated: the ranks share
+    one card); the phase's seconds.
 
 ``python3 chip_smoke.py --phase17`` (or ``--phase18``, ``--phase19``) builds the
 kernels and runs that phase alone (a development run: no kernels line, no
@@ -3886,6 +3891,7 @@ def remaining_modules(card: str, train_ms: float | None = None) -> dict:
 
 SP_EVAL_LAYOUT = (2, 2)     # data x seq: four ranks, bf16 eval at B = 16 and the flip
 SP_TRAIN_LAYOUT = (1, 2)    # two ranks: f32 eval at B = 2 and the train steps
+SP_UNEVEN_LAYOUT = (1, 5)   # five ranks, T = 6912 in unequal slices: f32 eval and SGD, B = 2
 SP_SEED = 19
 
 
@@ -4026,9 +4032,10 @@ def _worker_seq_eval(spec: dict) -> dict:
 
 
 def _worker_seq_train(spec: dict) -> dict:
-    """Phase 19's two ranks at ``data = 1 x seq = 2``: f32 eval at B = 2,
-    a bf16 train step at B = 4 (after a warm-up step) and an f32 SGD step at
-    B = 2 (rank 0's state after it to ``spec["state"]``)."""
+    """Phase 19's two ranks at ``data = 1 x seq = 2`` or five at ``1 x 5``:
+    f32 eval at B = 2, then the train steps of ``spec["train"]``: a bf16
+    step at B = 4 (after a warm-up step) and an f32 SGD step at B = 2 (rank
+    0's state after it to ``spec["state"]``)."""
     import numpy as np
     import torch
 
@@ -4052,6 +4059,8 @@ def _worker_seq_train(spec: dict) -> dict:
                seq=distributed.seq_info(), data=distributed.data_info(), eval=res)
     batches = torch.load(spec["batches"], weights_only=True)
     for dtype, reps, conf in (("bfloat16", 2, cfg), ("float32", 1, _sgd(cfg))):
+        if dtype not in spec["train"]:
+            continue
         model = _sp_model(base)
         step = make_train_step(model, make_optimizer(model, conf, make_schedule(conf, 1)),
                                compute_dtype=dtype, seq=seq,
@@ -4075,7 +4084,8 @@ def _worker_seq_train(spec: dict) -> dict:
 
 def _sp_one_rank(cfg, base, clips, batches) -> dict:
     """The references in this process, without a launch: the plain eval
-    steps (f32 at B = 16 and B = 2, bf16 at B = 16, timed), and the train
+    steps (f32 at B = 16 and B = 2, timed at B = 2, bf16 at B = 16, timed),
+    and the train
     steps (bf16 at B = 4, a warm-up and a timed step; one f32 SGD step at
     B = 2) from the same weights and generator seed."""
     import torch
@@ -4092,8 +4102,9 @@ def _sp_one_rank(cfg, base, clips, batches) -> dict:
         decoded = make_decoded_eval_step(model, compute_dtype=dtype, fused=False)
         if dtype == "float32":
             ref["heat_f32_b2"] = _to_numpy(heat(clips["inputs"][:2], clips["margin"][:2])[0])
-            ref["decoded_f32_b2"] = [_to_numpy(o) for o in
-                                     decoded(clips["inputs"][:2], clips["margin"][:2])]
+            outs, runs = _sp_runs(lambda: decoded(clips["inputs"][:2], clips["margin"][:2]), 3)
+            ref["decoded_f32_b2"] = [_to_numpy(o) for o in outs]
+            ref["decoded_f32_b2_runs"] = runs[1:]
         else:
             _, runs = _sp_runs(lambda: decoded(clips["inputs"], clips["margin"]), 3)
             ref["decoded_bf16"] = runs[1:]
@@ -4118,12 +4129,62 @@ def _median_ms(runs) -> float:
     return sorted(r["ms"] for r in runs)[len(runs) // 2]
 
 
-def _sp_checks(cfg, one, ev, tr, spec_e, spec_t, state, card: str) -> None:
-    """Phase 19's gates and lines (see the module docstring)."""
+def _sp_f32_eval(path, one, layout, card: str) -> tuple:
+    """An f32 decoded eval at B = 2 on ``layout`` (its rank 0's arrays at
+    ``path``) against the one-rank plain step: the line, and whether the
+    heatmaps are within 1e-5 of their peak and the keypoints equal on every
+    clear peak (a top-two gap above 2e-5 of the peak)."""
     import numpy as np
+
+    with np.load(path) as z:
+        got = {k: z[k] for k in z.files}
+    heat, want = got["heatmap_0"], one["heat_f32_b2"]
+    peak = np.abs(want).max()
+    err = np.abs(heat - want).max() / peak
+    flat = np.sort(want.transpose(0, 3, 1, 2).reshape(2, want.shape[-1], -1), axis=-1)
+    clear = (flat[..., -1] - flat[..., -2]) > 2e-5 * peak
+    same = (got["decoded_0"] == one["decoded_f32_b2"][0]).all(-1)
+    log(f"sequence parallel f32 decoded eval, B=2 at data {layout[0]} x seq {layout[1]} "
+        f"({layout[1]} ranks sharing the card, gloo): heatmaps to {err:.3e} of their peak "
+        f"{peak:.4g} against the one-rank plain step (limit 1e-5); keypoints equal on "
+        f"{int(same[clear].sum())}/{int(clear.sum())} clear peaks ({int(same.sum())}/"
+        f"{same.size} in all; {clear.mean():.1%} of the peaks are clear: a top-two gap above "
+        f"2e-5 of the peak) ({card})")
+    return err <= 1e-5 and clear.mean() >= 0.5 and bool(same[clear].all())
+
+
+def _sp_f32_train(path, ranks, one, state, layout, card: str) -> bool:
+    """An f32 SGD step at B = 2 on ``layout`` (rank 0's state after it at
+    ``path``) against the one-rank step: the line, and whether each
+    tensor's update is within 1e-4 of its peak plus 1e-6 of the largest and
+    the ranks end bit-equal."""
     import torch
 
+    sp_state = torch.load(path, weights_only=True)
+    want = one["state_f32"]
+    refs = {k: want[k] - state[k] for k, v in sp_state.items() if v.is_floating_point()}
+    top = max(r.abs().max().item() for r in refs.values())
+    ratios = sorted((((sp_state[k] - state[k] - ref).abs().max().item()
+                      / (1e-4 * ref.abs().max().item() + 1e-6 * top)), k)
+                    for k, ref in refs.items() if ref.abs().max() > 0)[::-1]
+    m_sp, m_one = ranks[0]["float32"]["metrics"], one["train_float32"]["metrics"]
+    worst_m = max((abs(m_sp[k] / m_one[k] - 1), k) for k in m_one if m_one[k])
+    digests = {r["float32"]["digest"] for r in ranks}
+    log(f"sequence parallel f32 SGD train step, B=2 at data {layout[0]} x seq {layout[1]}, "
+        f"dropout at the yaml's rates from one generator seed: each tensor's update (weights "
+        f"and running stats) against its limit (1e-4 of its peak plus 1e-6 of the largest), "
+        f"the five worst: " + ", ".join(f"{k} {r:.3g}" for r, k in ratios[:5])
+        + f"; metrics to {worst_m[0]:.3e} ({worst_m[1]}) relative; the {len(ranks)} ranks "
+        + ("bit-equal" if len(digests) == 1 else "DIFFER") + f" ({card})")
+    return ratios[0][0] <= 1 and len(digests) == 1
+
+
+def _sp_checks(cfg, one, ev, tr, un, spec_e, spec_t, spec_u, state, card: str) -> None:
+    """Phase 19's gates and lines (see the module docstring)."""
+    import numpy as np
+
     from otpose_tpu_torch.models.otpose import OTPoseSpec
+    from otpose_tpu_torch.parallel.sequence import split_lengths
 
     spec = OTPoseSpec.from_cfg(cfg)
     encoders = (spec.flow_scale_arch, spec.scale_arch, spec.scale_arch)
@@ -4134,31 +4195,15 @@ def _sp_checks(cfg, one, ev, tr, spec_e, spec_t, state, card: str) -> None:
     bwd = fwd - sum(1 + a[2] for a in encoders) + len(encoders)
     eval_counts = dict(FORWARD_COUNTS, fused_attn=0, fused_mlp=0)
     flip_counts = {k: 2 * v for k, v in eval_counts.items()}
-    if any(r["transport"][0] != "gloo" for r in ev + tr):
+    if any(r["transport"][0] != "gloo" for r in ev + tr + un):
         fail(f"sequence parallel: ranks sharing one card took {ev[0]['transport']}")
 
-    def load(path):
-        with np.load(path) as z:
-            return {k: z[k] for k in z.files}
-
     # ------------------------------------------- f32 eval, 1 x 2, B = 2
-    got = load(spec_t["arrays"])
-    heat, want = got["heatmap_0"], one["heat_f32_b2"]
-    peak = np.abs(want).max()
-    err = np.abs(heat - want).max() / peak
-    flat = np.sort(want.transpose(0, 3, 1, 2).reshape(2, want.shape[-1], -1), axis=-1)
-    clear = (flat[..., -1] - flat[..., -2]) > 2e-5 * peak
-    same = (got["decoded_0"] == one["decoded_f32_b2"][0]).all(-1)
-    log(f"sequence parallel f32 decoded eval, B=2 at data 1 x seq 2 (two ranks sharing the "
-        f"card, gloo): heatmaps to {err:.3e} of their peak {peak:.4g} against the one-rank "
-        f"plain step (limit 1e-5); keypoints equal on {int(same[clear].sum())}/"
-        f"{int(clear.sum())} clear peaks ({int(same.sum())}/{same.size} in all; "
-        f"{clear.mean():.1%} of the peaks are clear: a top-two gap above 2e-5 of the peak) "
-        f"({card})")
-    if not (err <= 1e-5 and clear.mean() >= 0.5 and same[clear].all()):
+    if not _sp_f32_eval(spec_t["arrays"], one, SP_TRAIN_LAYOUT, card):
         fail("sequence parallel: the f32 eval is not the one-rank step")
     # ------------------------------------------- bf16 eval, 2 x 2, B = 16
-    got = load(spec_e["arrays"])
+    with np.load(spec_e["arrays"]) as z:
+        got = {k: z[k] for k in z.files}
     f32 = one["heat_float32"]
     rms = lambda a: float(np.sqrt(np.mean((a - f32) ** 2)))  # noqa: E731
     rms_sp, rms_one = rms(got["heatmap_0"]), rms(one["heat_bfloat16"])
@@ -4173,10 +4218,10 @@ def _sp_checks(cfg, one, ev, tr, spec_e, spec_t, state, card: str) -> None:
     # ------------------------------------------- launches and collectives
     bad = [(r["rank"], n, run["counts"]) for r in ev for n in ("decoded", "heatmap", "flip")
            for run in r[n] if run["counts"] != (flip_counts if n == "flip" else eval_counts)]
-    bad += [(r["rank"], "f32 eval", run["counts"]) for r in tr for run in r["eval"]["decoded"]
-            if run["counts"] != eval_counts]
-    bad += [(r["rank"], d, run["counts"]) for r in tr for d in ("bfloat16", "float32")
-            for run in r[d]["runs"] if run["counts"] != TRAIN_COUNTS]
+    bad += [(r["rank"], "f32 eval", run["counts"]) for r in tr + un
+            for run in r["eval"]["decoded"] if run["counts"] != eval_counts]
+    bad += [(r["rank"], d, run["counts"]) for r in tr + un for d in ("bfloat16", "float32")
+            for run in r.get(d, {}).get("runs", ()) if run["counts"] != TRAIN_COUNTS]
     per_fwd = ev[0]["decoded"][0]["collectives"]
     per_micro = tr[0]["bfloat16"]["runs"][-1]["collectives"]
     log(f"sequence parallel launches a rank: an eval batch {ev[0]['decoded'][0]['counts']}, a "
@@ -4188,23 +4233,7 @@ def _sp_checks(cfg, one, ev, tr, spec_e, spec_t, state, card: str) -> None:
     if per_fwd["seq"] != fwd or per_fwd["device"] != 0 or per_micro["seq"] != fwd + bwd + 1:
         fail("sequence parallel: the collectives a forward or a micro-batch")
     # ------------------------------------------- f32 train step, 1 x 2, B = 2
-    sp_state = torch.load(spec_t["state"], weights_only=True)
-    want = one["state_f32"]
-    refs = {k: want[k] - state[k] for k, v in sp_state.items() if v.is_floating_point()}
-    top = max(r.abs().max().item() for r in refs.values())
-    ratios = sorted((((sp_state[k] - state[k] - ref).abs().max().item()
-                      / (1e-4 * ref.abs().max().item() + 1e-6 * top)), k)
-                    for k, ref in refs.items() if ref.abs().max() > 0)[::-1]
-    m_sp, m_one = tr[0]["float32"]["metrics"], one["train_float32"]["metrics"]
-    worst_m = max((abs(m_sp[k] / m_one[k] - 1), k) for k in m_one if m_one[k])
-    digests = {r["float32"]["digest"] for r in tr}
-    log(f"sequence parallel f32 SGD train step, B=2 at data 1 x seq 2, dropout at the yaml's "
-        f"rates from one generator seed: each tensor's update (weights and running stats) "
-        f"against its limit (1e-4 of its peak plus 1e-6 of the largest), the five worst: "
-        + ", ".join(f"{k} {r:.3g}" for r, k in ratios[:5])
-        + f"; metrics to {worst_m[0]:.3e} ({worst_m[1]}) relative; the two ranks "
-        + ("bit-equal" if len(digests) == 1 else "DIFFER") + f" ({card})")
-    if not (ratios[0][0] <= 1 and len(digests) == 1):
+    if not _sp_f32_train(spec_t["state"], tr, one, state, SP_TRAIN_LAYOUT, card):
         fail("sequence parallel: the f32 train step is not the one-rank step")
     # ------------------------------------------- bf16 train, time, memory
     bf = [r["bfloat16"] for r in tr]
@@ -4226,6 +4255,38 @@ def _sp_checks(cfg, one, ev, tr, spec_e, spec_t, state, card: str) -> None:
         + ", ".join(f"{max(x['peak_gib'] for x in r['decoded']):.2f}" for r in ev)
         + f" GiB (one rank at B=16 {max(x['peak_gib'] for x in one['decoded_bf16']):.2f} GiB). "
         f"The ranks share one card over gloo: these are no scaling numbers ({card})")
+    # ------------------------------------------- unequal slices: 1 x 5, f32, B = 2
+    t = cfg.MODEL.HEATMAP_SIZE[0] * cfg.MODEL.HEATMAP_SIZE[1]
+    size = SP_UNEVEN_LAYOUT[1]
+    slices = {f"stride {s}": split_lengths(t, size, s)
+              for s in sorted({e.scale_factor ** e.arch[2]
+                               for e in (spec.flow_spec(), spec.temporal_spec())})}
+    ok_eval = _sp_f32_eval(spec_u["arrays"], one, SP_UNEVEN_LAYOUT, card)
+    u_fwd = un[0]["eval"]["decoded"][0]["collectives"]
+    u_micro = un[0]["float32"]["runs"][-1]["collectives"]
+    ms_u = max(_median_ms(r["eval"]["decoded"]) for r in un)
+    ms_one = _median_ms(one["decoded_f32_b2_runs"])
+    log(f"sequence parallel at data 1 x seq {size}, T = {t} in unequal slices "
+        + ", ".join(f"{k} {v}" for k, v in slices.items())
+        + f": collectives by group a forward {u_fwd} ({fwd} seq expected), an f32 train "
+        f"micro-batch {u_micro} ({fwd + bwd + 1} seq expected); launches a rank an eval batch "
+        f"{un[0]['eval']['decoded'][0]['counts']}, a train micro-batch "
+        f"{un[0]['float32']['runs'][-1]['counts']}; f32 decoded eval at B=2 {ms_u:.2f} ms a "
+        f"batch (the slowest rank's median) against one rank's plain step {ms_one:.2f} ms; "
+        f"peak memory a rank "
+        + ", ".join(f"{max(x['peak_gib'] for x in r['eval']['decoded']):.2f}" for r in un)
+        + f" GiB in the eval (one rank "
+        f"{max(x['peak_gib'] for x in one['decoded_f32_b2_runs']):.2f} GiB), "
+        + ", ".join(f"{max(x['peak_gib'] for x in r['float32']['runs']):.2f}" for r in un)
+        + f" GiB in the f32 step (one rank "
+        f"{max(x['peak_gib'] for x in one['train_float32']['runs']):.2f} GiB). The ranks "
+        f"share one card over gloo: these are no scaling numbers ({card})")
+    if not ok_eval:
+        fail(f"sequence parallel: the f32 eval at 1 x {size} is not the one-rank step")
+    if u_fwd["seq"] != fwd or u_fwd["device"] != 0 or u_micro["seq"] != fwd + bwd + 1:
+        fail(f"sequence parallel: the collectives a forward or a micro-batch at 1 x {size}")
+    if not _sp_f32_train(spec_u["state"], un, one, state, SP_UNEVEN_LAYOUT, card):
+        fail(f"sequence parallel: the f32 train step at 1 x {size} is not the one-rank step")
 
 
 def sequence_parallel(card: str) -> dict:
@@ -4274,8 +4335,11 @@ def sequence_parallel(card: str) -> dict:
         spec_e = dict(common, layout=list(SP_EVAL_LAYOUT), arrays=os.path.join(root, "ev.npz"),
                       out=os.path.join(root, "seq_eval_%d.json"))
         spec_t = dict(common, layout=list(SP_TRAIN_LAYOUT), arrays=os.path.join(root, "tr.npz"),
-                      state=os.path.join(root, "state.pt"),
+                      state=os.path.join(root, "state.pt"), train=["bfloat16", "float32"],
                       out=os.path.join(root, "seq_train_%d.json"))
+        spec_u = dict(common, layout=list(SP_UNEVEN_LAYOUT), arrays=os.path.join(root, "un.npz"),
+                      state=os.path.join(root, "state_uneven.pt"), train=["float32"],
+                      out=os.path.join(root, "seq_uneven_%d.json"))
         t0 = time.perf_counter()
         ev = _dist_wait(_dist_start("seq_eval", spec_e, "seq_eval",
                                     SP_EVAL_LAYOUT[0] * SP_EVAL_LAYOUT[1]),
@@ -4286,16 +4350,24 @@ def sequence_parallel(card: str) -> dict:
                                     SP_TRAIN_LAYOUT[0] * SP_TRAIN_LAYOUT[1]),
                         spec_t, "sequence parallel train")
         tr_s = time.perf_counter() - t0
-        _sp_checks(cfg, one, ev, tr, spec_e, spec_t, state, card)
+        t0 = time.perf_counter()
+        un = _dist_wait(_dist_start("seq_train", spec_u, "seq_uneven",
+                                    SP_UNEVEN_LAYOUT[0] * SP_UNEVEN_LAYOUT[1]),
+                        spec_u, "sequence parallel on unequal slices")
+        un_s = time.perf_counter() - t0
+        _sp_checks(cfg, one, ev, tr, un, spec_e, spec_t, spec_u, state, card)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
         shutil.rmtree(root, ignore_errors=True)
     log(f"sequence parallel phase: {time.perf_counter() - phase_t0:.1f} s (one rank "
-        f"{one_s:.1f} s, the four eval ranks {ev_s:.1f} s, the two train ranks {tr_s:.1f} s; "
-        f"a rank's model build / its work: eval "
+        f"{one_s:.1f} s, the four eval ranks {ev_s:.1f} s, the two train ranks {tr_s:.1f} s, "
+        f"the five ranks on unequal slices {un_s:.1f} s; a rank's model build / its work: eval "
         f"{ev[0]['seconds']['build']:.1f} / {ev[0]['seconds']['run']:.1f} s, train "
-        f"{tr[0]['seconds']['build']:.1f} / {tr[0]['seconds']['run']:.1f} s)")
-    return dict(eval=ev[0]["decoded"][0]["counts"], train=tr[0]["bfloat16"]["runs"][-1]["counts"])
+        f"{tr[0]['seconds']['build']:.1f} / {tr[0]['seconds']['run']:.1f} s, unequal "
+        f"{un[0]['seconds']['build']:.1f} / {un[0]['seconds']['run']:.1f} s)")
+    return dict(eval=ev[0]["decoded"][0]["counts"], train=tr[0]["bfloat16"]["runs"][-1]["counts"],
+                uneven_eval=un[0]["eval"]["decoded"][0]["counts"],
+                uneven_train=un[0]["float32"]["runs"][-1]["counts"])
 
 
 def main(only: str | None = None) -> None:
@@ -4417,7 +4489,8 @@ def main(only: str | None = None) -> None:
         f"{k2['share']:.3f} (plain {', '.join(f'{v:.3f}' for v in k2['plain_ms'])} ms, fused "
         f"{', '.join(f'{v:.3f}' for v in k2['fused_ms'])} ms)"
         + f"; sequence parallel (phase 19): launches a rank an eval batch {sp['eval']}, a train "
-        f"micro-batch {sp['train']}"
+        f"micro-batch {sp['train']}; on unequal slices (1 x {SP_UNEVEN_LAYOUT[1]}) an eval batch "
+        f"{sp['uneven_eval']}, an f32 train micro-batch {sp['uneven_train']}"
         + f"; the script {time.perf_counter() - start:.1f} s ({card})")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(f"nvidia-smi: {card}", flush=True)

@@ -24,10 +24,12 @@ weights, ``proj_pdrop`` after the projection, the GELU and ``mlp.3``, and
 ``path_pdrop`` through the drop-path scales.  The rates live on the block apart from the presence of
 the ``drop_path_*`` scales, so ``set_drop_rates`` can zero them and keep the
 parameter set.
-Under sequence parallelism (``seq``, a ``parallel/sequence.py::SeqGroup``)
-a block runs on this rank's slice of T, as the JAX package's ``seq_axis``
-does: the k = 3 depthwise convs and the max-pool skip read one neighbour
-token through ``halo`` (zero or -inf beyond the ends), the channel
+Under sequence parallelism (``seq``, a ``parallel/sequence.py::SeqGroup``
+split over the block's input T; slices may be of unequal length, and the
+output's split is ``seq.down(ds_stride)``) a block runs on this rank's
+slice of T, as the JAX package's ``seq_axis`` does: the k = 3 depthwise
+convs and the max-pool skip read one neighbour token through
+``strided_halo`` (zero or -inf beyond the ends), the channel
 attention's partial scores are summed over the seq group in f32 before the
 softmax, the scramble is done across the slices (``scramble_across``), the
 window attention's keys and values take ``w`` halo tokens with the mask and
@@ -133,11 +135,12 @@ def set_drop_rates(model: nn.Module, *, attn: float = 0.0, proj: float = 0.0,
 
 def _qkv_ct(attn: MaskedMHCA, x, stride: int, seq=None):
     """q, k, v of normed (B, C, T): strided depthwise k = 3 conv, channel LN,
-    1x1 projection each.  Under ``seq`` the convs read one token of each
-    neighbouring slice (only the left one at stride 2: output j reads
-    inputs 2j - 1, 2j and 2j + 1)."""
+    1x1 projection each.  Under ``seq`` (the split of ``x``'s T) the convs
+    read one token of each neighbouring slice (only the left one at stride
+    2: output j reads inputs 2j - 1, 2j and 2j + 1, and a last slice of odd
+    length reads one zero past T)."""
     if seq is not None:
-        x = sequence.halo(x, 1, 1 if stride == 1 else 0, seq)
+        x = sequence.strided_halo(x, 1, 3, stride, seq)
     return (core.dense_1x1_ct(core.layer_norm_ct(
         core.depthwise_conv1d_k3_ct(x, conv.weight, stride=stride, padded=seq is not None),
         norm.weight, norm.bias), lin.weight, lin.bias)
@@ -150,11 +153,12 @@ def masked_mhca_ct(attn: MaskedMHCA, x, n_head: int, stride: int = 1, attn_drop=
                    seq=None):
     """Plain MaskedMHCA on normed (B, C, T) -> (B, C, T/stride), before the
     projection's dropout; ``attn_drop`` is applied to the attention weights.
-    Under ``seq`` the scores are summed over the seq group."""
+    Under ``seq`` (the split of T) the scores are summed over the seq group
+    and the output is reassembled across the output's slices."""
     q, k, v = _qkv_ct(attn, x, stride, seq)
     reduce = None if seq is None else sequence.all_reduce_partial
     pre = channel_attention_ct(q, k, v, n_head, drop=attn_drop, reduce=reduce)
-    return _mhca_tail_ct(attn, pre, n_head, seq)
+    return _mhca_tail_ct(attn, pre, n_head, None if seq is None else seq.down(stride))
 
 
 def local_masked_mhca_ct(attn: LocalMaskedMHCA, x, n_head: int, window: int,
@@ -173,9 +177,10 @@ def local_masked_mhca_ct(attn: LocalMaskedMHCA, x, n_head: int, window: int,
     feature j throughout.  In bf16 the JAX function's q scale (a numpy
     scalar) promotes the scores, the sum and the projection's output to f32;
     here the sum is rounded to ``x.dtype`` for the projection, so the block
-    stays in its activation dtype.  Under ``seq`` (x a slice of T) the
-    keys and values take ``w`` tokens of each neighbouring slice and the
-    mask is at global positions; ``attn_drop`` then slices axis 2."""
+    stays in its activation dtype.  Under ``seq`` (x a slice of T, ``seq``
+    its split) the keys and values take ``w`` tokens of each neighbouring
+    slice and the mask is at the output's global positions; ``attn_drop``
+    then slices axis 2."""
     q, k, v = _qkv_ct(attn, x, stride, seq)
     b, c, t = q.shape
     hs = c // n_head
@@ -188,9 +193,10 @@ def local_masked_mhca_ct(attn: LocalMaskedMHCA, x, n_head: int, window: int,
         vp = torch.nn.functional.pad(v.reshape(b, n_head, hs, t), (w, w))
         lo, total = 0, t
     else:
+        seq = seq.down(stride)
         kp = sequence.halo(k.reshape(b, n_head, hs, t), w, w, seq)
         vp = sequence.halo(v.reshape(b, n_head, hs, t), w, w, seq)
-        lo, total = seq.index * t, seq.size * t
+        lo, total = seq.bounds()[0], seq.total
     idx = lo + torch.arange(t, device=x.device)
     scores = []
     for d in range(-w, w + 1):
@@ -327,25 +333,28 @@ def fused_mlp_block_ct(block: TransformerBlock, x):
 
 def _max_pool_skip(x, ds: int, seq=None):
     """The strided block's skip: max-pool of kernel ds + 1, stride ds and
-    -inf padding (ds + 1) // 2; under ``seq`` the padding is the
-    neighbouring slices' tokens, -inf only at the global ends."""
+    -inf padding (ds + 1) // 2; under ``seq`` (the split of ``x``'s T) the
+    padding is the neighbouring slices' tokens, -inf only at the global
+    ends."""
     k, pad = ds + 1, (ds + 1) // 2
     if seq is None:
         return core.max_pool1d_ct(x, k, ds, pad)
-    xh = sequence.halo(x, pad, max(0, k - ds - pad), seq, fill=float("-inf"))
-    return core.max_pool1d_ct(xh, k, ds, 0)[..., :x.shape[-1] // ds]
+    xh = sequence.strided_halo(x, pad, k, ds, seq, fill=float("-inf"))
+    return core.max_pool1d_ct(xh, k, ds, 0)[..., :-(-x.shape[-1] // ds)]
 
 
 def transformer_block_ct(block: TransformerBlock, x, fused: bool = True, seq=None):
     """(B, C, T) -> (B, C, T/ds_stride), in the block's mode; under ``seq``
-    on this rank's slice of T (see the module docstring)."""
+    (``SeqGroup.split`` of T) on this rank's slice of T (see the module
+    docstring)."""
     n_head, ds, train = block.n_head, block.ds_stride, block.training
-    drop = lambda t: core.dropout(t, block.proj_pdrop, train, seq)  # noqa: E731
+    out_seq = None if seq is None else seq.down(ds)
+    drop = lambda t: core.dropout(t, block.proj_pdrop, train, out_seq)  # noqa: E731
     fused_ok = fused and not train and seq is None and x.shape[1] >= 32
     if block.window > 1:
         out = local_masked_mhca_ct(block.attn, block.ln1(x), n_head, block.window, stride=ds,
                                    attn_drop=lambda t: core.dropout(t, block.attn_pdrop, train,
-                                                                    seq, dim=2),
+                                                                    out_seq, dim=2),
                                    use_rel_pe=block.use_rel_pe, seq=seq)
     elif fused_ok and ds == 1:
         out = _mhca_tail_ct(block.attn, fused_attn_block_ct(block, x), n_head)

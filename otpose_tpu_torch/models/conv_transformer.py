@@ -12,8 +12,11 @@ window (``ConvTransformerSpec.win_size``) is above 1 runs window attention.
 
 Under sequence parallelism (``seq``, JAX's ``seq_axis``: ref
 ``otpose_tpu/models/conv_transformer.py:90-135``) the embedding convs run
-replicated, the tokens are sharded after the reshape (``shard_tokens``),
-each rank adds its slice of the PE interpolated at full length, the stem
+replicated, the tokens are sharded after the reshape (``shard_tokens``,
+on the split ``SeqGroup.split`` makes at the branches' total stride: slices
+of unequal length where the seq size does not divide T, as JAX's
+partitioner pads them), each rank adds its slice of the PE interpolated at
+full length, the stem
 and branch blocks run on the slices, and every output is gathered back
 (``gather_tokens``: the stem's at T, each branch's at its strided length
 before any upsampling), so the layers after the encoder run replicated.
@@ -115,8 +118,9 @@ def conv_transformer_forward(model: ConvTransformer, x, upsample: bool = True,
     (B, C, T).  ``upsample=False`` leaves branch outputs at their strided
     lengths (the caller commutes its 1x1 conv with the upsampling).  With
     ``seq`` (a ``parallel/sequence.py::SeqGroup``) the blocks run on this
-    rank's slice of T and the outputs are the whole, gathered tensors; a T
-    that the seq size and the branches' strides do not divide raises."""
+    rank's slice of T (``SeqGroup.split`` at the branches' total stride, so
+    slices may be uneven) and the outputs are the whole, gathered tensors; a
+    T that leaves a rank no token at the deepest level raises."""
     b, _, h, w = x.shape
     t = h * w
     for i, conv in enumerate(model.embd):
@@ -127,21 +131,23 @@ def conv_transformer_forward(model: ConvTransformer, x, upsample: bool = True,
     tokens = x.reshape(b, x.shape[1], t)
     lo, hi = 0, t
     if seq is not None:
-        sequence.check_shardable(t, seq.size, model.spec.scale_factor ** model.spec.arch[2])
+        seq = seq.split(t, model.spec.scale_factor ** model.spec.arch[2])
         tokens = sequence.shard_tokens(tokens, seq)
-        lo, hi = seq.bounds(t)
+        lo, hi = seq.bounds()
     if model.pos_embd is not None:
         pe = model.pos_embd
         if t >= model.spec.max_len:
             pe = core.upsample_linear_1d_ct(pe, t)
         tokens = (tokens.float() + pe[..., lo:hi]).to(x.dtype)
-    whole = (lambda f: f) if seq is None else (lambda f: sequence.gather_tokens(f, seq))
     for blk in model.stem:
         tokens = blk(tokens, fused=fused, seq=seq)
-    feats = [whole(tokens)]
+    feats = [tokens if seq is None else sequence.gather_tokens(tokens, seq)]
     for blk in model.branch:
         tokens = blk(tokens, fused=fused, seq=seq)
-        out = whole(tokens)
+        if seq is not None:
+            # The block's output is split at its own stride: gather by that split.
+            seq = seq.down(blk.ds_stride)
+        out = tokens if seq is None else sequence.gather_tokens(tokens, seq)
         feats.append(core.upsample_linear_1d_ct(out, t) if upsample else out)
     return feats
 

@@ -149,9 +149,9 @@ def _uniform(shape, like) -> torch.Tensor:
 def dropout(x, rate: float, training: bool, seq=None, dim: int = -1) -> torch.Tensor:
     """Elementwise dropout with ``x / keep`` on the kept elements (JAX
     ``Ctx.dropout``); the identity in eval or at rate 0.  With ``seq``
-    (``parallel/sequence.py::SeqGroup``) ``x`` is this rank's slice of axis
-    ``dim``: the mask is drawn whole and sliced, so it is the one-rank
-    step's mask."""
+    (``parallel/sequence.py::SeqGroup``, split) ``x`` is this rank's slice
+    of axis ``dim``: the mask is drawn whole and sliced by the split's
+    bounds, so it is the one-rank step's mask."""
     if not training or rate <= 0.0:
         return x
     keep = 1.0 - rate
@@ -159,9 +159,9 @@ def dropout(x, rate: float, training: bool, seq=None, dim: int = -1) -> torch.Te
         u = _uniform(x.shape, x)
     else:
         dim = dim % x.dim()
-        n = x.shape[dim]
-        whole = x.shape[:dim] + (n * seq.size,) + x.shape[dim + 1:]
-        u = _uniform(whole, x).narrow(dim, seq.index * n, n)
+        lo, hi = seq.bounds()
+        whole = x.shape[:dim] + (seq.total,) + x.shape[dim + 1:]
+        u = _uniform(whole, x).narrow(dim, lo, hi - lo)
     return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
 
 

@@ -17,7 +17,9 @@ this rank's seq group (``parallel/distributed.py``):
   attached (the k = 3 depthwise convs, the max-pool skip, the window
   attention's keys and values); the first and last slices get ``fill``
   (the op's own padding), and the backward returns each halo's gradient to
-  its owner;
+  its owner; ``strided_halo`` is the halo a strided window reads (the k = 3
+  convs and the max-pool skip), with the op's padding past T where the
+  last slice's length is not a multiple of the stride;
 - ``all_reduce_partial``: a sum whose gradient is the same sum (the channel
   attention's scores, which contract over T);
 - ``scramble_across``: the reference's reassembly of the attention output,
@@ -27,39 +29,86 @@ this rank's seq group (``parallel/distributed.py``):
   slices and unscrambles them.
 
 Everything travels by ``all_gather`` and ``all_reduce``, which gloo also
-runs on CUDA tensors.  Slices are equal: ``check_shardable`` refuses a
-length that the seq size and the encoder's strides do not divide.  Without
-a seq group (one process) every function is the identity on a whole T.
+runs on CUDA tensors.  Slices may be uneven, as JAX's partitioner pads a T
+that the seq size does not divide: ``SeqGroup.split`` cuts T into units of
+the encoder's total stride, gives each rank ``units // size`` of them and
+the first ``units % size`` ranks one more, so every interior boundary
+falls on a multiple of every level's stride and a strided block's output
+slice stays on its rank; the last rank ends at T (its last unit short when
+the stride does not divide T), and ``SeqGroup.down`` gives the next
+level's split.  The gathers pad each slice to the longest and trim it by
+the known lengths (nothing is padded when the slices are equal), and a
+halo exchanges its fixed number of tokens whatever a slice's length.
+Without a seq group (one process) every function is the identity on a
+whole T.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from otpose_tpu_torch.parallel import distributed
 
 
+def split_lengths(t: int, size: int, stride: int = 1) -> tuple:
+    """Each of ``size`` ranks' slice length of a length-``t`` axis, cut into
+    units of ``stride`` tokens (the last unit short if ``stride`` does not
+    divide ``t``): ``units // size`` units a rank and one more for each of
+    the first ``units % size`` ranks.  Raises where a rank would hold no
+    unit, that is no token at the encoder's deepest level."""
+    units = -(-t // stride)
+    if units < size:
+        raise ValueError(f"sequence parallelism over {size} ranks needs a token a rank at "
+                         f"the encoder's deepest level (stride {stride}): T = {t} leaves "
+                         f"{units}")
+    q, r = divmod(units, size)
+    lengths = [(q + (i < r)) * stride for i in range(size)]
+    lengths[-1] -= units * stride - t
+    return tuple(lengths)
+
+
 @dataclasses.dataclass(frozen=True)
 class SeqGroup:
-    """This rank's place on the ``seq`` axis: ``index`` of ``size``."""
+    """This rank's place on the ``seq`` axis: ``index`` of ``size``; after
+    ``split``, every rank's slice length ``lengths`` of the axis at hand."""
     size: int
     index: int
+    lengths: Optional[tuple] = None
 
-    def bounds(self, t: int) -> tuple:
-        """``[lo, hi)`` of this rank's slice of a length-``t`` axis."""
-        n = t // self.size
-        return self.index * n, (self.index + 1) * n
+    def split(self, t: int, stride: int = 1) -> "SeqGroup":
+        """This group with ``split_lengths(t, size, stride)``."""
+        return dataclasses.replace(self, lengths=split_lengths(t, self.size, stride))
 
+    def down(self, stride: int) -> "SeqGroup":
+        """The split of the axis a stride-``stride`` block gives (length
+        ceil(T / stride)): each boundary divided by ``stride``."""
+        ends = np.cumsum(self._lengths())
+        if any(e % stride for e in ends[:-1]):
+            raise ValueError(f"a stride-{stride} block needs every interior slice boundary "
+                             f"on a multiple of {stride}; the slices are {self.lengths}")
+        return dataclasses.replace(self, lengths=tuple(np.diff(-(-ends // stride),
+                                                               prepend=0).tolist()))
 
-def check_shardable(t: int, size: int, stride: int = 1) -> None:
-    """Raise unless ``t`` tokens split into ``size`` equal slices whose
-    length the encoder's total ``stride`` (scale_factor ** arch[2]) divides."""
-    if t % size or (t // size) % stride:
-        raise ValueError(f"sequence parallelism over {size} ranks needs T / {size} to be a "
-                         f"whole multiple of the encoder's stride {stride}; T = {t} is not "
-                         f"(uneven shards are not supported)")
+    @property
+    def total(self) -> int:
+        """The whole axis' length."""
+        return sum(self._lengths())
+
+    def bounds(self) -> tuple:
+        """``[lo, hi)`` of this rank's slice."""
+        lengths = self._lengths()
+        lo = sum(lengths[:self.index])
+        return lo, lo + lengths[self.index]
+
+    def _lengths(self) -> tuple:
+        if self.lengths is None:
+            raise ValueError("a seq group's slices are known after SeqGroup.split(T, stride)")
+        return self.lengths
 
 
 def _own(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -68,27 +117,46 @@ def _own(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y.clone() if y is x else y
 
 
+def _check_slice(x: torch.Tensor, seq: SeqGroup) -> None:
+    lo, hi = seq.bounds()
+    if x.shape[-1] != hi - lo:
+        raise ValueError(f"seq rank {seq.index}'s slice has {x.shape[-1]} tokens, its split "
+                         f"{seq.lengths} gives it {hi - lo}")
+
+
+def _gather_slices(x: torch.Tensor, seq: SeqGroup) -> torch.Tensor:
+    """The whole last axis from every rank's slice ``x``: each slice padded
+    to the longest (all_gather moves one shape), then trimmed to its own
+    length."""
+    _check_slice(x, seq)
+    longest = max(seq.lengths)
+    n = x.shape[-1]
+    parts = distributed.all_gather(x if n == longest else F.pad(x, (0, longest - n)), "seq")
+    return torch.cat([p if m == longest else p[..., :m] for p, m in zip(parts, seq.lengths)],
+                     dim=-1)
+
+
 class _Shard(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, seq):
         ctx.seq = seq
-        lo, hi = seq.bounds(x.shape[-1])
+        lo, hi = seq.bounds()
         return _own(x[..., lo:hi].contiguous(), x)
 
     @staticmethod
     def backward(ctx, g):
-        return torch.cat(distributed.all_gather(g, "seq"), dim=-1), None
+        return _gather_slices(g, ctx.seq), None
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, seq):
         ctx.seq = seq
-        return torch.cat(distributed.all_gather(x, "seq"), dim=-1)
+        return _gather_slices(x, seq)
 
     @staticmethod
     def backward(ctx, g):
-        lo, hi = ctx.seq.bounds(g.shape[-1])
+        lo, hi = ctx.seq.bounds()
         return g[..., lo:hi].contiguous(), None
 
 
@@ -98,7 +166,8 @@ class _Halo(torch.autograd.Function):
         t = x.shape[-1]
         ctx.seq, ctx.left, ctx.right, ctx.t = seq, left, right, t
         # each rank sends its tail (the next rank's left halo) and its head
-        # (the previous rank's right halo)
+        # (the previous rank's right halo): left + right tokens whatever the
+        # slice's length
         parts = distributed.all_gather(torch.cat([x[..., t - left:], x[..., :right]], dim=-1))
         edge = lambda n: x.new_full(x.shape[:-1] + (n,), fill)  # noqa: E731
         prev = parts[seq.index - 1][..., :left] if seq.index > 0 else edge(left)
@@ -144,15 +213,14 @@ class _ScrambleAcross(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pre, n_head, seq):
         ctx.seq, ctx.n_head = seq, n_head
-        full = torch.cat(distributed.all_gather(pre, "seq"), dim=-1)
-        lo, hi = seq.bounds(full.shape[-1])
-        return scramble(full, n_head)[..., lo:hi].contiguous()
+        lo, hi = seq.bounds()
+        return scramble(_gather_slices(pre, seq), n_head)[..., lo:hi].contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        full = torch.cat(distributed.all_gather(g, "seq"), dim=-1)
-        lo, hi = ctx.seq.bounds(full.shape[-1])
-        return _unscramble(full, ctx.n_head)[..., lo:hi].contiguous(), None, None
+        lo, hi = ctx.seq.bounds()
+        return (_unscramble(_gather_slices(g, ctx.seq), ctx.n_head)[..., lo:hi].contiguous(),
+                None, None)
 
 
 def shard_tokens(x: torch.Tensor, seq: SeqGroup) -> torch.Tensor:
@@ -169,11 +237,29 @@ def halo(x: torch.Tensor, left: int, right: int, seq: SeqGroup,
          fill: float = 0.0) -> torch.Tensor:
     """``x`` (this rank's slice, last axis tokens) with the previous slice's
     last ``left`` and the next slice's first ``right`` tokens attached;
-    ``fill`` beyond the first and last slices."""
-    if left > x.shape[-1] or right > x.shape[-1]:
-        raise ValueError(f"a halo of {left} + {right} tokens is wider than a slice of "
-                         f"{x.shape[-1]}: use fewer seq ranks")
+    ``fill`` beyond the first and last slices.  Every slice of ``seq``'s
+    split must hold ``max(left, right)`` tokens."""
+    _check_slice(x, seq)
+    narrowest = min(seq.lengths)
+    if max(left, right) > narrowest:
+        raise ValueError(f"a halo of {left} + {right} tokens is wider than the narrowest slice "
+                         f"of {narrowest} (slices {seq.lengths}): use fewer seq ranks")
     return _Halo.apply(x, left, right, fill, seq)
+
+
+def strided_halo(x: torch.Tensor, left: int, kernel: int, stride: int, seq: SeqGroup,
+                 fill: float = 0.0) -> torch.Tensor:
+    """``x`` with what a window of ``kernel`` taps at ``stride``, the first
+    reading ``left`` tokens before the slice, reads for the slice's
+    ceil(n / stride) outputs: ``halo``'s ``left`` tokens and the
+    ``kernel - left - stride`` (at least 0) that follow an interior slice,
+    whose length is a multiple of ``stride``; then ``fill`` for the taps
+    past T of a last slice whose length is not."""
+    n = x.shape[-1]
+    right = max(0, kernel - left - stride)
+    y = halo(x, left, right, seq, fill)
+    past = (-(-n // stride) - 1) * stride + kernel - left - n
+    return F.pad(y, (0, past - right), value=fill) if past > right else y
 
 
 def all_reduce_partial(x: torch.Tensor) -> torch.Tensor:
@@ -184,5 +270,5 @@ def all_reduce_partial(x: torch.Tensor) -> torch.Tensor:
 
 def scramble_across(pre: torch.Tensor, n_head: int, seq: SeqGroup) -> torch.Tensor:
     """This rank's slice of the reference's reassembly of the whole
-    pre-scramble ``att @ v`` whose slice is ``pre`` (B, C, T / S)."""
+    pre-scramble ``att @ v`` whose slice is ``pre`` (B, C, its slice of T)."""
     return _ScrambleAcross.apply(pre, n_head, seq)

@@ -18,8 +18,9 @@ runs TASK on the CPU with one torch thread and writes its results to
   this rank made, the checkpoint folder's listing and the state after.
 - ``seq_eval`` (tests/test_torch_sequence_parallel.py): for each
   ``data x seq`` layout of ``spec["layouts"]``, the sequence-parallel
-  primitives in f64 (inputs, outputs and gradients), two tiny encoders'
-  outputs and f64 gradients, the decoded, heatmap and flip eval steps on
+  primitives in f64 at each length of ``spec["primitive_lengths"]``
+  (inputs, outputs and gradients), two tiny encoders' outputs and f64
+  gradients, the decoded, heatmap and flip eval steps on
   the eval shard function's rows with ``fetch``, the loader's rows, ``fetch``
   of one row a rank, a train-mode BN on the data group's rows, and the
   collectives and kernel-wrapper calls counted; then the eval CLI
@@ -159,15 +160,17 @@ def _f64(shape, seed):
     return torch.from_numpy(np.random.RandomState(seed).randn(*shape))
 
 
-def _primitives(seq):
-    """Each primitive on this rank's slice of an f64 input, its output and
-    the gradient of ``(output * gy).sum()`` for a ``gy`` seeded by the seq
-    index (the same on every rank for ``gather``, whose output is
+def _primitives(seq, t):
+    """Each primitive on this rank's slice of an f64 input of ``t`` tokens
+    (split at stride 2, as an encoder with one branch level splits it), its
+    output and the gradient of ``(output * gy).sum()`` for a ``gy`` seeded by
+    the seq index (the same on every rank for ``gather``, whose output is
     replicated)."""
     from otpose_tpu_torch.models import blocks, core
     from otpose_tpu_torch.parallel import sequence
 
-    b, c, t, nh = 2, 6, 48, 2
+    b, c, nh = 2, 6, 2
+    seq = seq.split(t, 2)
     out = {}
 
     def run(name, fn, x, *extra):
@@ -178,14 +181,14 @@ def _primitives(seq):
         out[name] = dict(y=y.detach(), gy=gy, grads=[v.grad for v in leaves])
 
     full = _f64((b, c, t), 1)
-    lo, hi = seq.bounds(t)
+    lo, hi = seq.bounds()
     local = full[..., lo:hi].contiguous()
     w = _f64((c, 1, 3), 2)
     run("shard", lambda x: sequence.shard_tokens(x, seq), full)
     run("gather", lambda x: sequence.gather_tokens(x, seq), local)
     for stride in (1, 2):
         run(f"conv_s{stride}", lambda x, w, stride=stride: core.depthwise_conv1d_k3_ct(
-            sequence.halo(x, 1, 1 if stride == 1 else 0, seq), w, stride=stride, padded=True),
+            sequence.strided_halo(x, 1, 3, stride, seq), w, stride=stride, padded=True),
             local, w)
     run("max_pool", lambda x: blocks._max_pool_skip(x, 2, seq), local)
     q, k = _f64((b, nh, c // nh, t), 3), _f64((b, nh, c // nh, t), 4)
@@ -194,7 +197,8 @@ def _primitives(seq):
     run("scramble", lambda x: sequence.scramble_across(x, nh, seq), local)
     win = _f64((b, nh, c // nh, t), 5)[..., lo:hi].contiguous()
     run("halo_w", lambda x: sequence.halo(x, 3, 3, seq), win)
-    return {"inputs": dict(full=full, w=w, q=q, k=k), "out": out, "bounds": (lo, hi)}
+    return {"inputs": dict(full=full, w=w, q=q, k=k), "out": out, "bounds": (lo, hi),
+            "lengths": seq.lengths}
 
 
 def _encoders(spec, seq):
@@ -250,7 +254,8 @@ def seq_eval(spec):
     for layout in spec["layouts"]:
         mesh, seq = _mesh(cfg, layout)
         res = {"seq": (seq.index, seq.size), "data": distributed.data_info(),
-               "primitives": _primitives(seq), "encoders": _encoders(spec, seq)}
+               "primitives": {t: _primitives(seq, t) for t in spec["primitive_lengths"]},
+               "encoders": _encoders(spec, seq)}
         shard_fn = make_eval_shard_fn(mesh)
         steps = {"decoded": make_decoded_eval_step(model, seq=seq),
                  "heatmap": make_eval_step(model, seq=seq),

@@ -197,6 +197,33 @@ def test_native_host_path_differs_from_cv2_by_a_uint8_step(jpg_tree):
     assert 0 < np.abs(a - b).max() <= step + 1e-6
 
 
+def test_native_train_samples_are_the_cv2_samples_within_a_uint8_step(jpg_tree):
+    """The train CLI's host path (rotation, flips, scale) with the native
+    library and without it, for the same index and seed: the crops within
+    each channel's uint8 step (cv2 rounds its fixed-point warp to uint8, the
+    library keeps its float bilinear sum, so the two are about half a step
+    apart), the targets to 1e-6 of their peak of 1 (f64 ``exp`` rounded
+    once against the JAX package's f32 gaussian), the weights and the metas
+    equal."""
+    _, got = _pair(jpg_tree, "train")
+    step = 1 / (255 * np.array([0.229, 0.224, 0.225], np.float32))
+    rotated = flipped = 0
+    for i in range(len(got)):
+        a = got.get_sample_host(i, rng=np.random.RandomState(200 + i), native_ok=True)
+        b = got.get_sample_host(i, rng=np.random.RandomState(200 + i), native_ok=False)
+        gap = np.abs(a["inputs"] - b["inputs"]).reshape(*a["inputs"].shape[:2], 5, 3)
+        assert (gap <= step + 1e-6).all(), (i, float((gap / step).max()))
+        assert gap.max() > 0
+        np.testing.assert_allclose(a["target"], b["target"], rtol=0, atol=1e-6)
+        assert a["target"].max() == b["target"].max() == 1.0
+        _same(a["target_weight"], b["target_weight"], f"weight {i}")
+        _same(a["margin"], b["margin"], f"margin {i}")
+        _same(a["meta"], b["meta"], f"meta {i}")
+        rotated += a["meta"]["rotation"] != 0
+        flipped += a["meta"]["center"][0] != got.data[i]["center"][0]
+    assert rotated and flipped, (rotated, flipped)
+
+
 @pytest.mark.parametrize("phase", ["validate", "train"])
 def test_loader_native_host_is_bit_equal(jpg_tree, phase):
     want_ds, got_ds = _pair(jpg_tree, phase)

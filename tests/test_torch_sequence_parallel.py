@@ -1,32 +1,42 @@
 """The port's sequence parallelism (``parallel/sequence.py``, a ``data x seq``
-mesh) with four ``gloo`` processes on the CPU: the primitives, the encoder
-and the eval steps.
+mesh) with ``gloo`` processes on the CPU: the primitives, the encoder and
+the eval steps, on slices of equal and of unequal length.
 
-One launch of ``tests/helpers/torch_dist_worker.py seq_eval`` runs every
-check at two layouts, ``data = 2 x seq = 2`` and ``data = 1 x seq = 4``;
-this process computes the references meanwhile.
+Three launches of ``tests/helpers/torch_dist_worker.py seq_eval`` run at
+once: four ranks at ``data = 2 x seq = 2`` and ``data = 1 x seq = 4``
+(T = 256 splits evenly), three at ``1 x 3`` and six at ``2 x 3``
+(T = 64 splits into 22, 22 and 20 tokens, 11, 11 and 10 after the branch;
+the encoders' T = 256 into 86, 86 and 84); this process computes the
+references meanwhile.
 
-- **The primitives**, in f64 on a (2, 6, 48) input: ``shard_tokens``,
-  ``gather_tokens``, the halo'd depthwise conv at strides 1 and 2, the
-  max-pool skip, the partial scores' sum, ``scramble_across`` and a window
-  halo of 3 tokens; each rank's output and its input's gradient (the
-  conv's weight gradient summed over the seq group) against the unsharded
-  op to 1e-12.
+- **The primitives**, in f64 on a (2, 6, T) input split at stride 2, at
+  T = 48 (equal slices on 2, 3 and 4 ranks) and T = 49 (unequal, the last
+  of odd length): ``shard_tokens``, ``gather_tokens``, the halo'd
+  depthwise conv at strides 1 and 2, the max-pool skip, the partial
+  scores' sum, ``scramble_across`` and a window halo of 3 tokens; each
+  rank's output and its input's gradient (the conv's weight gradient
+  summed over the seq group) against the unsharded op to 1e-12.
 - **The encoder**: a tiny ``ConvTransformer`` (T = 256, arch (0, 2, 1)) and
   a windowed one (window 5, ``use_rel_pe``, one embedding conv): the
   gathered outputs against the one-rank forward to 1e-6 of the peak (f32),
   and the gradients of an f64 copy (the blocks' summed over the seq group)
   to 1e-5 of each tensor's peak: the LNs' statistics and the PE add round
   through f32 even on f64 tensors, and the sums' other order moves those
-  roundings.
-- **Eval** on ``tiny_otpose_cfg`` with the JAX weights of
-  ``tests/test_torch_otpose.py``: the decoded, heatmap and flip steps on
-  the eval shard function's rows, fetched, against the port's one-rank
-  steps to 1e-5 of the peak (coords equal where a heatmap's top-two gap is
-  clear), and the heatmap and decoded steps against JAX's
-  ``make_eval_step(spec, seq_axis="seq")`` under the (2, 4) mesh of the 8
-  CPU devices within the 7-tuple bar (1e-3 of the peak); no fused-kernel
-  call, one DCN call a forward, and the seq group's collectives counted.
+  roundings.  On three seq ranks the window encoder's outputs also against
+  JAX's ``conv_transformer_forward`` with ``seq_axis`` on a mesh of the
+  same shape, to 1e-5 of the peak.
+- **Eval** on ``tiny_otpose_cfg`` (T = 256 at the even layouts, T = 64 at
+  the uneven ones) with numpy weights of O(1) and the refinement
+  calibrated (``tests/helpers/torch_port.py``): the decoded, heatmap and
+  flip steps on the eval shard function's rows, fetched, against the
+  port's one-rank steps to 1e-5 of the peak (coords equal where a
+  heatmap's top-two gap is clear), and the heatmap and decoded steps
+  against JAX's ``make_eval_step(spec, seq_axis="seq")`` on a mesh of the
+  same shape (the (2, 4) mesh of the 8 CPU devices for the even layouts,
+  within the 7-tuple bar of 1e-3 of the peak; the first 3 or 6 devices for
+  the uneven ones, within 1e-5 of a peak above 10); no fused-kernel call,
+  one DCN call a forward, and the seq group's collectives counted (the
+  same number on unequal slices).
 - **The eval CLI** at ``data 2 x seq 2`` over ``data/synthetic.py``'s tree
   (9 boxes at a batch of 4: the last batch of 1 runs whole on each data
   group): rank 0's AP table equal to the one-process CLI's to 1e-9, the
@@ -35,6 +45,10 @@ this process computes the references meanwhile.
   ``fetch`` returning each data group's rows once, the train BN's running
   variance with the data group's Bessel factor, and an export under a
   ``seq`` mesh equal to one without.
+- **The split** (``SeqGroup.split`` / ``down``) and the refusals that
+  remain: a rank with no token at the deepest level, a halo wider than the
+  narrowest slice, a block stride that an interior boundary does not
+  divide, a slice of another length than its split's, a group not split.
 """
 
 import jax
@@ -45,6 +59,9 @@ import torch
 
 from otpose_tpu.engine.trainer import make_decoded_eval_step as jax_decoded_step
 from otpose_tpu.engine.trainer import make_eval_step as jax_eval_step
+from otpose_tpu.models.conv_transformer import ConvTransformerSpec as JaxEncoderSpec
+from otpose_tpu.models.conv_transformer import conv_transformer_forward as jax_encoder_forward
+from otpose_tpu.models.core import Ctx as JaxCtx
 from otpose_tpu.models.otpose import OTPoseSpec as JaxSpec
 from otpose_tpu.models.otpose import _init_otpose_impl
 from otpose_tpu.parallel.mesh import make_mesh as jax_make_mesh
@@ -61,7 +78,7 @@ from otpose_tpu_torch.models import core
 from otpose_tpu_torch.models.conv_transformer import (ConvTransformer, ConvTransformerSpec,
                                                       init_conv_transformer_)
 from otpose_tpu_torch.models.factory import build_model
-from otpose_tpu_torch.models.jax_bridge import load_jax_weights
+from otpose_tpu_torch.models.jax_bridge import load_jax_weights, to_jax
 from otpose_tpu_torch.parallel import distributed, sequence
 from otpose_tpu_torch.parallel.mesh import Mesh, make_mesh, seq_group
 from otpose_tpu_torch.utils.testing import tiny_otpose_cfg
@@ -72,7 +89,9 @@ from tests.test_torch_data_parallel import _launch, _wait
 from tests.test_torch_distributed import one_rank_group
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
-LAYOUTS = ((2, 2), (1, 4))
+LAYOUTS = ((2, 2), (1, 4))          # T = 256: equal slices
+UNEVEN = ((1, 3), (2, 3))           # T = 64 (the encoders' 256): slices of unequal length
+PRIMITIVE_LENGTHS = (48, 49)        # 49: unequal slices, the last of odd length
 ENCODERS = {
     "global": dict(n_in=8, n_embd=8, n_head=2, n_embd_ks=3, max_len=256, arch=[0, 2, 1],
                    mha_win_size=[], use_rel_pe=False),
@@ -82,6 +101,7 @@ ENCODERS = {
 AP_KEYS = ("Head", "Shoulder", "Elbow", "Wrist", "Hip", "Knee", "Ankle", "Mean")
 PRIMITIVES = ("shard", "gather", "conv_s1", "conv_s2", "max_pool", "scores", "scramble",
               "halo_w")
+layout_id = lambda lay: f"{lay[0]}x{lay[1]}"  # noqa: E731
 
 
 def seq_collectives_a_forward(spec) -> int:
@@ -93,56 +113,130 @@ def seq_collectives_a_forward(spec) -> int:
     return encoder(spec.flow_scale_arch) + 2 * encoder(spec.scale_arch)
 
 
-@pytest.fixture(scope="module")
-def sp(tmp_path_factory):
-    folder = tmp_path_factory.mktemp("torch_sp")
-    jspec = JaxSpec.from_cfg(jax_tiny_cfg())
+def _eval_weights(folder, cfg, jcfg, tag):
+    """The tiny OTPose of ``cfg`` with numpy weights, its refinement
+    calibrated on a seeded clip of 4, saved with the clip for the workers;
+    (model, jspec, params, state, clip, margin, path)."""
+    jspec = JaxSpec.from_cfg(jcfg)
     params, state = numpy_weights(_init_otpose_impl, jspec)
-    cfg = tiny_otpose_cfg()
     _, model = build_model(cfg, device="cpu")
+    size = cfg.MODEL.IMAGE_SIZE[0]
     rng = np.random.RandomState(0)
-    x = rng.randn(4, 64, 64, 15).astype(np.float32)
+    x = rng.randn(4, size, size, 15).astype(np.float32)
     margin = rng.randint(0, 3, (4, 4)).astype(np.float32)
-    calibrate_refinement(params, state, x, margin)
+    calibrate_refinement(params, state, x, margin, cfg=cfg)
     load_jax_weights(model, params, state)
-    cfg_path = str(folder / "cfg.yaml")
-    with open(cfg_path, "w") as fh:
-        fh.write(cfg.dump())
+    path = str(folder / f"inputs_{tag}.pt")
     torch.save({"state_dict": model.state_dict(), "inputs": torch.from_numpy(x),
-                "margin": torch.from_numpy(margin)}, str(folder / "inputs.pt"))
-    dirs = make_synthetic_posetrack(str(folder / "tree"), num_videos=1, frames_per_video=3,
-                                    people_per_frame=3, img_w=96, img_h=96, seed=4)
-    torch.save({"state_dict": model.state_dict()}, str(folder / "weights.pth"))
-    cli = {mesh: _eval_cli_cfg(folder, dirs, mesh) for mesh in ("seq", "one")}
-    procs = _launch("seq_eval", {"cfg": cfg_path, "inputs": str(folder / "inputs.pt"),
-                                 "layouts": [list(lay) for lay in LAYOUTS], "encoders": ENCODERS,
-                                 "cli": {"cfg": cli["seq"], "root": str(folder)},
-                                 "out": str(folder / "seq_eval_%d.pt")},
-                    str(folder / "seq_eval.json"), world=4)
+                "margin": torch.from_numpy(margin)}, path)
+    return model, jspec, params, state, x, margin, path
 
-    tx, tm = torch.from_numpy(x), torch.from_numpy(margin)
-    one = {"decoded": [a.numpy() for a in make_decoded_eval_step(model)(tx, tm)],
-           "heatmap": [a.numpy() for a in make_eval_step(model)(tx, tm)],
-           "flip": [a.numpy() for a in make_flip_eval_step(model)(tx, tm)]}
-    jcfg = jax_tiny_cfg()
-    jcfg.TPU.MESH_AXES, jcfg.TPU.MESH_SHAPE = ["data", "seq"], [2, 4]
-    mesh = jax_make_mesh(jcfg)
+
+def _jax_steps(jspec, jcfg, params, state, x, margin, shape):
+    """JAX's heatmap and decoded ``seq_axis`` steps on a ``data x seq`` mesh
+    of ``shape`` over the first devices."""
+    jcfg.TPU.MESH_AXES, jcfg.TPU.MESH_SHAPE = ["data", "seq"], list(shape)
+    mesh = jax_make_mesh(jcfg, devices=jax.devices()[:shape[0] * shape[1]])
     jbatch = {"inputs": jnp.asarray(x), "margin": jnp.asarray(margin)}
     with jax.sharding.set_mesh(mesh):
         p, s, b = (jax_replicate(mesh, params), jax_replicate(mesh, state),
                    jax_shard_batch(mesh, jbatch))
-        jax_out = {"heatmap": [np.asarray(a) for a in
-                               jax_eval_step(jspec, seq_axis="seq")(p, s, b)],
-                   "decoded": [np.asarray(a) for a in
-                               jax_decoded_step(jspec, seq_axis="seq")(p, s, b)]}
+        return {"heatmap": [np.asarray(a) for a in
+                            jax_eval_step(jspec, seq_axis="seq")(p, s, b)],
+                "decoded": [np.asarray(a) for a in
+                            jax_decoded_step(jspec, seq_axis="seq")(p, s, b)]}
+
+
+def _jax_window_encoder(shape):
+    """JAX's ``conv_transformer_forward`` with ``seq_axis`` on a ``data x
+    seq`` mesh of ``shape``, with the weights of the workers' seeded window
+    encoder, on their input."""
+    kw = ENCODERS["window"]
+    enc = _encoder(kw)
+    params, state = to_jax(enc)
+    jspec = JaxEncoderSpec(**{**kw, "arch": tuple(kw["arch"]),
+                              "mha_win_size": tuple(kw["mha_win_size"])})
+    x = np.random.RandomState(11).randn(2, 8, 16, 16).astype(np.float32).transpose(0, 2, 3, 1)
+    jcfg = jax_tiny_cfg()
+    jcfg.TPU.MESH_AXES, jcfg.TPU.MESH_SHAPE = ["data", "seq"], list(shape)
+    mesh = jax_make_mesh(jcfg, devices=jax.devices()[:shape[0] * shape[1]])
+
+    def fwd(p, s, x):
+        return jax_encoder_forward(JaxCtx(p, s, train=False, fused=False, seq_axis="seq"), x,
+                                   jspec, out_layout="ct")
+
+    with jax.sharding.set_mesh(mesh):
+        out = jax.jit(fwd)(jax_replicate(mesh, params), jax_replicate(mesh, state),
+                           jnp.asarray(x))
+        return [np.asarray(a) for a in out]
+
+
+@pytest.fixture(scope="module")
+def sp(tmp_path_factory):
+    """Three launches at once: four ranks at the even layouts (T = 256, and
+    the eval CLI), three at ``1 x 3`` and six at ``2 x 3`` (T = 64); the
+    references are computed meanwhile.  ``runs[layout]`` is every rank's
+    results at ``layout``, ``ref[layout]`` the one-rank steps and JAX's."""
+    folder = tmp_path_factory.mktemp("torch_sp")
+    cfg = tiny_otpose_cfg()
+    model, jspec, params, state, x, margin, inputs = _eval_weights(folder, cfg, jax_tiny_cfg(),
+                                                                   "even")
+    cfg_path = str(folder / "cfg.yaml")
+    with open(cfg_path, "w") as fh:
+        fh.write(cfg.dump())
+    ucfg = tiny_otpose_cfg(image_size=32, heatmap_size=8)
+    ujcfg = jax_tiny_cfg(image_size=32, heatmap_size=8)
+    umodel, ujspec, uparams, ustate, ux, umargin, uinputs = _eval_weights(folder, ucfg, ujcfg,
+                                                                          "uneven")
+    ucfg_path = str(folder / "cfg_uneven.yaml")
+    with open(ucfg_path, "w") as fh:
+        fh.write(ucfg.dump())
+    dirs = make_synthetic_posetrack(str(folder / "tree"), num_videos=1, frames_per_video=3,
+                                    people_per_frame=3, img_w=96, img_h=96, seed=4)
+    torch.save({"state_dict": model.state_dict()}, str(folder / "weights.pth"))
+    cli = {mesh: _eval_cli_cfg(folder, dirs, mesh) for mesh in ("seq", "one")}
+    common = {"encoders": ENCODERS, "primitive_lengths": list(PRIMITIVE_LENGTHS)}
+    launches = {LAYOUTS: _launch("seq_eval", {
+        **common, "cfg": cfg_path, "inputs": inputs, "layouts": [list(lay) for lay in LAYOUTS],
+        "cli": {"cfg": cli["seq"], "root": str(folder)}, "out": str(folder / "even_%d.pt")},
+        str(folder / "even.json"), world=4)}
+    for lay in UNEVEN:
+        tag = layout_id(lay)
+        launches[(lay,)] = _launch("seq_eval", {
+            **common, "cfg": ucfg_path, "inputs": uinputs, "layouts": [list(lay)],
+            "out": str(folder / f"{tag}_%d.pt")}, str(folder / f"{tag}.json"),
+            world=lay[0] * lay[1])
+
+    def one_rank(m, x, margin):
+        tx, tm = torch.from_numpy(x), torch.from_numpy(margin)
+        return {"decoded": [a.numpy() for a in make_decoded_eval_step(m)(tx, tm)],
+                "heatmap": [a.numpy() for a in make_eval_step(m)(tx, tm)],
+                "flip": [a.numpy() for a in make_flip_eval_step(m)(tx, tm)]}
+
+    ref = {}
+    even = dict(model=model, one=one_rank(model, x, margin),
+                jax=_jax_steps(jspec, jax_tiny_cfg(), params, state, x, margin, (2, 4)))
+    uone = one_rank(umodel, ux, umargin)
+    for lay in LAYOUTS:
+        ref[lay] = even
+    for lay in UNEVEN:
+        ref[lay] = dict(model=umodel, one=uone,
+                        jax=_jax_steps(ujspec, ujcfg, uparams, ustate, ux, umargin, lay),
+                        window=_jax_window_encoder(lay))
     (_, name_values, mean_ap), = Eval(
         "validate", default_parse_args(["--cfg", cli["one"], "--root_dir", str(folder)]),
         device="cpu", dataset_cls=ArrayFramesDataset).eval()
-    _wait(procs, timeout=300)
-    ranks = [torch.load(str(folder / f"seq_eval_{r}.pt"), weights_only=False)
-             for r in range(4)]
-    return dict(model=model, jspec=jspec, one=one, jax=jax_out, ranks=ranks,
-                cli=(name_values, mean_ap))
+    runs = {}
+    for layouts, procs in launches.items():
+        _wait(procs, timeout=300)
+        tag = "even" if layouts == LAYOUTS else layout_id(layouts[0])
+        ranks = [torch.load(str(folder / f"{tag}_{r}.pt"), weights_only=False)
+                 for r in range(len(procs))]
+        for lay in layouts:
+            runs[lay] = [r["results"][tuple(lay)] for r in ranks]
+        if layouts == LAYOUTS:
+            runs["cli"] = [r["results"]["cli"] for r in ranks]
+    return dict(runs=runs, ref=ref, cli=(name_values, mean_ap))
 
 
 def _eval_cli_cfg(folder, dirs, mesh: str) -> str:
@@ -170,7 +264,7 @@ def _eval_cli_cfg(folder, dirs, mesh: str) -> str:
 
 def _seq_ranks(sp, layout):
     """The results of the ranks of data group 0, in seq-index order."""
-    return [sp["ranks"][r]["results"][layout] for r in range(layout[1])]
+    return sp["runs"][layout][:layout[1]]
 
 
 # ---------------------------------------------------------------- primitives
@@ -182,8 +276,8 @@ def _reference(name, inputs, gys, bounds):
     full, w, q, k = (inputs[n].clone().requires_grad_() for n in ("full", "w", "q", "k"))
 
     def local(y, stride=1):
-        """Each rank's slice of an output of length t / stride."""
-        return [y[..., lo // stride:hi // stride] for lo, hi in bounds]
+        """Each rank's slice of an output of length ceil(t / stride)."""
+        return [y[..., -(-lo // stride):-(-hi // stride)] for lo, hi in bounds]
 
     if name == "shard":
         ys, leaves = local(full), [full]
@@ -210,14 +304,18 @@ def _reference(name, inputs, gys, bounds):
     return [y.detach() for y in ys], [v.grad for v in leaves]
 
 
-@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda lay: f"{lay[0]}x{lay[1]}")
+@pytest.mark.parametrize("t", PRIMITIVE_LENGTHS)
+@pytest.mark.parametrize("layout", LAYOUTS + UNEVEN, ids=layout_id)
 @pytest.mark.parametrize("name", PRIMITIVES)
-def test_primitive_equals_the_unsharded_op_in_f64(sp, layout, name):
-    ranks = _seq_ranks(sp, layout)
-    bounds = [r["primitives"]["bounds"] for r in ranks]
-    got = [r["primitives"]["out"][name] for r in ranks]
-    ys, grads = _reference(name, ranks[0]["primitives"]["inputs"],
-                              [g["gy"] for g in got], bounds)
+def test_primitive_equals_the_unsharded_op_in_f64(sp, layout, name, t):
+    ranks = [r["primitives"][t] for r in _seq_ranks(sp, layout)]
+    bounds = [r["bounds"] for r in ranks]
+    assert [hi - lo for lo, hi in bounds] == list(ranks[0]["lengths"])
+    assert bounds[-1][1] == t
+    # equal slices where the split allows them, else unequal ones
+    assert (len(set(ranks[0]["lengths"])) == 1) == (t % (2 * layout[1]) == 0)
+    got = [r["out"][name] for r in ranks]
+    ys, grads = _reference(name, ranks[0]["inputs"], [g["gy"] for g in got], bounds)
     for s, (g, y, (lo, hi)) in enumerate(zip(got, ys, bounds)):
         assert g["y"].shape == y.shape, (s, name)
         np.testing.assert_allclose(g["y"].numpy(), y.numpy(), rtol=0, atol=1e-12)
@@ -234,7 +332,7 @@ def test_primitive_equals_the_unsharded_op_in_f64(sp, layout, name):
         np.testing.assert_allclose(total.numpy(), grads[1].numpy(), rtol=0, atol=1e-12)
     # the other data group computes the same
     if layout[0] > 1:
-        other = sp["ranks"][layout[1]]["results"][layout]["primitives"]["out"][name]
+        other = sp["runs"][layout][layout[1]]["primitives"][t]["out"][name]
         assert torch.equal(other["y"], got[0]["y"])
 
 
@@ -248,7 +346,7 @@ def _encoder(kw):
     return enc.eval()
 
 
-@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda lay: f"{lay[0]}x{lay[1]}")
+@pytest.mark.parametrize("layout", LAYOUTS + UNEVEN, ids=layout_id)
 @pytest.mark.parametrize("name", sorted(ENCODERS))
 def test_encoder_equals_the_one_rank_forward(sp, layout, name):
     """The gathered outputs to 1e-6 of the peak (f32); the f64 gradients
@@ -287,23 +385,23 @@ def test_encoder_equals_the_one_rank_forward(sp, layout, name):
 
 # ---------------------------------------------------------------- eval
 
-@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda lay: f"{lay[0]}x{lay[1]}")
+@pytest.mark.parametrize("layout", LAYOUTS + UNEVEN, ids=layout_id)
 @pytest.mark.parametrize("step", ["decoded", "heatmap", "flip"])
 def test_eval_step_equals_the_one_rank_step(sp, layout, step):
-    want = sp["one"][step]
-    for r in range(4):
-        res = sp["ranks"][r]["results"][layout]
+    ref = sp["ref"][layout]
+    want = ref["one"][step]
+    for res in sp["runs"][layout]:
         got = res[step]
         assert got["sharded"] and got["rows"] == 4 // layout[0]
         assert got["calls"] == {"fused_attn": 0, "fused_mlp": 0,
                                 "deform_conv": 2 if step == "flip" else 1}
         forwards = 2 if step == "flip" else 1
         assert got["collectives"]["seq"] == forwards * seq_collectives_a_forward(
-            sp["model"].spec)
+            ref["model"].spec)
         assert got["collectives"]["device"] == 0
         if step == "decoded":
             coords, maxvals, raw = got["out"]
-            heat = sp["one"]["heatmap"][0]
+            heat = ref["one"]["heatmap"][0]
             flat = np.sort(heat.transpose(0, 3, 1, 2).reshape(4, 17, -1), axis=-1)
             clear = (flat[..., -1] - flat[..., -2]) > 1e-5
             assert clear.mean() > 0.5
@@ -318,61 +416,84 @@ def test_eval_step_equals_the_one_rank_step(sp, layout, step):
                 np.testing.assert_allclose(g / peak, w / peak, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda lay: f"{lay[0]}x{lay[1]}")
+@pytest.mark.parametrize("layout", LAYOUTS + UNEVEN, ids=layout_id)
 def test_eval_matches_jax_s_seq_sharded_step(sp, layout):
-    res = sp["ranks"][0]["results"][layout]
-    for g, w in zip(res["heatmap"]["out"], sp["jax"]["heatmap"]):
+    """Against JAX's ``seq_axis`` steps on a mesh of the same shape: within
+    the 7-tuple bar (1e-3 of the peak) at T = 256, within 1e-5 of the peak
+    at T = 64, where the peak is O(10)."""
+    bar = 1e-3 if layout in LAYOUTS else 1e-5
+    jax_out = sp["ref"][layout]["jax"]
+    res = sp["runs"][layout][0]
+    for g, w in zip(res["heatmap"]["out"], jax_out["heatmap"]):
         assert g.shape == w.shape and np.isfinite(w).all()
         peak = np.abs(w).max()
-        np.testing.assert_allclose(g / peak, w / peak, rtol=0, atol=1e-3)
+        assert peak > 1
+        np.testing.assert_allclose(g / peak, w / peak, rtol=0, atol=bar)
     coords, maxvals, raw = res["decoded"]["out"]
-    jc, jm, jr = sp["jax"]["decoded"]
-    heat = sp["jax"]["heatmap"][0]
+    jc, jm, jr = jax_out["decoded"]
+    heat = jax_out["heatmap"][0]
     flat = np.sort(heat.transpose(0, 3, 1, 2).reshape(4, 17, -1), axis=-1)
-    clear = (flat[..., -1] - flat[..., -2]) > 1e-3
+    # PR 14's absolute gap for the even layouts; 1e-5 of the peak at T = 64.
+    thr = 1e-3 if layout in LAYOUTS else bar * np.abs(heat).max()
+    clear = (flat[..., -1] - flat[..., -2]) > thr
     assert clear.mean() > 0.5
     np.testing.assert_array_equal(coords[clear], jc[clear])
     np.testing.assert_array_equal(raw[clear], jr[clear])
     peak = np.abs(jm).max()
-    np.testing.assert_allclose(maxvals / peak, jm / peak, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(maxvals / peak, jm / peak, rtol=0, atol=bar)
+
+
+@pytest.mark.parametrize("layout", UNEVEN, ids=layout_id)
+def test_window_encoder_matches_jax_s_seq_sharded_forward(sp, layout):
+    """The window encoder (window 5, ``rel_pe``) at T = 256 over three seq
+    ranks (slices of 86, 86 and 84 tokens, 43, 43 and 42 after the branch)
+    against JAX's ``conv_transformer_forward`` with ``seq_axis`` on a mesh
+    of the same shape, to 1e-5 of each output's peak."""
+    want = sp["ref"][layout]["window"]
+    for res in sp["runs"][layout]:
+        got = res["encoders"]["window"]["feats"]
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            peak = np.abs(w).max()
+            np.testing.assert_allclose(g.numpy() / peak, w / peak, rtol=0, atol=1e-5)
 
 
 def test_eval_cli_on_a_seq_mesh_gives_the_one_process_table(sp):
     name_values, mean_ap = sp["cli"]
     assert mean_ap > 0
-    for r in range(4):
-        got = sp["ranks"][r]["results"]["cli"]
+    for r, got in enumerate(sp["runs"]["cli"]):
         assert got["batch"] == 4 and got["seq"] == (r % 2, 2)
         assert got["mean_ap"] == pytest.approx(mean_ap, abs=1e-9)
-    got = sp["ranks"][0]["results"]["cli"]["name_values"]
+    got = sp["runs"]["cli"][0]["name_values"]
     np.testing.assert_allclose([got[k] for k in AP_KEYS], [name_values[k] for k in AP_KEYS],
                                rtol=0, atol=1e-9)
 
 
 # ---------------------------------------------------------------- layout
 
-@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda lay: f"{lay[0]}x{lay[1]}")
+@pytest.mark.parametrize("layout", LAYOUTS + UNEVEN, ids=layout_id)
 def test_ranks_sit_row_major_and_load_their_data_group_s_rows(sp, layout):
     d, s = layout
-    for r in range(4):
-        res = sp["ranks"][r]["results"][layout]
+    assert len(sp["runs"][layout]) == d * s
+    for r, res in enumerate(sp["runs"][layout]):
         assert res["seq"] == (r % s, s) and res["data"] == (r // s, d)
         per = 8 // d
         assert res["loader_rows"] == list(range((r // s) * per, (r // s + 1) * per))
         assert res["fetch"] == list(range(d))       # each data group's row once
 
 
-@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda lay: f"{lay[0]}x{lay[1]}")
+@pytest.mark.parametrize("layout", LAYOUTS + UNEVEN, ids=layout_id)
 def test_train_bn_counts_each_row_once(sp, layout):
     """The data group's statistics, and the running variance's Bessel
     factor n / (n - 1) with n the global batch's count, not the ranks'."""
-    res = sp["ranks"][0]["results"][layout]["bn"]
+    res = sp["runs"][layout][0]["bn"]
     x = res["x"]
     n = x.numel() // x.shape[1]
     mean = x.mean(dim=(0, 2, 3))
     var = x.var(dim=(0, 2, 3), unbiased=False) * n / (n - 1)
-    for r in range(4):
-        got = sp["ranks"][r]["results"][layout]["bn"]
+    for run in sp["runs"][layout]:
+        got = run["bn"]
         # the statistics are taken in f32
         np.testing.assert_allclose(got["mean"].numpy(), 0.1 * mean.numpy(), rtol=1e-6)
         np.testing.assert_allclose(got["var"].numpy(), (0.9 + 0.1 * var).numpy(), rtol=1e-6)
@@ -401,21 +522,72 @@ def test_a_seq_mesh_without_a_launch_is_one_slice():
     mesh = make_mesh(cfg)
     assert mesh == Mesh(1, 1) and seq_group(mesh) == sequence.SeqGroup(1, 0)
     assert seq_group(make_mesh()) is None
-    with pytest.raises(ValueError, match="stride"):
-        sequence.check_shardable(256, 3)
-    with pytest.raises(ValueError, match="stride 4"):
-        sequence.check_shardable(6920, 4, 4)
-    sequence.check_shardable(6912, 4, 4)
-    sequence.check_shardable(6912, 2, 4)
+    one = sequence.SeqGroup(1, 0).split(6)
+    assert one.lengths == (6,) and one.bounds() == (0, 6)
     x = torch.randn(1, 2, 6)
-    with pytest.raises(ValueError, match="halo"):
-        sequence.halo(x, 7, 0, sequence.SeqGroup(1, 0))
+    assert torch.equal(sequence.gather_tokens(sequence.shard_tokens(x, one), one), x)
+    with pytest.raises(ValueError, match="narrowest slice of 6"):
+        sequence.halo(x, 7, 0, one)
+
+
+@pytest.mark.parametrize("t,size,stride,lengths", [
+    (256, 4, 2, (64, 64, 64, 64)),              # the even layouts' T: the old equal split
+    (6912, 4, 4, (1728,) * 4),                  # the flagship's T on 4 ranks
+    (6912, 5, 4, (1384, 1384, 1384, 1380, 1380)),
+    (6912, 7, 4, (988,) * 6 + (984,)),
+    (64, 3, 2, (22, 22, 20)),
+    (256, 3, 2, (86, 86, 84)),
+    (256, 3, 1, (86, 85, 85)),
+    (49, 4, 2, (14, 12, 12, 11)),               # the last unit short: T odd
+    (6920, 4, 4, (1732, 1732, 1728, 1728)),
+])
+def test_the_split_cuts_units_of_the_stride(t, size, stride, lengths):
+    """``units // size`` units of ``stride`` tokens a rank, one more for the
+    first ``units % size`` ranks, the last rank ending at T; ``down`` divides
+    every boundary by a block's stride (the last rounded up, as the strided
+    conv and max-pool give ceil(T / 2) outputs)."""
+    assert sequence.split_lengths(t, size, stride) == lengths
+    groups = [sequence.SeqGroup(size, i).split(t, stride) for i in range(size)]
+    bounds = [g.bounds() for g in groups]
+    assert bounds[0][0] == 0 and bounds[-1][1] == t and groups[0].total == t
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all(lo % stride == 0 for lo, _ in bounds)
+    down = groups[0]
+    while stride > 1:
+        down, stride = down.down(2), stride // 2
+        assert down.total == -(-t // 2) and all(n > 0 for n in down.lengths)
+        t = down.total
 
 
 def test_an_uneven_shard_raises_in_the_forward():
+    """Unequal slices run (the tests above); what still raises is a split
+    that leaves a rank no token at the encoder's deepest level, before any
+    exchange, with the condition named."""
     enc = _encoder(ENCODERS["global"])
-    with pytest.raises(ValueError, match="T = 256"):
-        enc(torch.randn(1, 8, 16, 16), seq=sequence.SeqGroup(3, 0))
+    with pytest.raises(ValueError, match="a token a rank at the encoder's deepest level "
+                                         r"\(stride 2\): T = 4 leaves 2"):
+        enc(torch.randn(1, 8, 2, 2), seq=sequence.SeqGroup(3, 0))
+    with pytest.raises(ValueError, match="deepest level"):
+        sequence.split_lengths(6912, 1729, 4)
+    assert sequence.split_lengths(6912, 1728, 4) == (4,) * 1728
+
+
+def test_the_remaining_refusals_name_their_condition():
+    """A halo wider than the narrowest slice (not this rank's), a block
+    stride that an interior boundary does not divide, a slice whose length
+    is not its split's (before an exchange), and a group used before its
+    split."""
+    group = sequence.SeqGroup(3, 0).split(64, 2)                # 22, 22, 20
+    with pytest.raises(ValueError, match="narrowest slice of 20"):
+        sequence.halo(torch.randn(1, 2, 22), 21, 21, group)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        group.down(4)
+    with pytest.raises(ValueError, match="slice has 21 tokens"):
+        sequence.gather_tokens(torch.randn(1, 2, 21), group)
+    with pytest.raises(ValueError, match="slice has 20 tokens"):
+        sequence.halo(torch.randn(1, 2, 20), 1, 1, group)
+    with pytest.raises(ValueError, match="after SeqGroup.split"):
+        sequence.SeqGroup(3, 0).bounds()
 
 
 def test_export_under_a_seq_mesh_equals_one_without():
@@ -445,7 +617,7 @@ def test_the_dropout_mask_is_the_one_rank_mask_sliced():
         gen.manual_seed(4)
         with core.use_generator(gen):
             parts.append(core.dropout(x[..., 4 * index:4 * index + 4], 0.5, True,
-                                      sequence.SeqGroup(2, index)))
+                                      sequence.SeqGroup(2, index).split(8)))
     assert torch.equal(torch.cat(parts, dim=-1), whole)
     y = torch.randn(2, 2, 8, 5)
     gen.manual_seed(4)
@@ -453,5 +625,19 @@ def test_the_dropout_mask_is_the_one_rank_mask_sliced():
         whole = core.dropout(y, 0.5, True)
     gen.manual_seed(4)
     with core.use_generator(gen):
-        part = core.dropout(y[:, :, 4:], 0.5, True, sequence.SeqGroup(2, 1), dim=2)
+        part = core.dropout(y[:, :, 4:], 0.5, True, sequence.SeqGroup(2, 1).split(8), dim=2)
     assert torch.equal(part, whole[:, :, 4:])
+    # unequal slices: 22, 22 and 20 tokens of 64
+    z = torch.randn(2, 3, 64)
+    gen.manual_seed(4)
+    with core.use_generator(gen):
+        whole = core.dropout(z, 0.5, True)
+    parts = []
+    for index in range(3):
+        group = sequence.SeqGroup(3, index).split(64, 2)
+        lo, hi = group.bounds()
+        gen.manual_seed(4)
+        with core.use_generator(gen):
+            parts.append(core.dropout(z[..., lo:hi], 0.5, True, group))
+    assert [p.shape[-1] for p in parts] == [22, 22, 20]
+    assert torch.equal(torch.cat(parts, dim=-1), whole)

@@ -1,7 +1,8 @@
 """The port's sequence-parallel train step with four ``gloo`` processes on the
-CPU (tests/helpers/torch_dist_worker.py ``seq_train``; this process computes
-the references meanwhile).  Tiny spec, f32, SGD, the weights of
-``tests/test_torch_data_parallel.py`` conditioned for gradients, dropout
+CPU, and three more at once (tests/helpers/torch_dist_worker.py
+``seq_train``; this process computes the references meanwhile).  Tiny
+spec, f32, SGD, the weights of ``tests/test_torch_data_parallel.py``
+conditioned for gradients, dropout
 on at 0.1 at every site (the attention weights, the projections and the
 MLP, drop-path).
 
@@ -12,6 +13,9 @@ MLP, drop-path).
 - ``data = 1 x seq = 4`` with ``accum_steps`` 2 and ``remat``: one step
   against the port's one-process step on the global batch with the same
   generator seed;
+- ``data = 1 x seq = 3`` (T = 256 in slices of 86, 86 and 84 tokens): one
+  step against the one-process step with the same seed, the dropout masks
+  the one-rank masks sliced unevenly;
 
 each with every BN running statistic to 1e-5 of its peak, every update
 (an ulp of the weights allowed) and every (clipped) gradient to 1e-4 of its
@@ -66,6 +70,9 @@ DROP = 0.1
 SEED = 5
 CASES = ({"layout": [2, 2], "accum": 1, "no_seq": True},
          {"layout": [1, 4], "accum": 2, "remat": True})
+# T = 256 over three seq ranks: slices of 86, 86 and 84 tokens (43, 43, 42
+# after the branch), every dropout mask the one-rank mask sliced unevenly
+UNEVEN = {"layout": [1, 3], "accum": 1}
 
 
 def _weights(folder):
@@ -124,16 +131,17 @@ def _train_cli_spec(folder) -> dict:
     return dict(cfg=str(path), root=str(folder), out=str(folder / "cli_%d.pt"))
 
 
-def _run(folder, cfg_path, drop, cases, tag, cli=None):
+def _run(folder, cfg_path, drop, cases, tag, cli=None, world=4):
     spec = {"cfg": cfg_path, "inputs": str(folder / "inputs.pt"), "drop": drop, "seed": SEED,
             "cases": list(cases), "out": str(folder / f"{tag}_%d.pt")}
     if cli is not None:
         spec["cli"] = cli
-    return _launch("seq_train", spec, str(folder / f"{tag}.json"), world=4)
+    return _launch("seq_train", spec, str(folder / f"{tag}.json"), world=world)
 
 
-def _load(folder, tag):
-    return [torch.load(str(folder / f"{tag}_{r}.pt"), weights_only=False) for r in range(4)]
+def _load(folder, tag, world=4):
+    return [torch.load(str(folder / f"{tag}_{r}.pt"), weights_only=False)
+            for r in range(world)]
 
 
 @pytest.fixture(scope="module")
@@ -141,21 +149,26 @@ def sp(tmp_path_factory):
     folder = tmp_path_factory.mktemp("torch_sp_train")
     cfg, cfg_path, model, _, _, _, tbatch = _weights(folder)
     procs = _run(folder, cfg_path, DROP, CASES, "seq_train", _train_cli_spec(folder))
-    # the port's one-process step on the global batch, for the 1 x 4 case,
-    # with dropout and without
+    uneven = _run(folder, cfg_path, DROP, [UNEVEN], "seq_train_uneven", world=3)
+    # the port's one-process step on the global batch, for the 1 x 4 case
+    # with dropout and without, and for the 1 x 3 case
     one = {}
-    for name, drop in (("drop", DROP), ("no_drop", 0.0)):
+    for name, drop, accum in (("drop", DROP, CASES[1]["accum"]),
+                              ("no_drop", 0.0, CASES[1]["accum"]),
+                              ("uneven", DROP, UNEVEN["accum"])):
         own = set_drop_rates(copy.deepcopy(model), attn=drop, proj=drop, path=drop)
         step = make_train_step(own, make_optimizer(own, cfg, make_schedule(cfg, 1)),
-                               accum_steps=CASES[1]["accum"],
+                               accum_steps=accum,
                                generator=torch.Generator().manual_seed(SEED))
         one[name] = dict(metrics={k: float(v) for k, v in step(tbatch).items()},
                          state=own.state_dict(),
                          grads={k: p.grad for k, p in own.named_parameters()
                                 if p.grad is not None})
     _wait(procs, timeout=300)
+    _wait(uneven, timeout=300)
     return dict(model=model, before=model.state_dict(), one=one,
-                ranks=_load(folder, "seq_train"), cli=_load(folder, "cli"))
+                ranks=_load(folder, "seq_train"), cli=_load(folder, "cli"),
+                uneven=_load(folder, "seq_train_uneven", world=3))
 
 
 def _assert_step_equal(got, want, before):
@@ -210,6 +223,31 @@ def test_the_masks_move_the_step(sp):
         assert (got[k] - off[k]).abs().max() > 1e-2 * ref.abs().max(), k
 
 
+def _collectives_a_step(spec) -> tuple:
+    """(forward, backward) seq collectives of a micro-batch."""
+    encoders = (spec.flow_scale_arch, spec.scale_arch, spec.scale_arch)
+    fwd = sum(3 * a[1] + 4 * a[2] + 1 + a[2] for a in encoders)
+    return fwd, fwd - sum(1 + a[2] for a in encoders) + len(encoders)
+
+
+def test_uneven_seq_step_equals_the_one_process_step(sp):
+    """``1 x 3``: unequal slices, dropout on at every site; each rank's step
+    against the one-process step on the global batch with the same
+    generator seed, as the ``1 x 4`` step is held; the ranks end bit-equal
+    and the step runs as many seq collectives as on equal slices."""
+    fwd, bwd = _collectives_a_step(sp["model"].spec)
+    ref = sp["uneven"][0]["results"][0]["sp"]
+    for r in range(3):
+        res = sp["uneven"][r]["results"][0]
+        assert res["case"]["layout"] == [1, 3] and res["data"] == (0, 1)
+        assert res["rows"] == [0, 1, 2, 3]
+        _assert_step_equal(res["sp"], sp["one"]["uneven"], sp["before"])
+        assert res["sp"]["collectives"]["seq"] == fwd + bwd + 1
+        assert res["sp"]["metrics"] == ref["metrics"]
+        for k, v in ref["state"].items():
+            assert torch.equal(v, res["sp"]["state"][k]), (r, k)
+
+
 @pytest.mark.parametrize("case", [0, 1])
 def test_a_seq_group_ends_bit_equal(sp, case):
     for d in range(4 // CASES[case]["layout"][1]):
@@ -228,10 +266,7 @@ def test_collectives_a_step(sp):
     output), their backward (a gather's is local, a shard's gathers), and
     one sum of the encoders' gradients; the data group's as the
     data-parallel step's."""
-    spec = sp["model"].spec
-    encoders = (spec.flow_scale_arch, spec.scale_arch, spec.scale_arch)
-    fwd = sum(3 * a[1] + 4 * a[2] + 1 + a[2] for a in encoders)
-    bwd = fwd - sum(1 + a[2] for a in encoders) + len(encoders)
+    fwd, bwd = _collectives_a_step(sp["model"].spec)
     res = sp["ranks"][0]["results"][0]
     assert res["sp"]["collectives"]["seq"] == fwd + bwd + 1
     assert res["no_seq"]["collectives"]["seq"] == 0

@@ -41,36 +41,12 @@ from otpose_tpu_torch.models.factory import build_model
 from otpose_tpu_torch.utils.testing import tiny_otpose_cfg
 
 from tests.helpers.synthetic_data import make_synthetic_posetrack
+from tests.helpers.train_cli_parity import fill_cfg, parity_tree, parity_weights
 from tests.helpers.torch_port import one_torch_thread  # noqa: F401  (fixture)
 
 pytest.importorskip("cv2")
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 AP_KEYS = ("Head", "Shoulder", "Elbow", "Wrist", "Hip", "Knee", "Ankle", "Mean")
-
-
-def _fill(cfg, root, dirs, pth, name, batch):
-    json_dir, img_dir, annot_dir = dirs
-    cfg.EXPERIMENT_NAME = name
-    cfg.OUTPUT_DIR = str(root / "output")
-    cfg.DATASET.NAME = "PoseTrack"
-    cfg.DATASET.JSON_DIR = json_dir
-    cfg.DATASET.IMG_DIR = img_dir
-    cfg.DATASET.TEST_IMG_DIR = img_dir
-    cfg.DATASET.COLOR_RGB = True
-    cfg.MODEL.PRETRAINED = pth
-    cfg.VAL.ANNOT_DIR = annot_dir
-    cfg.VAL.USE_GT_BBOX = True
-    cfg.VAL.BATCH_SIZE_PER_GPU = 4
-    cfg.TRAIN.BATCH_SIZE_PER_GPU = batch
-    cfg.TRAIN.SAVE_MODEL_PER_EPOCH = 1
-    cfg.TRAIN.PROB_HALF_BODY = 0.0
-    cfg.TRAIN.WARMUP = False
-    cfg.WORKERS = 2
-    cfg.PRINT_FREQ = 1
-    cfg.TPU.COMPUTE_DTYPE = "float32"
-    path = root / f"{name}.yaml"
-    path.write_text(cfg.dump())
-    return str(path)
 
 
 @pytest.fixture(scope="module")
@@ -121,7 +97,7 @@ def test_train_defaults_to_cuda_and_raises_without_a_gpu(workspace, tmp_path):
         pytest.skip("a GPU is present: the default device is usable here")
     root, dirs, pth = workspace
     cfg = tiny_otpose_cfg(image_size=32, heatmap_size=8)
-    yaml = _fill(cfg, tmp_path, dirs, pth, "no_gpu", 2)
+    yaml = fill_cfg(cfg, tmp_path, dirs, pth, "no_gpu", 2)
     args = default_parse_args(["--cfg", yaml, "--root_dir", str(tmp_path)])
     assert args.device is None
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -151,8 +127,8 @@ def runs(workspace):
 
         mp.setattr(train_cli, "evaluate_epoch_decoded", spy)
         for name, stop_after in (("whole", None), ("preempted", 3), ("resumed", None)):
-            yaml = _fill(tiny_otpose_cfg(image_size=32, heatmap_size=8), root, dirs, pth,
-                         "whole" if name == "whole" else "preempted", 2)
+            yaml = fill_cfg(tiny_otpose_cfg(image_size=32, heatmap_size=8), root, dirs, pth,
+                            "whole" if name == "whole" else "preempted", 2)
             trainer = Train(_args(yaml, root))
             seen = []
             step = trainer.step_fn
@@ -255,35 +231,19 @@ def test_both_train_clis_agree_for_one_epoch(tmp_path):
     from otpose_tpu.config import default_parse_args as jax_parse_args
     from otpose_tpu.data import native as jax_native
     from otpose_tpu.engine import checkpoints as jax_ckpt
-    from otpose_tpu.models.otpose import OTPoseSpec as JaxSpec
-    from otpose_tpu.models.otpose import _init_otpose_impl
     from otpose_tpu.utils.testing import tiny_otpose_cfg as jax_tiny_cfg
+    from otpose_tpu_torch.data import native as port_native
     from otpose_tpu_torch.models.blocks import set_drop_rates
-    from otpose_tpu_torch.models.jax_bridge import jax_layout, load_jax_weights
-
-    from tests.helpers.torch_port import numpy_weights
+    from otpose_tpu_torch.models.jax_bridge import jax_layout
 
     assert len(jax.devices()) == 8
-    dirs = make_synthetic_posetrack(str(tmp_path), num_videos=2, frames_per_video=4,
-                                    people_per_frame=2, img_w=96, img_h=96)
+    dirs = parity_tree(tmp_path)
     pth = str(tmp_path / "shared.pth")
     sgd = ("TRAIN.OPTIMIZER", "SGD", "TRAIN.WD", "0.0", "TRAIN.LR", "0.001")
-    jyaml = _fill(jax_tiny_cfg(), tmp_path, dirs, pth, "jax_cli", 1)
-    tyaml = _fill(tiny_otpose_cfg(), tmp_path, dirs, pth, "torch_cli", 8)
-    # tests/test_torch_eval_cli.py's weights: numpy values with JAX init's
-    # keys, HRNet's final conv scaled so the losses stay O(1), the offset and
-    # mask convs so the DCN samples near its taps.  (The reference init is no
-    # witness: its gradients are f32 residue in most tensors, and the two
-    # packages' updates there differ in sign.)
-    params, state = numpy_weights(_init_otpose_impl,
-                                  JaxSpec.from_cfg(jax_tiny_cfg()))
-    for name in params:
-        if name.endswith(".weight") and name.startswith(("offsets_list", "masks_list")):
-            params[name] = params[name] * np.float32(3e-4)
-    for k in ("weight", "bias"):
-        params[f"rough_pose_estimation_net.final_layer.{k}"] *= np.float32(0.05)
-    _, model = build_model(tiny_otpose_cfg(), device="cpu")
-    load_jax_weights(model, params, state)
+    jyaml = fill_cfg(jax_tiny_cfg(), tmp_path, dirs, pth, "jax_cli", 1)
+    tyaml = fill_cfg(tiny_otpose_cfg(), tmp_path, dirs, pth, "torch_cli", 8)
+    # tests/test_torch_eval_cli.py's weights, scaled so the losses stay O(1)
+    params, _, model = parity_weights()
     torch.save({"state_dict": model.state_dict()}, pth)
     make_jax_step = jax_train.make_train_step
 
@@ -291,7 +251,12 @@ def test_both_train_clis_agree_for_one_epoch(tmp_path):
         import tensorboardX
 
         mp.setattr(tensorboardX, "SummaryWriter", Scalars)
+        # both packages crop and draw targets on the cv2 path: the native
+        # warp keeps the float sum that cv2 rounds to uint8, and at these
+        # weights half a uint8 step moves the first loss by up to 1e-2
+        # (tests/test_torch_native_io.py holds the two paths' samples)
         mp.setattr(jax_native, "is_available", lambda: False)
+        mp.setattr(port_native, "is_available", lambda: False)
         # the step's spec without dropout; the init's keeps the drop-path
         # scales, which JAX creates only where the rate is above 0
         mp.setattr(jax_train, "make_train_step", lambda spec, *a, **k: make_jax_step(
@@ -327,8 +292,8 @@ def test_both_train_clis_agree_for_one_epoch(tmp_path):
 
 def test_train_refuses_what_is_not_ported(workspace, tmp_path):
     root, dirs, pth = workspace
-    yaml = _fill(tiny_otpose_cfg(image_size=32, heatmap_size=8), tmp_path, dirs, pth,
-                 "refuse", 2)
+    yaml = fill_cfg(tiny_otpose_cfg(image_size=32, heatmap_size=8), tmp_path, dirs, pth,
+                    "refuse", 2)
     # the drawing flags are ported: the CLI builds with them, and the train
     # loop hands TensorBoard its image grids at each fetched iteration
     Train(_args(yaml, tmp_path, "DEBUG.VIS_SKELETON", "True"))
@@ -358,7 +323,7 @@ def test_without_val_annotations_training_goes_on_unvalidated(workspace, tmp_pat
     (own_json / "posetrack_val.json").unlink()
     cfg = tiny_otpose_cfg(image_size=32, heatmap_size=8)
     cfg.TRAIN.END_EPOCH = 1
-    yaml = _fill(cfg, tmp_path, (str(own_json), img_dir, annot_dir), pth, "no_val", 2)
+    yaml = fill_cfg(cfg, tmp_path, (str(own_json), img_dir, annot_dir), pth, "no_val", 2)
     trainer = Train(_args(yaml, tmp_path))
     state = trainer.train()
     assert state.step == len(trainer.loader) == 4
