@@ -135,10 +135,13 @@ Phases, each of which must pass or the script exits non-zero:
     --serve-worker``), which must import no model code, and held against the
     live ``make_decoded_eval_step`` on the same clips, bit for bit; the served call
     12 / 16 / 1 launches and no weight pack; its clips/s beside the live
-    step's in this call; then the serve tool's ``main`` on a local port
+    step's in this call; the serve tool's ``main`` on a local port
     answering 1, 5 and 16 clips (each row equal to the artifact's answer)
-    and rejecting 17, its latency over HTTP at 1 and 16 clips; export
-    seconds, artifact bytes and load seconds printed;
+    and rejecting 17, its latency over HTTP at 1 and 16 clips (the tool
+    and the two fresh processes load at once, then take the card in turn);
+    export seconds (with when each CLI's log reached its config, its loaded
+    model and its written artifact), artifact bytes and load seconds
+    printed;
 16. runs the port's data parallelism (``parallel/``): (1) in this process,
     a one-rank NCCL group on a free port, the flagship f32 train step at
     B = 2 for two steps (cuDNN deterministic, dropout 0) bit-equal in its
@@ -246,11 +249,32 @@ Phases, each of which must pass or the script exits non-zero:
     peak memory beside the one rank's (recorded, not gated: the ranks share
     one card); the phase's seconds.
 
-``python3 chip_smoke.py --phase17`` (or ``--phase18``, ``--phase19``) builds the
-kernels and runs that phase alone (a development run: no kernels line, no
-result line).
+20. runs the shapes beyond the shipped configs, which the JAX package runs:
+    (a) the tiny config at 21 and 33 joints and at nine dilations (1 to 9)
+    on the card against the CPU (the seven outputs to 1e-3 of the peak,
+    keypoints on clear peaks), with the launches the blocks' gate predicts
+    (``gate_counts``: no fused kernel in an encoder wider than 160
+    channels; the DCN a launch a group of 32 outputs and of 8 dilations);
+    (b) the flagship (HRNet-W48, 384x288) at 26 and 133 joints in bf16,
+    decoded eval at B = 2: the launches the gate predicts (the temporal
+    encoders at C = 208 and 1064 none, the flow encoder at C = 133 both
+    kernels), finite outputs, ms a step; (c) the DCN at O = C = 133, 96x72,
+    B = 2, at five dilations and at nine (3 to 27), forward in f32 and bf16
+    against its plain version under row 3's gate and backward (bf16 at five,
+    f32 at nine) under row 6's, each call's launches, two calls bit-equal,
+    ms against the plain version's and the bound; (d) the fused kernels'
+    predicates (``supports``) against ``otp_fused_attn_smem`` and the MLP's
+    entry points at C = 1 to 200, 1 to 16 heads, both dtypes; (e), inside
+    phase 19's five ranks at ``1 x 5``: the flagship's temporal encoder at
+    T = 8 (three ranks with no token) and phase 18's window-19 encoder at T
+    = 32 (halos wider than the slices) against the one-rank forward to 1e-5
+    of the peak; the phase's seconds.
 
-Each path (phases 4 to 7, 9, 12, 14, 15, 16, 17, 18 and 19) is driven with every
+``python3 chip_smoke.py --phase15`` (or ``--phase17`` to ``--phase20``)
+builds the kernels and runs that phase alone (a development run: no kernels
+line, no result line).
+
+Each path (phases 4 to 7, 9, 12, 14, 15, 16, 17, 18, 19 and 20) is driven with every
 launch count set to 0 just before it and read just after (phase 15's in the
 process that serves, phase 16's and 19's in each rank).  It prints a ``kernels`` JSON line, the
 card line, and last ``{"ok": true, "device": {...}}``.
@@ -264,6 +288,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -272,6 +297,7 @@ PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
+SMEM_LIMIT = 232448   # bytes of shared memory one H100 block may use
 BATCH = 16
 KERNEL_MODULES = ("fused_attn", "fused_mlp", "deform_conv", "deform_conv_fused", "token_shift")
 FORWARD_COUNTS = {"fused_attn": 12, "fused_mlp": 16, "deform_conv": 1, "deform_conv_bwd": 0,
@@ -350,11 +376,13 @@ def dcn_case(dtype, gen, batch):
 
 
 def work(name, args):
-    """(bytes, operations, peak rate of those operations) the function needs:
+    """(bytes, operations, least ms of those operations) the function needs:
     matrix products at the tensor-core bf16 rate, or in f32 as three TF32
     passes on the tensor cores (the least work that keeps f32 accuracy
-    there: the f32 fused kernels' split); the deformable conv's sampling and
-    FMAs are scalar f32 work."""
+    there: the f32 fused kernels' split).  The deformable conv's bilinear
+    sampling is scalar f32 work; its contraction over O is a matrix product
+    ((B H W) x (D C 9) samples times W), as the reference computes it; the
+    two may overlap, so the least time is the longer of them."""
     import torch
 
     mm_peak = PEAK_TF32 / 3 if args[0].dtype == torch.float32 else PEAK_BF16
@@ -363,19 +391,21 @@ def work(name, args):
         b, c, t = x.shape
         hs = c // args[-1]
         ops = 3 * 2 * c * c * t * b + 2 * (2 * c * hs * t * b)
-        return 2 * nbytes(x), ops, mm_peak
+        return 2 * nbytes(x), ops, ops / mm_peak * 1e3
     if name == "fused_mlp":
         x, w1 = args[0], args[3]
         b, c, t = x.shape
-        return 2 * nbytes(x), 2 * 2 * c * w1.shape[0] * t * b, mm_peak
+        ops = 2 * 2 * c * w1.shape[0] * t * b
+        return 2 * nbytes(x), ops, ops / mm_peak * 1e3
     x, offs, masks, weights = args[:4]
     b, c, h, w = x.shape
     d, o = weights.shape[:2]
     samples = d * 9 * c * b * h * w
-    # per sample: bilinear weights and 4 corners (~11 flops), mask, O FMAs
-    ops = samples * (12 + 2 * o)
+    # per sample: bilinear weights and 4 corners (~11 flops) and the mask;
+    # then 2 O flops of the contraction
+    scalar, mm = samples * 12, samples * 2 * o
     moved = nbytes(x, *offs, *masks, weights) + b * o * h * w * x.element_size()
-    return moved, ops, PEAK_F32
+    return moved, scalar + mm, max(scalar / PEAK_F32, mm / mm_peak) * 1e3
 
 
 def attn_f64_errors(args, got, want):
@@ -561,8 +591,8 @@ def check_kernels():
                     # the wrapper's host work as well as the kernel
                     gms = graph_ms(call) if dcn else None
                     plain_ms = time_ms(lambda: plain(*args), iters=3)
-                    moved, ops, peak = work(name, args)
-                    t_bytes, t_ops = moved / PEAK_BYTES * 1e3, ops / peak * 1e3
+                    moved, ops, t_ops = work(name, args)
+                    t_bytes = moved / PEAK_BYTES * 1e3
                     bound = max(t_bytes, t_ops)
                     log(f"time {name} {str(dtype)[6:]} B={shape[0]}: kernel {ms:.4f} ms"
                         + (f" (graph replay {gms:.4f} ms)" if dcn else "")
@@ -896,7 +926,12 @@ def _scaled_weights_(model, seed: int):
                 p.copy_(0.1 * torch.randn(p.shape, generator=gen))
 
 
-def tiny_agreement():
+def tiny_agreement(joints: int = 17, dilations=None) -> dict:
+    """The tiny config (at ``joints`` joints, and ``dilations`` in place of
+    its own where given) on the card against the CPU's plain versions from
+    the same weights: the launches the blocks' gate predicts, the seven
+    outputs to 1e-3 of the peak, the decoded keypoints equal on clear
+    peaks.  Returns the launches."""
     import torch
 
     from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
@@ -904,7 +939,10 @@ def tiny_agreement():
     from otpose_tpu_torch.models.otpose import otpose_forward
     from otpose_tpu_torch.utils.testing import tiny_otpose_cfg
 
-    _, gpu_model = build_model(tiny_otpose_cfg(), seed=2)
+    cfg = tiny_otpose_cfg(num_joints=joints)
+    if dilations is not None:
+        cfg.MODEL.DEFORMABLE_CONV.DILATION = list(dilations)
+    _, gpu_model = build_model(cfg, seed=2)
     _scaled_weights_(gpu_model, 2)
     _calibrate_refinement_(gpu_model, 2)
     cpu_model = copy.deepcopy(gpu_model).cpu()
@@ -917,25 +955,30 @@ def tiny_agreement():
         got = otpose_forward(gpu_model, x.cuda(), margin.cuda())
         torch.cuda.synchronize()
     counts = read_counts()
-    if counts != dict(FORWARD_COUNTS, fused_attn=4, fused_mlp=6):
-        fail(f"tiny run launches {counts}")
+    dil = gpu_model.spec.dilations
+    label = f"tiny ({joints} joints, {len(dil)} dilations)"
+    predicted = gate_counts(gpu_model, torch.float32, joints, dil)
+    if counts != predicted:
+        fail(f"{label} launches {counts}, the gate predicts {predicted}")
     worst = 0.0
     for g, w in zip(got, want):
         err = (g.cpu() - w).abs().max().item() / max(1.0, w.abs().max().item())
         worst = max(worst, err)
-    log(f"tiny f32 GPU (kernels) vs CPU (plain): worst error {worst:.3e} of the peak")
+    log(f"{label} f32 GPU (kernels) vs CPU (plain): launches {counts}; worst error "
+        f"{worst:.3e} of the peak")
     if not worst <= 1e-3:
-        fail("tiny GPU forward disagrees with the CPU plain path")
+        fail(f"{label} GPU forward disagrees with the CPU plain path")
     c_gpu = make_decoded_eval_step(gpu_model)(x.cuda(), margin.cuda())
     c_cpu = make_decoded_eval_step(cpu_model)(x, margin)
-    heat = want[0].permute(0, 3, 1, 2).reshape(2, 17, -1)
+    heat = want[0].permute(0, 3, 1, 2).reshape(2, joints, -1)
     top2 = heat.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > 1e-3
     same = (c_gpu[0].cpu() == c_cpu[0]).all(-1)
-    log(f"tiny decoded coords equal on {int((same & clear).sum())}/{int(clear.sum())} "
+    log(f"{label} decoded coords equal on {int((same & clear).sum())}/{int(clear.sum())} "
         "clear peaks")
     if not bool(same[clear].all()):
-        fail("tiny decoded coords differ between GPU and CPU")
+        fail(f"{label} decoded coords differ between GPU and CPU")
+    return counts
 
 
 def _calibrate_refinement_(model, seed: int) -> float:
@@ -1198,17 +1241,23 @@ def eval_cli(seed: int = 0):
 # ---------------------------------------------------------------------------
 
 def dcn_bwd_work(args, o):
-    """(bytes, operations) the DCN's backward needs: offsets, masks, x and g
-    read once; d offsets, d masks and d x written once (d W and d bias are
-    kilobytes); per sample G (2 O), the bilinear sample and its two
-    derivatives (~20), the three gradients and four d x corners (~12), and
-    m * s against g for d W (2 O)."""
+    """(bytes, operations, least ms of those operations) the DCN's backward
+    needs: offsets, masks, x and g read once; d offsets, d masks and d x
+    written once (d W and d bias are kilobytes).  Per sample, the matrix
+    products G = W^T g (2 O) and d W += g (m s)^T (2 O), at the tensor-core
+    rate of the dtype (as ``work``), and scalar f32 work: the bilinear
+    sample and its two derivatives (~20), the three gradients and four d x
+    corners (~12); the least time is the longer of the two."""
+    import torch
+
     x, offs, masks = args[:3]
     b, c, h, w = x.shape
     g_bytes = b * o * h * w * x.element_size()
     moved = 2 * nbytes(*offs, *masks) + 2 * nbytes(x) + g_bytes
     samples = len(offs) * 9 * c * b * h * w
-    return moved, samples * (4 * o + 32)
+    mm_peak = PEAK_TF32 / 3 if x.dtype == torch.float32 else PEAK_BF16
+    scalar, mm = samples * 32, samples * 4 * o
+    return moved, scalar + mm, max(scalar / PEAK_F32, mm / mm_peak) * 1e3
 
 
 def check_dcn_backward():
@@ -1269,8 +1318,8 @@ def check_dcn_backward():
         plain_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True),
                            iters=2, warmup=1)
         del out, leaves
-        moved, ops = dcn_bwd_work(args, 17)
-        t_bytes, t_ops = moved / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+        moved, ops, t_ops = dcn_bwd_work(args, 17)
+        t_bytes = moved / PEAK_BYTES * 1e3
         bound = max(t_bytes, t_ops)
         log(f"time deform_conv_bwd {str(dtype)[6:]} B={batch}: kernel {ms:.4f} ms, plain backward "
             f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({moved / 1e6:.1f} MB, {ops / 1e9:.2f} "
@@ -1969,8 +2018,10 @@ def _backend_flags(torch) -> None:
 
 def serve_worker(artifact: str, clips: str, out: str) -> None:
     """A fresh process (``chip_smoke.py --serve-worker``): load ``artifact``
-    on the card with ``load_exported``, which must import no model code; one
-    counted call on ``clips``; then clips/s over 5 calls.  Writes the
+    on the card with ``load_exported``, which must import no model code;
+    wait until ``out + ".go"`` exists (the caller's sign that the card is
+    free: the loads of phase 15's processes overlap, their calls do not);
+    one counted call on ``clips``; then clips/s over 5 calls.  Writes the
     outputs and the readings to ``out`` (``.npz`` and ``.json``)."""
     import numpy as np
     import torch
@@ -1985,6 +2036,11 @@ def serve_worker(artifact: str, clips: str, out: str) -> None:
     with np.load(clips) as z:
         inputs = torch.from_numpy(z["inputs"]).cuda()
         margin = torch.from_numpy(z["margin"]).cuda()
+    deadline = time.perf_counter() + 900
+    while not os.path.exists(out + ".go"):
+        if time.perf_counter() > deadline:
+            sys.exit("serve worker: no go within 900 s")
+        time.sleep(0.05)
     model(inputs, margin)                     # warm-up: cuDNN picks its algorithms
     torch.cuda.synchronize()
     reset_counts()
@@ -2004,12 +2060,23 @@ def serve_worker(artifact: str, clips: str, out: str) -> None:
                        clips_per_s=inputs.shape[0] / sec, ms=sec * 1e3, meta=model.meta), fh)
 
 
-def _run_worker(artifact: str, clips: str, out: str, timeout: int = 600) -> dict:
-    proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--serve-worker",
-                           artifact, clips, out], cwd=ROOT, capture_output=True, text=True,
-                          timeout=timeout)
+def _start_worker(artifact: str, clips: str, out: str) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                             "--serve-worker", artifact, clips, out], cwd=ROOT,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+
+def _finish_worker(proc: subprocess.Popen, artifact: str, out: str, timeout: int = 600) -> dict:
+    """Let the worker ``proc`` call its model (``serve_worker``) and read
+    what it wrote."""
+    open(out + ".go", "w").close()
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"serve worker on {artifact}: no answer within {timeout} s")
     if proc.returncode != 0:
-        fail(f"serve worker on {artifact}: rc {proc.returncode}\n{proc.stderr[-4000:]}")
+        fail(f"serve worker on {artifact}: rc {proc.returncode}\n{err[-4000:]}")
     with open(out + ".json") as fh:
         res = json.load(fh)
     import numpy as np
@@ -2066,19 +2133,11 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _serve_requests(artifact: str, clips, margin, want) -> dict:
-    """``otpose_tpu_torch/tools/serve.py::main`` on a local port: requests of
-    1, 5 and 16 clips (each row equal to the fresh process's answer on the
-    same clips) and one of 17, which it must reject; the latency of 1 and 16
-    clips over HTTP, median of 5 requests each."""
-    import select
-
-    import numpy as np
-
+def _start_serve_tool(artifact: str):
+    """``otpose_tpu_torch/tools/serve.py::main`` on a local port, in a
+    process with this script's numerics flags, so that its answers can be
+    held bit-equal to the fresh process's: (process, port, start time)."""
     port = _free_port()
-    t0 = time.perf_counter()
-    # the tool's main, in a process with this script's numerics flags, so
-    # that its answers can be held bit-equal to the fresh process's
     launcher = ("import sys, torch\n"
                 "from chip_smoke import _backend_flags\n"
                 "_backend_flags(torch)\n"
@@ -2087,49 +2146,69 @@ def _serve_requests(artifact: str, clips, margin, want) -> dict:
     proc = subprocess.Popen([sys.executable, "-c", launcher, "--artifact", artifact, "--port",
                              str(port)], cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
-    try:
-        deadline = time.perf_counter() + 600
-        line = ""
-        while "serving" not in line:
-            if proc.poll() is not None:
-                fail(f"serve tool exited with {proc.returncode}: {proc.stderr.read()[-4000:]}")
-            if time.perf_counter() > deadline:
-                fail("serve tool did not start listening within 600 s")
-            ready, _, _ = select.select([proc.stdout], [], [], 5)
-            if ready:
-                line = proc.stdout.readline()
-        ready_s = time.perf_counter() - t0
-        url = f"http://127.0.0.1:{port}"
-        status, meta = _http(url + "/health")
-        if status != 200 or meta.get("batch_size") != BATCH:
-            fail(f"serve /health: {status} {meta}")
-        names = ("coords", "maxvals", "raw_coords")
-        latency = {}
-        for n in (1, 5, 16):
-            body = _npz_bytes(clips[:n], margin[:n])
-            times = []
-            for _ in range(5 if n in (1, 16) else 1):
-                t1 = time.perf_counter()
-                status, reply = _http(url + "/predict", body)
-                times.append((time.perf_counter() - t1) * 1e3)
-                if status != 200:
-                    fail(f"serve: a request of {n} clips answered {status}: {reply}")
-            for name, w in zip(names, want):
-                if not np.array_equal(np.asarray(reply[name], np.float32), w[:n]):
-                    fail(f"serve: {name} of a request of {n} clips differs from the artifact's "
-                         "answer on the same clips")
-            latency[n] = sorted(times)[len(times) // 2]
-        over = np.concatenate([clips, clips[:1]])
-        status, reply = _http(url + "/predict", _npz_bytes(over, np.concatenate([margin,
-                                                                               margin[:1]])))
-        if status != 400 or "exported batch" not in reply.get("error", ""):
-            fail(f"serve: a request of 17 clips answered {status}: {reply}")
-        log(f"serve tool: listening {ready_s:.1f} s after its start (load and one warm-up "
-            f"call); requests of 1, 5 and 16 clips answered, each row equal to the artifact's "
-            f"own answer; 17 clips rejected with 400 ({reply['error']}); latency over HTTP "
-            f"{latency[1]:.2f} ms at 1 clip, {latency[16]:.2f} ms at 16 (median of 5)")
-        return dict(ready_s=ready_s, latency_ms=latency)
-    finally:
+    return proc, port, time.perf_counter()
+
+
+def _wait_listening(proc: subprocess.Popen, t0: float) -> float:
+    """Seconds from the serve tool's start until it listens (its load and
+    one warm-up call)."""
+    import select
+
+    deadline = time.perf_counter() + 600
+    line = ""
+    while "serving" not in line:
+        if proc.poll() is not None:
+            fail(f"serve tool exited with {proc.returncode}: {proc.stderr.read()[-4000:]}")
+        if time.perf_counter() > deadline:
+            fail("serve tool did not start listening within 600 s")
+        ready, _, _ = select.select([proc.stdout], [], [], 5)
+        if ready:
+            line = proc.stdout.readline()
+    return time.perf_counter() - t0
+
+
+def _serve_requests(port: int, ready_s: float, clips, margin, want) -> dict:
+    """Requests to the listening serve tool: 1, 5 and 16 clips (each row
+    equal to the fresh process's answer on the same clips) and one of 17,
+    which it must reject; the latency of 1 and 16 clips over HTTP, median
+    of 5 requests each."""
+    import numpy as np
+
+    url = f"http://127.0.0.1:{port}"
+    status, meta = _http(url + "/health")
+    if status != 200 or meta.get("batch_size") != BATCH:
+        fail(f"serve /health: {status} {meta}")
+    names = ("coords", "maxvals", "raw_coords")
+    latency = {}
+    for n in (1, 5, 16):
+        body = _npz_bytes(clips[:n], margin[:n])
+        times = []
+        for _ in range(5 if n in (1, 16) else 1):
+            t1 = time.perf_counter()
+            status, reply = _http(url + "/predict", body)
+            times.append((time.perf_counter() - t1) * 1e3)
+            if status != 200:
+                fail(f"serve: a request of {n} clips answered {status}: {reply}")
+        for name, w in zip(names, want):
+            if not np.array_equal(np.asarray(reply[name], np.float32), w[:n]):
+                fail(f"serve: {name} of a request of {n} clips differs from the artifact's "
+                     "answer on the same clips")
+        latency[n] = sorted(times)[len(times) // 2]
+    over = np.concatenate([clips, clips[:1]])
+    status, reply = _http(url + "/predict", _npz_bytes(over, np.concatenate([margin,
+                                                                           margin[:1]])))
+    if status != 400 or "exported batch" not in reply.get("error", ""):
+        fail(f"serve: a request of 17 clips answered {status}: {reply}")
+    log(f"serve tool: listening {ready_s:.1f} s after its start (load and one warm-up "
+        f"call, beside the two workers' loads); requests of 1, 5 and 16 clips answered, each "
+        f"row equal to the artifact's own answer; 17 clips rejected with 400 "
+        f"({reply['error']}); latency over HTTP {latency[1]:.2f} ms at 1 clip, "
+        f"{latency[16]:.2f} ms at 16 (median of 5)")
+    return dict(ready_s=ready_s, latency_ms=latency)
+
+
+def _stop(proc: subprocess.Popen) -> None:
+    if proc.poll() is None:
         proc.terminate()
         try:
             proc.wait(timeout=30)
@@ -2190,9 +2269,10 @@ def serving(card: str) -> dict:
     B = 1, the two exports run at once.  Each artifact is loaded in a fresh
     process and held against the live ``make_decoded_eval_step`` on the same
     clips; the B = 16 one must launch 12 / 16 / 1 kernels and make no pack a
-    call, and its clips/s is read beside the live step's.  Then the serve
-    tool over the B = 16 artifact, and a tiny artifact traced on the card
-    and loaded on the CPU."""
+    call, and its clips/s is read beside the live step's; the serve tool
+    over the B = 16 artifact answers requests.  The three processes load at
+    once, and then use the card one after another.  A tiny artifact is
+    traced on the card and loaded on the CPU beside the exports."""
     import shutil
     import tempfile
 
@@ -2219,20 +2299,34 @@ def serving(card: str) -> dict:
         _, model = build_model(cfg, seed=5)
         torch.save({"state_dict": model.state_dict()}, cfg.VAL.MODEL_FILE)
         arts = {16: os.path.join(root, "artifact_b16"), 1: os.path.join(root, "artifact_b1")}
+        t0 = time.perf_counter()
         procs = {b: subprocess.Popen(
             [sys.executable, "-m", "otpose_tpu_torch.cli.export", "--cfg", yaml_path,
              "--root_dir", root, "--batch", str(b), "--out", arts[b], "--weights",
              "baked" if b == BATCH else "external", "TPU.PARAM_DTYPE", "bfloat16"],
             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for b in arts}
-        t0 = time.perf_counter()
+        # each CLI's lines with the seconds since the start at which they came
+        lines = {b: [] for b in procs}
+        readers = [threading.Thread(target=lambda b, out: lines[b].extend(
+            (time.perf_counter() - t0, text) for text in out), args=(b, proc.stdout))
+            for b, proc in procs.items()]
+        for reader in readers:
+            reader.start()
         _tiny_export_on_cpu()
         export_s = {}
-        for b, proc in procs.items():
-            log_text, _ = proc.communicate(timeout=900)
+        for (b, proc), reader in zip(procs.items(), readers):
+            proc.wait(timeout=900)
+            reader.join(timeout=60)
             export_s[b] = time.perf_counter() - t0
             if proc.returncode != 0:
-                fail(f"export CLI at batch {b}: rc {proc.returncode}\n{log_text[-4000:]}")
+                fail(f"export CLI at batch {b}: rc {proc.returncode}\n"
+                     + "".join(text for _, text in lines[b])[-4000:])
+            marks = {m: next((f"{t:.1f}" for t, text in lines[b] if m in text), "none")
+                     for m in ("=> exporting", "=> loaded", "=> wrote")}
+            log(f"export CLI at batch {b}: its log's '=> exporting' (config read), '=> loaded' "
+                f"(model built, checkpoint loaded) and '=> wrote' (traced and saved) lines at "
+                + ", ".join(marks.values()) + " s after the start")
         sizes = {b: _dir_bytes(a) for b, a in arts.items()}
         log(f"export CLI (the two at once, beside the tiny export): batch 16 baked done "
             f"{export_s[16]:.1f} s, {sizes[16]} bytes; batch 1 external done {export_s[1]:.1f} s, "
@@ -2250,16 +2344,31 @@ def serving(card: str) -> dict:
         clips1 = os.path.join(root, "clips1.npz")
         np.savez(clips1, inputs=inputs[:1].cpu().numpy(), margin=margin[:1].cpu().numpy())
 
-        served = _run_worker(arts[16], clips, os.path.join(root, "served16"))
-        live = [t.float().cpu().numpy() for t in step(inputs, margin)]
-        iters = 5
-        step(inputs, margin)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for _ in range(iters):
+        # the serve tool and the two fresh processes load at once; then each
+        # uses the card alone: the tool's warm-up, the B = 16 process's
+        # calls, the B = 1 process's, the live step's, the requests
+        out16, out1 = os.path.join(root, "served16"), os.path.join(root, "served1")
+        tool, port, tool_t0 = _start_serve_tool(arts[16])
+        workers = [_start_worker(arts[16], clips, out16), _start_worker(arts[1], clips1, out1)]
+        try:
+            ready_s = _wait_listening(tool, tool_t0)
+            served = _finish_worker(workers[0], arts[16], out16)
+            served1 = _finish_worker(workers[1], arts[1], out1)
+            live = [t.float().cpu().numpy() for t in step(inputs, margin)]
+            live1 = [t.float().cpu().numpy() for t in step(inputs[:1], margin[:1])]
+            iters = 5
             step(inputs, margin)
-        torch.cuda.synchronize()
-        live_rate = BATCH * iters / (time.perf_counter() - t1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(iters):
+                step(inputs, margin)
+            torch.cuda.synchronize()
+            live_rate = BATCH * iters / (time.perf_counter() - t1)
+            serve = _serve_requests(port, ready_s, inputs.cpu().numpy(), margin.cpu().numpy(),
+                                    served["outs"])
+        finally:
+            for proc in (tool, *workers):
+                _stop(proc)
         log(f"served B=16 (fresh process): loaded in {served['load_s']:.1f} s, launches "
             f"{served['counts']}, weight packs in the call {served['packs']}, model modules "
             f"imported {served['models']}; {served['clips_per_s']:.3f} clips/s "
@@ -2272,11 +2381,6 @@ def serving(card: str) -> dict:
         if served["meta"]["fused"] is not True or served["meta"]["weights"] != "baked":
             fail(f"served manifest {served['meta']}")
         _check_bit_equal("B=16 baked", served["outs"], live)
-
-        serve = _serve_requests(arts[16], inputs.cpu().numpy(), margin.cpu().numpy(),
-                                served["outs"])
-        served1 = _run_worker(arts[1], clips1, os.path.join(root, "served1"))
-        live1 = [t.float().cpu().numpy() for t in step(inputs[:1], margin[:1])]
         log(f"served B=1 external (fresh process): loaded in {served1['load_s']:.1f} s, "
             f"launches {served1['counts']}, packs {served1['packs']}, "
             f"{served1['ms']:.2f} ms a call")
@@ -2308,13 +2412,21 @@ def _flagship_cfg():
     return cfg
 
 
-def _train_model(cfg, state=None):
-    """The flagship model from seed 0 with its dropout rates at 0, or with
-    the weights and buffers of ``state``."""
-    from otpose_tpu_torch.models.blocks import set_drop_rates
+def _seed0_model(cfg):
+    """The flagship model from seed 0, built once a process: the phase's
+    models are copies of it (the reference init's draws take seconds on a
+    host that several ranks share)."""
     from otpose_tpu_torch.models.factory import build_model
 
-    model = set_drop_rates(build_model(cfg, seed=0)[1])
+    return build_model(cfg, seed=0)[1]
+
+
+def _train_model(base, state=None):
+    """A copy of ``base`` (``_seed0_model``) with its dropout rates at 0,
+    or with the weights and buffers of ``state``."""
+    from otpose_tpu_torch.models.blocks import set_drop_rates
+
+    model = set_drop_rates(copy.deepcopy(base))
     if state is not None:
         model.load_state_dict(state)
     return model
@@ -2330,15 +2442,14 @@ def _sgd(cfg):
     return cfg
 
 
-def _eval_model(cfg, dtype: str):
-    """The flagship model from seed 0 as the eval CLI prepares it: bf16
-    weights for a bf16 step."""
+def _eval_model(base, dtype: str):
+    """A copy of ``base`` (``_seed0_model``) as the eval CLI prepares it:
+    bf16 weights for a bf16 step."""
     import torch
 
-    from otpose_tpu_torch.models.factory import build_model
     from otpose_tpu_torch.models.otpose import prepare_eval_params
 
-    return prepare_eval_params(build_model(cfg, seed=0)[1],
+    return prepare_eval_params(copy.deepcopy(base),
                                torch.bfloat16 if dtype == "bfloat16" else None)
 
 
@@ -2476,11 +2587,12 @@ def _worker_steps(spec: dict) -> dict:
     rank, world = distributed.maybe_initialize(cfg)
     out = dict(rank=rank, world=world, transport=distributed.device_transport())
     batches = torch.load(spec["batches"], weights_only=True)
+    base = _seed0_model(cfg)
     for dtype in ("float32", "bfloat16"):
         # f32: the parent's calibrated model (``_dp_one_rank``); bf16: the
         # reference init, as the yaml trains it
         state = torch.load(spec["model"], weights_only=True) if dtype == "float32" else None
-        model = replicate(_train_model(cfg, state))
+        model = replicate(_train_model(base, state))
         full = batches[dtype]
         rows = distributed.local_rows(len(full["inputs"]))
         batch = {k: v[rows].cuda() for k, v in full.items()}
@@ -2496,7 +2608,7 @@ def _worker_steps(spec: dict) -> dict:
     clips = torch.load(spec["clips"], weights_only=True)
     shard_fn = make_eval_shard_fn(make_mesh(cfg))
     for dtype in ("bfloat16", "float32"):
-        step = make_decoded_eval_step(_eval_model(cfg, dtype), compute_dtype=dtype)
+        step = make_decoded_eval_step(_eval_model(base, dtype), compute_dtype=dtype)
         step(clips["inputs"][:1].cuda(), clips["margin"][:1].cuda())     # the packs
         counts = []
 
@@ -2592,7 +2704,7 @@ def _worker_cli(spec: dict) -> dict:
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
-def _dp_one_rank(cfg, batch2, card: str) -> dict:
+def _dp_one_rank(cfg, base, batch2, card: str) -> dict:
     """Item 1: the f32 train step at B = 2 for two steps (SGD, ``_sgd``)
     from the same model without a group and in a one-rank NCCL group made
     in this process: bit-equal losses, weights and BN statistics.  The
@@ -2608,7 +2720,7 @@ def _dp_one_rank(cfg, batch2, card: str) -> dict:
     from otpose_tpu_torch.models.core import BatchNorm
     from otpose_tpu_torch.parallel import distributed
 
-    model = _train_model(cfg)
+    model = _train_model(base)
     _calibrate_refinement_(model, 16)
     initial = _host_sd(model)
     runs = {}
@@ -2687,7 +2799,8 @@ def data_parallel(card: str) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(41)
         batches = {"float32": synthetic_train_batch(cfg, cfg.TRAIN.BATCH_SIZE_PER_GPU, gen),
                    "bfloat16": synthetic_train_batch(cfg, 8, gen)}
-        one = _dp_one_rank(cfg, batches["float32"], card)
+        base = _seed0_model(cfg)
+        one = _dp_one_rank(cfg, base, batches["float32"], card)
         torch.save({d: {k: v.cpu() for k, v in b.items()} for d, b in batches.items()},
                    os.path.join(root, "batches.pt"))
         torch.save(one["initial"], os.path.join(root, "model.pt"))
@@ -2698,7 +2811,7 @@ def data_parallel(card: str) -> dict:
         torch.save({k: v.cpu() for k, v in clips.items()}, os.path.join(root, "clips.pt"))
         refs = {}
         for dtype in ("bfloat16", "float32"):
-            step = make_decoded_eval_step(_eval_model(cfg, dtype), compute_dtype=dtype)
+            step = make_decoded_eval_step(_eval_model(base, dtype), compute_dtype=dtype)
             refs[dtype] = [[_to_numpy(o) for o in step(clips["inputs"][:n], clips["margin"][:n])]
                            for n in (BATCH, 5)]
             del step
@@ -3927,12 +4040,13 @@ def _sp_cfg(layout):
 
 def _sp_base(cfg, state):
     """The flagship model with phase 19's weights ``state``, built once a
-    process (the reference init's draws take seconds on the host)."""
-    from otpose_tpu_torch.models.factory import build_model
+    process: its modules made and ``state`` loaded, no reference init drawn
+    (its draws take seconds on a host that five ranks share)."""
+    from otpose_tpu_torch.models.otpose import OTPose, OTPoseSpec
 
-    model = build_model(cfg, seed=0)[1]
+    model = OTPose(OTPoseSpec.from_cfg(cfg))
     model.load_state_dict(state)
-    return model
+    return model.cuda().eval()
 
 
 def _sp_model(base, dtype=None):
@@ -4031,6 +4145,40 @@ def _worker_seq_eval(spec: dict) -> dict:
                 seconds=dict(build=built, run=time.perf_counter() - t0 - built), **res)
 
 
+def _sp_r1_cases(cfg, seq) -> dict:
+    """Phase 20 (e), R1's splits inside phase 19's ranks at ``1 x 5``: the
+    flagship's temporal encoder (C = 136, two heads) at T = 8 (2 x 4), whose
+    stride-4 split leaves three of the five ranks no token (4, 4, 0, 0, 0),
+    and phase 18's window-19 encoder at T = 32 (4 x 8: slices 8, 8, 8, 4,
+    4, then 4, 4, 4, 2, 2 and 2, 2, 2, 1, 1), whose 9 halo tokens a side
+    span several slices.  In f32, seeded, each one's gathered outputs
+    against its one-rank plain forward in this process: the worst error
+    over the peak, the slices and the launches."""
+    import torch
+
+    from otpose_tpu_torch.models.conv_transformer import (ConvTransformer,
+                                                          ConvTransformerSpec,
+                                                          init_conv_transformer_)
+    from otpose_tpu_torch.models.otpose import OTPoseSpec
+
+    out = {}
+    for name, spec, hw in (("empty_rank", OTPoseSpec.from_cfg(cfg).temporal_spec(), (2, 4)),
+                           ("wide_window", ConvTransformerSpec(**WINDOW_SPEC), (4, 8))):
+        enc = init_conv_transformer_(ConvTransformer(spec),
+                                     torch.Generator().manual_seed(20)).eval().cuda()
+        x = torch.randn(2, spec.n_in, *hw, generator=torch.Generator().manual_seed(21)).cuda()
+        with torch.no_grad():
+            want = enc(x, fused=False)
+            reset_counts()
+            got = enc(x, seq=seq)
+            torch.cuda.synchronize()
+        split = seq.split(hw[0] * hw[1], spec.scale_factor ** spec.arch[2])
+        out[name] = dict(err=max(((g - w).abs().max() / w.abs().max()).item()
+                                 for g, w in zip(got, want)),
+                         lengths=split.lengths, counts=read_counts())
+    return out
+
+
 def _worker_seq_train(spec: dict) -> dict:
     """Phase 19's two ranks at ``data = 1 x seq = 2`` or five at ``1 x 5``:
     f32 eval at B = 2, then the train steps of ``spec["train"]``: a bf16
@@ -4057,6 +4205,8 @@ def _worker_seq_train(spec: dict) -> dict:
                                     for i, a in enumerate(v)})
     out = dict(rank=rank, world=world, transport=distributed.device_transport(),
                seq=distributed.seq_info(), data=distributed.data_info(), eval=res)
+    if spec.get("r1"):
+        out["r1"] = _sp_r1_cases(cfg, seq)
     batches = torch.load(spec["batches"], weights_only=True)
     for dtype, reps, conf in (("bfloat16", 2, cfg), ("float32", 1, _sgd(cfg))):
         if dtype not in spec["train"]:
@@ -4339,7 +4489,7 @@ def sequence_parallel(card: str) -> dict:
                       out=os.path.join(root, "seq_train_%d.json"))
         spec_u = dict(common, layout=list(SP_UNEVEN_LAYOUT), arrays=os.path.join(root, "un.npz"),
                       state=os.path.join(root, "state_uneven.pt"), train=["float32"],
-                      out=os.path.join(root, "seq_uneven_%d.json"))
+                      out=os.path.join(root, "seq_uneven_%d.json"), r1=True)
         t0 = time.perf_counter()
         ev = _dist_wait(_dist_start("seq_eval", spec_e, "seq_eval",
                                     SP_EVAL_LAYOUT[0] * SP_EVAL_LAYOUT[1]),
@@ -4356,6 +4506,7 @@ def sequence_parallel(card: str) -> dict:
                         spec_u, "sequence parallel on unequal slices")
         un_s = time.perf_counter() - t0
         _sp_checks(cfg, one, ev, tr, un, spec_e, spec_t, spec_u, state, card)
+        r1 = _sp_r1_check(un, card)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
         shutil.rmtree(root, ignore_errors=True)
@@ -4367,7 +4518,274 @@ def sequence_parallel(card: str) -> dict:
         f"{un[0]['seconds']['build']:.1f} / {un[0]['seconds']['run']:.1f} s)")
     return dict(eval=ev[0]["decoded"][0]["counts"], train=tr[0]["bfloat16"]["runs"][-1]["counts"],
                 uneven_eval=un[0]["eval"]["decoded"][0]["counts"],
-                uneven_train=un[0]["float32"]["runs"][-1]["counts"])
+                uneven_train=un[0]["float32"]["runs"][-1]["counts"], r1=r1)
+
+
+def _sp_r1_check(un, card: str) -> dict:
+    """Phase 20 (e)'s gate on the five ranks' ``_sp_r1_cases``: every
+    rank's gathered outputs within 1e-5 of the peak of the one-rank plain
+    forward, no kernel launched (the fused kernels are off under ``seq``;
+    an encoder has no DCN), and the slices as the split gives them."""
+    none = {k: 0 for k in FORWARD_COUNTS}
+    out = {}
+    for name in ("empty_rank", "wide_window"):
+        errs = [r["r1"][name]["err"] for r in un]
+        lengths = un[0]["r1"][name]["lengths"]
+        counts = [r["r1"][name]["counts"] for r in un]
+        log(f"R1 at data 1 x seq {SP_UNEVEN_LAYOUT[1]} (phase 20 (e), in phase 19's ranks): "
+            f"{name}, slices {lengths} at the first level: each rank's gathered outputs to "
+            + ", ".join(f"{e:.3e}" for e in errs) + " of the peak against the one-rank plain "
+            f"forward (limit 1e-5); launches a rank {counts[0]} ({card})")
+        if not all(e <= 1e-5 for e in errs) or any(c != none for c in counts):
+            fail(f"sequence parallel R1 {name}: the ranks disagree with one rank or launched")
+        out[name] = dict(err=max(errs), lengths=lengths)
+    if 0 not in out["empty_rank"]["lengths"]:
+        fail("sequence parallel R1: no rank of the empty_rank case is empty")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the joint and dilation counts beyond the shipped configs
+# ---------------------------------------------------------------------------
+
+WIDE_JOINTS = (26, 133)                  # Halpe-26; COCO-WholeBody's 133
+WIDE_BATCH = 2
+NINE_DILATIONS = tuple(range(3, 30, 3))  # the flagship's five, continued to nine
+
+
+def gate_counts(model, dtype, joints: int, dilations) -> dict:
+    """The launches a forward of ``model`` makes by the blocks' gate: a
+    global stride-1 block's attention and every block's MLP at C >= 32
+    where its kernel takes the shape (``supports``), and the DCN's groups
+    of launches (``kernel_launches``)."""
+    from otpose_tpu_torch.models.blocks import TransformerBlock
+    from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
+
+    attn = mlp = 0
+    for m in model.modules():
+        if isinstance(m, TransformerBlock):
+            c = m.ln1.weight.numel()
+            attn += (c >= 32 and m.window <= 1 and m.ds_stride == 1
+                     and fused_attn.supports(c, m.n_head, dtype))
+            mlp += c >= 32 and fused_mlp.supports(c, dtype)
+    return dict(FORWARD_COUNTS, fused_attn=attn, fused_mlp=mlp,
+                deform_conv=deform_conv.kernel_launches(len(dilations),
+                                                        deform_conv.output_pad(joints)))
+
+
+def wide_flagship(card: str, joints: int) -> dict:
+    """Phase 20 (b): the flagship (HRNet-W48, 384x288) at ``joints`` joints,
+    bf16 with bf16 weights, decoded eval at B = 2: the launches the gate
+    predicts, finite outputs of the shapes, ms a step."""
+    import torch
+
+    from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
+    from otpose_tpu_torch.models.factory import build_model
+    from otpose_tpu_torch.models.otpose import prepare_eval_params
+    from otpose_tpu_torch.utils.testing import flagship_otpose_cfg
+    from otpose_tpu_torch.utils.timing import time_ms
+
+    cfg = flagship_otpose_cfg()
+    cfg.MODEL.NUM_JOINTS = joints
+    spec, model = build_model(cfg, seed=0)
+    prepare_eval_params(model, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(joints)
+    w, h = cfg.MODEL.IMAGE_SIZE
+    inputs = torch.randn(WIDE_BATCH, h, w, 15, generator=gen, device="cuda")
+    margin = torch.ones(WIDE_BATCH, 4, device="cuda")
+    step = make_decoded_eval_step(model, compute_dtype=torch.bfloat16)
+    step(inputs, margin)
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = step(inputs, margin)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = gate_counts(model, torch.bfloat16, joints, spec.dilations)
+    ms = time_ms(lambda: step(inputs, margin), iters=5, warmup=1)
+    widths = sorted({m.ln1.weight.numel() for m in model.modules() if hasattr(m, "ln1")})
+    log(f"flagship at {joints} joints (encoder widths {widths}), bf16 decoded eval B="
+        f"{WIDE_BATCH}: launches {counts} (the gate predicts {want}); {ms:.2f} ms a step, "
+        f"{WIDE_BATCH / ms * 1e3:.3f} clips/s ({card})")
+    if counts != want:
+        fail(f"flagship at {joints} joints: launches {counts}, the gate predicts {want}")
+    shapes = ((WIDE_BATCH, joints, 2), (WIDE_BATCH, joints, 1), (WIDE_BATCH, joints, 2))
+    if any(tuple(o.shape) != s or not torch.isfinite(o).all() for o, s in zip(outs, shapes)):
+        fail(f"flagship at {joints} joints: outputs of shape or values off")
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(counts=counts, ms=ms)
+
+
+def grouped_dcn(card: str) -> dict:
+    """Phase 20 (c): the DCN at O = C = 133 (five groups of 32 outputs),
+    96x72, B = 2, at the flagship's five dilations and at nine (two groups
+    of dilations), against its plain version under row 3's gate (1e-3 in
+    f32 and 5e-2 in bf16 of max(1, peak), at most 5% of bf16 outputs apart)
+    and the backward under row 6's (each gradient to 1e-4 in f32 and 5e-2 in
+    bf16 of its peak, two calls bit-equal), at calibrated offsets; each
+    call's launches, its ms, the plain version's and the bound."""
+    import torch
+
+    from otpose_tpu_torch.ops.cuda import deform_conv
+    from otpose_tpu_torch.utils.testing import dcn_case, dcn_gradients, dcn_inside_share
+    from otpose_tpu_torch.utils.timing import time_ms
+
+    c, h, w = 133, 96, 72
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    fwd, bwd = {}, {}
+    for dil in (DCN_DILATIONS, NINE_DILATIONS):
+        groups = deform_conv.kernel_launches(len(dil), deform_conv.output_pad(c))
+        for dtype in (torch.float32, torch.bfloat16):
+            args = dcn_case(WIDE_BATCH, c, c, h, w, dil, dtype, gen)
+            x, offs, masks, weights, biases, _ = args
+            pk = deform_conv.pack_dcn_weights(weights, biases)
+            call = lambda: deform_conv.modulated_deform_conv_multi(  # noqa: E731
+                x, offs, masks, dilations=dil, packed=pk)
+            reset_counts()
+            got = call()
+            torch.cuda.synchronize()
+            launches = read_counts()["deform_conv"]
+            want = deform_conv.modulated_deform_conv_multi_plain(*args)
+            err = (got.float() - want.float()).abs().max().item()
+            scale = max(1.0, want.float().abs().max().item())
+            tol = 1e-3 if dtype == torch.float32 else 5e-2
+            share = (got != want).float().mean().item()
+            same = torch.equal(call(), got)
+            ms = time_ms(call, iters=10)
+            plain_ms = time_ms(lambda: deform_conv.modulated_deform_conv_multi_plain(*args),
+                               iters=2, warmup=1)
+            moved, _, t_ops = work("deform_conv", args)
+            bound = max(moved / PEAK_BYTES * 1e3, t_ops)
+            key = f"{str(dtype)[6:]} O={c} D={len(dil)} B={WIDE_BATCH}"
+            fwd[key] = dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound, differ_share=share)
+            log(f"grouped deform_conv {key}: {launches} launches ({groups} expected); "
+                f"max_abs_err {err:.3e} (tolerance {tol:.0e} x {scale:.3g}), outputs that differ "
+                f"from the plain version {share:.4%} (bf16 limit 5%), a second call "
+                f"{'bit-equal' if same else 'DIFFERS'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, bound {bound:.4f} ms ({bound / ms:.1%} of it) ({card})")
+            if launches != groups or not (math.isfinite(err) and err <= tol * scale) or not same:
+                fail(f"grouped deform_conv {key} disagrees with its plain version")
+            if dtype == torch.bfloat16 and not share <= 0.05:
+                fail(f"grouped deform_conv {key} does not round as its plain version does")
+            del got, want
+        dtype = torch.bfloat16 if dil == DCN_DILATIONS else torch.float32
+        args = dcn_case(WIDE_BATCH, c, c, h, w, dil, dtype, gen)
+        inside = dcn_inside_share(args)
+        g = torch.randn(WIDE_BATCH, c, h, w, generator=gen, device="cuda").to(dtype)
+        reset_counts()
+        got = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
+        torch.cuda.synchronize()
+        launches = read_counts()["deform_conv_bwd"]
+        again = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
+        want = dcn_gradients(deform_conv.modulated_deform_conv_multi_plain, args, g)
+        d = len(dil)
+        split = lambda gr: [gr[0], torch.cat([t.flatten() for t in gr[1:1 + d]]),  # noqa: E731
+                            torch.cat([t.flatten() for t in gr[1 + d:1 + 2 * d]]), gr[-2], gr[-1]]
+        tol = 1e-4 if dtype == torch.float32 else 5e-2
+        rels = {n: (gk.float() - gp.float()).abs().max().item() / gp.float().abs().max().item()
+                for n, gk, gp in zip(("x", "offsets", "masks", "weights", "biases"), split(got),
+                                     split(want))}
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        del got, again, want
+        x, offs, masks, weights, biases, _ = args
+        pk = deform_conv.pack_dcn_weights(weights, biases)
+        ms = time_ms(lambda: deform_conv.launch_backward(g, x, offs, masks, pk, dil), iters=5)
+        leaves = [t.detach().clone().requires_grad_() for t in (x, *offs, *masks, weights, biases)]
+        out = deform_conv.modulated_deform_conv_multi_plain(
+            leaves[0], leaves[1:1 + d], leaves[1 + d:1 + 2 * d], leaves[-2], leaves[-1], dil)
+        plain_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True),
+                           iters=1, warmup=1)
+        del out, leaves
+        moved, _, t_ops = dcn_bwd_work(args, c)
+        bound = max(moved / PEAK_BYTES * 1e3, t_ops)
+        key = f"{str(dtype)[6:]} O={c} D={d} B={WIDE_BATCH}"
+        bwd[key] = dict(launches=launches, rel_err=rels, bit_equal=same, ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound, inside_share=inside)
+        log(f"grouped deform_conv_bwd {key}: {launches} launches ({groups} expected); "
+            f"{inside:.1%} of samples inside the image; worst error over peak "
+            + ", ".join(f"{n} {r:.3e}" for n, r in rels.items())
+            + f" (tolerance {tol:.0e}); two calls {'bit-equal' if same else 'DIFFER'}; kernel "
+            f"{ms:.4f} ms, plain backward {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({bound / ms:.1%} of it) ({card})")
+        if launches != groups or not all(math.isfinite(r) and r <= tol for r in rels.values()):
+            fail(f"grouped deform_conv_bwd {key} disagrees with the plain version's autograd")
+        if not same:
+            fail(f"grouped deform_conv_bwd {key}: two calls differ")
+        torch.cuda.empty_cache()
+    return dict(forward=fwd, backward=bwd)
+
+
+def check_predicates(card: str) -> dict:
+    """Phase 20 (d): ``fused_attn.supports`` against the library's own
+    ``otp_fused_attn_smem`` (a shape it takes: at most the shared memory a
+    block may use) and ``fused_mlp.supports`` against the MLP's entry points
+    (which refuse a shape before any launch, and launch the others on
+    zeros), at C = 1 to 200, every head count of 1, 2, 4, 8 and 16 that
+    divides C, in f32 and bf16."""
+    import torch
+
+    from otpose_tpu_torch.ops.cuda import build, fused_attn, fused_mlp
+
+    attn_lib = build.load("fused_attn", fused_attn._SIGNATURES)
+    mlp_lib = build.load("fused_mlp", fused_mlp._SIGNATURES)
+    stream = build.stream_ptr(torch.device("cuda"))
+    points, wrong, largest = 0, [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        code = build.dtype_code(dtype)
+        for c in range(1, 201):
+            for n_head in (1, 2, 4, 8, 16):
+                if c % n_head:
+                    continue
+                lib_ok = attn_lib.otp_fused_attn_smem(c, n_head, code) <= SMEM_LIMIT
+                points += 1
+                if lib_ok != fused_attn.supports(c, n_head, dtype):
+                    wrong.append(("fused_attn", str(dtype)[6:], c, n_head, lib_ok))
+            cp = -(-c // fused_mlp.CHANNEL_ALIGN[dtype]) * fused_mlp.CHANNEL_ALIGN[dtype]
+            hp = -(-4 * c // fused_mlp.HIDDEN_TILE) * fused_mlp.HIDDEN_TILE
+            t = 8
+            bufs = [torch.zeros(n, device="cuda", dtype=dt) for n, dt in (
+                (c * t, dtype), (c * t, dtype), (c, torch.float32), (c, torch.float32),
+                (hp * cp, dtype), (hp, torch.float32), (cp * hp, dtype), (cp, torch.float32))]
+            launch = mlp_lib.otp_fused_mlp_tc if code == 1 else mlp_lib.otp_fused_mlp_f32
+            err = launch(*(b.data_ptr() for b in bufs), 1, c, cp, hp, t, stream)
+            torch.cuda.synchronize()
+            lib_ok = err == 0
+            points += 1
+            if lib_ok != fused_mlp.supports(c, dtype):
+                wrong.append(("fused_mlp", str(dtype)[6:], c, lib_ok))
+            if lib_ok:
+                largest[f"fused_mlp {str(dtype)[6:]}"] = c
+        largest[f"fused_attn {str(dtype)[6:]}, one head"] = max(
+            c for c in range(1, 201) if fused_attn.supports(c, 1, dtype))
+    log(f"the fused kernels' predicates against the libraries at {points} points (C 1-200, "
+        f"heads 1-16, f32 and bf16): {len(wrong)} disagree {wrong[:4]}; the largest C taken "
+        f"{largest} ({card})")
+    if wrong:
+        fail(f"the fused kernels' predicates disagree with the libraries: {wrong[:8]}")
+    return dict(points=points, largest=largest)
+
+
+def wide_shapes(card: str) -> dict:
+    """Phase 20: (a) the tiny eval at 21 and 33 joints and at nine
+    dilations on the card against the CPU; (b) the flagship at 26 and 133
+    joints; (c) the grouped DCN forward and backward at O = 133; (d) the
+    fused kernels' predicates against their libraries.  (e), R1's splits,
+    runs inside phase 19's ranks."""
+    import torch
+
+    phase_t0 = time.perf_counter()
+    paths = {}
+    for joints, dil in ((21, None), (33, None), (17, tuple(range(1, 10)))):
+        key = f"tiny_j{joints}" + ("" if dil is None else f"_d{len(dil)}")
+        paths[key] = tiny_agreement(joints, dil)
+    for joints in WIDE_JOINTS:
+        paths[f"flagship_j{joints}_b{WIDE_BATCH}"] = wide_flagship(card, joints)["counts"]
+    torch.cuda.empty_cache()
+    dcn = grouped_dcn(card)
+    check_predicates(card)
+    log(f"wide shapes phase: {time.perf_counter() - phase_t0:.1f} s")
+    return dict(paths=paths, dcn=dcn)
 
 
 def main(only: str | None = None) -> None:
@@ -4400,9 +4818,10 @@ def main(only: str | None = None) -> None:
             if "registers" in line or "spill" in line or "properties for" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
-    if only in ("17", "18", "19"):
+    if only in ("15", "17", "18", "19", "20"):
         # a development run of one phase alone: no kernels line, no result line
-        {"17": jpeg_phase, "18": remaining_modules, "19": sequence_parallel}[only](card)
+        {"15": serving, "17": jpeg_phase, "18": remaining_modules, "19": sequence_parallel,
+         "20": wide_shapes}[only](card)
         log(f"phase {only} alone: {time.perf_counter() - start:.1f} s")
         return
     rows = check_kernels()
@@ -4448,6 +4867,11 @@ def main(only: str | None = None) -> None:
     sp = sequence_parallel(card)
     paths["sp_eval_batch_rank"] = sp["eval"]
     paths["sp_train_micro_batch_rank"] = sp["train"]
+    torch.cuda.empty_cache()
+    wide = wide_shapes(card)
+    paths.update(wide["paths"])
+    rows["deform_conv"]["grouped"] = wide["dcn"]["forward"]
+    rows["deform_conv_bwd"]["grouped"] = wide["dcn"]["backward"]
     # each kernel's launches on its own path: the eval's for the model's
     # kernels, the experiment tool's for the other two, a train step's for
     # the DCN's backward
@@ -4491,6 +4915,7 @@ def main(only: str | None = None) -> None:
         + f"; sequence parallel (phase 19): launches a rank an eval batch {sp['eval']}, a train "
         f"micro-batch {sp['train']}; on unequal slices (1 x {SP_UNEVEN_LAYOUT[1]}) an eval batch "
         f"{sp['uneven_eval']}, an f32 train micro-batch {sp['uneven_train']}"
+        + "; phase 20: launches " + ", ".join(f"{k} {v}" for k, v in wide["paths"].items())
         + f"; the script {time.perf_counter() - start:.1f} s ({card})")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(f"nvidia-smi: {card}", flush=True)
@@ -4508,7 +4933,8 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--dist-worker"]:
         sys.path.insert(0, ROOT)
         dist_worker(*sys.argv[2:4])
-    elif sys.argv[1:2] in (["--phase17"], ["--phase18"], ["--phase19"]):
+    elif sys.argv[1:2] in (["--phase15"], ["--phase17"], ["--phase18"], ["--phase19"],
+                           ["--phase20"]):
         main(only=sys.argv[1][-2:])
     else:
         main()

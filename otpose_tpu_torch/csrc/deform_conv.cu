@@ -60,6 +60,14 @@
 //   tiles), the wrapper splits the stages over gridDim.z blocks, which write
 //   f32 partial sums that a second kernel adds in a fixed order (no atomics,
 //   deterministic).
+// - Any O and any D, by groups of launches (otp_deform): O above 32 is
+//   padded to a multiple of 32 and each group of 32 outputs is a launch at
+//   OP = 32 over the same x, reading its columns of the weights (row
+//   stride `ldw`) and writing its rows of the output (`ldo` rows an item);
+//   D above kMaxD is cut into groups of kMaxD dilations, each a launch that
+//   writes its f32 partial sums into slots of its own, and the reduction
+//   kernel adds every slot in a fixed order, divides by the whole D and adds
+//   the mean bias once.  O <= 32 and D <= kMaxD is one launch, as before.
 // - The D pointers and dilations arrive in a __grid_constant__ struct and are
 //   copied to shared memory with compile-time indices, so no pointer table
 //   lives in local memory (no stack frame).
@@ -118,11 +126,14 @@ struct Args {
   const void* offs[kMaxD];      // (B, 18 C, H, W) each
   const void* masks[kMaxD];     // (B, 9 C, H, W) each
   int dils[kMaxD];
-  const float* w;               // (D, C, 9, OP) f32, zero past O
+  const float* w;               // (D, C, 9, ldw) f32, zero past O: this launch's columns
   const float* bias;            // (OP,) f32, the mean over D
-  void* out;                    // (B, O, H, W), written when gridDim.z == 1
-  float* partial;               // (gridDim.z, B, O, H*W), written otherwise
+  void* out;                    // (B, ldo, H, W): this launch's rows, written without partial
+  float* partial;               // (slots, B, ldo, H*W): this launch's rows, written when given
   int B, C, O, H, W, D;
+  int ldw;                      // the weight rows' length (the pack's OP)
+  int ldo;                      // output rows an item (the whole O)
+  int zbase;                    // this launch's first partial slot
   int nx;                       // x plane slots in shared memory (XS)
 };
 
@@ -197,6 +208,10 @@ deform_staged_kernel(const __grid_constant__ Args a) {
   __shared__ const T* masks[kMaxD];
   __shared__ int dils[kMaxD];
   const int H = a.H, W = a.W, P = H * W, C = a.C, D = a.D;
+  // only a launch of OP = 32 can be one of several O groups, whose weight
+  // rows and output rows are longer than its own: below it, the strides are
+  // compile-time OP and O
+  const int ldw = OP == 32 ? a.ldw : OP, ldo = OP == 32 ? a.ldo : a.O;
   // XS: channel c's plane in slot c % nx; nx is 2 when D >= S - 1 (a slot is
   // refilled only after the channel two back is consumed), else S
   T* xs = reinterpret_cast<T*>(smem + S * SB);
@@ -257,9 +272,16 @@ deform_staged_kernel(const __grid_constant__ Args a) {
       if (plane)
         for (int e = threadIdx.x; e < P; e += NT) xdst[e / W * ld + e % W] = src_x[e];
     }
-    const float* wsrc = a.w + ((size_t)d * C + c) * 9 * OP;
+    const float* wsrc = a.w + ((size_t)d * C + c) * 9 * ldw;
     float* wdst = reinterpret_cast<float*>(st + kRows * TP * sizeof(T));
-    for (int e = threadIdx.x; e < 9 * OP / 4; e += NT) cp_async16(wdst + 4 * e, wsrc + 4 * e);
+    if (ldw == OP) {   // known at compile time below OP = 32
+      for (int e = threadIdx.x; e < 9 * OP / 4; e += NT) cp_async16(wdst + 4 * e, wsrc + 4 * e);
+    } else {
+      for (int e = threadIdx.x; e < 9 * OP / 4; e += NT) {
+        const int k = e / (OP / 4), q = e - k * (OP / 4);
+        cp_async16(wdst + 4 * e, wsrc + k * ldw + 4 * q);
+      }
+    }
   };
 
   float py[kPix], px[kPix];
@@ -354,13 +376,13 @@ deform_staged_kernel(const __grid_constant__ Args a) {
   for (int j = 0; j < kPix; ++j) {
     const int p = p0 + threadIdx.x + j * NT;
     if (p >= P) continue;
-    if (gridDim.z == 1) {
-      T* ob = static_cast<T*>(a.out) + (size_t)b * O * P + p;
+    if (a.partial == nullptr) {
+      T* ob = static_cast<T*>(a.out) + (size_t)b * ldo * P + p;
 #pragma unroll
       for (int o = 0; o < OP; ++o)
         if (o < O) ob[(size_t)o * P] = from_f<T>(acc[j][o] / (float)D + a.bias[o]);
     } else {
-      float* pb = a.partial + ((size_t)blockIdx.z * a.B + b) * O * P + p;
+      float* pb = a.partial + ((size_t)(a.zbase + blockIdx.z) * a.B + b) * ldo * P + p;
 #pragma unroll
       for (int o = 0; o < OP; ++o)
         if (o < O) pb[(size_t)o * P] = acc[j][o];
@@ -368,7 +390,7 @@ deform_staged_kernel(const __grid_constant__ Args a) {
   }
 }
 
-// out = (sum of the split partial sums, in split order) / D + bias, rounded
+// out = (sum of the partial sums, in slot order) / D + bias, rounded
 template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
 deform_reduce_kernel(const float* __restrict__ partial, const float* __restrict__ bias,
@@ -436,40 +458,55 @@ extern "C" int otp_deform_tile(int dtype) {
 // x: (B, C, H, W); offs[d]: (B, 2*9*C, H, W); masks[d]: (B, 9*C, H, W), all in
 // the compute dtype and contiguous (`wide`: 16-byte aligned, W a multiple of
 // 16 bytes).
-// w: (D, C, 9, OP) f32 with tap k = 3*ky+kx, zero past O; bias: (OP,) f32.
-// out: (B, O, H, W).  split > 1 splits the C*D stages over as many blocks
-// per tile, with partial: (split, B, O, H*W) f32 scratch.  mode: 0 = exact,
-// 1 = make_pallas3's rounding.
+// w: (D, C, 9, OP) f32 with tap k = 3*ky+kx, zero past O; bias: (OP,) f32;
+// OP is 8, 20 or 32, or a multiple of 32 above 32 (groups of 32 outputs).
+// out: (B, O, H, W).  split > 1 splits each launch's C*min(D, kMaxD) stages
+// over as many blocks per tile (at most its own stages); D above kMaxD runs
+// in groups of kMaxD dilations.  Either needs partial: (slots, B, O, H*W)
+// f32 scratch, slots the sum over the dilation groups of each one's split.
+// mode: 0 = exact, 1 = make_pallas3's rounding.
 extern "C" int otp_deform(const void* x, const void* const* offs, const void* const* masks,
                           const int* dils, const void* w, const void* bias, void* out,
                           void* partial, int B, int C, int O, int OP, int H, int W, int D,
                           int split, int mode, int wide, int dtype, void* stream) {
-  if (D < 1 || D > kMaxD || B < 1 || C < 1 || H < 1 || W < 1 || O < 1 || O > OP ||
-      split < 1 || split > C * D || (split > 1 && partial == nullptr) ||
+  const bool op_ok = OP == 8 || OP == 20 || OP == 32 || (OP > 32 && OP % 32 == 0);
+  if (D < 1 || B < 1 || C < 1 || H < 1 || W < 1 || O < 1 || O > OP || !op_ok ||
+      split < 1 || split > C * (D < kMaxD ? D : kMaxD) ||
+      ((split > 1 || D > kMaxD) && partial == nullptr) ||
       (mode != kExact && mode != kPallas3))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  Args a{};
-  a.x = x;
-  for (int d = 0; d < D; ++d) {
-    a.offs[d] = offs[d];
-    a.masks[d] = masks[d];
-    a.dils[d] = dils[d];
-  }
-  a.w = (const float*)w;
-  a.bias = (const float*)bias;
-  a.out = out;
-  a.partial = (float*)partial;
-  a.B = B, a.C = C, a.O = O, a.H = H, a.W = W, a.D = D;
-  const int P = H * W;
+  const int P = H * W, opg = OP < 32 ? OP : 32;
   OTP_DISPATCH(dtype, {
-    const dim3 grid((P + tile<T>() - 1) / tile<T>(), B, split);
-    cudaError_t err = launch_all<T>(mode, wide != 0, OP, a, grid, st);
-    if (err != cudaSuccess) return (int)err;
-    if (split > 1) {
+    int slots = 0;
+    for (int d0 = 0; d0 < D; d0 += kMaxD) {
+      const int dn = D - d0 < kMaxD ? D - d0 : kMaxD;
+      const int sp = split < C * dn ? split : C * dn;
+      const dim3 grid((P + tile<T>() - 1) / tile<T>(), B, sp);
+      for (int o0 = 0; o0 < O; o0 += opg) {
+        Args a{};
+        a.x = x;
+        for (int d = 0; d < dn; ++d) {
+          a.offs[d] = offs[d0 + d];
+          a.masks[d] = masks[d0 + d];
+          a.dils[d] = dils[d0 + d];
+        }
+        a.w = (const float*)w + (size_t)d0 * C * 9 * OP + o0;
+        a.bias = (const float*)bias + o0;
+        a.out = static_cast<T*>(out) + (size_t)o0 * P;
+        a.partial = partial == nullptr ? nullptr : (float*)partial + (size_t)o0 * P;
+        a.B = B, a.C = C, a.O = O - o0 < opg ? O - o0 : opg, a.H = H, a.W = W, a.D = dn;
+        a.ldw = OP, a.ldo = O, a.zbase = slots;
+        cudaError_t err = launch_all<T>(mode, wide != 0, opg, a, grid, st);
+        if (err != cudaSuccess) return (int)err;
+      }
+      slots += sp;
+    }
+    if (partial != nullptr) {
       const int n = B * O * P;
       deform_reduce_kernel<T><<<(n + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0,
-                                st>>>(a.partial, a.bias, (T*)out, split, n, O, P, D);
+                                st>>>((const float*)partial, (const float*)bias, (T*)out,
+                                      slots, n, O, P, D);
     }
   });
   return (int)cudaGetLastError();

@@ -73,6 +73,21 @@
 //   d W rows are summed in a fixed order by reduction kernels, and d bias
 //   from the first kernel's per-tile sums: every gradient is the same bits
 //   from call to call.
+// - Any O and any D, by groups of launches (otp_deform_bwd), because the
+//   shared memory grows with D x OP: O above 32 is padded to a multiple of
+//   32, and each group of 32 outputs is a launch at OP = 32 with its
+//   columns of W (row stride `ldw`) and its rows of g; D above kMaxD is cut
+//   into groups of kMaxD dilations, each a set of launches with its own
+//   scratch.  G sums over every O, so the O groups of a dilation group run
+//   in order and carry G's running sum in an f32 buffer (template `OG`):
+//   the last one adds its part and alone computes d x, d offset and d mask
+//   from the whole G.  d W and d bias are per group, and the offset and
+//   mask gradients of different dilations are independent.  d x is summed
+//   over the dilation groups in f32, in group order, and rounded once; the
+//   fixed point's bound uses the whole D.  Every gradient stays the same
+//   bits from call to call; O <= 32 and D <= kMaxD is one launch, as before.
+#include <vector>
+
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -176,7 +191,7 @@ struct BwdArgs {
   const void* offs[kMaxD];      // (B, 18 C, H, W) each
   const void* masks[kMaxD];     // (B, 9 C, H, W) each
   int dils[kMaxD];
-  const float* w;               // (D, C, 9, OP) f32, zero past O
+  const float* w;               // (D, C, 9, ldw) f32, zero past O: this launch's columns
   const void* gt;               // (B, Pp, OPG) g transposed, zero past P and O
   void* d_off;                  // (D, B, 18 C, H, W)
   void* d_mask;                 // (D, B, 9 C, H, W)
@@ -184,7 +199,11 @@ struct BwdArgs {
   long long* pdx64;             // not XS: (B C, H W) fixed-point planes, zeroed
   float* pw;                    // (B C J, D * 9 * OP) partial d W rows
   unsigned* stats;              // kStats words (fixed_shift), then B C plane flags
+  float* gacc;                  // OG: (D, B, 9 C, H W), the O groups' running G
   int B, C, O, H, W, D, tiles, Pp, J, lbits;
+  int ldw;                      // the weight rows' length (the pack's OP)
+  int Dall;                     // the whole D (the mean's divisor)
+  int gmode;                    // OG: 1 the first O group, 2 a middle one, 3 the last
   long long N;                  // stages: B C D tiles
 };
 
@@ -209,7 +228,7 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, i
                "l"(gmem), "r"(bytes));
 }
 
-template <typename T, bool Wide, int NQ, bool XS>
+template <typename T, bool Wide, int NQ, bool XS, bool OG>
 __global__ void __launch_bounds__(threads<T>(), NQ <= 5 ? Cfg<T>::blocks : 1)
 dcn_bwd_kernel(const __grid_constant__ BwdArgs a) {
   constexpr int TS = Cfg<T>::tile, OP = 4 * NQ, OPG = gld<T, OP>(), S = kStages;
@@ -312,7 +331,7 @@ dcn_bwd_kernel(const __grid_constant__ BwdArgs a) {
     }
   };
   // c 2^F = (c s1) s2, both factors powers of two that a float holds
-  const int F = fixed_shift(a.stats, D, a.lbits);
+  const int F = fixed_shift(a.stats, a.Dall, a.lbits);
   const float s1 = exp2f((float)(F / 2)), s2 = exp2f((float)(F - F / 2));
   const double unscale = exp2(-(double)F);
   // plane q's segment of this block: its partial d x plane and d W rows
@@ -348,7 +367,7 @@ dcn_bwd_kernel(const __grid_constant__ BwdArgs a) {
     ahead.next(D, tiles);
     cp_async_commit();
   }
-  const float Hf = (float)H, Wf = (float)W, inv_d = 1.f / (float)D, inv_w = 1.f / (float)W;
+  const float Hf = (float)H, Wf = (float)W, inv_d = 1.f / (float)a.Dall, inv_w = 1.f / (float)W;
   OTP_PHASE_START;
   for (int i = 0; i < nst; ++i) {
     cp_async_wait<S - 2>();    // stage i has landed (this thread's copies)
@@ -381,8 +400,11 @@ dcn_bwd_kernel(const __grid_constant__ BwdArgs a) {
     const T* so = reinterpret_cast<const T*>(smem + (i % S) * SB);
     const T* gtile = so + kRows * TS;
     // W's row for (d, c, k), read through L1 for each sample (a broadcast):
-    // held in registers it cost more in spills than it saved (PERF.md)
-    const float4* wk = reinterpret_cast<const float4*>(a.w + (((size_t)d * C + c) * kTaps + k) * OP);
+    // held in registers it cost more in spills than it saved (PERF.md); the
+    // row stride is the launch's OP unless it is one of several O groups
+    const int ldw = OG ? a.ldw : OP;
+    const float4* wk =
+        reinterpret_cast<const float4*>(a.w + (((size_t)d * C + c) * kTaps + k) * ldw);
     const float ty = (float)((k / 3 - 1) * dil), tx = (float)((k % 3 - 1) * dil);
     T* dob = static_cast<T*>(a.d_off) + (((size_t)d * a.B + b) * 18 * C + 18 * c + 2 * k) * P;
     T* dmb = static_cast<T*>(a.d_mask) + (((size_t)d * a.B + b) * 9 * C + 9 * c + k) * P;
@@ -448,9 +470,16 @@ dcn_bwd_kernel(const __grid_constant__ BwdArgs a) {
         G = fmaf(w4.w, gv[4 * j + 3], G);
       }
       G *= inv_d;
+      if constexpr (OG) {   // G's running sum over the O groups, in group order
+        float* ga = a.gacc + (((size_t)d * a.B + b) * 9 * C + 9 * c + k) * P + p;
+        if (a.gmode == 1) *ga = G;
+        else if (a.gmode == 2) *ga = *ga + G;
+        else G = *ga + G;
+      }
       OTP_PHASE(2);
+      const bool whole = !OG || a.gmode == 3;   // G is whole: d x, d offset, d mask
       const float gm = G * m;
-      if (valid) {
+      if (whole && valid) {
         bad |= !isfinite(gm);
         const bool ky0 = y0 >= 0, ky1 = y0 + 1 < H, kx0 = x0 >= 0, kx1 = x0 + 1 < W;
         const int e0 = y0 * W + x0;
@@ -472,9 +501,11 @@ dcn_bwd_kernel(const __grid_constant__ BwdArgs a) {
         add(ky1 && kx1, e0 + W + 1, gm * ly * lx);
       }
       OTP_PHASE(3);
-      dmb[p] = from_f<T>(G * s);
-      dob[p] = from_f<T>(G * m * dsy);
-      dob[(size_t)P + p] = from_f<T>(G * m * dsx);
+      if (whole) {
+        dmb[p] = from_f<T>(G * s);
+        dob[p] = from_f<T>(G * m * dsy);
+        dob[(size_t)P + p] = from_f<T>(G * m * dsx);
+      }
       const float ms = m * s;
 #pragma unroll
       for (int o = 0; o < OP; ++o) acc[o] = fmaf(gv[o], ms, acc[o]);
@@ -500,18 +531,19 @@ __device__ __forceinline__ void block_max_into(float v, unsigned* word) {
   }
 }
 
-// g (B, O, P) -> gt (B, Pp, OPG), zero past P and O; each tile's sums of g
-// over its pixels, bpart (B * nb, O), in a fixed order; max|g| into
-// stats[0] and, in block (0, 0), the largest sum_o |W| of a (d, c, k) row
-// of the pack (D * C * 9 rows of OP) into stats[1]
+// g's O rows of an item (B items of `ldo` rows, P pixels) -> gt (B, Pp, OPG),
+// zero past P and O; each tile's sums of g over its pixels, bpart (B * nb,
+// O), in a fixed order; max|g| into stats[0] and, in block (0, 0), the
+// largest sum_o |W| of a (d, c, k) row of the pack (wrows rows of OP) into
+// stats[1]
 template <typename T, int OPG>
 __global__ void __launch_bounds__(kPrepThreads)
 dcn_bwd_prep_kernel(const T* __restrict__ g, T* __restrict__ gt, float* __restrict__ bpart,
-                    const float* __restrict__ w, unsigned* stats, int O, int P, int Pp,
+                    const float* __restrict__ w, unsigned* stats, int O, int ldo, int P, int Pp,
                     int wrows, int OP) {
   __shared__ float gs[kMaxO][kPrepThreads + 1];
   const int b = blockIdx.y, t = threadIdx.x, p = blockIdx.x * kPrepThreads + t;
-  const T* gb = g + (size_t)b * O * P;
+  const T* gb = g + (size_t)b * ldo * P;
   alignas(16) T vals[OPG];
   float gmax = 0.f;
 #pragma unroll
@@ -569,13 +601,15 @@ dcn_bwd_mmax_kernel(const __grid_constant__ MaskPtrs mp, long long n, unsigned* 
 
 // d x (B, C, H, W) in T: the segments' partial planes added in block
 // order, or (not XS) the fixed-point plane scaled back; NaN for a marked
-// plane
+// plane.  Over groups of dilations (amode 1 the first, 2 a middle one, 3
+// the last; 0 the one group) the groups' sums are added in group order in
+// the f32 plane acc and rounded once, by the last.
 template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
 dcn_bwd_dx_kernel(const float* __restrict__ pdx, const long long* __restrict__ pdx64,
-                  const unsigned* __restrict__ stats, T* __restrict__ dx, long long total,
-                  int P, int J, long long n, long long N, long long G, int xs, int D,
-                  int lbits) {
+                  const unsigned* __restrict__ stats, T* __restrict__ dx, float* acc,
+                  long long total, int P, int J, long long n, long long N, long long G, int xs,
+                  int D, int lbits, int amode) {
   OTP_PHASE_START;
   const long long i = (long long)blockIdx.x * kReduceThreads + threadIdx.x;
   if (i < total) {
@@ -590,17 +624,22 @@ dcn_bwd_dx_kernel(const float* __restrict__ pdx, const long long* __restrict__ p
     } else {
       s = (float)((double)pdx64[i] * exp2(-(double)fixed_shift(stats, D, lbits)));
     }
-    dx[i] = from_f<T>(s);
+    if (amode == 1) acc[i] = s;
+    else if (amode == 2) acc[i] = acc[i] + s;
+    else dx[i] = from_f<T>(amode == 3 ? acc[i] + s : s);
   }
   OTP_PHASE(6);
 }
 
-// d W (D, O, C, 3, 3) and d bias (D, O), f32: the segments' rows and the
-// tiles' g sums added in a fixed order, over D
+// One launch's d W rows (its D dilations from d0, its O outputs from o0)
+// of dw (Dall, Oall, C, 3, 3) and its d bias entries of dbias (Dall, Oall),
+// f32: the segments' rows and the tiles' g sums added in a fixed order,
+// over the whole D
 __global__ void __launch_bounds__(kReduceThreads)
 dcn_bwd_w_kernel(const float* __restrict__ pw, const float* __restrict__ bpart,
                  float* __restrict__ dw, float* __restrict__ dbias, int B, int C, int O, int OP,
-                 int D, int J, long long n, long long N, long long G, int nbias) {
+                 int D, int J, long long n, long long N, long long G, int nbias, int d0, int o0,
+                 int Oall, int Dall) {
   const int i = blockIdx.x * kReduceThreads + threadIdx.x;
   const int nw = D * O * C * kTaps;
   if (i >= nw + O) return;
@@ -613,37 +652,37 @@ dcn_bwd_w_kernel(const float* __restrict__ pw, const float* __restrict__ bpart,
       const int cnt = (int)(seg_last(q, n, N, G) - seg_first(q, n, N, G) + 1);
       for (int j = 0; j < cnt; ++j) s += pw[(q * J + j) * rw + e];
     }
-    dw[i] = s / (float)D;
+    dw[(((size_t)(d0 + d) * Oall + o0 + o) * C + c) * kTaps + k] = s / (float)Dall;
   } else {
     const int o = i - nw;
     for (int r = 0; r < nbias; ++r) s += bpart[(size_t)r * O + o];
-    s /= (float)D;
-    for (int d = 0; d < D; ++d) dbias[d * O + o] = s;
+    s /= (float)Dall;
+    for (int d = 0; d < D; ++d) dbias[(size_t)(d0 + d) * Oall + o0 + o] = s;
   }
 }
 
-// Where the scratch buffer's pieces lie, and the grid
+// One launch's grid and shared memory: a group of D dilations at OP outputs
 struct Plan {
   int G, J, xs, tiles, Pp, nb, smem, lbits;
   long long N;
-  size_t gt, bpart, pw, pdx, stats, bytes;
 };
 
-// f(kernel) on the main kernel's instantiation for (wide, OP, xs)
+// f(kernel) on the main kernel's instantiation for (wide, OP, xs, og)
 template <typename T, bool Wide, bool XS, typename F>
-cudaError_t with_op(int OP, F f) {
+cudaError_t with_op(int OP, bool og, F f) {
   switch (OP) {
-    case 8: return f(dcn_bwd_kernel<T, Wide, 2, XS>, 8);
-    case 20: return f(dcn_bwd_kernel<T, Wide, 5, XS>, 20);
-    case 32: return f(dcn_bwd_kernel<T, Wide, 8, XS>, 32);
+    case 8: return f(dcn_bwd_kernel<T, Wide, 2, XS, false>);
+    case 20: return f(dcn_bwd_kernel<T, Wide, 5, XS, false>);
+    case 32: return og ? f(dcn_bwd_kernel<T, Wide, 8, XS, true>)
+                       : f(dcn_bwd_kernel<T, Wide, 8, XS, false>);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T, typename F>
-cudaError_t with_kernel(bool wide, bool xs, int OP, F f) {
-  if (wide) return xs ? with_op<T, true, true>(OP, f) : with_op<T, true, false>(OP, f);
-  return xs ? with_op<T, false, true>(OP, f) : with_op<T, false, false>(OP, f);
+cudaError_t with_kernel(bool wide, bool xs, int OP, bool og, F f) {
+  if (wide) return xs ? with_op<T, true, true>(OP, og, f) : with_op<T, true, false>(OP, og, f);
+  return xs ? with_op<T, false, true>(OP, og, f) : with_op<T, false, false>(OP, og, f);
 }
 
 template <typename T>
@@ -651,8 +690,20 @@ int opg_of(int OP) {
   return OP == 8 ? gld<T, 8>() : OP == 20 ? gld<T, 20>() : gld<T, 32>();
 }
 
+// A call's groups: og groups of opg outputs (one of OP when OP <= 32) and
+// nd groups of kMaxD dilations (the last one short)
+struct Groups {
+  int opg, og, nd;
+  Groups(int OP, int D)
+      : opg(OP < 32 ? OP : 32), og(OP < 32 ? 1 : OP / 32), nd((D + kMaxD - 1) / kMaxD) {}
+  static int dn(int j, int D) { return D - j * kMaxD < kMaxD ? D - j * kMaxD : kMaxD; }
+};
+
+// The plan of one launch over D of the call's Dall dilations at OP outputs
+// (og: the kernel that carries G over O groups)
 template <typename T>
-cudaError_t make_plan(int B, int C, int O, int OP, int H, int W, int D, bool wide, Plan& pl) {
+cudaError_t make_plan(int B, int C, int OP, int H, int W, int D, int Dall, bool wide, bool og,
+                      Plan& pl) {
   constexpr int TS = Cfg<T>::tile;
   const int P = H * W;
   auto smem_of = [&](bool xs) {
@@ -668,7 +719,7 @@ cudaError_t make_plan(int B, int C, int O, int OP, int H, int W, int D, bool wid
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = with_kernel<T>(wide, pl.xs, OP, [&](auto kern, int) {
+  err = with_kernel<T>(wide, pl.xs, OP, og, [&](auto kern) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          pl.smem);
     if (e != cudaSuccess) return e;
@@ -683,86 +734,171 @@ cudaError_t make_plan(int B, int C, int O, int OP, int H, int W, int D, bool wid
   pl.N = (long long)B * C * n;
   pl.G = (int)(pl.N < (long long)sms * occ ? pl.N : (long long)sms * occ);
   pl.lbits = 0;
-  while ((1LL << pl.lbits) < (long long)kTaps * D * P) ++pl.lbits;
+  while ((1LL << pl.lbits) < (long long)kTaps * Dall * P) ++pl.lbits;
   pl.J = 1;
   for (long long q = 0; q < (long long)B * C; ++q) {
     const long long cnt = seg_last(q, n, pl.N, pl.G) - seg_first(q, n, pl.N, pl.G) + 1;
     if (cnt > pl.J) pl.J = (int)cnt;
   }
-  auto piece = [](size_t& at, size_t bytes) {
+  return cudaSuccess;
+}
+
+// Where the scratch buffer's pieces lie: g transposed and its tile sums (an
+// O group each), the stats words, G's running sum (more than one O group),
+// d x's f32 sum (more than one dilation group), and each dilation group's
+// partial d W rows (an O group each) and d x planes
+struct Layout {
+  std::vector<Plan> plans;   // a dilation group each
+  size_t gt, gt_step, bpart, bpart_step, stats, gacc, dxacc, bytes;
+  std::vector<size_t> pw, pw_step, pdx;
+};
+
+template <typename T>
+cudaError_t make_layout(int B, int C, int O, int OP, int H, int W, int D, bool wide, Layout& L) {
+  const Groups gr(OP, D);
+  const size_t P = (size_t)H * W;
+  L.plans.resize(gr.nd);
+  for (int j = 0; j < gr.nd; ++j) {
+    cudaError_t err = make_plan<T>(B, C, gr.opg, H, W, Groups::dn(j, D), D, wide, gr.og > 1,
+                                   L.plans[j]);
+    if (err != cudaSuccess) return err;
+  }
+  auto up256 = [](size_t bytes) { return (bytes + 255) / 256 * 256; };
+  size_t at = 0;
+  auto piece = [&](size_t bytes) {
     const size_t here = at;
-    at += (bytes + 255) / 256 * 256;
+    at += up256(bytes);
     return here;
   };
-  size_t at = 0;
-  pl.gt = piece(at, (size_t)B * pl.Pp * opg_of<T>(OP) * sizeof(T));
-  pl.bpart = piece(at, (size_t)B * pl.nb * O * 4);
-  pl.pw = piece(at, (size_t)B * C * pl.J * D * kTaps * OP * 4);
-  pl.pdx = piece(at, (size_t)B * C * P * (pl.xs ? pl.J * 4 : 8));
-  pl.stats = piece(at, (size_t)(kStats + B * C) * 4);
-  pl.bytes = at;
+  const Plan& p0 = L.plans[0];
+  L.gt_step = up256((size_t)B * p0.Pp * opg_of<T>(gr.opg) * sizeof(T));
+  L.gt = piece(gr.og * L.gt_step);
+  L.bpart_step = up256((size_t)B * p0.nb * gr.opg * 4);
+  L.bpart = piece(gr.og * L.bpart_step);
+  L.stats = piece((size_t)(kStats + B * C) * 4);
+  L.gacc = piece(gr.og > 1 ? (size_t)Groups::dn(0, D) * B * 9 * C * P * 4 : 0);
+  L.dxacc = piece(gr.nd > 1 ? (size_t)B * C * P * 4 : 0);
+  L.pw.resize(gr.nd);
+  L.pw_step.resize(gr.nd);
+  L.pdx.resize(gr.nd);
+  for (int j = 0; j < gr.nd; ++j) {
+    const Plan& pl = L.plans[j];
+    L.pw_step[j] = up256((size_t)B * C * pl.J * Groups::dn(j, D) * kTaps * gr.opg * 4);
+    L.pw[j] = piece(gr.og * L.pw_step[j]);
+    L.pdx[j] = piece((size_t)B * C * P * (pl.xs ? pl.J * 4 : 8));
+  }
+  L.bytes = at;
   return cudaSuccess;
 }
 
 template <typename T>
-cudaError_t launch(BwdArgs& a, const Plan& pl, bool wide, int OP, void* scratch, const void* g,
-                   void* dx, float* dw, float* dbias, cudaStream_t st) {
+cudaError_t launch(const void* x, const void* const* offs, const void* const* masks,
+                   const int* dils, const float* w, const void* g, void* d_off, void* d_mask,
+                   void* dx, void* scratch, float* dw, float* dbias, int B, int C, int O, int OP,
+                   int H, int W, int D, bool wide, cudaStream_t st) {
+  Layout L;
+  cudaError_t err = make_layout<T>(B, C, O, OP, H, W, D, wide, L);
+  if (err != cudaSuccess) return err;
+  const Groups gr(OP, D);
+  const int P = H * W;
   unsigned char* base = static_cast<unsigned char*>(scratch);
-  a.gt = base + pl.gt;
-  a.pw = reinterpret_cast<float*>(base + pl.pw);
-  a.pdx = reinterpret_cast<float*>(base + pl.pdx);
-  a.pdx64 = reinterpret_cast<long long*>(base + pl.pdx);
-  a.stats = reinterpret_cast<unsigned*>(base + pl.stats);
-  float* bpart = reinterpret_cast<float*>(base + pl.bpart);
-  a.tiles = pl.tiles, a.Pp = pl.Pp, a.J = pl.J, a.N = pl.N, a.lbits = pl.lbits;
-  const int P = a.H * a.W;
-  cudaError_t err = cudaMemsetAsync(a.stats, 0, (size_t)(kStats + a.B * a.C) * 4, st);
-  if (err == cudaSuccess && !pl.xs) err = cudaMemsetAsync(a.pdx64, 0, (size_t)a.B * a.C * P * 8, st);
+  unsigned* stats = reinterpret_cast<unsigned*>(base + L.stats);
+  err = cudaMemsetAsync(stats, 0, (size_t)(kStats + B * C) * 4, st);
+  for (int j = 0; j < gr.nd && err == cudaSuccess; ++j)
+    if (!L.plans[j].xs) err = cudaMemsetAsync(base + L.pdx[j], 0, (size_t)B * C * P * 8, st);
   if (err != cudaSuccess) return err;
-  const dim3 pgrid(pl.nb, a.B);
-  const int wrows = a.D * a.C * kTaps;
-  switch (OP) {
-    case 8: dcn_bwd_prep_kernel<T, gld<T, 8>()><<<pgrid, kPrepThreads, 0, st>>>(
-                static_cast<const T*>(g), (T*)a.gt, bpart, a.w, a.stats, a.O, P, pl.Pp, wrows,
-                OP); break;
-    case 20: dcn_bwd_prep_kernel<T, gld<T, 20>()><<<pgrid, kPrepThreads, 0, st>>>(
-                static_cast<const T*>(g), (T*)a.gt, bpart, a.w, a.stats, a.O, P, pl.Pp, wrows,
-                OP); break;
-    default: dcn_bwd_prep_kernel<T, gld<T, 32>()><<<pgrid, kPrepThreads, 0, st>>>(
-                static_cast<const T*>(g), (T*)a.gt, bpart, a.w, a.stats, a.O, P, pl.Pp, wrows,
-                OP); break;
+  // g transposed and its tile sums, an O group at a time; the bound's
+  // largest sum_o |W| over the pack's whole rows, with the first
+  const int nb = L.plans[0].nb, Pp = L.plans[0].Pp;
+  const dim3 pgrid(nb, B);
+  for (int k = 0; k < gr.og; ++k) {
+    const int o0 = k * gr.opg, on = O - o0 < gr.opg ? O - o0 : gr.opg;
+    const T* gk = static_cast<const T*>(g) + (size_t)o0 * P;
+    T* gt = reinterpret_cast<T*>(base + L.gt + k * L.gt_step);
+    float* bpart = reinterpret_cast<float*>(base + L.bpart + k * L.bpart_step);
+    const int wrows = k == 0 ? D * C * kTaps : 0;
+    switch (gr.opg) {
+      case 8: dcn_bwd_prep_kernel<T, gld<T, 8>()><<<pgrid, kPrepThreads, 0, st>>>(
+                  gk, gt, bpart, w, stats, on, O, P, Pp, wrows, OP); break;
+      case 20: dcn_bwd_prep_kernel<T, gld<T, 20>()><<<pgrid, kPrepThreads, 0, st>>>(
+                  gk, gt, bpart, w, stats, on, O, P, Pp, wrows, OP); break;
+      default: dcn_bwd_prep_kernel<T, gld<T, 32>()><<<pgrid, kPrepThreads, 0, st>>>(
+                  gk, gt, bpart, w, stats, on, O, P, Pp, wrows, OP); break;
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  MaskPtrs mp{};
-  for (int d = 0; d < a.D; ++d) mp.m[d] = a.masks[d];
-  const long long nm = (long long)a.B * 9 * a.C * P;
+  const long long nm = (long long)B * 9 * C * P;
   const long long mblocks = (nm + kReduceThreads * 8 - 1) / (kReduceThreads * 8);
-  dcn_bwd_mmax_kernel<T><<<dim3((unsigned)(mblocks < 1024 ? mblocks : 1024), a.D),
-                           kReduceThreads, 0, st>>>(mp, nm, a.stats);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = with_kernel<T>(wide, pl.xs, OP, [&](auto kern, int) {
-    kern<<<pl.G, threads<T>(), pl.smem, st>>>(a);
-    return cudaGetLastError();
-  });
-  if (err != cudaSuccess) return err;
-  const long long n = (long long)a.D * pl.tiles, total = (long long)a.B * a.C * P;
-  dcn_bwd_dx_kernel<T><<<(unsigned)((total + kReduceThreads - 1) / kReduceThreads),
-                         kReduceThreads, 0, st>>>(a.pdx, a.pdx64, a.stats, static_cast<T*>(dx),
-                                                  total, P, pl.J, n, pl.N, pl.G, pl.xs, a.D,
-                                                  pl.lbits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int outs = a.D * a.O * a.C * kTaps + a.O;
-  dcn_bwd_w_kernel<<<(outs + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, st>>>(
-      a.pw, bpart, dw, dbias, a.B, a.C, a.O, OP, a.D, pl.J, n, pl.N, pl.G, a.B * pl.nb);
-  return cudaGetLastError();
+  for (int j = 0; j < gr.nd; ++j) {
+    MaskPtrs mp{};
+    for (int d = 0; d < Groups::dn(j, D); ++d) mp.m[d] = masks[j * kMaxD + d];
+    dcn_bwd_mmax_kernel<T><<<dim3((unsigned)(mblocks < 1024 ? mblocks : 1024), Groups::dn(j, D)),
+                             kReduceThreads, 0, st>>>(mp, nm, stats);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  for (int j = 0; j < gr.nd; ++j) {
+    const Plan& pl = L.plans[j];
+    const int d0 = j * kMaxD, dn = Groups::dn(j, D);
+    const long long n = (long long)dn * pl.tiles, total = (long long)B * C * P;
+    for (int k = 0; k < gr.og; ++k) {
+      BwdArgs a{};
+      a.x = x;
+      for (int d = 0; d < dn; ++d) {
+        a.offs[d] = offs[d0 + d];
+        a.masks[d] = masks[d0 + d];
+        a.dils[d] = dils[d0 + d];
+      }
+      const int o0 = k * gr.opg;
+      a.w = w + (size_t)d0 * C * kTaps * OP + o0;
+      a.gt = base + L.gt + k * L.gt_step;
+      a.d_off = static_cast<T*>(d_off) + (size_t)d0 * B * 18 * C * P;
+      a.d_mask = static_cast<T*>(d_mask) + (size_t)d0 * B * 9 * C * P;
+      a.pdx = reinterpret_cast<float*>(base + L.pdx[j]);
+      a.pdx64 = reinterpret_cast<long long*>(base + L.pdx[j]);
+      a.pw = reinterpret_cast<float*>(base + L.pw[j] + k * L.pw_step[j]);
+      a.stats = stats;
+      a.gacc = reinterpret_cast<float*>(base + L.gacc);
+      a.B = B, a.C = C, a.O = O - o0 < gr.opg ? O - o0 : gr.opg, a.H = H, a.W = W, a.D = dn;
+      a.tiles = pl.tiles, a.Pp = pl.Pp, a.J = pl.J, a.N = pl.N, a.lbits = pl.lbits;
+      a.ldw = OP, a.Dall = D;
+      a.gmode = gr.og == 1 ? 0 : k == 0 ? 1 : k == gr.og - 1 ? 3 : 2;
+      err = with_kernel<T>(wide, pl.xs, gr.opg, gr.og > 1, [&](auto kern) {
+        cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             pl.smem);
+        if (e != cudaSuccess) return e;
+        kern<<<pl.G, threads<T>(), pl.smem, st>>>(a);
+        return cudaGetLastError();
+      });
+      if (err != cudaSuccess) return err;
+    }
+    const int amode = gr.nd == 1 ? 0 : j == 0 ? 1 : j == gr.nd - 1 ? 3 : 2;
+    dcn_bwd_dx_kernel<T><<<(unsigned)((total + kReduceThreads - 1) / kReduceThreads),
+                           kReduceThreads, 0, st>>>(
+        reinterpret_cast<const float*>(base + L.pdx[j]),
+        reinterpret_cast<const long long*>(base + L.pdx[j]), stats, static_cast<T*>(dx),
+        reinterpret_cast<float*>(base + L.dxacc), total, P, pl.J, n, pl.N, pl.G, pl.xs, D,
+        pl.lbits, amode);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    for (int k = 0; k < gr.og; ++k) {
+      const int o0 = k * gr.opg, on = O - o0 < gr.opg ? O - o0 : gr.opg;
+      const int outs = dn * on * C * kTaps + on;
+      dcn_bwd_w_kernel<<<(outs + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, st>>>(
+          reinterpret_cast<const float*>(base + L.pw[j] + k * L.pw_step[j]),
+          reinterpret_cast<const float*>(base + L.bpart + k * L.bpart_step), dw, dbias, B, C, on,
+          gr.opg, dn, pl.J, n, pl.N, pl.G, B * nb, d0, o0, O, D);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
 }
 
 bool bad_shape(int B, int C, int O, int OP, int H, int W, int D) {
-  return D < 1 || D > kMaxD || B < 1 || C < 1 || H < 1 || W < 1 || O < 1 || O > OP ||
-         (OP != 8 && OP != 20 && OP != 32) || B > 65535;
+  const bool op_ok = OP == 8 || OP == 20 || OP == 32 || (OP > 32 && OP % 32 == 0);
+  return D < 1 || B < 1 || C < 1 || H < 1 || W < 1 || O < 1 || O > OP || !op_ok || B > 65535;
 }
 
 }  // namespace
@@ -772,41 +908,29 @@ bool bad_shape(int B, int C, int O, int OP, int H, int W, int D) {
 extern "C" long long otp_deform_bwd_scratch(int B, int C, int O, int OP, int H, int W, int D,
                                             int wide, int dtype) {
   if (bad_shape(B, C, O, OP, H, W, D)) return -1;
-  Plan pl{};
+  Layout L;
   cudaError_t err = cudaErrorInvalidValue;
-  OTP_DISPATCH(dtype, { err = make_plan<T>(B, C, O, OP, H, W, D, wide != 0, pl); });
-  return err == cudaSuccess ? (long long)pl.bytes : -2 - (long long)err;
+  OTP_DISPATCH(dtype, { err = make_layout<T>(B, C, O, OP, H, W, D, wide != 0, L); });
+  return err == cudaSuccess ? (long long)L.bytes : -2 - (long long)err;
 }
 
 // x: (B, C, H, W); offs[d]: (B, 18 C, H, W); masks[d]: (B, 9 C, H, W); g:
 // (B, O, H, W), all in the compute dtype and contiguous (`wide`: 16-byte
 // aligned, W a multiple of 16 bytes); w: (D, C, 9, OP) f32 (the forward's
-// pack).  Writes d_off (D, B, 18 C, H, W), d_mask (D, B, 9 C, H, W) and dx
-// (B, C, H, W) in the compute dtype, dw (D, O, C, 3, 3) and dbias (D, O) in
-// f32; scratch: otp_deform_bwd_scratch(...) bytes, 256-byte aligned.
+// pack: OP 8, 20 or 32, or a multiple of 32 above 32).  Writes d_off (D, B,
+// 18 C, H, W), d_mask (D, B, 9 C, H, W) and dx (B, C, H, W) in the compute
+// dtype, dw (D, O, C, 3, 3) and dbias (D, O) in f32; scratch:
+// otp_deform_bwd_scratch(...) bytes, 256-byte aligned.
 extern "C" int otp_deform_bwd(const void* x, const void* const* offs, const void* const* masks,
                               const int* dils, const void* w, const void* g, void* d_off,
                               void* d_mask, void* dx, void* scratch, void* dw, void* dbias,
                               int B, int C, int O, int OP, int H, int W, int D, int wide,
                               int dtype, void* stream) {
   if (bad_shape(B, C, O, OP, H, W, D)) return (int)cudaErrorInvalidValue;
-  BwdArgs a{};
-  a.x = x;
-  for (int d = 0; d < D; ++d) {
-    a.offs[d] = offs[d];
-    a.masks[d] = masks[d];
-    a.dils[d] = dils[d];
-  }
-  a.w = (const float*)w;
-  a.d_off = d_off;
-  a.d_mask = d_mask;
-  a.B = B, a.C = C, a.O = O, a.H = H, a.W = W, a.D = D;
   cudaStream_t st = (cudaStream_t)stream;
   OTP_DISPATCH(dtype, {
-    Plan pl{};
-    cudaError_t err = make_plan<T>(B, C, O, OP, H, W, D, wide != 0, pl);
-    if (err != cudaSuccess) return (int)err;
-    return (int)launch<T>(a, pl, wide != 0, OP, scratch, g, dx, (float*)dw, (float*)dbias, st);
+    return (int)launch<T>(x, offs, masks, dils, (const float*)w, g, d_off, d_mask, dx, scratch,
+                          (float*)dw, (float*)dbias, B, C, O, OP, H, W, D, wide != 0, st);
   });
   return (int)cudaErrorInvalidValue;
 }

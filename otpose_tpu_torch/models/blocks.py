@@ -16,9 +16,15 @@ to, as 2w + 1 shifted dot products with out-of-range positions at -inf
 Eval dispatch follows the JAX ``fused_ok`` gate: with ``fused``, in eval
 mode and C >= 32, a stride-1 global block's attention front goes to
 ``ops.cuda.fused_attn`` and every block's ln2 + MLP + residual, window
-blocks' too, to ``ops.cuda.fused_mlp``.  The flow encoder (C = 17), the
-strided branch attention, the window attention and every block in train
-mode take the plain PyTorch path (the kernels have no backward, as in JAX).
+blocks' too, to ``ops.cuda.fused_mlp``, each where its kernel takes the
+block's shape (``fused_attn.supports``, ``fused_mlp.supports``: C up to
+160, and in f32 one head of at most 136 channels), decided from the shape
+before any launch; JAX gates its attention kernel alone on its own limit
+too.  The flow encoder at 17 joints (C = 17), the
+strided branch attention, the window attention, a part whose kernel does
+not take the block (the temporal encoders from 21 joints: C = 8 x joints)
+and every block in train mode take the plain PyTorch path (the kernels
+have no backward, as in JAX).
 Train mode adds the JAX dropout sites: ``attn_pdrop`` on the attention
 weights, ``proj_pdrop`` after the projection, the GELU and ``mlp.3``, and
 ``path_pdrop`` through the drop-path scales.  The rates live on the block apart from the presence of
@@ -53,6 +59,7 @@ from torch import nn
 
 from otpose_tpu_torch.models import core
 from otpose_tpu_torch.models.core import AffineScale, Conv1d, LayerNormCT
+from otpose_tpu_torch.ops.cuda import fused_attn, fused_mlp
 from otpose_tpu_torch.ops.cuda.fused_attn import (channel_attention_ct, fused_attn_ct,
                                                    pack_attn_weights)
 from otpose_tpu_torch.ops.cuda.fused_mlp import fused_mlp_residual_ct, pack_mlp_weights
@@ -340,6 +347,8 @@ def _max_pool_skip(x, ds: int, seq=None):
     if seq is None:
         return core.max_pool1d_ct(x, k, ds, pad)
     xh = sequence.strided_halo(x, pad, k, ds, seq, fill=float("-inf"))
+    if x.shape[-1] == 0:        # an empty slice: it joined the exchange, it has no output
+        return xh[..., :0]
     return core.max_pool1d_ct(xh, k, ds, 0)[..., :-(-x.shape[-1] // ds)]
 
 
@@ -350,13 +359,16 @@ def transformer_block_ct(block: TransformerBlock, x, fused: bool = True, seq=Non
     n_head, ds, train = block.n_head, block.ds_stride, block.training
     out_seq = None if seq is None else seq.down(ds)
     drop = lambda t: core.dropout(t, block.proj_pdrop, train, out_seq)  # noqa: E731
-    fused_ok = fused and not train and seq is None and x.shape[1] >= 32
+    c = x.shape[1]
+    fused_ok = fused and not train and seq is None and c >= 32
+    attn_ok = fused_ok and ds == 1 and fused_attn.supports(c, n_head, x.dtype)
+    mlp_ok = fused_ok and fused_mlp.supports(c, x.dtype)
     if block.window > 1:
         out = local_masked_mhca_ct(block.attn, block.ln1(x), n_head, block.window, stride=ds,
                                    attn_drop=lambda t: core.dropout(t, block.attn_pdrop, train,
                                                                     out_seq, dim=2),
                                    use_rel_pe=block.use_rel_pe, seq=seq)
-    elif fused_ok and ds == 1:
+    elif attn_ok:
         out = _mhca_tail_ct(block.attn, fused_attn_block_ct(block, x), n_head)
     else:
         out = masked_mhca_ct(block.attn, block.ln1(x), n_head, stride=ds,
@@ -364,7 +376,7 @@ def transformer_block_ct(block: TransformerBlock, x, fused: bool = True, seq=Non
                              seq=seq)
     skip = _max_pool_skip(x, ds, seq) if ds > 1 else x
     out = skip + _affine_drop_path(block, block.drop_path_attn, drop(out))
-    if fused_ok:
+    if mlp_ok:
         return fused_mlp_block_ct(block, out)
     h = block.ln2(out)
     h = drop(core.gelu(core.dense_1x1_ct(h, block.mlp["0"].weight, block.mlp["0"].bias)))

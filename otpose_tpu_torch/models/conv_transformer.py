@@ -119,8 +119,8 @@ def conv_transformer_forward(model: ConvTransformer, x, upsample: bool = True,
     lengths (the caller commutes its 1x1 conv with the upsampling).  With
     ``seq`` (a ``parallel/sequence.py::SeqGroup``) the blocks run on this
     rank's slice of T (``SeqGroup.split`` at the branches' total stride, so
-    slices may be uneven) and the outputs are the whole, gathered tensors; a
-    T that leaves a rank no token at the deepest level raises."""
+    slices may be uneven, and empty where T has fewer units of that stride
+    than ranks) and the outputs are the whole, gathered tensors."""
     b, _, h, w = x.shape
     t = h * w
     for i, conv in enumerate(model.embd):

@@ -24,6 +24,13 @@ so an exported program that calls an op counts each launch.
 (``models/otpose.py::dcn_pack`` caches the result on the model); the
 wrappers take either the raw weights, which they pack on every call, or
 such a pack.
+
+Any O and any D run on the card, through the kernels only: a call whose O
+is above 32 or whose D is above ``MAX_DILATIONS`` is a group of launches
+(``csrc/deform_conv.cu``, ``csrc/deform_conv_bwd.cu``: 32 outputs and up to
+``MAX_DILATIONS`` dilations a launch), and ``launches`` / ``bwd_launches``
+count each launch of the main kernel (``kernel_launches``): one a call for
+O <= 32 and D <= 8, as the flagship's 17 and 5.
 """
 
 from __future__ import annotations
@@ -45,7 +52,9 @@ bwd_launches = 0
 packs = 0
 
 EXACT, PALLAS3 = 0, 1          # the kernel's rounding modes
-OUTPUT_PADS = (8, 20, 32)      # O is zero-padded to the first of these that holds it
+OUTPUT_PADS = (8, 20, 32)      # O is zero-padded to the first of these that holds it,
+OUTPUT_GROUP = 32              # and above 32 to a multiple of 32: one launch a group of 32
+MAX_DILATIONS = 8              # dilations a launch (the kernels' kMaxD)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -65,13 +74,28 @@ _BWD_SIGNATURES = {
 class DcnPack:
     """The DCN weights in the kernel's layout: ``w`` (D, C, 9, OP) f32 with
     row c * 9 + k the weights of group c, tap k = 3 * ky + kx (the mask
-    channel order), zero past O; ``bias`` (OP,) f32, the mean over D of the
-    biases, zero past O."""
+    channel order), zero past O (``output_pad``); ``bias`` (OP,) f32, the
+    mean over D of the biases, zero past O."""
     d: int
     c: int
     o: int
     w: torch.Tensor
     bias: torch.Tensor
+
+
+def output_pad(o: int) -> int:
+    """OP, the pack's O: the first of ``OUTPUT_PADS`` that holds ``o``, above
+    32 ``o`` rounded up to a multiple of ``OUTPUT_GROUP``."""
+    if o > OUTPUT_PADS[-1]:
+        return -(-o // OUTPUT_GROUP) * OUTPUT_GROUP
+    return next(p for p in OUTPUT_PADS if p >= o)
+
+
+def kernel_launches(d: int, op: int) -> int:
+    """Launches of the main kernel a call makes at D dilations and a pack of
+    OP outputs: a launch a group of 32 outputs and of ``MAX_DILATIONS``
+    dilations."""
+    return -(-d // MAX_DILATIONS) * max(1, op // OUTPUT_GROUP)
 
 
 @torch.no_grad()
@@ -81,9 +105,7 @@ def pack_dcn_weights(weights, biases, device=None) -> DcnPack:
     d, o, c = weights.shape[:3]
     if tuple(weights.shape) != (d, o, c, 3, 3) or tuple(biases.shape) != (d, o):
         raise ValueError("deform conv: weights must be (D, O, C, 3, 3) and biases (D, O)")
-    if o > OUTPUT_PADS[-1]:
-        raise ValueError(f"deform conv: O={o} is above the kernel's {OUTPUT_PADS[-1]}")
-    op = next(p for p in OUTPUT_PADS if p >= o)
+    op = output_pad(o)
     device = weights.device if device is None else device
     w = torch.zeros(d, c, 9, op, device=device)
     w[..., :o] = weights.to(device=device, dtype=torch.float32).permute(0, 2, 3, 4, 1).reshape(
@@ -170,13 +192,24 @@ def stage_split(b: int, tiles: int, sms: int, stages: int) -> int:
     return 1 if tiles * b >= sms else min(stages, -(-2 * sms // (tiles * b)))
 
 
+def partial_slots(split: int, c: int, d: int) -> int:
+    """The f32 partial sums' slots of a forward call split ``split`` ways
+    (``stage_split`` over a launch's C * min(D, 8) stages): each group of
+    ``MAX_DILATIONS`` dilations takes ``min(split, C * its D)``; 0 where one
+    launch of one split writes the output itself."""
+    if split == 1 and d <= MAX_DILATIONS:
+        return 0
+    return sum(min(split, c * min(MAX_DILATIONS, d - d0)) for d0 in range(0, d, MAX_DILATIONS))
+
+
 def launch(mode: int, what: str, x, offsets_list, masks_list, weights, biases, dilations,
            packed: DcnPack | None) -> torch.Tensor:
     """Run ``csrc/deform_conv.cu`` in ``mode`` (EXACT or PALLAS3) on CUDA
     tensors; raises on what the kernel does not take.  When B x tiles leaves
     SMs without a block (B = 1), the (channel, dilation) stages are split
     (``stage_split``); the blocks write f32 partial sums, which a second
-    kernel adds in a fixed order."""
+    kernel adds in a fixed order, as it adds the groups of dilations above
+    ``MAX_DILATIONS`` (``partial_slots``)."""
     code = build.dtype_code(x.dtype)
     if packed is None:
         packed = pack_dcn_weights(weights, biases, device=x.device)
@@ -184,16 +217,18 @@ def launch(mode: int, what: str, x, offsets_list, masks_list, weights, biases, d
     lib = build.load("deform_conv", _SIGNATURES)
     b, c, h, w = x.shape
     d, o, op = packed.d, packed.o, packed.w.shape[-1]
-    if d > lib.otp_deform_max_groups():
-        raise ValueError(f"{what}: D={d} is above the kernel's {lib.otp_deform_max_groups()}")
+    if lib.otp_deform_max_groups() != MAX_DILATIONS:
+        raise RuntimeError(f"{what}: the library takes {lib.otp_deform_max_groups()} "
+                           f"dilations a launch, the wrapper groups {MAX_DILATIONS}")
     tiles = -(-h * w // lib.otp_deform_tile(code))
     sms = _sm_count(x.device.index if x.device.index is not None
                     else torch.cuda.current_device())
-    split = stage_split(b, tiles, sms, c * d)
+    split = stage_split(b, tiles, sms, c * min(d, MAX_DILATIONS))
     wide = _wide(x, [x, *offsets_list, *masks_list])
     out = torch.empty(b, o, h, w, device=x.device, dtype=x.dtype)
-    partial = (torch.empty(split, b, o, h * w, device=x.device, dtype=torch.float32)
-               if split > 1 else None)
+    slots = partial_slots(split, c, d)
+    partial = (torch.empty(slots, b, o, h * w, device=x.device, dtype=torch.float32)
+               if slots else None)
     offs = (ctypes.c_void_p * d)(*[t.data_ptr() for t in offsets_list])
     msks = (ctypes.c_void_p * d)(*[t.data_ptr() for t in masks_list])
     dils = (ctypes.c_int * d)(*[int(v) for v in dilations])
@@ -217,7 +252,8 @@ def launch_backward(g, x, offsets_list, masks_list, packed: DcnPack, dilations):
     """Run ``csrc/deform_conv_bwd.cu`` on CUDA tensors: the gradients of the
     exact mode's output with respect to x, the offset maps, the mask maps,
     the weights (D, O, C, 3, 3) and the biases (D, O), from the output's
-    gradient ``g`` (B, O, H, W).  d x, d W and d bias are computed in f32;
+    gradient ``g`` (B, O, H, W), in ``kernel_launches(D, OP)`` launches of
+    the main kernel.  d x, d W and d bias are computed in f32;
     d x is returned in x's dtype, the D offset and mask gradients stacked as
     (D, B, 18C, H, W) and (D, B, 9C, H, W), d W and d bias in f32."""
     what = "modulated_deform_conv_multi backward"
@@ -297,7 +333,7 @@ def _deform_conv_cuda(x, offsets, masks, pack_w, pack_bias, weights, biases, dil
     calls += 1
     out = launch(EXACT, "modulated_deform_conv_multi", x, offsets, masks, None, None, dilations,
                  pack_of(pack_w, pack_bias, o))
-    launches += 1
+    launches += kernel_launches(len(dilations), pack_w.shape[-1])
     return out
 
 
@@ -342,7 +378,7 @@ def _deform_conv_bwd_cuda(g, x, offsets, masks, pack_w, pack_bias, weights, bias
     global bwd_launches
     dx, d_off, d_mask, dw, dbias = launch_backward(g, x, offsets, masks,
                                                    pack_of(pack_w, pack_bias, o), dilations)
-    bwd_launches += 1
+    bwd_launches += kernel_launches(len(dilations), pack_w.shape[-1])
     if weights is not None:
         dw, dbias = dw.to(weights.dtype), dbias.to(biases.dtype)
     return dx, d_off, d_mask, dw, dbias

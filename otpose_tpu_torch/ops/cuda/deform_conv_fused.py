@@ -22,8 +22,8 @@ from __future__ import annotations
 import torch
 
 from otpose_tpu_torch.ops.cuda import build
-from otpose_tpu_torch.ops.cuda.deform_conv import (PALLAS3, DcnPack, launch, pack_dcn_weights,
-                                                   pack_of, unpack)
+from otpose_tpu_torch.ops.cuda.deform_conv import (PALLAS3, DcnPack, kernel_launches, launch,
+                                                   pack_dcn_weights, pack_of, unpack)
 
 # op calls (either device) and kernel launches (CUDA only)
 calls = 0
@@ -94,7 +94,7 @@ def _deform_conv_fused_cuda(x, offsets, masks, pack_w, pack_bias, dilations, o):
     calls += 1
     out = launch(PALLAS3, "deform_conv_fused", x, offsets, masks, None, None, dilations,
                  pack_of(pack_w, pack_bias, o))
-    launches += 1
+    launches += kernel_launches(len(dilations), pack_w.shape[-1])
     return out
 
 

@@ -15,6 +15,11 @@ tensor under grad the wrapper raises.
 ``pack_attn_weights`` puts the weights in the kernel's layout once
 (``models/blocks.py`` caches the result on each block); the wrapper takes
 either the raw weights, which it packs on every call, or such a pack.
+
+``supports`` says, from the shape alone, whether the kernel takes a block:
+the wrapper raises on a CUDA call it refuses, and the blocks' gate
+(``models/blocks.py::transformer_block_ct``) sends such a block to the
+plain path before any launch.
 """
 
 from __future__ import annotations
@@ -35,14 +40,36 @@ launches = 0
 packs = 0
 
 CHANNEL_ALIGN = {torch.bfloat16: 16, torch.float32: 8}   # C padded to the mma depth
+MAX_CHANNELS = 160     # kMaxCp: the padded C the kernels hold
+# the f32 score kernel's tiles of one head's (hs x hs) scores: 16 warps of
+# at most 10 (kF32MaxSlots) tiles of 16 x 8
+F32_SCORE_TILES = 16 * 10
 
-_SMEM_LIMIT = 232448   # bytes of shared memory one H100 block may use
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "otp_fused_attn_f32": (_I, [_P] * 12 + [_I] * 5 + [ctypes.c_float, _I, _P]),
     "otp_fused_attn_tc": (_I, [_P] * 12 + [_I] * 5 + [ctypes.c_float, _I, _P]),
     "otp_fused_attn_smem": (ctypes.c_size_t, [_I, _I, _I]),
 }
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def supports(c: int, n_head: int, dtype) -> bool:
+    """Whether ``csrc/fused_attn.cu`` takes a block of ``c`` channels in
+    ``n_head`` heads in ``dtype``: f32 or bf16, heads that divide C, C
+    padded to the mma depth within ``MAX_CHANNELS``, and in f32 at most
+    ``F32_SCORE_TILES`` tiles of one head's scores (one head of hs above 136
+    has more).  Plain Python on the shape, the same conditions as
+    ``otp_fused_attn_smem``: within them the shared memory always fits."""
+    if dtype not in CHANNEL_ALIGN or c < 1 or n_head < 1 or c % n_head:
+        return False
+    if _round_up(c, CHANNEL_ALIGN[dtype]) > MAX_CHANNELS:
+        return False
+    hs = c // n_head
+    return not (dtype == torch.float32 and n_head * -(-hs // 16) * -(-hs // 8) > F32_SCORE_TILES)
 
 
 def channel_attention_ct(q, k, v, n_head: int, drop=None, reduce=None) -> torch.Tensor:
@@ -165,11 +192,12 @@ def _fused_attn_cuda(x, ln1_w, ln1_b, dw, nw, nb, pw, pb, n_head):
     if c % n_head:
         raise ValueError(f"fused_attn_ct: C={c} not divisible by n_head={n_head}")
     code = build.dtype_code(x.dtype)
-    lib = build.load("fused_attn", _SIGNATURES)
-    if lib.otp_fused_attn_smem(c, n_head, code) > _SMEM_LIMIT:
+    if not supports(c, n_head, x.dtype):
         raise ValueError(f"fused_attn_ct: C={c}, n_head={n_head} is not a shape the "
-                         f"{x.dtype} kernel takes (shared memory, C above 160, or in f32 "
-                         "more than 160 same-head score tiles: hs above 136 with one head)")
+                         f"{x.dtype} kernel takes (C above {MAX_CHANNELS}, in f32 more than "
+                         f"{F32_SCORE_TILES} same-head score tiles: hs above 136 with one "
+                         "head)")
+    lib = build.load("fused_attn", _SIGNATURES)
     if ln1_w.numel() != c or pw.device != x.device:
         raise ValueError(f"fused_attn_ct: weights packed for C={ln1_w.numel()} on "
                          f"{pw.device}, x has C={c} on {x.device}")

@@ -11,6 +11,11 @@ grad the wrapper raises.
 ``pack_mlp_weights`` puts the weights in the kernel's layout once
 (``models/blocks.py`` caches the result on each block); the wrapper takes
 either the raw weights, which it packs on every call, or such a pack.
+
+``supports`` says, from the shape alone, whether the kernel takes a block:
+the wrapper raises on a CUDA call it refuses, and the blocks' gate
+(``models/blocks.py::transformer_block_ct``) sends such a block to the
+plain path before any launch.
 """
 
 from __future__ import annotations
@@ -47,6 +52,12 @@ _SIGNATURES = {
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def supports(c: int, dtype) -> bool:
+    """Whether ``csrc/fused_mlp.cu`` takes ``c`` channels in ``dtype``: f32 or
+    bf16, C padded to the mma depth within ``MAX_CHANNELS`` (kMaxCp)."""
+    return dtype in CHANNEL_ALIGN and 1 <= _round_up(c, CHANNEL_ALIGN[dtype]) <= MAX_CHANNELS
 
 
 def permute_hidden(w2: torch.Tensor, order=HIDDEN_ORDER) -> torch.Tensor:
@@ -141,9 +152,9 @@ def _fused_mlp_cuda(x, ln_w, ln_b, w1, b1, w2, b2, hid):
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("fused_mlp_residual_ct: x must be a contiguous (B, C, T) tensor")
     bsz, c, t = x.shape
-    if c > MAX_CHANNELS:
-        raise ValueError(f"fused_mlp_residual_ct: C={c} is above the kernel's {MAX_CHANNELS}")
     code = build.dtype_code(x.dtype)
+    if not supports(c, x.dtype):
+        raise ValueError(f"fused_mlp_residual_ct: C={c} is above the kernel's {MAX_CHANNELS}")
     if ln_w.numel() != c or w1.device != x.device:
         raise ValueError(f"fused_mlp_residual_ct: weights packed for C={ln_w.numel()} on "
                          f"{w1.device}, x has C={c} on {x.device}")

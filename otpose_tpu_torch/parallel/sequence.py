@@ -13,13 +13,14 @@ this rank's seq group (``parallel/distributed.py``):
 - ``gather_tokens``: the whole (B, C, T) from the slices; the layers
   downstream are replicated (every rank computes the same loss), so its
   backward is this rank's slice of the gradient, not a sum;
-- ``halo``: a slice with its neighbours' ``left`` and ``right`` tokens
-  attached (the k = 3 depthwise convs, the max-pool skip, the window
-  attention's keys and values); the first and last slices get ``fill``
-  (the op's own padding), and the backward returns each halo's gradient to
-  its owner; ``strided_halo`` is the halo a strided window reads (the k = 3
-  convs and the max-pool skip), with the op's padding past T where the
-  last slice's length is not a multiple of the stride;
+- ``halo``: a slice with the ``left`` tokens before it and the ``right``
+  tokens after it attached (the k = 3 depthwise convs, the max-pool skip,
+  the window attention's keys and values), taken from as many neighbouring
+  slices as they span, and ``fill`` (the op's own padding) past T's two
+  ends; the backward returns each halo's gradient to its owners;
+  ``strided_halo`` is the halo a strided window reads (the k = 3 convs and
+  the max-pool skip), with the op's padding past T where the last slice's
+  length is not a multiple of the stride;
 - ``all_reduce_partial``: a sum whose gradient is the same sum (the channel
   attention's scores, which contract over T);
 - ``scramble_across``: the reference's reassembly of the attention output,
@@ -34,11 +35,14 @@ that the seq size does not divide: ``SeqGroup.split`` cuts T into units of
 the encoder's total stride, gives each rank ``units // size`` of them and
 the first ``units % size`` ranks one more, so every interior boundary
 falls on a multiple of every level's stride and a strided block's output
-slice stays on its rank; the last rank ends at T (its last unit short when
-the stride does not divide T), and ``SeqGroup.down`` gives the next
-level's split.  The gathers pad each slice to the longest and trim it by
-the known lengths (nothing is padded when the slices are equal), and a
-halo exchanges its fixed number of tokens whatever a slice's length.
+slice stays on its rank; the last slice that holds a unit ends at T (its
+last unit short when the stride does not divide T), and ``SeqGroup.down``
+gives the next level's split.  Where T has fewer units than ranks, the
+ranks past them hold empty slices, as JAX's partitioner pads such a T; an
+empty slice joins every collective, in the same order as the others, and
+its ops run at length 0.  The gathers pad each slice to the longest and
+trim it by the known lengths (nothing is padded when the slices are equal),
+and a halo exchanges its fixed number of tokens whatever a slice's length.
 Without a seq group (one process) every function is the identity on a
 whole T.
 """
@@ -59,16 +63,12 @@ def split_lengths(t: int, size: int, stride: int = 1) -> tuple:
     """Each of ``size`` ranks' slice length of a length-``t`` axis, cut into
     units of ``stride`` tokens (the last unit short if ``stride`` does not
     divide ``t``): ``units // size`` units a rank and one more for each of
-    the first ``units % size`` ranks.  Raises where a rank would hold no
-    unit, that is no token at the encoder's deepest level."""
+    the first ``units % size`` ranks.  With fewer units than ranks, the
+    ranks past them hold none: no token at the encoder's deepest level."""
     units = -(-t // stride)
-    if units < size:
-        raise ValueError(f"sequence parallelism over {size} ranks needs a token a rank at "
-                         f"the encoder's deepest level (stride {stride}): T = {t} leaves "
-                         f"{units}")
     q, r = divmod(units, size)
     lengths = [(q + (i < r)) * stride for i in range(size)]
-    lengths[-1] -= units * stride - t
+    lengths[size - 1 if q else r - 1] -= units * stride - t   # the last unit's rank
     return tuple(lengths)
 
 
@@ -88,7 +88,7 @@ class SeqGroup:
         """The split of the axis a stride-``stride`` block gives (length
         ceil(T / stride)): each boundary divided by ``stride``."""
         ends = np.cumsum(self._lengths())
-        if any(e % stride for e in ends[:-1]):
+        if any(e % stride for e in ends[:-1] if e < ends[-1]):
             raise ValueError(f"a stride-{stride} block needs every interior slice boundary "
                              f"on a multiple of {stride}; the slices are {self.lengths}")
         return dataclasses.replace(self, lengths=tuple(np.diff(-(-ends // stride),
@@ -165,25 +165,43 @@ class _Halo(torch.autograd.Function):
     def forward(ctx, x, left, right, fill, seq):
         t = x.shape[-1]
         ctx.seq, ctx.left, ctx.right, ctx.t = seq, left, right, t
-        # each rank sends its tail (the next rank's left halo) and its head
-        # (the previous rank's right halo): left + right tokens whatever the
-        # slice's length
-        parts = distributed.all_gather(torch.cat([x[..., t - left:], x[..., :right]], dim=-1))
-        edge = lambda n: x.new_full(x.shape[:-1] + (n,), fill)  # noqa: E731
-        prev = parts[seq.index - 1][..., :left] if seq.index > 0 else edge(left)
-        nxt = parts[seq.index + 1][..., left:] if seq.index < seq.size - 1 else edge(right)
-        return torch.cat([prev, x, nxt], dim=-1)
+        # each rank sends its tail (the next ranks' left halos) and its head
+        # (the previous ranks' right halos), the whole slice where it is
+        # shorter: left + right tokens whatever the slice's length
+        tail, head = x[..., max(0, t - left):], x[..., :right]
+        parts = distributed.all_gather(torch.cat(
+            [F.pad(tail, (left - tail.shape[-1], 0)), F.pad(head, (0, right - head.shape[-1]))],
+            dim=-1))
+        n = seq.lengths
+        edge = lambda k: x.new_full(x.shape[:-1] + (k,), fill)  # noqa: E731
+        # the left halo from the slices before, nearest last; the right one
+        # from the slices after; fill past T's ends
+        before = torch.cat([edge(left)] + [parts[j][..., left - min(left, n[j]):left]
+                                           for j in range(seq.index)], dim=-1)
+        after = torch.cat([parts[j][..., left:left + min(right, n[j])]
+                           for j in range(seq.index + 1, seq.size)] + [edge(right)], dim=-1)
+        return torch.cat([before[..., before.shape[-1] - left:], x, after[..., :right]], dim=-1)
 
     @staticmethod
     def backward(ctx, g):
         seq, left, right, t = ctx.seq, ctx.left, ctx.right, ctx.t
-        # the halos' gradients go back to the ranks they came from
+        # the halos' gradients go back to the slices they came from: the
+        # next ranks' left halos hold this slice's last tokens, the previous
+        # ranks' right halos its first, nearest rank first
         parts = distributed.all_gather(torch.cat([g[..., :left], g[..., left + t:]], dim=-1))
         gx = g[..., left:left + t].clone()
-        if seq.index < seq.size - 1 and left:
-            gx[..., t - left:] += parts[seq.index + 1][..., :left]
-        if seq.index > 0 and right:
-            gx[..., :right] += parts[seq.index - 1][..., left:]
+        ends = np.cumsum((0,) + tuple(seq.lengths)).tolist()
+        lo, hi = ends[seq.index], ends[seq.index + 1]
+        for j in range(seq.index + 1, seq.size):     # rank j's left halo: [ends[j] - left, ends[j])
+            a, b = max(ends[j] - left, lo), min(ends[j], hi)
+            if a < b:
+                at = a - (ends[j] - left)
+                gx[..., a - lo:b - lo] += parts[j][..., at:at + b - a]
+        for j in range(seq.index - 1, -1, -1):       # rank j's right halo: [ends[j + 1], + right)
+            a, b = max(ends[j + 1], lo), min(ends[j + 1] + right, hi)
+            if a < b:
+                at = left + a - ends[j + 1]
+                gx[..., a - lo:b - lo] += parts[j][..., at:at + b - a]
         return gx, None, None, None, None
 
 
@@ -235,15 +253,10 @@ def gather_tokens(x: torch.Tensor, seq: SeqGroup) -> torch.Tensor:
 
 def halo(x: torch.Tensor, left: int, right: int, seq: SeqGroup,
          fill: float = 0.0) -> torch.Tensor:
-    """``x`` (this rank's slice, last axis tokens) with the previous slice's
-    last ``left`` and the next slice's first ``right`` tokens attached;
-    ``fill`` beyond the first and last slices.  Every slice of ``seq``'s
-    split must hold ``max(left, right)`` tokens."""
+    """``x`` (this rank's slice, last axis tokens) with the ``left`` tokens
+    before it and the ``right`` tokens after it attached, from as many
+    neighbouring slices as they span; ``fill`` past T's two ends."""
     _check_slice(x, seq)
-    narrowest = min(seq.lengths)
-    if max(left, right) > narrowest:
-        raise ValueError(f"a halo of {left} + {right} tokens is wider than the narrowest slice "
-                         f"of {narrowest} (slices {seq.lengths}): use fewer seq ranks")
     return _Halo.apply(x, left, right, fill, seq)
 
 

@@ -19,7 +19,7 @@ runs TASK on the CPU with one torch thread and writes its results to
 - ``seq_eval`` (tests/test_torch_sequence_parallel.py): for each
   ``data x seq`` layout of ``spec["layouts"]``, the sequence-parallel
   primitives in f64 at each length of ``spec["primitive_lengths"]``
-  (inputs, outputs and gradients), two tiny encoders' outputs and f64
+  (inputs, outputs and gradients), the tiny encoders' outputs and f64
   gradients, the decoded, heatmap and flip eval steps on
   the eval shard function's rows with ``fetch``, the loader's rows, ``fetch``
   of one row a rank, a train-mode BN on the data group's rows, and the
@@ -197,12 +197,13 @@ def _primitives(seq, t):
     run("scramble", lambda x: sequence.scramble_across(x, nh, seq), local)
     win = _f64((b, nh, c // nh, t), 5)[..., lo:hi].contiguous()
     run("halo_w", lambda x: sequence.halo(x, 3, 3, seq), win)
+    run("halo_wide", lambda x: sequence.halo(x, 20, 20, seq), win)
     return {"inputs": dict(full=full, w=w, q=q, k=k), "out": out, "bounds": (lo, hi),
             "lengths": seq.lengths}
 
 
 def _encoders(spec, seq):
-    """The two tiny encoders of ``spec["encoders"]`` (seeded), in eval
+    """The tiny encoders of ``spec["encoders"]`` (seeded), in eval
     mode: each forward's outputs, and in f64 the gradients of
     ``sum(outputs * fixed)`` by parameter name."""
     from otpose_tpu_torch.models.conv_transformer import (ConvTransformer,
@@ -211,11 +212,12 @@ def _encoders(spec, seq):
 
     out = {}
     for name, kw in spec["encoders"].items():
-        enc = ConvTransformer(ConvTransformerSpec(**{**kw, "arch": tuple(kw["arch"]),
-                                                   "mha_win_size": tuple(kw["mha_win_size"])}))
+        enc = ConvTransformer(ConvTransformerSpec(**{
+            **{k: v for k, v in kw.items() if k != "hw"}, "arch": tuple(kw["arch"]),
+            "mha_win_size": tuple(kw["mha_win_size"])}))
         init_conv_transformer_(enc, torch.Generator().manual_seed(kw["n_in"]))
         enc.eval()
-        x = torch.from_numpy(np.random.RandomState(11).randn(2, kw["n_in"], 16, 16)
+        x = torch.from_numpy(np.random.RandomState(11).randn(2, kw["n_in"], *kw["hw"])
                              .astype(np.float32))
         with torch.no_grad():
             feats = enc(x, seq=seq)

@@ -8,7 +8,10 @@ not a multiple of its tile, rows of x not a multiple of 16 bytes, O other
 than 17, B = 1 and 3, planes too large for shared memory, every sample
 outside the image), bit-equal from call to call in every gradient, and
 marking the planes that a non-finite gradient reaches; the kernels without a
-backward refusing grad).  Also nvJPEG's decode (``csrc/jpeg_nv.cu``) against
+backward refusing grad).  The DCN above 32 outputs or 8 dilations, as a
+group of launches, forward and backward (O = 33 and 133 and D = 9 among
+them), and the tiny eval at 21 joints, whose 168-channel encoders the
+fused kernels do not take, against the CPU.  Also nvJPEG's decode (``csrc/jpeg_nv.cu``) against
 the fixture's libjpeg decode, into a staging buffer, its errors, the device
 loader that decodes with it, and the detector on the card against the CPU.
 
@@ -18,6 +21,7 @@ Needs a CUDA device and nvcc; skips elsewhere.  On a machine with the card
     python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda --noconftest
 """
 
+import copy
 import math
 import os
 import shutil
@@ -250,6 +254,34 @@ def test_deform_conv_shapes(mode, b, c, o, h, w, dilations, dtype):
     _dcn_check(mode, _dcn_args(b, c, o, h, w, dilations, dtype, seed=4), dtype)
 
 
+# above 32 outputs or 8 dilations a call is a group of launches: 32 outputs
+# and 8 dilations a launch, the dilation groups' partial sums in slots of
+# their own
+GROUPED_DCN = [
+    (2, 5, 33, 13, 11, tuple(range(1, 10))),      # O = 33, D = 9: two groups of each
+    (1, 6, 133, 24, 20, tuple(range(1, 10))),     # O = 133: five O groups; B = 1 splits
+    (1, 17, 65, 96, 72, (3, 6, 9, 12, 15)),       # three O groups at the flagship's B = 1
+    (16, 3, 64, 12, 16, tuple(range(1, 18))),     # D = 17: three dilation groups, no split
+]
+
+
+@pytest.mark.parametrize("mode", list(DCN_MODES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,o,h,w,dilations", GROUPED_DCN)
+def test_grouped_deform_conv_matches_plain(mode, b, c, o, h, w, dilations, dtype):
+    """Each launch of the group counted, the result against the plain
+    version, and the same bits from a second call."""
+    module, kern, plain = DCN_MODES[mode]
+    args = _dcn_args(b, c, o, h, w, dilations, dtype, seed=16)
+    launches = module.launches
+    got = kern(*args)
+    torch.cuda.synchronize()
+    groups = deform_conv.kernel_launches(len(dilations), deform_conv.output_pad(o))
+    assert groups > 1 and module.launches == launches + groups
+    _close(got, plain(*args), dtype)
+    assert torch.equal(kern(*args), got)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_deform_conv_flagship_b1_takes_the_split_path(dtype):
     """The wrapper's split on this card, from the kernel's tile: at B = 1 the
@@ -302,13 +334,9 @@ def test_both_dcn_wrappers_load_one_library():
 
 @pytest.mark.parametrize("mode", list(DCN_MODES))
 def test_dcn_wrappers_refuse_what_the_kernel_does_not_take(mode):
+    """Any O and D run (GROUPED_DCN); a dtype other than f32 and bf16 and a
+    map that is not contiguous are refused."""
     kern = DCN_MODES[mode][1]
-    args = _dcn_args(1, 2, 33, 8, 8, (1,), torch.float32, seed=8)
-    with pytest.raises(ValueError, match="O=33"):
-        kern(*args)
-    args = _dcn_args(1, 2, 4, 8, 8, tuple(range(1, 10)), torch.float32, seed=8)
-    with pytest.raises(ValueError, match="D=9"):
-        kern(*args)
     x, offs, masks, weights, biases, dil = _dcn_args(1, 2, 4, 8, 8, (1,), torch.float32, seed=8)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         kern(x.half(), [t.half() for t in offs], [t.half() for t in masks], weights, biases, dil)
@@ -358,6 +386,42 @@ def test_deform_conv_backward_matches_plain_autograd(b, c, o, h, w, dilations, d
         err = (gk.float() - gp.float()).abs().max().item()
         peak = gp.float().abs().max().item()
         assert peak > 0 and err <= TOL[dtype] * peak, (name, err, peak)
+
+
+GROUPED_DCN_BWD = [
+    (2, 5, 33, 13, 11, tuple(range(1, 10))),      # O = 33, D = 9: two groups of each
+    (1, 6, 133, 24, 20, tuple(range(1, 10))),     # O = 133: G carried over five O groups
+    (2, 4, 64, 37, 53, (1, 5, 9)),                # two full O groups; rows of 53: element copies
+    (1, 2, 40, 208, 208, tuple(range(1, 10))),    # planes too large for shared memory, D = 9
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,o,h,w,dilations", GROUPED_DCN_BWD)
+def test_grouped_deform_conv_backward_matches_plain_autograd(b, c, o, h, w, dilations, dtype):
+    """Above 32 outputs or 8 dilations the backward is a group of launches:
+    each counted, each of the five gradients against the plain version's
+    autograd as in the test above, and every gradient the same bits from a
+    second call."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    args = dcn_case(b, c, o, h, w, dilations, dtype, gen)
+    assert dcn_inside_share(args) > 0.25
+    g = torch.randn(b, o, h, w, generator=gen, device="cuda").to(dtype)
+    launches = deform_conv.bwd_launches
+    got = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
+    torch.cuda.synchronize()
+    groups = deform_conv.kernel_launches(len(dilations), deform_conv.output_pad(o))
+    assert groups > 1 and deform_conv.bwd_launches == launches + groups
+    want = dcn_gradients(deform_conv.modulated_deform_conv_multi_plain, args, g)
+    d = len(dilations)
+    for name, gk, gp in zip(GRAD_NAMES, _grad_groups(got, d), _grad_groups(want, d)):
+        assert gk.dtype == gp.dtype and gk.shape == gp.shape, name
+        err = (gk.float() - gp.float()).abs().max().item()
+        peak = gp.float().abs().max().item()
+        assert peak > 0 and err <= TOL[dtype] * peak, (name, err, peak)
+    again = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
+    for name, a, b2 in zip(GRAD_NAMES, _grad_groups(got, d), _grad_groups(again, d)):
+        assert torch.equal(a, b2), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -436,6 +500,44 @@ def test_kernels_without_backward_refuse_grad():
     weight = margs[3].clone().requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         fused_mlp.fused_mlp_residual_ct(margs[0], *margs[1:3], weight, *margs[4:])
+
+
+@pytest.mark.parametrize("joints,fused", [(17, (4, 6)), (21, (0, 0)), (33, (2, 2))])
+def test_tiny_eval_on_the_card_equals_the_cpu(joints, fused):
+    """F7: the temporal encoders are 8 x joints channels wide, so from 21
+    joints (168) the fused kernels (at most 160) do not take them and the
+    blocks' gate sends them to the plain path before any launch; at 33
+    joints the flow encoder (C = 33, one head) takes both kernels and the
+    DCN's 33 outputs are two groups of launches.  The forward's
+    launches (fused attention, fused MLP, DCN) and its seven outputs against
+    the CPU's plain versions to 1e-3 of each peak, TF32 off."""
+    from otpose_tpu_torch.models.factory import build_model
+    from otpose_tpu_torch.models.otpose import otpose_forward
+    from otpose_tpu_torch.utils.testing import tiny_otpose_cfg
+
+    _, model = build_model(tiny_otpose_cfg(num_joints=joints), seed=2)
+    cpu = copy.deepcopy(model).cpu()
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 64, 64, 15, generator=gen)
+    margin = torch.tensor([[1.0, 1, 2, 2], [1, 0, 2, 0]])
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = (fused_attn.launches, fused_mlp.launches, deform_conv.launches)
+        with torch.no_grad():
+            got = otpose_forward(model, x.cuda(), margin.cuda())
+            torch.cuda.synchronize()
+            after = (fused_attn.launches, fused_mlp.launches, deform_conv.launches)
+            want = otpose_forward(cpu, x, margin)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    groups = deform_conv.kernel_launches(2, deform_conv.output_pad(joints))
+    assert tuple(a - b for a, b in zip(after, before)) == fused + (groups,)
+    assert len(got) == len(want) == 7
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        peak = max(1e-6, w.abs().max().item())
+        assert (g.cpu() - w).abs().max().item() <= 1e-3 * peak
 
 
 def test_train_mode_block_takes_the_plain_path():

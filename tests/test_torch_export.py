@@ -298,3 +298,14 @@ def test_export_copies_the_model(case):
     assert after.keys() == before.keys()
     assert all(torch.equal(after[k], v) and after[k].dtype == v.dtype for k, v in before.items())
 
+
+
+def test_the_export_time_tool_times_each_step(capsys):
+    """``tools/export_time.py`` on the host at the tiny config: one JSON line
+    with the build, trace and save seconds and the artifact's bytes."""
+    from otpose_tpu_torch.tools import export_time
+
+    export_time.main(["--tiny", "--device", "cpu", "--batch", "1"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["card"] == "cpu" and out["batch"] == 1
+    assert all(out[k] > 0 for k in ("build_s", "trace_s", "save_s", "bytes"))

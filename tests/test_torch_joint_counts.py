@@ -1,0 +1,293 @@
+"""The shapes the JAX package runs beyond the shipped configs, against it on
+the CPU, in f32: joint counts whose temporal encoders are wider than the
+fused kernels take (C = 8 x joints: 168 at 21 joints, above their 160), the
+DCN at more than 32 outputs (33 joints and up) and at more than 8
+dilations.  Inputs from numpy seeds; JAX runs ``fused=False``.
+
+- **The whole model** at ``tiny_otpose_cfg(num_joints=21)``,
+  ``(num_joints=33)`` and 17 joints with nine dilations (1 to 9), the
+  refinement calibrated (``tests/helpers/torch_port.py``): the seven outputs
+  of ``otpose_forward`` to 1e-3 of each output's peak (the model bar) and
+  the decoded keypoints (coords equal where a heatmap's top-two gap is
+  clear, max values to 1e-3 of their peak), with the op calls the gate
+  gives (no fused op in the 168- and 264-channel encoders; the flow
+  encoder's two blocks at 33 joints).
+- **The DCN op** at O in {33, 64, 65} and D in {5, 9}: the forward against
+  JAX's ``modulated_deform_conv_multi`` to 1e-5 of the peak, and its five
+  gradients against ``jax.grad`` of the JAX function run in f64 (the exact
+  witness) to 1e-3 of each gradient's peak, at calibrated offsets
+  (``utils/testing.py::dcn_case``).
+- **The DCN pack and its launches**: O padded to the first of 8, 20, 32,
+  above 32 to a multiple of 32; a launch a group of 32 outputs and of 8
+  dilations; the forward's partial-sum slots.
+- **The exported program** (``engine/export.py``) at 33 joints and nine
+  dilations: the decoded step traced on the CPU (the DCN op from its pack
+  of 64 outputs) equals the live step bit for bit.
+- **The fused blocks' gate**: ``fused_attn.supports`` / ``fused_mlp.supports``
+  at the kernels' limits, and the op calls of a block on either side of
+  them (``calls`` counts on the CPU too): C = 168 calls neither fused op,
+  C = 136 both, one f32 head of 144 channels the MLP's alone.
+"""
+
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from otpose_tpu.engine.trainer import make_decoded_eval_step as jax_decoded_step
+from otpose_tpu.models.core import Ctx
+from otpose_tpu.models.otpose import OTPoseSpec as JaxSpec
+from otpose_tpu.models.otpose import _init_otpose_impl, otpose_forward as jax_forward
+from otpose_tpu.ops.deform_conv import modulated_deform_conv_multi as jax_dcn_multi
+from otpose_tpu.utils.testing import tiny_otpose_cfg as jax_tiny_cfg
+from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
+from otpose_tpu_torch.models.blocks import TransformerBlock
+from otpose_tpu_torch.models.factory import build_model
+from otpose_tpu_torch.models.jax_bridge import load_jax_weights
+from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
+from otpose_tpu_torch.utils.testing import (dcn_case, dcn_gradients, dcn_inside_share,
+                                            tiny_otpose_cfg)
+
+from tests.helpers.torch_port import (calibrate_refinement, numpy_weights,  # noqa: F401
+                                      one_torch_thread)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+NINE = list(range(1, 10))
+# (joints, dilations, op calls a forward: fused attention, fused MLP, DCN)
+MODELS = {"j21": (21, [3, 6], (0, 0, 1)), "j33": (33, [3, 6], (2, 2, 1)),
+          "d9": (17, NINE, (4, 6, 1))}
+
+
+def _cfgs(joints, dilations):
+    cfgs = tiny_otpose_cfg(num_joints=joints), jax_tiny_cfg(num_joints=joints)
+    for cfg in cfgs:
+        cfg.MODEL.DEFORMABLE_CONV.DILATION = list(dilations)
+    return cfgs
+
+
+@pytest.fixture(scope="module", params=sorted(MODELS))
+def case(request):
+    joints, dilations, calls = MODELS[request.param]
+    cfg, jcfg = _cfgs(joints, dilations)
+    jspec = JaxSpec.from_cfg(jcfg)
+    params, state = numpy_weights(_init_otpose_impl, jspec)
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 64, 64, 15).astype(np.float32)
+    margin = np.array([[1, 1, 2, 2], [1, 0, 2, 0]], np.float32)
+    inside = calibrate_refinement(params, state, x, margin, cfg=cfg)
+    _, model = build_model(cfg, device="cpu")
+    load_jax_weights(model, params, state)
+    return dict(joints=joints, calls=calls, jspec=jspec, params=params, state=state,
+                model=model, x=x, margin=margin, inside=inside)
+
+
+def test_seven_outputs_match_jax(case):
+    assert case["inside"] > 0.5
+    want = jax.jit(lambda p, s, x, m: jax_forward(Ctx(p, s, train=False, fused=False), x, m,
+                                                  case["jspec"]))(
+        case["params"], case["state"], case["x"], case["margin"])
+    for mod in (fused_attn, fused_mlp, deform_conv):
+        mod.calls = 0
+    with torch.no_grad():
+        got = case["model"](torch.from_numpy(case["x"]), torch.from_numpy(case["margin"]))
+    assert (fused_attn.calls, fused_mlp.calls, deform_conv.calls) == case["calls"]
+    assert len(got) == len(want) == 7
+    assert got[0].shape[-1] == case["joints"]
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape and np.isfinite(w).all()
+        peak = np.abs(w).max()
+        np.testing.assert_allclose(g.numpy() / peak, w / peak, rtol=0, atol=1e-3)
+
+
+def test_decoded_eval_step_matches_jax(case):
+    x, margin = case["x"], case["margin"]
+    want = jax_decoded_step(case["jspec"], fused=False)(
+        case["params"], case["state"], {"inputs": jnp.asarray(x), "margin": jnp.asarray(margin)})
+    coords, maxvals, raw = (np.asarray(a) for a in want)
+    got = [a.numpy() for a in make_decoded_eval_step(case["model"])(torch.from_numpy(x),
+                                                                     torch.from_numpy(margin))]
+    with torch.no_grad():
+        heat = case["model"](torch.from_numpy(x), torch.from_numpy(margin))[0].numpy()
+    assert coords.shape == (2, case["joints"], 2)
+    flat = np.sort(heat.transpose(0, 3, 1, 2).reshape(*maxvals.shape[:2], -1), axis=-1)
+    clear = (flat[..., -1] - flat[..., -2]) > 1e-3
+    assert clear.mean() > 0.5
+    np.testing.assert_array_equal(got[0][clear], coords[clear])
+    np.testing.assert_array_equal(got[2][clear], raw[clear])
+    peak = np.abs(maxvals).max()
+    np.testing.assert_allclose(got[1] / peak, maxvals / peak, rtol=0, atol=1e-3)
+
+
+# ---------------------------------------------------------------- the DCN
+
+DCN_SHAPES = [(o, d) for o in (33, 64, 65) for d in (5, 9)]
+
+
+def _dilations(d):
+    return tuple(range(1, d + 1))
+
+
+def _nhwc(a):
+    return jnp.asarray(np.asarray(a).transpose(0, 2, 3, 1))
+
+
+def _jax_dcn(x, offs, masks, weights, biases, dilations):
+    return jax_dcn_multi(_nhwc(x), [_nhwc(t) for t in offs], [_nhwc(t) for t in masks],
+                         jnp.asarray(np.asarray(weights).transpose(0, 3, 4, 2, 1)),
+                         jnp.asarray(biases), kernel=3, stride=1, padding_list=dilations,
+                         dilation_list=dilations, deformable_groups=x.shape[1])
+
+
+@pytest.mark.parametrize("o,d", DCN_SHAPES)
+def test_dcn_forward_matches_jax(o, d):
+    """The op (its plain version on the CPU, from the pack of O padded
+    past 32) against JAX's function, to 1e-5 of the peak."""
+    dilations = _dilations(d)
+    args = dcn_case(2, 4, o, 10, 9, dilations, torch.float32, torch.Generator().manual_seed(o + d),
+                    device="cpu", reach=2)
+    x, offs, masks, weights, biases, _ = args
+    pk = deform_conv.pack_dcn_weights(weights, biases)
+    assert pk.w.shape == (d, 4, 9, deform_conv.output_pad(o))
+    got = deform_conv.modulated_deform_conv_multi(x, offs, masks, dilations=dilations,
+                                                  packed=pk)
+    want = np.asarray(_jax_dcn(x.numpy(), [t.numpy() for t in offs],
+                               [t.numpy() for t in masks], weights.numpy(), biases.numpy(),
+                               dilations)).transpose(0, 3, 1, 2)
+    assert got.shape == want.shape == (2, o, 10, 9)
+    peak = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy() / peak, want / peak, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("o,d", DCN_SHAPES)
+def test_dcn_gradients_match_jax_in_f64(o, d):
+    """The five gradients of the op (x, offsets, masks, weights, biases)
+    against ``jax.grad`` of JAX's function run in f64 with its f32 casts
+    made f64 (the exact witness), to 1e-3 of each gradient's peak, at
+    calibrated offsets: most samples inside the image, every fractional
+    part in [0.05, 0.95]."""
+    dilations = _dilations(d)
+    b, c, h, w = 2, 3, 20, 18
+    args = dcn_case(b, c, o, h, w, dilations, torch.float32,
+                    torch.Generator().manual_seed(2 * o + d), device="cpu", reach=2)
+    x, offs, masks, weights, biases, _ = args
+    assert dcn_inside_share(args) >= 0.5
+    g = np.random.RandomState(o + d).randn(b, o, h, w).astype(np.float32)
+    got = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, torch.from_numpy(g))
+
+    def loss(xj, oj, mj, wj, bj):
+        y = jax_dcn_multi(xj, oj, mj, wj, bj, kernel=3, stride=1, padding_list=dilations,
+                          dilation_list=dilations, deformable_groups=c)
+        return (y * jnp.asarray(g.transpose(0, 2, 3, 1))).sum()
+
+    f64 = lambda a: np.asarray(a, np.float64)  # noqa: E731
+    with jax.enable_x64(True), mock.patch.object(jnp, "float32", jnp.float64):
+        want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+            _nhwc(f64(x)), [_nhwc(f64(t)) for t in offs], [_nhwc(f64(t)) for t in masks],
+            jnp.asarray(f64(weights).transpose(0, 3, 4, 2, 1)), jnp.asarray(f64(biases)))
+        want = jax.tree.map(np.asarray, want)
+    nchw = lambda a: np.asarray(a).transpose(0, 3, 1, 2)  # noqa: E731
+    pairs = [("x", got[0], nchw(want[0])),
+             ("offsets", torch.stack(got[1:1 + d]), np.stack([nchw(a) for a in want[1]])),
+             ("masks", torch.stack(got[1 + d:1 + 2 * d]), np.stack([nchw(a) for a in want[2]])),
+             ("weights", got[-2], np.asarray(want[3]).transpose(0, 4, 3, 1, 2)),
+             ("biases", got[-1], np.asarray(want[4]))]
+    for name, gp, gj in pairs:
+        assert gj.dtype == np.float64 and gp.shape == gj.shape, name
+        peak = np.abs(gj).max()
+        assert peak > 0, name
+        np.testing.assert_allclose(gp.numpy(), gj, rtol=0, atol=1e-3 * peak, err_msg=name)
+
+
+@pytest.mark.parametrize("o,op", [(1, 8), (8, 8), (9, 20), (17, 20), (20, 20), (21, 32),
+                                  (32, 32), (33, 64), (64, 64), (65, 96), (133, 160)])
+def test_the_pack_pads_o_past_32_to_groups_of_32(o, op):
+    assert deform_conv.output_pad(o) == op
+    gen = torch.Generator().manual_seed(o)
+    weights, biases = torch.randn(2, o, 3, 3, 3, generator=gen), torch.randn(2, o, generator=gen)
+    pk = deform_conv.pack_dcn_weights(weights, biases)
+    assert pk.w.shape == (2, 3, 9, op) and pk.bias.shape == (op,)
+    assert not pk.w[..., o:].any() and not pk.bias[o:].any()
+    w, b = deform_conv.unpack(pk)
+    assert torch.equal(w, weights) and torch.equal(b[0], biases.mean(0))
+
+
+@pytest.mark.parametrize("d,op,launches", [(5, 20, 1), (8, 32, 1), (9, 20, 2), (5, 64, 2),
+                                           (9, 160, 10), (17, 32, 3)])
+def test_a_launch_a_group_of_32_outputs_and_8_dilations(d, op, launches):
+    """The flagship's O = 17, D = 5 stays one launch a call."""
+    assert deform_conv.kernel_launches(d, op) == launches
+
+
+@pytest.mark.parametrize("split,c,d,slots", [
+    (1, 17, 5, 0),      # one launch writes the output itself
+    (19, 17, 5, 19),    # the flagship at B = 1: one slot a split
+    (1, 17, 9, 2),      # two dilation groups, unsplit: a slot each
+    (19, 17, 9, 36),    # 19 slots for the first group, 17 stages (17 slots) for the second
+    (19, 2, 9, 18),     # 16 stages in the first group, 2 in the second
+])
+def test_partial_slots(split, c, d, slots):
+    assert deform_conv.partial_slots(split, c, d) == slots
+
+
+def test_the_exported_program_takes_33_joints_and_nine_dilations():
+    from otpose_tpu_torch.engine.export import export_eval
+
+    cfg, _ = _cfgs(33, NINE)
+    cfg.MODEL.IMAGE_SIZE, cfg.MODEL.HEATMAP_SIZE = [32, 32], [8, 8]
+    _, model = build_model(cfg, seed=1, device="cpu")
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 32, 32, 15).astype(np.float32))
+    margin = torch.ones(2, 4)
+    program = export_eval(model, batch_size=2, device="cpu").program.module()
+    got = program(x, margin)
+    want = make_decoded_eval_step(model)(x, margin)
+    assert got[0].shape == (2, 33, 2)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------- the gate
+
+def test_the_predicates_mirror_the_kernels_limits():
+    """C padded to the mma depth within 160 (both kernels, both dtypes); in
+    f32 one head's scores in at most 160 tiles of 16 x 8 (hs up to 136)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dtype in (f32, bf16):
+        assert fused_mlp.supports(160, dtype) and not fused_mlp.supports(161, dtype)
+        assert fused_mlp.supports(17, dtype) and not fused_mlp.supports(0, dtype)
+        assert fused_attn.supports(160, 2, dtype) and fused_attn.supports(136, 8, dtype)
+        assert not fused_attn.supports(168, 8, dtype) and not fused_attn.supports(1064, 8, dtype)
+        assert not fused_attn.supports(136, 3, dtype)       # heads that do not divide C
+    assert fused_attn.supports(136, 1, f32) and not fused_attn.supports(137, 1, f32)
+    assert fused_attn.supports(160, 1, bf16) and not fused_attn.supports(144, 1, f32)
+    assert not fused_mlp.supports(136, torch.float16)
+    assert not fused_attn.supports(136, 8, torch.float16)
+
+
+@pytest.mark.parametrize("c,n_head,ds,calls", [
+    (136, 2, 1, (1, 1)),     # the flagship's temporal blocks: both kernels
+    (168, 2, 1, (0, 0)),     # 21 joints: neither
+    (1064, 2, 1, (0, 0)),    # 133 joints: neither
+    (144, 1, 1, (0, 1)),     # one f32 head of 144: the MLP's alone
+    (136, 2, 2, (0, 1)),     # a strided block: the MLP's alone, as before
+    (17, 1, 1, (0, 0)),      # below 32 channels: neither, as before
+])
+def test_the_block_gate_follows_the_kernels(c, n_head, ds, calls):
+    """The op calls of one eval block, f32, on the CPU (``calls`` counts the
+    op on either device); the fused and the plain path give one result."""
+    torch.manual_seed(c)
+    blk = TransformerBlock(c, n_head, ds).eval()
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.normal_(0, 0.1)
+    x = torch.randn(2, c, 24)
+    fused_attn.calls = fused_mlp.calls = 0
+    with torch.no_grad():
+        got = blk(x)
+    assert (fused_attn.calls, fused_mlp.calls) == calls
+    with torch.no_grad():
+        plain = blk(x, fused=False)
+    torch.testing.assert_close(got, plain, rtol=0, atol=1e-5)

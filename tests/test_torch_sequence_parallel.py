@@ -10,10 +10,12 @@ the encoders' T = 256 into 86, 86 and 84); this process computes the
 references meanwhile.
 
 - **The primitives**, in f64 on a (2, 6, T) input split at stride 2, at
-  T = 48 (equal slices on 2, 3 and 4 ranks) and T = 49 (unequal, the last
-  of odd length): ``shard_tokens``, ``gather_tokens``, the halo'd
+  T = 48 (equal slices on 2, 3 and 4 ranks), T = 49 (unequal, the last
+  of odd length) and T = 4 (2, 2 and empty slices on 3 and 4 ranks):
+  ``shard_tokens``, ``gather_tokens``, the halo'd
   depthwise conv at strides 1 and 2, the max-pool skip, the partial
-  scores' sum, ``scramble_across`` and a window halo of 3 tokens; each
+  scores' sum, ``scramble_across``, a window halo of 3 tokens and one of
+  20 (wider than the slices: taken from several); each
   rank's output and its input's gradient (the conv's weight gradient
   summed over the seq group) against the unsharded op to 1e-12.
 - **The encoder**: a tiny ``ConvTransformer`` (T = 256, arch (0, 2, 1)) and
@@ -22,9 +24,13 @@ references meanwhile.
   and the gradients of an f64 copy (the blocks' summed over the seq group)
   to 1e-5 of each tensor's peak: the LNs' statistics and the PE add round
   through f32 even on f64 tensors, and the sums' other order moves those
-  roundings.  On three seq ranks the window encoder's outputs also against
-  JAX's ``conv_transformer_forward`` with ``seq_axis`` on a mesh of the
-  same shape, to 1e-5 of the peak.
+  roundings.  Three more encoders take the splits that JAX's partitioner
+  pads: a global one at T = 4 (a rank with no token at the deepest level
+  on 3 and 4 ranks), a window-9 one at T = 16 (a halo of 4 wider than the
+  branch's slices of 3, 3 and 2) and a window-9 one with two branch levels
+  at T = 8 (both at once).  On three seq ranks the window encoders'
+  outputs also against JAX's ``conv_transformer_forward`` with
+  ``seq_axis`` on a mesh of the same shape, to 1e-5 of the peak.
 - **Eval** on ``tiny_otpose_cfg`` (T = 256 at the even layouts, T = 64 at
   the uneven ones) with numpy weights of O(1) and the refinement
   calibrated (``tests/helpers/torch_port.py``): the decoded, heatmap and
@@ -45,10 +51,10 @@ references meanwhile.
   ``fetch`` returning each data group's rows once, the train BN's running
   variance with the data group's Bessel factor, and an export under a
   ``seq`` mesh equal to one without.
-- **The split** (``SeqGroup.split`` / ``down``) and the refusals that
-  remain: a rank with no token at the deepest level, a halo wider than the
-  narrowest slice, a block stride that an interior boundary does not
-  divide, a slice of another length than its split's, a group not split.
+- **The split** (``SeqGroup.split`` / ``down``, empty slices included) and
+  the refusals that remain: a block stride that an interior boundary does
+  not divide, a slice of another length than its split's (also in the
+  forward, before any exchange), a group not split.
 """
 
 import jax
@@ -91,16 +97,28 @@ from tests.test_torch_distributed import one_rank_group
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 LAYOUTS = ((2, 2), (1, 4))          # T = 256: equal slices
 UNEVEN = ((1, 3), (2, 3))           # T = 64 (the encoders' 256): slices of unequal length
-PRIMITIVE_LENGTHS = (48, 49)        # 49: unequal slices, the last of odd length
+PRIMITIVE_LENGTHS = (48, 49, 4)     # 49: unequal slices, the last of odd length; 4: empty
+# the encoders' input (B, 8, H, W): ``hw`` is (H, W)
 ENCODERS = {
     "global": dict(n_in=8, n_embd=8, n_head=2, n_embd_ks=3, max_len=256, arch=[0, 2, 1],
-                   mha_win_size=[], use_rel_pe=False),
+                   mha_win_size=[], use_rel_pe=False, hw=[16, 16]),
     "window": dict(n_in=8, n_embd=8, n_head=2, n_embd_ks=3, max_len=256, arch=[1, 2, 1],
-                   mha_win_size=[5], use_rel_pe=True),
+                   mha_win_size=[5], use_rel_pe=True, hw=[16, 16]),
+    # the splits JAX pads: T = 4 leaves a rank no token at the deepest level
+    # (stride 2) on 3 and 4 ranks; a window of 9 reads 4 tokens a side, more
+    # than the branch's slices of 3, 3 and 2 at T = 16; both at once, with
+    # two branch levels, at T = 8
+    "empty_rank": dict(n_in=8, n_embd=8, n_head=2, n_embd_ks=3, max_len=256, arch=[0, 2, 1],
+                       mha_win_size=[], use_rel_pe=False, hw=[2, 2]),
+    "wide_window": dict(n_in=8, n_embd=8, n_head=2, n_embd_ks=3, max_len=256, arch=[1, 2, 1],
+                        mha_win_size=[9], use_rel_pe=True, hw=[4, 4]),
+    "wide_empty": dict(n_in=8, n_embd=8, n_head=2, n_embd_ks=3, max_len=256, arch=[1, 2, 2],
+                       mha_win_size=[9], use_rel_pe=True, hw=[2, 4]),
 }
+WINDOWED = ("window", "wide_window", "wide_empty")
 AP_KEYS = ("Head", "Shoulder", "Elbow", "Wrist", "Hip", "Knee", "Ankle", "Mean")
 PRIMITIVES = ("shard", "gather", "conv_s1", "conv_s2", "max_pool", "scores", "scramble",
-              "halo_w")
+              "halo_w", "halo_wide")
 layout_id = lambda lay: f"{lay[0]}x{lay[1]}"  # noqa: E731
 
 
@@ -147,16 +165,17 @@ def _jax_steps(jspec, jcfg, params, state, x, margin, shape):
                             jax_decoded_step(jspec, seq_axis="seq")(p, s, b)]}
 
 
-def _jax_window_encoder(shape):
+def _jax_encoder(name, shape):
     """JAX's ``conv_transformer_forward`` with ``seq_axis`` on a ``data x
-    seq`` mesh of ``shape``, with the weights of the workers' seeded window
-    encoder, on their input."""
-    kw = ENCODERS["window"]
+    seq`` mesh of ``shape``, with the weights of the workers' seeded encoder
+    ``name``, on their input."""
+    kw = ENCODERS[name]
     enc = _encoder(kw)
     params, state = to_jax(enc)
-    jspec = JaxEncoderSpec(**{**kw, "arch": tuple(kw["arch"]),
+    jspec = JaxEncoderSpec(**{**{k: v for k, v in kw.items() if k != "hw"},
+                              "arch": tuple(kw["arch"]),
                               "mha_win_size": tuple(kw["mha_win_size"])})
-    x = np.random.RandomState(11).randn(2, 8, 16, 16).astype(np.float32).transpose(0, 2, 3, 1)
+    x = _encoder_input(kw).numpy().transpose(0, 2, 3, 1)
     jcfg = jax_tiny_cfg()
     jcfg.TPU.MESH_AXES, jcfg.TPU.MESH_SHAPE = ["data", "seq"], list(shape)
     mesh = jax_make_mesh(jcfg, devices=jax.devices()[:shape[0] * shape[1]])
@@ -222,7 +241,7 @@ def sp(tmp_path_factory):
     for lay in UNEVEN:
         ref[lay] = dict(model=umodel, one=uone,
                         jax=_jax_steps(ujspec, ujcfg, uparams, ustate, ux, umargin, lay),
-                        window=_jax_window_encoder(lay))
+                        encoders={n: _jax_encoder(n, lay) for n in WINDOWED + ("empty_rank",)})
     (_, name_values, mean_ap), = Eval(
         "validate", default_parse_args(["--cfg", cli["one"], "--root_dir", str(folder)]),
         device="cpu", dataset_cls=ArrayFramesDataset).eval()
@@ -292,10 +311,11 @@ def _reference(name, inputs, gys, bounds):
         ys, leaves = [q @ k.transpose(-1, -2)] * len(bounds), [q, k]
     elif name == "scramble":
         ys, leaves = local(sequence.scramble(full, 2)), [full]
-    else:                                   # halo_w: 3 tokens a side on the (B, nh, hs, T) map
+    else:           # halo_w, halo_wide: 3 or 20 tokens a side on the (B, nh, hs, T) map
+        n = 3 if name == "halo_w" else 20
         win = torch.from_numpy(np.random.RandomState(5).randn(*q.shape)).requires_grad_()
-        padded = torch.nn.functional.pad(win, (3, 3))
-        ys, leaves = [padded[..., lo:hi + 6] for lo, hi in bounds], [win]
+        padded = torch.nn.functional.pad(win, (n, n))
+        ys, leaves = [padded[..., lo:hi + 2 * n] for lo, hi in bounds], [win]
     if name == "gather":
         loss = (ys[0] * gys[0]).sum()
     else:
@@ -339,11 +359,18 @@ def test_primitive_equals_the_unsharded_op_in_f64(sp, layout, name, t):
 # ---------------------------------------------------------------- encoder
 
 def _encoder(kw):
-    spec = ConvTransformerSpec(**{**kw, "arch": tuple(kw["arch"]),
+    spec = ConvTransformerSpec(**{**{k: v for k, v in kw.items() if k != "hw"},
+                                  "arch": tuple(kw["arch"]),
                                   "mha_win_size": tuple(kw["mha_win_size"])})
     enc = ConvTransformer(spec)
     init_conv_transformer_(enc, torch.Generator().manual_seed(kw["n_in"]))
     return enc.eval()
+
+
+def _encoder_input(kw):
+    """The workers' input of an encoder: (2, 8, H, W), seeded."""
+    return torch.from_numpy(np.random.RandomState(11).randn(2, kw["n_in"], *kw["hw"])
+                            .astype(np.float32))
 
 
 @pytest.mark.parametrize("layout", LAYOUTS + UNEVEN, ids=layout_id)
@@ -356,13 +383,13 @@ def test_encoder_equals_the_one_rank_forward(sp, layout, name):
     whose gradient is zero but for rounding (a window block's key bias
     shifts every score of a query alike)."""
     enc = _encoder(ENCODERS[name])
-    x = torch.from_numpy(np.random.RandomState(11).randn(2, 8, 16, 16).astype(np.float32))
+    x = _encoder_input(ENCODERS[name])
     with torch.no_grad():
         want = enc(x)
     ranks = _seq_ranks(sp, layout)
     for r in ranks:
         got = r["encoders"][name]["feats"]
-        assert len(got) == len(want) == 2
+        assert len(got) == len(want) == 1 + ENCODERS[name]["arch"][2]
         for g, w in zip(got, want):
             peak = w.abs().max()
             np.testing.assert_allclose(g.numpy() / peak, w.numpy() / peak, rtol=0, atol=1e-6)
@@ -443,20 +470,47 @@ def test_eval_matches_jax_s_seq_sharded_step(sp, layout):
     np.testing.assert_allclose(maxvals / peak, jm / peak, rtol=0, atol=bar)
 
 
+def _against_jax_encoder(sp, layout, name):
+    """Every rank's gathered outputs of encoder ``name`` against JAX's
+    ``seq_axis`` forward, to 1e-5 of each output's peak."""
+    want = sp["ref"][layout]["encoders"][name]
+    for res in sp["runs"][layout]:
+        got = res["encoders"][name]["feats"]
+        assert len(got) == len(want) == 1 + ENCODERS[name]["arch"][2]
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            peak = np.abs(w).max()
+            np.testing.assert_allclose(g.numpy() / peak, w / peak, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("layout", UNEVEN, ids=layout_id)
 def test_window_encoder_matches_jax_s_seq_sharded_forward(sp, layout):
     """The window encoder (window 5, ``rel_pe``) at T = 256 over three seq
     ranks (slices of 86, 86 and 84 tokens, 43, 43 and 42 after the branch)
     against JAX's ``conv_transformer_forward`` with ``seq_axis`` on a mesh
     of the same shape, to 1e-5 of each output's peak."""
-    want = sp["ref"][layout]["window"]
-    for res in sp["runs"][layout]:
-        got = res["encoders"]["window"]["feats"]
-        assert len(got) == len(want) == 2
-        for g, w in zip(got, want):
-            assert g.shape == w.shape
-            peak = np.abs(w).max()
-            np.testing.assert_allclose(g.numpy() / peak, w / peak, rtol=0, atol=1e-5)
+    _against_jax_encoder(sp, layout, "window")
+
+
+@pytest.mark.parametrize("layout", UNEVEN, ids=layout_id)
+@pytest.mark.parametrize("name", ["empty_rank", "wide_window", "wide_empty"])
+def test_the_splits_jax_pads_match_jax_s_seq_sharded_forward(sp, layout, name):
+    """The two splits that JAX's partitioner pads (a rank with no token at
+    the deepest level, a halo wider than a slice), against JAX's
+    ``seq_axis`` forward on three seq ranks, to 1e-5 of each output's peak:
+    T = 4 at stride 2 (slices 2, 2 and 0, then 1, 1 and
+    0: a rank with no token at the deepest level, which joins every
+    collective all the same); window 9 at T = 16 (4 halo tokens a side on
+    branch slices of 3, 3 and 2: taken from two neighbours); window 9 at
+    T = 8 with two branch levels (slices 4, 4, 0, then 2, 2, 0 and 1, 1,
+    0: both at once)."""
+    lengths = sequence.split_lengths(int(np.prod(ENCODERS[name]["hw"])), 3,
+                                     2 ** ENCODERS[name]["arch"][2])
+    if name == "wide_window":
+        assert min(lengths) // 2 < ENCODERS[name]["mha_win_size"][0] // 2
+    else:
+        assert lengths[-1] == 0
+    _against_jax_encoder(sp, layout, name)
 
 
 def test_eval_cli_on_a_seq_mesh_gives_the_one_process_table(sp):
@@ -526,8 +580,9 @@ def test_a_seq_mesh_without_a_launch_is_one_slice():
     assert one.lengths == (6,) and one.bounds() == (0, 6)
     x = torch.randn(1, 2, 6)
     assert torch.equal(sequence.gather_tokens(sequence.shard_tokens(x, one), one), x)
-    with pytest.raises(ValueError, match="narrowest slice of 6"):
-        sequence.halo(x, 7, 0, one)
+    # a halo wider than the slice: fill past T's ends
+    assert torch.equal(sequence.halo(x, 7, 2, one, fill=-1.0),
+                       torch.nn.functional.pad(x, (7, 2), value=-1.0))
 
 
 @pytest.mark.parametrize("t,size,stride,lengths", [
@@ -540,46 +595,53 @@ def test_a_seq_mesh_without_a_launch_is_one_slice():
     (256, 3, 1, (86, 85, 85)),
     (49, 4, 2, (14, 12, 12, 11)),               # the last unit short: T odd
     (6920, 4, 4, (1732, 1732, 1728, 1728)),
+    (4, 3, 2, (2, 2, 0)),                       # fewer units than ranks: empty slices
+    (4, 4, 2, (2, 2, 0, 0)),
+    (7, 5, 2, (2, 2, 2, 1, 0)),                 # the last unit short, before an empty slice
+    (10, 4, 4, (4, 4, 2, 0)),
 ])
 def test_the_split_cuts_units_of_the_stride(t, size, stride, lengths):
     """``units // size`` units of ``stride`` tokens a rank, one more for the
-    first ``units % size`` ranks, the last rank ending at T; ``down`` divides
-    every boundary by a block's stride (the last rounded up, as the strided
-    conv and max-pool give ceil(T / 2) outputs)."""
+    first ``units % size`` ranks, the last unit's rank ending at T and the
+    ranks past it empty; ``down`` divides every boundary by a block's
+    stride (the last rounded up, as the strided conv and max-pool give
+    ceil(T / 2) outputs), and keeps the empty slices empty."""
     assert sequence.split_lengths(t, size, stride) == lengths
     groups = [sequence.SeqGroup(size, i).split(t, stride) for i in range(size)]
     bounds = [g.bounds() for g in groups]
     assert bounds[0][0] == 0 and bounds[-1][1] == t and groups[0].total == t
     assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
-    assert all(lo % stride == 0 for lo, _ in bounds)
+    assert all(lo % stride == 0 or lo == t for lo, _ in bounds)
     down = groups[0]
     while stride > 1:
         down, stride = down.down(2), stride // 2
-        assert down.total == -(-t // 2) and all(n > 0 for n in down.lengths)
+        assert down.total == -(-t // 2)
+        assert [n > 0 for n in down.lengths] == [n > 0 for n in lengths]
         t = down.total
 
 
 def test_an_uneven_shard_raises_in_the_forward():
-    """Unequal slices run (the tests above); what still raises is a split
-    that leaves a rank no token at the encoder's deepest level, before any
-    exchange, with the condition named."""
+    """Unequal slices run, and so does a split that leaves a rank no
+    token at the encoder's deepest level (that rank holds empty
+    slices: ``test_the_splits_jax_pads_match_jax_s_seq_sharded_forward``);
+    what still raises in the forward is a slice of another length than its
+    split's, before any exchange, with the condition named."""
     enc = _encoder(ENCODERS["global"])
-    with pytest.raises(ValueError, match="a token a rank at the encoder's deepest level "
-                                         r"\(stride 2\): T = 4 leaves 2"):
-        enc(torch.randn(1, 8, 2, 2), seq=sequence.SeqGroup(3, 0))
-    with pytest.raises(ValueError, match="deepest level"):
-        sequence.split_lengths(6912, 1729, 4)
+    assert sequence.split_lengths(4, 3, 2) == (2, 2, 0)
+    assert sequence.split_lengths(6912, 1729, 4) == (4,) * 1728 + (0,)
     assert sequence.split_lengths(6912, 1728, 4) == (4,) * 1728
+    with pytest.raises(ValueError, match=r"slice has 3 tokens, its split \(2, 2, 0\) gives "
+                                         "it 0"):
+        enc.stem[0](torch.randn(1, 8, 3), seq=sequence.SeqGroup(3, 2).split(4, 2))
 
 
 def test_the_remaining_refusals_name_their_condition():
-    """A halo wider than the narrowest slice (not this rank's), a block
-    stride that an interior boundary does not divide, a slice whose length
-    is not its split's (before an exchange), and a group used before its
-    split."""
+    """A block stride that an interior boundary does not divide, a slice
+    whose length is not its split's (before an exchange), and a group used
+    before its split.  A halo wider than a slice is not refused: it takes
+    its tokens from as many slices as it spans (``halo_wide``,
+    ``wide_window``)."""
     group = sequence.SeqGroup(3, 0).split(64, 2)                # 22, 22, 20
-    with pytest.raises(ValueError, match="narrowest slice of 20"):
-        sequence.halo(torch.randn(1, 2, 22), 21, 21, group)
     with pytest.raises(ValueError, match="multiple of 4"):
         group.down(4)
     with pytest.raises(ValueError, match="slice has 21 tokens"):
@@ -640,4 +702,18 @@ def test_the_dropout_mask_is_the_one_rank_mask_sliced():
         with core.use_generator(gen):
             parts.append(core.dropout(z[..., lo:hi], 0.5, True, group))
     assert [p.shape[-1] for p in parts] == [22, 22, 20]
+    assert torch.equal(torch.cat(parts, dim=-1), whole)
+    # an empty slice: T = 4 at stride 2 on three ranks is 2, 2 and 0 tokens
+    w4 = torch.randn(2, 3, 4)
+    gen.manual_seed(4)
+    with core.use_generator(gen):
+        whole = core.dropout(w4, 0.5, True)
+    parts = []
+    for index in range(3):
+        group = sequence.SeqGroup(3, index).split(4, 2)
+        lo, hi = group.bounds()
+        gen.manual_seed(4)
+        with core.use_generator(gen):
+            parts.append(core.dropout(w4[..., lo:hi], 0.5, True, group))
+    assert [p.shape[-1] for p in parts] == [2, 2, 0]
     assert torch.equal(torch.cat(parts, dim=-1), whole)
