@@ -253,22 +253,29 @@ Phases, each of which must pass or the script exits non-zero:
     (a) the tiny config at 21 and 33 joints and at nine dilations (1 to 9)
     on the card against the CPU (the seven outputs to 1e-3 of the peak,
     keypoints on clear peaks), with the launches the blocks' gate predicts
-    (``gate_counts``: no fused kernel in an encoder wider than 160
-    channels; the DCN a launch a group of 32 outputs and of 8 dilations);
-    (b) the flagship (HRNet-W48, 384x288) at 26 and 133 joints in bf16,
-    decoded eval at B = 2: the launches the gate predicts (the temporal
-    encoders at C = 208 and 1064 none, the flow encoder at C = 133 both
-    kernels), finite outputs, ms a step; (c) the DCN at O = C = 133, 96x72,
-    B = 2, at five dilations and at nine (3 to 27), forward in f32 and bf16
-    against its plain version under row 3's gate and backward (bf16 at five,
-    f32 at nine) under row 6's, each call's launches, two calls bit-equal,
-    ms against the plain version's and the bound; (d) the fused kernels'
-    predicates (``supports``) against ``otp_fused_attn_smem`` and the MLP's
-    entry points at C = 1 to 200, 1 to 16 heads, both dtypes; (e), inside
-    phase 19's five ranks at ``1 x 5``: the flagship's temporal encoder at
-    T = 8 (three ranks with no token) and phase 18's window-19 encoder at T
-    = 32 (halos wider than the slices) against the one-rank forward to 1e-5
-    of the peak; the phase's seconds.
+    (``gate_counts``: the fused kernels in every eval block of C >= 32, the
+    attention at stride 1, on their wide paths past 160 channels; the DCN a
+    launch a group of 32 outputs and of 8 dilations); (b) the flagship
+    (HRNet-W48, 384x288) at 26 and 133 joints, decoded eval at B = 2 in
+    bf16 and f32, with the fused kernels and without: the launches JAX's
+    gate gives (12 / 16 / 1 and 18 / 22 / 5), finite outputs, the f32
+    forward with the kernels to 1e-3 of each output's peak against without,
+    the bf16 keypoints against the plain step's beside a control (plain
+    bf16 against plain f32), ms a step with and without the kernels in
+    turns; (c) the DCN at O = C = 133, 96x72, B = 2, at five dilations and
+    at nine (3 to 27), forward in f32 and bf16 against its plain version
+    under row 3's gate and backward (bf16 at five, f32 at nine) under row
+    6's, each call's launches, two calls bit-equal, ms against the plain
+    version's and the bound; (d) the fused kernels' predicates
+    (``supports``, ``narrow``) against ``otp_fused_attn_smem``,
+    ``otp_fused_attn_narrow`` and the MLP's entry points at C = 1 to 1100,
+    1 to 16 heads, both dtypes; (e), inside phase 19's five ranks at ``1 x
+    5``: the flagship's temporal encoder at T = 8 (three ranks with no
+    token) and phase 18's window-19 encoder at T = 32 (halos wider than the
+    slices) against the one-rank forward to 1e-5 of the peak; (f) rows 1
+    and 2 on their wide paths at (B, C, T) = (2, 208, 6912) and (2, 1064,
+    6912), f32 and bf16, under phase 3's gates, two calls bit-equal, ms
+    beside the plain version's and the bound; the phase's seconds.
 
 ``python3 chip_smoke.py --phase15`` (or ``--phase17`` to ``--phase20``)
 builds the kernels and runs that phase alone (a development run: no kernels
@@ -325,16 +332,17 @@ def nbytes(*tensors) -> int:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def attn_case(dtype, gen, batch):
-    """Flagship attention inputs.  In bf16 the q and k projection weights
-    are drawn 4x and their biases 10x smaller, so that |S| stays near 10:
-    the model rounds S to bf16 before the softmax (as the reference does),
-    and where |S| is near 100 a bf16 ulp of S is 0.5, so two correct
-    summation orders that round one score to neighbouring values move its
-    attention weight by up to e^0.5 (seen on the chip: 0.3 at |S| = 75)."""
+def attn_case(dtype, gen, batch, c=136, n_head=2):
+    """Flagship attention inputs (other widths: ``c``, ``n_head``).  In bf16
+    the q and k projection weights are drawn 4x and their biases 10x
+    smaller, so that |S| stays near 10: the model rounds S to bf16 before
+    the softmax (as the reference does), and where |S| is near 100 a bf16
+    ulp of S is 0.5, so two correct summation orders that round one score
+    to neighbouring values move its attention weight by up to e^0.5 (seen on
+    the chip: 0.3 at |S| = 75)."""
     import torch
 
-    c, t = 136, 6912
+    t = 6912
     f = dict(device="cuda", dtype=torch.float32)
     r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, **f) * scale  # noqa: E731
     args = [r(batch, c, t).to(dtype),
@@ -347,13 +355,12 @@ def attn_case(dtype, gen, batch):
         small = dtype == torch.bfloat16 and p < 2
         proj += [r(c, c, 1, scale=(0.25 if small else 1.0) / math.sqrt(c)).to(dtype),
                  r(c, scale=0.01 if small else 0.1).to(dtype)]
-    return args + proj + [2]
+    return args + proj + [n_head]
 
 
-def mlp_case(dtype, gen, t, batch):
+def mlp_case(dtype, gen, t, batch, c=136):
     import torch
 
-    c = 136
     f = dict(device="cuda", dtype=torch.float32)
     r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, **f) * scale  # noqa: E731
     return [r(batch, c, t).to(dtype), 1 + r(1, c, 1, scale=0.1), r(1, c, 1, scale=0.1),
@@ -4550,6 +4557,11 @@ def _sp_r1_check(un, card: str) -> dict:
 
 WIDE_JOINTS = (26, 133)                  # Halpe-26; COCO-WholeBody's 133
 WIDE_BATCH = 2
+# the launches a forward at those joints (fused attention, fused MLP, DCN)
+# by JAX's gate (``otpose_tpu/models/blocks.py::transformer_block_ct``):
+# every eval block of C >= 32, the attention where its stride is 1
+WIDE_COUNTS = {26: (12, 16, 1), 133: (18, 22, 5)}
+PREDICATE_CHANNELS = 1100                # (d)'s grid: past Halpe-136's 1088
 NINE_DILATIONS = tuple(range(3, 30, 3))  # the flagship's five, continued to nine
 
 
@@ -4575,45 +4587,212 @@ def gate_counts(model, dtype, joints: int, dilations) -> dict:
 
 def wide_flagship(card: str, joints: int) -> dict:
     """Phase 20 (b): the flagship (HRNet-W48, 384x288) at ``joints`` joints,
-    bf16 with bf16 weights, decoded eval at B = 2: the launches the gate
-    predicts, finite outputs of the shapes, ms a step."""
+    decoded eval at B = 2 in bf16 (bf16 weights) and in f32 (TF32 off),
+    each with the fused kernels and without (``fused=False``): the launches
+    JAX's gate gives (``WIDE_COUNTS``; the fused kernels none without
+    them), finite outputs of the shapes; f32: the seven outputs of a forward
+    with the kernels to 1e-3 of each output's peak against without; bf16:
+    the decoded keypoints with the kernels equal to those without on every
+    clear peak of the plain step's heatmaps (phase 20 (a)'s gate, a clear
+    peak's top-two gap above 1% of the joint's peak), the share within
+    ``KP_PX`` and a control (plain bf16 against plain f32) printed; ms a
+    step with and without the kernels, in turns.  Weights of std
+    1/sqrt(fan_in) from a seed, BN statistics taken on the clip and the
+    refinement calibrated, so the heatmaps have peaks (the reference
+    init's are flat)."""
     import torch
 
     from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
     from otpose_tpu_torch.models.factory import build_model
-    from otpose_tpu_torch.models.otpose import prepare_eval_params
+    from otpose_tpu_torch.models.otpose import otpose_forward, prepare_eval_params
     from otpose_tpu_torch.utils.testing import flagship_otpose_cfg
     from otpose_tpu_torch.utils.timing import time_ms
 
     cfg = flagship_otpose_cfg()
     cfg.MODEL.NUM_JOINTS = joints
     spec, model = build_model(cfg, seed=0)
-    prepare_eval_params(model, torch.bfloat16)
+    _scaled_weights_(model, joints)
     gen = torch.Generator(device="cuda").manual_seed(joints)
     w, h = cfg.MODEL.IMAGE_SIZE
     inputs = torch.randn(WIDE_BATCH, h, w, 15, generator=gen, device="cuda")
     margin = torch.ones(WIDE_BATCH, 4, device="cuda")
-    step = make_decoded_eval_step(model, compute_dtype=torch.bfloat16)
-    step(inputs, margin)
-    torch.cuda.synchronize()
-    reset_counts()
-    outs = step(inputs, margin)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    want = gate_counts(model, torch.bfloat16, joints, spec.dilations)
-    ms = time_ms(lambda: step(inputs, margin), iters=5, warmup=1)
+    _calibrate_bn_(model, inputs, margin)
+    _calibrate_refinement_(model, joints)
+    models = {"f32": model, "bf16": prepare_eval_params(copy.deepcopy(model), torch.bfloat16)}
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     widths = sorted({m.ln1.weight.numel() for m in model.modules() if hasattr(m, "ln1")})
-    log(f"flagship at {joints} joints (encoder widths {widths}), bf16 decoded eval B="
-        f"{WIDE_BATCH}: launches {counts} (the gate predicts {want}); {ms:.2f} ms a step, "
-        f"{WIDE_BATCH / ms * 1e3:.3f} clips/s ({card})")
-    if counts != want:
-        fail(f"flagship at {joints} joints: launches {counts}, the gate predicts {want}")
+    attn, mlp, dcn = WIDE_COUNTS[joints]
+    want = gate_counts(model, torch.float32, joints, spec.dilations)
+    if (want["fused_attn"], want["fused_mlp"], want["deform_conv"]) != (attn, mlp, dcn):
+        fail(f"flagship at {joints} joints: the blocks' gate gives {want}, JAX's "
+             f"{WIDE_COUNTS[joints]}")
+    plain_counts = dict(want, fused_attn=0, fused_mlp=0)
     shapes = ((WIDE_BATCH, joints, 2), (WIDE_BATCH, joints, 1), (WIDE_BATCH, joints, 2))
-    if any(tuple(o.shape) != s or not torch.isfinite(o).all() for o, s in zip(outs, shapes)):
-        fail(f"flagship at {joints} joints: outputs of shape or values off")
-    del model, step
+    steps, coords, counts = {}, {}, {}
+    for label in ("bf16", "f32"):
+        for fused in (True, False):
+            key = (label, fused)
+            step = steps[key] = make_decoded_eval_step(models[label],
+                                                       compute_dtype=dtypes[label], fused=fused)
+            step(inputs, margin)
+            torch.cuda.synchronize()
+            reset_counts()
+            outs = step(inputs, margin)
+            torch.cuda.synchronize()
+            counts[key] = read_counts()
+            if counts[key] != (want if fused else plain_counts):
+                fail(f"flagship at {joints} joints, {label} fused={fused}: launches "
+                     f"{counts[key]}, expected {want if fused else plain_counts}")
+            if any(tuple(o.shape) != sh or not torch.isfinite(o).all()
+                   for o, sh in zip(outs, shapes)):
+                fail(f"flagship at {joints} joints, {label} fused={fused}: outputs of shape "
+                     "or values off")
+            coords[key] = outs[0].float()
+    # f32: the seven outputs with the kernels against without
+    with torch.no_grad():
+        got = otpose_forward(model, inputs, margin)
+        ref = otpose_forward(model, inputs, margin, fused=False)
+    worst = max((g.float() - r.float()).abs().max().item()
+                / max(1e-30, r.float().abs().max().item()) for g, r in zip(got, ref))
+    del got, ref
+    # bf16: the decoded keypoints with the kernels against without, on the
+    # plain step's clear peaks (a top-two gap above 1% of the joint's peak,
+    # more than two bf16 steps there); beside it, for scale, the share within
+    # KP_PX and the control, plain bf16 against plain f32
+    with torch.no_grad():
+        heat = otpose_forward(models["bf16"], inputs, margin, compute_dtype=torch.bfloat16,
+                              fused=False)[0]
+    flat = heat.float().permute(0, 3, 1, 2).reshape(WIDE_BATCH, joints, -1)
+    top2 = flat.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 0.01 * flat.abs().amax(dim=-1)
+    same = (coords[("bf16", True)] == coords[("bf16", False)]).all(-1)
+    del heat, flat
+    dist = lambda a, b: (coords[a] - coords[b]).norm(dim=-1)  # noqa: E731
+    within = (dist(("bf16", True), ("bf16", False)) <= KP_PX).float().mean().item()
+    ctrl = (dist(("bf16", False), ("f32", False)) <= KP_PX).float().mean().item()
+    ms = {key: [] for key in steps}
+    for label in ("bf16", "f32"):
+        for fused in (True, False, False, True):
+            ms[(label, fused)].append(time_ms(lambda: steps[(label, fused)](inputs, margin),
+                                              iters=3, warmup=1))
+    avg = {k: sum(v) / len(v) for k, v in ms.items()}
+    log(f"flagship at {joints} joints (encoder widths {widths}), decoded eval B={WIDE_BATCH}: "
+        f"launches with the kernels {counts[('bf16', True)]} in bf16, "
+        f"{counts[('f32', True)]} in f32 (JAX's gate: {attn} / {mlp} / {dcn}); f32 forward "
+        f"with the kernels against without: worst {worst:.3e} of an output's peak (limit "
+        f"1e-3); bf16 decoded keypoints with the kernels equal to those without on "
+        f"{int((same & clear).sum())}/{int(clear.sum())} clear peaks (all of them: the gate), "
+        f"on {same.float().mean().item():.2%} of all, within {KP_PX} px on {within:.2%} "
+        f"(control, plain bf16 against plain f32: {ctrl:.2%}); ms a step "
+        + ", ".join(f"{label} {'kernels' if fused else 'plain'} {avg[(label, fused)]:.2f} "
+                    f"({' / '.join(f'{v:.2f}' for v in ms[(label, fused)])})"
+                    for label, fused in ms)
+        + f" ({card})")
+    if not worst <= 1e-3:
+        fail(f"flagship at {joints} joints: the f32 forward with the kernels disagrees with "
+             "the plain one")
+    if not clear.any() or not bool(same[clear].all()):
+        fail(f"flagship at {joints} joints: the bf16 keypoints with the kernels differ from "
+             "the plain step's on a clear peak (or no peak is clear)")
+    del model, models, steps
     torch.cuda.empty_cache()
-    return dict(counts=counts, ms=ms)
+    return dict(counts=counts[("bf16", True)], counts_f32=counts[("f32", True)],
+                f32_worst=worst, bf16_clear_equal=int((same & clear).sum()),
+                bf16_clear=int(clear.sum()), bf16_within=within, control_within=ctrl,
+                ms={f"{label} {'kernels' if fused else 'plain'}": v
+                    for (label, fused), v in avg.items()})
+
+
+WIDE_ROW_SHAPES = ((WIDE_BATCH, 208, 6912), (WIDE_BATCH, 1064, 6912))   # 26 and 133 joints
+
+
+def wide_kernel_rows(card: str) -> dict:
+    """Phase 20 (f): rows 1 and 2 on their wide paths at the temporal
+    encoders' shapes at 26 and 133 joints, (B, C, T) = (2, 208, 6912) and
+    (2, 1064, 6912), two heads, in f32 and bf16: against the plain version
+    under phase 3's gate (1e-3 in f32 and 5e-2 in bf16 of max(1, peak); in
+    bf16 the share of outputs that differ, at most 5% for the MLP, printed
+    for the attention), in f32 against the f64 witness within 1e-4 of
+    max(1, peak) or twice the plain f32 version's own error there, whichever
+    is larger (the witness runs the plain version's f32 front, so the plain
+    version's error is its f32 tail's alone while the kernel's adds its own
+    front's f32 rounding; at C = 1064 the long score sums carry either to
+    about 1e-4 of the peak), two calls bit-equal,
+    ms of the kernel and the plain version by CUDA events, the bound
+    (``work``) and its share."""
+    import torch
+
+    from otpose_tpu_torch.ops.cuda import fused_attn, fused_mlp
+    from otpose_tpu_torch.utils.timing import time_ms
+
+    tol = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+    gen = torch.Generator(device="cuda").manual_seed(2020)
+    rows = {"fused_attn": {}, "fused_mlp": {}}
+    for b, c, t in WIDE_ROW_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, mod in (("fused_attn", fused_attn), ("fused_mlp", fused_mlp)):
+                if name == "fused_attn":
+                    args = attn_case(dtype, gen, b, c=c)
+                    kern, plain = fused_attn.fused_attn_ct, fused_attn.fused_attn_plain
+                    wide = not fused_attn.narrow(c, args[-1], dtype)
+                else:
+                    args = mlp_case(dtype, gen, t, b, c=c)
+                    kern, plain = fused_mlp.fused_mlp_residual_ct, fused_mlp.fused_mlp_plain
+                    wide = fused_mlp.supports(c, dtype) and c > fused_mlp.MAX_CHANNELS
+                if not wide:
+                    fail(f"{name} at C={c}: not a shape of the wide path")
+                call = packed_call(name, kern, args)
+                before = mod.launches
+                got = call()
+                torch.cuda.synchronize()
+                if mod.launches != before + 1:
+                    fail(f"{name} at C={c}: the call did not launch the kernel once")
+                same = torch.equal(call(), got)
+                want = plain(*args)
+                err = (got.float() - want.float()).abs().max().item()
+                scale = max(1.0, want.float().abs().max().item())
+                key = f"{str(dtype)[6:]} B={b} C={c} T={t}"
+                row = dict(max_abs_err=err, bit_equal=same)
+                extra = ""
+                if dtype == torch.float32:
+                    k_err, p_err = (attn_f64_errors if name == "fused_attn"
+                                    else mlp_f64_errors)(args, got, want)
+                    row["f64_err"], row["plain_f64_err"] = k_err, p_err
+                    witness = max(1e-4 * scale, 2 * p_err)
+                    extra = (f"; against the f64 witness kernel {k_err:.3e}, plain {p_err:.3e} "
+                             f"(tolerance {witness:.3e}: 1e-04 x {scale:.3g} or twice the "
+                             "plain's)")
+                else:
+                    share = (got != want).float().mean().item()
+                    row["bf16_differ_share"] = share
+                    extra = (f"; bf16 outputs that differ from the plain version {share:.4%}"
+                             + (" (limit 5%)" if name == "fused_mlp" else " (no limit)"))
+                del got, want
+                ms = time_ms(call, iters=10)
+                plain_ms = time_ms(lambda: plain(*args), iters=3)
+                moved, ops, t_ops = work(name, args)
+                t_bytes = moved / PEAK_BYTES * 1e3
+                bound = max(t_bytes, t_ops)
+                row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by="bytes" if t_bytes >= t_ops else "operations")
+                rows[name][key] = row
+                log(f"wide {name} {key}: max_abs_err {err:.3e} (tolerance {tol[dtype]:.0e} x "
+                    f"{scale:.3g}){extra}; a second call {'bit-equal' if same else 'DIFFERS'}; "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+                    f"({moved / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; {row['bound_by']}; "
+                    f"{bound / ms:.1%} of it) ({card})")
+                if not (math.isfinite(err) and err <= tol[dtype] * scale):
+                    fail(f"wide {name} {key} disagrees with its plain version")
+                if dtype == torch.float32 and not row["f64_err"] <= witness:
+                    fail(f"wide {name} {key} disagrees with the f64 witness")
+                if name == "fused_mlp" and dtype == torch.bfloat16 and \
+                        not row["bf16_differ_share"] <= 0.05:
+                    fail(f"wide {name} {key} does not round as its plain version does")
+                if not same:
+                    fail(f"wide {name} {key}: two calls differ")
+                del args, call
+                torch.cuda.empty_cache()
+    return rows
 
 
 def grouped_dcn(card: str) -> dict:
@@ -4719,10 +4898,11 @@ def grouped_dcn(card: str) -> dict:
 def check_predicates(card: str) -> dict:
     """Phase 20 (d): ``fused_attn.supports`` against the library's own
     ``otp_fused_attn_smem`` (a shape it takes: at most the shared memory a
-    block may use) and ``fused_mlp.supports`` against the MLP's entry points
-    (which refuse a shape before any launch, and launch the others on
-    zeros), at C = 1 to 200, every head count of 1, 2, 4, 8 and 16 that
-    divides C, in f32 and bf16."""
+    block may use) and ``fused_attn.narrow`` against ``otp_fused_attn_narrow``
+    (the path a shape takes), and ``fused_mlp.supports`` against the MLP's
+    entry points (which refuse a shape before any launch, and launch the
+    others on zeros), at C = 1 to 1100, every head count of 1, 2, 4, 8 and
+    16 that divides C, in f32 and bf16."""
     import torch
 
     from otpose_tpu_torch.ops.cuda import build, fused_attn, fused_mlp
@@ -4733,34 +4913,37 @@ def check_predicates(card: str) -> dict:
     points, wrong, largest = 0, [], {}
     for dtype in (torch.float32, torch.bfloat16):
         code = build.dtype_code(dtype)
-        for c in range(1, 201):
+        for c in range(1, PREDICATE_CHANNELS + 1):
             for n_head in (1, 2, 4, 8, 16):
                 if c % n_head:
                     continue
                 lib_ok = attn_lib.otp_fused_attn_smem(c, n_head, code) <= SMEM_LIMIT
+                lib_narrow = attn_lib.otp_fused_attn_narrow(c, n_head, code) == 1
                 points += 1
-                if lib_ok != fused_attn.supports(c, n_head, dtype):
-                    wrong.append(("fused_attn", str(dtype)[6:], c, n_head, lib_ok))
+                if (lib_ok, lib_narrow) != (fused_attn.supports(c, n_head, dtype),
+                                            fused_attn.narrow(c, n_head, dtype)):
+                    wrong.append(("fused_attn", str(dtype)[6:], c, n_head, lib_ok, lib_narrow))
             cp = -(-c // fused_mlp.CHANNEL_ALIGN[dtype]) * fused_mlp.CHANNEL_ALIGN[dtype]
             hp = -(-4 * c // fused_mlp.HIDDEN_TILE) * fused_mlp.HIDDEN_TILE
             t = 8
             bufs = [torch.zeros(n, device="cuda", dtype=dt) for n, dt in (
                 (c * t, dtype), (c * t, dtype), (c, torch.float32), (c, torch.float32),
                 (hp * cp, dtype), (hp, torch.float32), (cp * hp, dtype), (cp, torch.float32))]
+            bufs[1].fill_(float("nan"))       # the output: a launch writes every value (0)
             launch = mlp_lib.otp_fused_mlp_tc if code == 1 else mlp_lib.otp_fused_mlp_f32
             err = launch(*(b.data_ptr() for b in bufs), 1, c, cp, hp, t, stream)
             torch.cuda.synchronize()
-            lib_ok = err == 0
+            lib_ok = err == 0 and not bufs[1].any().item()
             points += 1
             if lib_ok != fused_mlp.supports(c, dtype):
                 wrong.append(("fused_mlp", str(dtype)[6:], c, lib_ok))
             if lib_ok:
                 largest[f"fused_mlp {str(dtype)[6:]}"] = c
-        largest[f"fused_attn {str(dtype)[6:]}, one head"] = max(
-            c for c in range(1, 201) if fused_attn.supports(c, 1, dtype))
-    log(f"the fused kernels' predicates against the libraries at {points} points (C 1-200, "
-        f"heads 1-16, f32 and bf16): {len(wrong)} disagree {wrong[:4]}; the largest C taken "
-        f"{largest} ({card})")
+        largest[f"fused_attn {str(dtype)[6:]}, one head, narrow"] = max(
+            c for c in range(1, PREDICATE_CHANNELS + 1) if fused_attn.narrow(c, 1, dtype))
+    log(f"the fused kernels' predicates against the libraries at {points} points (C 1-"
+        f"{PREDICATE_CHANNELS}, heads 1-16, f32 and bf16): {len(wrong)} disagree {wrong[:4]}; "
+        f"the largest C taken {largest} ({card})")
     if wrong:
         fail(f"the fused kernels' predicates disagree with the libraries: {wrong[:8]}")
     return dict(points=points, largest=largest)
@@ -4769,23 +4952,28 @@ def check_predicates(card: str) -> dict:
 def wide_shapes(card: str) -> dict:
     """Phase 20: (a) the tiny eval at 21 and 33 joints and at nine
     dilations on the card against the CPU; (b) the flagship at 26 and 133
-    joints; (c) the grouped DCN forward and backward at O = 133; (d) the
-    fused kernels' predicates against their libraries.  (e), R1's splits,
-    runs inside phase 19's ranks."""
+    joints, bf16 and f32, with the fused kernels and without; (c) the
+    grouped DCN forward and backward at O = 133; (d) the fused kernels'
+    predicates against their libraries; (f) rows 1 and 2 on their wide
+    paths at C = 208 and 1064.  (e), R1's splits, runs inside phase 19's
+    ranks."""
     import torch
 
     phase_t0 = time.perf_counter()
-    paths = {}
+    paths, flagship = {}, {}
     for joints, dil in ((21, None), (33, None), (17, tuple(range(1, 10)))):
         key = f"tiny_j{joints}" + ("" if dil is None else f"_d{len(dil)}")
         paths[key] = tiny_agreement(joints, dil)
     for joints in WIDE_JOINTS:
-        paths[f"flagship_j{joints}_b{WIDE_BATCH}"] = wide_flagship(card, joints)["counts"]
+        run = flagship[joints] = wide_flagship(card, joints)
+        paths[f"flagship_j{joints}_b{WIDE_BATCH}"] = run["counts"]
+        paths[f"flagship_j{joints}_b{WIDE_BATCH}_f32"] = run["counts_f32"]
     torch.cuda.empty_cache()
     dcn = grouped_dcn(card)
     check_predicates(card)
+    rows = wide_kernel_rows(card)
     log(f"wide shapes phase: {time.perf_counter() - phase_t0:.1f} s")
-    return dict(paths=paths, dcn=dcn)
+    return dict(paths=paths, dcn=dcn, rows=rows, flagship=flagship)
 
 
 def main(only: str | None = None) -> None:
@@ -4871,6 +5059,8 @@ def main(only: str | None = None) -> None:
     wide = wide_shapes(card)
     paths.update(wide["paths"])
     rows["deform_conv"]["grouped"] = wide["dcn"]["forward"]
+    for name in ("fused_attn", "fused_mlp"):
+        rows[name]["wide"] = wide["rows"][name]
     rows["deform_conv_bwd"]["grouped"] = wide["dcn"]["backward"]
     # each kernel's launches on its own path: the eval's for the model's
     # kernels, the experiment tool's for the other two, a train step's for

@@ -17,14 +17,13 @@ Eval dispatch follows the JAX ``fused_ok`` gate: with ``fused``, in eval
 mode and C >= 32, a stride-1 global block's attention front goes to
 ``ops.cuda.fused_attn`` and every block's ln2 + MLP + residual, window
 blocks' too, to ``ops.cuda.fused_mlp``, each where its kernel takes the
-block's shape (``fused_attn.supports``, ``fused_mlp.supports``: C up to
-160, and in f32 one head of at most 136 channels), decided from the shape
-before any launch; JAX gates its attention kernel alone on its own limit
-too.  The flow encoder at 17 joints (C = 17), the
-strided branch attention, the window attention, a part whose kernel does
-not take the block (the temporal encoders from 21 joints: C = 8 x joints)
-and every block in train mode take the plain PyTorch path (the kernels
-have no backward, as in JAX).
+block's shape (``fused_attn.supports``: heads that divide C;
+``fused_mlp.supports``: C up to 1152; past 160 channels both on their wide
+paths), decided from the shape before any launch; JAX gates its attention
+kernel alone on its own limit too.  The flow encoder at 17 joints (C =
+17), the strided branch attention, the window attention, an MLP past 1152
+channels and every block in train mode take the plain PyTorch path (the
+kernels have no backward, as in JAX).
 Train mode adds the JAX dropout sites: ``attn_pdrop`` on the attention
 weights, ``proj_pdrop`` after the projection, the GELU and ``mlp.3``, and
 ``path_pdrop`` through the drop-path scales.  The rates live on the block apart from the presence of

@@ -8,16 +8,19 @@ projection and the residual stay outside (``blocks.transformer_block_ct``).
 
 The wrapper calls the registered op ``otpose::fused_attn``: on a CUDA
 tensor it launches ``csrc/fused_attn.cu`` (bf16 on the tensor cores, f32 on
-them in split TF32), on a CPU tensor it runs ``fused_attn_plain``, the same
-function in plain PyTorch, from the pack.  It has no backward: on a CUDA
-tensor under grad the wrapper raises.
+them in split TF32): its narrow kernels where ``narrow`` takes the shape
+(C padded within 160, in f32 one head within 136 channels), else its wide
+path (tiled products through scratch in device memory); on a CPU tensor it
+runs ``fused_attn_plain``, the same function in plain PyTorch, from the
+pack.  It has no backward: on a CUDA tensor under grad the wrapper raises.
 
 ``pack_attn_weights`` puts the weights in the kernel's layout once
 (``models/blocks.py`` caches the result on each block); the wrapper takes
 either the raw weights, which it packs on every call, or such a pack.
 
-``supports`` says, from the shape alone, whether the kernel takes a block:
-the wrapper raises on a CUDA call it refuses, and the blocks' gate
+``supports`` says, from the shape alone, whether the kernel takes a block
+(every C whose heads divide it, in f32 and bf16): the wrapper raises on a
+CUDA call it refuses, and the blocks' gate
 (``models/blocks.py::transformer_block_ct``) sends such a block to the
 plain path before any launch.
 """
@@ -40,16 +43,20 @@ launches = 0
 packs = 0
 
 CHANNEL_ALIGN = {torch.bfloat16: 16, torch.float32: 8}   # C padded to the mma depth
-MAX_CHANNELS = 160     # kMaxCp: the padded C the kernels hold
-# the f32 score kernel's tiles of one head's (hs x hs) scores: 16 warps of
-# at most 10 (kF32MaxSlots) tiles of 16 x 8
+MAX_CHANNELS = 160     # kMaxCp: the padded C the narrow kernels hold
+# the narrow f32 score kernel's tiles of one head's (hs x hs) scores: 16
+# warps of at most 10 (kF32MaxSlots) tiles of 16 x 8
 F32_SCORE_TILES = 16 * 10
+GEMM_TILE = 128        # the wide path's products: output tiles of 128 x 128
+SPLIT_TOKENS = 32      # its score sum splits T in multiples of its K step
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "otp_fused_attn_f32": (_I, [_P] * 12 + [_I] * 5 + [ctypes.c_float, _I, _P]),
     "otp_fused_attn_tc": (_I, [_P] * 12 + [_I] * 5 + [ctypes.c_float, _I, _P]),
+    "otp_fused_attn_wide": (_I, [_P] * 13 + [_I] * 5 + [ctypes.c_float, _I, _I, _I, _P]),
     "otp_fused_attn_smem": (ctypes.c_size_t, [_I, _I, _I]),
+    "otp_fused_attn_narrow": (_I, [_I, _I, _I]),
 }
 
 
@@ -59,17 +66,34 @@ def _round_up(n: int, m: int) -> int:
 
 def supports(c: int, n_head: int, dtype) -> bool:
     """Whether ``csrc/fused_attn.cu`` takes a block of ``c`` channels in
-    ``n_head`` heads in ``dtype``: f32 or bf16, heads that divide C, C
-    padded to the mma depth within ``MAX_CHANNELS``, and in f32 at most
-    ``F32_SCORE_TILES`` tiles of one head's scores (one head of hs above 136
-    has more).  Plain Python on the shape, the same conditions as
-    ``otp_fused_attn_smem``: within them the shared memory always fits."""
-    if dtype not in CHANNEL_ALIGN or c < 1 or n_head < 1 or c % n_head:
-        return False
+    ``n_head`` heads in ``dtype``: f32 or bf16 and heads that divide C, at
+    any C (the shapes ``narrow`` refuses take the wide path, which keeps
+    nothing per C on chip).  Plain Python on the shape; the library's
+    ``otp_fused_attn_smem`` gives the shared memory of the path it takes."""
+    return dtype in CHANNEL_ALIGN and c >= 1 and n_head >= 1 and c % n_head == 0
+
+
+def narrow(c: int, n_head: int, dtype) -> bool:
+    """Whether a shape ``supports`` takes runs the narrow kernels: C padded
+    to the mma depth within ``MAX_CHANNELS``, and in f32 at most
+    ``F32_SCORE_TILES`` tiles of one head's scores (one head of hs above
+    136 has more); the same conditions as the library's
+    ``otp_fused_attn_narrow``."""
     if _round_up(c, CHANNEL_ALIGN[dtype]) > MAX_CHANNELS:
         return False
     hs = c // n_head
     return not (dtype == torch.float32 and n_head * -(-hs // 16) * -(-hs // 8) > F32_SCORE_TILES)
+
+
+def wide_split(t: int, hs: int, bsz: int, n_head: int, sms: int) -> tuple:
+    """(nsplit, kspan): how the wide path splits the score sum over T.  About
+    two blocks an SM over the (hs x hs) score tiles of every item and head,
+    each split at least 256 tokens; kspan, the tokens of a split, a multiple
+    of ``SPLIT_TOKENS``; no split empty."""
+    tiles = (-(-hs // GEMM_TILE)) ** 2 * bsz * n_head
+    nsplit = max(1, min(-(-2 * sms // tiles), -(-t // 256)))
+    kspan = max(SPLIT_TOKENS, _round_up(-(-t // nsplit), SPLIT_TOKENS))
+    return max(1, -(-t // kspan)), kspan
 
 
 def channel_attention_ct(q, k, v, n_head: int, drop=None, reduce=None) -> torch.Tensor:
@@ -194,29 +218,37 @@ def _fused_attn_cuda(x, ln1_w, ln1_b, dw, nw, nb, pw, pb, n_head):
     code = build.dtype_code(x.dtype)
     if not supports(c, n_head, x.dtype):
         raise ValueError(f"fused_attn_ct: C={c}, n_head={n_head} is not a shape the "
-                         f"{x.dtype} kernel takes (C above {MAX_CHANNELS}, in f32 more than "
-                         f"{F32_SCORE_TILES} same-head score tiles: hs above 136 with one "
-                         "head)")
+                         f"{x.dtype} kernel takes")
     lib = build.load("fused_attn", _SIGNATURES)
     if ln1_w.numel() != c or pw.device != x.device:
         raise ValueError(f"fused_attn_ct: weights packed for C={ln1_w.numel()} on "
                          f"{pw.device}, x has C={c} on {x.device}")
     dev = x.device
     hs = c // n_head
-    chunks = -(-t // 32)
-    # about one block a SM: each holds projection weights for all its chunks
-    nsplit = max(1, min(chunks, _sm_count(dev.index or 0) // bsz))
-    kp = -(-hs // CHANNEL_ALIGN[x.dtype]) * CHANNEL_ALIGN[x.dtype]
+    kp = _round_up(hs, CHANNEL_ALIGN[x.dtype])
     att_scr = torch.empty(bsz, c, kp, device=dev, dtype=x.dtype)
-    v_scr = torch.empty_like(x)
-    # each split's partial score sums, added in split order by the kernel
-    s_scr = torch.empty(nsplit, bsz, c, hs, device=dev, dtype=torch.float32)
     out = torch.empty_like(x)
-    ptrs = [a.data_ptr() for a in (x, ln1_w, ln1_b, dw, nw, nb, pw, pb, v_scr, s_scr, att_scr,
-                                   out)]
-    launch = lib.otp_fused_attn_tc if code == 1 else lib.otp_fused_attn_f32
-    err = launch(*ptrs, bsz, c, pw.shape[1], t, n_head, _scale(hs, x.dtype), nsplit,
-                 build.stream_ptr(dev))
+    scale = _scale(hs, x.dtype)
+    if narrow(c, n_head, x.dtype):
+        # about one block a SM: each holds projection weights for all its chunks
+        nsplit = max(1, min(-(-t // 32), _sm_count(dev.index or 0) // bsz))
+        v_scr = torch.empty_like(x)
+        # each split's partial score sums, added in split order by the kernel
+        s_scr = torch.empty(nsplit, bsz, c, hs, device=dev, dtype=torch.float32)
+        ptrs = [a.data_ptr() for a in (x, ln1_w, ln1_b, dw, nw, nb, pw, pb, v_scr, s_scr,
+                                       att_scr, out)]
+        launch = lib.otp_fused_attn_tc if code == 1 else lib.otp_fused_attn_f32
+        err = launch(*ptrs, bsz, c, pw.shape[1], t, n_head, scale, nsplit,
+                     build.stream_ptr(dev))
+    else:
+        nsplit, kspan = wide_split(t, hs, bsz, n_head, _sm_count(dev.index or 0))
+        y_scr = torch.empty(3, bsz, c, t, device=dev, dtype=x.dtype)
+        qkv_scr = torch.empty_like(y_scr)
+        s_scr = torch.empty(nsplit, bsz, c, hs, device=dev, dtype=torch.float32)
+        ptrs = [a.data_ptr() for a in (x, ln1_w, ln1_b, dw, nw, nb, pw, pb, y_scr, qkv_scr,
+                                       s_scr, att_scr, out)]
+        err = lib.otp_fused_attn_wide(*ptrs, bsz, c, pw.shape[1], t, n_head, scale, nsplit,
+                                      kspan, code, build.stream_ptr(dev))
     build.check(lib, err, "fused_attn_ct")
     launches += 1
     return out

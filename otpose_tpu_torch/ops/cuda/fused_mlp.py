@@ -4,9 +4,9 @@
 on (B, C, T), the ln2 + mlp + residual tail of an eval transformer block.
 The wrapper calls the registered op ``otpose::fused_mlp``: on a CUDA tensor
 it launches ``csrc/fused_mlp.cu`` (bf16 on the tensor cores, f32 on them in
-split TF32), on a CPU tensor it runs ``fused_mlp_plain``, the same function in
-plain PyTorch, from the pack.  It has no backward: on a CUDA tensor under
-grad the wrapper raises.
+split TF32; past ``MAX_CHANNELS`` its wide kernels), on a CPU tensor it runs
+``fused_mlp_plain``, the same function in plain PyTorch, from the pack.  It
+has no backward: on a CUDA tensor under grad the wrapper raises.
 
 ``pack_mlp_weights`` puts the weights in the kernel's layout once
 (``models/blocks.py`` caches the result on each block); the wrapper takes
@@ -35,7 +35,10 @@ packs = 0
 
 CHANNEL_ALIGN = {torch.bfloat16: 16, torch.float32: 8}   # C padded to the mma depth
 HIDDEN_TILE = 32      # the kernels stream W1/W2 in tiles of 32 hidden rows
-MAX_CHANNELS = 160    # the limit of both kernels
+MAX_CHANNELS = 160    # the narrow kernels' limit (kMaxCp); past it the wide kernels
+# the wide kernels' limit (kWideMaxCp): each of 16 warps holds the f32
+# accumulators of at most 9 output tiles of 8 channels for 32 tokens
+WIDE_MAX_CHANNELS = 16 * 8 * 9
 # The f32 pack's order of W2's hidden columns inside each group of 8: column
 # k holds hidden HIDDEN_ORDER[k].  The first product's C fragment gives a lane
 # hidden 2q and 2q + 1; the second product's A fragment wants k positions q
@@ -56,8 +59,10 @@ def _round_up(n: int, m: int) -> int:
 
 def supports(c: int, dtype) -> bool:
     """Whether ``csrc/fused_mlp.cu`` takes ``c`` channels in ``dtype``: f32 or
-    bf16, C padded to the mma depth within ``MAX_CHANNELS`` (kMaxCp)."""
-    return dtype in CHANNEL_ALIGN and 1 <= _round_up(c, CHANNEL_ALIGN[dtype]) <= MAX_CHANNELS
+    bf16, C padded to the mma depth within ``WIDE_MAX_CHANNELS`` (1152: the
+    narrow kernels to ``MAX_CHANNELS``, the wide ones past it)."""
+    return (dtype in CHANNEL_ALIGN
+            and 1 <= _round_up(c, CHANNEL_ALIGN[dtype]) <= WIDE_MAX_CHANNELS)
 
 
 def permute_hidden(w2: torch.Tensor, order=HIDDEN_ORDER) -> torch.Tensor:
@@ -154,7 +159,8 @@ def _fused_mlp_cuda(x, ln_w, ln_b, w1, b1, w2, b2, hid):
     bsz, c, t = x.shape
     code = build.dtype_code(x.dtype)
     if not supports(c, x.dtype):
-        raise ValueError(f"fused_mlp_residual_ct: C={c} is above the kernel's {MAX_CHANNELS}")
+        raise ValueError(f"fused_mlp_residual_ct: C={c} is above the kernels' "
+                         f"{WIDE_MAX_CHANNELS}")
     if ln_w.numel() != c or w1.device != x.device:
         raise ValueError(f"fused_mlp_residual_ct: weights packed for C={ln_w.numel()} on "
                          f"{w1.device}, x has C={c} on {x.device}")

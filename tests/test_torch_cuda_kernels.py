@@ -10,8 +10,9 @@ outside the image), bit-equal from call to call in every gradient, and
 marking the planes that a non-finite gradient reaches; the kernels without a
 backward refusing grad).  The DCN above 32 outputs or 8 dilations, as a
 group of launches, forward and backward (O = 33 and 133 and D = 9 among
-them), and the tiny eval at 21 joints, whose 168-channel encoders the
-fused kernels do not take, against the CPU.  Also nvJPEG's decode (``csrc/jpeg_nv.cu``) against
+them); the fused attention and MLP on their wide paths (C = 168 to 1152,
+one f32 head of 144), and the tiny eval at 21 and 33 joints, whose 168- and
+264-channel encoders take them, against the CPU.  Also nvJPEG's decode (``csrc/jpeg_nv.cu``) against
 the fixture's libjpeg decode, into a staging buffer, its errors, the device
 loader that decodes with it, and the detector on the card against the CPU.
 
@@ -181,6 +182,46 @@ def test_packed_call_equals_raw_call(dtype):
     other = torch.bfloat16 if dtype == torch.float32 else torch.float32
     with pytest.raises(ValueError, match="packed for"):
         fused_attn.fused_attn_ct(args[0].to(other), packed=pk, n_head=2)
+
+
+# the wide paths (C padded past 160; the attention's also one f32 head past
+# 136): the temporal encoders at 21 (168), 25 (200), 26 (208) and 133 (1064)
+# joints, one head of 144, B = 1 and 2, T ragged against the 32-token tiles
+# and the 16-byte vectors, and the flagship's length
+WIDE_ATTN = [(2, 168, 100, 2), (1, 200, 257, 2), (2, 208, 6912, 2), (1, 1064, 1000, 2),
+             (2, 1064, 77, 2), (1, 144, 300, 1), (2, 144, 6912, 1)]
+WIDE_MLP = [(2, 168, 100), (1, 200, 33), (2, 208, 6912), (1, 1064, 300), (2, 1064, 65),
+            (2, 1152, 40), (1, 144, 31)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,t,n_head", WIDE_ATTN)
+def test_wide_fused_attn_matches_plain(b, c, t, n_head, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(c + t)
+    args = _attn_args(b, c, t, n_head, dtype, gen)
+    launches = fused_attn.launches
+    got = fused_attn.fused_attn_ct(*args)
+    torch.cuda.synchronize()
+    assert fused_attn.launches == launches + 1
+    assert fused_attn.narrow(c, n_head, dtype) == (c == 144 and dtype == torch.bfloat16)
+    _close(got, fused_attn.fused_attn_plain(*args), dtype)
+    assert torch.equal(fused_attn.fused_attn_ct(*args), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,t", WIDE_MLP)
+def test_wide_fused_mlp_matches_plain(b, c, t, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(c + t)
+    args = _mlp_args(b, c, t, dtype, gen)
+    launches = fused_mlp.launches
+    got = fused_mlp.fused_mlp_residual_ct(*args)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == launches + 1
+    want = fused_mlp.fused_mlp_plain(*args)
+    _close(got, want, dtype)
+    if dtype == torch.bfloat16 and got.numel() >= 10000:   # chip_smoke.py's rounding check
+        assert (got != want).float().mean().item() <= 0.05
+    assert torch.equal(fused_mlp.fused_mlp_residual_ct(*args), got)
 
 
 # the DCN kernel's two rounding modes, each with its wrapper and plain version
@@ -502,13 +543,12 @@ def test_kernels_without_backward_refuse_grad():
         fused_mlp.fused_mlp_residual_ct(margs[0], *margs[1:3], weight, *margs[4:])
 
 
-@pytest.mark.parametrize("joints,fused", [(17, (4, 6)), (21, (0, 0)), (33, (2, 2))])
+@pytest.mark.parametrize("joints,fused", [(17, (4, 6)), (21, (4, 6)), (33, (6, 8))])
 def test_tiny_eval_on_the_card_equals_the_cpu(joints, fused):
     """F7: the temporal encoders are 8 x joints channels wide, so from 21
-    joints (168) the fused kernels (at most 160) do not take them and the
-    blocks' gate sends them to the plain path before any launch; at 33
-    joints the flow encoder (C = 33, one head) takes both kernels and the
-    DCN's 33 outputs are two groups of launches.  The forward's
+    joints (168) the fused kernels take them on their wide paths; at 33
+    joints the flow encoder (C = 33, one head) takes both kernels as well
+    and the DCN's 33 outputs are two groups of launches.  The forward's
     launches (fused attention, fused MLP, DCN) and its seven outputs against
     the CPU's plain versions to 1e-3 of each peak, TF32 off."""
     from otpose_tpu_torch.models.factory import build_model
@@ -610,19 +650,22 @@ def test_token_shift_under_a_cuda_graph_and_on_a_side_stream():
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
-    x = torch.randn(1, 200, 16, device="cuda")
-    w = torch.randn(800, 200, 1, device="cuda")
-    ln = torch.ones(200, device="cuda")
-    with pytest.raises(ValueError, match="C=200"):
-        fused_mlp.fused_mlp_residual_ct(x, ln, ln, w, w[:, 0, 0], w.reshape(200, 800, 1),
+    # the MLP past 1152 padded channels (its wide kernel's accumulators):
+    # supports is False and the wrapper raises before any launch
+    x = torch.randn(1, 1160, 16, device="cuda")
+    w = torch.randn(4640, 1160, 1, device="cuda")
+    ln = torch.ones(1160, device="cuda")
+    assert not fused_mlp.supports(1160, torch.float32)
+    launches = fused_mlp.launches
+    with pytest.raises(ValueError, match="C=1160"):
+        fused_mlp.fused_mlp_residual_ct(x, ln, ln, w, w[:, 0, 0], w.reshape(1160, 4640, 1),
                                         ln)
-    for dtype in (torch.float32, torch.bfloat16):      # C above 160: both kernels refuse
+    assert fused_mlp.launches == launches
+    for dtype in (torch.float32, torch.bfloat16):      # heads that do not divide C
         args = _attn_args(1, 200, 8, 2, dtype, torch.Generator(device="cuda"))
-        with pytest.raises(ValueError, match="C=200"):
+        args[-1] = 3
+        with pytest.raises(ValueError, match="C=200 not divisible"):
             fused_attn.fused_attn_ct(*args)
-    args = _attn_args(1, 160, 8, 1, torch.float32, torch.Generator(device="cuda"))
-    with pytest.raises(ValueError, match="score tiles"):      # f32: 200 tiles, hs = 160
-        fused_attn.fused_attn_ct(*args)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         args = _attn_args(1, 32, 8, 2, torch.float32, torch.Generator(device="cuda"))
         fused_attn.fused_attn_ct(args[0].half(), *args[1:])

@@ -1,8 +1,9 @@
 """The shapes the JAX package runs beyond the shipped configs, against it on
 the CPU, in f32: joint counts whose temporal encoders are wider than the
-fused kernels take (C = 8 x joints: 168 at 21 joints, above their 160), the
-DCN at more than 32 outputs (33 joints and up) and at more than 8
-dilations.  Inputs from numpy seeds; JAX runs ``fused=False``.
+fused kernels' narrow paths take (C = 8 x joints: 168 at 21 joints, above
+their 160; the wide paths take them), the DCN at more than 32 outputs (33
+joints and up) and at more than 8 dilations.  Inputs from numpy seeds; JAX
+runs ``fused=False``.
 
 - **The whole model** at ``tiny_otpose_cfg(num_joints=21)``,
   ``(num_joints=33)`` and 17 joints with nine dilations (1 to 9), the
@@ -10,8 +11,8 @@ dilations.  Inputs from numpy seeds; JAX runs ``fused=False``.
   of ``otpose_forward`` to 1e-3 of each output's peak (the model bar) and
   the decoded keypoints (coords equal where a heatmap's top-two gap is
   clear, max values to 1e-3 of their peak), with the op calls the gate
-  gives (no fused op in the 168- and 264-channel encoders; the flow
-  encoder's two blocks at 33 joints).
+  gives (the fused ops in the 168- and 264-channel encoders as at 17
+  joints; the flow encoder's two blocks too at 33 joints).
 - **The DCN op** at O in {33, 64, 65} and D in {5, 9}: the forward against
   JAX's ``modulated_deform_conv_multi`` to 1e-5 of the peak, and its five
   gradients against ``jax.grad`` of the JAX function run in f64 (the exact
@@ -24,9 +25,10 @@ dilations.  Inputs from numpy seeds; JAX runs ``fused=False``.
   dilations: the decoded step traced on the CPU (the DCN op from its pack
   of 64 outputs) equals the live step bit for bit.
 - **The fused blocks' gate**: ``fused_attn.supports`` / ``fused_mlp.supports``
-  at the kernels' limits, and the op calls of a block on either side of
-  them (``calls`` counts on the CPU too): C = 168 calls neither fused op,
-  C = 136 both, one f32 head of 144 channels the MLP's alone.
+  at the kernels' limits (the attention any C whose heads divide it, the
+  MLP to 1152 padded channels), and the op calls of a block on either side
+  of the narrow kernels' 160 (``calls`` counts on the CPU too): C = 136,
+  168 and 1064 and one f32 head of 144 channels call both fused ops.
 """
 
 from unittest import mock
@@ -58,7 +60,7 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NINE = list(range(1, 10))
 # (joints, dilations, op calls a forward: fused attention, fused MLP, DCN)
-MODELS = {"j21": (21, [3, 6], (0, 0, 1)), "j33": (33, [3, 6], (2, 2, 1)),
+MODELS = {"j21": (21, [3, 6], (4, 6, 1)), "j33": (33, [3, 6], (6, 8, 1)),
           "d9": (17, NINE, (4, 6, 1))}
 
 
@@ -252,26 +254,27 @@ def test_the_exported_program_takes_33_joints_and_nine_dilations():
 # ---------------------------------------------------------------- the gate
 
 def test_the_predicates_mirror_the_kernels_limits():
-    """C padded to the mma depth within 160 (both kernels, both dtypes); in
-    f32 one head's scores in at most 160 tiles of 16 x 8 (hs up to 136)."""
+    """The MLP: C padded to the mma depth within 1152 (both dtypes: the
+    narrow kernels to 160, the wide ones past it); the attention: any C
+    whose heads divide it (its wide path holds nothing per C on chip)."""
     f32, bf16 = torch.float32, torch.bfloat16
     for dtype in (f32, bf16):
-        assert fused_mlp.supports(160, dtype) and not fused_mlp.supports(161, dtype)
+        assert fused_mlp.supports(1152, dtype) and not fused_mlp.supports(1153, dtype)
         assert fused_mlp.supports(17, dtype) and not fused_mlp.supports(0, dtype)
         assert fused_attn.supports(160, 2, dtype) and fused_attn.supports(136, 8, dtype)
-        assert not fused_attn.supports(168, 8, dtype) and not fused_attn.supports(1064, 8, dtype)
+        assert fused_attn.supports(168, 8, dtype) and fused_attn.supports(1064, 8, dtype)
         assert not fused_attn.supports(136, 3, dtype)       # heads that do not divide C
-    assert fused_attn.supports(136, 1, f32) and not fused_attn.supports(137, 1, f32)
-    assert fused_attn.supports(160, 1, bf16) and not fused_attn.supports(144, 1, f32)
+    assert fused_attn.supports(136, 1, f32) and fused_attn.supports(137, 1, f32)
+    assert fused_attn.supports(160, 1, bf16) and fused_attn.supports(144, 1, f32)
     assert not fused_mlp.supports(136, torch.float16)
     assert not fused_attn.supports(136, 8, torch.float16)
 
 
 @pytest.mark.parametrize("c,n_head,ds,calls", [
     (136, 2, 1, (1, 1)),     # the flagship's temporal blocks: both kernels
-    (168, 2, 1, (0, 0)),     # 21 joints: neither
-    (1064, 2, 1, (0, 0)),    # 133 joints: neither
-    (144, 1, 1, (0, 1)),     # one f32 head of 144: the MLP's alone
+    (168, 2, 1, (1, 1)),     # 21 joints: both, on their wide paths
+    (1064, 2, 1, (1, 1)),    # 133 joints: both, on their wide paths
+    (144, 1, 1, (1, 1)),     # one f32 head of 144: both, the attention's wide path
     (136, 2, 2, (0, 1)),     # a strided block: the MLP's alone, as before
     (17, 1, 1, (0, 0)),      # below 32 channels: neither, as before
 ])
