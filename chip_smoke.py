@@ -268,14 +268,19 @@ Phases, each of which must pass or the script exits non-zero:
     6's, each call's launches, two calls bit-equal, ms against the plain
     version's and the bound; (d) the fused kernels' predicates
     (``supports``, ``narrow``) against ``otp_fused_attn_smem``,
-    ``otp_fused_attn_narrow`` and the MLP's entry points at C = 1 to 1100,
+    ``otp_fused_attn_narrow`` and the MLP's entry points (the narrow ones to
+    160 channels, ``otp_fused_mlp_wide`` past them) at C = 1 to 1100,
     1 to 16 heads, both dtypes; (e), inside phase 19's five ranks at ``1 x
     5``: the flagship's temporal encoder at T = 8 (three ranks with no
     token) and phase 18's window-19 encoder at T = 32 (halos wider than the
     slices) against the one-rank forward to 1e-5 of the peak; (f) rows 1
-    and 2 on their wide paths at (B, C, T) = (2, 208, 6912) and (2, 1064,
-    6912), f32 and bf16, under phase 3's gates, two calls bit-equal, ms
-    beside the plain version's and the bound; the phase's seconds.
+    and 2 on their wide paths (the products on ``wgmma`` fed by TMA,
+    ``csrc/hopper_gemm.cuh``) at (B, C, T) = (2, 208, 6912) and (2, 1064,
+    6912), f32 and bf16, under phase 3's gates, two calls bit-equal, the
+    kernel no slower than its plain version in each of the eight cells, ms
+    beside the plain version's, the bound and its share, each launch's
+    device ms, and the products alone by ``torch.matmul`` (the library
+    column: products only, not the function); the phase's seconds.
 
 ``python3 chip_smoke.py --phase15`` (or ``--phase17`` to ``--phase20``)
 builds the kernels and runs that phase alone (a development run: no kernels
@@ -712,6 +717,7 @@ def reset_counts():
     for mod in mods.values():
         mod.calls = mod.launches = 0
     mods["deform_conv"].bwd_launches = 0
+    mods["fused_attn"].wide_launches = mods["fused_mlp"].wide_launches = 0
 
 
 def read_counts():
@@ -2545,9 +2551,10 @@ def _dist_wait(procs, spec: dict, what: str) -> list:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    for r, (p, out) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            fail(f"data parallel {what}: rank {r} exited with {p.returncode}\n{out[-4000:]}")
+    bad = [f"rank {r} exited with {p.returncode}\n{out[-4000:]}"
+           for r, (p, out) in enumerate(zip(procs, logs)) if p.returncode != 0]
+    if bad:   # every failed rank's log: the first to fail need not be rank 0
+        fail(f"data parallel {what}: " + "\n".join(bad))
     results = []
     for r in range(len(procs)):
         with open(spec["out"] % r) as fh:
@@ -4585,6 +4592,26 @@ def gate_counts(model, dtype, joints: int, dilations) -> dict:
                                                         deform_conv.output_pad(joints)))
 
 
+def wide_counts(model, dtype) -> tuple:
+    """(attention, MLP) launches a forward of ``model`` makes on the wide
+    paths by the blocks' gate: the fused blocks whose shape ``narrow`` (the
+    attention) or ``MAX_CHANNELS`` (the MLP) leaves to the wide path."""
+    from otpose_tpu_torch.models.blocks import TransformerBlock
+    from otpose_tpu_torch.ops.cuda import fused_attn, fused_mlp
+
+    attn = mlp = 0
+    for m in model.modules():
+        if isinstance(m, TransformerBlock):
+            c = m.ln1.weight.numel()
+            if c < 32:
+                continue
+            attn += (m.window <= 1 and m.ds_stride == 1 and fused_attn.supports(c, m.n_head, dtype)
+                     and not fused_attn.narrow(c, m.n_head, dtype))
+            align = fused_mlp.CHANNEL_ALIGN[dtype]
+            mlp += fused_mlp.supports(c, dtype) and -(-c // align) * align > fused_mlp.MAX_CHANNELS
+    return attn, mlp
+
+
 def wide_flagship(card: str, joints: int) -> dict:
     """Phase 20 (b): the flagship (HRNet-W48, 384x288) at ``joints`` joints,
     decoded eval at B = 2 in bf16 (bf16 weights) and in f32 (TF32 off),
@@ -4605,6 +4632,7 @@ def wide_flagship(card: str, joints: int) -> dict:
     from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
     from otpose_tpu_torch.models.factory import build_model
     from otpose_tpu_torch.models.otpose import otpose_forward, prepare_eval_params
+    from otpose_tpu_torch.ops.cuda import fused_attn, fused_mlp
     from otpose_tpu_torch.utils.testing import flagship_otpose_cfg
     from otpose_tpu_torch.utils.timing import time_ms
 
@@ -4627,8 +4655,9 @@ def wide_flagship(card: str, joints: int) -> dict:
         fail(f"flagship at {joints} joints: the blocks' gate gives {want}, JAX's "
              f"{WIDE_COUNTS[joints]}")
     plain_counts = dict(want, fused_attn=0, fused_mlp=0)
+    want_wide = wide_counts(model, torch.float32)
     shapes = ((WIDE_BATCH, joints, 2), (WIDE_BATCH, joints, 1), (WIDE_BATCH, joints, 2))
-    steps, coords, counts = {}, {}, {}
+    steps, coords, counts, wide = {}, {}, {}, {}
     for label in ("bf16", "f32"):
         for fused in (True, False):
             key = (label, fused)
@@ -4640,6 +4669,10 @@ def wide_flagship(card: str, joints: int) -> dict:
             outs = step(inputs, margin)
             torch.cuda.synchronize()
             counts[key] = read_counts()
+            wide[key] = (fused_attn.wide_launches, fused_mlp.wide_launches)
+            if fused and wide[key] != wide_counts(model, dtypes[label]):
+                fail(f"flagship at {joints} joints, {label}: wide-path launches (attention, "
+                     f"MLP) {wide[key]}, expected {wide_counts(model, dtypes[label])}")
             if counts[key] != (want if fused else plain_counts):
                 fail(f"flagship at {joints} joints, {label} fused={fused}: launches "
                      f"{counts[key]}, expected {want if fused else plain_counts}")
@@ -4678,7 +4711,9 @@ def wide_flagship(card: str, joints: int) -> dict:
     avg = {k: sum(v) / len(v) for k, v in ms.items()}
     log(f"flagship at {joints} joints (encoder widths {widths}), decoded eval B={WIDE_BATCH}: "
         f"launches with the kernels {counts[('bf16', True)]} in bf16, "
-        f"{counts[('f32', True)]} in f32 (JAX's gate: {attn} / {mlp} / {dcn}); f32 forward "
+        f"{counts[('f32', True)]} in f32 (JAX's gate: {attn} / {mlp} / {dcn}), of which on "
+        f"the wide paths (attention, MLP) {wide[('bf16', True)]} in bf16, "
+        f"{wide[('f32', True)]} in f32 (the gate: {want_wide}); f32 forward "
         f"with the kernels against without: worst {worst:.3e} of an output's peak (limit "
         f"1e-3); bf16 decoded keypoints with the kernels equal to those without on "
         f"{int((same & clear).sum())}/{int(clear.sum())} clear peaks (all of them: the gate), "
@@ -4697,6 +4732,7 @@ def wide_flagship(card: str, joints: int) -> dict:
     del model, models, steps
     torch.cuda.empty_cache()
     return dict(counts=counts[("bf16", True)], counts_f32=counts[("f32", True)],
+                wide_launches={"bf16": wide[("bf16", True)], "f32": wide[("f32", True)]},
                 f32_worst=worst, bf16_clear_equal=int((same & clear).sum()),
                 bf16_clear=int(clear.sum()), bf16_within=within, control_within=ctrl,
                 ms={f"{label} {'kernels' if fused else 'plain'}": v
@@ -4704,6 +4740,30 @@ def wide_flagship(card: str, joints: int) -> dict:
 
 
 WIDE_ROW_SHAPES = ((WIDE_BATCH, 208, 6912), (WIDE_BATCH, 1064, 6912))   # 26 and 133 joints
+
+
+def products_ms(name, args) -> float:
+    """ms of the matrix products of row 1 or 2 alone, by ``torch.matmul`` at
+    the same shapes and dtype on random operands (CUDA events, eager): the
+    MLP's two ((B T) x C by C x 4C, then by 4C x C), the attention's three
+    projections, same-head scores and att @ v.  A yardstick of the products
+    only, not of the function (no LN, conv, GELU, softmax or rounding)."""
+    import torch
+
+    from otpose_tpu_torch.utils.timing import time_ms
+
+    x = args[0]
+    b, c, t = x.shape
+    r = lambda *s: torch.randn(*s, device="cuda").to(x.dtype)  # noqa: E731
+    if name == "fused_mlp":
+        hid = args[3].shape[0]
+        xn, g, w1, w2 = r(b * t, c), r(b * t, hid), r(hid, c), r(c, hid)
+        return time_ms(lambda: (torch.matmul(xn, w1.T), torch.matmul(g, w2.T)), iters=5)
+    n_head = args[-1]
+    hs = c // n_head
+    y, w, q, att = r(3, b, c, t), r(3, 1, c, c), r(b, n_head, hs, t), r(b, n_head, hs, hs)
+    return time_ms(lambda: (torch.matmul(w, y), torch.matmul(q, q.transpose(-1, -2)),
+                            torch.matmul(att, q)), iters=5)
 
 
 def wide_kernel_rows(card: str) -> dict:
@@ -4717,12 +4777,16 @@ def wide_kernel_rows(card: str) -> dict:
     is larger (the witness runs the plain version's f32 front, so the plain
     version's error is its f32 tail's alone while the kernel's adds its own
     front's f32 rounding; at C = 1064 the long score sums carry either to
-    about 1e-4 of the peak), two calls bit-equal,
-    ms of the kernel and the plain version by CUDA events, the bound
-    (``work``) and its share."""
+    about 1e-4 of the peak), two calls bit-equal, ms of the kernel and the
+    plain version by CUDA events, the kernel no slower than the plain version
+    (the gate), the bound (``work``) and its share, the device ms of each of
+    the call's launches (``torch.profiler``) and, as the library column's
+    yardstick, the function's matrix products alone by ``torch.matmul`` at
+    the same shapes (``products_ms``: products only, not the function)."""
     import torch
 
     from otpose_tpu_torch.ops.cuda import fused_attn, fused_mlp
+    from otpose_tpu_torch.tools.attn_time import device_split
     from otpose_tpu_torch.utils.timing import time_ms
 
     tol = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
@@ -4773,14 +4837,24 @@ def wide_kernel_rows(card: str) -> dict:
                 moved, ops, t_ops = work(name, args)
                 t_bytes = moved / PEAK_BYTES * 1e3
                 bound = max(t_bytes, t_ops)
+                split = device_split(call, calls=3)
                 row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                           bound_by="bytes" if t_bytes >= t_ops else "operations")
+                           bound_by="bytes" if t_bytes >= t_ops else "operations",
+                           library_ms=products_ms(name, args),
+                           library="products only, not the function (torch.matmul)",
+                           launch_ms={k: v[0] for k, v in split.items()})
                 rows[name][key] = row
                 log(f"wide {name} {key}: max_abs_err {err:.3e} (tolerance {tol[dtype]:.0e} x "
                     f"{scale:.3g}){extra}; a second call {'bit-equal' if same else 'DIFFERS'}; "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-                    f"({moved / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; {row['bound_by']}; "
-                    f"{bound / ms:.1%} of it) ({card})")
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (the gate: kernel <= plain), "
+                    f"bound {bound:.4f} ms ({moved / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; "
+                    f"{row['bound_by']}; {bound / ms:.1%} of it); library (products only, not "
+                    f"the function) {row['library_ms']:.4f} ms; device ms a launch: "
+                    + ", ".join(f"{k} {v[0]:.4f} ({v[1]:.3g} a call)" for k, v in split.items())
+                    + f" ({card})")
+                if not ms <= plain_ms:
+                    fail(f"wide {name} {key}: the kernel ({ms:.4f} ms) is slower than its plain "
+                         f"version ({plain_ms:.4f} ms)")
                 if not (math.isfinite(err) and err <= tol[dtype] * scale):
                     fail(f"wide {name} {key} disagrees with its plain version")
                 if dtype == torch.float32 and not row["f64_err"] <= witness:
@@ -4930,8 +5004,16 @@ def check_predicates(card: str) -> dict:
                 (c * t, dtype), (c * t, dtype), (c, torch.float32), (c, torch.float32),
                 (hp * cp, dtype), (hp, torch.float32), (cp * hp, dtype), (cp, torch.float32))]
             bufs[1].fill_(float("nan"))       # the output: a launch writes every value (0)
-            launch = mlp_lib.otp_fused_mlp_tc if code == 1 else mlp_lib.otp_fused_mlp_f32
-            err = launch(*(b.data_ptr() for b in bufs), 1, c, cp, hp, t, stream)
+            ptrs = [b.data_ptr() for b in bufs]
+            if cp <= fused_mlp.MAX_CHANNELS:
+                launch = mlp_lib.otp_fused_mlp_tc if code == 1 else mlp_lib.otp_fused_mlp_f32
+                err = launch(*ptrs, 1, c, cp, hp, t, stream)
+            else:      # the wide path's entry, with the scratch the wrapper gives it
+                scratch = [torch.empty(shape, device="cuda", dtype=dtype) for shape in
+                           fused_mlp.wide_plan(1, c, t, hp, dtype)["shapes"].values()]
+                scratch += scratch[-1:] * (3 - len(scratch))   # bf16: no split weights
+                err = mlp_lib.otp_fused_mlp_wide(*ptrs, *(b.data_ptr() for b in scratch), 1, c,
+                                                 cp, hp, t, code, stream)
             torch.cuda.synchronize()
             lib_ok = err == 0 and not bufs[1].any().item()
             points += 1
@@ -5061,6 +5143,7 @@ def main(only: str | None = None) -> None:
     rows["deform_conv"]["grouped"] = wide["dcn"]["forward"]
     for name in ("fused_attn", "fused_mlp"):
         rows[name]["wide"] = wide["rows"][name]
+        rows[name]["wide_source"] = "otpose_tpu_torch/csrc/hopper_gemm.cuh"
     rows["deform_conv_bwd"]["grouped"] = wide["dcn"]["backward"]
     # each kernel's launches on its own path: the eval's for the model's
     # kernels, the experiment tool's for the other two, a train step's for

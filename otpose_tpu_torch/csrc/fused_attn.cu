@@ -90,22 +90,36 @@
 //   - v is an f32 scratch in device memory, as in the plain f32 path; the
 //     softmax is f32 with att's columns zero-padded to kp = hs rounded up to
 //     8, the K of att @ v.
-// Wide (`wide_ln_kernel`, `wide_gemm_kernel`, `otp_fused_attn_wide`), both
-// dtypes: the shapes the kernels above do not take, C padded past 160, or in
-// f32 one head of more than 136 channels (at 133 joints the temporal
-// encoders are C = 1064 in two heads of 532, the flow encoder one head of
-// 133).  There the three projection weights are 3 Cp^2 (6.9 MB in bf16 at
-// C = 1064) and one head's scores 34 x 67 m16n8 tiles, so nothing per C
-// stays on chip: each step writes its result to device memory and the
-// products are tiled matrix products (see `wide_gemm_kernel`): ln1, the
-// three depthwise convs and their LNs (column passes, statistics over C in
-// JAX's order), the projections, the scores split over T with partials
-// added in split order by qkv_scores_reduce_kernel, the softmax kernels
-// above, and att @ v.  Rounding points as above.  Bound at (B, C, T) = (2,
-// 1064, 6912) in bf16: 125 GFLOP (three C x C projections, scores, att @ v)
-// at 989 TFLOP/s, 0.127 ms, against 59 MB of compulsory traffic (0.018 ms),
-// so operations; in f32 three TF32 passes, 0.76 ms.
+// Wide (`otp_fused_attn_wide`), both dtypes: the shapes the kernels above
+// do not take, C padded past 160, or in f32 one head of more than 136
+// channels (at 133 joints the temporal encoders are C = 1064 in two heads
+// of 532, the flow encoder one head of 133).  There the three projection
+// weights are 3 Cp^2 (6.9 MB in bf16 at C = 1064) and one head's scores 34
+// x 67 m16n8 tiles, so nothing per C stays on chip: each step writes its
+// result to device memory in the layout the next product wants, and the
+// products run on Hopper's `wgmma` fed by TMA (`hopper_gemm.cuh`, the
+// mainloop the wide MLP shares; every operand K-major, so f32 runs there in
+// split TF32 too):
+//   1. `wide_ln1_kernel` (ln1 into out, free until att @ v) and
+//      `wide_conv_ln_kernel` (the three depthwise convs and their LNs),
+//      statistics over C in JAX's order, written token-major y (3, B, T,
+//      Cp): the projections' B operand;
+//   2. the projections, out channels x tokens, with the model's epilogue
+//      rounding and q's scale: q and k channel-major (the scores' operands,
+//      K = T), v token-major, a head's channels a row (att @ v's B
+//      operand, K = the head's channels);
+//   3. the scores, q_h k_h^T, split over T (`fused_attn.wide_split`) into f32
+//      partials;
+//   4. `wide_softmax_kernel`: the partials added in split order, the
+//      softmax, one warp a row;
+//   5. att @ v into out.
+// Rounding points as above; f32: the projection weights split into hi and
+// lo once a call, every other operand where it is written.  Bound at (B, C,
+// T) = (2, 1064, 6912) in bf16: 125 GFLOP (three C x C projections, scores,
+// att @ v) at 989 TFLOP/s, 0.127 ms, against 59 MB of compulsory traffic
+// (0.018 ms), so operations; in f32 three TF32 passes, 0.76 ms.
 #include "common.cuh"
+#include "hopper_gemm.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -941,335 +955,6 @@ att_v_tf32_kernel(const float* __restrict__ att, const float* __restrict__ v,
   }
 }
 
-// ---------------------------------------------------------------------------
-// wide: C past kMaxCp in either dtype, or one f32 head of more same-head
-// score tiles than 16 warps of kF32MaxSlots hold (hs past 136)
-// ---------------------------------------------------------------------------
-
-constexpr int kWLnWarps = 8;             // wide_ln: 32 tokens a block, 8 warps over C
-constexpr int kGM = 128, kGN = 128, kGK = 32;   // wide_gemm's block tile and K step
-constexpr int kGThreads = 256;           // 8 warps of 64 x 32 outputs
-constexpr int kLdB = kGN + 8;            // a K x N stage (n contiguous): 4 mod 32 words in
-                                         // bf16 (ldmatrix), 8 mod 32 in f32 (scalar reads)
-template <typename T> constexpr int kVec = 16 / (int)sizeof(T);   // elements a 16-byte copy
-template <typename T> constexpr int kLdK = kGK + kVec<T>;         // an M or N x K stage
-
-enum WideMode { kProj = 0, kScores = 1, kAttV = 2 };
-
-// LayerNorm over C of every token column of v, stored rounded to T:
-// v = x (ln1), or with CONV the depthwise k3 conv of x (zero-padded at the
-// ends of T) with the plain version's rounding, p = blockIdx.z choosing q's,
-// k's or v's conv and LN.  out: (B, C, T), with CONV (3, B, C, T).  Lanes
-// are 32 neighbouring tokens and warps stride the channels; the statistics
-// go in JAX's order (the mean, then the mean of the squared residual), the
-// warps' partial sums added in warp order.  x is read three times (L1).
-template <typename T, bool CONV>
-__global__ void __launch_bounds__(32 * kWLnWarps)
-wide_ln_kernel(const T* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ bias, const float* __restrict__ dw,
-               T* __restrict__ out, int B, int C, int Tn) {
-  __shared__ float part[kWLnWarps][32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.y, p = blockIdx.z, t = blockIdx.x * 32 + lane;
-  const bool live = t < Tn;
-  const T* xb = x + (size_t)b * C * Tn + t;
-  T* ob = out + ((size_t)p * B + b) * C * Tn + t;
-  w += p * C;
-  bias += p * C;
-  auto value = [&](int c) -> float {
-    const T* r = xb + (size_t)c * Tn;
-    if constexpr (!CONV) {
-      return to_f<T>(r[0]);
-    } else {
-      const float* d = dw + ((size_t)p * C + c) * 3;
-      const float n0 = t > 0 ? to_f<T>(r[-1]) : 0.f, n2 = t + 1 < Tn ? to_f<T>(r[1]) : 0.f;
-      const float a = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(n0, d[0])),
-                                       rnd<T>(__fmul_rn(to_f<T>(r[0]), d[1]))));
-      return rnd<T>(__fadd_rn(a, rnd<T>(__fmul_rn(n2, d[2]))));
-    }
-  };
-  float s = 0.f;
-  if (live)
-    for (int c = warp; c < C; c += kWLnWarps) s += value(c);
-  part[warp][lane] = s;
-  __syncthreads();
-  float mu = 0.f;
-#pragma unroll
-  for (int i = 0; i < kWLnWarps; ++i) mu += part[i][lane];
-  mu /= C;
-  __syncthreads();
-  float q = 0.f;
-  if (live)
-    for (int c = warp; c < C; c += kWLnWarps) {
-      const float r = value(c) - mu;
-      q += r * r;
-    }
-  part[warp][lane] = q;
-  __syncthreads();
-  float var = 0.f;
-#pragma unroll
-  for (int i = 0; i < kWLnWarps; ++i) var += part[i][lane];
-  const float sd = sqrtf(var / C + kEps);
-  if (!live) return;
-  for (int c = warp; c < C; c += kWLnWarps)
-    ob[(size_t)c * Tn] =
-        from_f<T>(__fadd_rn(__fmul_rn(__fdiv_rn(value(c) - mu, sd), w[c]), bias[c]));
-}
-
-// The operands and scratch of one call of the wide path (see wide_gemm).
-struct WideGemm {
-  const void* a;         // kProj: pw; kScores: qkv (q); kAttV: att
-  const void* bm;        // kProj: y; kScores: qkv (k); kAttV: qkv (v)
-  void* out;             // kProj: qkv; kScores: the partials of S (f32); kAttV: out
-  const float* bias;     // kProj: pb
-  int B, C, Cp, Tn, hs, n_head, kp, kspan;
-  float scale;
-};
-
-// two neighbouring outputs of an accumulator row: one paired store where
-// both are in range and the pair is aligned, else one or two single ones
-template <typename D>
-__device__ __forceinline__ void store_pair(D* p, float v0, float v1, bool both) {
-  if (both && (reinterpret_cast<uintptr_t>(p) & (2 * sizeof(D) - 1)) == 0) {
-    if constexpr (sizeof(D) == 4) *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-    else *reinterpret_cast<uint32_t*>(p) = pack_bf16(v0, v1);
-    return;
-  }
-  p[0] = from_f<D>(v0);
-  if (both) p[1] = from_f<D>(v1);
-}
-
-// One 128 x 128 tile of one of the wide path's products, C = A B over a K
-// range: A (M x K) stored k-contiguous, B (K x N) stored [k][n] (n
-// contiguous) or, kScores, [n][k].  Both operands go by cp.async into two
-// shared-memory stages, zero-filled past their edges (element loads where T
-// is not a multiple of a 16-byte vector); eight warps of 64 x 32 outputs,
-// bf16 on mma.sync m16n8k16, f32 in split TF32.  The problems, by
-// blockIdx.z:
-//   kProj   z = p B + b:  qkv[p][b] (C x T) = pw[p] (Cp x Cp) y[p][b] (C x T),
-//           epilogue rnd(rnd(acc) + pb), q then times scale and rounded;
-//   kScores z = (s B + b) n_head + h:  partial s of S[b][h] (hs x hs) =
-//           q_h k_h^T over tokens [s kspan, (s + 1) kspan);
-//   kAttV   z = b n_head + h:  out[b][h] (hs x T) = att[b][h] (hs x kp)
-//           v_h (hs x T), rounded.
-template <typename T, int MODE>
-__global__ void __launch_bounds__(kGThreads)
-wide_gemm_kernel(const WideGemm g) {
-  constexpr bool NK = MODE == kScores;
-  constexpr int V = kVec<T>, LDK = kLdK<T>;
-  constexpr int A_STAGE = kGM * LDK, B_STAGE = NK ? kGN * LDK : kGK * kLdB;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* a_sh = reinterpret_cast<T*>(smem);   // 2 stages of kGM x LDK
-  T* b_sh = a_sh + 2 * A_STAGE;           // 2 stages of kGN x LDK or kGK x kLdB
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, qd = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN, z = blockIdx.z;
-  const size_t CT = (size_t)g.C * g.Tn;
-
-  // this block's problem: A (lda), B (ldb), M x N outputs, the K range
-  // [k_beg, k_end), B's rows (K x N layout) past b_rows zero
-  const T *A, *Bm;
-  int lda, ldb, M, N, k_beg = 0, k_end, b_rows, p = 0, split = 0, b = 0, h = 0;
-  if constexpr (MODE == kProj) {
-    p = z / g.B;
-    A = static_cast<const T*>(g.a) + (size_t)p * g.Cp * g.Cp;
-    Bm = static_cast<const T*>(g.bm) + (size_t)z * CT;
-    lda = g.Cp;
-    ldb = g.Tn;
-    M = g.C;
-    N = g.Tn;
-    k_end = b_rows = g.C;       // A's columns past C are the pack's zeros
-  } else if constexpr (MODE == kScores) {
-    h = z % g.n_head;
-    b = (z / g.n_head) % g.B;
-    split = z / (g.n_head * g.B);
-    const size_t row = (size_t)b * CT + (size_t)h * g.hs * g.Tn;
-    A = static_cast<const T*>(g.a) + row;
-    Bm = static_cast<const T*>(g.bm) + (size_t)g.B * CT + row;
-    lda = ldb = g.Tn;
-    M = N = g.hs;
-    k_beg = split * g.kspan;
-    k_end = b_rows = min(g.Tn, k_beg + g.kspan);
-  } else {
-    h = z % g.n_head;
-    b = z / g.n_head;
-    A = static_cast<const T*>(g.a) + ((size_t)b * g.C + (size_t)h * g.hs) * g.kp;
-    Bm = static_cast<const T*>(g.bm) + (2 * (size_t)g.B + b) * CT + (size_t)h * g.hs * g.Tn;
-    lda = g.kp;
-    ldb = g.Tn;
-    M = g.hs;
-    N = g.Tn;
-    k_end = g.kp;               // att's columns past hs are zero
-    b_rows = g.hs;
-  }
-  const int kb_end = min(k_end, b_rows);
-  const bool vec = g.Tn % V == 0;   // every row and K bound a whole number of vectors
-
-  auto load = [&](int stage, int k0) {
-    T* as = a_sh + stage * A_STAGE;
-    T* bs = b_sh + stage * B_STAGE;
-    if (vec) {
-      for (int e = tid; e < kGM * (kGK / V); e += kGThreads) {
-        const int r = e / (kGK / V), kc = e % (kGK / V) * V;
-        const bool ok = m0 + r < M && k0 + kc < k_end;
-        cp_async16_zfill(as + r * LDK + kc, ok ? A + (size_t)(m0 + r) * lda + k0 + kc : A, ok);
-      }
-      if constexpr (NK) {
-        for (int e = tid; e < kGN * (kGK / V); e += kGThreads) {
-          const int r = e / (kGK / V), kc = e % (kGK / V) * V;
-          const bool ok = n0 + r < N && k0 + kc < k_end;
-          cp_async16_zfill(bs + r * LDK + kc, ok ? Bm + (size_t)(n0 + r) * ldb + k0 + kc : Bm,
-                           ok);
-        }
-      } else {
-        for (int e = tid; e < kGK * (kGN / V); e += kGThreads) {
-          const int r = e / (kGN / V), nc = e % (kGN / V) * V;
-          const bool ok = k0 + r < kb_end && n0 + nc < N;
-          cp_async16_zfill(bs + r * kLdB + nc, ok ? Bm + (size_t)(k0 + r) * ldb + n0 + nc : Bm,
-                           ok);
-        }
-      }
-    } else {
-      const T zero = from_f<T>(0.f);
-      for (int e = tid; e < kGM * kGK; e += kGThreads) {
-        const int r = e / kGK, k = e % kGK;
-        as[r * LDK + k] = m0 + r < M && k0 + k < k_end ? A[(size_t)(m0 + r) * lda + k0 + k] : zero;
-      }
-      if constexpr (NK) {
-        for (int e = tid; e < kGN * kGK; e += kGThreads) {
-          const int r = e / kGK, k = e % kGK;
-          bs[r * LDK + k] =
-              n0 + r < N && k0 + k < k_end ? Bm[(size_t)(n0 + r) * ldb + k0 + k] : zero;
-        }
-      } else {
-        for (int e = tid; e < kGK * kGN; e += kGThreads) {
-          const int r = e / kGN, n = e % kGN;
-          bs[r * kLdB + n] =
-              k0 + r < kb_end && n0 + n < N ? Bm[(size_t)(k0 + r) * ldb + n0 + n] : zero;
-        }
-      }
-    }
-    cp_async_commit();
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  const int nk = (k_end - k_beg + kGK - 1) / kGK;
-  if (nk > 0) load(0, k_beg);
-  for (int it = 0; it < nk; ++it) {
-    if (it + 1 < nk) {
-      load((it + 1) & 1, k_beg + (it + 1) * kGK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* as = a_sh + (it & 1) * A_STAGE + wm * 64 * LDK;
-    const T* bs = b_sh + (it & 1) * B_STAGE;
-    if constexpr (sizeof(T) == 2) {
-#pragma unroll
-      for (int kk = 0; kk < kGK / 16; ++kk) {
-        uint32_t af[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ldsm_x4(af[i], as + i * 16 * LDK + a_off(lane, LDK) + kk * 16);
-#pragma unroll
-        for (int jp = 0; jp < 2; ++jp) {
-          uint32_t r[4];
-          if constexpr (NK)
-            ldsm_x4(r, bs + (wn * 32 + jp * 16) * LDK + bnk_x4_off(lane, LDK) + kk * 16);
-          else
-            ldsm_x4_trans(r, bs + kk * 16 * kLdB + bkn_x4_off(lane, kLdB) + wn * 32 + jp * 16);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            mma_bf16(acc[i][2 * jp], af[i], r[0], r[1]);
-            mma_bf16(acc[i][2 * jp + 1], af[i], r[2], r[3]);
-          }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < kGK / 8; ++kk) {
-        uint32_t ahi[4][4], alo[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          uint32_t a[4];
-          ldsm_x4(a, as + i * 16 * LDK + a_off_f32(lane, LDK) + kk * 8);
-          split_tf32_x4(a, ahi[i], alo[i]);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t bh0, bh1, bl0, bl1;
-          if constexpr (NK) {
-            uint32_t r0, r1;
-            ldsm_x2(r0, r1, bs + (wn * 32 + j * 8) * LDK + bnk_x2_off_f32(lane, LDK) + kk * 8);
-            split_tf32(__uint_as_float(r0), bh0, bl0);
-            split_tf32(__uint_as_float(r1), bh1, bl1);
-          } else {
-            const float* bp = reinterpret_cast<const float*>(bs) + (kk * 8 + qd) * kLdB +
-                              wn * 32 + j * 8 + gq;
-            split_tf32(bp[0], bh0, bl0);
-            split_tf32(bp[4 * kLdB], bh1, bl1);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) mma_3xtf32(acc[i][j], ahi[i], alo[i], bh0, bh1, bl0, bl1);
-        }
-      }
-    }
-    __syncthreads();   // the next iteration refills this stage
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int m = m0 + wm * 64 + i * 16 + gq + hh * 8, n = n0 + wn * 32 + j * 8 + 2 * qd;
-        if (m >= M || n >= N) continue;
-        float v0 = acc[i][j][2 * hh], v1 = acc[i][j][2 * hh + 1];
-        const bool both = n + 1 < N;
-        if constexpr (MODE == kProj) {
-          const float bb = g.bias[p * g.Cp + m];
-          v0 = rnd<T>(__fadd_rn(rnd<T>(v0), bb));
-          v1 = rnd<T>(__fadd_rn(rnd<T>(v1), bb));
-          if (p == 0) {
-            v0 = __fmul_rn(v0, g.scale);   // rounded by the store
-            v1 = __fmul_rn(v1, g.scale);
-          }
-          store_pair(static_cast<T*>(g.out) + (size_t)z * CT + (size_t)m * g.Tn + n, v0, v1,
-                     both);
-        } else if constexpr (MODE == kScores) {
-          store_pair(static_cast<float*>(g.out) + (size_t)split * g.B * g.C * g.hs +
-                         ((size_t)b * g.C + (size_t)h * g.hs + m) * g.hs + n,
-                     v0, v1, both);
-        } else {
-          store_pair(static_cast<T*>(g.out) + ((size_t)b * g.C + (size_t)h * g.hs + m) * g.Tn + n,
-                     v0, v1, both);
-        }
-      }
-    }
-  }
-}
-
-template <typename T, int MODE>
-size_t wide_gemm_smem() {
-  return 2 * sizeof(T) *
-         (size_t)(kGM * kLdK<T> + (MODE == kScores ? kGN * kLdK<T> : kGK * kLdB));
-}
-
-template <typename T, int MODE>
-void wide_gemm(const WideGemm& g, dim3 grid, cudaStream_t st) {
-  const size_t smem = wide_gemm_smem<T, MODE>();
-  cudaFuncSetAttribute(wide_gemm_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  wide_gemm_kernel<T, MODE><<<grid, kGThreads, smem, st>>>(g);
-}
-
 size_t tf32_scores_smem(int C, int Cp) {
   const size_t mp = (Cp + 15) / 16 * 16, ld = Cp + 4;
   return sizeof(float) * (mp * ld + (size_t)C * kLDNf + kTcTok * ld +
@@ -1310,40 +995,337 @@ bool narrow(int C, int n_head, int dtype) {
          (dtype == 1 || n_head * ((hs + 15) / 16) * ((hs + 7) / 8) <= kWarps1 * kF32MaxSlots);
 }
 
-// The wide path on one stream: ln1 into out (free until att @ v), the
-// convs and their LNs into y, the projections into qkv, the scores' split
-// partials into s_scr and their sum in split order, the softmax into att,
-// att @ v into out.
+// ---------------------------------------------------------------------------
+// wide: C past kMaxCp in either dtype, or one f32 head of more same-head
+// score tiles than 16 warps of kF32MaxSlots hold (hs past 136); the
+// products on `hopper_gemm.cuh`
+// ---------------------------------------------------------------------------
+
+constexpr int kLnWarps = 8;      // the wide LN passes: warps over C
+constexpr int kFrTok = 30;       // wide_conv_ln: tokens a block, lanes 1..30
+constexpr int kFrChunk = 32;     // channels a token-major store pass
+constexpr int kSplitTok = 64;    // the scores' split of T: whole K steps of a product
+
+// Each lane's sum over the block's warps of v, in warp order (the
+// statistics' order of the narrow kernels' column passes).
+__device__ __forceinline__ float warp_order_sum(float (*part)[32], float v) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  part[warp][lane] = v;
+  __syncthreads();
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < kLnWarps; ++i) acc += part[i][lane];
+  __syncthreads();
+  return acc;
+}
+
+// ln1 of 32 tokens a block into n (B, C, T), channel-major, rounded to T:
+// lanes are tokens and warps stride the channels, eight loads in flight a
+// warp (`otp_hg::batched`); the statistics in JAX's order (the mean, then the
+// mean of the squared residual); the plain version's division.
+template <typename T>
+__global__ void __launch_bounds__(32 * kLnWarps)
+wide_ln1_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ bias, T* __restrict__ n, int C, int Tn) {
+  __shared__ float part[kLnWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = blockIdx.x * 32 + lane;
+  const bool live = t < Tn;
+  const size_t base = (size_t)blockIdx.y * C * Tn + t;
+  auto xv = [&](int c) { return live ? to_f<T>(x[base + (size_t)c * Tn]) : 0.f; };
+  float s = 0.f;
+  otp_hg::batched(warp, kLnWarps, C, xv, [&](int, float v) { s += v; });
+  const float mu = warp_order_sum(part, s) / C;
+  float q = 0.f;
+  otp_hg::batched(warp, kLnWarps, C, xv, [&](int, float v) {
+    const float r = v - mu;
+    q += live ? r * r : 0.f;
+  });
+  const float sd = sqrtf(warp_order_sum(part, q) / C + kEps);
+  if (!live) return;
+  otp_hg::batched(warp, kLnWarps, C, xv, [&](int c, float v) {
+    n[base + (size_t)c * Tn] = from_f<T>(__fadd_rn(__fmul_rn(__fdiv_rn(v - mu, sd), w[c]), bias[c]));
+  });
+}
+
+// For p = blockIdx.z (q, k or v): the depthwise k3 conv of ln1's output n
+// (zero-padded at the ends of T) with the plain version's rounding and its
+// LayerNorm, written token-major into y[p] (of (3, B, T, Cp): the
+// projections' B operand; f32 split hi / lo, lo at y + lo_off).  Lane l
+// holds token t0 - 1 + l: lanes 1..30 are the block's tokens and lanes 0
+// and 31 their halo, so every lane does the same work and a conv reads its
+// neighbours by shuffles.  Warps stride the channels, four loads in flight
+// a warp; the statistics in JAX's order, in warp order; the output through
+// shared memory in chunks of channels (`otp_hg::store_token_tile`).  The
+// conv values (T values: the conv rounds to T) stay in dynamic shared
+// memory for the variance and the output where a small cache holds them
+// (`conv_cache_bytes`), else each pass recomputes them from n (L2).
+template <typename T>
+__global__ void __launch_bounds__(32 * kLnWarps)
+wide_conv_ln_kernel(const T* __restrict__ n, const float* __restrict__ dw,
+                    const float* __restrict__ nw, const float* __restrict__ nb,
+                    T* __restrict__ y, size_t lo_off, int B, int C, int Cp, int Tn, int cached) {
+  extern __shared__ __align__(16) unsigned char conv_raw[];
+  T* cache = reinterpret_cast<T*>(conv_raw);   // C x 32 lanes, where `cached`
+  __shared__ float part[kLnWarps][32];
+  __shared__ float tile[kFrChunk * otp_hg::kTileLd];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y, p = blockIdx.z, t0 = blockIdx.x * kFrTok, tt = t0 - 1 + lane;
+  const bool live = tt >= 0 && tt < Tn;
+  const T* nl = n + (size_t)b * C * Tn + tt;
+  dw += (size_t)p * C * 3;
+  nw += p * C;
+  nb += p * C;
+  auto nv = [&](int c) { return live ? to_f<T>(nl[(size_t)c * Tn]) : 0.f; };
+  // the conv of channel c at this lane's token from n1, its ln1 value there
+  auto conv = [&](int c, float n1) {
+    const float n0 = __shfl_up_sync(0xffffffffu, n1, 1);
+    const float n2 = __shfl_down_sync(0xffffffffu, n1, 1);
+    const float* d = dw + (size_t)c * 3;
+    const float a = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(n0, d[0])), rnd<T>(__fmul_rn(n1, d[1]))));
+    return rnd<T>(__fadd_rn(a, rnd<T>(__fmul_rn(n2, d[2]))));
+  };
+  // f(c, v) for the conv v of every channel c of this warp: computed with
+  // four loads ahead (and kept where `keep`), or read from the cache
+  auto each_conv = [&](bool keep, auto&& f) {
+    if (cached && !keep) {
+      for (int c = warp; c < C; c += kLnWarps) f(c, to_f<T>(cache[c * 32 + lane]));
+      return;
+    }
+    auto g = [&](int c, float v) {
+      if (keep) cache[c * 32 + lane] = from_f<T>(v);
+      f(c, v);
+    };
+    int c = warp;
+    for (; c + 3 * kLnWarps < C; c += 4 * kLnWarps) {
+      float ns[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ns[i] = nv(c + i * kLnWarps);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) g(c + i * kLnWarps, conv(c + i * kLnWarps, ns[i]));
+    }
+    for (; c < C; c += kLnWarps) g(c, conv(c, nv(c)));
+  };
+  float s = 0.f;
+  each_conv(cached, [&](int, float v) { s += v; });
+  const float mu = warp_order_sum(part, s) / C;
+  float q = 0.f;
+  each_conv(false, [&](int, float v) {
+    const float r = v - mu;
+    q += r * r;
+  });
+  const float sd = sqrtf(warp_order_sum(part, q) / C + kEps);
+
+  // the normalised values, a chunk of channels at a time through shared
+  // memory into token-major rows (lanes 1..30 that hold a token of T)
+  const int tend = min(kFrTok + 1, Tn - t0 + 1);
+  for (int c0 = 0; c0 < Cp; c0 += kFrChunk) {
+#pragma unroll
+    for (int i = warp; i < kFrChunk; i += kLnWarps) {
+      const int c = c0 + i;   // uniform across the warp: its shuffles stay whole
+      float v = 0.f;
+      if (c < C) {
+        const float cv = cached ? to_f<T>(cache[c * 32 + lane]) : conv(c, nv(c));
+        v = __fadd_rn(__fmul_rn(__fdiv_rn(cv - mu, sd), nw[c]), nb[c]);
+      }
+      tile[i * otp_hg::kTileLd + lane] = v;
+    }
+    __syncthreads();
+    otp_hg::store_token_tile<T, kFrChunk>(tile, y, lo_off, ((size_t)p * B + b) * Tn + t0 - 1, Cp,
+                                          c0, Cp, 1, tend, threadIdx.x);
+    __syncthreads();
+  }
+}
+
+// The conv-value cache of `wide_conv_ln_kernel` for C channels, or 0 where
+// it would leave room for fewer than four blocks an SM (then the passes
+// recompute the convs: the first pass, which waits on its loads, needs the
+// warps; measured at C = 208 and 1064, PERF.md §6).
+template <typename T>
+size_t conv_cache_bytes(int C) {
+  const size_t bytes = (size_t)C * 32 * sizeof(T);
+  return bytes <= 48 * 1024 ? bytes : 0;
+}
+
+// The projections, problem z = p B + b: rows of pw[p] (A, Cp x Cp) against
+// y[p][b] (B, tokens x C), so the accumulators hold channels x tokens.
+// Epilogue rnd(rnd(acc) + pb), q then times scale (rounded by the store):
+// q and k into qk (2, B, C, Tp) channel-major (the scores' operands, K = T),
+// v into vt (B, n_head, T, kp) token-major, a head's channels at the start
+// of its own rows (att @ v's B operand, K = the head's channels: a TMA box
+// starts on a 16-byte boundary of a row, which h hs values need not be).
+template <typename T>
+struct AttnProj {
+  T* qk;
+  T* vt;
+  size_t qk_lo, vt_lo;
+  const float* pb;
+  int B, C, Cp, Tn, Tp, hs, kp;
+  float scale;
+  __device__ otp_hg::Coords coords(int z) const { return {z / B * Cp, 0, z * Tn, 0, C}; }
+  __device__ void tile(int z, int m0, int n0, int, const float (&acc)[64], uint8_t*,
+                       int tid) const {
+    const int p = z / B, b = z % B;
+    otp_hg::store_fragments(acc, tid, [&](int r, int cc, float v0, float v1) {
+      const int m = m0 + r, n = n0 + cc;
+      if (m >= C || n >= Tn) return;
+      const float bb = pb[p * Cp + m];
+      v0 = rnd<T>(__fadd_rn(rnd<T>(v0), bb));
+      v1 = rnd<T>(__fadd_rn(rnd<T>(v1), bb));
+      if (p == 0) {
+        v0 = __fmul_rn(v0, scale);
+        v1 = __fmul_rn(v1, scale);
+      }
+      const bool both = n + 1 < Tn;
+      if (p < 2) {
+        otp_hg::put2<T>(qk + ((size_t)z * C + m) * Tp + n, qk_lo, v0, v1, both);
+      } else {
+        const int h = m / hs;
+        T* d = vt + (((size_t)b * (C / hs) + h) * Tn + n) * kp + (m - h * hs);
+        otp_hg::put<T>(d, vt_lo, v0);
+        if (both) otp_hg::put<T>(d + kp, vt_lo, v1);
+      }
+    });
+  }
+};
+
+// The scores, problem z = (s B + b) n_head + h: q_h (hs x T) against k_h
+// over the tokens of split s, [s kspan, (s + 1) kspan), into partial s of
+// S[b][h] (hs x hs, f32).
+struct AttnScores {
+  float* s;
+  int B, C, Tn, hs, n_head, kspan;
+  __device__ otp_hg::Coords coords(int z) const {
+    const int h = z % n_head, b = (z / n_head) % B, k0 = z / (n_head * B) * kspan;
+    const int row = b * C + h * hs;
+    return {row, k0, B * C + row, k0, min(kspan, Tn - k0)};
+  }
+  __device__ void tile(int z, int m0, int n0, int, const float (&acc)[64], uint8_t*,
+                       int tid) const {
+    const int h = z % n_head, bs = z / n_head;   // bs = s B + b
+    float* dst = s + ((size_t)bs * C + (size_t)h * hs) * hs;
+    otp_hg::store_fragments(acc, tid, [&](int r, int cc, float v0, float v1) {
+      const int m = m0 + r, n = n0 + cc;
+      if (m >= hs || n >= hs) return;
+      dst[(size_t)m * hs + n] = v0;
+      if (n + 1 < hs) dst[(size_t)m * hs + n + 1] = v1;
+    });
+  }
+};
+
+// att @ v, problem z = b n_head + h: att[b][h] (A, hs x kp) against vt[b][h]
+// (B, tokens x hs), K past hs zero-filled, rounded into out[b][h] (hs x T).
+template <typename T>
+struct AttnOut {
+  T* out;
+  int C, Tn, hs, n_head;
+  __device__ otp_hg::Coords coords(int z) const {
+    return {z * hs, 0, z * Tn, 0, hs};
+  }
+  __device__ void tile(int z, int m0, int n0, int, const float (&acc)[64], uint8_t*,
+                       int tid) const {
+    T* dst = out + (size_t)z * hs * Tn;   // rows b C + h hs
+    otp_hg::store_fragments(acc, tid, [&](int r, int cc, float v0, float v1) {
+      const int m = m0 + r, n = n0 + cc;
+      if (m >= hs || n >= Tn) return;
+      T* d = dst + (size_t)m * Tn + n;
+      if (n + 1 < Tn && (reinterpret_cast<uintptr_t>(d) & (2 * sizeof(T) - 1)) == 0) {
+        if constexpr (sizeof(T) == 2) *reinterpret_cast<uint32_t*>(d) = pack_bf16(v0, v1);
+        else *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+      } else {
+        d[0] = from_f<T>(v0);
+        if (n + 1 < Tn) d[1] = from_f<T>(v1);
+      }
+    });
+  }
+};
+
+// S = the nsplit partials added in split order (written back into partial
+// 0), then att = softmax over the hs real columns, one warp a row: bf16
+// softmax(rnd(S)) rounded, f32 split hi / lo (lo at att + lo_off); att's
+// columns [hs, kp) zero.
+template <typename T>
+__global__ void __launch_bounds__(256)
+wide_softmax_kernel(float* __restrict__ s, T* __restrict__ att, size_t lo_off, int rows, int hs,
+                    int kp, int nsplit) {
+  const int lane = threadIdx.x & 31, r = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (r >= rows) return;
+  const size_t n = (size_t)rows * hs;
+  float* sr = s + (size_t)r * hs;
+  float m = -INFINITY;
+  for (int j = lane; j < hs; j += 32) {
+    float v = sr[j];
+    for (int p = 1; p < nsplit; ++p) v += sr[p * n + j];
+    v = rnd<T>(v);
+    sr[j] = v;
+    m = fmaxf(m, v);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  float sum = 0.f;
+  for (int j = lane; j < hs; j += 32) sum += expf(sr[j] - m);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  T* ar = att + (size_t)r * kp;
+  for (int j = lane; j < kp; j += 32)
+    otp_hg::put<T>(ar + j, lo_off, j < hs ? expf(sr[j] - m) / sum : 0.f);
+}
+
+// The wide path on one stream: (f32: the projection weights split), ln1
+// into out, the convs' LNs into y, the projections into qk and vt, the scores' split
+// partials into s, their sum and the softmax into att, att @ v into out.
+// Scratch in device memory (`ops/cuda/fused_attn.py::wide_plan`), in f32
+// each operand followed by its lo half.
 template <typename T>
 int launch_wide(const void* x, const void* ln1w, const void* ln1b, const void* dw,
                 const void* nw, const void* nb, const void* pw, const void* pb, void* y_scr,
-                void* qkv_scr, void* s_scr, void* att_scr, void* out, int B, int C, int Cp,
-                int Tn, int n_head, float scale, int nsplit, int kspan, cudaStream_t st) {
+                void* qk_scr, void* vt_scr, void* s_scr, void* att_scr, void* w_scr, void* out,
+                int B, int C, int Cp, int Tn, int n_head, float scale, int nsplit, int kspan,
+                cudaStream_t st) {
   constexpr int dtype = sizeof(T) == 2 ? 1 : 0;
-  const int hs = C / n_head, kp = pad_channels(hs, dtype);
-  const dim3 cols((Tn + 31) / 32, B);
-  wide_ln_kernel<T, false><<<cols, 32 * kWLnWarps, 0, st>>>(
-      (const T*)x, (const float*)ln1w, (const float*)ln1b, nullptr, (T*)out, B, C, Tn);
-  wide_ln_kernel<T, true><<<dim3(cols.x, B, 3), 32 * kWLnWarps, 0, st>>>(
-      (const T*)out, (const float*)nw, (const float*)nb, (const float*)dw, (T*)y_scr, B, C, Tn);
-  WideGemm g{pw, y_scr, qkv_scr, (const float*)pb, B, C, Cp, Tn, hs, n_head, kp, kspan, scale};
-  wide_gemm<T, kProj>(g, dim3((Tn + kGN - 1) / kGN, (C + kGM - 1) / kGM, 3 * B), st);
-  g.a = g.bm = qkv_scr;
-  g.out = s_scr;
-  const unsigned ht = (hs + kGM - 1) / kGM;
-  wide_gemm<T, kScores>(g, dim3(ht, ht, nsplit * B * n_head), st);
+  const int hs = C / n_head, kp = pad_channels(hs, dtype), Tp = (Tn + 7) / 8 * 8;
+  const size_t y_lo = (size_t)3 * B * Tn * Cp, qk_lo = (size_t)2 * B * C * Tp;
+  const size_t vt_lo = (size_t)B * C / hs * Tn * kp, att_lo = (size_t)B * C * kp;
+  const size_t w_lo = (size_t)3 * Cp * Cp;
+  T* y = static_cast<T*>(y_scr);
+  T* qk = static_cast<T*>(qk_scr);
+  T* vt = static_cast<T*>(vt_scr);
+  T* att = static_cast<T*>(att_scr);
+  const T* w = static_cast<const T*>(pw);
+  if constexpr (dtype == 0) {
+    otp_hg::split_weights(static_cast<const float*>(pw), static_cast<float*>(w_scr), w_lo,
+                          (long long)w_lo, st);
+    w = static_cast<const T*>(w_scr);
+  }
+  wide_ln1_kernel<T><<<dim3((Tn + 31) / 32, B), 32 * kLnWarps, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(ln1w), static_cast<const float*>(ln1b),
+      static_cast<T*>(out), C, Tn);
+  const size_t cache = conv_cache_bytes<T>(C);
+  cudaFuncSetAttribute(wide_conv_ln_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)cache);
+  wide_conv_ln_kernel<T><<<dim3((Tn + kFrTok - 1) / kFrTok, B, 3), 32 * kLnWarps, cache, st>>>(
+      static_cast<const T*>(out), static_cast<const float*>(dw), static_cast<const float*>(nw),
+      static_cast<const float*>(nb), y, y_lo, B, C, Cp, Tn, cache > 0);
+  otp_hg::Operand a, b;
+  int err;
+  if ((err = otp_hg::make_operand<T>(&a, w, w_lo, C, 3 * Cp, Cp)) ||
+      (err = otp_hg::make_operand<T>(&b, y, y_lo, C, (uint64_t)3 * B * Tn, Cp)))
+    return err;
+  const AttnProj<T> proj{qk, vt, qk_lo, vt_lo, static_cast<const float*>(pb), B, C, Cp, Tn, Tp,
+                         hs, kp, scale};
+  if ((err = otp_hg::launch<T>(a, b, proj, C, Tn, 3 * B, st))) return err;
+  // q and k are rows of the same operand
+  if ((err = otp_hg::make_operand<T>(&a, qk, qk_lo, Tn, (uint64_t)2 * B * C, Tp))) return err;
+  const AttnScores scores{static_cast<float*>(s_scr), B, C, Tn, hs, n_head, kspan};
+  if ((err = otp_hg::launch<T>(a, a, scores, hs, hs, nsplit * B * n_head, st))) return err;
   const int rows = B * C;
-  reduce_scores((float*)s_scr, (long long)rows * hs, nsplit, st);
-  if constexpr (dtype == 1)
-    attn_softmax_kernel<<<(rows + 127) / 128, 128, 0, st>>>((const float*)s_scr,
-                                                            (bf16*)att_scr, rows, hs, kp);
-  else
-    attn_softmax_f32_kernel<<<(rows + 127) / 128, 128, 0, st>>>((const float*)s_scr,
-                                                                (float*)att_scr, rows, hs, kp);
-  g.a = att_scr;
-  g.out = out;
-  wide_gemm<T, kAttV>(g, dim3((Tn + kGN - 1) / kGN, ht, B * n_head), st);
-  return (int)cudaGetLastError();
+  wide_softmax_kernel<T><<<(rows + 7) / 8, 256, 0, st>>>(static_cast<float*>(s_scr), att, att_lo,
+                                                         rows, hs, kp, nsplit);
+  if ((err = otp_hg::make_operand<T>(&a, att, att_lo, hs, rows, kp)) ||
+      (err = otp_hg::make_operand<T>(&b, vt, vt_lo, hs, (uint64_t)B * n_head * Tn, kp)))
+    return err;
+  const AttnOut<T> av{static_cast<T*>(out), C, Tn, hs, n_head};
+  return otp_hg::launch<T>(a, b, av, hs, Tn, B * n_head, st);
 }
 
 }  // namespace
@@ -1359,12 +1341,8 @@ extern "C" int otp_fused_attn_narrow(int C, int n_head, int dtype) {
 // `narrow`), else the wide path's, which holds no per-C state on chip.
 extern "C" size_t otp_fused_attn_smem(int C, int n_head, int dtype) {
   const int hs = C / n_head;
-  if (!narrow(C, n_head, dtype)) {
-    const size_t a = dtype == 1 ? wide_gemm_smem<bf16, kProj>() : wide_gemm_smem<float, kProj>();
-    const size_t b =
-        dtype == 1 ? wide_gemm_smem<bf16, kScores>() : wide_gemm_smem<float, kScores>();
-    return a > b ? a : b;
-  }
+  if (!narrow(C, n_head, dtype))
+    return dtype == 1 ? otp_hg::smem_bytes<bf16>() : otp_hg::smem_bytes<float>();
   if (dtype == 1) {
     const size_t a = tc_scores_smem(C, round16(C)), c = tc_att_v_smem(C, round16(hs));
     return a > c ? a : c;
@@ -1376,24 +1354,27 @@ extern "C" size_t otp_fused_attn_smem(int C, int n_head, int dtype) {
 // Either dtype (0 = f32, 1 = bf16), a shape `narrow` refuses.  x, out:
 // (B, C, T); ln1w/ln1b: (C,) f32; dw: (3, C, 3), nw/nb: (3, C), f32; pw:
 // (3, Cp, Cp) and pb: (3, Cp) f32, zero-padded (`pack_attn_weights`, Cp =
-// `pad_channels(C)`); y_scr, qkv_scr: (3, B, C, T); s_scr: (nsplit, B, C,
-// hs) f32; att_scr: (B, C, kp), kp = `pad_channels(hs)`; the scores' split s
-// sums tokens [s kspan, (s + 1) kspan), kspan a multiple of 32 with
-// nsplit kspan >= T.
+// `pad_channels(C)`).  Scratch (`fused_attn.py::wide_plan`), in f32 each
+// operand followed by its lo half: y_scr (3, B, T, Cp), qk_scr (2, B, C,
+// Tp) with Tp = T rounded up to 8, vt_scr (B, n_head, T, kp), att_scr (B, C, kp)
+// with kp = `pad_channels(hs)`, w_scr (f32: 2 x 3 Cp Cp; unused in bf16);
+// s_scr (nsplit, B, C, hs) f32.  The scores' split s sums tokens
+// [s kspan, (s + 1) kspan), kspan a multiple of 64 with nsplit kspan >= T.
 extern "C" int otp_fused_attn_wide(const void* x, const void* ln1w, const void* ln1b,
                                    const void* dw, const void* nw, const void* nb,
-                                   const void* pw, const void* pb, void* y_scr, void* qkv_scr,
-                                   void* s_scr, void* att_scr, void* out, int B, int C, int Cp,
-                                   int Tn, int n_head, float scale, int nsplit, int kspan,
-                                   int dtype, void* stream) {
-  if (n_head <= 0 || C <= 0 || C % n_head || (dtype != 0 && dtype != 1) ||
+                                   const void* pw, const void* pb, void* y_scr, void* qk_scr,
+                                   void* vt_scr, void* s_scr, void* att_scr, void* w_scr,
+                                   void* out, int B, int C, int Cp, int Tn, int n_head,
+                                   float scale, int nsplit, int kspan, int dtype,
+                                   void* stream) {
+  if (n_head <= 0 || C <= 0 || C % n_head || (dtype != 0 && dtype != 1) || B < 1 || Tn < 1 ||
       Cp != pad_channels(C, dtype) || narrow(C, n_head, dtype) || nsplit < 1 || kspan < 1 ||
-      kspan % kGK || (long long)nsplit * kspan < Tn)
+      kspan % kSplitTok || (long long)nsplit * kspan < Tn)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  OTP_DISPATCH(dtype, return launch_wide<T>(x, ln1w, ln1b, dw, nw, nb, pw, pb, y_scr, qkv_scr,
-                                            s_scr, att_scr, out, B, C, Cp, Tn, n_head, scale,
-                                            nsplit, kspan, st));
+  OTP_DISPATCH(dtype, return launch_wide<T>(x, ln1w, ln1b, dw, nw, nb, pw, pb, y_scr, qk_scr,
+                                            vt_scr, s_scr, att_scr, w_scr, out, B, C, Cp, Tn,
+                                            n_head, scale, nsplit, kspan, st));
   return (int)cudaErrorInvalidValue;
 }
 

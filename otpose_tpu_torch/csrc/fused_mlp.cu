@@ -78,19 +78,33 @@
 //   No rounding points of bf16: f32 LN (the division of the plain version),
 //   GELU in its exact erf form, out = x + (acc + b2).
 //
-// Wide (`fused_mlp_wide_tc_kernel`, `fused_mlp_wide_tf32_kernel`): C padded
-// past 160, up to 1152 (the temporal encoders are 8 x joints wide: 1064 at
-// 133 joints).  The narrow kernels' per-warp registers (16 tokens x Cp of
-// LN output and accumulators) and the f32 kernel's 128-token LN tile do not
-// fit there, so a block of 16 warps owns 32 tokens, the LN output and a
-// 256-wide GELU tile sit in shared memory, and the output channels are
-// split across the warps; the GELU intermediate still never reaches device
-// memory.  Bound at (B, C, T) = (2, 1064, 6912), hidden 4256: 250 GFLOP at
+// Wide (`otp_fused_mlp_wide`): C padded past 160, up to 1152 (the temporal
+// encoders are 8 x joints wide: 1064 at 133 joints).  There W1 and W2 are
+// 18 MB in bf16 (the Pallas kernel keeps them in VMEM; an SM has 227 KB),
+// so the two products run as tiled matrix products on Hopper's `wgmma`, fed
+// by TMA (`hopper_gemm.cuh`: 128 x 128 output tiles, a ring of stages, a
+// producer warp and two consumer warpgroups), through scratch in device
+// memory:
+//   (a) `wide_ln_kernel`: LN_C(x) written token-major, (B T) x Cp, the
+//       first product's A operand (K = C contiguous);
+//   (b) G = gelu(xn W1^T + b1), the bias and GELU in the epilogue, G
+//       rounded to the compute dtype (JAX's rounding point) and stored
+//       token-major, (B T) x Hp;
+//   (c) out = x + rnd(rnd(G W2^T) + b2), the epilogue going through shared
+//       memory so that x is read and out written along T.
+// A weight byte fetched from L2 serves the 128 tokens of a tile (the narrow
+// kernels' 48, the first wide design's 32).  G's round trip is 235 MB in
+// bf16 at (B, C, T) = (2, 1064, 6912), about 0.07 ms of HBM against the
+// 0.253 ms operations bound.  f32 keeps split TF32: the weights are split
+// into hi and lo by `otp_hg::split_tf32_kernel` once a call, the LN output and G
+// where they are written, and every k8 step runs three `wgmma` passes (tf32
+// operands must be K-major, which every operand here is).  The f32 pack
+// keeps W2's hidden columns in order past 160 channels (`HIDDEN_ORDER` is
+// the narrow kernel's).  Bound at (2, 1064, 6912), hidden 4256: 250 GFLOP at
 // 989 TFLOP/s, 0.253 ms, against 59 MB (0.018 ms), so operations; f32 three
-// TF32 passes, 1.52 ms.  Each block streams both weight matrices (18 MB in
-// bf16 at C = 1064) from L2, so L2 bandwidth, not the tensor cores, is what
-// this design reaches first.
+// TF32 passes, 1.52 ms.
 #include "common.cuh"
+#include "hopper_gemm.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -571,378 +585,196 @@ int launch_tf32(const void* x, void* out, const void* lnw, const void* lnb, cons
 }
 
 // ---------------------------------------------------------------------------
-// wide: C padded past kMaxCp, both dtypes
+// wide: C padded past kMaxCp, both dtypes, two products on `hopper_gemm.cuh`
 // ---------------------------------------------------------------------------
 
-constexpr int kWWarps = 16;
-constexpr int kWThreads = 32 * kWWarps;   // 512
-constexpr int kWTok = 32;                 // tokens a block: two m16 tiles
-constexpr int kWHid = 16 * kWWarps;       // hidden rows a tile: 16 a warp
-constexpr int kWMaxNJ = 9;                // output n8 tiles a warp: Cp <= 16 x 8 x 9 = 1152
-constexpr int kWideMaxCp = 128 * kWMaxNJ;
-constexpr int kWLDO = kWTok + 8;          // the output tile's row stride (bf16)
-constexpr int kWLDOf = kWTok + 4;         // (f32)
+constexpr int kWideMaxCp = 1152;   // the gate's limit (`fused_mlp.WIDE_MAX_CHANNELS`)
+constexpr int kLnWarps = 8;        // wide_ln_kernel: 32 tokens a block, warps over C
+constexpr int kLnChunk = 64;       // channels a token-major store pass
 
-// The wide kernels read their B fragments straight from the weight rows,
-// several k positions a load, so the A operand in shared memory keeps its k
-// positions in the order those loads deliver them (the sums are unchanged).
-// Each map takes an index along the weights' k to its column in the tile:
-//   perm_k16  bf16, 8-byte loads: lane q holds k 4q..4q+3 of a k16 step as
-//             b0 (mma k 2q, 2q + 1) and b1 (8 + 2q, 9 + 2q);
-//   perm_k32  bf16, 16-byte loads: lane q holds k 8q..8q+7 of two k16 steps;
-//   perm_k8f  f32 (TF32 m16n8k8), 8-byte loads: lane q holds k 2q as b0 (mma
-//             k q) and 2q + 1 as b1 (q + 4).
-__device__ __forceinline__ int perm_k16(int k) {
-  const int c = k & 15, q = c >> 2, v = c & 3;
-  return (k & ~15) | ((v >> 1) << 3) | (q << 1) | (v & 1);
-}
-__device__ __forceinline__ int perm_k32(int k) {
-  const int c = k & 31, q = c >> 3, v = c & 7;
-  return (k & ~31) | ((v >> 2) << 4) | (((v >> 1) & 1) << 3) | (q << 1) | (v & 1);
-}
-__device__ __forceinline__ int perm_k8f(int k) {
-  const int c = k & 7;
-  return (k & ~7) | ((c & 1) << 2) | (c >> 1);
-}
-
-// LN_C of the block's tokens into xn (tokens x channels, row stride ld,
-// channel c at column perm_k16(c) in bf16, perm_k8f(c) in f32: the first
-// product's order), rounded to T, zero for padded channels and tokens past
-// tcount.  Lanes are
-// tokens, warps stride the channels; the statistics in JAX's order (the
-// mean, then the mean of the squared residual), the warps' partial sums
-// added in warp order; the plain version's division.
+// (a) LN_C of 32 tokens a block into xn (rows b T + t, Cp values a row:
+// the first product's A operand, token-major), rounded to T (f32: split
+// hi / lo), zero in the padded channels.  Lanes are tokens and warps stride
+// the channels, four loads in flight a warp; the statistics in JAX's order
+// (the mean, then the mean of the squared residual), the warps' partial sums
+// added in warp order; the plain version's division; the output through
+// shared memory in chunks of channels (`otp_hg::store_token_tile`).  x is
+// read three times (L2).
 template <typename T>
-__device__ __forceinline__ void wide_ln_tile(const T* __restrict__ xb, int C, int Cp, int Tn,
-                                             int tcount, const float* __restrict__ lnw,
-                                             const float* __restrict__ lnb, T* xn, int ld,
-                                             float* part) {
+__global__ void __launch_bounds__(32 * kLnWarps)
+wide_ln_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
+               const float* __restrict__ lnb, T* __restrict__ xn, size_t lo_off, int C, int Cp,
+               int Tn) {
+  __shared__ float part[kLnWarps][32];
+  __shared__ float tile[kLnChunk * otp_hg::kTileLd];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y, t0 = blockIdx.x * 32;
+  const int tcount = min(32, Tn - t0);
   const bool live = lane < tcount;
+  const T* xb = x + (size_t)b * C * Tn + t0 + lane;
   float s = 0.f;
-  if (live)
-    for (int c = warp; c < C; c += kWWarps) s += to_f<T>(xb[(size_t)c * Tn + lane]);
-  part[warp * 32 + lane] = s;
+  if (live) {
+#pragma unroll 4
+    for (int c = warp; c < C; c += kLnWarps) s += to_f<T>(xb[(size_t)c * Tn]);
+  }
+  part[warp][lane] = s;
   __syncthreads();
   float mu = 0.f;
 #pragma unroll
-  for (int i = 0; i < kWWarps; ++i) mu += part[i * 32 + lane];
+  for (int i = 0; i < kLnWarps; ++i) mu += part[i][lane];
   mu /= C;
   __syncthreads();
   float var = 0.f;
-  if (live)
-    for (int c = warp; c < C; c += kWWarps) {
-      const float r = to_f<T>(xb[(size_t)c * Tn + lane]) - mu;
+  if (live) {
+#pragma unroll 4
+    for (int c = warp; c < C; c += kLnWarps) {
+      const float r = to_f<T>(xb[(size_t)c * Tn]) - mu;
       var += r * r;
     }
-  part[warp * 32 + lane] = var;
+  }
+  part[warp][lane] = var;
   __syncthreads();
   var = 0.f;
 #pragma unroll
-  for (int i = 0; i < kWWarps; ++i) var += part[i * 32 + lane];
+  for (int i = 0; i < kLnWarps; ++i) var += part[i][lane];
   const float sd = sqrtf(var / C + 1e-5f);
-  for (int c = warp; c < Cp; c += kWWarps) {
-    float v = 0.f;
-    if (live && c < C)
-      v = __fadd_rn(__fmul_rn(__fdiv_rn(to_f<T>(xb[(size_t)c * Tn + lane]) - mu, sd), lnw[c]),
-                    lnb[c]);
-    xn[lane * ld + (sizeof(T) == 2 ? perm_k16(c) : perm_k8f(c))] = from_f<T>(v);
-  }
-  __syncthreads();
-}
-
-// bf16, C padded past 160.  A block of 16 warps owns 32 tokens with all C
-// channels: the LN output (tokens x Cp) sits in shared memory, and the
-// hidden dimension goes in tiles of 256, each warp computing 16 hidden rows
-// of the first product for both token tiles, their GELU rounded into a
-// shared tile (tokens x 256), then every warp the second product for its
-// output n8 tiles (warp, warp + 16, ...; NJ of them, a template parameter)
-// over the whole tile, its f32 accumulators in registers across all hidden
-// tiles.  Each weight element is used by one warp of the block, so the B
-// fragments come straight from L2 and never pass through shared memory: 8
-// bytes a lane (one k16 step) in the first product, 16 (two k16 steps) in
-// the second, the A tiles' columns in the matching order (`perm_k16`,
-// `perm_k32`).  The output goes back through shared memory for coalesced
-// stores of x + y.  Rounding points as the narrow kernel.
-template <int NJ>
-__global__ void __launch_bounds__(kWThreads, 1)
-fused_mlp_wide_tc_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
-                         const float* __restrict__ lnw, const float* __restrict__ lnb,
-                         const bf16* __restrict__ w1, const float* __restrict__ b1,
-                         const bf16* __restrict__ w2, const float* __restrict__ b2, int C,
-                         int Cp, int Hp, int Tn) {
-  constexpr int LDG = kWHid + 8;
-  const int LDN = Cp + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* xn_sh = reinterpret_cast<bf16*>(smem);   // kWTok x LDN: LN_C(x)^T
-  bf16* g_sh = xn_sh + kWTok * LDN;              // kWTok x LDG: the GELU tile
-  float* part_sh = reinterpret_cast<float*>(g_sh + kWTok * LDG);   // kWWarps x 32
-  bf16* o_sh = reinterpret_cast<bf16*>(smem);    // after the hidden loop: Cp x kWLDO
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int b = blockIdx.y, t0 = blockIdx.x * kWTok;
-  const int tcount = min(kWTok, Tn - t0);
-  const bf16* xb = x + (size_t)b * C * Tn + t0;
-  bf16* ob = out + (size_t)b * C * Tn + t0;
-  wide_ln_tile(xb, C, Cp, Tn, tcount, lnw, lnb, xn_sh, LDN, part_sh);
-
-  float acc[NJ][2][4];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-      acc[j][mi][0] = acc[j][mi][1] = acc[j][mi][2] = acc[j][mi][3] = 0.f;
-
-  for (int h0 = 0; h0 < Hp; h0 += kWHid) {
-    const int hv = min(kWHid, Hp - h0);   // a multiple of 32
-    if (16 * warp < hv) {
-      // first product: h (32 tokens x this warp's 16 hidden) = xn^T @ W1_rows^T
-      float h[2][2][4] = {};
-      const bf16* xa = xn_sh + a_off(lane, LDN);
-      const bf16* wr = w1 + (size_t)(h0 + 16 * warp + g) * Cp + 4 * q;
-#pragma unroll 4
-      for (int kk = 0; kk < Cp / 16; ++kk) {
-        uint32_t a0[4], a1[4];
-        ldsm_x4(a0, xa + kk * 16);
-        ldsm_x4(a1, xa + 16 * LDN + kk * 16);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const uint2 r =
-              __ldg(reinterpret_cast<const uint2*>(wr + (size_t)j * 8 * Cp + kk * 16));
-          mma_bf16(h[0][j], a0, r.x, r.y);
-          mma_bf16(h[1][j], a1, r.x, r.y);
-        }
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int hl = 16 * warp + 8 * j + 2 * q;   // hl, hl + 1: neighbouring columns
-          const float bb0 = b1[h0 + hl], bb1 = b1[h0 + hl + 1];
-          bf16* dst = g_sh + (mi * 16 + g) * LDG + perm_k32(hl);
-          *reinterpret_cast<uint32_t*>(dst) =
-              pack_bf16(gelu_pre(h[mi][j][0], bb0), gelu_pre(h[mi][j][1], bb1));
-          *reinterpret_cast<uint32_t*>(dst + 8 * LDG) =
-              pack_bf16(gelu_pre(h[mi][j][2], bb0), gelu_pre(h[mi][j][3], bb1));
-        }
-      }
+  for (int c0 = 0; c0 < Cp; c0 += kLnChunk) {
+    for (int i = warp; i < kLnChunk; i += kLnWarps) {
+      const int c = c0 + i;
+      float v = 0.f;
+      if (live && c < C)
+        v = __fadd_rn(__fmul_rn(__fdiv_rn(to_f<T>(xb[(size_t)c * Tn]) - mu, sd), lnw[c]),
+                      lnb[c]);
+      tile[i * otp_hg::kTileLd + lane] = v;
     }
     __syncthreads();
-    // second product: acc (32 tokens x this warp's n8 tiles) += gelu @ W2_tile^T
-    const bf16* ga = g_sh + a_off(lane, LDG);
-    for (int s = 0; s < hv / 32; ++s) {   // two k16 steps a 16-byte weight load
-      uint32_t a[2][2][4];                // [k16 step][m16 tile]
-#pragma unroll
-      for (int st = 0; st < 2; ++st) {
-        ldsm_x4(a[st][0], ga + s * 32 + st * 16);
-        ldsm_x4(a[st][1], ga + 16 * LDG + s * 32 + st * 16);
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int nt = warp + kWWarps * j;
-        if (nt * 8 < Cp) {
-          const uint4 r = __ldg(reinterpret_cast<const uint4*>(
-              w2 + (size_t)(nt * 8 + g) * Hp + h0 + s * 32 + 8 * q));
-          mma_bf16(acc[j][0], a[0][0], r.x, r.y);
-          mma_bf16(acc[j][1], a[0][1], r.x, r.y);
-          mma_bf16(acc[j][0], a[1][0], r.z, r.w);
-          mma_bf16(acc[j][1], a[1][1], r.z, r.w);
-        }
-      }
-    }
-    __syncthreads();   // the next tile overwrites g_sh; the last frees o_sh
-  }
-
-  // y = rnd(rnd(acc) + b2) into the output tile, then out = rnd(x + y)
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int nt = warp + kWWarps * j;
-    if (nt * 8 >= Cp) continue;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + 2 * q + (e & 1), t = mi * 16 + g + (e >> 1) * 8;
-        if (c < C) o_sh[c * kWLDO + t] = __float2bfloat16_rn(rnd_bf(rnd_bf(acc[j][mi][e]) + b2[c]));
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < C * kWTok; i += kWThreads) {
-    const int c = i / kWTok, t = i % kWTok;
-    if (t < tcount)
-      ob[(size_t)c * Tn + t] = __float2bfloat16_rn(__bfloat162float(xb[(size_t)c * Tn + t]) +
-                                                   __bfloat162float(o_sh[c * kWLDO + t]));
-  }
-}
-
-// f32, C padded past 160: the bf16 wide kernel's plan in split TF32.  The
-// LN output and the GELU tile stay f32 in shared memory (ldmatrix gives
-// their TF32 A fragments), split where they are read.  The weights come by
-// 8-byte loads (one k8 step, `perm_k8f`); the GELU value of a hidden unit
-// goes to the tile column that meets its W2 pack column (`HIDDEN_ORDER`:
-// hidden 2k of a group of 8 at column k, 2k + 1 at k + 4).  No rounding
-// points of bf16, as the narrow kernel.
-template <int NJ>
-__global__ void __launch_bounds__(kWThreads, 1)
-fused_mlp_wide_tf32_kernel(const float* __restrict__ x, float* __restrict__ out,
-                           const float* __restrict__ lnw, const float* __restrict__ lnb,
-                           const float* __restrict__ w1, const float* __restrict__ b1,
-                           const float* __restrict__ w2, const float* __restrict__ b2, int C,
-                           int Cp, int Hp, int Tn) {
-  constexpr int LDG = kWHid + 4;                 // 4 mod 8: ldmatrix without conflicts
-  const int LDA = Cp + 4;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* xn_sh = reinterpret_cast<float*>(smem);   // kWTok x LDA: LN_C(x)^T
-  float* g_sh = xn_sh + kWTok * LDA;               // kWTok x LDG: the GELU tile
-  float* part_sh = g_sh + kWTok * LDG;             // kWWarps x 32
-  float* o_sh = xn_sh;                             // after the hidden loop: Cp x kWLDOf
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int b = blockIdx.y, t0 = blockIdx.x * kWTok;
-  const int tcount = min(kWTok, Tn - t0);
-  const float* xb = x + (size_t)b * C * Tn + t0;
-  float* ob = out + (size_t)b * C * Tn + t0;
-  wide_ln_tile(xb, C, Cp, Tn, tcount, lnw, lnb, xn_sh, LDA, part_sh);
-
-  float acc[NJ][2][4];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-      acc[j][mi][0] = acc[j][mi][1] = acc[j][mi][2] = acc[j][mi][3] = 0.f;
-
-  for (int h0 = 0; h0 < Hp; h0 += kWHid) {
-    const int hv = min(kWHid, Hp - h0);
-    if (16 * warp < hv) {
-      float h[2][2][4] = {};
-      const float* xa = xn_sh + a_off_f32(lane, LDA);
-      const float* wr = w1 + (size_t)(h0 + 16 * warp + g) * Cp + 2 * q;
-#pragma unroll 2
-      for (int kk = 0; kk < Cp / 8; ++kk) {
-        uint32_t ahi[2][4], alo[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          uint32_t a[4];
-          ldsm_x4(a, xa + mi * 16 * LDA + kk * 8);
-          split_tf32_x4(a, ahi[mi], alo[mi]);
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float2 r =
-              __ldg(reinterpret_cast<const float2*>(wr + (size_t)j * 8 * Cp + kk * 8));
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(r.x, bh0, bl0);
-          split_tf32(r.y, bh1, bl1);
-          mma_3xtf32(h[0][j], ahi[0], alo[0], bh0, bh1, bl0, bl1);
-          mma_3xtf32(h[1][j], ahi[1], alo[1], bh0, bh1, bl0, bl1);
-        }
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            // hidden hl sits in W2's pack column col (`HIDDEN_ORDER`), which
-            // the 8-byte loads deliver at k position perm_k8f(col)
-            const int hl = 16 * warp + 8 * j + 2 * q + (e & 1);
-            const int col = (hl & ~7) | ((hl & 1) << 2) | ((hl & 7) >> 1);
-            g_sh[(mi * 16 + g + (e >> 1) * 8) * LDG + perm_k8f(col)] =
-                gelu_f32(h[mi][j][e] + b1[h0 + hl]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-    const float* ga = g_sh + a_off_f32(lane, LDG);
-    for (int s = 0; s < hv / 8; ++s) {
-      uint32_t ahi[2][4], alo[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        uint32_t a[4];
-        ldsm_x4(a, ga + mi * 16 * LDG + s * 8);
-        split_tf32_x4(a, ahi[mi], alo[mi]);
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int nt = warp + kWWarps * j;
-        if (nt * 8 < Cp) {
-          const float2 r = __ldg(reinterpret_cast<const float2*>(
-              w2 + (size_t)(nt * 8 + g) * Hp + h0 + s * 8 + 2 * q));
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(r.x, bh0, bl0);
-          split_tf32(r.y, bh1, bl1);
-          mma_3xtf32(acc[j][0], ahi[0], alo[0], bh0, bh1, bl0, bl1);
-          mma_3xtf32(acc[j][1], ahi[1], alo[1], bh0, bh1, bl0, bl1);
-        }
-      }
-    }
+    otp_hg::store_token_tile<T, kLnChunk>(tile, xn, lo_off, (size_t)b * Tn + t0, Cp, c0, Cp, 0,
+                                          tcount, threadIdx.x);
     __syncthreads();
   }
+}
 
-  // y = acc + b2 into the output tile, then out = x + y
+// (b) G (rows x Hp, token-major: the second product's A operand) =
+// gelu(xn W1^T + b1), rounded as the narrow kernels round it: bf16
+// rnd(gelu(rnd(rnd(acc) + b1))), f32 gelu(acc + b1) split hi / lo.
+template <typename T>
+struct MlpUp {
+  T* g;
+  size_t lo_off;
+  const float* b1;
+  int rows, hp, c;
+  __device__ otp_hg::Coords coords(int) const { return {0, 0, 0, 0, c}; }
+  __device__ void tile(int, int m0, int n0, int, const float (&acc)[64], uint8_t*,
+                       int tid) const {
+    otp_hg::store_fragments(acc, tid, [&](int r, int cc, float v0, float v1) {
+      const int m = m0 + r, n = n0 + cc;   // Hp is a multiple of 32: n + 1 < Hp too
+      if (m >= rows || n >= hp) return;
+      T* p = g + (size_t)m * hp + n;
+      if constexpr (sizeof(T) == 2)
+        *reinterpret_cast<uint32_t*>(p) = pack_bf16(gelu_pre(v0, b1[n]), gelu_pre(v1, b1[n + 1]));
+      else
+        otp_hg::put2<T>(p, lo_off, gelu_f32(v0 + b1[n]), gelu_f32(v1 + b1[n + 1]), true);
+    });
+  }
+};
+
+// (c) out = x + y, y = G W2^T + b2 rounded as the narrow kernels round it
+// (bf16 rnd(rnd(acc) + b2), then rnd(x + y); f32 x + (acc + b2)).  The
+// accumulators hold tokens x channels; the tile goes through shared memory
+// (channels x tokens) so that the loads of x and the stores along T are
+// coalesced.
+template <typename T>
+struct MlpDown {
+  const T* x;
+  T* out;
+  const float* b2;
+  int C, Tn, rows, hp;
+  __device__ otp_hg::Coords coords(int) const { return {0, 0, 0, 0, hp}; }
+  __device__ void tile(int, int m0, int n0, int cw, const float (&acc)[64], uint8_t* scratch,
+                       int tid) const {
+    constexpr int LD = 64 + 16 / (int)sizeof(T);
+    T* ys = reinterpret_cast<T*>(scratch);   // 128 channels x LD tokens
+    otp_hg::store_fragments(acc, tid, [&](int r, int cc, float v0, float v1) {
+      const int n = n0 + cc;
+      const float bb0 = n < C ? b2[n] : 0.f, bb1 = n + 1 < C ? b2[n + 1] : 0.f;
+      if constexpr (sizeof(T) == 2) {
+        ys[cc * LD + r] = __float2bfloat16_rn(rnd_bf(rnd_bf(v0) + bb0));
+        ys[(cc + 1) * LD + r] = __float2bfloat16_rn(rnd_bf(rnd_bf(v1) + bb1));
+      } else {
+        ys[cc * LD + r] = v0 + bb0;
+        ys[(cc + 1) * LD + r] = v1 + bb1;
+      }
+    });
+    otp_hg::named_sync(2 + cw, 128);
+    const int warp = tid >> 5, lane = tid & 31;
+    size_t base[2];
+    bool ok[2];
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int nt = warp + kWWarps * j;
-    if (nt * 8 >= Cp) continue;
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + lane + 32 * h, b = m / Tn;
+      ok[h] = m < rows;
+      base[h] = (size_t)b * C * Tn + (m - b * Tn);
+    }
+    // eight channel rows at a time, their 16 loads of x in flight together
+    for (int c8 = 0; c8 < otp_hg::kBN / 4; c8 += 8) {
+      float xs[8][2];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + warp + 4 * (c8 + j);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + 2 * q + (e & 1), t = mi * 16 + g + (e >> 1) * 8;
-        if (c < C) o_sh[c * kWLDOf + t] = acc[j][mi][e] + b2[c];
+        for (int h = 0; h < 2; ++h)
+          xs[j][h] = ok[h] && n < C ? to_f<T>(x[base[h] + (size_t)n * Tn]) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cl = warp + 4 * (c8 + j);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (ok[h] && n0 + cl < C)
+            out[base[h] + (size_t)(n0 + cl) * Tn] =
+                from_f<T>(xs[j][h] + to_f<T>(ys[cl * LD + lane + 32 * h]));
       }
     }
+    otp_hg::named_sync(2 + cw, 128);   // the consumer's next block reuses ys
   }
-  __syncthreads();
-  for (int i = tid; i < C * kWTok; i += kWThreads) {
-    const int c = i / kWTok, t = i % kWTok;
-    if (t < tcount) ob[(size_t)c * Tn + t] = xb[(size_t)c * Tn + t] + o_sh[c * kWLDOf + t];
-  }
-}
+};
 
-size_t wide_smem_bytes(int Cp, int dtype) {
-  const size_t el = dtype == 1 ? sizeof(bf16) : sizeof(float), pad = 16 / el;
-  const size_t tiles = el * kWTok * (Cp + pad + kWHid + pad) + sizeof(float) * 32 * kWWarps;
-  const size_t out = el * (size_t)Cp * (dtype == 1 ? kWLDO : kWLDOf);
-  return tiles > out ? tiles : out;
-}
-
-template <int NJ>
+// The wide path on one stream: (f32: the weights split), the LN into xn,
+// G = gelu(xn W1^T + b1), out = x + G W2^T + b2.  Scratch in device memory
+// (`ops/cuda/fused_mlp.py::wide_plan`): xn (rows x Cp) and G (rows x Hp),
+// rows = B T, in f32 each followed by its lo half; f32 wsplit: W1's and
+// W2's hi and lo, 4 Hp Cp values.
+template <typename T>
 int launch_wide(const void* x, void* out, const void* lnw, const void* lnb, const void* w1,
-                const void* b1, const void* w2, const void* b2, int B, int C, int Cp, int Hp,
-                int Tn, int dtype, cudaStream_t st) {
-  const size_t smem = wide_smem_bytes(Cp, dtype);
-  const dim3 grid((Tn + kWTok - 1) / kWTok, B);
-  if (dtype == 1) {
-    cudaFuncSetAttribute(fused_mlp_wide_tc_kernel<NJ>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    fused_mlp_wide_tc_kernel<NJ><<<grid, kWThreads, smem, st>>>(
-        (const bf16*)x, (bf16*)out, (const float*)lnw, (const float*)lnb, (const bf16*)w1,
-        (const float*)b1, (const bf16*)w2, (const float*)b2, C, Cp, Hp, Tn);
-  } else {
-    cudaFuncSetAttribute(fused_mlp_wide_tf32_kernel<NJ>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    fused_mlp_wide_tf32_kernel<NJ><<<grid, kWThreads, smem, st>>>(
-        (const float*)x, (float*)out, (const float*)lnw, (const float*)lnb, (const float*)w1,
-        (const float*)b1, (const float*)w2, (const float*)b2, C, Cp, Hp, Tn);
+                const void* b1, const void* w2, const void* b2, void* xn, void* g, void* wsplit,
+                int B, int C, int Cp, int Hp, int Tn, cudaStream_t st) {
+  const int rows = B * Tn;
+  const size_t xn_lo = (size_t)rows * Cp, g_lo = (size_t)rows * Hp, w_lo = (size_t)Hp * Cp;
+  const T* w1p = static_cast<const T*>(w1);
+  const T* w2p = static_cast<const T*>(w2);
+  if constexpr (sizeof(T) == 4) {
+    float* ws = static_cast<float*>(wsplit);   // W1 hi, W1 lo, W2 hi, W2 lo
+    otp_hg::split_weights(w1p, ws, w_lo, (long long)w_lo, st);
+    otp_hg::split_weights(w2p, ws + 2 * w_lo, w_lo, (long long)w_lo, st);
+    w1p = ws;
+    w2p = ws + 2 * w_lo;
   }
-  return (int)cudaGetLastError();
-}
-
-int dispatch_wide(const void* x, void* out, const void* lnw, const void* lnb, const void* w1,
-                  const void* b1, const void* w2, const void* b2, int B, int C, int Cp, int Hp,
-                  int Tn, int dtype, cudaStream_t st) {
-  switch ((Cp + 127) / 128) {
-#define OTP_NJ(K) \
-  case K: return launch_wide<K>(x, out, lnw, lnb, w1, b1, w2, b2, B, C, Cp, Hp, Tn, dtype, st);
-    OTP_NJ(2) OTP_NJ(3) OTP_NJ(4) OTP_NJ(5) OTP_NJ(6) OTP_NJ(7) OTP_NJ(8) OTP_NJ(9)
-#undef OTP_NJ
-  }
-  return (int)cudaErrorInvalidValue;
+  wide_ln_kernel<T><<<dim3((Tn + 31) / 32, B), 32 * kLnWarps, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(lnw), static_cast<const float*>(lnb),
+      static_cast<T*>(xn), xn_lo, C, Cp, Tn);
+  otp_hg::Operand a, b;
+  int err;
+  if ((err = otp_hg::make_operand<T>(&a, static_cast<const T*>(xn), xn_lo, C, rows, Cp)) ||
+      (err = otp_hg::make_operand<T>(&b, w1p, w_lo, C, Hp, Cp)))
+    return err;
+  const MlpUp<T> up{static_cast<T*>(g), g_lo, static_cast<const float*>(b1), rows, Hp, C};
+  if ((err = otp_hg::launch<T>(a, b, up, rows, Hp, 1, st))) return err;
+  if ((err = otp_hg::make_operand<T>(&a, static_cast<const T*>(g), g_lo, Hp, rows, Hp)) ||
+      (err = otp_hg::make_operand<T>(&b, w2p, w_lo, Hp, C, Hp)))
+    return err;
+  const MlpDown<T> down{static_cast<const T*>(x), static_cast<T*>(out),
+                        static_cast<const float*>(b2), C, Tn, rows, Hp};
+  return otp_hg::launch<T>(a, b, down, rows, C, 1, st);
 }
 
 }  // namespace
@@ -950,16 +782,15 @@ int dispatch_wide(const void* x, void* out, const void* lnw, const void* lnb, co
 // f32.  x, out: (B, C, T).  lnw/lnb: (C,).  w1: (Hp, Cp), b1: (Hp,),
 // w2: (Cp, Hp) with its hidden columns in `HIDDEN_ORDER` inside each group of
 // 8, b2: (Cp,), zero-padded, w2/b2 with the drop-path scale folded in
-// (`pack_mlp_weights`).  Cp: a multiple of 8 in [C, C + 8), at most 1152 (past
-// 160 the wide kernel); Hp: a multiple of 32.
+// (`pack_mlp_weights`).  Cp: a multiple of 8 in [C, C + 8), at most 160
+// (past it `otp_fused_mlp_wide`); Hp: a multiple of 32.
 extern "C" int otp_fused_mlp_f32(const void* x, void* out, const void* lnw, const void* lnb,
                                  const void* w1, const void* b1, const void* w2,
                                  const void* b2, int B, int C, int Cp, int Hp, int Tn,
                                  void* stream) {
-  if (Cp % 8 || Cp < C || Cp >= C + 8 || Cp > kWideMaxCp || Hp % kHT || Hp <= 0)
+  if (Cp % 8 || Cp < C || Cp >= C + 8 || Cp > kMaxCp || Hp % kHT || Hp <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (Cp > kMaxCp) return dispatch_wide(x, out, lnw, lnb, w1, b1, w2, b2, B, C, Cp, Hp, Tn, 0, st);
   switch (Cp / 8) {
 #define OTP_KC(K) \
   case K: return launch_tf32<K>(x, out, lnw, lnb, w1, b1, w2, b2, B, C, Hp, Tn, st);
@@ -974,14 +805,14 @@ extern "C" int otp_fused_mlp_f32(const void* x, void* out, const void* lnw, cons
 // bf16.  x, out: (B, C, T) bf16.  lnw/lnb: (C,) f32.  w1: (Hp, Cp) bf16,
 // b1: (Hp,) f32, w2: (Cp, Hp) bf16, b2: (Cp,) f32, zero-padded, the biases
 // already rounded to bf16 (`pack_mlp_weights`).  Cp: a multiple of 16 in
-// [C, C + 16), at most 1152 (past 160 the wide kernel); Hp: a multiple of 32.
+// [C, C + 16), at most 160 (past it `otp_fused_mlp_wide`); Hp: a multiple
+// of 32.
 extern "C" int otp_fused_mlp_tc(const void* x, void* out, const void* lnw, const void* lnb,
                                 const void* w1, const void* b1, const void* w2, const void* b2,
                                 int B, int C, int Cp, int Hp, int Tn, void* stream) {
-  if (Cp % 16 || Cp < C || Cp >= C + 16 || Cp > kWideMaxCp || Hp % kHT || Hp <= 0)
+  if (Cp % 16 || Cp < C || Cp >= C + 16 || Cp > kMaxCp || Hp % kHT || Hp <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (Cp > kMaxCp) return dispatch_wide(x, out, lnw, lnb, w1, b1, w2, b2, B, C, Cp, Hp, Tn, 1, st);
   switch (Cp / 16) {
 #define OTP_KC(K) \
   case K: return launch_tc<K>(x, out, lnw, lnb, w1, b1, w2, b2, B, C, Hp, Tn, st);
@@ -989,5 +820,23 @@ extern "C" int otp_fused_mlp_tc(const void* x, void* out, const void* lnw, const
     OTP_KC(6) OTP_KC(7) OTP_KC(8) OTP_KC(9) OTP_KC(10)
 #undef OTP_KC
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Either dtype (0 = f32, 1 = bf16), C padded past 160 up to 1152: the
+// arguments of the entries above in the wide pack's layout (f32: w2's hidden
+// columns in order), and the scratch of `launch_wide` (`fused_mlp.py::
+// wide_plan`; wsplit unused in bf16).  Cp: C rounded up to 16 (bf16) or 8.
+extern "C" int otp_fused_mlp_wide(const void* x, void* out, const void* lnw, const void* lnb,
+                                  const void* w1, const void* b1, const void* w2,
+                                  const void* b2, void* xn, void* g, void* wsplit, int B, int C,
+                                  int Cp, int Hp, int Tn, int dtype, void* stream) {
+  const int align = dtype == 1 ? 16 : 8;
+  if ((dtype != 0 && dtype != 1) || Cp % align || Cp < C || Cp >= C + align || Cp <= kMaxCp ||
+      Cp > kWideMaxCp || Hp % kHT || Hp <= 0 || B < 1 || Tn < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  OTP_DISPATCH(dtype, return launch_wide<T>(x, out, lnw, lnb, w1, b1, w2, b2, xn, g, wsplit, B,
+                                            C, Cp, Hp, Tn, st));
   return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,8 @@ The wrapper calls the registered op ``otpose::fused_attn``: on a CUDA
 tensor it launches ``csrc/fused_attn.cu`` (bf16 on the tensor cores, f32 on
 them in split TF32): its narrow kernels where ``narrow`` takes the shape
 (C padded within 160, in f32 one head within 136 channels), else its wide
-path (tiled products through scratch in device memory); on a CPU tensor it
+path (``wgmma`` products fed by TMA through scratch in device memory that
+``wide_plan`` lays out); on a CPU tensor it
 runs ``fused_attn_plain``, the same function in plain PyTorch, from the
 pack.  It has no backward: on a CUDA tensor under grad the wrapper raises.
 
@@ -37,9 +38,11 @@ import torch
 from otpose_tpu_torch.ops import ct
 from otpose_tpu_torch.ops.cuda import build
 
-# op calls (either device), kernel launches (CUDA only) and packs made
+# op calls (either device), kernel launches (CUDA only; wide_launches: those
+# of them on the wide path) and packs made
 calls = 0
 launches = 0
+wide_launches = 0
 packs = 0
 
 CHANNEL_ALIGN = {torch.bfloat16: 16, torch.float32: 8}   # C padded to the mma depth
@@ -47,14 +50,14 @@ MAX_CHANNELS = 160     # kMaxCp: the padded C the narrow kernels hold
 # the narrow f32 score kernel's tiles of one head's (hs x hs) scores: 16
 # warps of at most 10 (kF32MaxSlots) tiles of 16 x 8
 F32_SCORE_TILES = 16 * 10
-GEMM_TILE = 128        # the wide path's products: output tiles of 128 x 128
-SPLIT_TOKENS = 32      # its score sum splits T in multiples of its K step
+GEMM_TILE = 128        # the wide path's products: output tiles of 128 rows
+SPLIT_TOKENS = 64      # its score sum splits T in whole K steps of a product
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "otp_fused_attn_f32": (_I, [_P] * 12 + [_I] * 5 + [ctypes.c_float, _I, _P]),
     "otp_fused_attn_tc": (_I, [_P] * 12 + [_I] * 5 + [ctypes.c_float, _I, _P]),
-    "otp_fused_attn_wide": (_I, [_P] * 13 + [_I] * 5 + [ctypes.c_float, _I, _I, _I, _P]),
+    "otp_fused_attn_wide": (_I, [_P] * 15 + [_I] * 5 + [ctypes.c_float, _I, _I, _I, _P]),
     "otp_fused_attn_smem": (ctypes.c_size_t, [_I, _I, _I]),
     "otp_fused_attn_narrow": (_I, [_I, _I, _I]),
 }
@@ -94,6 +97,27 @@ def wide_split(t: int, hs: int, bsz: int, n_head: int, sms: int) -> tuple:
     nsplit = max(1, min(-(-2 * sms // tiles), -(-t // 256)))
     kspan = max(SPLIT_TOKENS, _round_up(-(-t // nsplit), SPLIT_TOKENS))
     return max(1, -(-t // kspan)), kspan
+
+
+def wide_plan(bsz: int, c: int, t: int, n_head: int, nsplit: int, dtype) -> dict:
+    """The wide path's scratch for x of (bsz, c, t) in ``dtype``: name ->
+    (shape, dtype).  The products' operands, each K-major: ``y`` the conv
+    LNs' outputs (3, B, T, Cp), ``qk`` q and k (2, B, C, Tp; T padded to 8
+    so that a row is whole 16-byte units), ``vt`` v token-major, a head's
+    channels a row (B, n_head, T, kp: a TMA box starts on a 16-byte
+    boundary), ``att`` (B, C, kp), in f32 each with its hi and lo halves (a
+    leading 2), and f32 ``w`` the projection weights' split (2, 3, Cp, Cp);
+    ``s`` the scores' f32 partials (nsplit, B, C, hs)."""
+    align = CHANNEL_ALIGN[dtype]
+    cp, hs = _round_up(c, align), c // n_head
+    kp, tp = _round_up(hs, align), _round_up(t, 8)
+    parts = (2,) if dtype == torch.float32 else (1,)
+    plan = {"y": (parts + (3, bsz, t, cp), dtype), "qk": (parts + (2, bsz, c, tp), dtype),
+            "vt": (parts + (bsz, n_head, t, kp), dtype), "att": (parts + (bsz, c, kp), dtype),
+            "s": ((nsplit, bsz, c, hs), torch.float32)}
+    if dtype == torch.float32:
+        plan["w"] = ((2, 3, cp, cp), dtype)
+    return plan
 
 
 def channel_attention_ct(q, k, v, n_head: int, drop=None, reduce=None) -> torch.Tensor:
@@ -208,7 +232,7 @@ def fused_attn_op(x: torch.Tensor, ln1_w: torch.Tensor, ln1_b: torch.Tensor, dw:
 
 @fused_attn_op.register_kernel("cuda")
 def _fused_attn_cuda(x, ln1_w, ln1_b, dw, nw, nb, pw, pb, n_head):
-    global calls, launches
+    global calls, launches, wide_launches
     calls += 1
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("fused_attn_ct: x must be a contiguous (B, C, T) tensor")
@@ -225,11 +249,12 @@ def _fused_attn_cuda(x, ln1_w, ln1_b, dw, nw, nb, pw, pb, n_head):
                          f"{pw.device}, x has C={c} on {x.device}")
     dev = x.device
     hs = c // n_head
-    kp = _round_up(hs, CHANNEL_ALIGN[x.dtype])
-    att_scr = torch.empty(bsz, c, kp, device=dev, dtype=x.dtype)
     out = torch.empty_like(x)
     scale = _scale(hs, x.dtype)
-    if narrow(c, n_head, x.dtype):
+    is_narrow = narrow(c, n_head, x.dtype)
+    if is_narrow:
+        att_scr = torch.empty(bsz, c, _round_up(hs, CHANNEL_ALIGN[x.dtype]), device=dev,
+                              dtype=x.dtype)
         # about one block a SM: each holds projection weights for all its chunks
         nsplit = max(1, min(-(-t // 32), _sm_count(dev.index or 0) // bsz))
         v_scr = torch.empty_like(x)
@@ -242,15 +267,16 @@ def _fused_attn_cuda(x, ln1_w, ln1_b, dw, nw, nb, pw, pb, n_head):
                      build.stream_ptr(dev))
     else:
         nsplit, kspan = wide_split(t, hs, bsz, n_head, _sm_count(dev.index or 0))
-        y_scr = torch.empty(3, bsz, c, t, device=dev, dtype=x.dtype)
-        qkv_scr = torch.empty_like(y_scr)
-        s_scr = torch.empty(nsplit, bsz, c, hs, device=dev, dtype=torch.float32)
-        ptrs = [a.data_ptr() for a in (x, ln1_w, ln1_b, dw, nw, nb, pw, pb, y_scr, qkv_scr,
-                                       s_scr, att_scr, out)]
+        scr = {k: torch.empty(shape, device=dev, dtype=dt)
+               for k, (shape, dt) in wide_plan(bsz, c, t, n_head, nsplit, x.dtype).items()}
+        scr.setdefault("w", scr["att"])      # bf16: the weights need no split
+        ptrs = [a.data_ptr() for a in (x, ln1_w, ln1_b, dw, nw, nb, pw, pb, *(
+            scr[k] for k in ("y", "qk", "vt", "s", "att", "w")), out)]
         err = lib.otp_fused_attn_wide(*ptrs, bsz, c, pw.shape[1], t, n_head, scale, nsplit,
                                       kspan, code, build.stream_ptr(dev))
     build.check(lib, err, "fused_attn_ct")
     launches += 1
+    wide_launches += not is_narrow
     return out
 
 

@@ -28,21 +28,27 @@ import torch
 from otpose_tpu_torch.ops import ct
 from otpose_tpu_torch.ops.cuda import build
 
-# op calls (either device), kernel launches (CUDA only) and packs made
+# op calls (either device), kernel launches (CUDA only; wide_launches: those
+# of them on the wide path) and packs made
 calls = 0
 launches = 0
+wide_launches = 0
 packs = 0
 
 CHANNEL_ALIGN = {torch.bfloat16: 16, torch.float32: 8}   # C padded to the mma depth
 HIDDEN_TILE = 32      # the kernels stream W1/W2 in tiles of 32 hidden rows
-MAX_CHANNELS = 160    # the narrow kernels' limit (kMaxCp); past it the wide kernels
-# the wide kernels' limit (kWideMaxCp): each of 16 warps holds the f32
-# accumulators of at most 9 output tiles of 8 channels for 32 tokens
-WIDE_MAX_CHANNELS = 16 * 8 * 9
-# The f32 pack's order of W2's hidden columns inside each group of 8: column
-# k holds hidden HIDDEN_ORDER[k].  The first product's C fragment gives a lane
-# hidden 2q and 2q + 1; the second product's A fragment wants k positions q
-# and q + 4 (``csrc/fused_mlp.cu``).
+MAX_CHANNELS = 160    # the narrow kernels' limit (kMaxCp); past it the wide path
+# the wide path's limit (kWideMaxCp), the gate's (its products themselves
+# take any C)
+WIDE_MAX_CHANNELS = 1152
+# the wide path's products (``csrc/hopper_gemm.cuh``): output tiles of
+# GEMM_TILE tokens x GEMM_TILE hidden units or channels
+GEMM_TILE = 128
+# The narrow f32 pack's order of W2's hidden columns inside each group of 8:
+# column k holds hidden HIDDEN_ORDER[k].  The first product's C fragment
+# gives a lane hidden 2q and 2q + 1; the second product's A fragment wants k
+# positions q and q + 4 (``csrc/fused_mlp.cu``).  The wide pack keeps them in
+# order.
 HIDDEN_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 _INVERSE_ORDER = tuple(HIDDEN_ORDER.index(k) for k in range(8))
 
@@ -50,6 +56,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "otp_fused_mlp_f32": (_I, [_P] * 8 + [_I] * 5 + [_P]),
     "otp_fused_mlp_tc": (_I, [_P] * 8 + [_I] * 5 + [_P]),
+    "otp_fused_mlp_wide": (_I, [_P] * 11 + [_I] * 6 + [_P]),
 }
 
 
@@ -63,6 +70,25 @@ def supports(c: int, dtype) -> bool:
     narrow kernels to ``MAX_CHANNELS``, the wide ones past it)."""
     return (dtype in CHANNEL_ALIGN
             and 1 <= _round_up(c, CHANNEL_ALIGN[dtype]) <= WIDE_MAX_CHANNELS)
+
+
+def wide_plan(bsz: int, c: int, t: int, hp: int, dtype) -> dict:
+    """The wide path's scratch and launches for x of (bsz, c, t) in
+    ``dtype`` and a pack of ``hp`` hidden rows: ``shapes`` of the scratch
+    tensors the wrapper allocates in ``dtype`` (``xn``, the LN output, and
+    ``g``, the GELU output, token-major with B T rows; f32 keeps each
+    operand's hi and lo halves, and ``w`` holds the weights' split: W1 hi,
+    W1 lo, W2 hi, W2 lo); ``grids`` of the two products, (tiles along N,
+    tiles along M)."""
+    cp = _round_up(c, CHANNEL_ALIGN[dtype])
+    parts = 2 if dtype == torch.float32 else 1
+    rows = bsz * t
+    shapes = {"xn": (parts, rows, cp), "g": (parts, rows, hp)}
+    if dtype == torch.float32:
+        shapes["w"] = (4, hp * cp)
+    tiles = lambda n: -(-n // GEMM_TILE)  # noqa: E731
+    return {"shapes": shapes, "grids": {"up": (tiles(hp), tiles(rows)),
+                                        "down": (tiles(c), tiles(rows))}}
 
 
 def permute_hidden(w2: torch.Tensor, order=HIDDEN_ORDER) -> torch.Tensor:
@@ -81,8 +107,9 @@ def unpermute_hidden(w2: torch.Tensor) -> torch.Tensor:
 class MlpPack:
     """Weights in the kernel's layout for compute dtype ``dtype``: ``w1``
     (Hp, Cp) and ``w2`` (Cp, Hp) in ``dtype``, zero-padded (Cp: C rounded up
-    to ``CHANNEL_ALIGN[dtype]``, Hp: H to ``HIDDEN_TILE``); in f32 ``w2``'s
-    hidden columns are in ``HIDDEN_ORDER`` inside each group of 8.  Biases
+    to ``CHANNEL_ALIGN[dtype]``, Hp: H to ``HIDDEN_TILE``); in f32 within
+    ``MAX_CHANNELS`` (the narrow kernel's) ``w2``'s hidden columns are in
+    ``HIDDEN_ORDER`` inside each group of 8.  Biases
     f32 holding values of ``dtype`` (zero-padded like the weights), the LN
     affine f32 (C,); the drop-path scale is in w2/b2."""
     dtype: torch.dtype
@@ -123,7 +150,7 @@ def pack_mlp_weights(ln_w, ln_b, w1, b1, w2, b2, dtype, scale=None, device=None)
     b1p = torch.zeros(hp, device=device)
     b2p = torch.zeros(cp, device=device)
     b1p[:hid], b2p[:c] = rounded(b1f), rounded(b2f)
-    if dtype == torch.float32:
+    if dtype == torch.float32 and cp <= MAX_CHANNELS:
         w2p = permute_hidden(w2p).contiguous()
     packs += 1
     return MlpPack(dtype, c, hid, f32(ln_w, c, "ln weight"), f32(ln_b, c, "ln bias"),
@@ -144,7 +171,7 @@ def fused_mlp_op(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: to
     global calls
     calls += 1
     c = ln_w.numel()
-    if w1.dtype == torch.float32:
+    if w1.dtype == torch.float32 and w2.shape[0] <= MAX_CHANNELS:
         w2 = unpermute_hidden(w2)
     return fused_mlp_plain(x, ln_w, ln_b, w1[:hid, :c, None], b1[:hid], w2[:c, :hid, None],
                            b2[:c])
@@ -152,7 +179,7 @@ def fused_mlp_op(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: to
 
 @fused_mlp_op.register_kernel("cuda")
 def _fused_mlp_cuda(x, ln_w, ln_b, w1, b1, w2, b2, hid):
-    global calls, launches
+    global calls, launches, wide_launches
     calls += 1
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("fused_mlp_residual_ct: x must be a contiguous (B, C, T) tensor")
@@ -165,12 +192,21 @@ def _fused_mlp_cuda(x, ln_w, ln_b, w1, b1, w2, b2, hid):
         raise ValueError(f"fused_mlp_residual_ct: weights packed for C={ln_w.numel()} on "
                          f"{w1.device}, x has C={c} on {x.device}")
     out = torch.empty_like(x)
-    ptrs = (a.data_ptr() for a in (x, out, ln_w, ln_b, w1, b1, w2, b2))
+    ptrs = [a.data_ptr() for a in (x, out, ln_w, ln_b, w1, b1, w2, b2)]
     lib = build.load("fused_mlp", _SIGNATURES)
-    launch = lib.otp_fused_mlp_tc if code == 1 else lib.otp_fused_mlp_f32
-    err = launch(*ptrs, bsz, c, w2.shape[0], w1.shape[0], t, build.stream_ptr(x.device))
+    cp, hp, stream = w2.shape[0], w1.shape[0], build.stream_ptr(x.device)
+    if cp <= MAX_CHANNELS:
+        launch = lib.otp_fused_mlp_tc if code == 1 else lib.otp_fused_mlp_f32
+        err = launch(*ptrs, bsz, c, cp, hp, t, stream)
+    else:
+        scratch = {k: torch.empty(s, device=x.device, dtype=x.dtype)
+                   for k, s in wide_plan(bsz, c, t, hp, x.dtype)["shapes"].items()}
+        w = scratch.get("w", scratch["g"])      # bf16: no split weights
+        err = lib.otp_fused_mlp_wide(*ptrs, scratch["xn"].data_ptr(), scratch["g"].data_ptr(),
+                                     w.data_ptr(), bsz, c, cp, hp, t, code, stream)
     build.check(lib, err, "fused_mlp_residual_ct")
     launches += 1
+    wide_launches += cp > MAX_CHANNELS
     return out
 
 

@@ -13,7 +13,8 @@ B = 2, the kernels' wide paths) in both dtypes.  Each case draws its inputs
 from a seed of its own, and reports whether two calls give the same bits
 and a digest of the output's bits, so that two checkouts' outputs can be
 compared.  Prints one JSON line of ms by case beside the card's name, the
-device ms of each of the call's kernels (``torch.profiler`` over 5 calls)
+device ms and launches a call of each of the call's kernels by name and
+template arguments (``torch.profiler`` over 5 calls)
 and the compiler's register and spill report of both libraries.  A shape
 the checkout's ``supports`` refuses is reported as not taken.  To time
 another checkout's kernels (the parent commit's, for a comparison in one
@@ -72,6 +73,39 @@ def _mlp_case(batch: int, c: int, dtype, gen):
         r(c, 4 * c, 1, scale=1 / math.sqrt(4 * c)).to(dtype), r(c, scale=0.1).to(dtype)]
 
 
+def kernel_name(key: str) -> str:
+    """A profiler event's kernel name without its namespace and argument
+    list, its template arguments kept (they tell a kernel's instantiations
+    apart)."""
+    key = key.replace("void ", "", 1).replace("(anonymous namespace)::", "")
+    depth = 0
+    for i, ch in enumerate(key):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return key[:i]
+    return key
+
+
+def device_split(fn, calls: int = 5) -> dict:
+    """{kernel name: [device ms a call, launches a call]} of the kernels
+    ``fn()`` launches, by ``torch.profiler`` over ``calls`` calls (kept in
+    this file, which runs against another checkout's package too)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        dev = getattr(e, "self_cuda_time_total", 0) if dev is None else dev
+        if dev > 0:
+            ms, n = split.get(kernel_name(e.key), (0.0, 0.0))
+            split[kernel_name(e.key)] = [ms + dev / 1e3 / calls, n + e.count / calls]
+    return split
+
+
 def _digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
 
@@ -79,8 +113,6 @@ def _digest(t: torch.Tensor) -> str:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("attn_time: needs a CUDA device")
-    from torch.profiler import ProfilerActivity, profile
-
     from otpose_tpu_torch.ops.cuda import build, fused_attn, fused_mlp
     from otpose_tpu_torch.utils.timing import graph_ms, time_ms
 
@@ -117,16 +149,7 @@ def main() -> None:
             del first
             ms[key] = time_ms(call, iters=20)
             graph[key] = graph_ms(call)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    call()
-                torch.cuda.synchronize()
-        kernels[key] = {}
-        for e in prof.key_averages():
-            dev = getattr(e, "self_device_time_total", None)
-            dev = getattr(e, "self_cuda_time_total", 0) if dev is None else dev
-            if dev > 0:
-                kernels[key][e.key[:60]] = dev / 5e3     # us over 5 calls -> ms a call
+            kernels[key] = device_split(call)
         del x, weights, pk
         torch.cuda.empty_cache()
     report = {name: [line.strip() for line in build.ptxas_report.get(name, "").splitlines()

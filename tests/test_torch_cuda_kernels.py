@@ -187,11 +187,17 @@ def test_packed_call_equals_raw_call(dtype):
 # the wide paths (C padded past 160; the attention's also one f32 head past
 # 136): the temporal encoders at 21 (168), 25 (200), 26 (208) and 133 (1064)
 # joints, one head of 144, B = 1 and 2, T ragged against the 32-token tiles
-# and the 16-byte vectors, and the flagship's length
+# and the 16-byte vectors, and the flagship's length; then every C of 168,
+# 208, 1064 and 1152 at B = 1 and 2 and T = 1, 31, 1727 and 6912 (the
+# products' 128-token tiles and 64-token score splits, T not a multiple of
+# 8 in the scratch rows)
+WIDE_GRID = [(b, c, t) for c in (168, 208, 1064, 1152) for b in (1, 2)
+             for t in (1, 31, 1727, 6912)]
 WIDE_ATTN = [(2, 168, 100, 2), (1, 200, 257, 2), (2, 208, 6912, 2), (1, 1064, 1000, 2),
-             (2, 1064, 77, 2), (1, 144, 300, 1), (2, 144, 6912, 1)]
+             (2, 1064, 77, 2), (1, 144, 300, 1), (2, 144, 6912, 1)] + [
+                 (b, c, t, 2) for b, c, t in WIDE_GRID]
 WIDE_MLP = [(2, 168, 100), (1, 200, 33), (2, 208, 6912), (1, 1064, 300), (2, 1064, 65),
-            (2, 1152, 40), (1, 144, 31)]
+            (2, 1152, 40), (1, 144, 31)] + WIDE_GRID
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -222,6 +228,28 @@ def test_wide_fused_mlp_matches_plain(b, c, t, dtype):
     if dtype == torch.bfloat16 and got.numel() >= 10000:   # chip_smoke.py's rounding check
         assert (got != want).float().mean().item() <= 0.05
     assert torch.equal(fused_mlp.fused_mlp_residual_ct(*args), got)
+
+
+def test_wide_products_run_on_wgmma_fed_by_tma():
+    """The wide paths' products are the repository's own Hopper kernels:
+    in each library every instantiation of ``hgemm_kernel`` (and no other
+    kernel) issues ``HGMMA`` and loads by TMA (``UTMALDG``), per
+    ``cuobjdump -sass`` of the built library."""
+    import subprocess
+
+    for name, mod in (("fused_mlp", fused_mlp), ("fused_attn", fused_attn)):
+        lib = build.load(name, mod._SIGNATURES)
+        sass = subprocess.run([os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
+                               "-sass", lib._name], capture_output=True, text=True,
+                              check=True).stdout
+        funcs = {}
+        for block in sass.split("Function : ")[1:]:
+            funcs[block.split("\n", 1)[0].strip()] = block
+        gemm = {f: body for f, body in funcs.items() if "hgemm_kernel" in f}
+        assert len(gemm) >= 4, sorted(funcs)          # bf16 and f32, two epilogues at least
+        for f, body in gemm.items():
+            assert "HGMMA" in body and "UTMALDG" in body, f
+        assert not any("HGMMA" in body for f, body in funcs.items() if f not in gemm)
 
 
 # the DCN kernel's two rounding modes, each with its wrapper and plain version

@@ -11,7 +11,14 @@ seeds:
   heads, one f32 head of 144, T = 256 and a ragged 100; rtol = atol = 1e-5
   in f32, 0.05 in bf16;
 - the packs at C = 168 and 1064: shapes, zero padding, values, and the op
-  from the pack against the plain version from the raw weights;
+  from the pack against the plain version from the raw weights; the f32
+  pack's W2 in hidden order past 160 channels (the wide path's layout),
+  permuted within them (the narrow kernel's);
+- the wide paths' plans (``fused_mlp.wide_plan``, ``fused_attn.wide_plan``,
+  ``fused_attn.wide_split``) at C = 168, 208, 1064 and 1152, B = 1 and 2,
+  T = 1, 31, 1727 and 6912: every scratch operand's rows whole 16-byte
+  units (TMA's rule), the products' tile grids covering their extents, the
+  score splits whole K steps;
 - the predicates: every C from 32 to 1100 with heads that divide it in both
   dtypes (the MLP to 1152 padded channels), and which path a shape takes;
 - ``tiny_otpose_cfg(num_joints=21)`` (temporal encoders of 168 channels)
@@ -23,6 +30,7 @@ The CUDA kernels themselves are held against the same plain versions on
 the card by ``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py``.
 """
 
+import math
 from unittest import mock
 
 import jax
@@ -106,8 +114,9 @@ def test_plain_mlp_matches_pallas_bf16(c, t):
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("c", [168, 1064])
 def test_wide_packs_are_exact_and_zero_padded(c, dtype):
-    """The packs past 160 channels keep the narrow layout: C zero-padded to
-    the mma depth, H to 32, f32 W2 in ``HIDDEN_ORDER``.  On the CPU each op
+    """The packs past 160 channels: C zero-padded to the mma depth, H to 32,
+    W2's hidden columns in order in both dtypes (the wide path's products
+    read G and W2 with the hidden index in order).  On the CPU each op
     from its pack agrees with the plain version from the raw weights within
     the parity tolerances (the ops multiply by strided views of the padded
     packs, which the CPU's matmul may sum in another order at these
@@ -118,7 +127,7 @@ def test_wide_packs_are_exact_and_zero_padded(c, dtype):
     ln_w, ln_b, w1, b1, w2, b2 = _mlp_raw(blk)
     pk = fused_mlp.pack_mlp_weights(ln_w, ln_b, w1, b1, w2, b2, dtype)
     assert pk.w1.shape == (hp, cp) and pk.w2.shape == (cp, hp) and pk.w1.dtype == dtype
-    w2p = fused_mlp.unpermute_hidden(pk.w2) if dtype == F32 else pk.w2
+    w2p = pk.w2
     assert torch.equal(pk.w1[:hid, :c], w1[:, :, 0].to(dtype))
     assert torch.equal(w2p[:c, :hid], w2[:, :, 0].to(dtype))
     assert not pk.w1[hid:].any() and not pk.w1[:, c:].any()
@@ -141,6 +150,91 @@ def test_wide_packs_are_exact_and_zero_padded(c, dtype):
     with torch.no_grad():
         torch.testing.assert_close(fused_attn.fused_attn_ct(x, packed=apk, n_head=2),
                                    fused_attn.fused_attn_plain(x, *raw, 2), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("c", [152, 160, 168, 176])
+def test_f32_pack_orders_hidden_columns_by_the_path_it_feeds(c):
+    """The f32 pack permutes W2's hidden columns (``HIDDEN_ORDER``) for the
+    narrow kernel, C padded within 160, and keeps them in order for the
+    wide path past it; the CPU op undoes whichever layout the pack took, so
+    it agrees with the plain version from the raw weights on both sides of
+    the boundary."""
+    blk = _block(c, 2, seed=c + 3)
+    ln_w, ln_b, w1, b1, w2, b2 = _mlp_raw(blk)
+    pk = fused_mlp.pack_mlp_weights(ln_w, ln_b, w1, b1, w2, b2, F32)
+    hid = 4 * c
+    narrow = _round_up(c, 8) <= fused_mlp.MAX_CHANNELS
+    w2p = fused_mlp.unpermute_hidden(pk.w2) if narrow else pk.w2
+    assert torch.equal(w2p[:c, :hid], w2[:, :, 0])
+    assert torch.equal(pk.w2, fused_mlp.permute_hidden(w2p)) == narrow
+    x = torch.from_numpy(np.random.RandomState(c).randn(2, c, 9).astype(np.float32))
+    with torch.no_grad():
+        torch.testing.assert_close(fused_mlp.fused_mlp_residual_ct(x, packed=pk),
+                                   fused_mlp.fused_mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2),
+                                   rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------- the wide plans
+
+WIDE_SHAPES = [(b, c, t) for c in (168, 208, 1064, 1152) for b in (1, 2)
+               for t in (1, 31, 1727, 6912)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("b,c,t", WIDE_SHAPES)
+def test_wide_mlp_plan_covers_every_token_and_channel(b, c, t, dtype):
+    """``fused_mlp.wide_plan``: the LN output xn (Cp wide) and G (Hp wide)
+    hold a row for each of the B T tokens, every row whole 16-byte units
+    (TMA's rule for a row stride), f32 with its lo half and the weights'
+    split; the two products' grids of 128 x 128 tiles cover the tokens and
+    the hidden units (G) and channels (out), no tile empty."""
+    el = 4 if dtype == F32 else 2
+    cp = _round_up(c, fused_mlp.CHANNEL_ALIGN[dtype])
+    hp = _round_up(4 * c, fused_mlp.HIDDEN_TILE)
+    assert fused_mlp.supports(c, dtype) and cp > fused_mlp.MAX_CHANNELS
+    plan = fused_mlp.wide_plan(b, c, t, hp, dtype)
+    parts = 2 if dtype == F32 else 1
+    shapes = plan["shapes"]
+    assert shapes["xn"] == (parts, b * t, cp) and shapes["g"] == (parts, b * t, hp)
+    assert cp * el % 16 == 0 and hp * el % 16 == 0 and b * t * cp * el % 16 == 0
+    assert shapes.get("w") == ((4, hp * cp) if dtype == F32 else None)
+    tile = fused_mlp.GEMM_TILE
+    for (n_tiles, m_tiles), n in ((plan["grids"]["up"], hp), (plan["grids"]["down"], c)):
+        assert (m_tiles - 1) * tile < b * t <= m_tiles * tile
+        assert (n_tiles - 1) * tile < n <= n_tiles * tile
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("b,c,t", WIDE_SHAPES)
+def test_wide_attention_plan_covers_every_operand(b, c, t, dtype):
+    """``fused_attn.wide_plan`` with ``wide_split``'s splits: y (3, B, T,
+    Cp), q and k (2, B, C, Tp) with T padded to 8, v token-major a head a
+    row (B, n_head, T, kp), att (B, C, kp), f32 each with its lo half and the weights' split;
+    every operand's rows whole 16-byte units and each lo half starting on
+    one; the score partials (nsplit, B, C, hs); the splits whole K steps of
+    both dtypes' products (64 bf16 or 32 f32 values a 128-byte row) that
+    cover T."""
+    n_head, el = 2, (4 if dtype == F32 else 2)
+    hs = c // n_head
+    align = fused_attn.CHANNEL_ALIGN[dtype]
+    cp, kp = _round_up(c, align), _round_up(hs, align)
+    assert fused_attn.supports(c, n_head, dtype) and not fused_attn.narrow(c, n_head, dtype)
+    nsplit, kspan = fused_attn.wide_split(t, hs, b, n_head, 132)
+    plan = fused_attn.wide_plan(b, c, t, n_head, nsplit, dtype)
+    parts = (2,) if dtype == F32 else (1,)
+    tp = plan["qk"][0][-1]
+    assert t <= tp < t + 8 and tp * el % 16 == 0
+    assert plan["y"] == (parts + (3, b, t, cp), dtype)
+    assert plan["qk"] == (parts + (2, b, c, tp), dtype)
+    assert plan["vt"] == (parts + (b, n_head, t, kp), dtype)
+    assert plan["att"] == (parts + (b, c, kp), dtype)
+    assert plan["s"] == ((nsplit, b, c, hs), torch.float32)
+    assert plan.get("w") == (((2, 3, cp, cp), dtype) if dtype == F32 else None)
+    for shape, _ in plan.values():
+        assert shape[-1] * el % 16 == 0 or shape == plan["s"][0]
+        assert math.prod(shape[1:]) * el % 16 == 0 or shape == plan["s"][0]
+    assert kp >= hs and kspan % 64 == 0 and kspan % fused_attn.SPLIT_TOKENS == 0
+    assert (nsplit - 1) * kspan < t <= nsplit * kspan
 
 
 # ---------------------------------------------------------------- predicates
