@@ -255,19 +255,24 @@ Phases, each of which must pass or the script exits non-zero:
     keypoints on clear peaks), with the launches the blocks' gate predicts
     (``gate_counts``: the fused kernels in every eval block of C >= 32, the
     attention at stride 1, on their wide paths past 160 channels; the DCN a
-    launch a group of 32 outputs and of 8 dilations); (b) the flagship
-    (HRNet-W48, 384x288) at 26 and 133 joints, decoded eval at B = 2 in
+    launch a group of 8 dilations, of 5 on its wide path past 32 outputs);
+    (b) the flagship (HRNet-W48, 384x288) at 26 and 133 joints, decoded
+    eval at B = 2 in
     bf16 and f32, with the fused kernels and without: the launches JAX's
-    gate gives (12 / 16 / 1 and 18 / 22 / 5), finite outputs, the f32
+    gate gives (12 / 16 / 1 and 18 / 22 / 1), finite outputs, the f32
     forward with the kernels to 1e-3 of each output's peak against without,
     the bf16 keypoints against the plain step's beside a control (plain
     bf16 against plain f32), ms a step with and without the kernels in
-    turns; (c) the DCN at O = C = 133, 96x72, B = 2, at five dilations and
-    at nine (3 to 27), forward in f32 and bf16 against its plain version
-    under row 3's gate and backward (bf16 at five, f32 at nine) under row
-    6's, each call's launches, two calls bit-equal, ms against the plain
-    version's and the bound; (d) the fused kernels' predicates
-    (``supports``, ``narrow``) against ``otp_fused_attn_smem``,
+    turns, and one bf16 train step at 133 joints and B = 2 (finite metrics,
+    the DCN's forward and backward a launch each, ms); (c) the DCN at O = C
+    = 133 on its wide paths, 96x72, B = 2, at five dilations and at nine (3
+    to 27), forward in f32 and bf16 against its plain version under row 3's
+    gate (f32 also against an f64 witness) and backward (bf16 at five, f32
+    at nine) under row 6's, each call's launches (one a group of 5
+    dilations), two calls bit-equal, ms against the plain version's, the
+    bound and the grouped launches' before (no slower than those); (d) the
+    fused kernels' predicates (``supports``, ``narrow``) against
+    ``otp_fused_attn_smem``,
     ``otp_fused_attn_narrow`` and the MLP's entry points (the narrow ones to
     160 channels, ``otp_fused_mlp_wide`` past them) at C = 1 to 1100,
     1 to 16 heads, both dtypes; (e), inside phase 19's five ranks at ``1 x
@@ -2274,64 +2279,122 @@ def _tiny_export_on_cpu() -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def serving(card: str) -> dict:
-    """Phase 15: ``python -m otpose_tpu_torch.cli.export`` on
+def start_serving() -> dict:
+    """Phase 15's first half, run just before phase 16 so that its slow host
+    work overlaps that phase's: ``python -m otpose_tpu_torch.cli.export`` on
     ``configs/17/model_RSN.yaml`` (bf16 compute, ``TPU.PARAM_DTYPE
     bfloat16``) from a reference-layout ``.pth`` of random reference-init
-    weights: a baked artifact at B = 16 and an external-weights one at
-    B = 1, the two exports run at once.  Each artifact is loaded in a fresh
-    process and held against the live ``make_decoded_eval_step`` on the same
-    clips; the B = 16 one must launch 12 / 16 / 1 kernels and make no pack a
-    call, and its clips/s is read beside the live step's; the serve tool
-    over the B = 16 artifact answers requests.  The three processes load at
-    once, and then use the card one after another.  A tiny artifact is
-    traced on the card and loaded on the CPU beside the exports."""
-    import shutil
+    weights, a baked artifact at B = 16 and an external-weights one at
+    B = 1, the two exports started at once; the clips; a thread that starts
+    the serve tool and the two fresh processes the moment both exports have
+    ended (``_load_when_exported``), so their loads overlap phase 16 too;
+    the tiny export beside them.  ``serving`` finishes the phase.  Every
+    process started here is stopped at exit, whatever fails."""
+    import atexit
     import tempfile
 
     import numpy as np
     import torch
 
     from otpose_tpu_torch.config import get_cfg
-    from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
     from otpose_tpu_torch.models.factory import build_model
-    from otpose_tpu_torch.models.otpose import prepare_eval_params
 
-    phase_t0 = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="otpose_export_")
-    try:
-        cfg = get_cfg()
-        cfg.merge_from_file(os.path.join(ROOT, "configs/17/model_RSN.yaml"))
-        if cfg.TPU.COMPUTE_DTYPE != "bfloat16" or cfg.VAL.FLIP_VAL:
-            fail("export: configs/17/model_RSN.yaml no longer sets bf16 without the flip")
-        cfg.OUTPUT_DIR = os.path.join(root, "output")
-        cfg.VAL.MODEL_FILE = os.path.join(root, "random_weights.pth")
-        yaml_path = os.path.join(root, "model_RSN.yaml")
-        with open(yaml_path, "w") as fh:
-            fh.write(cfg.dump())
-        _, model = build_model(cfg, seed=5)
-        torch.save({"state_dict": model.state_dict()}, cfg.VAL.MODEL_FILE)
-        arts = {16: os.path.join(root, "artifact_b16"), 1: os.path.join(root, "artifact_b1")}
-        t0 = time.perf_counter()
-        procs = {b: subprocess.Popen(
+    st = dict(phase_t0=time.perf_counter(), root=tempfile.mkdtemp(prefix="otpose_export_"),
+              lock=threading.Lock(), stopped=False, exports={}, export_s={}, workers=[])
+    atexit.register(_stop_serving, st)
+    root = st["root"]
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, "configs/17/model_RSN.yaml"))
+    if cfg.TPU.COMPUTE_DTYPE != "bfloat16" or cfg.VAL.FLIP_VAL:
+        fail("export: configs/17/model_RSN.yaml no longer sets bf16 without the flip")
+    cfg.OUTPUT_DIR = os.path.join(root, "output")
+    cfg.VAL.MODEL_FILE = os.path.join(root, "random_weights.pth")
+    yaml_path = os.path.join(root, "model_RSN.yaml")
+    with open(yaml_path, "w") as fh:
+        fh.write(cfg.dump())
+    _, model = build_model(cfg, seed=5)
+    torch.save({"state_dict": model.state_dict()}, cfg.VAL.MODEL_FILE)
+    arts = {16: os.path.join(root, "artifact_b16"), 1: os.path.join(root, "artifact_b1")}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    w, h = cfg.MODEL.IMAGE_SIZE
+    inputs = torch.randn(BATCH, h, w, 15, generator=gen, device="cuda")
+    margin = torch.randint(0, 3, (BATCH, 4), generator=gen, device="cuda").float()
+    clips, clips1 = os.path.join(root, "clips.npz"), os.path.join(root, "clips1.npz")
+    np.savez(clips, inputs=inputs.cpu().numpy(), margin=margin.cpu().numpy())
+    np.savez(clips1, inputs=inputs[:1].cpu().numpy(), margin=margin[:1].cpu().numpy())
+    st.update(cfg=cfg, model=model, arts=arts, inputs=inputs, margin=margin,
+              out16=os.path.join(root, "served16"), out1=os.path.join(root, "served1"),
+              clips=clips, clips1=clips1, t0=time.perf_counter())
+    with st["lock"]:
+        st["exports"] = {b: subprocess.Popen(
             [sys.executable, "-m", "otpose_tpu_torch.cli.export", "--cfg", yaml_path,
              "--root_dir", root, "--batch", str(b), "--out", arts[b], "--weights",
              "baked" if b == BATCH else "external", "TPU.PARAM_DTYPE", "bfloat16"],
             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for b in arts}
-        # each CLI's lines with the seconds since the start at which they came
-        lines = {b: [] for b in procs}
-        readers = [threading.Thread(target=lambda b, out: lines[b].extend(
-            (time.perf_counter() - t0, text) for text in out), args=(b, proc.stdout))
-            for b, proc in procs.items()]
-        for reader in readers:
-            reader.start()
-        _tiny_export_on_cpu()
-        export_s = {}
-        for (b, proc), reader in zip(procs.items(), readers):
-            proc.wait(timeout=900)
+    # each CLI's lines with the seconds since the start at which they came
+    st["lines"] = lines = {b: [] for b in st["exports"]}
+    st["readers"] = [threading.Thread(target=lambda b, out: lines[b].extend(
+        (time.perf_counter() - st["t0"], text) for text in out), args=(b, proc.stdout),
+        daemon=True) for b, proc in st["exports"].items()]
+    for reader in st["readers"]:
+        reader.start()
+    st["loader"] = threading.Thread(target=_load_when_exported, args=(st,), daemon=True)
+    st["loader"].start()
+    _tiny_export_on_cpu()
+    return st
+
+
+def _load_when_exported(st: dict) -> None:
+    """``start_serving``'s thread: wait for both export CLIs; when both
+    have ended well, start the serve tool and the two fresh processes,
+    which load at once and use the card only when ``serving`` lets them."""
+    for b, proc in st["exports"].items():
+        proc.wait()
+        st["export_s"][b] = time.perf_counter() - st["t0"]
+    if any(proc.returncode != 0 for proc in st["exports"].values()):
+        return
+    with st["lock"]:
+        if st["stopped"]:
+            return
+        st["tool"] = _start_serve_tool(st["arts"][16])
+        st["workers"] = [_start_worker(st["arts"][16], st["clips"], st["out16"]),
+                         _start_worker(st["arts"][1], st["clips1"], st["out1"])]
+
+
+def _stop_serving(st: dict) -> None:
+    """Stop every process ``start_serving`` started, and remove its files."""
+    import shutil
+
+    with st["lock"]:
+        st["stopped"] = True
+        tool = st.get("tool")
+        for proc in [*st["exports"].values(), *([tool[0]] if tool else []), *st["workers"]]:
+            _stop(proc)
+    shutil.rmtree(st["root"], ignore_errors=True)
+
+
+def serving(card: str, st: dict) -> dict:
+    """Phase 15's second half, after phase 16 (``start_serving`` started
+    it): each artifact loaded in a fresh process and held against the live
+    ``make_decoded_eval_step`` on the same clips; the B = 16 one must launch
+    12 / 16 / 1 kernels and make no pack a call, and its clips/s is read
+    beside the live step's; the serve tool over the B = 16 artifact answers
+    requests.  The three processes loaded at once, and now use the card one
+    after another."""
+    import torch
+
+    from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
+    from otpose_tpu_torch.models.otpose import prepare_eval_params
+
+    t_after = time.perf_counter()
+    try:
+        st["loader"].join(timeout=900)
+        if st["loader"].is_alive():
+            fail("export CLIs: no end within 900 s")
+        arts, lines, export_s = st["arts"], st["lines"], st["export_s"]
+        for (b, proc), reader in zip(st["exports"].items(), st["readers"]):
             reader.join(timeout=60)
-            export_s[b] = time.perf_counter() - t0
             if proc.returncode != 0:
                 fail(f"export CLI at batch {b}: rc {proc.returncode}\n"
                      + "".join(text for _, text in lines[b])[-4000:])
@@ -2341,72 +2404,63 @@ def serving(card: str) -> dict:
                 f"(model built, checkpoint loaded) and '=> wrote' (traced and saved) lines at "
                 + ", ".join(marks.values()) + " s after the start")
         sizes = {b: _dir_bytes(a) for b, a in arts.items()}
-        log(f"export CLI (the two at once, beside the tiny export): batch 16 baked done "
-            f"{export_s[16]:.1f} s, {sizes[16]} bytes; batch 1 external done {export_s[1]:.1f} s, "
-            f"{sizes[1]} bytes ({os.path.getsize(os.path.join(arts[1], 'otpose_eval.pt2'))} "
-            f"in the program)")
+        log(f"export CLI (the two at once, beside the tiny export and, in a whole run, phase "
+            f"16): batch 16 "
+            f"baked done {export_s[16]:.1f} s, {sizes[16]} bytes; batch 1 external done "
+            f"{export_s[1]:.1f} s, {sizes[1]} bytes "
+            f"({os.path.getsize(os.path.join(arts[1], 'otpose_eval.pt2'))} in the program)")
 
+        model, inputs, margin = st["model"], st["inputs"], st["margin"]
         prepare_eval_params(model, torch.bfloat16)
         step = make_decoded_eval_step(model, compute_dtype=torch.bfloat16)
-        gen = torch.Generator(device="cuda").manual_seed(6)
-        w, h = cfg.MODEL.IMAGE_SIZE
-        inputs = torch.randn(BATCH, h, w, 15, generator=gen, device="cuda")
-        margin = torch.randint(0, 3, (BATCH, 4), generator=gen, device="cuda").float()
-        clips = os.path.join(root, "clips.npz")
-        np.savez(clips, inputs=inputs.cpu().numpy(), margin=margin.cpu().numpy())
-        clips1 = os.path.join(root, "clips1.npz")
-        np.savez(clips1, inputs=inputs[:1].cpu().numpy(), margin=margin[:1].cpu().numpy())
 
-        # the serve tool and the two fresh processes load at once; then each
+        # the serve tool and the two fresh processes loaded at once; now each
         # uses the card alone: the tool's warm-up, the B = 16 process's
         # calls, the B = 1 process's, the live step's, the requests
-        out16, out1 = os.path.join(root, "served16"), os.path.join(root, "served1")
-        tool, port, tool_t0 = _start_serve_tool(arts[16])
-        workers = [_start_worker(arts[16], clips, out16), _start_worker(arts[1], clips1, out1)]
-        try:
-            ready_s = _wait_listening(tool, tool_t0)
-            served = _finish_worker(workers[0], arts[16], out16)
-            served1 = _finish_worker(workers[1], arts[1], out1)
-            live = [t.float().cpu().numpy() for t in step(inputs, margin)]
-            live1 = [t.float().cpu().numpy() for t in step(inputs[:1], margin[:1])]
-            iters = 5
+        tool, port, tool_t0 = st["tool"]
+        workers = st["workers"]
+        ready_s = _wait_listening(tool, tool_t0)
+        served = _finish_worker(workers[0], arts[16], st["out16"])
+        served1 = _finish_worker(workers[1], arts[1], st["out1"])
+        live = [t.float().cpu().numpy() for t in step(inputs, margin)]
+        live1 = [t.float().cpu().numpy() for t in step(inputs[:1], margin[:1])]
+        iters = 5
+        step(inputs, margin)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(iters):
             step(inputs, margin)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            for _ in range(iters):
-                step(inputs, margin)
-            torch.cuda.synchronize()
-            live_rate = BATCH * iters / (time.perf_counter() - t1)
-            serve = _serve_requests(port, ready_s, inputs.cpu().numpy(), margin.cpu().numpy(),
-                                    served["outs"])
-        finally:
-            for proc in (tool, *workers):
-                _stop(proc)
-        log(f"served B=16 (fresh process): loaded in {served['load_s']:.1f} s, launches "
-            f"{served['counts']}, weight packs in the call {served['packs']}, model modules "
-            f"imported {served['models']}; {served['clips_per_s']:.3f} clips/s "
-            f"({served['ms']:.2f} ms a call) against the live step's {live_rate:.3f} clips/s "
-            f"in this call ({card})")
-        if served["counts"] != FORWARD_COUNTS:
-            fail(f"served artifact launches {served['counts']}, expected {FORWARD_COUNTS}")
-        if any(served["packs"].values()) or served["models"]:
-            fail("the served call packed weights or the loader imported model code")
-        if served["meta"]["fused"] is not True or served["meta"]["weights"] != "baked":
-            fail(f"served manifest {served['meta']}")
-        _check_bit_equal("B=16 baked", served["outs"], live)
-        log(f"served B=1 external (fresh process): loaded in {served1['load_s']:.1f} s, "
-            f"launches {served1['counts']}, packs {served1['packs']}, "
-            f"{served1['ms']:.2f} ms a call")
-        if served1["counts"] != FORWARD_COUNTS or any(served1["packs"].values()):
-            fail(f"served B=1 launches {served1['counts']}, packs {served1['packs']}")
-        _check_bit_equal("B=1 external", served1["outs"], live1)
-        log(f"export and serving phase: {time.perf_counter() - phase_t0:.1f} s")
-        return dict(counts=served["counts"], counts_b1=served1["counts"],
-                    clips_per_s=served["clips_per_s"], live_clips_per_s=live_rate,
-                    export_s=export_s, bytes=sizes, load_s=(served["load_s"], served1["load_s"]),
-                    **serve)
+        torch.cuda.synchronize()
+        live_rate = BATCH * iters / (time.perf_counter() - t1)
+        serve = _serve_requests(port, ready_s, inputs.cpu().numpy(), margin.cpu().numpy(),
+                                served["outs"])
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        _stop_serving(st)
+    log(f"served B=16 (fresh process): loaded in {served['load_s']:.1f} s, launches "
+        f"{served['counts']}, weight packs in the call {served['packs']}, model modules "
+        f"imported {served['models']}; {served['clips_per_s']:.3f} clips/s "
+        f"({served['ms']:.2f} ms a call) against the live step's {live_rate:.3f} clips/s "
+        f"in this call ({card})")
+    if served["counts"] != FORWARD_COUNTS:
+        fail(f"served artifact launches {served['counts']}, expected {FORWARD_COUNTS}")
+    if any(served["packs"].values()) or served["models"]:
+        fail("the served call packed weights or the loader imported model code")
+    if served["meta"]["fused"] is not True or served["meta"]["weights"] != "baked":
+        fail(f"served manifest {served['meta']}")
+    _check_bit_equal("B=16 baked", served["outs"], live)
+    log(f"served B=1 external (fresh process): loaded in {served1['load_s']:.1f} s, "
+        f"launches {served1['counts']}, packs {served1['packs']}, "
+        f"{served1['ms']:.2f} ms a call")
+    if served1["counts"] != FORWARD_COUNTS or any(served1["packs"].values()):
+        fail(f"served B=1 launches {served1['counts']}, packs {served1['packs']}")
+    _check_bit_equal("B=1 external", served1["outs"], live1)
+    now = time.perf_counter()
+    log(f"export and serving phase: {now - st['phase_t0']:.1f} s from the exports' start, "
+        f"{now - t_after:.1f} s of it after phase 16")
+    return dict(counts=served["counts"], counts_b1=served1["counts"],
+                clips_per_s=served["clips_per_s"], live_clips_per_s=live_rate,
+                export_s=export_s, bytes=sizes, load_s=(served["load_s"], served1["load_s"]),
+                **serve)
 
 
 # ---------------------------------------------------------------------------
@@ -2551,10 +2605,12 @@ def _dist_wait(procs, spec: dict, what: str) -> list:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    bad = [f"rank {r} exited with {p.returncode}\n{out[-4000:]}"
-           for r, (p, out) in enumerate(zip(procs, logs)) if p.returncode != 0]
-    if bad:   # every failed rank's log: the first to fail need not be rank 0
-        fail(f"data parallel {what}: " + "\n".join(bad))
+    if any(p.returncode != 0 for p in procs):
+        # every rank's log, those that exited 0 too: the first to fail need
+        # not be rank 0, and a peer that left early is part of the story
+        fail(f"data parallel {what}: " + "\n".join(
+            f"rank {r} exited with {p.returncode}\n{out[-4000:]}"
+            for r, (p, out) in enumerate(zip(procs, logs))))
     results = []
     for r in range(len(procs)):
         with open(spec["out"] % r) as fh:
@@ -2581,6 +2637,9 @@ def dist_worker(task: str, spec_path: str) -> None:
         out = {"steps": _worker_steps, "cli": _worker_cli, "seq_eval": _worker_seq_eval,
                "seq_train": _worker_seq_train}[task](spec)
     finally:
+        # the rank's collectives by group, in its log: a failed run prints
+        # every rank's log, so ranks that ran different collectives show it
+        print(f"collectives {dict(distributed.COUNTS)}", flush=True)
         distributed.shutdown()
     with open(spec["out"] % out["rank"], "w") as fh:
         json.dump(out, fh)
@@ -4567,9 +4626,16 @@ WIDE_BATCH = 2
 # the launches a forward at those joints (fused attention, fused MLP, DCN)
 # by JAX's gate (``otpose_tpu/models/blocks.py::transformer_block_ct``):
 # every eval block of C >= 32, the attention where its stride is 1
-WIDE_COUNTS = {26: (12, 16, 1), 133: (18, 22, 5)}
+WIDE_COUNTS = {26: (12, 16, 1), 133: (18, 22, 1)}
 PREDICATE_CHANNELS = 1100                # (d)'s grid: past Halpe-136's 1088
 NINE_DILATIONS = tuple(range(3, 30, 3))  # the flagship's five, continued to nine
+# (c)'s DCN at O = C = 133, B = 2 before the wide paths: the grouped launches'
+# ms (PERF.md section 6, rows 3 and 6, in brackets; H100 80GB HBM3 at 700 W),
+# which the wide kernels must not exceed.  They serve the gate and its log
+# line only: the kernels line holds what this run measured
+PARENT_DCN_MS = {"bfloat16 O=133 D=5 B=2": 3.0177, "bfloat16 O=133 D=9 B=2": 5.4469,
+                 "float32 O=133 D=5 B=2": 3.5309, "float32 O=133 D=9 B=2": 6.3283}
+PARENT_DCN_BWD_MS = {"bfloat16 O=133 D=5 B=2": 12.2966, "float32 O=133 D=9 B=2": 41.6769}
 
 
 def gate_counts(model, dtype, joints: int, dilations) -> dict:
@@ -4588,8 +4654,7 @@ def gate_counts(model, dtype, joints: int, dilations) -> dict:
                      and fused_attn.supports(c, m.n_head, dtype))
             mlp += c >= 32 and fused_mlp.supports(c, dtype)
     return dict(FORWARD_COUNTS, fused_attn=attn, fused_mlp=mlp,
-                deform_conv=deform_conv.kernel_launches(len(dilations),
-                                                        deform_conv.output_pad(joints)))
+                deform_conv=deform_conv.kernel_launches(len(dilations), joints))
 
 
 def wide_counts(model, dtype) -> tuple:
@@ -4869,14 +4934,47 @@ def wide_kernel_rows(card: str) -> dict:
     return rows
 
 
-def grouped_dcn(card: str) -> dict:
-    """Phase 20 (c): the DCN at O = C = 133 (five groups of 32 outputs),
-    96x72, B = 2, at the flagship's five dilations and at nine (two groups
-    of dilations), against its plain version under row 3's gate (1e-3 in
-    f32 and 5e-2 in bf16 of max(1, peak), at most 5% of bf16 outputs apart)
-    and the backward under row 6's (each gradient to 1e-4 in f32 and 5e-2 in
-    bf16 of its peak, two calls bit-equal), at calibrated offsets; each
-    call's launches, its ms, the plain version's and the bound."""
+def dcn_f64_errors(args, got, want):
+    """max|kernel - ref| and max|plain - ref|, where ref is the DCN in f64
+    from the same f32 sample positions (pixel + tap + offset rounded in f32,
+    as both versions take them): bilinear weights, samples, masks, the
+    contraction and the mean in f64."""
+    import torch
+
+    from otpose_tpu_torch.ops.cuda import deform_conv
+
+    x, offsets_list, masks_list, weights, biases, dilations = args
+    b, c, h, w = x.shape
+    p = h * w
+    xf = x.double().reshape(b, c, p)
+    py = torch.arange(h, device=x.device, dtype=torch.float32)[:, None].expand(h, w).reshape(p)
+    px = torch.arange(w, device=x.device, dtype=torch.float32)[None, :].expand(h, w).reshape(p)
+    acc = torch.zeros(b, weights.shape[1], p, device=x.device, dtype=torch.float64)
+    for off, msk, wd, dil in zip(offsets_list, masks_list, weights, dilations):
+        off = off.float().reshape(b, c, 9, 2, p)
+        msk = msk.double().reshape(b, c, 9, p)
+        for k in range(9):
+            sy = ((py + float((k // 3) * dil - dil)) + off[:, :, k, 0]).double()
+            sx = ((px + float((k % 3) * dil - dil)) + off[:, :, k, 1]).double()
+            val = deform_conv._bilinear(xf, sy, sx, h, w) * msk[:, :, k]
+            acc += torch.einsum("oc,bcp->bop", wd[:, :, k // 3, k % 3].double(), val)
+    ref = (acc / len(dilations) + biases.double().mean(0)[:, None]).reshape(b, -1, h, w)
+    return ((got.double() - ref).abs().max().item(), (want.double() - ref).abs().max().item(),
+            max(1.0, ref.abs().max().item()))
+
+
+def wide_dcn(card: str) -> dict:
+    """Phase 20 (c): the DCN at O = C = 133 (the wide paths: one sampling
+    for every output, a launch a group of 5 dilations), 96x72, B = 2, at the
+    flagship's five dilations and at nine (two groups of dilations), against
+    its plain version under row 3's gate (1e-3 in f32 and 5e-2 in bf16 of
+    max(1, peak), at most 5% of bf16 outputs apart; f32 also against the
+    f64 witness, ``dcn_f64_errors``: max(1e-4 x scale, twice the plain
+    version's error)) and the backward under row 6's (each gradient to 1e-4
+    in f32 and 5e-2 in bf16 of its peak, two calls bit-equal), at calibrated
+    offsets; each call's launches (1 at D = 5, 2 at D = 9), its ms (no more
+    than the grouped launches' before, ``PARENT_DCN_MS``), the plain
+    version's and the bound."""
     import torch
 
     from otpose_tpu_torch.ops.cuda import deform_conv
@@ -4887,7 +4985,10 @@ def grouped_dcn(card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(20)
     fwd, bwd = {}, {}
     for dil in (DCN_DILATIONS, NINE_DILATIONS):
-        groups = deform_conv.kernel_launches(len(dil), deform_conv.output_pad(c))
+        groups = deform_conv.kernel_launches(len(dil), c)
+        if groups != -(-len(dil) // deform_conv.WIDE_DILATIONS):
+            fail(f"deform_conv O={c} D={len(dil)}: {groups} launches planned, not one a "
+                 "group of dilations")
         for dtype in (torch.float32, torch.bfloat16):
             args = dcn_case(WIDE_BATCH, c, c, h, w, dil, dtype, gen)
             x, offs, masks, weights, biases, _ = args
@@ -4912,15 +5013,28 @@ def grouped_dcn(card: str) -> dict:
             key = f"{str(dtype)[6:]} O={c} D={len(dil)} B={WIDE_BATCH}"
             fwd[key] = dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound, differ_share=share)
-            log(f"grouped deform_conv {key}: {launches} launches ({groups} expected); "
+            witness = ""
+            if dtype == torch.float32:
+                k_err, p_err, w_scale = dcn_f64_errors(args, got, want)
+                fwd[key].update(f64_err=k_err, plain_f64_err=p_err)
+                bar = max(1e-4 * w_scale, 2 * p_err)
+                witness = (f"; against the f64 witness kernel {k_err:.3e}, plain {p_err:.3e} "
+                           f"(tolerance {bar:.3e}: 1e-04 x {w_scale:.3g} or twice the plain's)")
+                if not k_err <= bar:
+                    fail(f"wide deform_conv {key} disagrees with the f64 witness")
+            log(f"wide deform_conv {key}: {launches} launches ({groups} expected); "
                 f"max_abs_err {err:.3e} (tolerance {tol:.0e} x {scale:.3g}), outputs that differ "
-                f"from the plain version {share:.4%} (bf16 limit 5%), a second call "
-                f"{'bit-equal' if same else 'DIFFERS'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                f"ms, bound {bound:.4f} ms ({bound / ms:.1%} of it) ({card})")
+                f"from the plain version {share:.4%} (bf16 limit 5%){witness}, a second call "
+                f"{'bit-equal' if same else 'DIFFERS'}; kernel {ms:.4f} ms (the grouped "
+                f"launches before: {PARENT_DCN_MS[key]:.4f}), plain {plain_ms:.4f} ms, bound "
+                f"{bound:.4f} ms ({bound / ms:.1%} of it) ({card})")
             if launches != groups or not (math.isfinite(err) and err <= tol * scale) or not same:
-                fail(f"grouped deform_conv {key} disagrees with its plain version")
+                fail(f"wide deform_conv {key} disagrees with its plain version")
             if dtype == torch.bfloat16 and not share <= 0.05:
-                fail(f"grouped deform_conv {key} does not round as its plain version does")
+                fail(f"wide deform_conv {key} does not round as its plain version does")
+            if not ms <= PARENT_DCN_MS[key]:
+                fail(f"wide deform_conv {key}: {ms:.4f} ms, slower than the grouped launches' "
+                     f"{PARENT_DCN_MS[key]:.4f}")
             del got, want
         dtype = torch.bfloat16 if dil == DCN_DILATIONS else torch.float32
         args = dcn_case(WIDE_BATCH, c, c, h, w, dil, dtype, gen)
@@ -4955,16 +5069,21 @@ def grouped_dcn(card: str) -> dict:
         key = f"{str(dtype)[6:]} O={c} D={d} B={WIDE_BATCH}"
         bwd[key] = dict(launches=launches, rel_err=rels, bit_equal=same, ms=ms,
                         plain_ms=plain_ms, bound_ms=bound, inside_share=inside)
-        log(f"grouped deform_conv_bwd {key}: {launches} launches ({groups} expected); "
+        want_launches = deform_conv.backward_launches(d, c)
+        log(f"wide deform_conv_bwd {key}: {launches} launches ({want_launches} expected); "
             f"{inside:.1%} of samples inside the image; worst error over peak "
             + ", ".join(f"{n} {r:.3e}" for n, r in rels.items())
             + f" (tolerance {tol:.0e}); two calls {'bit-equal' if same else 'DIFFER'}; kernel "
-            f"{ms:.4f} ms, plain backward {plain_ms:.4f} ms, bound {bound:.4f} ms "
-            f"({bound / ms:.1%} of it) ({card})")
-        if launches != groups or not all(math.isfinite(r) and r <= tol for r in rels.values()):
-            fail(f"grouped deform_conv_bwd {key} disagrees with the plain version's autograd")
+            f"{ms:.4f} ms (the grouped launches before: {PARENT_DCN_BWD_MS[key]:.4f}), plain "
+            f"backward {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.1%} of it) ({card})")
+        if launches != want_launches or not all(math.isfinite(r) and r <= tol
+                                                for r in rels.values()):
+            fail(f"wide deform_conv_bwd {key} disagrees with the plain version's autograd")
         if not same:
-            fail(f"grouped deform_conv_bwd {key}: two calls differ")
+            fail(f"wide deform_conv_bwd {key}: two calls differ")
+        if not ms <= PARENT_DCN_BWD_MS[key]:
+            fail(f"wide deform_conv_bwd {key}: {ms:.4f} ms, slower than the grouped launches' "
+                 f"{PARENT_DCN_BWD_MS[key]:.4f}")
         torch.cuda.empty_cache()
     return dict(forward=fwd, backward=bwd)
 
@@ -5031,14 +5150,44 @@ def check_predicates(card: str) -> dict:
     return dict(points=points, largest=largest)
 
 
+def wide_train_step(card: str) -> dict:
+    """Phase 20 (b), training: the flagship (``configs/17/model_RSN.yaml``)
+    at 133 joints, reference init, one bf16 train step at B = 2 on a
+    synthetic batch after a warm-up step (``_train_run``): six finite
+    metrics, the step's launches (the DCN's forward and backward once each,
+    on their wide paths: ``TRAIN_COUNTS``) and its ms by CUDA events."""
+    import torch
+
+    from otpose_tpu_torch.config import get_cfg
+    from otpose_tpu_torch.engine.optim import make_optimizer, make_schedule
+    from otpose_tpu_torch.engine.trainer import make_train_step
+    from otpose_tpu_torch.models.factory import build_model
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, "configs/17/model_RSN.yaml"))
+    cfg.MODEL.NUM_JOINTS = 133
+    _, model = build_model(cfg, seed=0)
+    step = make_train_step(model, make_optimizer(model, cfg, make_schedule(cfg, 1)),
+                           compute_dtype="bfloat16",
+                           generator=torch.Generator(device="cuda").manual_seed(5))
+    batch = synthetic_train_batch(cfg, WIDE_BATCH, torch.Generator(device="cuda").manual_seed(133))
+    run = _train_run(f"bf16 B={WIDE_BATCH} at 133 joints", step, batch, 1, 1, 1)
+    log(f"train bf16 B={WIDE_BATCH} at 133 joints: {run['ms'][0]:.2f} ms a step, loss "
+        f"{run['first']['final_loss']:.6g}, launches {run['counts']} (the DCN's backward on "
+        f"its wide kernel), peak {run['peak_gib']:.2f} GiB ({card})")
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return run
+
+
 def wide_shapes(card: str) -> dict:
     """Phase 20: (a) the tiny eval at 21 and 33 joints and at nine
     dilations on the card against the CPU; (b) the flagship at 26 and 133
-    joints, bf16 and f32, with the fused kernels and without; (c) the
-    grouped DCN forward and backward at O = 133; (d) the fused kernels'
-    predicates against their libraries; (f) rows 1 and 2 on their wide
-    paths at C = 208 and 1064.  (e), R1's splits, runs inside phase 19's
-    ranks."""
+    joints, bf16 and f32, with the fused kernels and without, and a bf16
+    train step at 133 joints; (c) the wide DCN forward and backward at
+    O = 133; (d) the fused kernels' predicates against their libraries;
+    (f) rows 1 and 2 on their wide paths at C = 208 and 1064.  (e), R1's
+    splits, runs inside phase 19's ranks."""
     import torch
 
     phase_t0 = time.perf_counter()
@@ -5051,11 +5200,13 @@ def wide_shapes(card: str) -> dict:
         paths[f"flagship_j{joints}_b{WIDE_BATCH}"] = run["counts"]
         paths[f"flagship_j{joints}_b{WIDE_BATCH}_f32"] = run["counts_f32"]
     torch.cuda.empty_cache()
-    dcn = grouped_dcn(card)
+    train = wide_train_step(card)
+    paths[f"train_step_j133_b{WIDE_BATCH}_bf16"] = train["counts"]
+    dcn = wide_dcn(card)
     check_predicates(card)
     rows = wide_kernel_rows(card)
     log(f"wide shapes phase: {time.perf_counter() - phase_t0:.1f} s")
-    return dict(paths=paths, dcn=dcn, rows=rows, flagship=flagship)
+    return dict(paths=paths, dcn=dcn, rows=rows, flagship=flagship, train=train)
 
 
 def main(only: str | None = None) -> None:
@@ -5090,8 +5241,8 @@ def main(only: str | None = None) -> None:
 
     if only in ("15", "17", "18", "19", "20"):
         # a development run of one phase alone: no kernels line, no result line
-        {"15": serving, "17": jpeg_phase, "18": remaining_modules, "19": sequence_parallel,
-         "20": wide_shapes}[only](card)
+        {"15": lambda card: serving(card, start_serving()), "17": jpeg_phase,
+         "18": remaining_modules, "19": sequence_parallel, "20": wide_shapes}[only](card)
         log(f"phase {only} alone: {time.perf_counter() - start:.1f} s")
         return
     rows = check_kernels()
@@ -5118,13 +5269,16 @@ def main(only: str | None = None) -> None:
     paths["train_cli_step"] = cli_train["step"]
     paths["train_cli_val_batch"] = cli_train["val_batch"]
     torch.cuda.empty_cache()
-    serve = serving(card)
-    paths["served_artifact"] = serve["counts"]
-    paths["served_artifact_b1"] = serve["counts_b1"]
-    torch.cuda.empty_cache()
+    # phase 15's exports and loads run on the host beside phase 16
+    started = start_serving()
     dp = data_parallel(card)
     paths["dp_train_step_rank"] = dp["train"]
     paths["sharded_eval_batch_rank"] = dp["eval"]
+    torch.cuda.empty_cache()
+    serve = serving(card, started)
+    paths["served_artifact"] = serve["counts"]
+    paths["served_artifact_b1"] = serve["counts_b1"]
+    del started
     torch.cuda.empty_cache()
     jpeg = jpeg_phase(card)
     paths["test_split_eval_cli_per_batch"] = jpeg["per_batch"]
@@ -5140,11 +5294,11 @@ def main(only: str | None = None) -> None:
     torch.cuda.empty_cache()
     wide = wide_shapes(card)
     paths.update(wide["paths"])
-    rows["deform_conv"]["grouped"] = wide["dcn"]["forward"]
+    rows["deform_conv"]["wide"] = wide["dcn"]["forward"]
     for name in ("fused_attn", "fused_mlp"):
         rows[name]["wide"] = wide["rows"][name]
         rows[name]["wide_source"] = "otpose_tpu_torch/csrc/hopper_gemm.cuh"
-    rows["deform_conv_bwd"]["grouped"] = wide["dcn"]["backward"]
+    rows["deform_conv_bwd"]["wide"] = wide["dcn"]["backward"]
     # each kernel's launches on its own path: the eval's for the model's
     # kernels, the experiment tool's for the other two, a train step's for
     # the DCN's backward

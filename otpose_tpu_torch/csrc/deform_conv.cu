@@ -60,18 +60,60 @@
 //   tiles), the wrapper splits the stages over gridDim.z blocks, which write
 //   f32 partial sums that a second kernel adds in a fixed order (no atomics,
 //   deterministic).
-// - Any O and any D, by groups of launches (otp_deform): O above 32 is
-//   padded to a multiple of 32 and each group of 32 outputs is a launch at
-//   OP = 32 over the same x, reading its columns of the weights (row
-//   stride `ldw`) and writing its rows of the output (`ldo` rows an item);
-//   D above kMaxD is cut into groups of kMaxD dilations, each a launch that
-//   writes its f32 partial sums into slots of its own, and the reduction
-//   kernel adds every slot in a fixed order, divides by the whole D and adds
-//   the mean bias once.  O <= 32 and D <= kMaxD is one launch, as before.
+// - Any D, by groups of launches (otp_deform): D above kMaxD is cut into
+//   groups of kMaxD dilations, each a launch that writes its f32 partial sums
+//   into slots of its own, and the reduction kernel adds every slot in a
+//   fixed order, divides by the whole D and adds the mean bias once.  In the
+//   make_pallas3 mode O above 32 is padded to a multiple of 32 and each
+//   group of 32 outputs is a launch at OP = 32 over the same x, reading its
+//   columns of the weights (row stride `ldw`) and writing its rows of the
+//   output (`ldo` rows an item).  The exact mode past 32 outputs takes the
+//   wide path below.
 // - The D pointers and dilations arrive in a __grid_constant__ struct and are
 //   copied to shared memory with compile-time indices, so no pointer table
 //   lives in local memory (no stack frame).
+//
+// The wide path (otp_deform_wide: the exact mode, O > 32; the 133-joint
+// and 136-joint models run O = C = 133 and 136).  Groups of 32 outputs
+// would sample everything again for each group: at O = 133 the offsets and
+// masks (496 of the 507 MB a bf16 call moves) were read five times, and the
+// contraction, 2 x 133 flops a sample (22 GFLOP at B = 2, D = 5), ran on
+// scalar FMAs.  Bounded, like the narrow kernel, by those bytes read once
+// (0.151 ms in bf16 at B = 2, D = 5) and by the instructions that sample;
+// the contraction is a matrix product, 0.14 ms at the TF32 peak in three
+// passes.  Design:
+// - Every output from one sampling: an item is (b, a tile of pixels, a
+//   channel c) with the D dilations of its launch (groups of kWideMaxD = 5,
+//   so K stays within 48: D = 9 is two launches) and is one ring slot: the
+//   block samples its 9 D taps into an A tile in shared memory (K = 9 D
+//   rows rounded up to 8, f32) between two barriers (a slot a dilation,
+//   4.5 samples a thread between barriers, measured 1.10 ms on the H100,
+//   PERF.md), then M / 64
+//   warpgroups add A^T W with `wgmma` m64n144k8 in split TF32
+//   (three passes: f32-exact products like the narrow kernel's FMAs, so no
+//   rounding point is added; A split in registers, W's hi and lo tiles in
+//   shared memory), all O outputs of the tile in registers: O rounded up
+//   to 16 (otp_dcn::product_cols: 144 at 133 and 136), a warpgroup 64
+//   pixels x 144 columns, one m64n144k8 product a pass; past 144 outputs
+//   each 144 are a launch of their own.  mma.sync m16n8k8 ran the same
+//   product at its own rate, about half of the card's TF32 peak: 35% of a
+//   1.09 ms call at O = 133, D = 5 in bf16 (H100, PERF.md); m64n16k8 products
+//   waited on after each k8 step took longer still.
+// - The weights are split once a call into swizzled K-major tiles
+//   (otp_dcn::wide_wtile_kernel); an item's tiles come into shared memory
+//   by cp.async with its first stage.
+// - The ring's rows (cp.async) and the x planes with their zero border are
+//   the narrow kernel's; a block is 16 warps, one an SM (WCfg: bf16 tiles of
+//   128 pixels, f32 of 64), the next item's rows and plane loaded while the
+//   block samples and multiplies one.
+// - The items are cut into equal ranges of one wave of blocks, so B = 1
+//   fills the card too; a block writes each tile it leaves as an f32
+//   partial row, and a reduction adds a tile's rows in block order, then the
+//   dilation groups in group order: no atomics, the same bits every call.
+#include <vector>
+
 #include "common.cuh"
+#include "dcn_wide.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -447,6 +489,424 @@ cudaError_t launch_all(int mode, bool wide, int OP, Args& a, dim3 grid, cudaStre
               : launch_xs<T, kPallas3, false>(xs, OP, a, grid, st);
 }
 
+// ---------------------------------------------------------------------------
+// The wide path: the exact mode past 32 outputs (otp_deform_wide)
+// ---------------------------------------------------------------------------
+using otp_dcn::group_k;
+using otp_dcn::product_cols;
+using otp_dcn::seg_first;
+using otp_dcn::seg_last;
+
+constexpr int kWideCols = 144;  // product columns a launch: one m64n144k8 product a pass
+constexpr int kWideMaxD = 5;    // dilations a launch: K = 45 -> 48, the A tile's depth
+constexpr int kWideThreads = 512;   // four warpgroups
+
+// The pixels of an item (M: M / 64 warpgroups run the product), ring slots
+// and x plane slots, by dtype (a block of 16 warps, one an SM).  A ring slot
+// is an item: the 27 offset and mask rows of each of its dilations.  At
+// D = 5 and 144 columns a bf16 block holds 2 x 34.6 KB of ring, the A tile
+// (26.1 KB), the item's W tiles (73.7 KB) and two x planes (2 x 17.2 KB);
+// an f32 block 2 x 34.6 KB, 13.8 KB, 73.7 KB and 2 x 31.4 KB.
+template <typename T> struct WCfg;
+template <> struct WCfg<__nv_bfloat16> { static constexpr int M = 128, stages = 2, planes = 2; };
+template <> struct WCfg<float> { static constexpr int M = 64, stages = 2, planes = 2; };
+
+template <typename T>
+__host__ __device__ inline int wide_slot_bytes(int dn) {   // a ring slot: an item's rows
+  return (dn * kRows * WCfg<T>::M * (int)sizeof(T) + 15) / 16 * 16;
+}
+
+struct WArgs {
+  const void* x;                // (B, C, H, W)
+  const void* offs[kMaxD];      // (B, 18 C, H, W) each: this launch's dilations
+  const void* masks[kMaxD];     // (B, 9 C, H, W) each
+  int dils[kMaxD];
+  const float* wt;              // W tiles (C, chunks, 2, 144, 32): otp_dcn::wide_wtile_kernel
+  float* partial;               // (B tiles J, cols, M) f32: each segment's sums
+  int B, C, H, W, D;            // D: this launch's dilations
+  int ks, chunks;               // k8 steps an item (group_k(D) / 8), 32-value K chunks
+  int cols;                     // this launch's product columns
+  int tiles, J;                 // pixel tiles an image, segments a tile
+  long long N;                  // items: B tiles C
+};
+
+// Items are (b, pixel tile u, channel c), channel inner; a block takes an
+// equal range of them (otp_dcn::seg_first).  An item is one ring slot (its
+// channel's rows at each of its D dilations) and two barriers: the block's
+// threads sample its 9 D taps (a warp one tap of 32 pixels at a time) into
+// the A tile (K x M pixels, f32, rows dl * 9 + k), then M / 64 warpgroups
+// add A^T W (M pixels x cols outputs) with `wgmma` m64n144k8 in split TF32
+// (A split in registers, two k8 steps' in flight; W's hi and lo tiles in
+// shared memory, zero past cols) into accumulators that stay in registers
+// until the block leaves the tile.  The item's W tiles come into shared
+// memory by cp.async as it starts.
+template <typename T, bool Wide, bool XS>
+__global__ void __launch_bounds__(kWideThreads, 1)
+deform_wide_kernel(const __grid_constant__ WArgs a) {
+  constexpr int NT = kWideThreads, S = WCfg<T>::stages, NX = WCfg<T>::planes, M = WCfg<T>::M;
+  constexpr int LDA = M + 8;                         // A's row: conflict-free fragment loads
+  static_assert(NT % M == 0 && M % 64 == 0, "threads must tile the pixels");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ const T* offs[kMaxD];
+  __shared__ const T* masks[kMaxD];
+  __shared__ int dils[kMaxD];
+  // the W tiles first, 1024-byte aligned (the swizzle's period)
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  const int H = a.H, W = a.W, P = H * W, C = a.C, dn = a.D, Kc = 8 * a.ks, cols = a.cols;
+  const int RB = wide_slot_bytes<T>(dn);
+  const int wfl = a.chunks * 2 * kWideCols * 32;     // the item's W tiles, floats
+  float* Wt = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + wfl * 4;
+  float* As = reinterpret_cast<float*>(ring + S * RB);
+  T* xs = reinterpret_cast<T*>(As + Kc * LDA);
+  const int ld = Plane<T>::ld(W), xplane = Plane<T>::elems(H, W);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d) {
+      offs[d] = static_cast<const T*>(a.offs[d]);
+      masks[d] = static_cast<const T*>(a.masks[d]);
+      dils[d] = a.dils[d];
+    }
+  }
+  // A's rows past 9 D stay zero; the x planes' borders too
+  for (int e = threadIdx.x; e < Kc * LDA; e += NT) As[e] = 0.f;
+  if constexpr (XS) {
+    uint4* z = reinterpret_cast<uint4*>(xs);
+    for (int e = threadIdx.x; e < NX * xplane * (int)sizeof(T) / 16; e += NT)
+      z[e] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+
+  const long long G = gridDim.x, z = blockIdx.x;
+  const long long t0 = z * a.N / G;
+  const int items = (int)((z + 1) * a.N / G - t0);
+  const T* xg = static_cast<const T*>(a.x);
+
+  // item j into ring slot j % S: rows dl * 27 + r of its tile, and x's
+  // plane of its (b, c) into plane slot j % NX
+  auto load = [&](int j) {
+    const long long t = t0 + j, q = t / C;
+    const int c = (int)(t - q * C), b = (int)(q / a.tiles), p0 = (int)(q % a.tiles) * M;
+    const size_t bc = (size_t)b * C + c;
+    T* dst = reinterpret_cast<T*>(ring + (j % S) * RB);
+    if constexpr (Wide) {
+      constexpr int E = 16 / (int)sizeof(T), CPR = M / E;
+      for (int e = threadIdx.x; e < dn * kRows * CPR; e += NT) {
+        const int rr = e / CPR, qq = e - rr * CPR, dl = rr / kRows, r = rr - dl * kRows;
+        const T* src = (r < 18 ? offs[dl] + (bc * 18 + r) * P : masks[dl] + (bc * 9 + r - 18) * P) +
+                       p0 + qq * E;
+        const bool in = p0 + qq * E < P;
+        cp_async16_zfill(dst + rr * M + qq * E, in ? src : offs[dl], in ? 16 : 0);
+      }
+    } else {
+      for (int e = threadIdx.x; e < dn * kRows * M; e += NT) {
+        const int rr = e / M, qq = e - rr * M, dl = rr / kRows, r = rr - dl * kRows;
+        const T* src = r < 18 ? offs[dl] + (bc * 18 + r) * P : masks[dl] + (bc * 9 + r - 18) * P;
+        dst[e] = p0 + qq < P ? src[p0 + qq] : from_f<T>(0.f);
+      }
+    }
+    if constexpr (XS) {
+      const T* src_x = xg + bc * P;
+      T* xdst = xs + (j % NX) * xplane + ld + Plane<T>::kLead;   // pixel (0, 0)
+      if constexpr (Wide) {
+        constexpr int E = 16 / (int)sizeof(T);
+        const int cpw = W / E;
+        for (int e = threadIdx.x; e < H * cpw; e += NT) {
+          const int y = e / cpw, qq = e - y * cpw;
+          cp_async16(xdst + y * ld + qq * E, src_x + y * W + qq * E);
+        }
+      } else {
+        for (int e = threadIdx.x; e < P; e += NT) xdst[e / W * ld + e % W] = src_x[e];
+      }
+    }
+  };
+  // item j's W tiles into Wt
+  auto load_w = [&](int j) {
+    const float* src = a.wt + (size_t)((t0 + j) % C) * wfl;
+    for (int e = threadIdx.x; e < wfl / 4; e += NT) cp_async16(Wt + 4 * e, src + 4 * e);
+  };
+
+  // the sampler: pixel pl of the tile, taps kk0, kk0 + NT / M, ... of the
+  // item's 9 D (a warp's lanes share one)
+  const int pl = threadIdx.x % M, kk0 = threadIdx.x / M;
+  // the product: warpgroup wg < M / 64 holds pixels wg * 64 + [0, 64), its
+  // warp w4 the 16 rows w4 * 16 + [0, 16), and the launch's columns
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
+  const int wg = warp >> 2, row0 = warp * 16;
+  float acc[2 * kWideCols / 4];
+#pragma unroll
+  for (int e = 0; e < 2 * kWideCols / 4; ++e) acc[e] = 0.f;
+  // k8 step s of the product: A's fragment of the warp's rows split into
+  // (ah, al) (free once step s - 2 is done), then lo hi, hi lo, hi hi
+  auto step = [&](int s, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    otp_dcn::wgmma_wait<1>();
+    otp_dcn::fence_regs(ah);   // step s - 2's products have read them
+    otp_dcn::fence_regs(al);
+    const float* ap = As + (8 * s + qd) * LDA + row0 + g;
+    otp_mma::split_tf32(ap[0], ah[0], al[0]);             // A[g][q]
+    otp_mma::split_tf32(ap[8], ah[1], al[1]);             // A[g + 8][q]
+    otp_mma::split_tf32(ap[4 * LDA], ah[2], al[2]);       // A[g][q + 4]
+    otp_mma::split_tf32(ap[4 * LDA + 8], ah[3], al[3]);   // A[g + 8][q + 4]
+    // chunk s / 4's hi and lo tiles, k8 step s % 4 (32 bytes) into them
+    const float* tile = Wt + (s >> 2) * 2 * kWideCols * 32;
+    const uint64_t dhi = otp_dcn::sw128_desc(tile) + 2 * (s & 3);
+    const uint64_t dlo = otp_dcn::sw128_desc(tile + kWideCols * 32) + 2 * (s & 3);
+    otp_dcn::wgmma_fence();
+    otp_dcn::wgmma_n144_tf32(acc, al, dhi);
+    otp_dcn::wgmma_n144_tf32(acc, ah, dlo);
+    otp_dcn::wgmma_n144_tf32(acc, ah, dhi);
+    otp_dcn::wgmma_commit();
+  };
+  const float Hf = (float)H, Wf = (float)W;
+
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < items) load(i);
+    cp_async_commit();
+  }
+  OTP_PHASE_START;
+  for (int j = 0; j < items; ++j) {
+    cp_async_wait<S - 2>();    // item j has landed (this thread's copies)
+    __syncthreads();           // everyone's, and item j - 1 (and its product) is done
+    if (j + S - 1 < items) load(j + S - 1);
+    load_w(j);
+    cp_async_commit();
+    OTP_PHASE(0);
+
+    const long long t = t0 + j, q = t / C;
+    const int c = (int)(t - q * C), b = (int)(q / a.tiles), p = (int)(q % a.tiles) * M + pl;
+    const T* slot = reinterpret_cast<const T*>(ring + (j % S) * RB);
+    const T* img = XS ? xs + (j % NX) * xplane + ld + Plane<T>::kLead
+                      : xg + ((size_t)b * C + c) * P;
+    const float py = (float)(p / W), px = (float)(p % W);
+#pragma unroll 4
+    for (int kk = kk0; kk < 9 * dn; kk += NT / M) {
+      const int dl = kk / 9, k = kk - 9 * dl, dil = dils[dl];
+      const T* so = slot + dl * kRows * M;
+      const float oy = to_f<T>(so[(2 * k) * M + pl]);
+      const float ox = to_f<T>(so[(2 * k + 1) * M + pl]);
+      float m = to_f<T>(so[(18 + k) * M + pl]);
+      // (pixel + tap) + offset, as the narrow kernel's exact mode
+      float sy = __fadd_rn(__fadd_rn(py, (float)((k / 3 - 1) * dil)), oy);
+      float sx = __fadd_rn(__fadd_rn(px, (float)((k % 3 - 1) * dil)), ox);
+      if (!(sy > -1.f && sy < Hf && sx > -1.f && sx < Wf)) sy = sx = m = 0.f;
+      float fy, fx, v4[4];
+      corners<T, XS>(img, ld, H, W, sy, sx, fy, fx, v4);
+      As[kk * LDA + pl] = __fmul_rn(bilinear_exact(sy, sx, fy, fx, v4), m);
+    }
+    OTP_PHASE(1);
+
+    cp_async_wait<0>();
+    __syncthreads();   // the item's A tile is whole, its W tiles landed
+    if (wg < M / 64) {
+      uint32_t ah0[4], al0[4], ah1[4], al1[4];
+#pragma unroll 1
+      for (int s = 0; s < a.ks; s += 2) {
+        step(s, ah0, al0);
+        if (s + 1 < a.ks) step(s + 1, ah1, al1);
+      }
+      otp_dcn::wgmma_wait<0>();
+      otp_dcn::fence_regs(ah0);
+      otp_dcn::fence_regs(al0);
+      otp_dcn::fence_regs(ah1);
+      otp_dcn::fence_regs(al1);
+      otp_dcn::fence_acc72(acc);
+    }
+    OTP_PHASE(2);
+    // the block leaves the tile: its segment's sums out (pixel rows g,
+    // g + 8 of the warp's 16; columns 8 i + 2 q, + 1)
+    if (wg < M / 64 && (j == items - 1 || (t + 1) / C != q)) {
+      const long long row = q * a.J + (z - seg_first(q, C, a.N, G));
+      float* pr = a.partial + (size_t)row * cols * M;
+#pragma unroll
+      for (int i = 0; i < kWideCols / 8; ++i) {
+        const int o = 8 * i + 2 * qd, r = row0 + g;
+        if (o < cols) {
+          pr[(size_t)o * M + r] = acc[4 * i];
+          pr[(size_t)(o + 1) * M + r] = acc[4 * i + 1];
+          pr[(size_t)o * M + r + 8] = acc[4 * i + 2];
+          pr[(size_t)(o + 1) * M + r + 8] = acc[4 * i + 3];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * i + e] = 0.f;
+      }
+    }
+  }
+}
+
+// out[b, o, p] of one launch's outputs [o0, o0 + on): its segments' sums in
+// block order, then over the dilation groups (amode 1 the first, 2 a
+// middle one, 3 the last; 0 the one group) in group order in the f32 plane
+// acc, divided by the whole D, plus the mean bias, rounded once
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads)
+deform_wide_reduce_kernel(const float* __restrict__ partial, const float* __restrict__ bias,
+                          T* __restrict__ out, float* acc, int B, int O, int P, int M, int tiles,
+                          int J, int cols, int o0, int on, int C, long long N, long long G,
+                          int Dall, int amode) {
+  const long long i = (long long)blockIdx.x * kReduceThreads + threadIdx.x;
+  if (i >= (long long)B * on * P) return;
+  const int p = (int)(i % P);
+  const long long r = i / P;
+  const int oo = (int)(r % on), b = (int)(r / on);
+  const long long q = (long long)b * tiles + p / M;
+  const int cnt = (int)(seg_last(q, C, N, G) - seg_first(q, C, N, G) + 1);
+  const float* src = partial + ((size_t)q * J * cols + oo) * M + p % M;
+  float s = 0.f;
+  for (int j = 0; j < cnt; ++j) s += src[(size_t)j * cols * M];
+  const size_t e = ((size_t)b * O + o0 + oo) * P + p;
+  if (amode == 1) acc[e] = s;
+  else if (amode == 2) acc[e] = acc[e] + s;
+  else out[e] = from_f<T>((amode == 3 ? acc[e] + s : s) / (float)Dall + bias[o0 + oo]);
+}
+
+template <typename T, typename F>
+cudaError_t with_wide(bool wide, bool xs, F f) {
+  if (wide)
+    return xs ? f(deform_wide_kernel<T, true, true>) : f(deform_wide_kernel<T, true, false>);
+  return xs ? f(deform_wide_kernel<T, false, true>) : f(deform_wide_kernel<T, false, false>);
+}
+
+// One launch: a group of dn dilations and `cols` product columns
+struct WPlan {
+  int M, xs, smem, G, J, tiles, ks, chunks;
+  long long N;
+};
+
+template <typename T>
+cudaError_t wide_plan(int B, int C, int H, int W, int dn, bool wide, WPlan& pl) {
+  constexpr int S = WCfg<T>::stages;
+  pl.M = WCfg<T>::M;
+  pl.ks = group_k(dn) / 8;
+  pl.chunks = (pl.ks + 3) / 4;
+  auto smem_of = [&](bool xs) {
+    return 1024 + pl.chunks * 2 * kWideCols * 128 + S * wide_slot_bytes<T>(dn) +
+           8 * pl.ks * (pl.M + 8) * 4 +
+           (xs ? WCfg<T>::planes * Plane<T>::elems(H, W) * (int)sizeof(T) : 0);
+  };
+  pl.xs = smem_of(true) <= kSmemLimit;
+  pl.smem = smem_of(pl.xs);
+  if (pl.smem > kSmemLimit) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = with_wide<T>(wide, pl.xs, [&](auto kern) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         pl.smem);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, kWideThreads, pl.smem);
+  });
+  if (err != cudaSuccess) return err;
+  if (occ < 1) return cudaErrorInvalidConfiguration;
+  pl.tiles = (H * W + pl.M - 1) / pl.M;
+  pl.N = (long long)B * pl.tiles * C;
+  pl.G = (int)(pl.N < (long long)sms * occ ? pl.N : (long long)sms * occ);
+  pl.J = otp_dcn::seg_rows((long long)B * pl.tiles, C, pl.G);
+  return cudaSuccess;
+}
+
+// A call's launches, a group of kWideMaxD dilations (j) and of kWideCols
+// product columns (k) each, and its scratch: each launch's W tiles and
+// partial sums, the f32 sum over dilation groups
+struct WLayout {
+  std::vector<WPlan> plans;                 // j * nog + k
+  std::vector<size_t> wt, part;             // by j * nog + k
+  size_t acc, bytes;
+  int nd, nog, cols;
+};
+
+template <typename T>
+cudaError_t wide_layout(int B, int C, int O, int H, int W, int D, bool wide, WLayout& L) {
+  L.cols = product_cols(O);
+  L.nd = (D + kWideMaxD - 1) / kWideMaxD;
+  L.nog = (L.cols + kWideCols - 1) / kWideCols;
+  L.plans.resize(L.nd * L.nog);
+  L.wt.resize(L.nd * L.nog);
+  L.part.resize(L.nd * L.nog);
+  size_t at = 0;
+  auto piece = [&](size_t bytes) {
+    const size_t here = at;
+    at += (bytes + 255) / 256 * 256;
+    return here;
+  };
+  for (int j = 0; j < L.nd; ++j) {
+    const int dn = D - j * kWideMaxD < kWideMaxD ? D - j * kWideMaxD : kWideMaxD;
+    for (int k = 0; k < L.nog; ++k) {
+      const int cols = L.cols - k * kWideCols < kWideCols ? L.cols - k * kWideCols : kWideCols;
+      WPlan& pl = L.plans[j * L.nog + k];
+      cudaError_t err = wide_plan<T>(B, C, H, W, dn, wide, pl);
+      if (err != cudaSuccess) return err;
+      L.wt[j * L.nog + k] = piece((size_t)C * pl.chunks * 2 * kWideCols * 128);
+      L.part[j * L.nog + k] = piece((size_t)B * pl.tiles * pl.J * cols * pl.M * 4);
+    }
+  }
+  L.acc = piece(L.nd > 1 ? (size_t)B * O * H * W * 4 : 0);
+  L.bytes = at;
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* x, const void* const* offs, const void* const* masks,
+                        const int* dils, const float* w, const float* bias, void* out,
+                        void* scratch, int B, int C, int O, int OP, int H, int W, int D,
+                        bool wide, cudaStream_t st) {
+  WLayout L;
+  cudaError_t err = wide_layout<T>(B, C, O, H, W, D, wide, L);
+  if (err != cudaSuccess) return err;
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  const int P = H * W;
+  for (int j = 0; j < L.nd; ++j) {
+    const int d0 = j * kWideMaxD, dn = D - d0 < kWideMaxD ? D - d0 : kWideMaxD;
+    for (int k = 0; k < L.nog; ++k) {
+      const WPlan& pl = L.plans[j * L.nog + k];
+      const int cols = L.cols - k * kWideCols < kWideCols ? L.cols - k * kWideCols : kWideCols;
+      float* wt = reinterpret_cast<float*>(base + L.wt[j * L.nog + k]);
+      err = otp_dcn::wide_wtile(w, wt, C, OP, O, k * kWideCols, d0, dn, cols, pl.chunks, st);
+      if (err != cudaSuccess) return err;
+      WArgs a{};
+      a.x = x;
+      for (int d = 0; d < dn; ++d) {
+        a.offs[d] = offs[d0 + d];
+        a.masks[d] = masks[d0 + d];
+        a.dils[d] = dils[d0 + d];
+      }
+      a.wt = wt;
+      a.partial = reinterpret_cast<float*>(base + L.part[j * L.nog + k]);
+      a.B = B, a.C = C, a.H = H, a.W = W, a.D = dn;
+      a.ks = pl.ks, a.chunks = pl.chunks, a.cols = cols;
+      a.tiles = pl.tiles, a.J = pl.J, a.N = pl.N;
+      err = with_wide<T>(wide, pl.xs, [&](auto kern) {
+        cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             pl.smem);
+        if (e != cudaSuccess) return e;
+        kern<<<pl.G, kWideThreads, pl.smem, st>>>(a);
+        return cudaGetLastError();
+      });
+      if (err != cudaSuccess) return err;
+    }
+  }
+  for (int j = 0; j < L.nd; ++j) {
+    const int amode = L.nd == 1 ? 0 : j == 0 ? 1 : j == L.nd - 1 ? 3 : 2;
+    for (int k = 0; k < L.nog; ++k) {
+      const WPlan& pl = L.plans[j * L.nog + k];
+      const int o0 = k * kWideCols;
+      const int cols = L.cols - o0 < kWideCols ? L.cols - o0 : kWideCols;
+      const int on = O - o0 < cols ? O - o0 : cols;
+      const long long n = (long long)B * on * P;
+      deform_wide_reduce_kernel<T><<<(unsigned)((n + kReduceThreads - 1) / kReduceThreads),
+                                     kReduceThreads, 0, st>>>(
+          reinterpret_cast<const float*>(base + L.part[j * L.nog + k]), bias,
+          static_cast<T*>(out), reinterpret_cast<float*>(base + L.acc), B, O, P, pl.M, pl.tiles,
+          pl.J, cols, o0, on, C, pl.N, pl.G, D, amode);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int otp_deform_max_groups() { return kMaxD; }
@@ -510,4 +970,36 @@ extern "C" int otp_deform(const void* x, const void* const* offs, const void* co
     }
   });
   return (int)cudaGetLastError();
+}
+
+// The exact mode past 32 outputs (the wide path): the product columns a
+// launch takes (outputs past them are further launches), and the bytes of
+// scratch otp_deform_wide needs for these shapes, or -1 for shapes it does
+// not take (and -2 - the CUDA error where one occurred).
+extern "C" int otp_deform_wide_cols() { return kWideCols; }
+extern "C" int otp_deform_wide_dilations() { return kWideMaxD; }
+extern "C" long long otp_deform_wide_scratch(int B, int C, int O, int H, int W, int D, int wide,
+                                             int dtype) {
+  if (D < 1 || B < 1 || C < 1 || H < 1 || W < 1 || O <= 32) return -1;
+  WLayout L;
+  cudaError_t err = cudaErrorInvalidValue;
+  OTP_DISPATCH(dtype, { err = wide_layout<T>(B, C, O, H, W, D, wide != 0, L); });
+  return err == cudaSuccess ? (long long)L.bytes : -2 - (long long)err;
+}
+
+// x, offs, masks as otp_deform (exact mode); w: the pack (D, C, 9, OP) f32
+// with OP >= product_cols(O), zero past O; bias: (OP,) f32; out: (B, O, H,
+// W); scratch: otp_deform_wide_scratch(...) bytes, 256-byte aligned.
+extern "C" int otp_deform_wide(const void* x, const void* const* offs, const void* const* masks,
+                               const int* dils, const void* w, const void* bias, void* out,
+                               void* scratch, int B, int C, int O, int OP, int H, int W, int D,
+                               int wide, int dtype, void* stream) {
+  if (D < 1 || B < 1 || C < 1 || H < 1 || W < 1 || O <= 32 || OP < product_cols(O))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  OTP_DISPATCH(dtype, {
+    return (int)launch_wide<T>(x, offs, masks, dils, (const float*)w, (const float*)bias, out,
+                               scratch, B, C, O, OP, H, W, D, wide != 0, st);
+  });
+  return (int)cudaErrorInvalidValue;
 }

@@ -25,12 +25,19 @@ so an exported program that calls an op counts each launch.
 wrappers take either the raw weights, which they pack on every call, or
 such a pack.
 
-Any O and any D run on the card, through the kernels only: a call whose O
-is above 32 or whose D is above ``MAX_DILATIONS`` is a group of launches
-(``csrc/deform_conv.cu``, ``csrc/deform_conv_bwd.cu``: 32 outputs and up to
-``MAX_DILATIONS`` dilations a launch), and ``launches`` / ``bwd_launches``
-count each launch of the main kernel (``kernel_launches``): one a call for
-O <= 32 and D <= 8, as the flagship's 17 and 5.
+Any O and any D run on the card, through the kernels only.  Past 32
+outputs both kernels take their wide paths (``otp_deform_wide`` and the
+backward's ``dcn_bwd_wide_kernel``), which sample once for every output and
+contract over O on the tensor cores in split TF32, in ``product_cols(O)``
+columns (O rounded up to 16: 144 at 133 joints); the forward takes
+``WIDE_COLS`` columns a launch, the backward at most ``MAX_BWD_OUTPUTS``
+outputs a pass (past them a pass a range of outputs, ``backward_ranges``).
+D above ``MAX_DILATIONS`` (``WIDE_DILATIONS`` on the wide paths) is a group
+of launches, that many dilations each.  ``launches`` / ``bwd_launches``
+count each launch of the main kernel (``kernel_launches``,
+``backward_launches``): one a call at the flagship's O = 17, D = 5 and at
+133 joints.  The make_pallas3 mode (``deform_conv_fused``) keeps a launch a
+group of 32 outputs.
 """
 
 from __future__ import annotations
@@ -53,8 +60,12 @@ packs = 0
 
 EXACT, PALLAS3 = 0, 1          # the kernel's rounding modes
 OUTPUT_PADS = (8, 20, 32)      # O is zero-padded to the first of these that holds it,
-OUTPUT_GROUP = 32              # and above 32 to a multiple of 32: one launch a group of 32
+OUTPUT_GROUP = 32              # and above 32 to a multiple of 32 (make_pallas3's groups)
+PRODUCT_TILE = 16              # the wide paths' product columns: O rounded up to this
+WIDE_COLS = 144                # product columns a wide forward launch (one m64n144k8 product)
+MAX_BWD_OUTPUTS = 288          # the most outputs a backward pass takes (its d W accumulators)
 MAX_DILATIONS = 8              # dilations a launch (the kernels' kMaxD)
+WIDE_DILATIONS = 5             # dilations a launch on the wide paths (their kWideMaxD)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -62,11 +73,18 @@ _SIGNATURES = {
                         _P, _P, _P, _P] + [_I] * 11 + [_P]),
     "otp_deform_max_groups": (_I, []),
     "otp_deform_tile": (_I, [_I]),
+    "otp_deform_wide": (_I, [_P, ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I),
+                             _P, _P, _P, _P] + [_I] * 9 + [_P]),
+    "otp_deform_wide_scratch": (ctypes.c_longlong, [_I] * 8),
+    "otp_deform_wide_cols": (_I, []),
+    "otp_deform_wide_dilations": (_I, []),
 }
 _BWD_SIGNATURES = {
     "otp_deform_bwd": (_I, [_P, ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I)]
                        + [_P] * 8 + [_I] * 9 + [_P]),
     "otp_deform_bwd_scratch": (ctypes.c_longlong, [_I] * 9),
+    "otp_deform_bwd_max_outputs": (_I, []),
+    "otp_deform_bwd_wide_dilations": (_I, []),
 }
 
 
@@ -85,17 +103,50 @@ class DcnPack:
 
 def output_pad(o: int) -> int:
     """OP, the pack's O: the first of ``OUTPUT_PADS`` that holds ``o``, above
-    32 ``o`` rounded up to a multiple of ``OUTPUT_GROUP``."""
+    32 ``o`` rounded up to a multiple of ``OUTPUT_GROUP`` (the make_pallas3
+    mode's groups of 32; the exact mode's wide paths read the first
+    ``product_cols(o)`` of them)."""
     if o > OUTPUT_PADS[-1]:
         return -(-o // OUTPUT_GROUP) * OUTPUT_GROUP
     return next(p for p in OUTPUT_PADS if p >= o)
 
 
-def kernel_launches(d: int, op: int) -> int:
-    """Launches of the main kernel a call makes at D dilations and a pack of
-    OP outputs: a launch a group of 32 outputs and of ``MAX_DILATIONS``
-    dilations."""
-    return -(-d // MAX_DILATIONS) * max(1, op // OUTPUT_GROUP)
+def product_cols(o: int) -> int:
+    """The wide paths' product columns past 32 outputs: ``o`` rounded up to
+    ``PRODUCT_TILE`` (two n8 tiles; 144 at 133 and 136)."""
+    return -(-o // PRODUCT_TILE) * PRODUCT_TILE
+
+
+def kernel_launches(d: int, o: int, mode: int = EXACT) -> int:
+    """Launches of the forward's main kernel a call makes at D dilations and
+    O outputs: a launch a group of ``MAX_DILATIONS`` dilations and of 32
+    outputs of the pack in the make_pallas3 mode; on the exact mode's wide
+    path (past 32) a group of ``WIDE_DILATIONS`` dilations and of
+    ``WIDE_COLS`` product columns."""
+    if mode == EXACT and o > OUTPUT_PADS[-1]:
+        return -(-d // WIDE_DILATIONS) * -(-product_cols(o) // WIDE_COLS)
+    return -(-d // MAX_DILATIONS) * max(1, output_pad(o) // OUTPUT_GROUP)
+
+
+def backward_ranges(o: int) -> list[tuple[int, int]]:
+    """The ranges of outputs [o0, o1) the backward takes a pass each: all
+    O up to ``MAX_BWD_OUTPUTS``; past them as few ranges as hold O, each of
+    the same whole 16-column product tiles but the last (160 and 129 at
+    289 outputs)."""
+    if o <= MAX_BWD_OUTPUTS:
+        return [(0, o)]
+    n = -(-o // MAX_BWD_OUTPUTS)
+    size = product_cols(-(-o // n))
+    return [(o0, min(o, o0 + size)) for o0 in range(0, o, size)]
+
+
+def backward_launches(d: int, o: int) -> int:
+    """Launches of the backward's main kernel a call makes at D dilations
+    and O outputs: one a group of ``MAX_DILATIONS`` dilations, of
+    ``WIDE_DILATIONS`` past 32 outputs (no O groups), for each of
+    ``backward_ranges(O)``."""
+    return sum(-(-d // (WIDE_DILATIONS if o1 - o0 > OUTPUT_PADS[-1] else MAX_DILATIONS))
+               for o0, o1 in backward_ranges(o))
 
 
 @torch.no_grad()
@@ -209,7 +260,8 @@ def launch(mode: int, what: str, x, offsets_list, masks_list, weights, biases, d
     SMs without a block (B = 1), the (channel, dilation) stages are split
     (``stage_split``); the blocks write f32 partial sums, which a second
     kernel adds in a fixed order, as it adds the groups of dilations above
-    ``MAX_DILATIONS`` (``partial_slots``)."""
+    ``MAX_DILATIONS`` (``partial_slots``).  The exact mode past 32 outputs
+    is the wide path (``launch_wide``)."""
     code = build.dtype_code(x.dtype)
     if packed is None:
         packed = pack_dcn_weights(weights, biases, device=x.device)
@@ -217,6 +269,8 @@ def launch(mode: int, what: str, x, offsets_list, masks_list, weights, biases, d
     lib = build.load("deform_conv", _SIGNATURES)
     b, c, h, w = x.shape
     d, o, op = packed.d, packed.o, packed.w.shape[-1]
+    if mode == EXACT and op > OUTPUT_PADS[-1]:
+        return launch_wide(lib, what, x, offsets_list, masks_list, packed, dilations)
     if lib.otp_deform_max_groups() != MAX_DILATIONS:
         raise RuntimeError(f"{what}: the library takes {lib.otp_deform_max_groups()} "
                            f"dilations a launch, the wrapper groups {MAX_DILATIONS}")
@@ -241,6 +295,37 @@ def launch(mode: int, what: str, x, offsets_list, masks_list, weights, biases, d
     return out
 
 
+def launch_wide(lib, what: str, x, offsets_list, masks_list, packed: DcnPack,
+                dilations) -> torch.Tensor:
+    """The exact mode past 32 outputs (``otp_deform_wide``): every output
+    from one sampling, its scratch (the weights' split fragments, the
+    blocks' partial sums) allocated here at the size the library asks."""
+    if (lib.otp_deform_wide_cols(), lib.otp_deform_wide_dilations()) != (WIDE_COLS,
+                                                                         WIDE_DILATIONS):
+        raise RuntimeError(f"{what}: the library takes {lib.otp_deform_wide_cols()} columns "
+                           f"and {lib.otp_deform_wide_dilations()} dilations a launch, the "
+                           f"wrapper counts {WIDE_COLS} and {WIDE_DILATIONS}")
+    code = build.dtype_code(x.dtype)
+    b, c, h, w = x.shape
+    d, o, op = packed.d, packed.o, packed.w.shape[-1]
+    wide = _wide(x, [x, *offsets_list, *masks_list])
+    nbytes = lib.otp_deform_wide_scratch(b, c, o, h, w, d, int(wide), code)
+    if nbytes < 0:
+        raise ValueError(f"{what}: the wide kernel does not take B={b}, C={c}, O={o}, "
+                         f"{h}x{w}, D={d} (scratch query {nbytes})")
+    out = torch.empty(b, o, h, w, device=x.device, dtype=x.dtype)
+    scratch = torch.empty(nbytes, device=x.device, dtype=torch.uint8)
+    offs = (ctypes.c_void_p * d)(*[t.data_ptr() for t in offsets_list])
+    msks = (ctypes.c_void_p * d)(*[t.data_ptr() for t in masks_list])
+    dils = (ctypes.c_int * d)(*[int(v) for v in dilations])
+    err = lib.otp_deform_wide(
+        x.data_ptr(), offs, msks, dils, packed.w.data_ptr(), packed.bias.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), b, c, o, op, h, w, d, int(wide), code,
+        build.stream_ptr(x.device))
+    build.check(lib, err, what)
+    return out
+
+
 def _wide(x, maps) -> bool:
     """Whether 16-byte copies of the offset and mask rows and of the x plane's
     image rows are possible: rows a multiple of 16 bytes, 16-byte aligned."""
@@ -252,8 +337,10 @@ def launch_backward(g, x, offsets_list, masks_list, packed: DcnPack, dilations):
     """Run ``csrc/deform_conv_bwd.cu`` on CUDA tensors: the gradients of the
     exact mode's output with respect to x, the offset maps, the mask maps,
     the weights (D, O, C, 3, 3) and the biases (D, O), from the output's
-    gradient ``g`` (B, O, H, W), in ``kernel_launches(D, OP)`` launches of
-    the main kernel.  d x, d W and d bias are computed in f32;
+    gradient ``g`` (B, O, H, W), in ``backward_launches(D, O)`` launches of
+    the main kernel (past 32 outputs the wide one; past
+    ``MAX_BWD_OUTPUTS`` outputs a pass a range, ``backward_by_ranges``).
+    d x, d W and d bias are computed in f32;
     d x is returned in x's dtype, the D offset and mask gradients stacked as
     (D, B, 18C, H, W) and (D, B, 9C, H, W), d W and d bias in f32."""
     what = "modulated_deform_conv_multi backward"
@@ -265,6 +352,15 @@ def launch_backward(g, x, offsets_list, masks_list, packed: DcnPack, dilations):
     if tuple(g.shape) != (b, o, h, w):
         raise ValueError(f"{what}: the output's gradient has shape {tuple(g.shape)}")
     lib = build.load("deform_conv_bwd", _BWD_SIGNATURES)
+    if (lib.otp_deform_bwd_max_outputs(), lib.otp_deform_bwd_wide_dilations()) != (
+            MAX_BWD_OUTPUTS, WIDE_DILATIONS):
+        raise RuntimeError(f"{what}: the library takes {lib.otp_deform_bwd_max_outputs()} "
+                           f"outputs and {lib.otp_deform_bwd_wide_dilations()} dilations a "
+                           f"wide launch, the wrapper {MAX_BWD_OUTPUTS} and {WIDE_DILATIONS}")
+    ranges = backward_ranges(o)
+    if len(ranges) > 1:
+        return backward_by_ranges(launch_backward, g, x, offsets_list, masks_list, packed,
+                                  dilations, ranges)
     wide = _wide(x, [x, *offsets_list, *masks_list])
     nbytes = lib.otp_deform_bwd_scratch(b, c, o, op, h, w, d, int(wide), code)
     if nbytes < 0:
@@ -286,6 +382,35 @@ def launch_backward(g, x, offsets_list, masks_list, packed: DcnPack, dilations):
                              b, c, o, op, h, w, d, int(wide), code, build.stream_ptr(dev))
     build.check(lib, err, what)
     return dx, d_off, d_mask, dw, dbias
+
+
+def backward_by_ranges(run, g, x, offsets_list, masks_list, packed: DcnPack, dilations,
+                       ranges):
+    """The gradients of ``launch_backward`` past ``MAX_BWD_OUTPUTS``
+    outputs: ``run`` (``launch_backward``) a pass each range of ``ranges``
+    on that range's rows of g and columns of the pack.  d W and d bias are
+    the passes' rows; d x, d offset and d mask are linear in g W, so each is
+    the sum of the passes'.  The passes run in f32 on x, the maps and g made
+    f32 (exact from bf16: the same sampling and sums as the bf16 kernel's),
+    are added in f32 in range order and rounded once to x's dtype."""
+    d, c = packed.d, packed.c
+    xf, gf = x.float(), g.float()
+    offs, msks = [t.float() for t in offsets_list], [t.float() for t in masks_list]
+    sums, dws, dbs = None, [], []
+    for o0, o1 in ranges:
+        n = o1 - o0
+        w = packed.w.new_zeros(d, c, 9, output_pad(n))
+        w[..., :n] = packed.w[..., o0:o1]
+        bias = packed.bias.new_zeros(output_pad(n))
+        bias[:n] = packed.bias[o0:o1]
+        dx, d_off, d_mask, dw, dbias = run(gf[:, o0:o1], xf, offs, msks,
+                                           DcnPack(d, c, n, w, bias), dilations)
+        sums = [dx, d_off, d_mask] if sums is None else [
+            s.add_(t) for s, t in zip(sums, (dx, d_off, d_mask))]
+        dws.append(dw)
+        dbs.append(dbias)
+    dx, d_off, d_mask = (t.to(x.dtype) for t in sums)
+    return dx, d_off, d_mask, torch.cat(dws, 1), torch.cat(dbs, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -333,7 +458,7 @@ def _deform_conv_cuda(x, offsets, masks, pack_w, pack_bias, weights, biases, dil
     calls += 1
     out = launch(EXACT, "modulated_deform_conv_multi", x, offsets, masks, None, None, dilations,
                  pack_of(pack_w, pack_bias, o))
-    launches += kernel_launches(len(dilations), pack_w.shape[-1])
+    launches += kernel_launches(len(dilations), o, EXACT)
     return out
 
 
@@ -378,7 +503,7 @@ def _deform_conv_bwd_cuda(g, x, offsets, masks, pack_w, pack_bias, weights, bias
     global bwd_launches
     dx, d_off, d_mask, dw, dbias = launch_backward(g, x, offsets, masks,
                                                    pack_of(pack_w, pack_bias, o), dilations)
-    bwd_launches += kernel_launches(len(dilations), pack_w.shape[-1])
+    bwd_launches += backward_launches(len(dilations), o)
     if weights is not None:
         dw, dbias = dw.to(weights.dtype), dbias.to(biases.dtype)
     return dx, d_off, d_mask, dw, dbias

@@ -94,7 +94,7 @@ def _deform_conv_fused_cuda(x, offsets, masks, pack_w, pack_bias, dilations, o):
     calls += 1
     out = launch(PALLAS3, "deform_conv_fused", x, offsets, masks, None, None, dilations,
                  pack_of(pack_w, pack_bias, o))
-    launches += kernel_launches(len(dilations), pack_w.shape[-1])
+    launches += kernel_launches(len(dilations), o, PALLAS3)
     return out
 
 

@@ -1,6 +1,7 @@
 """Where the time of the fused kernels and the DCN goes, phase by phase.
 
     python -m otpose_tpu_torch.tools.kernel_phases [--batch 16 1] [--bwd-batch 8 1]
+    python -m otpose_tpu_torch.tools.kernel_phases --wide
 
 Builds ``csrc/fused_attn.cu``, ``csrc/fused_mlp.cu``, ``csrc/deform_conv.cu``
 and ``csrc/deform_conv_bwd.cu`` a second time with ``-DOTP_PHASE_CLOCK``
@@ -18,6 +19,10 @@ so the contraction includes that wait, and its B = 1 reduction is a second
 kernel.  The backward's marks sit inside its pixel loop (thread 0 is the
 first lane of the warp of tap 0): they order the loop's instructions, so its
 shares are of a build that runs a little slower than the normal one.
+``--wide`` runs the DCN's wide paths instead (O = C = 133, 96 x 72, B = 2,
+five dilations, bf16 and f32, offsets from ``utils/testing.py::dcn_case``):
+the forward's stage wait, sampling and product, the backward's stage wait
+and plane changes, G product, sampling, d W product and last segment.
 Needs a CUDA device.
 """
 
@@ -42,6 +47,9 @@ MLP_PHASES = ("x load", "LN", "tile wait", "product 1", "GELU", "product 2",
 DCN_PHASES = ("stage wait", "sampling", "contraction", "B = 1 reduction")
 DCN_BWD_PHASES = ("stage wait and plane changes", "sampling", "G", "d x atomics",
                   "stores and d W", "last segment out", "d x reduction")
+WIDE_PHASES = ("stage wait", "sampling", "product")
+WIDE_BWD_PHASES = ("stage wait and plane changes", "G product", "sampling", "d W product",
+                   "last segment out")
 
 
 def _inputs(batch: int, gen, dtype):
@@ -121,10 +129,35 @@ def dcn_bwd_call(batch: int, dtype, gen):
     return lambda: deform_conv.launch_backward(g, x, offs, masks, pk, dil)
 
 
+def wide(gen) -> None:
+    """The DCN's wide paths at the 133-joint model's shape, phase by phase."""
+    from otpose_tpu_torch.ops.cuda import deform_conv
+    from otpose_tpu_torch.utils.testing import dcn_case
+
+    for dtype in (torch.bfloat16, torch.float32):
+        x, offs, masks, weights, biases, dil = dcn_case(2, 133, 133, 96, 72, (3, 6, 9, 12, 15),
+                                                        dtype, gen)
+        g = torch.randn(2, 133, 96, 72, generator=gen, device="cuda").to(dtype)
+        pk = deform_conv.pack_dcn_weights(weights, biases)
+        for name, sigs, call, names in (
+                ("deform_conv", deform_conv._SIGNATURES,
+                 lambda: deform_conv.modulated_deform_conv_multi(x, offs, masks, dilations=dil,
+                                                                 packed=pk), WIDE_PHASES),
+                ("deform_conv_bwd", deform_conv._BWD_SIGNATURES,
+                 lambda: deform_conv.launch_backward(g, x, offs, masks, pk, dil),
+                 WIDE_BWD_PHASES)):
+            res = phases(name, sigs, call, names)
+            shares = ", ".join(f"{n} {s:.1%}" for n, s in res["shares"].items())
+            print(f"{name} wide {str(dtype)[6:]} O=133 B=2 D=5: {res['ms']:.4f} ms; {shares} "
+                  f"({res['cycles']} cycles over all blocks)", flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, nargs="*", default=[16, 1])
     ap.add_argument("--bwd-batch", type=int, nargs="*", default=[8, 1])
+    ap.add_argument("--wide", action="store_true",
+                    help="the DCN's wide paths at O = C = 133 instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("kernel_phases: needs a CUDA device")
@@ -134,6 +167,9 @@ def main(argv=None) -> None:
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.wide:
+        wide(gen)
+        return
     for batch in args.batch:
         for dtype in (torch.bfloat16, torch.float32):
             attn, mlp = _inputs(batch, gen, dtype)

@@ -31,7 +31,8 @@ CATEGORIES = (
                     "wide_softmax", "AttnProj", "AttnScores", "AttnOut")),
     ("fused_mlp", ("fused_mlp_", "wide_ln_kernel", "MlpUp", "MlpDown")),
     ("fused (f32 weight split)", ("split_tf32",)),
-    ("deform_conv", ("deform_staged_kernel", "deform_reduce_kernel")),
+    ("deform_conv", ("deform_staged_kernel", "deform_reduce_kernel", "deform_wide",
+                     "wide_wfrag")),
     ("convolution", ("conv", "cudnn", "implicit_gemm", "wgrad", "dgrad", "xmma_fprop",
                      "nchwToNhwc", "nhwcToNchw")),
     ("matmul", ("gemm", "cutlass", "cublas", "sm90_xmma", "splitKreduce")),

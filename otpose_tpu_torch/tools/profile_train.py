@@ -1,17 +1,19 @@
 """Where the time of one flagship train step goes on the GPU.
 
-    python -m otpose_tpu_torch.tools.profile_train
+    python -m otpose_tpu_torch.tools.profile_train [--joints 133 --batch 2]
 
 The port's counterpart of ``tools/time_train_step.py``: builds the flagship
 train step (``configs/17/model_RSN.yaml``, reference init, AdamW from
 ``engine/optim.py``) on synthetic batches (N(0, 1) clips, margins 0-2,
-Gaussian targets at random joints, 10 of 17 labelled), runs it in bf16 at B = 8 under
+Gaussian targets at random joints, the first 10 labelled), runs it in bf16 at B = 8
+(``--batch``; ``--joints`` sets ``MODEL.NUM_JOINTS``, the DCN's O and C) under
 ``torch.profiler`` for three steps after two warm-up steps, and prints the wall time a step
 (CUDA-synchronised host clock), the device's summed kernel time and idle
 share, and the kernel time a step by category:
 
 - ``dcn_forward`` / ``dcn_backward``: ``csrc/deform_conv.cu`` /
-  ``csrc/deform_conv_bwd.cu``, by kernel name;
+  ``csrc/deform_conv_bwd.cu``, by kernel name (the wide paths' weight
+  fragments, ``otp_dcn::wide_wfrag_kernel``, under the forward for both);
 - ``conv_forward`` / ``conv_backward``: cuDNN (fprop; dgrad and wgrad), by
   kernel name;
 - ``matmul``: cuBLAS and CUTLASS products, by kernel name;
@@ -40,7 +42,8 @@ import torch
 
 KERNEL_CATEGORIES = (
     ("dcn_backward", ("dcn_bwd",)),
-    ("dcn_forward", ("deform_staged_kernel", "deform_reduce_kernel")),
+    ("dcn_forward", ("deform_staged_kernel", "deform_reduce_kernel", "deform_wide",
+                     "wide_wfrag")),
     ("conv_backward", ("dgrad", "wgrad", "bprop", "convolve_sgemm_bwd", "bn_bw")),
     ("conv_forward", ("fprop", "cudnn", "implicit_gemm", "conv", "nchwToNhwc", "nhwcToNchw")),
     ("matmul", ("gemm", "cutlass", "cublas", "sm90_xmma", "splitKreduce")),
@@ -100,7 +103,7 @@ def categorize(events, steps: int) -> dict:
 
 def synthetic_batch(cfg, batch: int, gen) -> dict:
     """Random clips and margins with Gaussian targets (peak 1, the config's
-    sigma) at random joints, the first 10 of 17 labelled.  Plain torch, so
+    sigma) at random joints, the first 10 labelled.  Plain torch, so
     that an older checkout of the package can be profiled too."""
     w, h = cfg.MODEL.IMAGE_SIZE
     hw, hh = cfg.MODEL.HEATMAP_SIZE
@@ -119,6 +122,13 @@ def synthetic_batch(cfg, batch: int, gen) -> dict:
 
 
 def main() -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--joints", type=int, default=None,
+                        help="MODEL.NUM_JOINTS (default: the config's 17)")
+    parser.add_argument("--batch", type=int, default=BATCH)
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_train: needs a CUDA device")
 
@@ -136,11 +146,13 @@ def main() -> None:
     build.build_all()
     cfg = get_cfg()
     cfg.merge_from_file(CFG)
+    if args.joints is not None:
+        cfg.MODEL.NUM_JOINTS = args.joints
     _, model = build_model(cfg, seed=0)
     opt = optim.make_optimizer(model, cfg, optim.make_schedule(cfg, 1))
     step = make_train_step(model, opt, compute_dtype=DTYPE,
                            generator=torch.Generator(device="cuda").manual_seed(5))
-    batch = synthetic_batch(cfg, BATCH, torch.Generator(device="cuda").manual_seed(3))
+    batch = synthetic_batch(cfg, args.batch, torch.Generator(device="cuda").manual_seed(3))
 
     # profiler ranges around train BN and the optimizer, in this process only
     bn_train, opt_step = core.batch_norm_train, optim.Optimizer.step
@@ -169,13 +181,15 @@ def main() -> None:
     by_cat = categorize(prof.events(), STEPS)
     busy = sum(by_cat.values())
     idle = max(0.0, 1 - busy / (wall * 1e3))
-    print(f"card: {card}; train step {DTYPE} B={BATCH}; {STEPS} profiled steps")
-    print(f"wall {wall * 1e3:.3f} ms per step ({BATCH / wall:.3f} clips/s); device kernels "
+    print(f"card: {card}; train step {DTYPE} B={args.batch}, {cfg.MODEL.NUM_JOINTS} joints; "
+          f"{STEPS} profiled steps")
+    print(f"wall {wall * 1e3:.3f} ms per step ({args.batch / wall:.3f} clips/s); device kernels "
           f"{busy:.3f} ms per step; device idle share {idle:.3f}")
     for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"  {cat:22s} {ms:9.3f} ms  {ms / busy:6.1%}")
     print(json.dumps({"wall_ms": wall * 1e3, "device_ms": busy, "idle_share": idle,
-                      "by_category_ms": by_cat, "card": card, "batch": BATCH,
+                      "by_category_ms": by_cat, "card": card, "batch": args.batch,
+                      "joints": cfg.MODEL.NUM_JOINTS,
                       "dtype": DTYPE, "source": core.__file__}), flush=True)
 
 

@@ -323,32 +323,143 @@ def test_deform_conv_shapes(mode, b, c, o, h, w, dilations, dtype):
     _dcn_check(mode, _dcn_args(b, c, o, h, w, dilations, dtype, seed=4), dtype)
 
 
-# above 32 outputs or 8 dilations a call is a group of launches: 32 outputs
-# and 8 dilations a launch, the dilation groups' partial sums in slots of
-# their own
+# above 8 dilations a call is a group of launches, 8 dilations a launch,
+# the dilation groups' partial sums in slots of their own; above 32 outputs
+# the exact mode samples once for every output (a launch a group of 5
+# dilations), the make_pallas3 mode launches a group of 32 outputs
 GROUPED_DCN = [
-    (2, 5, 33, 13, 11, tuple(range(1, 10))),      # O = 33, D = 9: two groups of each
-    (1, 6, 133, 24, 20, tuple(range(1, 10))),     # O = 133: five O groups; B = 1 splits
-    (1, 17, 65, 96, 72, (3, 6, 9, 12, 15)),       # three O groups at the flagship's B = 1
-    (16, 3, 64, 12, 16, tuple(range(1, 18))),     # D = 17: three dilation groups, no split
+    (2, 5, 33, 13, 11, tuple(range(1, 10))),      # O = 33, D = 9: two dilation groups
+    (1, 6, 133, 24, 20, tuple(range(1, 10))),     # O = 133 at B = 1
+    (1, 17, 65, 96, 72, (3, 6, 9, 12, 15)),       # O = 65 at the flagship's B = 1
+    (16, 3, 64, 12, 16, tuple(range(1, 18))),     # D = 17: three dilation groups
 ]
+DCN_MODE_CODES = {"exact": deform_conv.EXACT, "pallas3": deform_conv.PALLAS3}
 
 
 @pytest.mark.parametrize("mode", list(DCN_MODES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,c,o,h,w,dilations", GROUPED_DCN)
 def test_grouped_deform_conv_matches_plain(mode, b, c, o, h, w, dilations, dtype):
-    """Each launch of the group counted, the result against the plain
-    version, and the same bits from a second call."""
+    """Each launch counted (the exact mode one a group of 5 dilations past
+    32 outputs, the make_pallas3 mode one a group of 8 dilations and of 32
+    outputs), the result against the plain version, and the same bits from
+    a second call."""
     module, kern, plain = DCN_MODES[mode]
     args = _dcn_args(b, c, o, h, w, dilations, dtype, seed=16)
     launches = module.launches
     got = kern(*args)
     torch.cuda.synchronize()
-    groups = deform_conv.kernel_launches(len(dilations), deform_conv.output_pad(o))
-    assert groups > 1 and module.launches == launches + groups
+    groups = deform_conv.kernel_launches(len(dilations), o, DCN_MODE_CODES[mode])
+    d = len(dilations)
+    assert groups == (-(-d // deform_conv.WIDE_DILATIONS) if mode == "exact"
+                      else -(-d // deform_conv.MAX_DILATIONS) * (deform_conv.output_pad(o) // 32))
+    assert module.launches == launches + groups
     _close(got, plain(*args), dtype)
     assert torch.equal(kern(*args), got)
+
+
+# the wide paths (the exact mode past 32 outputs): every O to 288 in one
+# sampling, at ragged images (rows of 11 and 29: element copies; 24 x 20:
+# 16-byte copies in f32 only; 16-pixel rows: in both dtypes)
+WIDE_DCN_O = (33, 64, 133, 136, 160, 256)
+WIDE_DCN_HW = ((13, 11), (24, 20), (37, 29), (12, 16))
+WIDE_DCN = [(b, 3, o, *WIDE_DCN_HW[(i + b + di) % len(WIDE_DCN_HW)], tuple(range(1, d + 1)))
+            for i, o in enumerate(WIDE_DCN_O) for b in (1, 2) for di, d in enumerate((5, 9, 17))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,o,h,w,dilations", WIDE_DCN)
+def test_wide_deform_conv_samples_once_for_every_output(b, c, o, h, w, dilations, dtype):
+    """A launch a group of 5 dilations and of 144 product columns (one at
+    133 and 136 outputs), the result against the plain version (row 3's
+    bars: 1e-4 of the scale in f32; in bf16 5e-2 and at most 5% of the
+    outputs differing), and the same bits from a second call."""
+    args = _dcn_args(b, c, o, h, w, dilations, dtype, seed=19)
+    launches = deform_conv.launches
+    got = deform_conv.modulated_deform_conv_multi(*args)
+    torch.cuda.synchronize()
+    assert deform_conv.launches == launches + (-(-len(dilations) // deform_conv.WIDE_DILATIONS)
+                                               * -(-deform_conv.product_cols(o) // 144))
+    want = deform_conv.modulated_deform_conv_multi_plain(*args)
+    _close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        assert (got != want).float().mean().item() <= 0.05
+    assert torch.equal(deform_conv.modulated_deform_conv_multi(*args), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,o,h,w,dilations", WIDE_DCN)
+def test_wide_deform_conv_backward_has_no_output_groups(b, c, o, h, w, dilations, dtype):
+    """A launch a group of 5 dilations whatever O, each of the five
+    gradients against the plain version's autograd (row 6's bars: 1e-4 of
+    the peak in f32, 5e-2 in bf16), every gradient the same bits from a
+    second call."""
+    _wide_backward_check(b, c, o, h, w, dilations, dtype,
+                         -(-len(dilations) // deform_conv.WIDE_DILATIONS))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,o,h,w,dilations", [
+    (1, 3, 289, 13, 11, (1, 2, 3, 4, 5)),          # 160 + 129 outputs, rows of 11
+    (2, 2, 300, 12, 16, tuple(range(1, 10))),      # 160 + 140, two dilation groups
+])
+def test_wide_deform_conv_backward_past_288_outputs(b, c, o, h, w, dilations, dtype):
+    """Past the 288 outputs a pass holds, a pass a range of outputs
+    (``backward_ranges``: two here, each on the wide kernel, in f32), held
+    to the plain version's autograd at row 6's bars and to its own bits."""
+    assert len(deform_conv.backward_ranges(o)) == 2
+    _wide_backward_check(b, c, o, h, w, dilations, dtype,
+                         2 * -(-len(dilations) // deform_conv.WIDE_DILATIONS))
+
+
+def _wide_backward_check(b, c, o, h, w, dilations, dtype, launched):
+    gen = torch.Generator(device="cuda").manual_seed(o + b + len(dilations))
+    args = dcn_case(b, c, o, h, w, dilations, dtype, gen)
+    g = torch.randn(b, o, h, w, generator=gen, device="cuda").to(dtype)
+    launches = deform_conv.bwd_launches
+    got = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
+    torch.cuda.synchronize()
+    assert deform_conv.bwd_launches == launches + launched
+    assert deform_conv.backward_launches(len(dilations), o) == launched
+    want = dcn_gradients(deform_conv.modulated_deform_conv_multi_plain, args, g)
+    d = len(dilations)
+    for name, gk, gp in zip(GRAD_NAMES, _grad_groups(got, d), _grad_groups(want, d)):
+        assert gk.dtype == gp.dtype and gk.shape == gp.shape, name
+        err = (gk.float() - gp.float()).abs().max().item()
+        peak = gp.float().abs().max().item()
+        assert peak > 0 and err <= TOL[dtype] * peak, (name, err, peak)
+    again = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
+    for name, a, b2 in zip(GRAD_NAMES, _grad_groups(got, d), _grad_groups(again, d)):
+        assert torch.equal(a, b2), name
+
+
+def test_wide_dcn_products_run_on_the_tensor_cores():
+    """The wide paths' products run on the tensor cores: every instantiation
+    of the forward's ``deform_wide_kernel`` issues ``HGMMA`` (``wgmma``),
+    every one of the backward's ``dcn_bwd_wide_kernel`` ``HMMA``
+    (``mma.sync``), and the narrow kernels neither, per ``cuobjdump -sass``
+    of the built libraries."""
+    import subprocess
+
+    # f32 and bf16 x both copies x x planes or not
+    for name, sigs, kernel, narrow, op in (
+            ("deform_conv", deform_conv._SIGNATURES, "deform_wide_kernel",
+             "deform_staged_kernel", "HGMMA"),
+            ("deform_conv_bwd", deform_conv._BWD_SIGNATURES, "dcn_bwd_wide_kernel",
+             "dcn_bwd_kernel", "HMMA")):
+        lib = build.load(name, sigs)
+        sass = subprocess.run([os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
+                               "-sass", lib._name], capture_output=True, text=True,
+                              check=True).stdout
+        funcs = {}
+        for block in sass.split("Function : ")[1:]:
+            funcs[block.split("\n", 1)[0].strip()] = block
+        wide = {f: body for f, body in funcs.items() if kernel in f}
+        assert len(wide) == 8, sorted(funcs)
+        for f, body in wide.items():
+            assert op in body, f
+        assert not any("HMMA" in body or "HGMMA" in body for f, body in funcs.items()
+                       if narrow in f and kernel not in f)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -458,9 +569,9 @@ def test_deform_conv_backward_matches_plain_autograd(b, c, o, h, w, dilations, d
 
 
 GROUPED_DCN_BWD = [
-    (2, 5, 33, 13, 11, tuple(range(1, 10))),      # O = 33, D = 9: two groups of each
-    (1, 6, 133, 24, 20, tuple(range(1, 10))),     # O = 133: G carried over five O groups
-    (2, 4, 64, 37, 53, (1, 5, 9)),                # two full O groups; rows of 53: element copies
+    (2, 5, 33, 13, 11, tuple(range(1, 10))),      # O = 33, D = 9: two dilation groups
+    (1, 6, 133, 24, 20, tuple(range(1, 10))),     # O = 133 at B = 1, D = 9
+    (2, 4, 64, 37, 53, (1, 5, 9)),                # O = 64; rows of 53: element copies
     (1, 2, 40, 208, 208, tuple(range(1, 10))),    # planes too large for shared memory, D = 9
 ]
 
@@ -468,10 +579,11 @@ GROUPED_DCN_BWD = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,c,o,h,w,dilations", GROUPED_DCN_BWD)
 def test_grouped_deform_conv_backward_matches_plain_autograd(b, c, o, h, w, dilations, dtype):
-    """Above 32 outputs or 8 dilations the backward is a group of launches:
-    each counted, each of the five gradients against the plain version's
-    autograd as in the test above, and every gradient the same bits from a
-    second call."""
+    """Above 8 dilations the backward is a group of launches, one a group
+    of 8 dilations (past 32 outputs the wide kernel, a launch a group of 5,
+    no O groups): each counted, each of the five gradients against the plain
+    version's autograd as in the test above, and every gradient the same
+    bits from a second call."""
     gen = torch.Generator(device="cuda").manual_seed(17)
     args = dcn_case(b, c, o, h, w, dilations, dtype, gen)
     assert dcn_inside_share(args) > 0.25
@@ -479,8 +591,10 @@ def test_grouped_deform_conv_backward_matches_plain_autograd(b, c, o, h, w, dila
     launches = deform_conv.bwd_launches
     got = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
     torch.cuda.synchronize()
-    groups = deform_conv.kernel_launches(len(dilations), deform_conv.output_pad(o))
-    assert groups > 1 and deform_conv.bwd_launches == launches + groups
+    groups = deform_conv.backward_launches(len(dilations), o)
+    assert groups == -(-len(dilations) // (deform_conv.WIDE_DILATIONS if o > 32
+                                            else deform_conv.MAX_DILATIONS))
+    assert deform_conv.bwd_launches == launches + groups
     want = dcn_gradients(deform_conv.modulated_deform_conv_multi_plain, args, g)
     d = len(dilations)
     for name, gk, gp in zip(GRAD_NAMES, _grad_groups(got, d), _grad_groups(want, d)):
@@ -599,7 +713,7 @@ def test_tiny_eval_on_the_card_equals_the_cpu(joints, fused):
             want = otpose_forward(cpu, x, margin)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    groups = deform_conv.kernel_launches(2, deform_conv.output_pad(joints))
+    groups = deform_conv.kernel_launches(2, joints)
     assert tuple(a - b for a, b in zip(after, before)) == fused + (groups,)
     assert len(got) == len(want) == 7
     for g, w in zip(got, want):

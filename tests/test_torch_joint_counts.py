@@ -127,7 +127,7 @@ def test_decoded_eval_step_matches_jax(case):
 
 # ---------------------------------------------------------------- the DCN
 
-DCN_SHAPES = [(o, d) for o in (33, 64, 65) for d in (5, 9)]
+DCN_SHAPES = [(o, d) for o in (33, 64, 65) for d in (5, 9)] + [(133, 5)]   # + COCO-WholeBody
 
 
 def _dilations(d):
@@ -205,10 +205,17 @@ def test_dcn_gradients_match_jax_in_f64(o, d):
         np.testing.assert_allclose(gp.numpy(), gj, rtol=0, atol=1e-3 * peak, err_msg=name)
 
 
-@pytest.mark.parametrize("o,op", [(1, 8), (8, 8), (9, 20), (17, 20), (20, 20), (21, 32),
-                                  (32, 32), (33, 64), (64, 64), (65, 96), (133, 160)])
-def test_the_pack_pads_o_past_32_to_groups_of_32(o, op):
+@pytest.mark.parametrize("o,op,cols", [
+    (1, 8, None), (8, 8, None), (9, 20, None), (17, 20, None), (20, 20, None), (21, 32, None),
+    (32, 32, None), (33, 64, 48), (64, 64, 64), (65, 96, 80), (133, 160, 144),
+    (136, 160, 144), (160, 160, 160), (176, 192, 176), (256, 256, 256), (289, 320, 304)])
+def test_the_pack_pads_o_past_32_to_32_and_the_wide_product_to_16(o, op, cols):
+    """The pack keeps make_pallas3's groups of 32 past 32 outputs; the exact
+    mode's wide paths read its first ``product_cols`` (O rounded up to 16:
+    144 at 133 and 136 joints)."""
     assert deform_conv.output_pad(o) == op
+    if cols is not None:
+        assert deform_conv.product_cols(o) == cols <= op
     gen = torch.Generator().manual_seed(o)
     weights, biases = torch.randn(2, o, 3, 3, 3, generator=gen), torch.randn(2, o, generator=gen)
     pk = deform_conv.pack_dcn_weights(weights, biases)
@@ -218,11 +225,80 @@ def test_the_pack_pads_o_past_32_to_groups_of_32(o, op):
     assert torch.equal(w, weights) and torch.equal(b[0], biases.mean(0))
 
 
-@pytest.mark.parametrize("d,op,launches", [(5, 20, 1), (8, 32, 1), (9, 20, 2), (5, 64, 2),
-                                           (9, 160, 10), (17, 32, 3)])
-def test_a_launch_a_group_of_32_outputs_and_8_dilations(d, op, launches):
-    """The flagship's O = 17, D = 5 stays one launch a call."""
-    assert deform_conv.kernel_launches(d, op) == launches
+@pytest.mark.parametrize("d,o,launches,pallas3,backward", [
+    (5, 17, 1, 1, 1), (8, 32, 1, 1, 1), (9, 17, 2, 2, 2), (5, 64, 1, 2, 1), (5, 133, 1, 5, 1),
+    (9, 133, 2, 10, 2), (17, 32, 3, 3, 3), (17, 256, 8, 24, 4), (5, 289, 3, 10, 2),
+    (8, 136, 2, 5, 2), (9, 300, 6, 20, 4)])
+def test_one_sampling_for_every_output_past_32(d, o, launches, pallas3, backward):
+    """The forward launches a group of 8 dilations; past 32 outputs the
+    exact mode samples once for 144 of them, a launch a group of 5
+    dilations and of 144 product columns, the make_pallas3 mode a launch a
+    group of 8 dilations and of 32 outputs.  The backward launches a group
+    of 8 dilations, of 5 past 32 outputs (no O groups), a pass a range of
+    at most 288 outputs (two at 289 and 300).  The flagship's O = 17,
+    D = 5 stays one launch a call; 133 joints too."""
+    assert deform_conv.kernel_launches(d, o) == launches
+    assert deform_conv.kernel_launches(d, o, deform_conv.EXACT) == launches
+    assert deform_conv.kernel_launches(d, o, deform_conv.PALLAS3) == pallas3
+    assert deform_conv.backward_launches(d, o) == backward
+
+
+@pytest.mark.parametrize("o,ranges", [
+    (1, [(0, 1)]), (133, [(0, 133)]), (288, [(0, 288)]), (289, [(0, 160), (160, 289)]),
+    (300, [(0, 160), (160, 300)]), (576, [(0, 288), (288, 576)]),
+    (577, [(0, 208), (208, 416), (416, 577)]), (1000, [(0, 256), (256, 512), (512, 768),
+                                                       (768, 1000)])])
+def test_the_backward_takes_outputs_past_288_in_ranges(o, ranges):
+    """All O to 288 in one pass (the d W accumulators); past them as few
+    ranges as hold O, each of the same whole 16-column tiles but the last,
+    every one on the wide path."""
+    got = deform_conv.backward_ranges(o)
+    assert got == ranges
+    assert got[0][0] == 0 and got[-1][1] == o and all(a[1] == b[0] for a, b in zip(got, got[1:]))
+    assert len(got) == -(-o // deform_conv.MAX_BWD_OUTPUTS)
+    assert all(deform_conv.product_cols(o1 - o0) <= deform_conv.MAX_BWD_OUTPUTS
+               for o0, o1 in got)
+    assert len({o1 - o0 for o0, o1 in got[:-1]}) <= 1
+    assert all((o1 - o0) % deform_conv.PRODUCT_TILE == 0 for o0, o1 in got[:-1])
+    assert len(got) == 1 or all(o1 - o0 > 32 for o0, o1 in got)
+
+
+@pytest.mark.parametrize("o,dtype", [(289, torch.float32), (300, torch.float32),
+                                     (289, torch.bfloat16)])
+def test_the_backward_by_ranges_sums_to_the_whole(o, dtype):
+    """``backward_by_ranges`` over the plain backward (the op's CPU
+    implementation on each range's rows of g and columns of the pack)
+    against the plain backward over all O: d W and d bias row for row, d x,
+    d offset and d mask the ranges' f32 sums rounded once (1e-5 of each
+    gradient's peak in f32; in bf16 one rounding of the sum, 1e-2)."""
+    dilations = (1, 2)
+    x, offs, masks, weights, biases, _ = dcn_case(1, 2, o, 6, 5, dilations, dtype,
+                                                  torch.Generator().manual_seed(o), device="cpu",
+                                                  reach=2)
+    g = torch.from_numpy(np.random.RandomState(o).randn(1, o, 6, 5).astype(np.float32)).to(dtype)
+    pk = deform_conv.pack_dcn_weights(weights, biases)
+    runs = []
+
+    def run(gr, xr, offr, mskr, pr, dils):
+        runs.append((gr.dtype, xr.dtype, pr.o, pr.w.shape[-1]))
+        return deform_conv.deform_conv_bwd_op(gr, xr, offr, mskr, pr.w, pr.bias,
+                                              deform_conv.unpack(pr)[0],
+                                              torch.zeros(pr.d, pr.o), list(dils), pr.o)
+
+    got = deform_conv.backward_by_ranges(run, g, x, offs, masks, pk, dilations,
+                                         deform_conv.backward_ranges(o))
+    assert [r[2] for r in runs] == [b - a for a, b in deform_conv.backward_ranges(o)]
+    assert all(r[:2] == (torch.float32, torch.float32) and r[3] == deform_conv.output_pad(r[2])
+               for r in runs)
+    want = deform_conv.deform_conv_bwd_op(g, x, offs, masks, pk.w, pk.bias, weights, biases,
+                                          list(dilations), o)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for name, a, b in zip(("x", "offsets", "masks", "weights", "biases"), got, want):
+        assert a.shape == b.shape, name
+        assert a.dtype == (dtype if name in ("x", "offsets", "masks") else torch.float32), name
+        peak = b.float().abs().max().item()
+        assert peak > 0, name
+        assert (a.float() - b.float()).abs().max().item() <= tol * peak, name
 
 
 @pytest.mark.parametrize("split,c,d,slots", [
