@@ -710,32 +710,44 @@ def check_token_shift():
 # phases 4 to 9: the paths
 # ---------------------------------------------------------------------------
 
-def _kernel_modules():
-    import importlib
-
-    return {name: importlib.import_module(f"otpose_tpu_torch.ops.cuda.{name}")
-            for name in KERNEL_MODULES}
+_COUNTED_FROM: dict = {}
 
 
 def reset_counts():
-    mods = _kernel_modules()
-    for mod in mods.values():
-        mod.calls = mod.launches = 0
-    mods["deform_conv"].bwd_launches = 0
-    mods["fused_attn"].wide_launches = mods["fused_mlp"].wide_launches = 0
+    """Count the kernels' launches from here (``utils/profiling.py``'s
+    registry)."""
+    from otpose_tpu_torch.utils import profiling
+
+    _COUNTED_FROM.clear()
+    _COUNTED_FROM.update(profiling.counters())
 
 
 def read_counts():
-    mods = _kernel_modules()
-    counts = {name: mod.launches for name, mod in mods.items()}
-    counts["deform_conv_bwd"] = mods["deform_conv"].bwd_launches
+    """Launches of each kernel since ``reset_counts``."""
+    from otpose_tpu_torch.utils import profiling
+
+    grown = profiling.since(_COUNTED_FROM)
+    counts = {name: grown[f"{name}.launches"] for name in KERNEL_MODULES}
+    counts["deform_conv_bwd"] = grown["deform_conv.bwd_launches"]
     return counts
+
+
+def read_wide():
+    """The fused attention's and MLP's wide-path launches since
+    ``reset_counts``."""
+    from otpose_tpu_torch.utils import profiling
+
+    grown = profiling.since(_COUNTED_FROM)
+    return grown["fused_attn.wide_launches"], grown["fused_mlp.wide_launches"]
 
 
 def read_packs():
     """Weight packs made so far by the kernels whose weights are packed."""
-    mods = _kernel_modules()
-    return {name: mods[name].packs for name in ("fused_attn", "fused_mlp", "deform_conv")}
+    from otpose_tpu_torch.utils import profiling
+
+    made = profiling.counters()
+    return {name: made.get(f"{name}.packs", 0) for name in ("fused_attn", "fused_mlp",
+                                                              "deform_conv")}
 
 
 def flagship_eval():
@@ -4697,7 +4709,6 @@ def wide_flagship(card: str, joints: int) -> dict:
     from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
     from otpose_tpu_torch.models.factory import build_model
     from otpose_tpu_torch.models.otpose import otpose_forward, prepare_eval_params
-    from otpose_tpu_torch.ops.cuda import fused_attn, fused_mlp
     from otpose_tpu_torch.utils.testing import flagship_otpose_cfg
     from otpose_tpu_torch.utils.timing import time_ms
 
@@ -4734,7 +4745,7 @@ def wide_flagship(card: str, joints: int) -> dict:
             outs = step(inputs, margin)
             torch.cuda.synchronize()
             counts[key] = read_counts()
-            wide[key] = (fused_attn.wide_launches, fused_mlp.wide_launches)
+            wide[key] = read_wide()
             if fused and wide[key] != wide_counts(model, dtypes[label]):
                 fail(f"flagship at {joints} joints, {label}: wide-path launches (attention, "
                      f"MLP) {wide[key]}, expected {wide_counts(model, dtypes[label])}")
@@ -4852,6 +4863,7 @@ def wide_kernel_rows(card: str) -> dict:
 
     from otpose_tpu_torch.ops.cuda import fused_attn, fused_mlp
     from otpose_tpu_torch.tools.attn_time import device_split
+    from otpose_tpu_torch.utils import profiling
     from otpose_tpu_torch.utils.timing import time_ms
 
     tol = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
@@ -4871,10 +4883,10 @@ def wide_kernel_rows(card: str) -> dict:
                 if not wide:
                     fail(f"{name} at C={c}: not a shape of the wide path")
                 call = packed_call(name, kern, args)
-                before = mod.launches
+                before = profiling.counters()
                 got = call()
                 torch.cuda.synchronize()
-                if mod.launches != before + 1:
+                if profiling.since(before)[f"{name}.launches"] != 1:
                     fail(f"{name} at C={c}: the call did not launch the kernel once")
                 same = torch.equal(call(), got)
                 want = plain(*args)

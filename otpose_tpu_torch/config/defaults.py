@@ -234,7 +234,9 @@ _C.TPU.ACCUM_STEPS = 1
 # ~25% of the fused-VMEM floor on v5e; two Pallas kernels (dense-tent and
 # shift-decomposition) were built, benchmarked slower, and removed.  See
 # STATUS.md "Deform kernel analysis".
-_C.TPU.PROFILE_DIR = ""              # non-empty: capture jax.profiler traces here
+# non-empty: torch.profiler Chrome traces of train steps and eval batches
+# [10, 15) are written here (utils/profiling.py::maybe_trace)
+_C.TPU.PROFILE_DIR = ""
 # device preprocessing: auto | off | crops | full.
 #   crops: host warps uint8 crops (minimal host->device bytes); device does
 #          normalize + temporal assembly + target generation

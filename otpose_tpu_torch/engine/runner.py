@@ -23,6 +23,7 @@ loop's TensorBoard writer.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import time
 from collections import defaultdict
@@ -39,8 +40,8 @@ from otpose_tpu_torch.ops.heatmap import get_final_preds, get_max_preds
 from otpose_tpu_torch.parallel.distributed import (broadcast_scalar, data_info, fetch,
                                                    is_primary)
 from otpose_tpu_torch.parallel.mesh import place
+from otpose_tpu_torch.utils import profiling
 from otpose_tpu_torch.utils.device import resolve_device, resolve_dtype
-from otpose_tpu_torch.utils.profiling import maybe_trace
 from otpose_tpu_torch.utils.table import pipe_table
 
 logger = logging.getLogger(__name__)
@@ -91,13 +92,15 @@ def make_flip_eval_step(model: OTPose, *, compute_dtype=torch.float32,
 
     @torch.inference_mode()
     def step(inputs, margin):
-        model.eval()
-        out = otpose_forward(model, inputs, margin, compute_dtype=dtype, fused=fused, seq=seq)
-        out_f = otpose_forward(model, torch.flip(inputs, dims=[2]), margin,
-                               compute_dtype=dtype, fused=fused, seq=seq)
-        heat_f = torch.flip(out_f[0], dims=[2])[..., perm]
-        heat_f = torch.cat([heat_f[:, :, :1], heat_f[:, :, :-1]], dim=2)
-        return (out[0] + heat_f) * 0.5, out[1][:inputs.shape[0]]
+        with profiling.step("otpose.eval.step"):
+            model.eval()
+            out = otpose_forward(model, inputs, margin, compute_dtype=dtype, fused=fused,
+                                 seq=seq)
+            out_f = otpose_forward(model, torch.flip(inputs, dims=[2]), margin,
+                                   compute_dtype=dtype, fused=fused, seq=seq)
+            heat_f = torch.flip(out_f[0], dims=[2])[..., perm]
+            heat_f = torch.cat([heat_f[:, :, :1], heat_f[:, :, :-1]], dim=2)
+            return (out[0] + heat_f) * 0.5, out[1][:inputs.shape[0]]
 
     return step
 
@@ -137,8 +140,9 @@ def train_epoch(step_fn, state, loader, epoch: int, cfg, *, seed: int,
     step; when it says so the epoch returns early and
     ``completed_iterations`` says what to checkpoint.  Metrics come to the
     host only every ``PRINT_FREQ`` iterations and on the last one (a fetch
-    waits for the device), for the log line and the TensorBoard scalars;
-    steps [10, 15) are traced into ``TPU.PROFILE_DIR`` when it is set."""
+    waits for the device), for the log line and the TensorBoard scalars,
+    in the span ``otpose.train.fetch_metrics``; steps [10, 15) are traced
+    into ``TPU.PROFILE_DIR`` when it is set."""
     device = next(state.model.parameters()).device
     batch_time = AverageMeter()
     data_time = AverageMeter()
@@ -155,7 +159,7 @@ def train_epoch(step_fn, state, loader, epoch: int, cfg, *, seed: int,
         data_time.update(time.time() - end)
         batch = dict(zip(TRAIN_KEYS, _batch_on(batch, TRAIN_KEYS, device)))
         generator.manual_seed(step_seed(seed, epoch, global_steps, rank))
-        with maybe_trace(cfg.TPU.PROFILE_DIR, step=global_steps):
+        with profiling.maybe_trace(cfg.TPU.PROFILE_DIR, step=global_steps):
             metrics = step_fn(batch)
         batch_time.update(time.time() - end)
         end = time.time()
@@ -163,7 +167,8 @@ def train_epoch(step_fn, state, loader, epoch: int, cfg, *, seed: int,
         completed = it + 1
 
         if it % cfg.PRINT_FREQ == 0 or it >= max_iter - 1:
-            host_metrics = {k: float(v) for k, v in metrics.items()}
+            with profiling.span("otpose.train.fetch_metrics"):
+                host_metrics = {k: float(v) for k, v in metrics.items()}
             for k, v in host_metrics.items():
                 losses[k].update(v)
             if tb_writer is not None:
@@ -197,7 +202,8 @@ def _pipelined_forward(loader, run_fn, fetch_fn, device, shard_fn=None):
     host, which waits for them.  With a ``shard_fn``
     (``parallel/mesh.py::make_eval_shard_fn``) the step runs on the rows it
     gives, and the outputs of a split batch come back from every rank
-    (``distributed.fetch``)."""
+    (``distributed.fetch``).  The spans ``otpose.eval.dispatch`` and
+    ``otpose.eval.fetch`` time ``run_fn`` and the wait for its results."""
     device = torch.device(device)
     pending = None
     for batch, metas in loader:
@@ -206,7 +212,8 @@ def _pipelined_forward(loader, run_fn, fetch_fn, device, shard_fn=None):
         else:
             rows, gather = shard_fn({k: batch[k] for k in ("inputs", "margin")}, device)
             inputs, margin = rows["inputs"], rows["margin"]
-        outs = run_fn(inputs, margin)
+        with profiling.span("otpose.eval.dispatch"):
+            outs = run_fn(inputs, margin)
         if pending is not None:
             yield _fetched(fetch_fn, *pending)
         pending = (outs, gather, batch, metas)
@@ -216,9 +223,10 @@ def _pipelined_forward(loader, run_fn, fetch_fn, device, shard_fn=None):
 
 def _fetched(fetch_fn, outs, gather, batch, metas):
     """``fetch_fn`` of the outputs, every rank's rows first where ``gather``."""
-    if gather:
-        outs = tuple(fetch(o) for o in outs) if isinstance(outs, tuple) else fetch(outs)
-    return fetch_fn(outs), batch, metas
+    with profiling.span("otpose.eval.fetch"):
+        if gather:
+            outs = tuple(fetch(o) for o in outs) if isinstance(outs, tuple) else fetch(outs)
+        return fetch_fn(outs), batch, metas
 
 
 def _to_host(t) -> np.ndarray:
@@ -377,7 +385,9 @@ def evaluate_epoch_decoded(decoded_fn, loader, dataset, cfg, output_dir: str, *,
     ``make_decoded_eval_step`` step of a model on ``device``.  Functionally
     equivalent to ``evaluate_epoch`` (same PCK meter semantics, same poseval
     output, the same ``shard_fn`` and return values; ``DEBUG.VIS_*`` draws
-    on the original frames)."""
+    on the original frames).  Batches [10, 15) are traced into
+    ``TPU.PROFILE_DIR`` when it is set, from the dispatch of the first to
+    the dispatch of the last."""
     device = resolve_device(device)
     batch_time = AverageMeter()
     acc_meter = AverageMeter()
@@ -389,7 +399,14 @@ def evaluate_epoch_decoded(decoded_fn, loader, dataset, cfg, output_dir: str, *,
     idx = 0
     end = time.time()
 
-    pipeline = _pipelined_forward(loader, decoded_fn,
+    dispatched = itertools.count()
+
+    def traced(inputs, margin):
+        with profiling.maybe_trace(cfg.TPU.PROFILE_DIR, step=next(dispatched),
+                                   what="eval_batches"):
+            return decoded_fn(inputs, margin)
+
+    pipeline = _pipelined_forward(loader, traced,
                                   lambda outs: tuple(_to_host(o) for o in outs), device,
                                   shard_fn)
     for it, ((coords, maxvals, raw_coords), batch, metas) in enumerate(pipeline):

@@ -12,6 +12,13 @@ comes from its backward kernel; the fused attention and MLP are eval-only,
 as in JAX.  Every step takes ``seq`` (``parallel/mesh.py::seq_group``), the
 JAX steps' ``seq_axis``: the encoders' blocks then run on this rank's slice
 of the tokens (sequence parallelism).
+
+Spans (``utils/profiling.py``): a train step is ``otpose.train.step`` and
+in it ``otpose.train.forward`` (the forward, the losses and the PCK),
+``otpose.train.backward`` and ``otpose.train.update`` (the BN commit, the
+collectives and the optimizer); an eval step is ``otpose.eval.step``, one
+record however its steps nest, with ``otpose.eval.decode`` in the decoded
+one.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from otpose_tpu_torch.models.losses import st_ohkw_mse_loss
 from otpose_tpu_torch.models.otpose import OTPose, otpose_forward
 from otpose_tpu_torch.ops.heatmap import get_max_preds_device, refine_coords_device
 from otpose_tpu_torch.parallel import distributed
+from otpose_tpu_torch.utils import profiling
 from otpose_tpu_torch.utils.device import resolve_dtype
 
 METRICS = ("final_loss", "ohkm_loss_s", "mse_loss_s", "occ_final_loss", "pck_acc")
@@ -138,7 +146,7 @@ def make_train_step(model: OTPose, optimizer: Optimizer, *, compute_dtype=torch.
 
         return torch.utils.checkpoint.checkpoint(rewound, mb, use_reentrant=False)
 
-    def step(batch):
+    def update(batch):
         b = batch["inputs"].shape[0]
         if b % accum_steps:
             raise ValueError(f"batch size {b} not divisible by accum_steps {accum_steps}")
@@ -149,25 +157,33 @@ def make_train_step(model: OTPose, optimizer: Optimizer, *, compute_dtype=torch.
         sums = None
         with core.use_generator(generator):
             for mb in micro:
-                total, metrics = run(mb)
+                with profiling.span("otpose.train.forward"):
+                    total, metrics = run(mb)
                 after = generator.get_state() if remat and generator is not None else None
-                (total / accum_steps).backward()
+                with profiling.span("otpose.train.backward"):
+                    (total / accum_steps).backward()
                 if after is not None:     # the recompute may stop short of the end
                     generator.set_state(after)
-                core.commit_bn_stats(model)
+                with profiling.span("otpose.train.update"):
+                    core.commit_bn_stats(model)
                 metrics = {k: v.detach().float() for k, v in metrics.items()}
                 sums = metrics if sums is None else {k: sums[k] + v for k, v in metrics.items()}
         out = {k: v / accum_steps for k, v in sums.items()}
-        if distributed.active():
-            # the encoders' partial gradients summed over the seq group, then
-            # the global batch's gradients and metrics, once a step
-            distributed.sum_((p.grad for p in sharded if p.grad is not None), group="seq")
-            distributed.average_(p.grad for p in optimizer.params if p.grad is not None)
-            values = torch.stack(list(out.values()))
-            distributed.average_([values])
-            out = dict(zip(out, values))
-        out["grad_norm"] = optimizer.step()
+        with profiling.span("otpose.train.update"):
+            if distributed.active():
+                # the encoders' partial gradients summed over the seq group, then
+                # the global batch's gradients and metrics, once a step
+                distributed.sum_((p.grad for p in sharded if p.grad is not None), group="seq")
+                distributed.average_(p.grad for p in optimizer.params if p.grad is not None)
+                values = torch.stack(list(out.values()))
+                distributed.average_([values])
+                out = dict(zip(out, values))
+            out["grad_norm"] = optimizer.step()
         return out
+
+    def step(batch):
+        with profiling.step("otpose.train.step"):
+            return update(batch)
 
     return step
 
@@ -184,9 +200,11 @@ def make_eval_step(model: OTPose, *, compute_dtype=torch.float32,
 
     @torch.inference_mode()
     def step(inputs, margin):
-        model.eval()
-        out = otpose_forward(model, inputs, margin, compute_dtype=dtype, fused=fused, seq=seq)
-        return out[0], out[1][:inputs.shape[0]]
+        with profiling.step("otpose.eval.step"):
+            model.eval()
+            out = otpose_forward(model, inputs, margin, compute_dtype=dtype, fused=fused,
+                                 seq=seq)
+            return out[0], out[1][:inputs.shape[0]]
 
     return step
 
@@ -207,9 +225,11 @@ def make_decoded_eval_step(model: OTPose, *, compute_dtype=torch.float32,
 
     @torch.inference_mode()
     def step(inputs, margin):
-        heat = forward(inputs, margin)[0].permute(0, 3, 1, 2)
-        coords, maxvals = refine_coords_device(heat)
-        raw_coords, _ = get_max_preds_device(heat)
-        return coords, maxvals, raw_coords
+        with profiling.step("otpose.eval.step"):
+            heat = forward(inputs, margin)[0].permute(0, 3, 1, 2)
+            with profiling.span("otpose.eval.decode"):
+                coords, maxvals = refine_coords_device(heat)
+                raw_coords, _ = get_max_preds_device(heat)
+            return coords, maxvals, raw_coords
 
     return step

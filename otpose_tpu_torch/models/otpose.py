@@ -14,6 +14,9 @@ ref: model/OTPose.py:180-503.  Forward (ref: 307-394):
      autograd the raw weights go to the wrapper, whose autograd Function
      runs the backward kernel on the card
 
+Step 1 is the span ``otpose.model.hrnet``, steps 2-5 ``otpose.model.encoders``,
+the final convs and step 6 ``otpose.model.refine`` (``utils/profiling.py``).
+
 Train mode is the model's ``train()``; with ``freeze_hrnet`` HRNet runs as a
 frozen submodule (``core.frozen``: running statistics, no update, its output
 detached), as the JAX package's ``Ctx.frozen`` and ``stop_gradient`` do.
@@ -39,6 +42,7 @@ from otpose_tpu_torch.models.hrnet import HRNet, HRNetSpec
 from otpose_tpu_torch.models.jax_bridge import is_channel_param
 from otpose_tpu_torch.models.rsb import RSBChain
 from otpose_tpu_torch.ops.cuda.deform_conv import modulated_deform_conv_multi, pack_dcn_weights
+from otpose_tpu_torch.utils import profiling
 
 
 def _check_aggregation(kind: str) -> str:
@@ -204,64 +208,68 @@ def otpose_forward(model: OTPose, x, margin, compute_dtype=torch.float32,
     spec = model.spec
     b = x.shape[0]
     j = spec.num_joints
-    frames = torch.cat(torch.split(x.permute(0, 3, 1, 2), 3, dim=1), dim=0)
-    frames = frames.to(compute_dtype).contiguous()
-    if spec.freeze_hrnet:
-        with core.frozen(model.rough_pose_estimation_net):
-            rough = model.rough_pose_estimation_net(frames)    # (5B, J, h, w)
-    else:
-        rough = model.rough_pose_estimation_net(frames)
-    h, w = rough.shape[2:]
-    cur, prev, nxt, pprev, nnext = torch.split(rough, b, dim=0)
+    with profiling.span("otpose.model.hrnet"):
+        frames = torch.cat(torch.split(x.permute(0, 3, 1, 2), 3, dim=1), dim=0)
+        frames = frames.to(compute_dtype).contiguous()
+        if spec.freeze_hrnet:
+            with core.frozen(model.rough_pose_estimation_net):
+                rough = model.rough_pose_estimation_net(frames)    # (5B, J, h, w)
+        else:
+            rough = model.rough_pose_estimation_net(frames)
+        h, w = rough.shape[2:]
+        cur, prev, nxt, pprev, nnext = torch.split(rough, b, dim=0)
 
-    total_b = cur + prev + nxt + pprev + nnext
-    squeezed = total_b.sum(dim=1, keepdim=True).expand_as(total_b)
-    intersection = total_b * squeezed
+    with profiling.span("otpose.model.encoders"):
+        total_b = cur + prev + nxt + pprev + nnext
+        squeezed = total_b.sum(dim=1, keepdim=True).expand_as(total_b)
+        intersection = total_b * squeezed
 
-    context_encoding = _tokens_to_map(model.flow_encoder(total_b, fused=fused, seq=seq), h, w)
+        context_encoding = _tokens_to_map(model.flow_encoder(total_b, fused=fused, seq=seq), h, w)
 
-    margin = margin.to(device=total_b.device, dtype=total_b.dtype)
-    prev = prev / (margin[:, 0] + 1)[:, None, None, None]
-    nxt = nxt / (margin[:, 1] + 1)[:, None, None, None]
-    pprev = pprev / (margin[:, 2] + 1)[:, None, None, None]
-    nnext = nnext / (margin[:, 3] + 1)[:, None, None, None]
+        margin = margin.to(device=total_b.device, dtype=total_b.dtype)
+        prev = prev / (margin[:, 0] + 1)[:, None, None, None]
+        nxt = nxt / (margin[:, 1] + 1)[:, None, None, None]
+        pprev = pprev / (margin[:, 2] + 1)[:, None, None, None]
+        nnext = nnext / (margin[:, 3] + 1)[:, None, None, None]
 
-    prev_b = cur + (prev + pprev)
-    next_b = cur + (nxt + nnext)
-    close_b = cur + (nxt + prev)
-    far_b = cur + (nnext + pprev)
-    prev_int, next_int = prev_b * squeezed, next_b * squeezed
-    close_int, far_int = close_b * squeezed, far_b * squeezed
+        prev_b = cur + (prev + pprev)
+        next_b = cur + (nxt + nnext)
+        close_b = cur + (nxt + prev)
+        far_b = cur + (nnext + pprev)
+        prev_int, next_int = prev_b * squeezed, next_b * squeezed
+        close_int, far_int = close_b * squeezed, far_b * squeezed
 
-    def stack8(feats):    # joint-major channels: j * 8 + f (ref: OTPose.py:356-359)
-        return torch.stack(feats, dim=2).reshape(b, j * spec.num_frames, h, w)
+        def stack8(feats):    # joint-major channels: j * 8 + f (ref: OTPose.py:356-359)
+            return torch.stack(feats, dim=2).reshape(b, j * spec.num_frames, h, w)
 
-    x1 = stack8([intersection, context_encoding, prev_b, far_b, close_b,
-                 prev_int, far_int, close_int])
-    x2 = stack8([intersection, context_encoding, next_b, close_b, far_b,
-                 next_int, close_int, far_int])
+        x1 = stack8([intersection, context_encoding, prev_b, far_b, close_b,
+                     prev_int, far_int, close_int])
+        x2 = stack8([intersection, context_encoding, next_b, close_b, far_b,
+                     next_int, close_int, far_int])
 
-    commute = spec.hrnet.final_conv_kernel == 1
-    x1_feats = model.temporal_encoder1(x1, upsample=not commute, fused=fused, seq=seq)
-    x2_feats = model.temporal_encoder2(x2, upsample=not commute, fused=fused, seq=seq)
-    if commute:
-        y1 = _final_layer_ct(model.final_layer1, x1_feats, h, w)
-        y2 = _final_layer_ct(model.final_layer2, x2_feats, h, w)
-    else:
-        y1 = model.final_layer1(_tokens_to_map(x1_feats, h, w))
-        y2 = model.final_layer2(_tokens_to_map(x2_feats, h, w))
-    branches = torch.cat([y1, y2], dim=1)
+        commute = spec.hrnet.final_conv_kernel == 1
+        x1_feats = model.temporal_encoder1(x1, upsample=not commute, fused=fused, seq=seq)
+        x2_feats = model.temporal_encoder2(x2, upsample=not commute, fused=fused, seq=seq)
 
-    def_heatmaps = model.def_fuse(total_b)
-    trans = model.offset_mask_combine_conv(torch.cat([branches, def_heatmaps], dim=1))
-    offsets = [m["0"](trans).contiguous() for m in model.offsets_list]
-    masks = [m["0"](trans).contiguous() for m in model.masks_list]
-    weights, biases, packed = dcn_weights(model)
-    output = modulated_deform_conv_multi(def_heatmaps.contiguous(), offsets, masks, weights,
-                                         biases, spec.dilations, packed=packed).float()
-    nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
-    return tuple(nhwc(t) for t in (output, rough, intersection, prev_b,
-                                   context_encoding, squeezed, total_b))
+    with profiling.span("otpose.model.refine"):
+        if commute:
+            y1 = _final_layer_ct(model.final_layer1, x1_feats, h, w)
+            y2 = _final_layer_ct(model.final_layer2, x2_feats, h, w)
+        else:
+            y1 = model.final_layer1(_tokens_to_map(x1_feats, h, w))
+            y2 = model.final_layer2(_tokens_to_map(x2_feats, h, w))
+        branches = torch.cat([y1, y2], dim=1)
+
+        def_heatmaps = model.def_fuse(total_b)
+        trans = model.offset_mask_combine_conv(torch.cat([branches, def_heatmaps], dim=1))
+        offsets = [m["0"](trans).contiguous() for m in model.offsets_list]
+        masks = [m["0"](trans).contiguous() for m in model.masks_list]
+        weights, biases, packed = dcn_weights(model)
+        output = modulated_deform_conv_multi(def_heatmaps.contiguous(), offsets, masks, weights,
+                                             biases, spec.dilations, packed=packed).float()
+        nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
+        return tuple(nhwc(t) for t in (output, rough, intersection, prev_b,
+                                       context_encoding, squeezed, total_b))
 
 
 @torch.no_grad()

@@ -33,7 +33,8 @@ columns (O rounded up to 16: 144 at 133 joints); the forward takes
 ``WIDE_COLS`` columns a launch, the backward at most ``MAX_BWD_OUTPUTS``
 outputs a pass (past them a pass a range of outputs, ``backward_ranges``).
 D above ``MAX_DILATIONS`` (``WIDE_DILATIONS`` on the wide paths) is a group
-of launches, that many dilations each.  ``launches`` / ``bwd_launches``
+of launches, that many dilations each.  The counters
+``deform_conv.launches`` / ``deform_conv.bwd_launches`` (``utils/profiling.py``)
 count each launch of the main kernel (``kernel_launches``,
 ``backward_launches``): one a call at the flagship's O = 17, D = 5 and at
 133 joints.  The make_pallas3 mode (``deform_conv_fused``) keeps a launch a
@@ -50,13 +51,8 @@ from dataclasses import dataclass
 import torch
 
 from otpose_tpu_torch.ops.cuda import build
+from otpose_tpu_torch.utils import profiling
 
-# op calls (either device), kernel launches (CUDA only; the forward's and the
-# backward's) and packs made
-calls = 0
-launches = 0
-bwd_launches = 0
-packs = 0
 
 EXACT, PALLAS3 = 0, 1          # the kernel's rounding modes
 OUTPUT_PADS = (8, 20, 32)      # O is zero-padded to the first of these that holds it,
@@ -152,7 +148,6 @@ def backward_launches(d: int, o: int) -> int:
 @torch.no_grad()
 def pack_dcn_weights(weights, biases, device=None) -> DcnPack:
     """Weights (D, O, C, 3, 3) and biases (D, O) in the kernel's layout."""
-    global packs
     d, o, c = weights.shape[:3]
     if tuple(weights.shape) != (d, o, c, 3, 3) or tuple(biases.shape) != (d, o):
         raise ValueError("deform conv: weights must be (D, O, C, 3, 3) and biases (D, O)")
@@ -163,7 +158,7 @@ def pack_dcn_weights(weights, biases, device=None) -> DcnPack:
         d, c, 9, o)
     bias = torch.zeros(op, device=device)
     bias[:o] = biases.to(device=device, dtype=torch.float32).mean(0)
-    packs += 1
+    profiling.count("deform_conv.packs")
     return DcnPack(d, c, o, w, bias)
 
 
@@ -445,8 +440,7 @@ def deform_conv_op(x: torch.Tensor, offsets: list[torch.Tensor], masks: list[tor
                    pack_w: torch.Tensor, pack_bias: torch.Tensor, weights: torch.Tensor | None,
                    biases: torch.Tensor | None, dilations: list[int], o: int) -> torch.Tensor:
     """CPU: the plain version, from the raw weights where they are given."""
-    global calls
-    calls += 1
+    profiling.count("deform_conv.calls")
     if weights is None:
         weights, biases = unpack(pack_of(pack_w, pack_bias, o))
     return modulated_deform_conv_multi_plain(x, offsets, masks, weights, biases, dilations)
@@ -454,11 +448,10 @@ def deform_conv_op(x: torch.Tensor, offsets: list[torch.Tensor], masks: list[tor
 
 @deform_conv_op.register_kernel("cuda")
 def _deform_conv_cuda(x, offsets, masks, pack_w, pack_bias, weights, biases, dilations, o):
-    global calls, launches
-    calls += 1
+    profiling.count("deform_conv.calls")
     out = launch(EXACT, "modulated_deform_conv_multi", x, offsets, masks, None, None, dilations,
                  pack_of(pack_w, pack_bias, o))
-    launches += kernel_launches(len(dilations), o, EXACT)
+    profiling.count("deform_conv.launches", kernel_launches(len(dilations), o, EXACT))
     return out
 
 
@@ -500,10 +493,9 @@ def deform_conv_bwd_op(g: torch.Tensor, x: torch.Tensor, offsets: list[torch.Ten
 
 @deform_conv_bwd_op.register_kernel("cuda")
 def _deform_conv_bwd_cuda(g, x, offsets, masks, pack_w, pack_bias, weights, biases, dilations, o):
-    global bwd_launches
     dx, d_off, d_mask, dw, dbias = launch_backward(g, x, offsets, masks,
                                                    pack_of(pack_w, pack_bias, o), dilations)
-    bwd_launches += backward_launches(len(dilations), o)
+    profiling.count("deform_conv.bwd_launches", backward_launches(len(dilations), o))
     if weights is not None:
         dw, dbias = dw.to(weights.dtype), dbias.to(biases.dtype)
     return dx, d_off, d_mask, dw, dbias

@@ -24,10 +24,7 @@ import torch
 from otpose_tpu_torch.ops.cuda import build
 from otpose_tpu_torch.ops.cuda.deform_conv import (PALLAS3, DcnPack, kernel_launches, launch,
                                                    pack_dcn_weights, pack_of, unpack)
-
-# op calls (either device) and kernel launches (CUDA only)
-calls = 0
-launches = 0
+from otpose_tpu_torch.utils import profiling
 
 
 def _tent_sample(xf, sy, sx, h: int, w: int, rnd):
@@ -82,19 +79,17 @@ def deform_conv_fused_op(x: torch.Tensor, offsets: list[torch.Tensor],
                          pack_bias: torch.Tensor, dilations: list[int], o: int) -> torch.Tensor:
     """CPU: the plain version from the pack (``pack_w``, ``pack_bias`` and O
     of a ``DcnPack``)."""
-    global calls
-    calls += 1
+    profiling.count("deform_conv_fused.calls")
     return deform_conv_fused_plain(x, offsets, masks, *unpack(pack_of(pack_w, pack_bias, o)),
                                    dilations)
 
 
 @deform_conv_fused_op.register_kernel("cuda")
 def _deform_conv_fused_cuda(x, offsets, masks, pack_w, pack_bias, dilations, o):
-    global calls, launches
-    calls += 1
+    profiling.count("deform_conv_fused.calls")
     out = launch(PALLAS3, "deform_conv_fused", x, offsets, masks, None, None, dilations,
                  pack_of(pack_w, pack_bias, o))
-    launches += kernel_launches(len(dilations), o, PALLAS3)
+    profiling.count("deform_conv_fused.launches", kernel_launches(len(dilations), o, PALLAS3))
     return out
 
 

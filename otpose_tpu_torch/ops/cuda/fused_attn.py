@@ -37,13 +37,8 @@ import torch
 
 from otpose_tpu_torch.ops import ct
 from otpose_tpu_torch.ops.cuda import build
+from otpose_tpu_torch.utils import profiling
 
-# op calls (either device), kernel launches (CUDA only; wide_launches: those
-# of them on the wide path) and packs made
-calls = 0
-launches = 0
-wide_launches = 0
-packs = 0
 
 CHANNEL_ALIGN = {torch.bfloat16: 16, torch.float32: 8}   # C padded to the mma depth
 MAX_CHANNELS = 160     # kMaxCp: the padded C the narrow kernels hold
@@ -181,7 +176,6 @@ def pack_attn_weights(ln1_w, ln1_b, dw_q, dw_k, dw_v, nq_w, nq_b, nk_w, nk_b, nv
                       wq, bq, wk, bk, wv, bv, dtype, device=None) -> AttnPack:
     """The weights of ``fused_attn_ct`` (same order) in the kernel's layout
     for compute dtype ``dtype``."""
-    global packs
     build.dtype_code(dtype)
     c = wq.shape[0]
     device = wq.device if device is None else device
@@ -200,7 +194,7 @@ def pack_attn_weights(ln1_w, ln1_b, dw_q, dw_k, dw_v, nq_w, nq_b, nk_w, nk_b, nv
     pwp = torch.zeros(3, cp, cp, device=device, dtype=dtype)
     pbp = torch.zeros(3, cp, device=device)
     pwp[:, :c, :c], pbp[:, :c] = pw.reshape(3, c, c), pb
-    packs += 1
+    profiling.count("fused_attn.packs")
     return AttnPack(dtype, c, vec(ln1_w, c, "ln1.weight"), vec(ln1_b, c, "ln1.bias"),
                     dw.reshape(3, c, 3), nw, nb, pwp, pbp)
 
@@ -221,8 +215,7 @@ def fused_attn_op(x: torch.Tensor, ln1_w: torch.Tensor, ln1_b: torch.Tensor, dw:
                   nw: torch.Tensor, nb: torch.Tensor, pw: torch.Tensor, pb: torch.Tensor,
                   n_head: int) -> torch.Tensor:
     """The tensors of an ``AttnPack``.  CPU: the plain version."""
-    global calls
-    calls += 1
+    profiling.count("fused_attn.calls")
     c = ln1_w.numel()
     q, k, v = ((dw[p].reshape(c, 1, 3), nw[p], nb[p], pw[p, :c, :c, None], pb[p, :c])
                for p in range(3))
@@ -232,8 +225,7 @@ def fused_attn_op(x: torch.Tensor, ln1_w: torch.Tensor, ln1_b: torch.Tensor, dw:
 
 @fused_attn_op.register_kernel("cuda")
 def _fused_attn_cuda(x, ln1_w, ln1_b, dw, nw, nb, pw, pb, n_head):
-    global calls, launches, wide_launches
-    calls += 1
+    profiling.count("fused_attn.calls")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("fused_attn_ct: x must be a contiguous (B, C, T) tensor")
     bsz, c, t = x.shape
@@ -275,8 +267,9 @@ def _fused_attn_cuda(x, ln1_w, ln1_b, dw, nw, nb, pw, pb, n_head):
         err = lib.otp_fused_attn_wide(*ptrs, bsz, c, pw.shape[1], t, n_head, scale, nsplit,
                                       kspan, code, build.stream_ptr(dev))
     build.check(lib, err, "fused_attn_ct")
-    launches += 1
-    wide_launches += not is_narrow
+    profiling.count("fused_attn.launches")
+    if not is_narrow:
+        profiling.count("fused_attn.wide_launches")
     return out
 
 

@@ -27,13 +27,8 @@ import torch
 
 from otpose_tpu_torch.ops import ct
 from otpose_tpu_torch.ops.cuda import build
+from otpose_tpu_torch.utils import profiling
 
-# op calls (either device), kernel launches (CUDA only; wide_launches: those
-# of them on the wide path) and packs made
-calls = 0
-launches = 0
-wide_launches = 0
-packs = 0
 
 CHANNEL_ALIGN = {torch.bfloat16: 16, torch.float32: 8}   # C padded to the mma depth
 HIDDEN_TILE = 32      # the kernels stream W1/W2 in tiles of 32 hidden rows
@@ -128,7 +123,6 @@ def pack_mlp_weights(ln_w, ln_b, w1, b1, w2, b2, dtype, scale=None, device=None)
     """The weights of ``fused_mlp_residual_ct`` in the kernel's layout for
     compute dtype ``dtype``.  ``scale`` (C values), the drop-path scale, is
     folded into W2 and b2 in f32, before they are rounded to ``dtype``."""
-    global packs
     build.dtype_code(dtype)
     hid, c = w1.shape[:2]
     if w1.numel() != hid * c or w2.numel() != c * hid or tuple(w2.shape[:2]) != (c, hid):
@@ -152,7 +146,7 @@ def pack_mlp_weights(ln_w, ln_b, w1, b1, w2, b2, dtype, scale=None, device=None)
     b1p[:hid], b2p[:c] = rounded(b1f), rounded(b2f)
     if dtype == torch.float32 and cp <= MAX_CHANNELS:
         w2p = permute_hidden(w2p).contiguous()
-    packs += 1
+    profiling.count("fused_mlp.packs")
     return MlpPack(dtype, c, hid, f32(ln_w, c, "ln weight"), f32(ln_b, c, "ln bias"),
                    w1p, b1p, w2p, b2p)
 
@@ -168,8 +162,7 @@ def fused_mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2) -> torch.Tensor:
 def fused_mlp_op(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
                  b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, hid: int) -> torch.Tensor:
     """The tensors of an ``MlpPack`` and its H.  CPU: the plain version."""
-    global calls
-    calls += 1
+    profiling.count("fused_mlp.calls")
     c = ln_w.numel()
     if w1.dtype == torch.float32 and w2.shape[0] <= MAX_CHANNELS:
         w2 = unpermute_hidden(w2)
@@ -179,8 +172,7 @@ def fused_mlp_op(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: to
 
 @fused_mlp_op.register_kernel("cuda")
 def _fused_mlp_cuda(x, ln_w, ln_b, w1, b1, w2, b2, hid):
-    global calls, launches, wide_launches
-    calls += 1
+    profiling.count("fused_mlp.calls")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("fused_mlp_residual_ct: x must be a contiguous (B, C, T) tensor")
     bsz, c, t = x.shape
@@ -205,8 +197,9 @@ def _fused_mlp_cuda(x, ln_w, ln_b, w1, b1, w2, b2, hid):
         err = lib.otp_fused_mlp_wide(*ptrs, scratch["xn"].data_ptr(), scratch["g"].data_ptr(),
                                      w.data_ptr(), bsz, c, cp, hp, t, code, stream)
     build.check(lib, err, "fused_mlp_residual_ct")
-    launches += 1
-    wide_launches += cp > MAX_CHANNELS
+    profiling.count("fused_mlp.launches")
+    if cp > MAX_CHANNELS:
+        profiling.count("fused_mlp.wide_launches")
     return out
 
 

@@ -25,12 +25,10 @@ import ctypes
 import torch
 
 from otpose_tpu_torch.ops.cuda import build
+from otpose_tpu_torch.utils import profiling
 
 MODES = ("right", "left", "rotate", "handoff")
 
-# op calls (either device) and kernel launches (CUDA only)
-calls = 0
-launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -55,15 +53,13 @@ def token_shift_plain(x: torch.Tensor, mode: str) -> torch.Tensor:
 @torch.library.custom_op("otpose::token_shift", mutates_args=(), device_types="cpu")
 def token_shift_op(x: torch.Tensor, mode: str) -> torch.Tensor:
     """CPU: the plain version."""
-    global calls
-    calls += 1
+    profiling.count("token_shift.calls")
     return token_shift_plain(x, mode)
 
 
 @token_shift_op.register_kernel("cuda")
 def _token_shift_cuda(x, mode):
-    global calls, launches
-    calls += 1
+    profiling.count("token_shift.calls")
     if not x.is_contiguous():
         raise ValueError("token_shift: x must be contiguous")
     build.dtype_code(x.dtype)             # raises unless float32 or bfloat16
@@ -72,7 +68,7 @@ def _token_shift_cuda(x, mode):
     err = lib.otp_token_shift(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
                               x.element_size(), MODES.index(mode), build.stream_ptr(x.device))
     build.check(lib, err, "token_shift")
-    launches += 1
+    profiling.count("token_shift.launches")
     return out
 
 

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from otpose_tpu_torch.ops.cuda import fused_mlp
+from otpose_tpu_torch.utils import profiling
 
 PARAMS = ("ln_w", "ln_b", "w1", "b1", "w2", "b2")
 
@@ -173,9 +174,9 @@ def run(*, batch: int = 8, channels: int = 136, tokens: int = 6912, blocks: int 
     plain_ms, fused_ms, launches = [], [], 0
     for rnd in range(rounds):
         tp = _ms(lambda: value_and_grad(mlp_block_plain, x, params), iters, dev)
-        before = fused_mlp.launches
+        before = profiling.counters()
         tf = _ms(lambda: value_and_grad(mlp_block_fused, x, params), iters, dev)
-        launches += fused_mlp.launches - before
+        launches += profiling.since(before)["fused_mlp.launches"]
         plain_ms.append(tp)
         fused_ms.append(tf)
         log(f"round {rnd}: plain {tp:.3f} ms   fused (autograd Function) {tf:.3f} ms   "

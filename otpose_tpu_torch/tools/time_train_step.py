@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import argparse
 import copy
-import importlib
 import time
 
 import torch
@@ -31,9 +30,11 @@ KERNELS = ("fused_attn", "fused_mlp", "deform_conv", "deform_conv_fused", "token
 
 
 def _counts() -> dict:
-    mods = {k: importlib.import_module(f"otpose_tpu_torch.ops.cuda.{k}") for k in KERNELS}
-    out = {k: m.launches for k, m in mods.items()}
-    out["deform_conv_bwd"] = mods["deform_conv"].bwd_launches
+    from otpose_tpu_torch.utils import profiling
+
+    made = profiling.counters()
+    out = {k: made.get(f"{k}.launches", 0) for k in KERNELS}
+    out["deform_conv_bwd"] = made.get("deform_conv.bwd_launches", 0)
     return out
 
 

@@ -1,0 +1,10 @@
+"""``refine_host_ms_per_batch.eval``: Host milliseconds a batch in the program's
+span ``otpose.model.refine`` (the final layers, ``def_fuse``, the offset and
+mask convs and the DCN) of the decoded eval step, median over the window's
+batches."""
+
+from portbench import spans
+
+
+def read(cell):
+    return spans.stage_ms("otpose.eval.step", "otpose.model.refine")

@@ -52,6 +52,7 @@ torch.set_num_threads(1)
 
 from otpose_tpu_torch.config import default_parse_args, get_cfg  # noqa: E402
 from otpose_tpu_torch.parallel import distributed  # noqa: E402
+from otpose_tpu_torch.utils import profiling  # noqa: E402
 
 
 def _cfg(path):
@@ -237,7 +238,6 @@ def seq_eval(spec):
     from otpose_tpu_torch.engine.trainer import make_decoded_eval_step, make_eval_step
     from otpose_tpu_torch.models import core
     from otpose_tpu_torch.models.factory import build_model
-    from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
     from otpose_tpu_torch.parallel.mesh import make_eval_shard_fn
 
     class Idents:
@@ -263,8 +263,7 @@ def seq_eval(spec):
                  "heatmap": make_eval_step(model, seq=seq),
                  "flip": make_flip_eval_step(model, seq=seq)}
         for name, step in steps.items():
-            for mod in (fused_attn, fused_mlp, deform_conv):
-                mod.calls = 0
+            calls_before = profiling.counters()
             before = dict(distributed.COUNTS)
             rows, sharded = shard_fn({"inputs": blob["inputs"], "margin": blob["margin"]},
                                      "cpu")
@@ -272,8 +271,8 @@ def seq_eval(spec):
             res[name] = dict(
                 rows=len(rows["inputs"]), sharded=sharded,
                 out=[distributed.fetch(o) if sharded else o.numpy() for o in outs],
-                calls={m.__name__.split(".")[-1]: m.calls
-                       for m in (fused_attn, fused_mlp, deform_conv)},
+                calls={op: profiling.since(calls_before)[f"{op}.calls"]
+                       for op in ("fused_attn", "fused_mlp", "deform_conv")},
                 collectives={k: distributed.COUNTS[k] - before[k] for k in before})
         cfg.TPU.DEVICE_PREPROCESS = "off"
         loader = make_loader(cfg, Idents(), 8, shuffle=False, drop_last=True,

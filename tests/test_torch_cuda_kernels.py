@@ -33,12 +33,19 @@ import torch
 
 from otpose_tpu_torch.ops.cuda import (build, deform_conv, deform_conv_fused, fused_attn,
                                        fused_mlp, token_shift)
+from otpose_tpu_torch.utils import profiling
 from otpose_tpu_torch.utils.testing import dcn_case, dcn_gradients, dcn_inside_share
 
 pytestmark = pytest.mark.cuda
 
 # max|kernel - plain| as a share of max(1, max|plain|); see chip_smoke.py
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _count(module, what: str = "launches") -> int:
+    """A kernel's counter so far, ``<module>.<what>`` in ``utils/profiling.py``'s
+    registry."""
+    return profiling.counters().get(f"{module.__name__.rsplit('.', 1)[-1]}.{what}", 0)
 
 
 @pytest.fixture(autouse=True)
@@ -78,10 +85,10 @@ def _attn_args(b, c, t, n_head, dtype, gen):
 def test_fused_attn_matches_plain(b, c, t, n_head, dtype):
     gen = torch.Generator(device="cuda").manual_seed(0)
     args = _attn_args(b, c, t, n_head, dtype, gen)
-    launches = fused_attn.launches
+    launches = _count(fused_attn)
     got = fused_attn.fused_attn_ct(*args)
     torch.cuda.synchronize()
-    assert fused_attn.launches == launches + 1
+    assert _count(fused_attn) == launches + 1
     _close(got, fused_attn.fused_attn_plain(*args), dtype)
 
 
@@ -123,10 +130,10 @@ def test_fused_mlp_matches_plain(b, c, t, dtype):
 def test_fused_mlp_bf16_ragged(b, c, t, dtype):
     gen = torch.Generator(device="cuda").manual_seed(5)
     args = _mlp_args(b, c, t, dtype, gen)
-    launches = fused_mlp.launches
+    launches = _count(fused_mlp)
     got = fused_mlp.fused_mlp_residual_ct(*args)
     torch.cuda.synchronize()
-    assert fused_mlp.launches == launches + 1
+    assert _count(fused_mlp) == launches + 1
     want = fused_mlp.fused_mlp_plain(*args)
     _close(got, want, dtype)
     if dtype == torch.bfloat16 and got.numel() >= 10000:   # chip_smoke.py's rounding check
@@ -205,10 +212,10 @@ WIDE_MLP = [(2, 168, 100), (1, 200, 33), (2, 208, 6912), (1, 1064, 300), (2, 106
 def test_wide_fused_attn_matches_plain(b, c, t, n_head, dtype):
     gen = torch.Generator(device="cuda").manual_seed(c + t)
     args = _attn_args(b, c, t, n_head, dtype, gen)
-    launches = fused_attn.launches
+    launches = _count(fused_attn)
     got = fused_attn.fused_attn_ct(*args)
     torch.cuda.synchronize()
-    assert fused_attn.launches == launches + 1
+    assert _count(fused_attn) == launches + 1
     assert fused_attn.narrow(c, n_head, dtype) == (c == 144 and dtype == torch.bfloat16)
     _close(got, fused_attn.fused_attn_plain(*args), dtype)
     assert torch.equal(fused_attn.fused_attn_ct(*args), got)
@@ -219,10 +226,10 @@ def test_wide_fused_attn_matches_plain(b, c, t, n_head, dtype):
 def test_wide_fused_mlp_matches_plain(b, c, t, dtype):
     gen = torch.Generator(device="cuda").manual_seed(c + t)
     args = _mlp_args(b, c, t, dtype, gen)
-    launches = fused_mlp.launches
+    launches = _count(fused_mlp)
     got = fused_mlp.fused_mlp_residual_ct(*args)
     torch.cuda.synchronize()
-    assert fused_mlp.launches == launches + 1
+    assert _count(fused_mlp) == launches + 1
     want = fused_mlp.fused_mlp_plain(*args)
     _close(got, want, dtype)
     if dtype == torch.bfloat16 and got.numel() >= 10000:   # chip_smoke.py's rounding check
@@ -273,10 +280,10 @@ def _dcn_args(b, c, o, h, w, dilations, dtype, seed, off_scale=3.0, wdtype=None)
 
 def _dcn_check(mode, args, dtype):
     module, kern, plain = DCN_MODES[mode]
-    launches = module.launches
+    launches = _count(module)
     got = kern(*args)
     torch.cuda.synchronize()
-    assert module.launches == launches + 1
+    assert _count(module) == launches + 1
     _close(got, plain(*args), dtype)
     return got
 
@@ -346,14 +353,14 @@ def test_grouped_deform_conv_matches_plain(mode, b, c, o, h, w, dilations, dtype
     a second call."""
     module, kern, plain = DCN_MODES[mode]
     args = _dcn_args(b, c, o, h, w, dilations, dtype, seed=16)
-    launches = module.launches
+    launches = _count(module)
     got = kern(*args)
     torch.cuda.synchronize()
     groups = deform_conv.kernel_launches(len(dilations), o, DCN_MODE_CODES[mode])
     d = len(dilations)
     assert groups == (-(-d // deform_conv.WIDE_DILATIONS) if mode == "exact"
                       else -(-d // deform_conv.MAX_DILATIONS) * (deform_conv.output_pad(o) // 32))
-    assert module.launches == launches + groups
+    assert _count(module) == launches + groups
     _close(got, plain(*args), dtype)
     assert torch.equal(kern(*args), got)
 
@@ -375,10 +382,10 @@ def test_wide_deform_conv_samples_once_for_every_output(b, c, o, h, w, dilations
     bars: 1e-4 of the scale in f32; in bf16 5e-2 and at most 5% of the
     outputs differing), and the same bits from a second call."""
     args = _dcn_args(b, c, o, h, w, dilations, dtype, seed=19)
-    launches = deform_conv.launches
+    launches = _count(deform_conv)
     got = deform_conv.modulated_deform_conv_multi(*args)
     torch.cuda.synchronize()
-    assert deform_conv.launches == launches + (-(-len(dilations) // deform_conv.WIDE_DILATIONS)
+    assert _count(deform_conv) == launches + (-(-len(dilations) // deform_conv.WIDE_DILATIONS)
                                                * -(-deform_conv.product_cols(o) // 144))
     want = deform_conv.modulated_deform_conv_multi_plain(*args)
     _close(got, want, dtype)
@@ -416,10 +423,10 @@ def _wide_backward_check(b, c, o, h, w, dilations, dtype, launched):
     gen = torch.Generator(device="cuda").manual_seed(o + b + len(dilations))
     args = dcn_case(b, c, o, h, w, dilations, dtype, gen)
     g = torch.randn(b, o, h, w, generator=gen, device="cuda").to(dtype)
-    launches = deform_conv.bwd_launches
+    launches = _count(deform_conv, "bwd_launches")
     got = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
     torch.cuda.synchronize()
-    assert deform_conv.bwd_launches == launches + launched
+    assert _count(deform_conv, "bwd_launches") == launches + launched
     assert deform_conv.backward_launches(len(dilations), o) == launched
     want = dcn_gradients(deform_conv.modulated_deform_conv_multi_plain, args, g)
     d = len(dilations)
@@ -555,11 +562,11 @@ def test_deform_conv_backward_matches_plain_autograd(b, c, o, h, w, dilations, d
     args = dcn_case(b, c, o, h, w, dilations, dtype, gen)
     assert dcn_inside_share(args) > 0.25
     g = torch.randn(b, o, h, w, generator=gen, device="cuda").to(dtype)
-    launches = deform_conv.bwd_launches
+    launches = _count(deform_conv, "bwd_launches")
     got = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
     want = dcn_gradients(deform_conv.modulated_deform_conv_multi_plain, args, g)
     torch.cuda.synchronize()
-    assert deform_conv.bwd_launches == launches + 1
+    assert _count(deform_conv, "bwd_launches") == launches + 1
     d = len(dilations)
     for name, gk, gp in zip(GRAD_NAMES, _grad_groups(got, d), _grad_groups(want, d)):
         assert gk.dtype == gp.dtype and gk.shape == gp.shape, name
@@ -588,13 +595,13 @@ def test_grouped_deform_conv_backward_matches_plain_autograd(b, c, o, h, w, dila
     args = dcn_case(b, c, o, h, w, dilations, dtype, gen)
     assert dcn_inside_share(args) > 0.25
     g = torch.randn(b, o, h, w, generator=gen, device="cuda").to(dtype)
-    launches = deform_conv.bwd_launches
+    launches = _count(deform_conv, "bwd_launches")
     got = dcn_gradients(deform_conv.modulated_deform_conv_multi, args, g)
     torch.cuda.synchronize()
     groups = deform_conv.backward_launches(len(dilations), o)
     assert groups == -(-len(dilations) // (deform_conv.WIDE_DILATIONS if o > 32
                                             else deform_conv.MAX_DILATIONS))
-    assert deform_conv.bwd_launches == launches + groups
+    assert _count(deform_conv, "bwd_launches") == launches + groups
     want = dcn_gradients(deform_conv.modulated_deform_conv_multi_plain, args, g)
     d = len(dilations)
     for name, gk, gp in zip(GRAD_NAMES, _grad_groups(got, d), _grad_groups(want, d)):
@@ -705,11 +712,11 @@ def test_tiny_eval_on_the_card_equals_the_cpu(joints, fused):
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        before = (fused_attn.launches, fused_mlp.launches, deform_conv.launches)
+        before = (_count(fused_attn), _count(fused_mlp), _count(deform_conv))
         with torch.no_grad():
             got = otpose_forward(model, x.cuda(), margin.cuda())
             torch.cuda.synchronize()
-            after = (fused_attn.launches, fused_mlp.launches, deform_conv.launches)
+            after = (_count(fused_attn), _count(fused_mlp), _count(deform_conv))
             want = otpose_forward(cpu, x, margin)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
@@ -732,9 +739,9 @@ def test_train_mode_block_takes_the_plain_path():
     with torch.no_grad():
         for p in blk.parameters():
             p.normal_(0, 0.1)
-    launches = (fused_attn.launches, fused_mlp.launches)
+    launches = (_count(fused_attn), _count(fused_mlp))
     blk(torch.randn(2, 136, 96, device="cuda")).sum().backward()
-    assert (fused_attn.launches, fused_mlp.launches) == launches
+    assert (_count(fused_attn), _count(fused_mlp)) == launches
     assert all(p.grad is not None and p.grad.abs().sum() > 0 for p in blk.parameters())
 
 
@@ -798,11 +805,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     w = torch.randn(4640, 1160, 1, device="cuda")
     ln = torch.ones(1160, device="cuda")
     assert not fused_mlp.supports(1160, torch.float32)
-    launches = fused_mlp.launches
+    launches = _count(fused_mlp)
     with pytest.raises(ValueError, match="C=1160"):
         fused_mlp.fused_mlp_residual_ct(x, ln, ln, w, w[:, 0, 0], w.reshape(1160, 4640, 1),
                                         ln)
-    assert fused_mlp.launches == launches
+    assert _count(fused_mlp) == launches
     for dtype in (torch.float32, torch.bfloat16):      # heads that do not divide C
         args = _attn_args(1, 200, 8, 2, dtype, torch.Generator(device="cuda"))
         args[-1] = 3
@@ -865,11 +872,11 @@ def test_exported_program_on_the_card_equals_the_live_step(tmp_path):
     gen = torch.Generator(device="cuda").manual_seed(10)
     x = torch.randn(2, 32, 32, 15, generator=gen, device="cuda")
     margin = torch.ones(2, 4, device="cuda")
-    launches = (fused_attn.launches, fused_mlp.launches, deform_conv.launches)
+    launches = (_count(fused_attn), _count(fused_mlp), _count(deform_conv))
     got = loaded(x, margin)
     torch.cuda.synchronize()
-    assert (fused_attn.launches - launches[0], fused_mlp.launches - launches[1],
-            deform_conv.launches - launches[2]) == (4, 6, 1)
+    assert (_count(fused_attn) - launches[0], _count(fused_mlp) - launches[1],
+            _count(deform_conv) - launches[2]) == (4, 6, 1)
     want = make_decoded_eval_step(model)(x, margin)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     on_cpu = load_exported(out, device="cpu")(x.cpu(), margin.cpu())

@@ -19,6 +19,7 @@ import torch
 
 from otpose_tpu_torch.ops.cuda import deform_conv, deform_conv_fused
 from otpose_tpu_torch.tools import exp_deform_fused
+from otpose_tpu_torch.utils import profiling
 
 from tests.helpers.torch_port import one_torch_thread  # noqa: F401  (fixture)
 
@@ -109,9 +110,10 @@ def test_plain_matches_the_shipped_dcn_in_f32():
 
 def test_cpu_tensor_counts_a_call_but_no_launch():
     args = _port_args(*_inputs(4), torch.float32)
-    calls, launches = deform_conv_fused.calls, deform_conv_fused.launches
+    before = profiling.counters()
     deform_conv_fused.deform_conv_fused(*args)
-    assert (deform_conv_fused.calls, deform_conv_fused.launches) == (calls + 1, launches)
+    grown = profiling.since(before)
+    assert (grown["deform_conv_fused.calls"], grown["deform_conv_fused.launches"]) == (1, 0)
 
 
 def test_tool_check_compares_the_plain_versions_on_the_cpu():

@@ -47,10 +47,12 @@ from otpose_tpu_torch.engine.export import export_eval, load_exported, save_expo
 from otpose_tpu_torch.engine.trainer import make_decoded_eval_step, make_eval_step
 from otpose_tpu_torch.models.factory import build_model
 from otpose_tpu_torch.models.jax_bridge import load_jax_weights
-from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
+from otpose_tpu_torch.utils import profiling
 from otpose_tpu_torch.utils.testing import tiny_otpose_cfg
 
 from tests.helpers.torch_port import calibrate_refinement, numpy_weights, one_torch_thread  # noqa: F401,E501
+
+OPS = ("fused_attn", "fused_mlp", "deform_conv")   # counter prefixes (utils/profiling.py)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -141,14 +143,13 @@ def test_decoded_round_trip_equals_live_step(case, artifact, flip, weights):
     _, loaded = artifact(f"decoded_{flip}_{weights}", flip=flip,
                          bake_weights=weights == "baked")
     assert loaded.meta["weights"] == weights and loaded.meta["flip"] is flip
-    for mod in (fused_attn, fused_mlp, deform_conv):
-        mod.calls = 0
-    packs = (fused_attn.packs, fused_mlp.packs, deform_conv.packs)
+    before = profiling.counters()
     got = loaded(x, margin)
     # the program calls each op as the live step does, and makes no pack
     n = 2 if flip else 1
-    assert (fused_attn.calls, fused_mlp.calls, deform_conv.calls) == (4 * n, 6 * n, n)
-    assert (fused_attn.packs, fused_mlp.packs, deform_conv.packs) == packs
+    grown = profiling.since(before)
+    assert tuple(grown[f"{op}.calls"] for op in OPS) == (4 * n, 6 * n, n)
+    assert tuple(grown[f"{op}.packs"] for op in OPS) == (0, 0, 0)
     want = make_decoded_eval_step(model, flip=flip)(*_tensors(x, margin))
     j = model.spec.num_joints
     for g, w, shape in zip(got, want, ((B, j, 2), (B, j, 1), (B, j, 2)), strict=True):

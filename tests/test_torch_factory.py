@@ -13,9 +13,7 @@ package's.
 - ``ops/heatmap.py::normalize_0_to_1`` against JAX's to 1e-6 (it divides by
   the maximum, not by max - min);
 - ``utils/io.py``: the json helpers, ``Registry``, ``set_random_seed``
-  (python and numpy draws equal to JAX's after the same seed; torch's too);
-- ``utils/profiling.py``: ``StepTimer`` and ``synchronize`` as
-  tests/test_profiling.py covers the JAX ones.
+  (python and numpy draws equal to JAX's after the same seed; torch's too).
 """
 
 import random
@@ -45,7 +43,6 @@ from otpose_tpu_torch.models.otpose import (OTPose, make_learnable_position_embe
                                             make_sine_position_embedding)
 from otpose_tpu_torch.ops.heatmap import normalize_0_to_1
 from otpose_tpu_torch.utils import io
-from otpose_tpu_torch.utils.profiling import StepTimer, synchronize
 from otpose_tpu_torch.utils.testing import tiny_otpose_cfg
 
 from tests.helpers.torch_port import numpy_weights
@@ -191,34 +188,3 @@ def test_set_random_seed_seeds_python_numpy_and_torch():
     assert (random.random(), float(np.random.rand())) == first[:2]
     io.set_random_seed(6)
     assert draws() != first
-
-
-def test_step_timer_sync_points():
-    t = StepTimer(sync_every=3)
-    out = torch.ones(2, 2)
-    results = [t.step(out) for _ in range(7)]
-    assert results[2] is not None and results[5] is not None
-    assert all(r is None for i, r in enumerate(results) if i not in (2, 5))
-    assert t.avg_step_time > 0
-    assert t.throughput(8) > 0
-    assert np.isnan(StepTimer().throughput(8))
-    t2 = StepTimer(sync_every=1)
-    assert t2.step() is not None and t2.throughput(4) > 0
-
-
-def test_synchronize_waits_on_the_first_tensors_device(monkeypatch):
-    seen = []
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: seen.append(device))
-    synchronize(torch.tensor(1.0))
-    synchronize({"b": torch.arange(3), "a": [1.0, torch.zeros(2)]})
-    synchronize({})
-    synchronize([1, 2.0, None])
-    assert seen == []                      # CPU tensors or none: nothing to wait for
-
-    class OnCard(torch.Tensor):            # a CPU tensor that reports a CUDA device
-        is_cuda = True
-        device = torch.device("cuda", 1)
-
-    card = torch.zeros(2).as_subclass(OnCard)
-    synchronize({"z": torch.zeros(1), "a": [card]})       # keys in sorted order: "a" first
-    assert seen == [torch.device("cuda", 1)]

@@ -26,11 +26,13 @@ from otpose_tpu_torch.engine.runner import flip_permutation, make_flip_eval_step
 from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
 from otpose_tpu_torch.models.factory import build_model
 from otpose_tpu_torch.models.jax_bridge import load_jax_weights
-from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
+from otpose_tpu_torch.utils import profiling
 from otpose_tpu_torch.utils.testing import tiny_otpose_cfg
 
 from tests.helpers.torch_port import (calibrate_refinement, numpy_weights,  # noqa: F401
                                       one_torch_thread)
+
+OPS = ("fused_attn", "fused_mlp", "deform_conv")   # counter prefixes (utils/profiling.py)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -110,10 +112,10 @@ def test_decoded_flip_step_matches_jax(case, flip_heat):
 
 def test_flip_step_calls_each_kernel_twice_per_forward(case):
     _, _, _, model, x, margin, _ = case
-    for mod in (fused_attn, fused_mlp, deform_conv):
-        mod.calls = mod.launches = 0
+    before = profiling.counters()
     coords, _, _ = make_decoded_eval_step(model, flip=True)(torch.from_numpy(x),
                                                             torch.from_numpy(margin))
     assert coords.shape == (2, 17, 2)
-    assert (fused_attn.calls, fused_mlp.calls, deform_conv.calls) == (8, 12, 2)
-    assert (fused_attn.launches, fused_mlp.launches, deform_conv.launches) == (0, 0, 0)
+    grown = profiling.since(before)
+    assert tuple(grown[f"{op}.calls"] for op in OPS) == (8, 12, 2)
+    assert tuple(grown[f"{op}.launches"] for op in OPS) == (0, 0, 0)

@@ -18,6 +18,7 @@ from otpose_tpu.models import core as jcore
 from otpose_tpu.ops.pallas.fused_attn import fused_attn_ct as jax_fused_attn_ct
 from otpose_tpu_torch.models.jax_bridge import from_jax
 from otpose_tpu_torch.ops.cuda import fused_attn
+from otpose_tpu_torch.utils import profiling
 
 from tests.helpers.torch_port import numpy_weights
 
@@ -73,11 +74,12 @@ def test_plain_matches_pallas_bf16():
 def test_cpu_tensor_runs_plain_version_and_counts_no_launch():
     p = from_jax(_params(8, 0), {})
     x = torch.randn(1, 8, 40)
-    calls, launches = fused_attn.calls, fused_attn.launches
+    before = profiling.counters()
     got = fused_attn.fused_attn_ct(x, *(p[k] for k in _ORDER), 2)
+    grown = profiling.since(before)
     want = fused_attn.fused_attn_plain(x, *(p[k] for k in _ORDER), 2)
     assert torch.equal(got, want)
-    assert (fused_attn.calls, fused_attn.launches) == (calls + 1, launches)
+    assert (grown["fused_attn.calls"], grown["fused_attn.launches"]) == (1, 0)
 
 
 def test_other_devices_raise():

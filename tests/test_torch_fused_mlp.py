@@ -15,6 +15,7 @@ import torch
 from otpose_tpu.ops.pallas.fused_mlp import fused_mlp_residual_ct as jax_fused_mlp
 from otpose_tpu_torch.models import blocks
 from otpose_tpu_torch.ops.cuda import fused_mlp
+from otpose_tpu_torch.utils import profiling
 
 
 def _make(rng, c):
@@ -88,6 +89,7 @@ def test_block_folds_drop_path_scale_like_the_unfused_tail():
 def test_cpu_tensor_runs_plain_version_and_counts_no_launch():
     p = _port_args(_make(np.random.RandomState(2), 8), torch.float32)
     x = torch.randn(1, 8, 40)
-    calls, launches = fused_mlp.calls, fused_mlp.launches
+    before = profiling.counters()
     assert torch.equal(fused_mlp.fused_mlp_residual_ct(x, *p), fused_mlp.fused_mlp_plain(x, *p))
-    assert (fused_mlp.calls, fused_mlp.launches) == (calls + 1, launches)
+    grown = profiling.since(before)
+    assert (grown["fused_mlp.calls"], grown["fused_mlp.launches"]) == (1, 0)

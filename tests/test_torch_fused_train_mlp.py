@@ -23,9 +23,9 @@ import torch
 
 from otpose_tpu.models import core as jax_core
 from otpose_tpu.ops.pallas.fused_mlp import fused_mlp_residual_ct as pallas_mlp
-from otpose_tpu_torch.ops.cuda import fused_mlp
 from otpose_tpu_torch.tools import exp_fused_train_mlp as k2
 from otpose_tpu_torch.tools import time_train_step
+from otpose_tpu_torch.utils import profiling
 
 B, C, T, BLOCKS = 2, 8, 64, 3
 
@@ -82,9 +82,10 @@ def case():
 
 def test_chain_matches_the_jax_custom_vjp(case):
     x, params = case
-    fused_mlp.calls = 0
+    before = profiling.counters()
     loss, grads = k2.value_and_grad(k2.mlp_block_fused, x, params)
-    assert fused_mlp.calls == BLOCKS and fused_mlp.launches == 0
+    grown = profiling.since(before)
+    assert grown["fused_mlp.calls"] == BLOCKS and grown["fused_mlp.launches"] == 0
     want_loss, (gx, gps) = _jax_value_and_grad(jnp.asarray(x.detach().numpy()),
                                                _jax_params(params))
     assert loss.item() == pytest.approx(float(want_loss), rel=1e-5)

@@ -50,6 +50,7 @@ from otpose_tpu_torch.models.blocks import TransformerBlock
 from otpose_tpu_torch.models.factory import build_model
 from otpose_tpu_torch.models.jax_bridge import load_jax_weights
 from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
+from otpose_tpu_torch.utils import profiling
 from otpose_tpu_torch.utils.testing import (dcn_case, dcn_gradients, dcn_inside_share,
                                             tiny_otpose_cfg)
 
@@ -92,11 +93,12 @@ def test_seven_outputs_match_jax(case):
     want = jax.jit(lambda p, s, x, m: jax_forward(Ctx(p, s, train=False, fused=False), x, m,
                                                   case["jspec"]))(
         case["params"], case["state"], case["x"], case["margin"])
-    for mod in (fused_attn, fused_mlp, deform_conv):
-        mod.calls = 0
+    before = profiling.counters()
     with torch.no_grad():
         got = case["model"](torch.from_numpy(case["x"]), torch.from_numpy(case["margin"]))
-    assert (fused_attn.calls, fused_mlp.calls, deform_conv.calls) == case["calls"]
+    grown = profiling.since(before)
+    assert (grown["fused_attn.calls"], grown["fused_mlp.calls"],
+            grown["deform_conv.calls"]) == case["calls"]
     assert len(got) == len(want) == 7
     assert got[0].shape[-1] == case["joints"]
     for g, w in zip(got, want):
@@ -363,10 +365,11 @@ def test_the_block_gate_follows_the_kernels(c, n_head, ds, calls):
         for p in blk.parameters():
             p.normal_(0, 0.1)
     x = torch.randn(2, c, 24)
-    fused_attn.calls = fused_mlp.calls = 0
+    before = profiling.counters()
     with torch.no_grad():
         got = blk(x)
-    assert (fused_attn.calls, fused_mlp.calls) == calls
+    grown = profiling.since(before)
+    assert (grown["fused_attn.calls"], grown["fused_mlp.calls"]) == calls
     with torch.no_grad():
         plain = blk(x, fused=False)
     torch.testing.assert_close(got, plain, rtol=0, atol=1e-5)

@@ -23,6 +23,7 @@ from otpose_tpu_torch.models import blocks
 from otpose_tpu_torch.models.otpose import (DeformConvParams, dcn_pack, dcn_weights,
                                             prepare_eval_params)
 from otpose_tpu_torch.ops.cuda import deform_conv, deform_conv_fused, fused_attn, fused_mlp
+from otpose_tpu_torch.utils import profiling
 
 BF16 = torch.bfloat16
 
@@ -157,10 +158,11 @@ def test_block_cache_repacks_only_when_a_source_changes():
     blk = _block(40, 2, seed=4)
     first = blocks.mlp_pack(blk, BF16)
     attn_first = blocks.attn_pack(blk, BF16)
-    packs = (fused_mlp.packs, fused_attn.packs)
+    before = profiling.counters()
     assert blocks.mlp_pack(blk, BF16) is first
     assert blocks.attn_pack(blk, BF16) is attn_first
-    assert (fused_mlp.packs, fused_attn.packs) == packs          # a second call packs nothing
+    grown = profiling.since(before)
+    assert (grown["fused_mlp.packs"], grown["fused_attn.packs"]) == (0, 0)   # none made again
 
     with torch.no_grad():                                          # in-place update
         blk.mlp["0"].weight.mul_(2)
@@ -261,14 +263,15 @@ def test_dcn_cache_repacks_only_when_a_parameter_changes():
     model = _refinement(3, 5, seed=8)
     dcn = [m["deform_conv"] for m in model.modulated_deform_conv_list]
     first = dcn_pack(model)
-    packs = deform_conv.packs
-    assert dcn_pack(model) is first and deform_conv.packs == packs   # a repeat packs nothing
+    before = profiling.counters()
+    assert dcn_pack(model) is first
+    assert profiling.since(before)["deform_conv.packs"] == 0         # a repeat packs nothing
 
     with torch.no_grad():                                             # in-place update
         dcn[1].weight.mul_(2)
         dcn[2].bias.add_(1)
     second = dcn_pack(model)
-    assert second is not first and deform_conv.packs == packs + 1
+    assert second is not first and profiling.since(before)["deform_conv.packs"] == 1
     assert torch.equal(second.w[1, :, :, :5],
                        dcn[1].weight.permute(1, 2, 3, 0).reshape(5, 9, 5))
     assert torch.equal(second.bias[:5], torch.stack([m.bias for m in dcn]).mean(0))

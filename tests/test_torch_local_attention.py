@@ -29,7 +29,7 @@ from otpose_tpu_torch.models import blocks
 from otpose_tpu_torch.models.conv_transformer import (ConvTransformer, ConvTransformerSpec,
                                                       init_conv_transformer_)
 from otpose_tpu_torch.models.jax_bridge import from_jax, load_jax_weights, to_jax
-from otpose_tpu_torch.ops.cuda import fused_mlp
+from otpose_tpu_torch.utils import profiling
 
 from tests.helpers.torch_port import numpy_weights
 
@@ -100,11 +100,12 @@ def test_encoder_eval_matches_jax(encoder):
     want = conv_transformer_forward(Ctx(jax.tree.map(jnp.asarray, params),
                                         jax.tree.map(jnp.asarray, state), train=False,
                                         fused=False), jnp.asarray(x), jspec, out_layout="ct")
-    fused_mlp.calls = 0
+    before = profiling.counters()
     model.eval()
     with torch.no_grad():
         got = model(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()), fused=True)
-    assert fused_mlp.calls == 4 and fused_mlp.launches == 0   # every block a window block
+    grown = profiling.since(before)
+    assert grown["fused_mlp.calls"] == 4 and grown["fused_mlp.launches"] == 0   # window blocks
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
@@ -118,10 +119,10 @@ def test_encoder_train_mode_matches_jax(encoder):
                                         rng=jax.random.PRNGKey(0)),
                                     jnp.asarray(x), jspec, out_layout="ct")
     twin = blocks.set_drop_rates(load_jax_weights(ConvTransformer(spec), params, state))
-    fused_mlp.calls = 0
+    before = profiling.counters()
     twin.train()
     got = twin(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
-    assert fused_mlp.calls == 0                               # train mode runs plain
+    assert profiling.since(before)["fused_mlp.calls"] == 0    # train mode runs plain
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
     got[0].sum().backward()

@@ -31,11 +31,13 @@ from otpose_tpu_torch.engine.trainer import make_decoded_eval_step
 from otpose_tpu_torch.models.factory import build_model
 from otpose_tpu_torch.models.jax_bridge import load_jax_weights
 from otpose_tpu_torch.models.otpose import prepare_eval_params
-from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
+from otpose_tpu_torch.utils import profiling
 from otpose_tpu_torch.utils.testing import tiny_otpose_cfg
 
 from tests.helpers.torch_port import calibrate_refinement, numpy_weights
 
+
+OPS = ("fused_attn", "fused_mlp", "deform_conv")   # counter prefixes (utils/profiling.py)
 
 @pytest.fixture(scope="module")
 def case():
@@ -97,15 +99,15 @@ def test_decoded_eval_step_matches_jax(case):
 
 def test_launch_counters_follow_the_dispatch(case):
     _, _, _, model, x, margin, _ = case
-    for mod in (fused_attn, fused_mlp, deform_conv):
-        mod.calls = mod.launches = 0
+    before = profiling.counters()
     with torch.no_grad():
         model(torch.from_numpy(x), torch.from_numpy(margin))
-    assert (fused_attn.calls, fused_mlp.calls, deform_conv.calls) == (4, 6, 1)
-    assert (fused_attn.launches, fused_mlp.launches, deform_conv.launches) == (0, 0, 0)
+    grown = profiling.since(before)
+    assert tuple(grown[f"{op}.calls"] for op in OPS) == (4, 6, 1)
+    assert tuple(grown[f"{op}.launches"] for op in OPS) == (0, 0, 0)
     with torch.no_grad():
         model(torch.from_numpy(x), torch.from_numpy(margin), fused=False)
-    assert (fused_attn.calls, fused_mlp.calls, deform_conv.calls) == (4, 6, 2)
+    assert tuple(profiling.since(before)[f"{op}.calls"] for op in OPS) == (4, 6, 2)
 
 
 def test_prepare_eval_params_casts_jax_style_weights_only():

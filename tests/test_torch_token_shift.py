@@ -25,6 +25,7 @@ from jax.experimental import pallas as pl
 
 from otpose_tpu_torch.ops.cuda import token_shift
 from otpose_tpu_torch.tools import probe_shift
+from otpose_tpu_torch.utils import profiling
 
 from tests.helpers.torch_port import one_torch_thread  # noqa: F401  (fixture)
 
@@ -117,9 +118,10 @@ def test_wrapper_refuses_bad_modes_and_shapes():
 
 
 def test_cpu_tensor_counts_a_call_but_no_launch():
-    calls, launches = token_shift.calls, token_shift.launches
+    before = profiling.counters()
     token_shift.token_shift(torch.zeros(2, 3), "left")
-    assert (token_shift.calls, token_shift.launches) == (calls + 1, launches)
+    grown = profiling.since(before)
+    assert (grown["token_shift.calls"], grown["token_shift.launches"]) == (1, 0)
 
 
 def test_the_tool_reports_every_mode_ok_on_the_cpu():

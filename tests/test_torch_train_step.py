@@ -57,8 +57,8 @@ from otpose_tpu_torch.models.blocks import set_drop_rates
 from otpose_tpu_torch.models.core import BatchNorm, commit_bn_stats
 from otpose_tpu_torch.models.factory import build_model
 from otpose_tpu_torch.models.jax_bridge import jax_layout, load_jax_weights, to_jax
-from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
 from otpose_tpu_torch.ops.heatmap import generate_heatmaps
+from otpose_tpu_torch.utils import profiling
 from otpose_tpu_torch.utils.testing import (condition_for_gradients_, loss_gradients,
                                             tiny_otpose_cfg)
 
@@ -461,11 +461,12 @@ def test_cpu_step_with_dropout_reaches_every_parameter(case):
     non-zero gradient, the encoders' and the DCN's included."""
     model = copy.deepcopy(case["model"])
     set_drop_rates(model, proj=0.1, path=0.1)
-    calls = (fused_attn.calls, fused_mlp.calls, deform_conv.calls)
+    before = profiling.counters()
     make_train_step(model, _unclipped(model, case["cfg"]),
                     generator=torch.Generator().manual_seed(2))(_t(case["batch"]))
-    assert (fused_attn.calls, fused_mlp.calls) == calls[:2]
-    assert deform_conv.calls == calls[2] + 1
+    grown = profiling.since(before)
+    assert (grown["fused_attn.calls"], grown["fused_mlp.calls"]) == (0, 0)
+    assert grown["deform_conv.calls"] == 1
     for n, p in model.named_parameters():
         assert p.grad is not None and bool(p.grad.abs().sum() > 0), n
 

@@ -48,7 +48,8 @@ from otpose_tpu.ops.pallas.fused_mlp import fused_mlp_residual_ct as jax_fused_m
 from otpose_tpu.utils.testing import tiny_otpose_cfg as jax_tiny_cfg
 from otpose_tpu_torch.models.factory import build_model
 from otpose_tpu_torch.models.jax_bridge import load_jax_weights
-from otpose_tpu_torch.ops.cuda import deform_conv, fused_attn, fused_mlp
+from otpose_tpu_torch.ops.cuda import fused_attn, fused_mlp
+from otpose_tpu_torch.utils import profiling
 from otpose_tpu_torch.utils.testing import tiny_otpose_cfg
 
 from tests.helpers.torch_port import (calibrate_refinement, numpy_weights,  # noqa: F401
@@ -305,13 +306,14 @@ def test_21_joints_match_jax_with_its_pallas_kernels(tiny21):
         want = jax.jit(lambda p, s, x, m: jax_forward(Ctx(p, s, train=False, fused=True), x,
                                                       m, case["jspec"]))(
             case["params"], case["state"], case["x"], case["margin"])
-    for mod in (fused_attn, fused_mlp, deform_conv):
-        mod.calls = 0
+    before = profiling.counters()
     with torch.no_grad():
         got = case["model"](torch.from_numpy(case["x"]), torch.from_numpy(case["margin"]))
+    grown = profiling.since(before)
     assert (jattn.call_count, jmlp.call_count) == (4, 6)
-    assert (fused_attn.calls, fused_mlp.calls) == (jattn.call_count, jmlp.call_count)
-    assert deform_conv.calls == 1
+    assert (grown["fused_attn.calls"], grown["fused_mlp.calls"]) == (jattn.call_count,
+                                                                   jmlp.call_count)
+    assert grown["deform_conv.calls"] == 1
     assert len(got) == len(want) == 7
     for g, w in zip(got, want):
         w = np.asarray(w)
