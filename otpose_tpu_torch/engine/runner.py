@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from otpose_tpu_torch.data.posetrack import FLIP_PAIRS
+from otpose_tpu_torch.engine.graphs import BackboneGraph
 from otpose_tpu_torch.evaluate.pck import accuracy, calc_dists, dist_acc
 from otpose_tpu_torch.models.otpose import OTPose, otpose_forward
 from otpose_tpu_torch.ops.affine import apply_affine_to_points, get_affine_transform
@@ -76,7 +77,7 @@ def flip_permutation(num_joints: int) -> list:
 
 
 def make_flip_eval_step(model: OTPose, *, compute_dtype=torch.float32,
-                        fused: bool = True, seq=None) -> Callable:
+                        fused: bool = True, seq=None, teacher: bool = True) -> Callable:
     """Eval forward with horizontal flip-test averaging: ``step(inputs
     (B, H, W, 15), margin (B, 4))`` -> (heatmaps (B, Hh, Hw, J), teacher
     (B, Hh, Hw, J)).
@@ -86,21 +87,34 @@ def make_flip_eval_step(model: OTPose, *, compute_dtype=torch.float32,
     column with column 0 duplicated (the simple-baselines shift), then
     averaged with the direct pass.  The teacher is the direct pass's rough
     heatmaps of the current frame.  The step puts the model in eval mode;
-    ``seq`` runs both passes sequence parallel."""
+    ``seq`` runs both passes sequence parallel.  Without ``seq`` both
+    passes run HRNet through the step's ``BackboneGraph``, as
+    ``make_eval_step`` does: the direct pass's teacher is copied out of the
+    graph's buffer before the flipped pass replays into it, and
+    ``teacher=False`` returns None in its place."""
     dtype = resolve_dtype(compute_dtype)
-    perm = flip_permutation(model.spec.num_joints)
+    # the joint swap as an index on the model's device, made once: an index
+    # list would be copied to the card from pageable memory every step, a wait
+    perm = torch.tensor(flip_permutation(model.spec.num_joints),
+                        device=next(model.parameters()).device)
+    backbone = BackboneGraph(model) if seq is None else None
 
     @torch.inference_mode()
     def step(inputs, margin):
         with profiling.step("otpose.eval.step"):
             model.eval()
             out = otpose_forward(model, inputs, margin, compute_dtype=dtype, fused=fused,
-                                 seq=seq)
+                                 seq=seq, backbone=backbone)
+            rough = None
+            if teacher:
+                rough = out[1][:inputs.shape[0]]
+                rough = rough if backbone is None else backbone.keep(rough)
             out_f = otpose_forward(model, torch.flip(inputs, dims=[2]), margin,
-                                   compute_dtype=dtype, fused=fused, seq=seq)
+                                   compute_dtype=dtype, fused=fused, seq=seq,
+                                   backbone=backbone)
             heat_f = torch.flip(out_f[0], dims=[2])[..., perm]
             heat_f = torch.cat([heat_f[:, :, :1], heat_f[:, :, :-1]], dim=2)
-            return (out[0] + heat_f) * 0.5, out[1][:inputs.shape[0]]
+            return (out[0] + heat_f) * 0.5, rough
 
     return step
 

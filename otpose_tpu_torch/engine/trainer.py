@@ -29,6 +29,7 @@ from typing import Callable, Dict
 import torch
 import torch.utils.checkpoint
 
+from otpose_tpu_torch.engine.graphs import BackboneGraph
 from otpose_tpu_torch.engine.optim import Optimizer
 from otpose_tpu_torch.engine.runner import make_flip_eval_step
 from otpose_tpu_torch.evaluate.pck import accuracy_device
@@ -189,22 +190,32 @@ def make_train_step(model: OTPose, optimizer: Optimizer, *, compute_dtype=torch.
 
 
 def make_eval_step(model: OTPose, *, compute_dtype=torch.float32,
-                   fused: bool = True, seq=None) -> Callable:
+                   fused: bool = True, seq=None, teacher: bool = True) -> Callable:
     """Eval forward: ``step(inputs (B, H, W, 15), margin (B, 4))`` ->
     (heatmaps (B, Hh, Hw, J), teacher (B, Hh, Hw, J)): the refined heatmaps
     and the rough heatmaps of the current frame.  The step puts the model
     in eval mode (running-stat BN, no dropout, the fused kernels), as the
     train step puts it in train mode.  ``seq``: sequence parallelism (no
-    fused kernel runs, as under JAX's ``seq_axis``)."""
+    fused kernel runs, as under JAX's ``seq_axis``).
+
+    Without ``seq`` HRNet runs through the step's ``BackboneGraph``
+    (``engine/graphs.py``): on the card, from the second call of a shape,
+    as one CUDA graph replay.  The teacher is then copied out of the
+    graph's buffer; ``teacher=False`` returns None in its place and pays
+    no copy (the decoded step's use)."""
     dtype = resolve_dtype(compute_dtype)
+    backbone = BackboneGraph(model) if seq is None else None
 
     @torch.inference_mode()
     def step(inputs, margin):
         with profiling.step("otpose.eval.step"):
             model.eval()
             out = otpose_forward(model, inputs, margin, compute_dtype=dtype, fused=fused,
-                                 seq=seq)
-            return out[0], out[1][:inputs.shape[0]]
+                                 seq=seq, backbone=backbone)
+            if not teacher:
+                return out[0], None
+            rough = out[1][:inputs.shape[0]]
+            return out[0], rough if backbone is None else backbone.keep(rough)
 
     return step
 
@@ -216,12 +227,11 @@ def make_decoded_eval_step(model: OTPose, *, compute_dtype=torch.float32,
     raw_coords (B, J, 2)), in heatmap space, on the model's device.
     ``flip=True`` decodes the flip-test average of ``make_flip_eval_step``
     (two forwards a step).  ``fused=False`` keeps every block on the plain
-    PyTorch path; ``seq`` runs it sequence parallel."""
+    PyTorch path; ``seq`` runs it sequence parallel.  HRNet runs as the
+    forward's does (``make_eval_step``), the teacher left out."""
     dtype = resolve_dtype(compute_dtype)
-    if flip:
-        forward = make_flip_eval_step(model, compute_dtype=dtype, fused=fused, seq=seq)
-    else:
-        forward = make_eval_step(model, compute_dtype=dtype, fused=fused, seq=seq)
+    make = make_flip_eval_step if flip else make_eval_step
+    forward = make(model, compute_dtype=dtype, fused=fused, seq=seq, teacher=False)
 
     @torch.inference_mode()
     def step(inputs, margin):

@@ -196,26 +196,33 @@ def _final_layer_ct(conv: Conv2d, feats, h: int, w: int):
     return y.reshape(y.shape[0], -1, h, w)
 
 
+def run_hrnet(model: OTPose, frames):
+    """HRNet over the (5B, 3, H, W) frames -> rough heatmaps (5B, J, h, w),
+    as a frozen submodule under ``freeze_hrnet``."""
+    if model.spec.freeze_hrnet:
+        with core.frozen(model.rough_pose_estimation_net):
+            return model.rough_pose_estimation_net(frames)
+    return model.rough_pose_estimation_net(frames)
+
+
 def otpose_forward(model: OTPose, x, margin, compute_dtype=torch.float32,
-                   fused: bool = True, seq=None):
+                   fused: bool = True, seq=None, backbone=None):
     """x: (B, H, W, 15) five RGB frames (current, prev, next, pprev, nnext);
     margin: (B, 4).  Returns the reference 7-tuple, NHWC:
     (output_heatmaps f32, rough_heatmaps (5B), intersection, prev_b,
      context_encoding, squeezed, total_b).  ``seq`` (a
     ``parallel/sequence.py::SeqGroup``) runs the three encoders' blocks on
     this rank's slice of the tokens; everything else, and the result, is
-    whole on every rank of the seq group."""
+    whole on every rank of the seq group.  ``backbone`` maps the frames to
+    the rough heatmaps in place of ``run_hrnet`` (the eval steps'
+    ``engine/graphs.py::BackboneGraph``)."""
     spec = model.spec
     b = x.shape[0]
     j = spec.num_joints
     with profiling.span("otpose.model.hrnet"):
         frames = torch.cat(torch.split(x.permute(0, 3, 1, 2), 3, dim=1), dim=0)
         frames = frames.to(compute_dtype).contiguous()
-        if spec.freeze_hrnet:
-            with core.frozen(model.rough_pose_estimation_net):
-                rough = model.rough_pose_estimation_net(frames)    # (5B, J, h, w)
-        else:
-            rough = model.rough_pose_estimation_net(frames)
+        rough = run_hrnet(model, frames) if backbone is None else backbone(frames)
         h, w = rough.shape[2:]
         cur, prev, nxt, pprev, nnext = torch.split(rough, b, dim=0)
 

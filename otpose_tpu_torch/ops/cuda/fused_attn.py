@@ -115,6 +115,15 @@ def wide_plan(bsz: int, c: int, t: int, n_head: int, nsplit: int, dtype) -> dict
     return plan
 
 
+@functools.lru_cache(maxsize=None)
+def attention_scale(hs: int, dtype: torch.dtype) -> float:
+    """1 / sqrt(hs) rounded to ``dtype``, as a Python float: the value a 0-d
+    tensor of ``dtype`` would hold (exact in ``dtype``, so a product with it
+    rounds as one with that tensor), made on the host, with no copy to the
+    card and so no wait on it."""
+    return torch.tensor(1.0 / math.sqrt(hs), dtype=dtype).item()
+
+
 def channel_attention_ct(q, k, v, n_head: int, drop=None, reduce=None) -> torch.Tensor:
     """Per-head attention over the channel axis of projected (B, C, T)
     q/k/v (the MaskedMHCA quirk), returned as the contiguous (B, C, T) view
@@ -125,7 +134,7 @@ def channel_attention_ct(q, k, v, n_head: int, drop=None, reduce=None) -> torch.
     partial scores are summed in f32 by ``reduce`` and rounded once."""
     b, c, t = q.shape
     hs = c // n_head
-    scale = q.new_tensor(1.0 / math.sqrt(hs))     # rounded like the activations
+    scale = attention_scale(hs, q.dtype)         # rounded like the activations
     qh = q.reshape(b, n_head, hs, t)
     kh = k.reshape(b, n_head, hs, t)
     vh = v.reshape(b, n_head, hs, t)

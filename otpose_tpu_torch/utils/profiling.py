@@ -22,7 +22,10 @@ copies it and ``since(before)`` gives what grew after a copy.  The
 kernels' wrappers (``ops/cuda/``) count ``<op>.calls`` (op calls, either
 device), ``<op>.launches`` (kernel launches, CUDA only),
 ``<op>.wide_launches`` (those on the wide path), ``deform_conv.bwd_launches``
-and ``<op>.packs`` (weight packs made).  In a step that a profiler records,
+and ``<op>.packs`` (weight packs made); the eval steps' HRNet runner
+(``engine/graphs.py``) counts ``hrnet_graph.eager`` (calls run eagerly),
+``hrnet_graph.captures`` and ``hrnet_graph.replays`` (CUDA graph captures
+and replays).  In a step that a profiler records,
 ``host_syncs`` counts the host's waits on the device (``.item()``, copies
 to the host, copies from pageable memory, ``torch.cuda.synchronize``),
 also on the autograd threads, and ``host_syncs@<file>:<line>`` names the
