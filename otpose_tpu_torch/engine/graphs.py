@@ -1,12 +1,14 @@
-"""HRNet of the eval steps as one CUDA graph replay.
+"""The estimator of the eval steps as one CUDA graph replay.
 
 ``BackboneGraph(model)`` maps the (5B, 3, H, W) frames of
-``models/otpose.py::otpose_forward`` to HRNet's rough heatmaps, as
+``models/otpose.py::otpose_forward`` to the estimator's rough heatmaps, as
 ``run_hrnet`` does.  HRNet is cuDNN convolutions and ATen elementwise
-passes, about half of an eval batch's launches; where the runner can, it
-launches them as one replay of a captured ``torch.cuda.CUDAGraph``, so the
-host no longer sets the pace of that stage.  It engages on a real CUDA
-tensor (not a tracer's, as ``torch.export`` passes), with HRNet in eval mode
+passes, about half of an eval batch's launches; the ViT (``models/vit.py``)
+is cuBLAS products, fused attention and the passes between them.  Where
+the runner can, it launches them as one replay of a captured
+``torch.cuda.CUDAGraph``, so the host no longer sets the pace of that
+stage.  The names below say HRNet for either estimator.  It engages on a
+real CUDA tensor (not a tracer's, as ``torch.export`` passes), with HRNet in eval mode
 and under ``inference_mode``; anything else runs eagerly.  Engaged, by the
 call's key (the frames' shape, dtype and device, and the addresses of
 HRNet's parameters and buffers):

@@ -303,6 +303,14 @@ def normal_(t: torch.Tensor, gen: torch.Generator, std: float = 0.001):
 
 
 @torch.no_grad()
+def trunc_normal_(t: torch.Tensor, gen: torch.Generator, std: float = 0.02):
+    """timm's ``trunc_normal_(t, std=std)``, whose bounds are +-2: at these
+    deviations they lie 100 deviations out, so the normal draw clamped to
+    them is the same distribution (and one draw a tensor)."""
+    t.copy_(torch.randn(t.shape, generator=gen).mul_(std).clamp_(-2.0, 2.0))
+
+
+@torch.no_grad()
 def kaiming_uniform_(t: torch.Tensor, gen: torch.Generator, a=math.sqrt(5)):
     """torch's default conv init on an (O, I, K...) weight."""
     fan_in = t[0].numel()

@@ -2,7 +2,9 @@
 
 ref: model/OTPose.py:180-503.  Forward (ref: 307-394):
   1. split the (B, H, W, 15) 5-frame stack into 5 x (B, 3, H, W), batch them
-     as 5B and run HRNet once -> rough heatmaps (5B, J, Hh, Hw)
+     as 5B and run the per-frame estimator once -> rough heatmaps (5B, J,
+     Hh, Hw): HRNet, or with ``MODEL.EXTRA.ESTIMATOR: vitpose`` the ViTPose
+     of ``models/vit.py``
   2. occlusion encoding: total_b = sum of the 5 heatmap sets; squeezed =
      channel sum broadcast back to J channels; intersection = total_b*squeezed
   3. flow encoder (ConvTransformer J->J) on total_b -> context_encoding
@@ -14,12 +16,15 @@ ref: model/OTPose.py:180-503.  Forward (ref: 307-394):
      autograd the raw weights go to the wrapper, whose autograd Function
      runs the backward kernel on the card
 
-Step 1 is the span ``otpose.model.hrnet``, steps 2-5 ``otpose.model.encoders``,
-the final convs and step 6 ``otpose.model.refine`` (``utils/profiling.py``).
+Step 1 is the span ``otpose.model.hrnet`` (``otpose.model.vit`` for the
+ViT, which also counts ``vit.frames`` and ``vit.tokens`` there, outside the
+eval steps' graph), steps 2-5 ``otpose.model.encoders``, the final convs
+and step 6 ``otpose.model.refine`` (``utils/profiling.py``).
 
-Train mode is the model's ``train()``; with ``freeze_hrnet`` HRNet runs as a
-frozen submodule (``core.frozen``: running statistics, no update, its output
-detached), as the JAX package's ``Ctx.frozen`` and ``stop_gradient`` do.
+Train mode is the model's ``train()``; with ``freeze_hrnet`` the estimator
+runs as a frozen submodule (``core.frozen``: running statistics, no update,
+its output detached), as the JAX package's ``Ctx.frozen`` and
+``stop_gradient`` do.
 
 Internally NCHW; the public layouts are the JAX package's: the clip is NHWC
 and the 7-tuple is NHWC.
@@ -41,6 +46,7 @@ from otpose_tpu_torch.models.core import Conv1d, Conv2d
 from otpose_tpu_torch.models.hrnet import HRNet, HRNetSpec
 from otpose_tpu_torch.models.jax_bridge import is_channel_param
 from otpose_tpu_torch.models.rsb import RSBChain
+from otpose_tpu_torch.models.vit import ConvTranspose2d, Linear, ViT, ViTPose, ViTPoseSpec
 from otpose_tpu_torch.ops.cuda.deform_conv import modulated_deform_conv_multi, pack_dcn_weights
 from otpose_tpu_torch.utils import profiling
 
@@ -56,7 +62,8 @@ def _check_aggregation(kind: str) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class OTPoseSpec:
-    hrnet: HRNetSpec
+    estimator: HRNetSpec | ViTPoseSpec
+    final_conv_kernel: int
     num_joints: int
     pe_h: int
     pe_w: int
@@ -96,8 +103,12 @@ class OTPoseSpec:
     def from_cfg(cfg) -> "OTPoseSpec":
         hm_w, hm_h = cfg.MODEL.HEATMAP_SIZE
         extra = cfg.MODEL.EXTRA
+        kind = extra.get("ESTIMATOR", "hrnet")
+        if kind not in ESTIMATORS:
+            raise ValueError(f"MODEL.EXTRA.ESTIMATOR={kind!r}: one of {sorted(ESTIMATORS)}")
         return OTPoseSpec(
-            hrnet=HRNetSpec.from_cfg(cfg),
+            estimator=ESTIMATORS[kind].from_cfg(cfg),
+            final_conv_kernel=extra.FINAL_CONV_KERNEL,
             num_joints=cfg.MODEL.NUM_JOINTS,
             pe_h=hm_h, pe_w=hm_w,
             dilations=tuple(cfg.MODEL.DEFORMABLE_CONV.DILATION),
@@ -109,6 +120,10 @@ class OTPoseSpec:
             scale_arch=tuple(extra.get("SCALE_ARCH", (0, 6, 2))),
             flow_scale_arch=tuple(extra.get("FLOW_SCALE_ARCH", (0, 6, 0))),
         )
+
+
+# MODEL.EXTRA.ESTIMATOR -> the estimator's spec
+ESTIMATORS = {"hrnet": HRNetSpec, "vitpose": ViTPoseSpec}
 
 
 class DeformConvParams(nn.Module):
@@ -125,12 +140,16 @@ class OTPose(nn.Module):
         super().__init__()
         self.spec = spec
         j = spec.num_joints
-        self.rough_pose_estimation_net = HRNet(spec.hrnet)
+        est = spec.estimator
+        vit = isinstance(est, ViTPoseSpec)
+        self.rough_pose_estimation_net = ViTPose(est) if vit else HRNet(est)
+        self.estimator_span = "otpose.model.vit" if vit else "otpose.model.hrnet"
+        self.frame_tokens = est.num_tokens if vit else 0
         self.temporal_encoder1 = ConvTransformer(spec.temporal_spec())
         self.temporal_encoder2 = ConvTransformer(spec.temporal_spec())
         self.flow_encoder = ConvTransformer(spec.flow_spec())
         d = spec.temporal_encoding_dim * (spec.scale_arch[-1] + 1)
-        k = spec.hrnet.final_conv_kernel
+        k = spec.final_conv_kernel
         pad = 1 if k == 3 else 0
         self.final_layer1 = Conv2d(d, j, k, bias=True, padding=pad)
         self.final_layer2 = Conv2d(d, j, k, bias=True, padding=pad)
@@ -197,8 +216,9 @@ def _final_layer_ct(conv: Conv2d, feats, h: int, w: int):
 
 
 def run_hrnet(model: OTPose, frames):
-    """HRNet over the (5B, 3, H, W) frames -> rough heatmaps (5B, J, h, w),
-    as a frozen submodule under ``freeze_hrnet``."""
+    """The estimator (HRNet or the ViT) over the (5B, 3, H, W) frames ->
+    rough heatmaps (5B, J, h, w), as a frozen submodule under
+    ``freeze_hrnet``."""
     if model.spec.freeze_hrnet:
         with core.frozen(model.rough_pose_estimation_net):
             return model.rough_pose_estimation_net(frames)
@@ -219,9 +239,12 @@ def otpose_forward(model: OTPose, x, margin, compute_dtype=torch.float32,
     spec = model.spec
     b = x.shape[0]
     j = spec.num_joints
-    with profiling.span("otpose.model.hrnet"):
+    with profiling.span(model.estimator_span):
         frames = torch.cat(torch.split(x.permute(0, 3, 1, 2), 3, dim=1), dim=0)
         frames = frames.to(compute_dtype).contiguous()
+        if model.frame_tokens:
+            profiling.count("vit.frames", frames.shape[0])
+            profiling.count("vit.tokens", frames.shape[0] * model.frame_tokens)
         rough = run_hrnet(model, frames) if backbone is None else backbone(frames)
         h, w = rough.shape[2:]
         cur, prev, nxt, pprev, nnext = torch.split(rough, b, dim=0)
@@ -254,7 +277,7 @@ def otpose_forward(model: OTPose, x, margin, compute_dtype=torch.float32,
         x2 = stack8([intersection, context_encoding, next_b, close_b, far_b,
                      next_int, close_int, far_int])
 
-        commute = spec.hrnet.final_conv_kernel == 1
+        commute = spec.final_conv_kernel == 1
         x1_feats = model.temporal_encoder1(x1, upsample=not commute, fused=fused, seq=seq)
         x2_feats = model.temporal_encoder2(x2, upsample=not commute, fused=fused, seq=seq)
 
@@ -283,11 +306,15 @@ def otpose_forward(model: OTPose, x, margin, compute_dtype=torch.float32,
 def prepare_eval_params(model: nn.Module, param_dtype=None) -> nn.Module:
     """Cast, in place, the weights that are >= 2-D in the JAX layout (convs
     and dense kernels) to ``param_dtype``; norm, bias and drop-path params
-    and the buffers stay f32.  ``None`` leaves the model as it is."""
+    and the buffers stay f32.  The ViT's LayerNorms are 1-D and stay f32;
+    its ``pos_embed``, which is added to the tokens as a bias is, stays f32
+    too (the forward adds its two parts in f32, then casts once).  ``None``
+    leaves the model as it is."""
     if param_dtype is None:
         return model
     for name, p in model.named_parameters():
-        if p.dim() >= 2 and not is_channel_param(name) and p.dtype == torch.float32:
+        if (p.dim() >= 2 and not is_channel_param(name) and not name.endswith("pos_embed")
+                and p.dtype == torch.float32):
             p.data = p.data.to(param_dtype)
     return model
 
@@ -297,10 +324,21 @@ def init_otpose_(model: OTPose, gen: torch.Generator) -> OTPose:
     """The reference init (ref: OTPose.py:431-475), as the JAX
     ``_init_otpose_impl`` draws it: conv2d normal std 0.001 with zero bias,
     BN 1/0, LN 1/0, drop-path scale 1e-4, identity-filler deform-conv
-    weights, torch-default conv1d with zero bias.  Draws come from ``gen``
-    on the CPU; move the model afterwards."""
+    weights, torch-default conv1d with zero bias.  A ViT estimator's
+    ``pos_embed`` and dense weights are ViTPose's truncated normal 0.02
+    (zero biases), its deconvs normal 0.001, as HRNet's head.  Draws come
+    from ``gen`` on the CPU, a tensor at a time, in module order; move the
+    model afterwards."""
     for m in model.modules():
-        if isinstance(m, DeformConvParams):
+        if isinstance(m, ViT):
+            core.trunc_normal_(m.pos_embed, gen, 0.02)
+        elif isinstance(m, Linear):
+            core.trunc_normal_(m.weight, gen, 0.02)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, ConvTranspose2d):
+            core.normal_(m.weight, gen, 0.001)
+        elif isinstance(m, DeformConvParams):
             m.weight.zero_()
             idx = torch.arange(m.weight.shape[0])
             m.weight[idx, idx, 1, 1] = 1.0

@@ -63,6 +63,29 @@ def tiny_otpose_cfg(image_size=64, heatmap_size=16, width0=8, num_joints=17):
     return cfg
 
 
+def vitpose_extra(embed_dim=1280, depth=32, num_heads=16, deconv=256) -> dict:
+    """``MODEL.EXTRA`` of an OTPose over ViTPose (``models/vit.py``):
+    ViTPose-H's sizes unless given."""
+    return {"ESTIMATOR": "vitpose", "FINAL_CONV_KERNEL": 1,
+            "VIT": {"PATCH_SIZE": 16, "EMBED_DIM": embed_dim, "DEPTH": depth,
+                    "NUM_HEADS": num_heads, "MLP_RATIO": 4, "QKV_BIAS": True,
+                    "DROP_PATH_RATE": 0.55, "NUM_DECONV_FILTERS": [deconv, deconv],
+                    "NUM_DECONV_KERNELS": [4, 4], "FINAL_CONV_KERNEL": 1}}
+
+
+def tiny_vitpose_cfg(num_joints=17):
+    """The tiny OTPose head of ``tiny_otpose_cfg`` over a tiny ViTPose: width
+    64, depth 2, 4 heads, a 64x48 crop (4 x 3 tokens), 16x12 heatmaps."""
+    cfg = tiny_otpose_cfg(num_joints=num_joints)
+    cfg.MODEL.IMAGE_SIZE = [48, 64]
+    cfg.MODEL.HEATMAP_SIZE = [12, 16]
+    for name in ("STAGE2", "STAGE3", "STAGE4"):
+        del cfg.MODEL.EXTRA[name]
+    for key, value in vitpose_extra(embed_dim=64, depth=2, num_heads=4, deconv=32).items():
+        cfg.MODEL.EXTRA[key] = value
+    return cfg
+
+
 def dcn_case(b, c, o, h, w, dilations, dtype, gen, device="cuda", reach: int = 3):
     """Inputs of the DCN at calibrated offsets: (x, offsets, masks, weights,
     biases, dilations).  Each offset is an integer in [-reach, reach] plus a

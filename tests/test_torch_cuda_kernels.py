@@ -81,6 +81,7 @@ def _attn_args(b, c, t, n_head, dtype, gen):
     (3, 64, 31, 4),      # T shorter than one chunk
     (1, 48, 257, 1),     # one head, one token past a chunk
     (2, 136, 1728, 2),   # the flagship width at the last branch's length
+    (30, 136, 3072, 2),  # OTPose over ViTPose-H: 64x48 heatmaps, its eval batch
 ])
 def test_fused_attn_matches_plain(b, c, t, n_head, dtype):
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -111,7 +112,9 @@ def _mlp_args(b, c, t, dtype, gen):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,c,t", [(2, 136, 100), (1, 32, 63), (2, 160, 130), (2, 40, 1)])
+@pytest.mark.parametrize("b,c,t", [(2, 136, 100), (1, 32, 63), (2, 160, 130), (2, 40, 1),
+                                   # OTPose over ViTPose-H: the stem and both branches
+                                   (30, 136, 3072), (30, 136, 1536), (30, 136, 768)])
 def test_fused_mlp_matches_plain(b, c, t, dtype):
     args = _mlp_args(b, c, t, dtype, torch.Generator(device="cuda").manual_seed(1))
     got = fused_mlp.fused_mlp_residual_ct(*args)
@@ -294,6 +297,7 @@ def _dcn_check(mode, args, dtype):
     (2, 17, 17, 13, 11, (1,)),
     (1, 5, 3, 9, 7, (3, 6, 9, 12, 15, 18, 21, 24)),   # 8 dilations, few outputs
     (1, 4, 20, 10, 12, (2, 5)),                        # more outputs than inputs
+    (30, 17, 17, 64, 48, (3, 6, 9, 12, 15)),           # OTPose over ViTPose-H, B = 30
 ])
 def test_deform_conv_matches_plain(mode, b, c, o, h, w, dilations, dtype):
     _dcn_check(mode, _dcn_args(b, c, o, h, w, dilations, dtype, seed=2), dtype)
